@@ -1,0 +1,28 @@
+"""chimera_tpu_torch — the PyTorch + CUDA port of chimera_tpu for NVIDIA
+Hopper GPUs.
+
+It follows ``chimera_tpu``'s module layout and imports no JAX.  Ported so
+far: the spectral-siren hyper-likelihood batch (``kind='1d'``, unbinned,
+evaluated on the analysis z-grids), its population models, selection
+function and mock data, with the fused weights+KDE hot loop as a CUDA kernel
+(``csrc/fused_kde.cu``).  CPU tensors run the kernel's plain PyTorch
+version, CUDA tensors the kernel.
+"""
+
+from chimera_tpu_torch import config  # noqa: F401  (TF32 off, logger)
+# models before catalog: models.population imports catalog.empty, which
+# imports models.cosmology
+from chimera_tpu_torch import models  # noqa: F401, I001
+from chimera_tpu_torch.catalog import EmptyCatalog
+from chimera_tpu_torch.data.structs import ThetaInjDet, ThetaPEDet, ThetaSrc
+from chimera_tpu_torch.likelihood import HyperLikelihood
+from chimera_tpu_torch.selection import SelectionFunction
+
+__all__ = [
+    "EmptyCatalog",
+    "HyperLikelihood",
+    "SelectionFunction",
+    "ThetaInjDet",
+    "ThetaPEDet",
+    "ThetaSrc",
+]

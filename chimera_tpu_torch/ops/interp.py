@@ -1,0 +1,41 @@
+"""Piecewise-linear interpolation with ``jnp.interp``'s semantics
+(counterpart of the ``jnp.interp`` calls in ``chimera_tpu``): outside
+[xp[0], xp[-1]] the edge values are returned, and a zero-width interval
+returns its left value.
+
+``xp`` and ``fp`` are each 1-D (shared) or (L, M) rows (one table per λ);
+with a batched table, ``x`` has a leading axis of length 1 or L.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    if xp.dim() == 1 and fp.dim() == 1:
+        return _interp_rows(x.reshape(1, -1), xp[None], fp[None]).reshape(x.shape)
+    n = xp.shape[0] if xp.dim() == 2 else fp.shape[0]
+    m = xp.shape[-1]
+    xp2 = xp.expand(n, m).contiguous()
+    fp2 = fp.expand(n, m)
+    x2 = x.reshape(x.shape[0] if x.dim() else 1, -1).expand(n, -1).contiguous()
+    out_shape = (n,) + tuple(x.shape[1:]) if x.dim() else (n,)
+    return _interp_rows(x2, xp2, fp2).reshape(out_shape)
+
+
+def _interp_rows(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """x (R, K), xp/fp (R, M) with each xp row ascending."""
+    m = xp.shape[-1]
+    i = torch.searchsorted(xp, x, right=True).clamp(1, m - 1)
+    xp_lo, xp_hi = xp.gather(1, i - 1), xp.gather(1, i)
+    fp_lo, fp_hi = fp.gather(1, i - 1), fp.gather(1, i)
+    dx = xp_hi - xp_lo
+    eps = float(np.spacing(np.finfo(
+        np.float64 if xp.dtype == torch.float64 else np.float32).eps))
+    dx0 = dx.abs() <= eps
+    f = torch.where(dx0, fp_lo,
+                    fp_lo + ((x - xp_lo) / torch.where(dx0, 1.0, dx)) * (fp_hi - fp_lo))
+    f = torch.where(x < xp[:, :1], fp[:, :1], f)
+    return torch.where(x > xp[:, -1:], fp[:, -1:], f)
