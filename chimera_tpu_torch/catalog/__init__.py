@@ -1,5 +1,8 @@
-"""Galaxy-catalog redshift priors (the spectral-siren one so far)."""
+"""Galaxy-catalog redshift priors: the catalog-free one and the pixelated
+dark-siren catalog with its completeness model."""
 
+from chimera_tpu_torch.catalog.completeness import DVdzCompleteness
 from chimera_tpu_torch.catalog.empty import EmptyCatalog
+from chimera_tpu_torch.catalog.pixelated import PixelatedCatalog
 
-__all__ = ["EmptyCatalog"]
+__all__ = ["DVdzCompleteness", "EmptyCatalog", "PixelatedCatalog"]

@@ -34,6 +34,19 @@ if not logger.handlers:
     logger.setLevel(os.environ.get("CHIMERA_TPU_LOGLEVEL", "INFO"))
 
 
+def resolve_device(device) -> torch.device:
+    """The device a constructor builds on: the one asked for, else the CUDA
+    card.  With no card and no device asked for it raises rather than fall
+    back to the CPU; pass ``device="cpu"`` to build there."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port builds on the card by default; pass "
+            "device='cpu' to build on the CPU")
+    return torch.device("cuda")
+
+
 def default_dtype(device) -> torch.dtype:
     """float64 on the CPU (golden tests), float32 on an accelerator."""
     return torch.float64 if torch.device(device).type == "cpu" else torch.float32

@@ -16,17 +16,27 @@ import dataclasses
 import numpy as np
 import torch
 
-from chimera_tpu_torch.config import default_dtype
+from chimera_tpu_torch.config import default_dtype, resolve_device
+
+# per-sample fields of ThetaPEDet, padded along the sample axis by the
+# reference's create(); the other theta_gw fields are per event or per pixel
+_PER_SAMPLE_FIELDS = ("m1det", "m2det", "dL", "phi", "theta", "ra", "dec",
+                      "pe_prior", "pixels_pe_opt_nside")
+# the event-indexed arrays of a pixelated catalog, padded with the events
+_CATALOG_EVENT_KEYS = tuple(f"population.gal_cat.{f}" for f in
+                            ("p_cat", "P_compl", "pixel_mask", "n_gal"))
 
 
 def state_from_reference(obj) -> dict[str, np.ndarray]:
     """Flatten a JAX-package dataclass tree to ``{path: np.ndarray}``.
 
     Each dataclass contributes ``<path>.__class__`` (its class name);
-    ``None`` fields and nested containers (the dark-siren sample layouts)
-    are skipped.  A ``HyperLikelihood`` whose ``create`` padded the sample
-    or event axis for its TPU tiling is sliced back to the real samples and
-    events: the port's kernel tiles any shape.
+    ``None`` fields and nested containers (the dark-siren sample layouts,
+    which the port rebuilds) are skipped.  A ``HyperLikelihood`` whose
+    ``create`` padded the sample or event axis for its TPU tiling is sliced
+    back to the real samples and events — the PE data, the z-grids and the
+    event-indexed arrays of a pixelated catalog: the port's kernels tile
+    any shape.
     """
     state: dict[str, np.ndarray] = {}
     _flatten(obj, "", state)
@@ -34,8 +44,13 @@ def state_from_reference(obj) -> dict[str, np.ndarray]:
         n_s = getattr(obj, "n_samples_real", None)
         n_e = getattr(obj, "n_events_input", None)
         for key, val in state.items():
-            if key.startswith("theta_gw.") and val.ndim == 2:
-                state[key] = val[:n_e, :n_s]
+            if key.startswith("theta_gw.") and val.ndim >= 1:
+                val = val[:n_e]
+                if key.split(".")[-1] in _PER_SAMPLE_FIELDS:
+                    val = val[:, :n_s]
+                state[key] = val
+            elif key in _CATALOG_EVENT_KEYS:
+                state[key] = val[:n_e]
         state["z_grids"] = state["z_grids"][:n_e]
     return state
 
@@ -60,7 +75,7 @@ def model_from_state(cls, state: dict, prefix: str, device=None, dtype=None):
     """Build a port model of type ``cls`` from the hyper-parameters and
     tables under ``prefix``; an unbatched reference model gets a λ axis of
     length 1."""
-    device = torch.device(device if device is not None else "cpu")
+    device = resolve_device(device)
     dtype = dtype or default_dtype(device)
     first = next(iter(cls.hyper_defaults))
     batched = np.ndim(state[prefix + first]) == 1
@@ -72,7 +87,9 @@ def model_from_state(cls, state: dict, prefix: str, device=None, dtype=None):
         if f.name in cls.config_keys:
             kwargs[f.name] = state[key].item()
         else:
-            t = torch.as_tensor(np.asarray(state[key]), dtype=dtype, device=device)
+            dt = torch.float64 if f.name in getattr(cls, "float64_fields", ()) \
+                else dtype
+            t = torch.as_tensor(np.asarray(state[key]), dtype=dt, device=device)
             kwargs[f.name] = t if batched else t[None]
     if kwargs.get("interp_method", "chebyshev") != "chebyshev" or \
             kwargs.get("cdf_engine", "analytic") != "analytic":

@@ -1,14 +1,15 @@
-// Fused detector->source map + population weights + weighted KDE on the
-// analysis grids, for a batch of L hyper-parameter samples (lambda).
-//
-// Replaces the TPU kernel chimera_tpu/ops/pallas/fused.py::_fused_kernel in
-// its analysis-grid mode (cut_grid=None, den_scale='norms'), the one kernel of
-// the spectral-siren main path.  Semantics: fused.py:71-219 (kernel) and
+// Fused detector->source map + population weights for a batch of L
+// hyper-parameter samples (lambda): two kernels that replace
+// chimera_tpu/ops/pallas/fused.py::_fused_kernel in the two modes the
+// port's main paths run.  Semantics: fused.py:71-219 (kernel) and
 // fused.py:372-482 (_reference_impl); the plain PyTorch twin is
-// chimera_tpu_torch/ops/cuda/fused.py::fused_weights_kde_plain.
+// chimera_tpu_torch/ops/cuda/fused.py::fused_weights_kde_plain.  The model
+// device functions are in population.cuh.
 //
-// One thread block per (lambda, event), lambda fastest in blockIdx.x so the
-// blocks that read one event's PE rows run together and find them in L2.
+// ---- K1a: fused_kde_kernel, analysis grids, den_scale='norms' -----------
+// The spectral-siren hot loop.  One thread block per (lambda, event),
+// lambda fastest in blockIdx.x so the blocks that read one event's PE rows
+// run together and find them in L2.
 //
 //   phase A  z_s = z_from_dgw(cosmo_l, dL_es)     clamp + 64-term Clenshaw
 //            w_s = p_m1m2(mass_l, m1/(1+z), m2/(1+z)) * inv_pe_prior
@@ -33,203 +34,60 @@
 // kernel feed only its effective-grid mode and are not computed here.
 // Later work: prune the sample loop to the kernel support (samples are
 // sorted by distance, hence by z) and put the contraction on tensor cores.
+//
+// ---- K1c: row_stats_kernel, stats only, logical-row correction ----------
+// The first pass of the dark-siren 'marginalized' path
+// (chimera_tpu/likelihood.py:1048-1056): per (lambda, row) of the (E*P,
+// S_pp) per-pixel rectangle (data/pixelize.py::compact_samples_by_pixel),
+// the row statistics of the LOGICAL row -- the event's S samples with the
+// out-of-pixel ones at the filler z_f = z(dl_fill) and zero weight
+// (fused.py:111-141).  One block per (lambda, row), lambda fastest.
+//
+// The rectangle stores each pixel's n_real samples first and fillers at
+// dl_fill with zero weight after them, so the block maps only the first
+// n_real slots and adds the S - n_real logical fillers analytically:
+//   mean = (sum_real z + (S - n) z_f) / S
+//   var  = (sum_real (z - mean)^2 + (S - n) (z_f - mean)^2) / S
+//   lo, ub = min/max(z_real, z_f) -/+ cut_grid sigma (lo floored at 1e-8)
+// The same function as the TPU kernel's form, at 1/8 of the slots at the
+// dark flagship (1.0 M real of 8.2 M), and with no negative filler
+// coefficient (the TPU form adds (S - S_pp)(z_f - mean)^2, negative when
+// S_pp > S).  No KDE: the stats feed the rows-contract kernel.
+//
+// What bounds it: phase A of the real samples (two Clenshaw series and the
+// mass model per sample), a few hundred FP32 instructions per sample, and
+// the read of the real samples once per lambda (L2-resident across lambda).
+// Raw formulas as the TPU kernel: a dead pixel gives NaN in neff and h; the
+// caller's guard (likelihood.py:1061) turns it into a zero scale.
 
-#include <cuda_runtime.h>
-
-#include <cfloat>
-#include <cstddef>
+#include "population.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kGridPerThread = 4;
-constexpr int kMassScalars = 12;  // see MASS_SCALARS in ops/cuda/fused.py
-
-template <typename T> struct Pair;
-template <> struct Pair<float> { using type = float2; };
-template <> struct Pair<double> { using type = double2; };
-
-__device__ __forceinline__ float dexp(float x) { return expf(x); }
-__device__ __forceinline__ double dexp(double x) { return exp(x); }
-__device__ __forceinline__ float dlog(float x) { return logf(x); }
-__device__ __forceinline__ double dlog(double x) { return log(x); }
-__device__ __forceinline__ float dlog1p(float x) { return log1pf(x); }
-__device__ __forceinline__ double dlog1p(double x) { return log1p(x); }
-__device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
-__device__ __forceinline__ float dabs(float x) { return fabsf(x); }
-__device__ __forceinline__ double dabs(double x) { return fabs(x); }
-
-template <typename T>
-__device__ __forceinline__ T dmax(T a, T b) { return a > b ? a : b; }
-template <typename T>
-__device__ __forceinline__ T dmin(T a, T b) { return a < b ? a : b; }
-template <typename T>
-__device__ __forceinline__ T clip(T x, T lo, T hi) { return dmin(dmax(x, lo), hi); }
-__device__ __forceinline__ bool finite(float x) { return fabsf(x) <= FLT_MAX; }
-__device__ __forceinline__ bool finite(double x) { return fabs(x) <= DBL_MAX; }
-
-// Clenshaw recurrence of sum_k c_k T_k(t), the order of ops/chebyshev.py
-template <typename T>
-__device__ __forceinline__ T clenshaw(const T* __restrict__ c, int n, T t) {
-  const T t2 = T(2) * t;
-  T b1 = T(0), b2 = T(0);
-  for (int k = n - 1; k >= 1; --k) {
-    const T b0 = t2 * b1 - b2 + c[k];
-    b2 = b1;
-    b1 = b0;
-  }
-  return t * b1 - b2 + c[0];
-}
-
-template <typename T>
-__device__ __forceinline__ T powx(T x, T a) { return dexp(a * dlog(x)); }
-
-template <typename T>
-__device__ __forceinline__ T tpl_unnorm(T m, T alpha, T lo, T hi) {
-  return (lo <= m && m <= hi) ? powx(dmax(m, T(1e-30)), alpha) : T(0);
-}
-
-template <typename T>
-__device__ __forceinline__ T tpl_cdf(T alpha, T m_low, T m) {
-  const T mp = dmax(m, T(1e-30));
-  if (alpha == T(-1)) return dlog(m_low) - dlog(mp);
-  return (powx(mp, T(1) + alpha) - powx(m_low, T(1) + alpha)) / (T(1) + alpha);
-}
-
-// LVK low-mass window; eps is 0 in float, as in the JAX package's float32
-template <typename T>
-__device__ __forceinline__ T smoothing(T m, T dm, T m_low) {
-  if (m < m_low) return T(0);
-  if (m >= m_low + dm) return T(1);
-  const T eps = T(1e-99);
-  const T x = dm / (m - m_low + eps) + dm / (m - m_low - dm + eps);
-  const T softplus = dmax(x, T(0)) + dlog1p(dexp(-dabs(x)));
-  return dexp(-softplus);
-}
-
-// One lambda's model state, read from the packed parameter row.
-template <typename T>
-struct Model {
-  const T* cheb_logh;
-  const T* window;
-  int cheb_deg, window_deg;
-  T dgw_lo, dgw_max, log_lo, log_hi;
-  T m_low, m_high, alpha, beta, delta_m, lambda_peak, mu_g, sigma_g;
-  T peak_norm, norm_p_m1, m_join, cdf_at_join;
-  T pl_norm, peak_hi, log_sigma, m1_floor;
-
-  __device__ Model(const T* prm, int cd, int wd) {
-    cheb_logh = prm;
-    cheb_deg = cd;
-    window_deg = wd;
-    dgw_lo = prm[cd];
-    dgw_max = prm[cd + 1];
-    const T* s = prm + cd + 2;
-    m_low = s[0]; m_high = s[1]; alpha = s[2]; beta = s[3]; delta_m = s[4];
-    lambda_peak = s[5]; mu_g = s[6]; sigma_g = s[7]; peak_norm = s[8];
-    norm_p_m1 = s[9]; m_join = s[10]; cdf_at_join = s[11];
-    window = s + kMassScalars;
-    log_lo = dlog(dgw_lo);
-    log_hi = dlog(dgw_max);
-    pl_norm = tpl_cdf(-alpha, m_low, m_high);
-    peak_hi = mu_g + T(5) * sigma_g;
-    log_sigma = dlog(sigma_g);
-    m1_floor = m_low * T(1.0 + 1e-9);
-  }
-
-  __device__ __forceinline__ T z_from_dgw(T dgw) const {
-    const T d = clip(dgw, dgw_lo, dgw_max);
-    const T t = (T(2) * dlog(d) - (log_lo + log_hi)) / (log_hi - log_lo);
-    return d * dexp(clenshaw(cheb_logh, cheb_deg, t));
-  }
-
-  __device__ __forceinline__ T primary(T m) const {
-    const T pl = tpl_unnorm(m, -alpha, m_low, m_high) / pl_norm;
-    T peak = T(0);
-    if (m_low <= m && m <= peak_hi) {
-      const T dx = m - mu_g;
-      // -0.5 log(2 pi) - log(sigma) - (x - mu)^2 / (2 sigma^2)
-      peak = dexp(T(-0.91893853320467274178) - log_sigma
-                  - dx * dx / (T(2) * (sigma_g * sigma_g))) / peak_norm;
-    }
-    const T pdf = (T(1) - lambda_peak) * pl + lambda_peak * peak;
-    return pdf * smoothing(m, delta_m, m_low);
-  }
-
-  __device__ __forceinline__ T secondary(T m2, T m1) const {
-    return tpl_unnorm(m2, beta, m_low, m1) * smoothing(m2, delta_m, m_low);
-  }
-
-  __device__ __forceinline__ T conditional_cdf(T m1) const {
-    const T m1c = clip(m1, m_low, m_high);
-    if (m1c <= m_join) {
-      const T x = clip(m1c, m_low, m_join);
-      const T t = (T(2) * x - (m_low + m_join)) / (m_join - m_low);
-      return clenshaw(window, window_deg, t);
-    }
-    return cdf_at_join + tpl_cdf(beta, m_join, m1c);
-  }
-
-  __device__ __forceinline__ T p_m1m2(T m1, T m2) const {
-    const T p1 = primary(m1) / norm_p_m1;
-    T p21 = secondary(m2, m1);
-    const T cdf = conditional_cdf(m1);
-    const bool ok = cdf > T(0);
-    p21 = p21 / (ok ? cdf : T(1));
-    if (!(ok && m1 > m1_floor)) p21 = T(0);
-    if (!finite(p21)) p21 = T(0);
-    return p1 * p21;
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Block-wide sums of N values per thread, in a fixed order (deterministic);
-// every thread receives the totals.
-template <typename T, int N>
-__device__ __forceinline__ void block_sum(T (&v)[N], T (*scratch)[kWarps]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    v[i] = warp_sum(v[i]);
-    if (lane == 0) scratch[i][warp] = v[i];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    T t = T(0);
-    for (int w = 0; w < kWarps; ++w) t += scratch[i][w];
-    v[i] = t;
-  }
-  __syncthreads();
-}
 
 template <typename T, int KERNEL>  // KERNEL 0: Epanechnikov, 1: Gaussian
 __global__ void __launch_bounds__(kThreads)
 fused_kde_kernel(const T* __restrict__ m1det, const T* __restrict__ m2det,
                  const T* __restrict__ dl, const T* __restrict__ inv_prior,
-                 const T* __restrict__ grids, const T* __restrict__ params,
-                 T* __restrict__ den, T* __restrict__ stats,
-                 int L, int E, int S, int G, int P, int cheb_deg,
-                 int window_deg, int bw_mode, T bw_value) {
+                 const T* __restrict__ grids, const double* __restrict__ series,
+                 const T* __restrict__ params, T* __restrict__ den,
+                 T* __restrict__ stats, int L, int E, int S, int G,
+                 int cheb_deg, int window_deg, int bw_mode, T bw_value) {
   using T2 = typename Pair<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   T2* zw = reinterpret_cast<T2*>(smem);       // S (z, w) pairs
-  T* prm = reinterpret_cast<T*>(zw + S);      // this lambda's P parameters
+  T* prm = reinterpret_cast<T*>(zw + S);      // this lambda's mass scalars
+  T* ser = prm + kMassScalars;                // Chebyshev series, summed in T
   __shared__ T scratch[3][kWarps];
 
   const int l = blockIdx.x % L;
   const int e = blockIdx.x / L;
   const int tid = threadIdx.x;
-  for (int i = tid; i < P; i += kThreads) prm[i] = params[(size_t)l * P + i];
+  const int Q = cheb_deg + 2 + window_deg;
+  for (int i = tid; i < Q; i += kThreads) ser[i] = T(series[(size_t)l * Q + i]);
+  for (int i = tid; i < kMassScalars; i += kThreads)
+    prm[i] = params[(size_t)l * kMassScalars + i];
   __syncthreads();
-  const Model<T> model(prm, cheb_deg, window_deg);
+  const Model<T, T> model(ser, prm, cheb_deg, window_deg);
 
   // ---- phase A: source frame, weights, first-pass sums -------------------
   const size_t row = (size_t)e * S;
@@ -258,11 +116,7 @@ fused_kde_kernel(const T* __restrict__ m1det, const T* __restrict__ m2det,
   block_sum<T, 1>(ss, scratch);
   const T z_sig = dsqrt(ss[0] / T(S));
   const T neff = sum_w * sum_w / sum_w2;
-  T bw;
-  if (bw_mode == 0) bw = dexp(T(-0.2) * dlog(neff));
-  else if (bw_mode == 1) bw = dexp(T(-0.2) * dlog(neff * T(3) / T(4)));
-  else bw = bw_value;
-  const T h = bw * z_sig;
+  const T h = bw_factor(neff, bw_mode, bw_value) * z_sig;
   const T inv_h = T(1) / h;
 
   const size_t out_row = (size_t)l * E + e;
@@ -310,37 +164,138 @@ fused_kde_kernel(const T* __restrict__ m1det, const T* __restrict__ m2det,
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+row_stats_kernel(const T* __restrict__ m1det, const T* __restrict__ m2det,
+                 const T* __restrict__ dl, const T* __restrict__ inv_prior,
+                 const long long* __restrict__ n_real,
+                 const T* __restrict__ dl_fill,
+                 const double* __restrict__ series,
+                 const T* __restrict__ params, T* __restrict__ stats, int L,
+                 int B, int S, int cheb_deg, int window_deg,
+                 int logical_s, int bw_mode, T bw_value, T cut_grid) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* ser = reinterpret_cast<double*>(smem);  // series, summed in double
+  T* zs = reinterpret_cast<T*>(smem + series_bytes<double>(cheb_deg, window_deg));
+  T* prm = zs + S;                            // this lambda's mass scalars
+  __shared__ T scratch[3][kWarps];
+
+  const int l = blockIdx.x % L;
+  const int b = blockIdx.x / L;
+  const int tid = threadIdx.x;
+  const int Q = cheb_deg + 2 + window_deg;
+  for (int i = tid; i < Q; i += kThreads) ser[i] = series[(size_t)l * Q + i];
+  for (int i = tid; i < kMassScalars; i += kThreads)
+    prm[i] = params[(size_t)l * kMassScalars + i];
+  __syncthreads();
+  const Model<T, double> model(ser, prm, cheb_deg, window_deg);
+
+  const long long nr = n_real[b];
+  const int n = nr < 0 ? 0 : (nr > S ? S : (int)nr);
+  const T zf = model.z_from_dgw(dl_fill[b]);
+  const size_t row = (size_t)b * S;
+  T acc[3] = {T(0), T(0), T(0)};  // sum w, sum w^2, sum z
+  T z_lo = zf, z_hi = zf;
+  for (int s = tid; s < n; s += kThreads) {
+    const T z = model.z_from_dgw(dl[row + s]);
+    const T inv1pz = T(1) / (T(1) + z);
+    const T w = model.p_m1m2(m1det[row + s] * inv1pz, m2det[row + s] * inv1pz)
+                * inv_prior[row + s];
+    zs[s] = z;
+    acc[0] += w;
+    acc[1] += w * w;
+    acc[2] += z;
+    z_lo = dmin(z_lo, z);
+    z_hi = dmax(z_hi, z);
+  }
+  block_sum<T, 3>(acc, scratch);
+  block_minmax(z_lo, z_hi, scratch);
+  const T sl = T(logical_s);
+  const T f_log = T(logical_s - n);           // logical fillers
+  const T z_mean = (acc[2] + f_log * zf) / sl;
+  T ss[1] = {T(0)};
+  for (int s = tid; s < n; s += kThreads) {
+    const T d = zs[s] - z_mean;
+    ss[0] += d * d;
+  }
+  block_sum<T, 1>(ss, scratch);
+  const T dz = zf - z_mean;
+  const T z_sig = dsqrt((ss[0] + f_log * dz * dz) / sl);
+  const T sum_w = acc[0], sum_w2 = acc[1];
+  const T neff = sum_w * sum_w / sum_w2;
+  const T h = bw_factor(neff, bw_mode, bw_value) * z_sig;
+  if (tid == 0) {
+    T* st = stats + ((size_t)l * B + b) * 8;
+    const T lo = z_lo - cut_grid * z_sig;
+    st[0] = lo > T(0) ? lo : T(1e-8);
+    st[1] = z_hi + cut_grid * z_sig;
+    st[2] = sum_w / sl;
+    st[3] = neff;
+    st[4] = h;
+    st[5] = sum_w;
+    st[6] = sum_w2;
+    st[7] = z_sig;
+  }
+}
+
+template <typename T>
+int launch_row_stats(const T* m1, const T* m2, const T* dl, const T* invp,
+                     const long long* n_real, const T* dl_fill,
+                     const double* series, const T* params, T* stats, int L,
+                     int B, int S, int cheb_deg, int window_deg,
+                     int logical_s, int bw_mode, double bw_value,
+                     double cut_grid, void* stream) {
+  if (L <= 0 || B <= 0 || S <= 0 || logical_s <= 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = series_bytes<double>(cheb_deg, window_deg)
+                      + ((size_t)S + kMassScalars) * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      row_stats_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)L * (unsigned)B);
+  row_stats_kernel<T><<<grid, kThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      m1, m2, dl, invp, n_real, dl_fill, series, params, stats, L, B, S,
+      cheb_deg, window_deg, logical_s, bw_mode, (T)bw_value, (T)cut_grid);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int KERNEL>
 int launch_kernel(const T* m1, const T* m2, const T* dl, const T* invp,
-                  const T* grids, const T* params, T* den, T* stats, int L,
-                  int E, int S, int G, int P, int cheb_deg, int window_deg,
-                  int bw_mode, double bw_value, cudaStream_t stream) {
-  const size_t smem = (size_t)S * sizeof(typename Pair<T>::type)
-                      + (size_t)P * sizeof(T);
+                  const T* grids, const double* series, const T* params,
+                  T* den, T* stats, int L, int E, int S, int G,
+                  int cheb_deg, int window_deg, int bw_mode, double bw_value,
+                  cudaStream_t stream) {
+  const size_t smem = series_bytes<T>(cheb_deg, window_deg)
+                      + (size_t)S * sizeof(typename Pair<T>::type)
+                      + kMassScalars * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
       fused_kde_kernel<T, KERNEL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)L * (unsigned)E);
   fused_kde_kernel<T, KERNEL><<<grid, kThreads, smem, stream>>>(
-      m1, m2, dl, invp, grids, params, den, stats, L, E, S, G, P, cheb_deg,
-      window_deg, bw_mode, (T)bw_value);
+      m1, m2, dl, invp, grids, series, params, den, stats, L, E, S, G,
+      cheb_deg, window_deg, bw_mode, (T)bw_value);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const T* m1, const T* m2, const T* dl, const T* invp,
-           const T* grids, const T* params, T* den, T* stats, int L, int E,
-           int S, int G, int P, int cheb_deg, int window_deg, int kernel,
-           int bw_mode, double bw_value, void* stream) {
+           const T* grids, const double* series, const T* params, T* den,
+           T* stats, int L, int E, int S, int G, int cheb_deg,
+           int window_deg, int kernel, int bw_mode, double bw_value,
+           void* stream) {
   if (L <= 0 || E <= 0 || S <= 0 || G <= 0) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (kernel == 0)
-    return launch_kernel<T, 0>(m1, m2, dl, invp, grids, params, den, stats, L,
-                               E, S, G, P, cheb_deg, window_deg, bw_mode,
-                               bw_value, s);
-  return launch_kernel<T, 1>(m1, m2, dl, invp, grids, params, den, stats, L, E,
-                             S, G, P, cheb_deg, window_deg, bw_mode, bw_value, s);
+    return launch_kernel<T, 0>(m1, m2, dl, invp, grids, series, params, den,
+                               stats, L, E, S, G, cheb_deg, window_deg,
+                               bw_mode, bw_value, s);
+  return launch_kernel<T, 1>(m1, m2, dl, invp, grids, series, params, den,
+                             stats, L, E, S, G, cheb_deg, window_deg,
+                             bw_mode, bw_value, s);
 }
 
 }  // namespace
@@ -349,20 +304,45 @@ int launch(const T* m1, const T* m2, const T* dl, const T* invp,
 // Returns the CUDA error code of the launch (0 = cudaSuccess).
 extern "C" int chimera_fused_kde_f32(
     const float* m1, const float* m2, const float* dl, const float* invp,
-    const float* grids, const float* params, float* den, float* stats, int L,
-    int E, int S, int G, int P, int cheb_deg, int window_deg, int kernel,
-    int bw_mode, double bw_value, void* stream) {
-  return launch<float>(m1, m2, dl, invp, grids, params, den, stats, L, E, S, G,
-                       P, cheb_deg, window_deg, kernel, bw_mode, bw_value,
-                       stream);
+    const float* grids, const double* series, const float* params,
+    float* den, float* stats, int L, int E, int S, int G, int cheb_deg,
+    int window_deg, int kernel, int bw_mode, double bw_value, void* stream) {
+  return launch<float>(m1, m2, dl, invp, grids, series, params, den, stats,
+                       L, E, S, G, cheb_deg, window_deg, kernel, bw_mode,
+                       bw_value, stream);
 }
 
 extern "C" int chimera_fused_kde_f64(
     const double* m1, const double* m2, const double* dl, const double* invp,
-    const double* grids, const double* params, double* den, double* stats,
-    int L, int E, int S, int G, int P, int cheb_deg, int window_deg,
-    int kernel, int bw_mode, double bw_value, void* stream) {
-  return launch<double>(m1, m2, dl, invp, grids, params, den, stats, L, E, S,
-                        G, P, cheb_deg, window_deg, kernel, bw_mode, bw_value,
-                        stream);
+    const double* grids, const double* series, const double* params,
+    double* den, double* stats, int L, int E, int S, int G,
+    int cheb_deg, int window_deg, int kernel, int bw_mode, double bw_value,
+    void* stream) {
+  return launch<double>(m1, m2, dl, invp, grids, series, params, den, stats,
+                        L, E, S, G, cheb_deg, window_deg, kernel, bw_mode,
+                        bw_value, stream);
+}
+
+extern "C" int chimera_row_stats_f32(
+    const float* m1, const float* m2, const float* dl, const float* invp,
+    const long long* n_real, const float* dl_fill, const double* series,
+    const float* params, float* stats, int L, int B, int S,
+    int cheb_deg, int window_deg, int logical_s, int bw_mode, double bw_value,
+    double cut_grid, void* stream) {
+  return launch_row_stats<float>(m1, m2, dl, invp, n_real, dl_fill, series,
+                                 params, stats, L, B, S, cheb_deg,
+                                 window_deg, logical_s, bw_mode, bw_value,
+                                 cut_grid, stream);
+}
+
+extern "C" int chimera_row_stats_f64(
+    const double* m1, const double* m2, const double* dl, const double* invp,
+    const long long* n_real, const double* dl_fill, const double* series,
+    const double* params, double* stats, int L, int B, int S,
+    int cheb_deg, int window_deg, int logical_s, int bw_mode, double bw_value,
+    double cut_grid, void* stream) {
+  return launch_row_stats<double>(m1, m2, dl, invp, n_real, dl_fill, series,
+                                  params, stats, L, B, S, cheb_deg,
+                                  window_deg, logical_s, bw_mode, bw_value,
+                                  cut_grid, stream);
 }

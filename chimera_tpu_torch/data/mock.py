@@ -120,6 +120,25 @@ def make_mock_catalog(gen, pop: Population, n_events: int = 100,
     return theta, truths
 
 
+def make_mock_galaxies(gen, pop: Population, truths: dict,
+                       n_background: int = 50_000, z_max: float = 1.5,
+                       z_scatter: float = 0.001) -> dict:
+    """A galaxy catalog of the events' hosts plus an isotropic background:
+    hosts sit at the events' true (ra, dec) and z with a fractional z
+    scatter, background galaxies follow p(z) ∝ dV_C/dz up to ``z_max``.
+    Returns {'ra', 'dec', 'z'} (radians) on the population's device."""
+    ref = pop.cosmo.H0
+    zz = torch.linspace(1e-4, z_max, 2000, dtype=ref.dtype, device=ref.device)
+    pdf = cosmo_fns.differential_comoving_volume(pop.cosmo, zz[None])[0]
+    z_bkg = _inverse_cdf_sample(gen, pdf, zz, n_background)
+    ra_bkg = 2.0 * math.pi * _uniform(gen, (n_background,), ref)
+    dec_bkg = torch.arcsin(2.0 * _uniform(gen, (n_background,), ref) - 1.0)
+    z_host = truths["z"] * (1.0 + z_scatter * _normal(gen, truths["z"].shape, ref))
+    return {"ra": torch.cat([truths["ra"], ra_bkg]),
+            "dec": torch.cat([truths["dec"], dec_bkg]),
+            "z": torch.cat([z_host, z_bkg])}
+
+
 def make_mock_injections(gen, pop: Population, n_generated: int = 200_000,
                          snr_threshold: float = 12.0,
                          m_range: tuple = (2.0, 200.0),

@@ -20,7 +20,8 @@ import torch
 from chimera_tpu_torch.ops.chebyshev import cheb_nodes, chebeval, chebfit_from_values
 from chimera_tpu_torch.ops.integrate import cumtrapz, gauss_legendre_unit, logspace
 from chimera_tpu_torch.ops.interp import interp
-from chimera_tpu_torch.pytree import lam, resolve_params, update_batch
+from chimera_tpu_torch.pytree import (fit_in_float64, lam, resolve_params,
+                                      update_batch)
 
 C_LIGHT_KM_S = 299792.458  # km/s
 _Z_LO = 1e-6  # lower edge of the log-log Chebyshev fits; queries below clamp
@@ -31,7 +32,8 @@ class FLRW:
     """w0waCDM FLRW cosmology.  Hyper-parameters H0, Om0, Ok0, Or0, w0, wa
     (each (L,)); Chebyshev state ``cheb_g`` (L, deg) for the comoving
     integral and ``cheb_logh`` (L, deg) on [dgw_lo, dgw_max] for the inverse
-    distance map."""
+    distance map.  The inverse map's state is float64 in every dtype (see
+    ``z_from_dgw``)."""
 
     H0: torch.Tensor
     Om0: torch.Tensor
@@ -51,6 +53,7 @@ class FLRW:
     name: ClassVar[str] = "flrw"
     hyper_defaults: ClassVar[dict] = dict(H0=70.0, Om0=0.25, Ok0=0.0, Or0=0.0,
                                           w0=-1.0, wa=0.0)
+    float64_fields: ClassVar[tuple[str, ...]] = ("cheb_logh", "dgw_lo", "dgw_max")
     config_keys: ClassVar[tuple[str, ...]] = (
         "z_max", "z_grid_res", "interp_method", "cheb_deg")
 
@@ -58,14 +61,15 @@ class FLRW:
 
     @classmethod
     def create(cls, *, device=None, dtype=None, **kwargs) -> "FLRW":
-        """Build the model and its Chebyshev tables for every λ at once.
-        Hyper-parameters are scalars or 1-D sequences/tensors (the λ axis)."""
+        """Build the model and its Chebyshev tables for every λ at once
+        (fitted in float64, stored in the model's dtype).  Hyper-parameters
+        are scalars or 1-D sequences/tensors (the λ axis)."""
         hyper, config = resolve_params(cls, kwargs, device, dtype)
         if config["interp_method"] != "chebyshev":
             raise NotImplementedError(
                 "only interp_method='chebyshev' is ported; the 'table' engine "
                 "is ROADMAP.md §1 item 3")
-        return cls(**hyper, **config)._with_chebyshev_tables()
+        return fit_in_float64(cls(**hyper, **config), FLRW._with_chebyshev_tables)
 
     def _with_chebyshev_tables(self) -> "FLRW":
         """Forward fit of G(z) = (1/z) int_0^z dz'/E from Gauss–Legendre
@@ -177,6 +181,24 @@ def _dct(cosmo: FLRW, z: torch.Tensor, distances) -> torch.Tensor:
     return distances / (1.0 + z)
 
 
+def comoving_volume(cosmo: FLRW, z: torch.Tensor, distances=None) -> torch.Tensor:
+    """Comoving volume V_C(z) in Gpc^3, with the curvature branches as
+    selects (chimera_tpu/models/cosmology.py:270)."""
+    dct = _dct(cosmo, z, distances)
+    ok0 = lam(cosmo.Ok0, dct)
+    reg_ok = ok0 + 1e-10
+    sqrt_ok = torch.sqrt(torch.abs(reg_ok))
+    dh = lam(cosmo.dH, dct)
+    r = dct / dh
+    common = r * torch.sqrt(1.0 + reg_ok * r * r)
+    curved = 4.0 * math.pi * dh**3 / (2.0 * reg_ok)
+    return torch.where(
+        ok0 == 0.0, 4.0 * math.pi * dct**3 / 3.0,
+        torch.where(ok0 > 0.0,
+                    curved * (common - torch.asinh(sqrt_ok * r) / sqrt_ok),
+                    curved * (common - torch.asin(sqrt_ok * r) / sqrt_ok)))
+
+
 def differential_comoving_volume(cosmo: FLRW, z: torch.Tensor,
                                  distances=None) -> torch.Tensor:
     """dV_C/dz in Gpc^3 per unit z."""
@@ -197,9 +219,19 @@ def ddl_dz_at_z(cosmo: FLRW, z: torch.Tensor, distances=None) -> torch.Tensor:
 
 def z_from_dgw(cosmo: FLRW, dgw: torch.Tensor) -> torch.Tensor:
     """Invert the GW distance-redshift relation: distances clamp to
-    [dgw_lo, dgw_max], then z = d exp(cheb_logh(log d))."""
-    lo, hi = lam(cosmo.dgw_lo, dgw), lam(cosmo.dgw_max, dgw)
-    d = torch.minimum(torch.maximum(dgw, lo), hi)
-    return d * torch.exp(chebeval(cosmo.cheb_logh, torch.log(d),
-                                  torch.log(cosmo.dgw_lo),
-                                  torch.log(cosmo.dgw_max), clip=False))
+    [dgw_lo, dgw_max], then z = d exp(cheb_logh(log d)), in ``dgw``'s dtype.
+
+    The Chebyshev series is summed in float64 whatever that dtype, as the
+    dark-siren CUDA kernels do; the clamp, log and exp stay in ``dgw``'s
+    dtype.  In float32 the 64-term Clenshaw sum is off by ~1e-7 and nearby
+    samples share the error, so every z of an event moves alike; the
+    dark-siren numerator integrates narrow per-pixel KDEs on coarse z-grids
+    and amplifies such a shift some 20 times (a 5e-8 shift of z moved the
+    sum of 16 log numerators by 1.8e-5 on a CPU run).  The spectral kernel
+    sums in its working dtype: its likelihood does not feel the shift."""
+    dt, f64 = dgw.dtype, torch.float64
+    lo, hi = cosmo.dgw_lo.to(f64), cosmo.dgw_max.to(f64)
+    d = torch.minimum(torch.maximum(dgw, lam(lo.to(dt), dgw)), lam(hi.to(dt), dgw))
+    c = chebeval(cosmo.cheb_logh.to(f64), torch.log(d).to(f64), torch.log(lo),
+                 torch.log(hi), clip=False)
+    return d * torch.exp(c.to(dt))

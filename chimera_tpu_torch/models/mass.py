@@ -24,7 +24,8 @@ from chimera_tpu_torch.ops.integrate import (
     logspace,
     trapz,
 )
-from chimera_tpu_torch.pytree import lam, resolve_params, update_batch
+from chimera_tpu_torch.pytree import (fit_in_float64, lam, resolve_params,
+                                      update_batch)
 
 # ---------------------------------------------------------------------------
 # Primitives (parameters already broadcast against the argument)
@@ -95,7 +96,9 @@ def truncated_gaussian(x, mu, sigma, x_min, x_max, norm) -> torch.Tensor:
 class BaseMassModel:
     """Paired mass model p(m1) p(m2 | m1) with the m2 | m1 conditional
     normalized through its CDF at m1: closed form above m_join = m_low +
-    delta_m, a Chebyshev fit of the window-suppressed segment below."""
+    delta_m, a Chebyshev fit of the window-suppressed segment below.  The
+    fit's coefficients are float64 in every dtype (see
+    ``conditional_cdf_at``)."""
 
     m_low: torch.Tensor
     m_high: torch.Tensor
@@ -113,6 +116,7 @@ class BaseMassModel:
     hyper_defaults: ClassVar[dict] = dict(m_low=5.1, m_high=87.0)
     config_keys: ClassVar[tuple[str, ...]] = ("grid_res", "cdf_engine",
                                               "window_deg")
+    float64_fields: ClassVar[tuple[str, ...]] = ("cheb_cdf_window",)
 
     @classmethod
     def create(cls, *, device=None, dtype=None, **kwargs):
@@ -121,8 +125,10 @@ class BaseMassModel:
             raise NotImplementedError(
                 "only cdf_engine='analytic' is ported; the 'table' engine is "
                 "ROADMAP.md §1 item 3")
-        obj = cls(**hyper, **config)
-        return obj._with_norm_consts()._with_tables()
+        # tables fitted in float64, stored in the model's dtype but for
+        # float64_fields
+        return fit_in_float64(cls(**hyper, **config),
+                              lambda m: m._with_norm_consts()._with_tables())
 
     @classmethod
     def from_state(cls, state: dict, prefix: str = "", device=None, dtype=None):
@@ -173,10 +179,18 @@ class BaseMassModel:
                                    cheb_cdf_window=chebfit_from_values(cdf_nodes))
 
     def conditional_cdf_at(self, m1: torch.Tensor) -> torch.Tensor:
-        """CDF of the m2|m1 conditional at m1 — its normalization."""
+        """CDF of the m2|m1 conditional at m1 — its normalization.
+
+        The window series is summed in float64 whatever ``m1``'s dtype, as
+        the dark-siren CUDA kernels do.  Just above m_low the CDF is tiny
+        against the series' terms, and a float32 sum carries an absolute
+        error of ~1e-7 of them: 6 % at m1 = m_low + 0.41, where an injection
+        with a small p_draw weighs on N_exp."""
         m_low, m_join = lam(self.m_low, m1), lam(self.m_join, m1)
         m1c = torch.minimum(torch.maximum(m1, m_low), lam(self.m_high, m1))
-        below = chebeval(self.cheb_cdf_window, m1c, self.m_low, self.m_join)
+        f64 = torch.float64
+        below = chebeval(self.cheb_cdf_window.to(f64), m1c.to(f64),
+                         self.m_low.to(f64), self.m_join.to(f64)).to(m1.dtype)
         above = lam(self.cdf_at_join, m1) + tpl_cdf(lam(self.beta, m1), m_join, m1c)
         return torch.where(m1c <= m_join, below, above)
 

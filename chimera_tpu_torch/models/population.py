@@ -13,35 +13,42 @@ import dataclasses
 
 import torch
 
-from chimera_tpu_torch.catalog.empty import EmptyCatalog
+from chimera_tpu_torch.catalog import EmptyCatalog, PixelatedCatalog
 from chimera_tpu_torch.data.structs import ThetaInjDet, ThetaPEDet, ThetaSrc
 from chimera_tpu_torch.models import cosmology as cosmo_fns
 from chimera_tpu_torch.models.cosmology import FLRW
 from chimera_tpu_torch.models.mass import BaseMassModel, PowerLawPeak, p_m1m2
 from chimera_tpu_torch.models.rate import MadauDickinsonRate
 from chimera_tpu_torch.ops.integrate import linspace
-from chimera_tpu_torch.pytree import as_batch, batch_size, lam
+from chimera_tpu_torch.pytree import as_batch, batch_size, lam, tensor_map
 
 
 @dataclasses.dataclass(frozen=True)
 class Population:
     """(cosmology, mass, rate) hyper-model plus catalog prior and run config;
-    every sub-model and R0 carry the same λ axis."""
+    every sub-model and R0 carry the same λ axis.  The catalog prior holds
+    no hyper-parameter: ``update_batch`` leaves it as it is."""
 
     cosmo: FLRW
     mass: BaseMassModel
     rate: MadauDickinsonRate
     R0: torch.Tensor
-    gal_cat: EmptyCatalog = dataclasses.field(default_factory=EmptyCatalog)
+    gal_cat: EmptyCatalog | PixelatedCatalog = dataclasses.field(
+        default_factory=EmptyCatalog)
     Tobs: float = 1.0
     scale_free: bool = True
 
     @classmethod
     def create(cls, cosmo, mass, rate, R0=1.0, gal_cat=None, Tobs=1.0,
                scale_free=True) -> "Population":
+        """A catalog prior is moved to the cosmology's device, its
+        floating-point tensors to its dtype."""
+        ref = cosmo.H0
+        gal_cat = EmptyCatalog() if gal_cat is None else tensor_map(
+            gal_cat, lambda t: t.to(ref.device, ref.dtype if t.is_floating_point()
+                                    else t.dtype))
         return cls(cosmo=cosmo, mass=mass, rate=rate,
-                   R0=as_batch(R0, cosmo.H0.device, cosmo.H0.dtype),
-                   gal_cat=gal_cat if gal_cat is not None else EmptyCatalog(),
+                   R0=as_batch(R0, ref.device, ref.dtype), gal_cat=gal_cat,
                    Tobs=float(Tobs), scale_free=bool(scale_free))
 
     @classmethod
@@ -59,14 +66,20 @@ class Population:
                 raise NotImplementedError(
                     f"{part} model {kind} is not ported (ROADMAP.md §1 item 3)")
             parts[part] = model.from_state(state, f"{prefix}{part}.", device, dtype)
-        if class_name(state, f"{prefix}gal_cat.") != "EmptyCatalog":
-            raise NotImplementedError(
-                "galaxy-catalog priors are ROADMAP.md §1 item 7")
         ref = parts["cosmo"].H0
+        cat = class_name(state, f"{prefix}gal_cat.")
+        if cat == "PixelatedCatalog":
+            gal_cat = PixelatedCatalog.from_state(state, f"{prefix}gal_cat.",
+                                                  ref.device, ref.dtype)
+        elif cat == "EmptyCatalog":
+            gal_cat = EmptyCatalog()
+        else:
+            raise NotImplementedError(
+                f"galaxy catalog {cat} is not ported (ROADMAP.md §1 item 7)")
         return cls(**parts,
                    R0=torch.as_tensor(state[f"{prefix}R0"], dtype=ref.dtype,
                                       device=ref.device).reshape(-1),
-                   gal_cat=EmptyCatalog(),
+                   gal_cat=gal_cat,
                    Tobs=float(state[f"{prefix}Tobs"]),
                    scale_free=bool(state[f"{prefix}scale_free"]))
 
@@ -114,8 +127,13 @@ def theta_det_to_src(cosmo, theta_det, include_original_distances: bool = False
 
 def p_cbc(pop: Population, z: torch.Tensor) -> torch.Tensor:
     """p_gal(z) psi(z) / (1+z) — the CBC redshift prior; ``z`` has a
-    leading λ axis."""
-    return pop.gal_cat.p_gal(pop.cosmo, z) * (pop.rate.rate(z) / (1.0 + z))
+    leading λ axis.  A pixelated catalog adds a pixel axis before the last:
+    (L, Nev, P, Nz) for z (1 or L, Nev, Nz)."""
+    p_gal = pop.gal_cat.p_gal(pop.cosmo, z)
+    p_rate = pop.rate.rate(z) / (1.0 + z)
+    if p_gal.dim() > p_rate.dim():
+        p_rate = p_rate.unsqueeze(-2)
+    return p_gal * p_rate
 
 
 def pop_rate_det(pop: Population, theta) -> torch.Tensor:

@@ -3,7 +3,8 @@
 Each ``chimera_tpu_torch/csrc/<name>.cu`` exposes a plain C interface.  At
 first use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``build/kernels/`` at the repository root, named by a hash of
-the source and flags (a changed source builds anew), and loaded with
+the source, the shared headers ``csrc/*.cuh`` and the flags (a changed
+source or header builds anew), and loaded with
 ``ctypes``.  Nothing includes PyTorch's headers, so a build takes seconds.
 """
 
@@ -41,15 +42,23 @@ def nvcc() -> str:
     return found
 
 
+def _shared_object(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
 def load(name: str) -> ctypes.CDLL:
-    """Compile (if needed) and load ``csrc/<name>.cu``."""
+    """Compile (if needed) and load ``csrc/<name>.cu``.  Builds of different
+    kernels may run in parallel threads: ``nvcc`` runs outside the GIL."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"{name}-{digest}.so"
+    so = _shared_object(name)
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")

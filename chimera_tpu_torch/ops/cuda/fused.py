@@ -1,19 +1,26 @@
-"""Fused detector->source map + population weights + weighted KDE for a λ
-batch, on the analysis grids (counterpart of
-``chimera_tpu/ops/pallas/fused.py::fused_weights_kde`` in analysis-grid mode
-with ``den_scale='norms'``).
+"""Fused detector->source map + population weights (+ weighted KDE) for a
+λ batch: the counterpart of ``chimera_tpu/ops/pallas/fused.py::
+fused_weights_kde`` in the two modes the port's main paths run.
 
-Per (λ, event e), with S samples and G grid points:
+Per (λ, row), with S samples and G grid points:
 
-    z_s  = z_from_dgw(cosmo_λ, dL_es)
-    w_s  = p_m1m2(mass_λ, m1det_es/(1+z_s), m2det_es/(1+z_s)) * inv_pe_prior_es
+    z_s  = z_from_dgw(cosmo_λ, dL_s)
+    w_s  = p_m1m2(mass_λ, m1det_s/(1+z_s), m2det_s/(1+z_s)) * inv_pe_prior_s
     h    = bw_factor(N_eff) * std(z),  N_eff = (sum w)^2 / sum w^2
-    den  = sum_s w_s K((grid_eg - z_s)/h) / (h S)
+    den  = sum_s w_s K((grid_g - z_s)/h) / (h S)
 
-``fused_weights_kde`` runs the hand-written CUDA kernel
-(``chimera_tpu_torch/csrc/fused_kde.cu``) on CUDA tensors and the plain
-PyTorch version ``fused_weights_kde_plain`` on CPU tensors; on CUDA it
-launches the kernel or raises.
+* ``fused_weights_kde`` (K1a): the densities on the analysis grids with
+  ``den_scale='norms'`` — the spectral-siren hot loop.
+* ``fused_row_stats`` (K1c): the row statistics only, of the *logical* rows
+  of the dark-siren per-pixel layout (``n_real``, ``dl_fill``,
+  ``logical_s``: each row is one pixel's samples followed by zero-weight
+  fillers at ``dl_fill``, standing for the event's ``logical_s`` samples
+  with the out-of-pixel ones at the filler z).
+
+Both run the hand-written CUDA kernels (``chimera_tpu_torch/csrc/
+fused_kde.cu``) on CUDA tensors and the plain PyTorch version
+``fused_weights_kde_plain`` on CPU tensors; on CUDA they launch the kernel
+or raise.
 """
 
 from __future__ import annotations
@@ -29,8 +36,8 @@ from chimera_tpu_torch.ops.cuda import build
 from chimera_tpu_torch.ops.kde import KERNELS, bw_factor
 
 STAT_NAMES = ("lo", "ub", "norms", "neff", "bandwidth", "sum_w", "sum_w2")
-# per-λ PowerLawPeak scalars packed between the cosmology and the CDF window
-# fit; the order is the kernel's (csrc/fused_kde.cu, struct MassScalars)
+# per-λ PowerLawPeak scalars, the kernels' mass row, in the order of the
+# Model constructor (csrc/population.cuh)
 MASS_SCALARS = ("m_low", "m_high", "alpha", "beta", "delta_m", "lambda_peak",
                 "mu_g", "sigma_g", "peak_norm", "norm_p_m1", "m_join",
                 "cdf_at_join")
@@ -56,19 +63,33 @@ def _bw_code(bw_method) -> tuple[int, float]:
 
 
 def fused_weights_kde_plain(m1det, m2det, dl, inv_pe_prior, cosmo, mass,
-                            grids, kernel: str = "epan", bw_method=None):
+                            grids=None, kernel: str = "epan", bw_method=None,
+                            n_real=None, dl_fill=None, logical_s=None,
+                            cut_grid=None, stats_only: bool = False):
     """Plain PyTorch version with the safe-math row statistics of
-    ``chimera_tpu/ops/pallas/fused.py::_reference_impl``; chunked over events
+    ``chimera_tpu/ops/pallas/fused.py::_reference_impl``; chunked over rows
     so that no (L, E, G, S) tensor is ever materialized.
 
+    ``n_real`` (E,), ``dl_fill`` (E,) and ``logical_s`` give the row
+    statistics of the logical rows of the per-pixel layout, in the TPU
+    kernel's form (fused.py:127-137); ``cut_grid`` fills the lo, ub stats
+    from the z range.  ``stats_only`` skips the KDE (den is None): the only
+    mode that takes the logical-row or cut_grid arguments here.
+
     Returns den (L, E, G) and a dict of (L, E) stats."""
+    if not stats_only and (logical_s is not None or cut_grid is not None):
+        raise NotImplementedError(
+            "densities of the logical per-pixel rows or on effective grids "
+            "(K1 modes b, d) are ROADMAP.md §1 items 8 and 12")
+    if logical_s is not None and (n_real is None or dl_fill is None):
+        raise ValueError("logical_s requires n_real and dl_fill")
     e, s = dl.shape
-    g = grids.shape[1]
+    g = 1 if stats_only else grids.shape[1]
     n = max(cosmo.L, mass.L)
     dt = dl.dtype
-    kfn = KERNELS[kernel]
+    sl = float(s if logical_s is None else logical_s)
     tiny = torch.finfo(dt).tiny
-    den = torch.empty((n, e, g), dtype=dt, device=dl.device)
+    den = None if stats_only else torch.empty((n, e, g), dtype=dt, device=dl.device)
     stats = torch.zeros((n, e, 8), dtype=dt, device=dl.device)
     chunk = max(1, _PLAIN_BUDGET // (n * g * s))
     for e0 in range(0, e, chunk):
@@ -79,36 +100,105 @@ def fused_weights_kde_plain(m1det, m2det, dl, inv_pe_prior, cosmo, mass,
                    m2det[None, rows] * inv1pz) * inv_pe_prior[None, rows]
         sum_w = torch.sum(w, dim=-1)
         sum_w2 = torch.sum(w * w, dim=-1)
-        z_mean = torch.mean(z, dim=-1)
-        z_var = torch.mean((z - z_mean[..., None]) ** 2, dim=-1)
+        z_min, z_max = torch.amin(z, dim=-1), torch.amax(z, dim=-1)
+        if logical_s is None:
+            z_mean = torch.mean(z, dim=-1)
+            z_var = torch.mean((z - z_mean[..., None]) ** 2, dim=-1)
+        else:
+            nr = n_real[rows].to(dt)
+            f_pp = float(s) - nr                                    # fillers present
+            f_log = sl - nr                                         # fillers logical
+            zf = z_from_dgw(cosmo, dl_fill[None, rows]).expand(n, -1)
+            z_mean = (torch.sum(z, dim=-1) - f_pp * zf + f_log * zf) / sl
+            ss_pp = torch.sum((z - z_mean[..., None]) ** 2, dim=-1)
+            z_var = (ss_pp + (f_log - f_pp) * (zf - z_mean) ** 2) / sl
+            z_min, z_max = torch.minimum(z_min, zf), torch.maximum(z_max, zf)
         # dead rows (zero weight, zero spread) get finite stats; on live rows
         # both clamps are exact no-ops
         z_sig = torch.sqrt(torch.clamp_min(z_var, math.sqrt(tiny)))
         neff = torch.clamp(sum_w * sum_w / torch.where(sum_w2 > 0, sum_w2, 1.0),
-                           1.0, float(s))
+                           1.0, sl)
         h = bw_factor(neff, 1, bw_method) * z_sig
-        u = (grids[None, rows, :, None] - z[:, :, None, :]) / h[..., None, None]
-        d = torch.sum(w[:, :, None, :] * kfn(u), dim=-1)
-        den[:, rows] = d / h[..., None] / s
         st = stats[:, rows]
-        st[..., 2] = sum_w / s
+        if cut_grid is not None:
+            lo = z_min - cut_grid * z_sig
+            st[..., 0] = torch.where(lo > 0.0, lo, 1e-8)
+            st[..., 1] = z_max + cut_grid * z_sig
+        st[..., 2] = sum_w / sl
         st[..., 3] = neff
         st[..., 4] = h
         st[..., 5] = sum_w
         st[..., 6] = sum_w2
         st[..., 7] = z_sig
+        if not stats_only:
+            u = (grids[None, rows, :, None] - z[:, :, None, :]) / h[..., None, None]
+            d = torch.sum(w[:, :, None, :] * KERNELS[kernel](u), dim=-1)
+            den[:, rows] = d / h[..., None] / s
     return den, _stats_dict(stats)
 
 
-def pack_params(cosmo: FLRW, mass: PowerLawPeak, n: int) -> torch.Tensor:
-    """Per-λ model state as one contiguous (n, P) tensor at the kernel's
-    offsets: cheb_logh[cheb_deg], dgw_lo, dgw_max, the MASS_SCALARS, then
-    cheb_cdf_window[window_deg]."""
-    cols = [cosmo.cheb_logh.expand(n, -1),
-            cosmo.dgw_lo.expand(n)[:, None], cosmo.dgw_max.expand(n)[:, None]]
-    cols += [getattr(mass, k).expand(n)[:, None] for k in MASS_SCALARS]
-    cols.append(mass.cheb_cdf_window.expand(n, -1))
-    return torch.cat(cols, dim=1).contiguous()
+def pack_params(cosmo: FLRW, mass: PowerLawPeak, n: int, dtype
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-λ model state as two contiguous rows at the kernels' offsets
+    (csrc/population.cuh, Model): the two Chebyshev series in float64,
+    (n, cheb_deg + 2 + window_deg) = cheb_logh, dgw_lo, dgw_max,
+    cheb_cdf_window; and the mass scalars in ``dtype``, (n, 12) = the
+    MASS_SCALARS."""
+    f64 = torch.float64
+    series = torch.cat([cosmo.cheb_logh.to(f64).expand(n, -1),
+                        cosmo.dgw_lo.to(f64).expand(n)[:, None],
+                        cosmo.dgw_max.to(f64).expand(n)[:, None],
+                        mass.cheb_cdf_window.to(f64).expand(n, -1)], dim=1)
+    cols = [getattr(mass, k).expand(n)[:, None] for k in MASS_SCALARS]
+    return series.contiguous(), torch.cat(cols, dim=1).to(dtype).contiguous()
+
+
+def smem_bytes(series: torch.Tensor, sum_size: int, params: torch.Tensor,
+               n_values: int) -> int:
+    """Dynamic shared memory of a block: the series row in the kernel's
+    summation type of ``sum_size`` bytes (rounded up to 16 bytes), then
+    ``n_values`` working-dtype values and the mass scalars
+    (csrc/population.cuh, series_bytes)."""
+    head = (series.shape[1] * sum_size + 15) // 16 * 16
+    return head + (n_values + params.shape[1]) * params.element_size()
+
+
+def check_cuda_call(name: str, cosmo, mass, dl, others: dict) -> None:
+    """What every kernel wrapper checks before a launch: CUDA tensors of
+    float32 or float64, FLRW-chebyshev and PowerLawPeak-analytic models, and
+    ``others`` ({name: tensor}) of ``dl``'s shape, dtype and device."""
+    if dl.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dl.device}")
+    if type(cosmo) is not FLRW or cosmo.interp_method != "chebyshev":
+        raise NotImplementedError(
+            f"{name}: the CUDA kernels cover FLRW with the chebyshev engine")
+    if type(mass) is not PowerLawPeak or mass.cdf_engine != "analytic":
+        raise NotImplementedError(
+            f"{name}: the CUDA kernels cover PowerLawPeak with the analytic CDF")
+    dt = dl.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"{name} takes float32 or float64, not {dt}")
+    for key, t in others.items():
+        if t.shape != dl.shape or t.dtype != dt or t.device != dl.device:
+            raise ValueError(f"{key} must be {tuple(dl.shape)} {dt} on {dl.device}")
+
+
+def launch(lib_name: str, symbol: str, dtype, device, args) -> None:
+    """Call ``<symbol>_f32`` or ``<symbol>_f64`` of ``csrc/<lib_name>.cu`` on
+    the current stream; each arg is a tensor (its pointer), an int or a
+    float.  Raises on a refused launch."""
+    lib = build.load(lib_name)  # nvcc at first use
+    fn = getattr(lib, f"{symbol}_{'f32' if dtype == torch.float32 else 'f64'}")
+    fn.argtypes = [ctypes.c_void_p if isinstance(a, torch.Tensor) else
+                   ctypes.c_double if isinstance(a, float) else ctypes.c_int
+                   for a in args] + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args), stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed: cudaError {err}")
 
 
 def fused_weights_kde(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids,
@@ -134,32 +224,20 @@ def fused_weights_kde(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids,
     if dl.device.type == "cpu":
         return fused_weights_kde_plain(m1det, m2det, dl, inv_pe_prior, cosmo,
                                        mass, grids, kernel, bw_method)
-    if dl.device.type != "cuda":
-        raise ValueError(f"fused_weights_kde: unsupported device {dl.device}")
-    if type(cosmo) is not FLRW or cosmo.interp_method != "chebyshev":
-        raise NotImplementedError(
-            "the fused CUDA kernel covers FLRW with the chebyshev engine")
-    if type(mass) is not PowerLawPeak or mass.cdf_engine != "analytic":
-        raise NotImplementedError(
-            "the fused CUDA kernel covers PowerLawPeak with the analytic CDF")
+    check_cuda_call("fused_weights_kde", cosmo, mass, dl,
+                    {"m1det": m1det, "m2det": m2det, "inv_pe_prior": inv_pe_prior})
     if kernel not in ("epan", "gauss"):
         raise ValueError(f"unknown KDE kernel {kernel!r}")
     bw_mode, bw_value = _bw_code(bw_method)
     dt = dl.dtype
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"fused_weights_kde takes float32 or float64, not {dt}")
     e, s = dl.shape
     g = grids.shape[1]
-    for name, t in (("m1det", m1det), ("m2det", m2det),
-                    ("inv_pe_prior", inv_pe_prior)):
-        if t.shape != (e, s) or t.dtype != dt or t.device != dl.device:
-            raise ValueError(f"{name} must be ({e}, {s}) {dt} on {dl.device}")
     if grids.shape != (e, g) or grids.dtype != dt or grids.device != dl.device:
         raise ValueError(f"grids must be ({e}, G) {dt} on {dl.device}")
     n = max(cosmo.L, mass.L)
-    params = pack_params(cosmo, mass, n).to(device=dl.device, dtype=dt)
-    p = params.shape[1]
-    smem = s * 2 * dl.element_size() + p * dl.element_size()
+    series, params = (t.to(dl.device) for t in pack_params(cosmo, mass, n, dt))
+    # K1a sums the Chebyshev series in the working dtype
+    smem = smem_bytes(series, dl.element_size(), params, 2 * s)
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"S = {s} samples need {smem} bytes of shared memory per block "
@@ -167,22 +245,77 @@ def fused_weights_kde(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids,
     inputs = [t.contiguous() for t in (m1det, m2det, dl, inv_pe_prior, grids)]
     den = torch.empty((n, e, g), dtype=dt, device=dl.device)
     stats = torch.empty((n, e, 8), dtype=dt, device=dl.device)
-
-    lib = build.load("fused_kde")  # nvcc at first use
-    fn = lib.chimera_fused_kde_f32 if dt == torch.float32 else lib.chimera_fused_kde_f64
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 8 + [i32] * 9 + [ctypes.c_double, ptr]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dl.device):
-        stream = torch.cuda.current_stream(dl.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in inputs), params.data_ptr(),
-                 den.data_ptr(), stats.data_ptr(),
-                 n, e, s, g, p, cosmo.cheb_deg, mass.window_deg,
-                 0 if kernel == "epan" else 1, bw_mode, bw_value, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_kde kernel launch failed: cudaError {err}")
+    launch("fused_kde", "chimera_fused_kde", dt, dl.device,
+           [*inputs, series, params, den, stats, n, e, s, g, cosmo.cheb_deg,
+            mass.window_deg, 0 if kernel == "epan" else 1, bw_mode,
+            float(bw_value)])
     fused_weights_kde.launches += 1
     return den, _stats_dict(stats)
 
 
 fused_weights_kde.launches = 0
+
+
+def fused_row_stats_plain(m1det, m2det, dl, inv_pe_prior, cosmo, mass,
+                          n_real, dl_fill, logical_s: int, cut_grid: float = 2.0,
+                          bw_method=None) -> dict:
+    """Plain PyTorch version of ``fused_row_stats`` (``_reference_impl`` in
+    its stats-only mode)."""
+    return fused_weights_kde_plain(
+        m1det, m2det, dl, inv_pe_prior, cosmo, mass, bw_method=bw_method,
+        n_real=n_real, dl_fill=dl_fill, logical_s=logical_s,
+        cut_grid=cut_grid, stats_only=True)[1]
+
+
+def fused_row_stats(m1det, m2det, dl, inv_pe_prior, cosmo, mass, n_real,
+                    dl_fill, logical_s: int, cut_grid: float = 2.0,
+                    bw_method=None) -> dict:
+    """Row statistics of a λ batch with no KDE (the stats-only mode of the
+    TPU kernel, K1c): the first pass of the dark-siren 'marginalized' path.
+
+    Args:
+      m1det, m2det, dl, inv_pe_prior: (B, S) rows, each holding its
+        ``n_real[b]`` samples first and zero-weight fillers at ``dl_fill[b]``
+        after them (``data.pixelize.compact_samples_by_pixel``).
+      n_real, dl_fill, logical_s: (B,) int, (B,) and int — the statistics
+        are those of the logical row of ``logical_s`` samples, the
+        ``logical_s - n_real`` missing ones at z(dl_fill) with zero weight.
+      cut_grid: lo, ub = the z range -/+ cut_grid sigma (lo floored at
+        1e-8), as the TPU kernel computes them.
+
+    Returns a dict of (L, B) stats: lo, ub, norms (sum_w / logical_s), neff,
+    bandwidth, sum_w, sum_w2.  CPU tensors take the plain version (the TPU
+    kernel's safe-math); on CUDA the kernel keeps the raw formulas (NaN
+    neff and bandwidth on a zero-weight row).
+    """
+    if dl.device.type == "cpu":
+        return fused_row_stats_plain(m1det, m2det, dl, inv_pe_prior, cosmo,
+                                     mass, n_real, dl_fill, logical_s,
+                                     cut_grid, bw_method)
+    check_cuda_call("fused_row_stats", cosmo, mass, dl,
+                    {"m1det": m1det, "m2det": m2det, "inv_pe_prior": inv_pe_prior})
+    bw_mode, bw_value = _bw_code(bw_method)
+    dt = dl.dtype
+    b, s = dl.shape
+    if n_real.shape != (b,) or dl_fill.shape != (b,):
+        raise ValueError(f"n_real and dl_fill must be ({b},)")
+    n = max(cosmo.L, mass.L)
+    series, params = (t.to(dl.device) for t in pack_params(cosmo, mass, n, dt))
+    # the dark-siren kernels sum the Chebyshev series in float64
+    smem = smem_bytes(series, 8, params, s)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"S = {s} samples need {smem} bytes of shared memory per block "
+            f"(z of every sample), over the {_SMEM_LIMIT}-byte limit")
+    inputs = [t.contiguous() for t in (m1det, m2det, dl, inv_pe_prior)]
+    stats = torch.empty((n, b, 8), dtype=dt, device=dl.device)
+    launch("fused_kde", "chimera_row_stats", dt, dl.device,
+           [*inputs, n_real.to(device=dl.device, dtype=torch.int64).contiguous(),
+            dl_fill.to(device=dl.device, dtype=dt).contiguous(), series, params,
+            stats, n, b, s, cosmo.cheb_deg, mass.window_deg, int(logical_s),
+            bw_mode, float(bw_value), float(cut_grid)])
+    fused_row_stats.launches += 1
+    return _stats_dict(stats)
+
+
+fused_row_stats.launches = 0

@@ -18,6 +18,16 @@ def trapz(y: torch.Tensor, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
                            dim=dim)
 
 
+def trapz_weights(x: torch.Tensor) -> torch.Tensor:
+    """Per-node trapezoid weights over the last axis:
+    ``trapz(y, x) == sum(trapz_weights(x) * y, -1)`` up to summation order.
+    They fold the z-integral into the dark-siren contraction as a static
+    factor."""
+    dx = torch.diff(x, dim=-1)
+    zeros = torch.zeros_like(x[..., :1])
+    return 0.5 * (torch.cat([zeros, dx], dim=-1) + torch.cat([dx, zeros], dim=-1))
+
+
 def cumtrapz(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Cumulative trapezoid over the last axis with a leading zero (shape
     preserved): out[0] = 0, out[i] = sum_{j<i} 0.5 (y[j] + y[j+1]) dx[j]."""

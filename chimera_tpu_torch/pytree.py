@@ -20,7 +20,7 @@ from typing import Any, Callable
 
 import torch
 
-from chimera_tpu_torch.config import default_dtype
+from chimera_tpu_torch.config import default_dtype, resolve_device
 
 
 def lam(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -60,6 +60,21 @@ def expand_batch(obj: Any, n: int) -> Any:
     return tensor_map(obj, lambda t: t.expand((n,) + tuple(t.shape[1:])))
 
 
+def fit_in_float64(model: Any, build: Callable[[Any], Any]) -> Any:
+    """Run ``build`` (a model's table fits) in float64 whatever the model's
+    dtype, and cast the result back, except the fields the model lists in
+    ``float64_fields``.  The fits are a few small tensor ops per λ; a
+    float32 fit biases the tables (see ``models.cosmology.z_from_dgw``)."""
+    dtype = next(v.dtype for v in vars(model).values() if isinstance(v, torch.Tensor))
+    if dtype == torch.float64:
+        return build(model)
+    out = build(tensor_map(model, lambda t: t.to(torch.float64)))
+    keep = getattr(model, "float64_fields", ())
+    return dataclasses.replace(out, **{
+        f.name: getattr(out, f.name).to(dtype) for f in dataclasses.fields(out)
+        if isinstance(getattr(out, f.name), torch.Tensor) and f.name not in keep})
+
+
 def resolve_params(cls, kwargs: dict, device, dtype) -> tuple[dict, dict]:
     """A model's ``create`` arguments -> (hyper-parameters as tensors
     broadcast to one λ length, config values); ``cls`` declares
@@ -67,7 +82,7 @@ def resolve_params(cls, kwargs: dict, device, dtype) -> tuple[dict, dict]:
     unknown = set(kwargs) - set(cls.hyper_defaults) - set(cls.config_keys)
     if unknown:
         raise TypeError(f"unknown {cls.name} parameters: {sorted(unknown)}")
-    device = torch.device(device if device is not None else "cpu")
+    device = resolve_device(device)
     dtype = dtype or default_dtype(device)
     hyper = {k: as_batch(kwargs.get(k, d), device, dtype)
              for k, d in cls.hyper_defaults.items()}

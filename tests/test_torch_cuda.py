@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernel of the PyTorch port, on the card.
+"""The hand-written CUDA kernels of the PyTorch port, on the card: K1a
+(spectral), K1c and K2 (dark siren).
 
 Every test here needs a CUDA card and nvcc (marker ``cuda``) and skips
 without one.  The file imports no JAX, so it runs on a machine without it:
@@ -17,8 +18,12 @@ from chimera_tpu_torch import HyperLikelihood, SelectionFunction
 from chimera_tpu_torch.data.mock import make_mock_catalog, make_mock_injections
 from chimera_tpu_torch.models import (FLRW, MadauDickinsonRate, Population,
                                       PowerLawPeak, compute_z_grids)
-from chimera_tpu_torch.ops.cuda.fused import (fused_weights_kde,
+from chimera_tpu_torch.ops.cuda.fused import (fused_row_stats,
+                                              fused_row_stats_plain,
+                                              fused_weights_kde,
                                               fused_weights_kde_plain)
+from chimera_tpu_torch.ops.cuda.rows import (fused_rows_contract,
+                                             fused_rows_contract_plain)
 
 H0S = [62.0, 70.0, 78.0]
 
@@ -28,7 +33,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the hand-written fused_kde kernel)")
+        pytest.skip("needs a CUDA card (the hand-written CUDA kernels)")
     return torch.device("cuda", 0)
 
 
@@ -36,8 +41,9 @@ def cuda():
 def cpu_hl():
     """16 events x 256 samples x 64-point grids, 20k generated injections,
     float64 on the CPU; event 5 has zero weight (infinite PE prior)."""
-    pop = Population.create(FLRW.create(), PowerLawPeak.create(),
-                            MadauDickinsonRate.create())
+    pop = Population.create(FLRW.create(device="cpu"),
+                            PowerLawPeak.create(device="cpu"),
+                            MadauDickinsonRate.create(device="cpu"))
     gen = torch.Generator().manual_seed(7)
     cat = make_mock_catalog(gen, pop, n_events=16, n_samples=256)
     inj, n_gen = make_mock_injections(gen, pop, n_generated=20_000)
@@ -115,3 +121,116 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda, cpu_hl):
     big = [torch.ones((2, too_many), dtype=torch.float64, device=cuda)] * 4
     with pytest.raises(ValueError, match="shared memory"):
         fused_weights_kde(*big, args[4], args[5], args[6][:2])
+
+
+# ---------------------------------------------------------------------------
+# the dark-siren kernels
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def dark_cpu_hl():
+    """'marginalized' likelihood on port-made data, float64 on the CPU: 16
+    events x 256 samples, nside {8, 16}, ~6 pixels per event, 64-point
+    grids, 3000 background galaxies, 20k generated injections.  Every sample
+    of event 3's first pixel has zero weight (infinite PE prior): a dead
+    pixel."""
+    from chimera_tpu_torch.catalog import DVdzCompleteness
+    from chimera_tpu_torch.catalog.build import build_pixelated_catalog
+    from chimera_tpu_torch.data.mock import make_mock_galaxies
+    from chimera_tpu_torch.data.pixelize import pixelize_gw_catalog
+
+    pop = Population.create(FLRW.create(device="cpu"),
+                            PowerLawPeak.create(device="cpu"),
+                            MadauDickinsonRate.create(device="cpu"))
+    gen = torch.Generator().manual_seed(11)
+    cat, truths = make_mock_catalog(gen, pop, n_events=16, n_samples=256,
+                                    sigma_sky_rad=0.03, oversample=400,
+                                    return_truths=True)
+    cat = pixelize_gw_catalog(cat, nside_list=[8, 16], mean_npixels_event=6)
+    prior = cat.pe_prior.clone()
+    prior[3][cat.pixels_pe_opt_nside[3] == cat.pixels_opt_nsides[3, 0]] = torch.inf
+    cat = cat.update(pe_prior=prior)
+    z_grids = compute_z_grids(pop.cosmo, cat, cosmo_prior={"H0": [40.0, 120.0]},
+                              z_int_res=64)
+    gal = make_mock_galaxies(gen, pop, truths, n_background=3000)
+    gc = build_pixelated_catalog(
+        gal, cat, z_grids, pop.cosmo,
+        DVdzCompleteness.create(z_range=(0.0, 3.0), device="cpu"))
+    inj, n_gen = make_mock_injections(gen, pop, n_generated=20_000)
+    pop = Population.create(pop.cosmo, pop.mass, pop.rate, gal_cat=gc)
+    return HyperLikelihood.create(cat, z_grids, pop,
+                                  SelectionFunction.create(inj, n_gen),
+                                  kind="marginalized", binning=False,
+                                  cut_grid=None)
+
+
+def _dark_args(hl, kernel):
+    pop_b = hl.population.update_batch({"H0": H0S})
+    stats_args = (hl.pix_m1det, hl.pix_m2det, hl.pix_dL, hl.pix_inv_pe_prior,
+                  pop_b.cosmo, pop_b.mass, hl.pix_n_real, hl.pix_dl_fill,
+                  hl.n_samples)
+    f1, f2, _ = hl.lambda_factors(pop_b)
+    hs = hl.row_scales(fused_row_stats_plain(*stats_args))
+    rows_args = (hl.row_m1det, hl.row_m2det, hl.row_dL, hl.row_inv_pe_prior,
+                 pop_b.cosmo, pop_b.mass, hl.z_grids, hs, hl.row_s1,
+                 hl.row_s2, f1, f2, kernel)
+    return stats_args, rows_args
+
+
+@pytest.mark.parametrize("dtype,stat_tol,r_tol",
+                         [(torch.float64, 1e-10, 1e-10),
+                          (torch.float32, 1e-5, 1e-4)])
+@pytest.mark.parametrize("kernel", ["epan", "gauss"])
+def test_dark_kernels_match_plain(cuda, dark_cpu_hl, dtype, stat_tol, r_tol,
+                                  kernel):
+    """K1c stats relative on the pixel rows with weight (lo, ub relative to
+    the largest ub), K2 r within r_tol of each λ's largest |r|, on the same
+    inputs; one launch each."""
+    stats_args, rows_args = _dark_args(
+        copy.deepcopy(dark_cpu_hl).to(device=cuda, dtype=dtype), kernel)
+    before = (fused_row_stats.launches, fused_rows_contract.launches)
+    st, st_p = fused_row_stats(*stats_args), fused_row_stats_plain(*stats_args)
+    r, r_p = fused_rows_contract(*rows_args), fused_rows_contract_plain(*rows_args)
+    torch.cuda.synchronize()
+    assert (fused_row_stats.launches, fused_rows_contract.launches) == \
+        (before[0] + 1, before[1] + 1)
+    live = st_p["sum_w"] > 0
+    ub_max = st_p["ub"].abs().max()
+    for k in ("lo", "ub", "norms", "neff", "bandwidth", "sum_w", "sum_w2"):
+        ref = ub_max if k in ("lo", "ub") else st_p[k].abs()[live]
+        rel = ((st[k] - st_p[k]).abs()[live] / ref).max().item()
+        assert rel <= stat_tol, (k, rel)
+    r_max = r_p.abs().amax(dim=(1, 2), keepdim=True)
+    assert ((r - r_p).abs() / r_max).max().item() <= r_tol
+
+
+def test_dead_pixel_row_is_exactly_zero(cuda, dark_cpu_hl):
+    """The dead pixel: K1c gives zero weight sums (and the raw NaN
+    bandwidth), the scale guard gives 0, and K2 writes exact zeros."""
+    hl = copy.deepcopy(dark_cpu_hl).to(cuda)
+    stats_args, _ = _dark_args(hl, "epan")
+    st = fused_row_stats(*stats_args)
+    dead = 3 * hl.n_pixels
+    assert torch.all(st["sum_w"][:, dead] == 0)
+    assert torch.all(torch.isnan(st["bandwidth"][:, dead]))
+    pop_b = hl.population.update_batch({"H0": H0S})
+    f1, f2, _ = hl.lambda_factors(pop_b)
+    hs = hl.row_scales(st)
+    rows = hl.row_pixel == dead
+    assert rows.any() and torch.all(hs[:, rows, 1] == 0)
+    r = fused_rows_contract(hl.row_m1det, hl.row_m2det, hl.row_dL,
+                            hl.row_inv_pe_prior, pop_b.cosmo, pop_b.mass,
+                            hl.z_grids, hs, hl.row_s1, hl.row_s2, f1, f2)
+    assert torch.all(r[:, rows] == 0)
+    assert torch.all(r[:, ~rows].abs().amax(dim=(1, 2)) > 0)
+
+
+def test_dark_log_like_batch_matches_cpu(cuda, dark_cpu_hl):
+    card = copy.deepcopy(dark_cpu_hl).to(cuda)
+    before = (fused_row_stats.launches, fused_rows_contract.launches)
+    got = card.log_like_batch({"H0": H0S}).cpu()
+    assert (fused_row_stats.launches, fused_rows_contract.launches) == \
+        (before[0] + 1, before[1] + 1)
+    expect = dark_cpu_hl.log_like_batch({"H0": H0S})
+    assert torch.all(torch.isfinite(expect))
+    torch.testing.assert_close(got, expect, rtol=1e-10, atol=0)

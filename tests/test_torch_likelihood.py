@@ -119,7 +119,7 @@ def test_to_moves_data_and_population(state):
 
 
 @pytest.mark.parametrize("kw", [{"binning": True}, {"cut_grid": 2.0},
-                                {"kind": "marginalized"}])
+                                {"kind": "full"}])
 def test_unported_configurations_raise(state, kw):
     from chimera_tpu_torch.data.structs import ThetaPEDet
 
@@ -163,6 +163,10 @@ import importlib, pkgutil, sys
 import chimera_tpu_torch
 for m in pkgutil.walk_packages(chimera_tpu_torch.__path__, "chimera_tpu_torch."):
     importlib.import_module(m.name)
+for name in ("ops.healpix", "ops.kde", "ops.cuda.fused", "ops.cuda.rows",
+             "data.pixelize", "data.mock", "catalog.completeness",
+             "catalog.pixelated", "catalog.build", "likelihood", "convert"):
+    assert "chimera_tpu_torch." + name in sys.modules, name
 assert "jax" not in sys.modules, sorted(k for k in sys.modules if "jax" in k)
 print("ok")
 """

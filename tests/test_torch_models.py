@@ -44,8 +44,9 @@ def _close(got, expect, rtol=RTOL):
 
 
 def _port_population():
-    return Population.create(FLRW.create(H0=70.0, Om0=0.25), PowerLawPeak.create(),
-                             MadauDickinsonRate.create())
+    return Population.create(FLRW.create(H0=70.0, Om0=0.25, device="cpu"),
+                             PowerLawPeak.create(device="cpu"),
+                             MadauDickinsonRate.create(device="cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -76,6 +77,18 @@ def test_from_state_roundtrip(fiducial_population):
     pop = Population.from_state(state, device="cpu", dtype=F64)
     assert pop.L == 1 and pop.cosmo.cheb_logh.shape == (1, 64)
     _close(pop.mass.cheb_cdf_window[0], state["mass.cheb_cdf_window"], rtol=0)
+
+
+def test_float32_conditional_cdf_just_above_m_low():
+    """The window series is summed in float64: the float32 CDF keeps its
+    float64 value to float32 accuracy where it is tiny against the series'
+    terms (a float32 sum is off by 6 % at m_low + 0.41)."""
+    m1 = torch.tensor([[5.51353, 6.0, 8.0, 30.0]], dtype=F64)
+    expect = PowerLawPeak.create(device="cpu", dtype=F64).conditional_cdf_at(m1)
+    got = PowerLawPeak.create(device="cpu", dtype=torch.float32
+                              ).conditional_cdf_at(m1.float())
+    assert got.dtype == torch.float32
+    assert ((got.double() - expect).abs() / expect).max().item() <= 1e-5
 
 
 def test_z_from_dgw_with_clamping(batches):
@@ -130,7 +143,7 @@ def test_compute_z_grids(mock_catalog, h0, om0):
     cosmo = JFLRW.create(H0=h0, Om0=om0)
     expect = _j_z_grids(cosmo, mock_catalog, {"H0": [40.0, 120.0]})
     theta = ThetaPEDet(dL=_t(mock_catalog.dL))
-    got = compute_z_grids(FLRW.create(H0=h0, Om0=om0), theta,
+    got = compute_z_grids(FLRW.create(H0=h0, Om0=om0, device="cpu"), theta,
                           cosmo_prior={"H0": [40.0, 120.0]}, z_int_res=50)
     _close(got, expect)
 
