@@ -14,7 +14,12 @@ evaluated directly on the analysis z-grids (``cut_grid=None``):
   λ-independent contraction factors are built once, in ``create``.
 
 Each kernel runs as its CUDA kernel on CUDA tensors and as its plain
-PyTorch version on CPU tensors.  ``HyperLikelihood`` is an ``nn.Module``
+PyTorch version on CPU tensors.  ``log_like_batch`` is differentiable in
+the hyper-parameters: pass tensors that require grad.  On CPU tensors the
+whole backward is autograd through the plain versions; on CUDA tensors the
+backward of the spectral kind's fused pass is the adjoint kernel K3, and
+the dark kind has no backward yet (it raises).  ``HyperLikelihood`` is an
+``nn.Module``
 whose buffers hold the PE data, layouts, z-grids and (in its ``selection``)
 the injections; ``.to(device, dtype)`` moves them and the population's
 tensors together.
@@ -206,7 +211,9 @@ class HyperLikelihood(nn.Module):
     def from_state(cls, state: dict, device=None, dtype=None) -> "HyperLikelihood":
         """Rebuild from ``convert.state_from_reference(jax_hyperlikelihood)``:
         the same PE data (and pixelation), z-grids, injections, population
-        (its built tables and catalog included) and configuration."""
+        (its built tables and catalog included) and configuration.  The
+        JAX object's ``grad_engine`` has no counterpart here (the backward
+        follows the tensors' device) and is not read."""
         pop = Population.from_state(state, "population.", device, dtype)
         ref = pop.cosmo.H0
 
@@ -249,12 +256,18 @@ class HyperLikelihood(nn.Module):
         return self._numerators_1d(pop_b)
 
     def _numerators_1d(self, pop_b: Population) -> torch.Tensor:
-        """The fused weights+KDE densities, gated by N_eff, times p_cbc over
-        the detector jacobian, integrated over the z-grids."""
+        """The fused weights+KDE pass, then ``numerators_from_densities``."""
         den, stats = fused_weights_kde(
             self.m1det, self.m2det, self.dL, self.inv_pe_prior,
             pop_b.cosmo, pop_b.mass, self.z_grids,
             kernel=self.kernel, bw_method=self.bw_method)
+        return self.numerators_from_densities(pop_b, den, stats)
+
+    def numerators_from_densities(self, pop_b: Population, den: torch.Tensor,
+                                  stats: dict) -> torch.Tensor:
+        """Spectral numerators (L, Nev) from the fused pass's outputs: the
+        densities, gated by N_eff, times p_cbc over the detector jacobian,
+        integrated over the z-grids."""
         gate = stats["neff"] >= self.pe_neff
         p_gw = torch.where(gate[..., None], torch.nan_to_num(den), 0.0)
         zg = self.z_grids[None]
@@ -320,7 +333,7 @@ class HyperLikelihood(nn.Module):
 
     def log_like_batch(self, hyper_batch: dict) -> torch.Tensor:
         """Log hyper-likelihood for a batch of λ (dict of equal-length 1-D
-        arrays) — (L,)."""
+        arrays) — (L,).  Tensors that require grad stay in the graph."""
         pop_b = self.population.update_batch(hyper_batch)
         log_evs = torch.nan_to_num(torch.log(self.batch_numerators(pop_b)),
                                    nan=-torch.inf)

@@ -17,15 +17,27 @@ Per (λ, row), with S samples and G grid points:
   fillers at ``dl_fill``, standing for the event's ``logical_s`` samples
   with the out-of-pixel ones at the filler z).
 
-Both run the hand-written CUDA kernels (``chimera_tpu_torch/csrc/
-fused_kde.cu``) on CUDA tensors and the plain PyTorch version
-``fused_weights_kde_plain`` on CPU tensors; on CUDA they launch the kernel
-or raise.
+* ``fused_weights_kde_adjoint`` (K3): the backward of ``fused_weights_kde``
+  in the hyper-parameters — given cotangents of (den, stats), the gradients
+  of the two packed per-λ rows of ``pack_params``.
+
+They run the hand-written CUDA kernels (``chimera_tpu_torch/csrc/
+fused_kde.cu``, ``fused_kde_adjoint.cu``) on CUDA tensors and the plain
+PyTorch versions ``fused_weights_kde_plain`` and
+``fused_weights_kde_adjoint_plain`` on CPU tensors; on CUDA they launch the
+kernel or raise.
+
+Gradients.  On CPU tensors ``fused_weights_kde`` is its plain version and
+autograd differentiates it.  On CUDA tensors the K1a launch sits in a
+``torch.autograd.Function`` whose backward returns gradients for the packed
+rows only (the PE data and grids get none: samplers differentiate
+hyper-parameters) by launching K3.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
@@ -46,6 +58,11 @@ MASS_SCALARS = ("m_low", "m_high", "alpha", "beta", "delta_m", "lambda_peak",
 _SMEM_LIMIT = 232448 - 1024
 # elements of one (L, events, G, S) intermediate in the plain version
 _PLAIN_BUDGET = 1 << 25
+# largest Chebyshev degree of either series in the adjoint kernel (its
+# per-thread coefficient accumulators, csrc/fused_kde_adjoint.cu), and room
+# for its static shared memory (block-sum scratch and the dual mass model)
+_ADJOINT_MAX_DEG = 64
+_ADJOINT_STATIC_SMEM = 8192
 
 
 def _stats_dict(stats: torch.Tensor) -> dict:
@@ -183,6 +200,16 @@ def check_cuda_call(name: str, cosmo, mass, dl, others: dict) -> None:
             raise ValueError(f"{key} must be {tuple(dl.shape)} {dt} on {dl.device}")
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would record a kernel launch that has no
+    backward: its outputs would come back as constants and the gradient be
+    silently short of their part."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward on CUDA tensors: the dark-siren gradient "
+            "is ROADMAP.md §1 item 9")
+
+
 def launch(lib_name: str, symbol: str, dtype, device, args) -> None:
     """Call ``<symbol>_f32`` or ``<symbol>_f64`` of ``csrc/<lib_name>.cu`` on
     the current stream; each arg is a tensor (its pointer), an int or a
@@ -199,6 +226,24 @@ def launch(lib_name: str, symbol: str, dtype, device, args) -> None:
                    for a in args), stream)
     if err != 0:
         raise RuntimeError(f"{symbol} kernel launch failed: cudaError {err}")
+
+
+def _launch_fused_kde(series, params, m1det, m2det, dl, inv_pe_prior, grids,
+                      cosmo, mass, kernel, bw_method):
+    """Launch K1a on checked inputs; returns den (L, E, G) and the stats
+    tensor (L, E, 8)."""
+    bw_mode, bw_value = _bw_code(bw_method)
+    dt = dl.dtype
+    e, s = dl.shape
+    n, g = series.shape[0], grids.shape[1]
+    den = torch.empty((n, e, g), dtype=dt, device=dl.device)
+    stats = torch.empty((n, e, 8), dtype=dt, device=dl.device)
+    launch("fused_kde", "chimera_fused_kde", dt, dl.device,
+           [m1det, m2det, dl, inv_pe_prior, grids, series, params, den, stats,
+            n, e, s, g, cosmo.cheb_deg, mass.window_deg,
+            0 if kernel == "epan" else 1, bw_mode, float(bw_value)])
+    fused_weights_kde.launches += 1
+    return den, stats
 
 
 def fused_weights_kde(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids,
@@ -219,7 +264,9 @@ def fused_weights_kde(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids,
     CPU tensors take the plain version.  CUDA tensors launch the kernel and
     raise on anything it does not take; the kernel's row statistics are the
     raw formulas (a dead row gives NaN where the plain version clamps — the
-    N_eff gate and nan_to_num downstream treat both alike).
+    N_eff gate and nan_to_num downstream treat both alike).  Where a model
+    tensor requires grad, the backward on CUDA tensors is the adjoint kernel
+    (``fused_weights_kde_adjoint``).
     """
     if dl.device.type == "cpu":
         return fused_weights_kde_plain(m1det, m2det, dl, inv_pe_prior, cosmo,
@@ -228,7 +275,6 @@ def fused_weights_kde(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids,
                     {"m1det": m1det, "m2det": m2det, "inv_pe_prior": inv_pe_prior})
     if kernel not in ("epan", "gauss"):
         raise ValueError(f"unknown KDE kernel {kernel!r}")
-    bw_mode, bw_value = _bw_code(bw_method)
     dt = dl.dtype
     e, s = dl.shape
     g = grids.shape[1]
@@ -243,17 +289,159 @@ def fused_weights_kde(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids,
             f"S = {s} samples need {smem} bytes of shared memory per block "
             f"(z and w of every sample), over the {_SMEM_LIMIT}-byte limit")
     inputs = [t.contiguous() for t in (m1det, m2det, dl, inv_pe_prior, grids)]
-    den = torch.empty((n, e, g), dtype=dt, device=dl.device)
-    stats = torch.empty((n, e, 8), dtype=dt, device=dl.device)
-    launch("fused_kde", "chimera_fused_kde", dt, dl.device,
-           [*inputs, series, params, den, stats, n, e, s, g, cosmo.cheb_deg,
-            mass.window_deg, 0 if kernel == "epan" else 1, bw_mode,
-            float(bw_value)])
-    fused_weights_kde.launches += 1
+    if torch.is_grad_enabled() and (series.requires_grad or params.requires_grad):
+        den, stats = _FusedKDE.apply(series, params, *inputs, cosmo, mass,
+                                     kernel, bw_method)
+    else:
+        den, stats = _launch_fused_kde(series, params, *inputs, cosmo, mass,
+                                       kernel, bw_method)
     return den, _stats_dict(stats)
 
 
 fused_weights_kde.launches = 0
+
+
+def unpack_params(cosmo: FLRW, mass: PowerLawPeak, series: torch.Tensor,
+                  params: torch.Tensor) -> tuple[FLRW, PowerLawPeak]:
+    """The inverse of ``pack_params``: ``cosmo`` and ``mass`` with the
+    packed fields replaced by the rows' columns (the other fields, which
+    the fused pass does not read, stay)."""
+    cd = cosmo.cheb_deg
+    cosmo = dataclasses.replace(
+        cosmo, cheb_logh=series[:, :cd], dgw_lo=series[:, cd],
+        dgw_max=series[:, cd + 1])
+    mass = dataclasses.replace(
+        mass, cheb_cdf_window=series[:, cd + 2:],
+        **{k: params[:, i] for i, k in enumerate(MASS_SCALARS)})
+    return cosmo, mass
+
+
+def fused_weights_kde_adjoint_plain(m1det, m2det, dl, inv_pe_prior, grids,
+                                    series, params, ct_den, ct_stats,
+                                    cosmo, mass, kernel: str = "epan",
+                                    bw_method=None):
+    """Plain PyTorch version of ``fused_weights_kde_adjoint``: the
+    vector-Jacobian product of ``fused_weights_kde_plain`` in the packed
+    rows, by autograd, one chunk of events at a time so that no
+    (L, E, G, S) graph is ever held."""
+    e, s = dl.shape
+    n, g = series.shape[0], grids.shape[1]
+    series = series.detach().requires_grad_()
+    params = params.detach().requires_grad_()
+    d_series = torch.zeros_like(series)
+    d_params = torch.zeros_like(params)
+    chunk = max(1, _PLAIN_BUDGET // (n * g * s))
+    with torch.enable_grad():
+        for e0 in range(0, e, chunk):
+            rows = slice(e0, min(e, e0 + chunk))
+            cos, mas = unpack_params(cosmo, mass, series, params)
+            den, stats = fused_weights_kde_plain(
+                m1det[rows], m2det[rows], dl[rows], inv_pe_prior[rows], cos,
+                mas, grids[rows], kernel, bw_method)
+            out = torch.sum(den * ct_den[:, rows])
+            for i, k in enumerate(STAT_NAMES):
+                if i >= 2:  # lo, ub are constants on analysis grids
+                    out = out + torch.sum(stats[k] * ct_stats[:, rows, i])
+            gs, gp = torch.autograd.grad(out, (series, params))
+            d_series += gs
+            d_params += gp
+    return d_series, d_params
+
+
+def fused_weights_kde_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
+                              params, ct_den, ct_stats, cosmo, mass,
+                              kernel: str = "epan", bw_method=None):
+    """Backward of ``fused_weights_kde`` in the hyper-parameters (K3).
+
+    Args:
+      m1det, m2det, dl, inv_pe_prior, grids: the forward's data.
+      series, params: the packed per-λ rows of ``pack_params``.
+      ct_den (L, E, G), ct_stats (L, E, 8): cotangents of the forward's
+        densities and of its stats in the order of ``STAT_NAMES`` (slots 0,
+        1 and 7 are not read: lo and ub are constants on analysis grids).
+      cosmo, mass: the models the rows were packed from (their degrees and
+        engines; the plain version rebuilds them around the rows).
+
+    Returns d_series (L, cheb_deg + 2 + window_deg) float64 and d_params
+    (L, 12), summed over events in a fixed order: equal inputs give equal
+    bits.  The row statistics are differentiated in their safe-math form
+    (variance floored, N_eff clamped to [1, S]), so a dead row with zero
+    cotangents adds exact zeros.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise.
+    """
+    if dl.device.type == "cpu":
+        return fused_weights_kde_adjoint_plain(
+            m1det, m2det, dl, inv_pe_prior, grids, series, params, ct_den,
+            ct_stats, cosmo, mass, kernel, bw_method)
+    check_cuda_call("fused_weights_kde_adjoint", cosmo, mass, dl,
+                    {"m1det": m1det, "m2det": m2det, "inv_pe_prior": inv_pe_prior})
+    if kernel not in ("epan", "gauss"):
+        raise ValueError(f"unknown KDE kernel {kernel!r}")
+    bw_mode, bw_value = _bw_code(bw_method)
+    dt = dl.dtype
+    e, s = dl.shape
+    g = grids.shape[1]
+    n, q = series.shape
+    if cosmo.cheb_deg > _ADJOINT_MAX_DEG or mass.window_deg > _ADJOINT_MAX_DEG:
+        raise ValueError(
+            f"the adjoint kernel takes Chebyshev degrees up to {_ADJOINT_MAX_DEG}")
+    expect = {"grids": ((e, g), dt), "series": ((n, cosmo.cheb_deg + 2
+                                                 + mass.window_deg), torch.float64),
+              "params": ((n, len(MASS_SCALARS)), dt),
+              "ct_den": ((n, e, g), dt), "ct_stats": ((n, e, 8), dt)}
+    given = {"grids": grids, "series": series, "params": params,
+             "ct_den": ct_den, "ct_stats": ct_stats}
+    for key, (shape, dtype) in expect.items():
+        t = given[key]
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != dl.device:
+            raise ValueError(f"{key} must be {shape} {dtype} on {dl.device}")
+    # z, w and their cotangents of every sample, the grid with its scaled
+    # cotangents, the model rows
+    smem = smem_bytes(series, dl.element_size(), params, 4 * s + 2 * g)
+    if smem > _SMEM_LIMIT - _ADJOINT_STATIC_SMEM:
+        raise ValueError(
+            f"S = {s} samples need {smem} bytes of shared memory per block "
+            f"(z, w, dz and dw of every sample), over the "
+            f"{_SMEM_LIMIT - _ADJOINT_STATIC_SMEM}-byte limit")
+    inputs = [t.contiguous() for t in (m1det, m2det, dl, inv_pe_prior, grids,
+                                       series, params, ct_den, ct_stats)]
+    partials = torch.empty((n, e, q + len(MASS_SCALARS)), dtype=torch.float64,
+                           device=dl.device)
+    d_series = torch.empty((n, q), dtype=torch.float64, device=dl.device)
+    d_params = torch.empty((n, len(MASS_SCALARS)), dtype=dt, device=dl.device)
+    launch("fused_kde_adjoint", "chimera_fused_kde_adjoint", dt, dl.device,
+           [*inputs, partials, d_series, d_params, n, e, s, g, cosmo.cheb_deg,
+            mass.window_deg, 0 if kernel == "epan" else 1, bw_mode,
+            float(bw_value)])
+    fused_weights_kde_adjoint.launches += 1
+    return d_series, d_params
+
+
+fused_weights_kde_adjoint.launches = 0
+
+
+class _FusedKDE(torch.autograd.Function):
+    """K1a forward on CUDA tensors with K3 as the backward in the packed
+    rows."""
+
+    @staticmethod
+    def forward(ctx, series, params, m1det, m2det, dl, inv_pe_prior, grids,
+                cosmo, mass, kernel, bw_method):
+        ctx.save_for_backward(series, params, m1det, m2det, dl, inv_pe_prior,
+                              grids)
+        ctx.cfg = (cosmo, mass, kernel, bw_method)
+        return _launch_fused_kde(series, params, m1det, m2det, dl,
+                                 inv_pe_prior, grids, cosmo, mass, kernel,
+                                 bw_method)
+
+    @staticmethod
+    def backward(ctx, ct_den, ct_stats):
+        series, params, *data = ctx.saved_tensors
+        cosmo, mass, kernel, bw_method = ctx.cfg
+        d_series, d_params = fused_weights_kde_adjoint(
+            *data, series, params, ct_den.contiguous(), ct_stats.contiguous(),
+            cosmo, mass, kernel, bw_method)
+        return (d_series, d_params) + (None,) * 9
 
 
 def fused_row_stats_plain(m1det, m2det, dl, inv_pe_prior, cosmo, mass,
@@ -301,6 +489,7 @@ def fused_row_stats(m1det, m2det, dl, inv_pe_prior, cosmo, mass, n_real,
         raise ValueError(f"n_real and dl_fill must be ({b},)")
     n = max(cosmo.L, mass.L)
     series, params = (t.to(dl.device) for t in pack_params(cosmo, mass, n, dt))
+    refuse_grad("fused_row_stats", series, params)
     # the dark-siren kernels sum the Chebyshev series in float64
     smem = smem_bytes(series, 8, params, s)
     if smem > _SMEM_LIMIT:

@@ -22,6 +22,7 @@ import torch
 from chimera_tpu_torch.models.cosmology import z_from_dgw
 from chimera_tpu_torch.models.mass import p_m1m2
 from chimera_tpu_torch.ops.cuda.fused import (_SMEM_LIMIT, check_cuda_call,
+                                              refuse_grad,
                                               launch, pack_params, smem_bytes)
 from chimera_tpu_torch.ops.kde import KERNELS
 
@@ -101,6 +102,7 @@ def fused_rows_contract(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids,
         if t.shape != shape or t.dtype != dt or t.device != dev:
             raise ValueError(f"{name} must be {shape} {dt} on {dev}")
     series, params = (t.to(dev) for t in pack_params(cosmo, mass, n, dt))
+    refuse_grad("fused_rows_contract", series, params, hs, f1, f2)
     # the Chebyshev series are summed in float64 (models.cosmology.z_from_dgw)
     smem = smem_bytes(series, 8, params, 2 * chunk + 3 * g)
     if smem > _SMEM_LIMIT:

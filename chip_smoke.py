@@ -1,5 +1,5 @@
 """On-card check of the PyTorch port: builds the CUDA kernels from this
-checkout, holds each against its plain PyTorch version, and drives two
+checkout, holds each against its plain PyTorch version, and drives three
 paths end to end through the entry points a user calls:
 
 * phases 3-6, the spectral-siren hyper-likelihood batch at the headline
@@ -9,9 +9,13 @@ paths end to end through the entry points a user calls:
 * phases 7-10, the dark-siren 'marginalized' batch at the flagship width
   (1000 events x 1024 samples, nside {8, 16}, 15 pixels asked per event,
   50 000 background galaxies, 500 000 generated injections, 16 H0 values):
-  the stats-only kernel (K1c) and the rows-contract kernel (K2).
+  the stats-only kernel (K1c) and the rows-contract kernel (K2);
+* phases 11-14, hyper-parameter gradients and the HMC / ChEES samplers on
+  the spectral headline likelihood (16 chains in H0, Om0, mu_g; every
+  leapfrog step one batch forward through K1a and one backward through the
+  adjoint kernel K3).
 
-Each path checks float32 against float64, elementwise against the repo's
+Each likelihood path checks float32 against float64, elementwise against the repo's
 1e-6 bar (the dark path on the repo's own precision mock,
 tests/data/f32_parity_dark.npz), and is timed.
 
@@ -26,6 +30,7 @@ both times and the least time the card could take for the same work.
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -47,6 +52,11 @@ PEAK_FP32 = 67e12
 # FP32 operations of one KDE term: (g - z), * 1/h, u*u, 1 - u^2, max, fma;
 # of one Clenshaw coefficient: fma and subtract
 KDE_OPS, CHEB_OPS = 7, 3
+# of one term of the KDE adjoint: (g - z), * 1/h, u*u, 1 - u^2, compare and
+# select, then fma, mul, add, fma into the three sums; of one coefficient
+# of the adjoint's Clenshaw work: the forward's recurrence, then value with
+# derivative (3 + 4) and the T_k projection (fma, sub, fma)
+ADJ_KDE_OPS, ADJ_CHEB_OPS = 11, 3 + 7 + 4
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -110,13 +120,13 @@ def mock(n_events, n_samples, n_inj, z_res, oversample, seed):
     return cat, inj, n_gen, z_grids
 
 
-def likelihood(data, dtype):
+def likelihood(data, dtype, kernel="epan"):
     from chimera_tpu_torch import HyperLikelihood, SelectionFunction
 
     cat, inj, n_gen, z_grids = data
     return HyperLikelihood.create(cat, z_grids, population(dtype),
                                   SelectionFunction.create(inj, n_gen),
-                                  binning=False, cut_grid=None)
+                                  kernel=kernel, binning=False, cut_grid=None)
 
 
 def kernel_inputs(hl, h0s):
@@ -148,10 +158,10 @@ def compare(args, den_tol, stat_tol):
     return den_rel, den_abs, stat_rel
 
 
-def spectral(smi: str) -> dict:
+def spectral(smi: str) -> tuple[dict, tuple]:
     """Phases 3-6: K1a against its plain version, the spectral batch end to
     end at the headline width, float32 vs float64, timing.  Returns the
-    kernel's entry of the kernels line."""
+    kernel's entry of the kernels line and the headline data."""
     from chimera_tpu_torch.ops.cuda.fused import (fused_weights_kde,
                                                   fused_weights_kde_plain)
 
@@ -229,7 +239,7 @@ def spectral(smi: str) -> dict:
             "replaces": "chimera_tpu/ops/pallas/fused.py:71",
             "launches": launches, "max_abs_err": den_abs, "ms": k_call,
             "plain_ms": p_call, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": None}, full
 
 
 def check_log_like(ll, h0s, launches: dict) -> None:
@@ -539,6 +549,345 @@ def dark(smi: str) -> list[dict]:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# gradients and samplers on the spectral headline
+# ---------------------------------------------------------------------------
+
+PARAMS = ("H0", "Om0", "mu_g")
+BOUNDS = {"H0": (40.0, 120.0), "Om0": (0.05, 0.6), "mu_g": (25.0, 45.0)}
+INIT = {"H0": 70.0, "Om0": 0.25, "mu_g": 34.0}
+
+
+def chain_points(n: int, dtype) -> torch.Tensor:
+    """(n, 3) hyper-parameter points (H0, Om0, mu_g) scattered around the
+    mock's truth, from a fixed seed."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    noise = torch.randn((n, 3), generator=gen, device=DEV, dtype=F64)
+    centre = torch.tensor([INIT[p] for p in PARAMS], device=DEV, dtype=F64)
+    scale = torch.tensor([3.0, 0.02, 0.5], device=DEV, dtype=F64)
+    return (centre + scale * noise).to(dtype)
+
+
+def log_like(hl, x: torch.Tensor) -> torch.Tensor:
+    """log L (n,) at the points ``x`` (n, 3)."""
+    return hl.log_like_batch({p: x[:, i] for i, p in enumerate(PARAMS)})
+
+
+def value_and_grad(hl, x: torch.Tensor):
+    """log L (n,) and d log L / dλ (n, 3) at the points ``x``."""
+    x = x.detach().requires_grad_()
+    ll = log_like(hl, x)
+    return ll.detach(), torch.autograd.grad(ll.sum(), x)[0]
+
+
+def column_rel(got: torch.Tensor, expect: torch.Tensor) -> float:
+    """Largest error of an (n, 3) gradient relative to the largest entry
+    of its parameter's column."""
+    err = (got.double() - expect.double()).abs()
+    return (err / expect.double().abs().amax(dim=0)).max().item()
+
+
+def adjoint_inputs(hl, x: torch.Tensor, seed: int):
+    """K3's arguments at the points ``x``, with random cotangents for den
+    and for the stats."""
+    from chimera_tpu_torch.ops.cuda.fused import pack_params
+
+    pop_b = hl.population.update_batch({p: x[:, i] for i, p in enumerate(PARAMS)})
+    n, dt = x.shape[0], hl.dL.dtype
+    series, params = pack_params(pop_b.cosmo, pop_b.mass, n, dt)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    e, g = hl.z_grids.shape
+    ct_den = torch.randn((n, e, g), generator=gen, device=DEV, dtype=F64).to(dt)
+    ct_stats = torch.randn((n, e, 8), generator=gen, device=DEV, dtype=F64).to(dt)
+    return (hl.m1det, hl.m2det, hl.dL, hl.inv_pe_prior, hl.z_grids, series,
+            params, ct_den, ct_stats, pop_b.cosmo, pop_b.mass)
+
+
+def main_path_cotangents(hl, x: torch.Tensor):
+    """The cotangents that the backward of ``log_like_batch`` hands K3 at
+    the points ``x``: d(sum log L)/d den from the likelihood's own tail,
+    and zeros for the stats (they only gate)."""
+    from chimera_tpu_torch.ops.cuda.fused import fused_weights_kde
+
+    with torch.no_grad():
+        pop_b = hl.population.update_batch(
+            {p: x[:, i] for i, p in enumerate(PARAMS)})
+        den, stats = fused_weights_kde(hl.m1det, hl.m2det, hl.dL,
+                                       hl.inv_pe_prior, pop_b.cosmo, pop_b.mass,
+                                       hl.z_grids, kernel=hl.kernel)
+    den = den.requires_grad_()
+    num = hl.numerators_from_densities(pop_b, den, stats)
+    total = torch.nan_to_num(torch.log(num), nan=-torch.inf).sum()
+    ct_den = torch.autograd.grad(total, den)[0]
+    return ct_den.contiguous(), torch.zeros(
+        (*ct_den.shape[:2], 8), dtype=ct_den.dtype, device=ct_den.device)
+
+
+def adjoint_compare(args, kernel: str, tol: float):
+    """K3 against its plain version on the same inputs: the largest error
+    of each gradient row relative to the row's largest entry, and the
+    largest absolute error."""
+    from chimera_tpu_torch.ops.cuda.fused import (fused_weights_kde_adjoint,
+                                                  fused_weights_kde_adjoint_plain)
+
+    got = fused_weights_kde_adjoint(*args, kernel)
+    again = fused_weights_kde_adjoint(*args, kernel)
+    expect = fused_weights_kde_adjoint_plain(*args, kernel)
+    torch.cuda.synchronize(DEV)
+    rel = abs_err = 0.0
+    for g, a, e in zip(got, again, expect):
+        if not torch.equal(g, a):
+            raise AssertionError("K3 gave different bits on the same inputs")
+        if not torch.all(torch.isfinite(g)):
+            raise AssertionError("K3 returned a non-finite gradient")
+        err = (g.double() - e.double()).abs()
+        row_max = e.double().abs().amax(dim=1, keepdim=True).clamp_min(1e-300)
+        rel = max(rel, (err / row_max).max().item())
+        abs_err = max(abs_err, err.max().item())
+    if not rel <= tol:
+        raise AssertionError(f"K3 vs plain ({kernel}): {rel:.3e} of the row "
+                             f"max (tol {tol:.0e})")
+    return rel, abs_err
+
+
+def cut_events(data, n: int):
+    """The first ``n`` events of a spectral mock."""
+    import dataclasses
+
+    cat, inj, n_gen, z_grids = data
+    per_event = {f.name: getattr(cat, f.name)[:n] for f in dataclasses.fields(cat)
+                 if isinstance(getattr(cat, f.name), torch.Tensor)}
+    return cat.update(**per_event), inj, n_gen, z_grids[:n]
+
+
+def counting_prior(counter: list):
+    """A flat extra prior that counts the log-density evaluations."""
+    def prior(lam):
+        counter[0] += 1
+        return torch.zeros_like(lam[PARAMS[0]])
+    return prior
+
+
+def check_samples(name: str, samples: dict, n_steps: int, n_chains: int) -> None:
+    for p in PARAMS:
+        x = samples[p]
+        lo, hi = BOUNDS[p]
+        if x.shape != (n_steps, n_chains) or not torch.all(torch.isfinite(x)):
+            raise AssertionError(f"{name}: {p} samples {tuple(x.shape)} not finite")
+        if not torch.all((x > lo) & (x < hi)):
+            raise AssertionError(f"{name}: {p} samples outside ({lo}, {hi})")
+    if torch.equal(samples["H0"][0], samples["H0"][-1]):
+        raise AssertionError(f"{name}: no chain moved while sampling")
+
+
+def sampler(smi: str, full) -> dict:
+    """Phases 11-14: K3 against its plain version, the gradient of the
+    headline log L against the CPU's and against finite differences, HMC
+    and ChEES end to end, timing.  Returns K3's entry of
+    the kernels line."""
+    from chimera_tpu_torch.inference import (sample_hyperposterior,
+                                             sample_hyperposterior_chees)
+    from chimera_tpu_torch.ops.cuda.fused import (fused_weights_kde,
+                                                  fused_weights_kde_adjoint,
+                                                  fused_weights_kde_adjoint_plain)
+
+    # ---- 11. K3 vs plain at 64 x 4096 x 500, L = 4 -----------------------
+    small = mock(64, 4096, 200_000, 500, 300, SEED + 3)
+    for dtype, tol in ((F64, 1e-9), (F32, 1e-3)):
+        hl = likelihood(small, dtype)
+        args = adjoint_inputs(hl, chain_points(4, dtype), SEED + 11)
+        for kernel in ("epan", "gauss"):
+            rel, abs_err = adjoint_compare(args, kernel, tol)
+            k_ms = statistics.median(cuda_ms(
+                lambda: fused_weights_kde_adjoint(*args, kernel), 5))
+            p_ms = statistics.median(cuda_ms(
+                lambda: fused_weights_kde_adjoint_plain(*args, kernel), 1, 0))
+            phase(11, f"K3 vs plain {dtype} {kernel}",
+                  f"max err {rel:.3e} of each gradient row's max ({abs_err:.3e} "
+                  f"abs), equal bits on a second launch; kernel {k_ms:.3f} ms, "
+                  f"plain {p_ms:.3f} ms per call [{smi}]")
+    del small
+
+    # ---- 12. d log L / dλ for 16 chains ----------------------------------
+    # On 64 events of the headline data: the card's gradient (K1a forward,
+    # K3 backward) against plain autograd on the CPU in float64 (the first
+    # 4 chains: the CPU takes ~2 s per chain and event), and float32 against
+    # float64 on the card.  The Epanechnikov slope is itself
+    # discontinuous: K' jumps by 1.5 at the support's edge, and the sum over
+    # (grid point, sample) pairs cancels to a small part of its terms.  In
+    # float32 a pair within an ulp of the edge falls on either side of it by
+    # the rounding of z, and a few such pairs move the slope by ~1e-3; the
+    # Gaussian kernel has no edge and shows the arithmetic alone.
+    n = 16
+    cut = cut_events(full, 64)
+    x = chain_points(n, F64)
+    for kernel, tol32 in (("epan", 1e-2), ("gauss", 1e-3)):
+        hl64 = likelihood(cut, F64, kernel)
+        fused_weights_kde.launches = fused_weights_kde_adjoint.launches = 0
+        ll, g64 = value_and_grad(hl64, x)
+        launched = (fused_weights_kde.launches, fused_weights_kde_adjoint.launches)
+        t0 = time.perf_counter()
+        ll_cpu, g_cpu = value_and_grad(copy.deepcopy(hl64).to("cpu"), x[:4].cpu())
+        seconds = time.perf_counter() - t0
+        _, g32 = value_and_grad(likelihood(cut, F32, kernel), x.to(F32))
+        rel, rel32 = column_rel(g64[:4].cpu(), g_cpu), column_rel(g32, g64)
+        rel_ll = ((ll[:4].cpu() - ll_cpu).abs() / ll_cpu.abs()).max().item()
+        if launched != (1, 1):
+            raise AssertionError(f"gradient {kernel}: K1a, K3 launches {launched}")
+        if not (torch.all(torch.isfinite(g64)) and torch.all(torch.isfinite(g32))
+                and rel <= 1e-9 and rel_ll <= 1e-10 and rel32 <= tol32):
+            raise AssertionError(
+                f"gradient {kernel}: card vs CPU {rel:.3e} (tol 1e-9), log L "
+                f"{rel_ll:.3e} (tol 1e-10), float32 vs float64 {rel32:.3e} "
+                f"(tol {tol32:.0e}) of each parameter's largest slope")
+        phase(12, f"card vs CPU {kernel}", f"d log L/d(H0, Om0, mu_g), {n} chains, "
+              f"64 events of the headline data, float64: K1a + K3 on the card "
+              f"vs plain autograd on the CPU (4 chains, {seconds:.1f} s) max err {rel:.3e} "
+              f"of each parameter's largest slope (tol 1e-9), log L {rel_ll:.3e}; "
+              f"float32 vs float64 on the card {rel32:.3e} (tol {tol32:.0e}) "
+              f"[{smi}]")
+    # Central differences of the float64 log L in H0 at full width.  log L
+    # itself jumps where a sample's or an injection's source mass crosses a
+    # hard edge of the mass model (m_high, the peak's 5 sigma cut): with 4
+    # million samples some edge is crossed inside almost any step, and a
+    # difference across a jump is not the slope.  log N_exp jumps too, but
+    # with 61 100 injections only a step of 1e-4 meets an edge (one chain of
+    # 16 then reads 0.9 off): at 1e-6 it is held chain by chain, and the
+    # whole log L at the smallest step that rounding allows, by its median
+    # and its largest error.
+    hl64 = likelihood(full, F64)
+    _, g64 = value_and_grad(hl64, x)
+
+    def log_n_exp(x):
+        pop_b = hl64.population.update_batch(
+            {p: x[:, i] for i, p in enumerate(PARAMS)})
+        return torch.log(hl64.selection.n_exp(pop_b))
+
+    def differences(fn, h):
+        step = torch.zeros_like(x)
+        step[:, 0] = h
+        up, down = x + step, x - step
+        with torch.no_grad():
+            return (fn(up) - fn(down)) / (up - down)[:, 0]
+
+    xg = x.clone().requires_grad_()
+    g_exp = torch.autograd.grad(log_n_exp(xg).sum(), xg)[0][:, 0]
+    fd_exp = differences(log_n_exp, 1e-6)
+    fd = differences(lambda x: log_like(hl64, x), 1e-7)
+    torch.cuda.synchronize(DEV)
+    exp_errs = (g_exp - fd_exp).abs() / fd_exp.abs()
+    exp_err = exp_errs.max().item()
+    fd_err = (g64[:, 0] - fd).abs() / fd.abs()
+    rel, rel_max = fd_err.median().item(), fd_err.max().item()
+    if not (torch.all(torch.isfinite(g64)) and exp_err <= 1e-6 and rel <= 1e-4
+            and rel_max <= 1e-3):
+        raise AssertionError(
+            f"float64 gradient vs central differences in H0: log N_exp "
+            f"{exp_err:.3e} (tol 1e-6 in every chain), log L median {rel:.3e} "
+            f"(tol 1e-4), max {rel_max:.3e} (tol 1e-3); log N_exp by chain "
+            f"{exp_errs.tolist()}; log L {g64[:, 0].tolist()} vs {fd.tolist()}")
+    hl = likelihood(full, F32)
+    _, g32 = value_and_grad(hl, x.to(F32))
+    rel32 = column_rel(g32, g64)
+    if not (torch.all(torch.isfinite(g32)) and rel32 <= 1e-2):
+        raise AssertionError(f"float32 vs float64 gradient: {rel32:.3e}")
+    phase(12, "full width", f"{n} chains at 1000 x 4096 x 500: float64 "
+          f"d/dH0 vs central differences, log N_exp (step 1e-6) max rel err "
+          f"{exp_err:.3e} (tol 1e-6), log L (step 1e-7) median {rel:.3e} (tol "
+          f"1e-4), max {rel_max:.3e} (tol 1e-3), "
+          f"{int((fd_err > 1e-4).sum())} chains over 1e-4; float32 vs float64 "
+          f"gradient max err {rel32:.3e} of each parameter's largest slope (tol "
+          f"1e-2, Epanechnikov); no NaN [{smi}]")
+
+    # ---- 13. HMC and ChEES on the headline likelihood, float32 -----------
+    counts = {}
+    for name, run in (
+            ("hmc", lambda gen, prior: sample_hyperposterior(
+                gen, hl, list(PARAMS), BOUNDS, INIT, n_chains=n, n_warmup=4,
+                n_samples=4, n_leapfrog=4, init_step_size=0.03,
+                extra_log_prior=prior)),
+            ("chees", lambda gen, prior: sample_hyperposterior_chees(
+                gen, hl, list(PARAMS), BOUNDS, INIT, n_chains=n, n_warmup=4,
+                n_samples=4, max_steps=4, init_step_size=0.03,
+                extra_log_prior=prior))):
+        runs = []
+        for _ in range(2):
+            evals = [0]
+            fused_weights_kde.launches = fused_weights_kde_adjoint.launches = 0
+            t0 = time.perf_counter()
+            samples, stats = run(torch.Generator(device=DEV).manual_seed(SEED + 13),
+                                 counting_prior(evals))
+            torch.cuda.synchronize(DEV)
+            seconds = time.perf_counter() - t0
+            launched = (fused_weights_kde.launches,
+                        fused_weights_kde_adjoint.launches)
+            runs.append(samples)
+            check_samples(name, samples, 4, n)
+            if evals[0] < 9 or launched != (evals[0], evals[0]):
+                raise AssertionError(
+                    f"{name}: {evals[0]} gradient evaluations but K1a, K3 "
+                    f"launches {launched}")
+        if not all(torch.equal(runs[0][p], runs[1][p]) for p in PARAMS):
+            raise AssertionError(f"{name}: a second run under the same "
+                                 "generator seed gave other samples")
+        counts[name] = launched
+        phase(13, name, f"{n} chains x (4 warm-up + 4 sampling steps) in "
+              f"{PARAMS}: {evals[0]} gradient evaluations = K1a launches "
+              f"{launched[0]} = K3 launches {launched[1]}, {seconds:.2f} s; "
+              f"samples finite and inside the bounds, equal bits on a second "
+              f"run; accept {float(stats['accept'].mean()):.2f}, step size "
+              f"{float(stats['step_size']):.4f}, H0 mean "
+              f"{float(samples['H0'].mean()):.2f} [{smi}]")
+
+    # ---- 14. timing at the headline, L = 16, float32 ---------------------
+    reps = 17
+    x = chain_points(n, F32)
+    batch = {p: x[:, i] for i, p in enumerate(PARAMS)}
+    total = cuda_ms(lambda: value_and_grad(hl, x), reps)
+    forward = cuda_ms(lambda: hl.log_like_batch(batch), reps)
+    one = cuda_ms(lambda: value_and_grad(hl, x[:1]), reps)
+    # K3 on what the sampler's backward hands it at these points
+    args = list(adjoint_inputs(hl, x, SEED + 14))
+    args[7], args[8] = main_path_cotangents(hl, x)
+    kern = cuda_ms(lambda: fused_weights_kde_adjoint(*args, "epan"), reps)
+    plain = cuda_ms(lambda: fused_weights_kde_adjoint_plain(*args, "epan"), 1, 0)
+    rel, abs_err = adjoint_compare(args, "epan", 1e-3)
+    x64 = chain_points(n, F64)
+    args64 = list(adjoint_inputs(hl64, x64, SEED + 14))
+    args64[7], args64[8] = main_path_cotangents(hl64, x64)
+    rel64, _ = adjoint_compare(args64, "epan", 1e-9)
+    del hl64, args64
+    t_med, t_mad = med_mad([t / n for t in total])
+    f_med, f_mad = med_mad([t / n for t in forward])
+    k_med, k_mad = med_mad([t / n for t in kern])
+    o_med, o_mad = med_mad(one)
+    phase(14, "timing", f"[{smi}] per λ over {reps} batches of {n}: value and "
+          f"gradient {t_med:.4f} ± {t_mad:.4f} ms (median ± MAD); forward "
+          f"{f_med:.4f} ± {f_mad:.4f} ms; K3 {k_med:.4f} ± {k_mad:.4f} ms; glue "
+          f"backward (rest) {t_med - f_med - k_med:.4f} ms; a batch of one "
+          f"chain {o_med:.3f} ± {o_mad:.3f} ms per call")
+    k_call, p_call = statistics.median(kern), plain[0]
+    e, s = hl.dL.shape
+    g = hl.z_grids.shape[1]
+    cosmo, mass = args[9], args[10]
+    q = cosmo.cheb_deg + 2 + mass.window_deg
+    bound_ms, bound_by = bound(
+        4 * (4 * e * s + e * g + n * e * (g + 8) + 2 * n * 12) + 8 * 2 * n * q,
+        n * e * s * (ADJ_KDE_OPS * g + ADJ_CHEB_OPS * cosmo.cheb_deg))
+    phase(14, "K3 vs plain", f"[{smi}] at 1000 x 4096 x 500, L = {n}: kernel "
+          f"{k_call:.3f} ms, plain {p_call:.3f} ms per call "
+          f"({p_call / k_call:.1f}x), bound {bound_ms:.3f} ms ({bound_by}); on "
+          f"the cotangents of log L, max err {rel:.3e} of each gradient row's "
+          f"max (tol 1e-3), {abs_err:.3e} abs; in float64 {rel64:.3e} (tol "
+          f"1e-9)")
+    return {"name": "fused_weights_kde_adjoint", "route": "cuda",
+            "source": "chimera_tpu_torch/csrc/fused_kde_adjoint.cu",
+            "replaces": "chimera_tpu/ops/pallas/fused.py:713",
+            "launches": counts["hmc"][1], "max_abs_err": abs_err, "ms": k_call,
+            "plain_ms": p_call, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
 def main() -> None:
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -555,7 +904,7 @@ def main() -> None:
 
     # ---- 2. kernel builds, one nvcc per source, in parallel --------------
     t0 = time.perf_counter()
-    names = ["fused_kde", "rows_contract"]
+    names = ["fused_kde", "rows_contract", "fused_kde_adjoint"]
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(build.load, names))
     for name in names:
@@ -567,7 +916,8 @@ def main() -> None:
               + " | ".join(ptxas) + f" [{smi}]")
     phase(2, "kernel builds", f"{time.perf_counter() - t0:.2f} s in all [{smi}]")
 
-    kernels = [spectral(smi), *dark(smi)]
+    k1a, full = spectral(smi)
+    kernels = [k1a, *dark(smi), sampler(smi, full)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

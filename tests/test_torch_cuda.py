@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels of the PyTorch port, on the card: K1a
-(spectral), K1c and K2 (dark siren).
+(spectral) and its adjoint K3, K1c and K2 (dark siren).
 
 Every test here needs a CUDA card and nvcc (marker ``cuda``) and skips
 without one.  The file imports no JAX, so it runs on a machine without it:
@@ -21,7 +21,10 @@ from chimera_tpu_torch.models import (FLRW, MadauDickinsonRate, Population,
 from chimera_tpu_torch.ops.cuda.fused import (fused_row_stats,
                                               fused_row_stats_plain,
                                               fused_weights_kde,
-                                              fused_weights_kde_plain)
+                                              fused_weights_kde_adjoint,
+                                              fused_weights_kde_adjoint_plain,
+                                              fused_weights_kde_plain,
+                                              pack_params)
 from chimera_tpu_torch.ops.cuda.rows import (fused_rows_contract,
                                              fused_rows_contract_plain)
 
@@ -37,10 +40,7 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.fixture(scope="module")
-def cpu_hl():
-    """16 events x 256 samples x 64-point grids, 20k generated injections,
-    float64 on the CPU; event 5 has zero weight (infinite PE prior)."""
+def _spectral_hl(dead_event: bool):
     pop = Population.create(FLRW.create(device="cpu"),
                             PowerLawPeak.create(device="cpu"),
                             MadauDickinsonRate.create(device="cpu"))
@@ -49,11 +49,26 @@ def cpu_hl():
     inj, n_gen = make_mock_injections(gen, pop, n_generated=20_000)
     z_grids = compute_z_grids(pop.cosmo, cat, cosmo_prior={"H0": [40.0, 120.0]},
                               z_int_res=64)
-    prior = cat.pe_prior.clone()
-    prior[5] = torch.inf
-    return HyperLikelihood.create(cat.update(pe_prior=prior), z_grids, pop,
+    if dead_event:
+        prior = cat.pe_prior.clone()
+        prior[5] = torch.inf
+        cat = cat.update(pe_prior=prior)
+    return HyperLikelihood.create(cat, z_grids, pop,
                                   SelectionFunction.create(inj, n_gen),
                                   binning=False, cut_grid=None)
+
+
+@pytest.fixture(scope="module")
+def cpu_hl():
+    """16 events x 256 samples x 64-point grids, 20k generated injections,
+    float64 on the CPU; event 5 has zero weight (infinite PE prior)."""
+    return _spectral_hl(dead_event=True)
+
+
+@pytest.fixture(scope="module")
+def live_cpu_hl():
+    """The same mock with every event alive."""
+    return _spectral_hl(dead_event=False)
 
 
 def _kernel_args(hl):
@@ -121,6 +136,125 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda, cpu_hl):
     big = [torch.ones((2, too_many), dtype=torch.float64, device=cuda)] * 4
     with pytest.raises(ValueError, match="shared memory"):
         fused_weights_kde(*big, args[4], args[5], args[6][:2])
+
+
+# ---------------------------------------------------------------------------
+# gradients: the adjoint kernel K3 and the samplers
+# ---------------------------------------------------------------------------
+
+LAMBDA = {"H0": [66.0, 70.0, 75.0], "Om0": [0.22, 0.25, 0.31],
+          "mu_g": [32.0, 34.0, 35.5]}
+
+
+def _adjoint_args(hl, seed=3):
+    pop_b = hl.population.update_batch(LAMBDA)
+    dt, dev = hl.dL.dtype, hl.dL.device
+    series, params = pack_params(pop_b.cosmo, pop_b.mass, 3, dt)
+    gen = torch.Generator().manual_seed(seed)
+    e, g = hl.z_grids.shape
+    ct_den = torch.randn((3, e, g), generator=gen, dtype=torch.float64)
+    ct_stats = torch.randn((3, e, 8), generator=gen, dtype=torch.float64)
+    return (hl.m1det, hl.m2det, hl.dL, hl.inv_pe_prior, hl.z_grids, series,
+            params, ct_den.to(dev, dt), ct_stats.to(dev, dt), pop_b.cosmo,
+            pop_b.mass)
+
+
+def _grad(hl, device, dtype=torch.float64):
+    x = torch.tensor([LAMBDA[k] for k in LAMBDA], dtype=dtype, device=device).T
+    x = x.contiguous().requires_grad_()
+    ll = hl.log_like_batch({k: x[:, i] for i, k in enumerate(LAMBDA)})
+    return torch.autograd.grad(ll.sum(), x)[0].cpu()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+@pytest.mark.parametrize("kernel,bw_method",
+                         [("epan", None), ("gauss", None), ("epan", "silverman"),
+                          ("gauss", 0.3)])
+def test_adjoint_kernel_matches_plain(cuda, cpu_hl, dtype, tol, kernel, bw_method):
+    """K3 against autograd through the plain version, random cotangents
+    for den and every stat (the dead event's row too): each gradient row
+    within tol of its largest entry; a second launch gives equal bits."""
+    args = _adjoint_args(copy.deepcopy(cpu_hl).to(device=cuda, dtype=dtype))
+    before = fused_weights_kde_adjoint.launches
+    got = fused_weights_kde_adjoint(*args, kernel, bw_method)
+    assert fused_weights_kde_adjoint.launches == before + 1
+    again = fused_weights_kde_adjoint(*args, kernel, bw_method)
+    expect = fused_weights_kde_adjoint_plain(*args, kernel, bw_method)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.float64 and got[1].dtype == dtype
+    for g, a, e in zip(got, again, expect):
+        assert torch.equal(g, a)
+        assert torch.all(torch.isfinite(g))
+        row_max = e.abs().amax(dim=1, keepdim=True)
+        assert ((g - e).abs() / row_max).max().item() <= tol
+
+
+def test_gradient_on_card_matches_cpu(cuda, live_cpu_hl):
+    """d log L / d(H0, Om0, mu_g) on the card (K1a forward, K3 backward: one
+    launch each) against plain autograd on the CPU."""
+    card = copy.deepcopy(live_cpu_hl).to(cuda)
+    k1a, k3 = fused_weights_kde.launches, fused_weights_kde_adjoint.launches
+    got = _grad(card, cuda)
+    assert (fused_weights_kde.launches, fused_weights_kde_adjoint.launches) \
+        == (k1a + 1, k3 + 1)
+    expect = _grad(live_cpu_hl, "cpu")
+    assert torch.all(torch.isfinite(expect))
+    torch.testing.assert_close(got, expect, rtol=1e-9, atol=0)
+    got32 = _grad(copy.deepcopy(live_cpu_hl).to(cuda, torch.float32), cuda,
+                  torch.float32).double()
+    assert ((got32 - expect).abs() / expect.abs().amax(dim=0)).max() <= 1e-3
+
+
+def test_gated_event_gradient_matches_cpu(cuda, cpu_hl):
+    """The gated event puts 0 / 0 into the cosmology's gradient on the CPU
+    (as in the JAX package); the card gives NaN in the same entries and the
+    same numbers in the others."""
+    expect = _grad(cpu_hl, "cpu")
+    got = _grad(copy.deepcopy(cpu_hl).to(cuda), cuda)
+    assert torch.isnan(expect[:, 0]).all() and torch.isfinite(expect[:, 2]).all()
+    assert torch.equal(torch.isnan(got), torch.isnan(expect))
+    torch.testing.assert_close(got[:, 2], expect[:, 2], rtol=1e-9, atol=0)
+
+
+def test_adjoint_refusals(cuda, cpu_hl):
+    card = copy.deepcopy(cpu_hl).to(cuda)
+    args = list(_adjoint_args(card))
+    with pytest.raises(ValueError, match="ct_den"):
+        fused_weights_kde_adjoint(*args[:7], args[7][:, :, :-1], *args[8:])
+    too_many = 8_192  # 4 x S doubles beyond the 227 KB shared-memory limit
+    big = [torch.ones((2, too_many), dtype=torch.float64, device=cuda)] * 4
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_weights_kde_adjoint(*big, args[4][:2], args[5], args[6],
+                                  args[7][:, :2], args[8][:, :2], *args[9:])
+
+
+def test_hmc_repeats_bit_for_bit(cuda, live_cpu_hl):
+    """Two runs under the same generator seed give the same samples (the
+    event reduction in K3 has a fixed order), each gradient evaluation one
+    K1a and one K3 launch."""
+    from chimera_tpu_torch.inference import sample_hyperposterior
+
+    card = copy.deepcopy(live_cpu_hl).to(cuda, torch.float32)
+    bounds = {"H0": (40.0, 120.0), "mu_g": (25.0, 45.0)}
+
+    def run():
+        k1a, k3 = fused_weights_kde.launches, fused_weights_kde_adjoint.launches
+        samples, stats = sample_hyperposterior(
+            torch.Generator(device=cuda).manual_seed(5), card, ["H0", "mu_g"],
+            bounds, {"H0": 70.0, "mu_g": 34.0}, n_chains=4, n_warmup=6,
+            n_samples=6, n_leapfrog=3)
+        launched = (fused_weights_kde.launches - k1a,
+                    fused_weights_kde_adjoint.launches - k3)
+        return samples, launched
+
+    first, launched = run()
+    assert launched[0] == launched[1] >= 13
+    second, _ = run()
+    for k, lo_hi in bounds.items():
+        assert first[k].shape == (6, 4) and first[k].device.type == "cuda"
+        assert torch.all((first[k] > lo_hi[0]) & (first[k] < lo_hi[1]))
+        assert torch.equal(first[k], second[k])
 
 
 # ---------------------------------------------------------------------------
@@ -234,3 +368,13 @@ def test_dark_log_like_batch_matches_cpu(cuda, dark_cpu_hl):
     expect = dark_cpu_hl.log_like_batch({"H0": H0S})
     assert torch.all(torch.isfinite(expect))
     torch.testing.assert_close(got, expect, rtol=1e-10, atol=0)
+
+
+def test_dark_gradient_is_refused_on_the_card(cuda, dark_cpu_hl):
+    """No adjoint kernel for the dark kind yet: a backward through K1c and
+    K2 raises instead of dropping their part."""
+    card = copy.deepcopy(dark_cpu_hl).to(cuda)
+    h0 = torch.tensor(H0S, dtype=torch.float64, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        card.log_like_batch({"H0": h0})
+    assert torch.all(torch.isfinite(card.log_like_batch({"H0": h0.detach()})))

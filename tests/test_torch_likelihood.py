@@ -118,6 +118,22 @@ def test_to_moves_data_and_population(state):
     assert torch.all(torch.isfinite(hl.log_like_batch({"H0": H0S})))
 
 
+@pytest.mark.parametrize("reference", ["xla", "pallas"])
+def test_state_carries_the_grad_engine(jax_hl, reference):
+    """The JAX package's choice of backward has no counterpart in the port
+    (its backward follows the tensors' device): either state builds the
+    same likelihood."""
+    from chimera_tpu import pytree
+
+    jhl = pytree.replace(jax_hl, grad_engine=reference)
+    state = state_from_reference(jhl)
+    assert str(state["grad_engine"]) == reference
+    hl = HyperLikelihood.from_state(state, "cpu", torch.float64)
+    assert not hasattr(hl, "grad_engine")
+    expect = jhl.log_like_batch({"H0": jnp.asarray(H0S)})
+    assert _rel(hl.log_like_batch({"H0": H0S}), expect) <= 1e-10
+
+
 @pytest.mark.parametrize("kw", [{"binning": True}, {"cut_grid": 2.0},
                                 {"kind": "full"}])
 def test_unported_configurations_raise(state, kw):
