@@ -2,11 +2,13 @@
 Hopper GPUs.
 
 It follows ``chimera_tpu``'s module layout and imports no JAX.  Ported so
-far: the spectral-siren hyper-likelihood batch (``kind='1d'``, unbinned,
-evaluated on the analysis z-grids), its population models, selection
-function and mock data, with the fused weights+KDE hot loop as a CUDA kernel
-(``csrc/fused_kde.cu``).  CPU tensors run the kernel's plain PyTorch
-version, CUDA tensors the kernel.
+far: the hyper-likelihood batch of the kinds '1d', 'approximate' and
+'marginalized', binned or not, on effective or analysis grids (the
+reference's defaults included), its population models, galaxy-catalog
+prior, selection function and mock data, the gradient of the spectral
+kind and the HMC / ChEES samplers; the hot loops are hand-written CUDA
+kernels (``csrc/``).  CPU tensors run each kernel's plain PyTorch version,
+CUDA tensors the kernel.
 """
 
 from chimera_tpu_torch import config  # noqa: F401  (TF32 off, logger)

@@ -1,0 +1,85 @@
+// Batched weighted 1-D KDE on per-row grids (K4): replaces
+// chimera_tpu/ops/pallas/kde.py::_kde_kernel (launched by kde1d_grid,
+// kde.py:67-117), the KDE of the stage-by-stage path that every binned
+// configuration takes.  Per row b of B:
+//
+//   out[b, g] = sum_s w[b, s] K((grid[b, g] - z[b, s]) / h[b]) / h[b]
+//
+// with normalized weights (chimera_tpu/ops/kde.py::kde1d_core); the plain
+// PyTorch twin is chimera_tpu_torch/ops/cuda/kde.py::kde1d_grid_plain.  The
+// arithmetic is kde.cuh's kde_row.
+//
+// What bounds it on an H100: arithmetic.  On the binned path a row is one
+// event (or one (event, pixel)) with S = num_bins = 200 bin centres and a
+// G = 250-point effective grid, so B * G * S terms of ~5 FP32 instructions
+// against 4 (2 S + G) + 4 G bytes per row: 6.4e9 terms and ~0.5 GB at the
+// dark flagship (B = 16 * 8000).
+//
+// What the design does about it: one block per row.  The row's (z, w)
+// pairs sit in shared memory (1.6 KB at S = 200 in float32), the grid points
+// in registers (two a thread up to 256 points, four above); the kernel
+// constant and 1/h are applied once per output.  The TPU kernel's 8 x 128
+// tiling with the bandwidth folded into the operands is not carried over.
+
+#include "kde.cuh"
+
+namespace {
+
+template <typename T, int KERNEL>
+__global__ void __launch_bounds__(kThreads)
+kde1d_kernel(const T* __restrict__ z, const T* __restrict__ w,
+             const T* __restrict__ grids, const T* __restrict__ h,
+             T* __restrict__ out, int S, int G) {
+  using T2 = typename Pair<T>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T2* zw = reinterpret_cast<T2*>(smem);
+  const size_t b = blockIdx.x;
+  for (int s = threadIdx.x; s < S; s += kThreads) {
+    T2 p;
+    p.x = z[b * S + s];
+    p.y = w[b * S + s];
+    zw[s] = p;
+  }
+  __syncthreads();
+  const DeviceBlock<T> blk{nullptr};
+  kde_row<T, KERNEL>(blk, zw, S, grids + b * G, G, h[b], out + b * G);
+}
+
+template <typename T, int KERNEL>
+int launch_kernel(const T* z, const T* w, const T* grids, const T* h, T* out,
+                  int B, int S, int G, cudaStream_t stream) {
+  const size_t smem = (size_t)S * sizeof(typename Pair<T>::type);
+  auto kernel = kde1d_kernel<T, KERNEL>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)B, kThreads, smem, stream>>>(z, w, grids, h, out, S, G);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const T* z, const T* w, const T* grids, const T* h, T* out, int B,
+           int S, int G, int kernel, void* stream) {
+  if (B <= 0 || S <= 0 || G <= 0) return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (kernel == 0) return launch_kernel<T, 0>(z, w, grids, h, out, B, S, G, s);
+  return launch_kernel<T, 1>(z, w, grids, h, out, B, S, G, s);
+}
+
+}  // namespace
+
+// C interface (loaded with ctypes by chimera_tpu_torch/ops/cuda/kde.py).
+// Returns the CUDA error code of the launch (0 = cudaSuccess).
+extern "C" int chimera_kde1d_f32(const float* z, const float* w,
+                                 const float* grids, const float* h,
+                                 float* out, int B, int S, int G, int kernel,
+                                 void* stream) {
+  return launch<float>(z, w, grids, h, out, B, S, G, kernel, stream);
+}
+
+extern "C" int chimera_kde1d_f64(const double* z, const double* w,
+                                 const double* grids, const double* h,
+                                 double* out, int B, int S, int G, int kernel,
+                                 void* stream) {
+  return launch<double>(z, w, grids, h, out, B, S, G, kernel, stream);
+}

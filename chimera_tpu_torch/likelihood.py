@@ -1,28 +1,39 @@
 """The hyper-likelihood of the port (counterpart of
-``chimera_tpu/likelihood.py``), for two kinds, both unbinned with the KDEs
-evaluated directly on the analysis z-grids (``cut_grid=None``):
+``chimera_tpu/likelihood.py``) for the kinds '1d' (spectral siren),
+'approximate' and 'marginalized' (dark siren with a pixelated galaxy
+catalog, or an empty one), with or without binning and effective grids —
+the reference's defaults (``binning=True, num_bins=200, cut_grid=2.0``)
+included.  The engine follows the JAX package on the TPU
+(``chimera_tpu/likelihood.py:451-499``):
 
-* ``kind='1d'``, the spectral siren: per event, the fused weights+KDE
-  kernel (K1a), then p_cbc over the jacobian integrated on the z-grids;
-* ``kind='marginalized'``, the dark siren with a pixelated galaxy catalog
-  (``chimera_tpu/likelihood.py:1019-1089``): per (event, pixel) a 1-D KDE
-  of that pixel's samples times the 2-D localization pdf and the catalog
-  prior.  Two kernel launches per λ batch: the stats-only pass (K1c) on the
-  per-pixel rectangle gives each pixel row its bandwidth and weight sums,
-  then the rows-contract kernel (K2) runs the KDE and the whole epilogue
-  contraction over dense 128-sample chunk rows.  The layouts and the
-  λ-independent contraction factors are built once, in ``create``.
+* ``binning=True``, the stage-by-stage path (``likelihood.py:502-577``):
+  source-frame samples and weights in PyTorch, the samples of each event
+  (each (event, pixel) for 'marginalized', samples outside the pixel
+  masked to the event's min z with weight 0) binned to ``num_bins`` centres,
+  the KDE parameters, then one launch of the batched KDE (K4,
+  ``ops/cuda/kde.py``) on the effective grids (``Nz // 2`` points over
+  [z_min - c σ, z_max + c σ] per event) or on the analysis grids, and with
+  ``cut_grid`` a resampling onto the analysis grids (``uniform_interp``).
+* ``binning=False``, the fused kernels (``ops/cuda/fused.py``):
+  - '1d' and 'approximate': the fused weights+KDE pass per event, on the
+    analysis grids (K1a, ``cut_grid=None``) or on its own effective grid
+    (K1b), then for 'approximate' the 2-D localization pdf per pixel;
+  - 'marginalized': the stats-only pass (K1c) on the per-pixel rectangle,
+    then the rows-contract kernel (K2) over dense 128-sample chunk rows
+    (``cut_grid=None``); or, with ``cut_grid``, K1c on the events for the
+    event-level effective-grid bounds, then the per-pixel KDE on them (K1d)
+    and the resampling.  The layouts and the λ-independent contraction
+    factors are built once, in ``create``.
 
 Each kernel runs as its CUDA kernel on CUDA tensors and as its plain
 PyTorch version on CPU tensors.  ``log_like_batch`` is differentiable in
 the hyper-parameters: pass tensors that require grad.  On CPU tensors the
 whole backward is autograd through the plain versions; on CUDA tensors the
-backward of the spectral kind's fused pass is the adjoint kernel K3, and
-the dark kind has no backward yet (it raises).  ``HyperLikelihood`` is an
-``nn.Module``
-whose buffers hold the PE data, layouts, z-grids and (in its ``selection``)
-the injections; ``.to(device, dtype)`` moves them and the population's
-tensors together.
+backward of K1a is the adjoint kernel K3 ('1d' and 'approximate',
+unbinned, ``cut_grid=None``), and every other path raises (ROADMAP.md §1
+item 9).  ``HyperLikelihood`` is an ``nn.Module`` whose buffers hold the
+PE data, layouts, z-grids and (in its ``selection``) the injections;
+``.to(device, dtype)`` moves them and the population's tensors together.
 """
 
 from __future__ import annotations
@@ -30,14 +41,20 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from chimera_tpu_torch.catalog import EmptyCatalog
 from chimera_tpu_torch.data.pixelize import (chunk_rows_from_compact,
                                              compact_samples_by_pixel)
 from chimera_tpu_torch.data.structs import ThetaPEDet
 from chimera_tpu_torch.models import cosmology as cosmo_fns
-from chimera_tpu_torch.models.population import Population, p_cbc
+from chimera_tpu_torch.models.population import (Population, p_cbc,
+                                                 theta_src_and_weights)
+from chimera_tpu_torch.ops.binning import binning1d
 from chimera_tpu_torch.ops.cuda.fused import fused_row_stats, fused_weights_kde
+from chimera_tpu_torch.ops.cuda.kde import kde1d_grid
 from chimera_tpu_torch.ops.cuda.rows import fused_rows_contract
-from chimera_tpu_torch.ops.integrate import trapz, trapz_weights
+from chimera_tpu_torch.ops.integrate import linspace, trapz, trapz_weights
+from chimera_tpu_torch.ops.interp import uniform_interp
+from chimera_tpu_torch.ops.kde import kde1d_params
 from chimera_tpu_torch.pytree import tensor_map
 from chimera_tpu_torch.selection import SelectionFunction
 
@@ -49,6 +66,7 @@ _PIXEL_FIELDS = {"opt_nsides": torch.int64, "pixels_opt_nsides": torch.int64,
 _PER_SAMPLE_FIELDS = ("m1det", "m2det", "dL", "phi", "theta", "ra", "dec",
                       "pe_prior", "pixels_pe_opt_nside")
 _LAYOUT_FIELDS = ("m1det", "m2det", "dL", "inv_pe_prior")
+KINDS = ("1d", "approximate", "marginalized")
 
 
 def _validate_shapes(theta_gw: ThetaPEDet, z_grids: torch.Tensor,
@@ -92,15 +110,16 @@ def _jacobian(pop: Population, z: torch.Tensor) -> torch.Tensor:
 
 
 class HyperLikelihood(nn.Module):
-    """Spectral-siren ('1d') or dark-siren ('marginalized') hyper-likelihood
-    over a λ batch.
+    """Spectral-siren ('1d') or dark-siren ('approximate', 'marginalized')
+    hyper-likelihood over a λ batch.
 
     Build it with :meth:`create` (mirrors ``chimera_tpu``'s constructor
     surface) or :meth:`from_state` (from a built JAX object)."""
 
     def __init__(self, theta_gw: ThetaPEDet, z_grids: torch.Tensor,
                  population: Population, selection: SelectionFunction,
-                 kind: str, kernel: str, bw_method, pe_neff: float):
+                 kind: str, kernel: str, bw_method, pe_neff: float,
+                 cut_grid: float | None, binning: bool, num_bins: int):
         super().__init__()
         self.kind = kind
         self.population = population
@@ -108,74 +127,93 @@ class HyperLikelihood(nn.Module):
         self.kernel = kernel
         self.bw_method = bw_method
         self.pe_neff = float(pe_neff)
+        self.cut_grid = None if cut_grid is None else float(cut_grid)
+        self.binning = bool(binning)
+        self.num_bins = int(num_bins)
         self.register_buffer("z_grids", z_grids.to(theta_gw.dL.dtype))
         self.n_samples = theta_gw.dL.shape[1]
-        if kind == "marginalized":
-            self._build_marginalized(theta_gw, z_grids)
-            return
         for name in _PE_FIELDS:
             self.register_buffer(name, getattr(theta_gw, name))
         self.register_buffer("inv_pe_prior", 1.0 / theta_gw.pe_prior)
+        if kind == "1d":
+            return
+        loc = torch.where(theta_gw.pixel_mask, theta_gw.gw_loc2d_pdf, 0.0)
+        self.register_buffer("loc", loc.to(self.z_grids.dtype))  # (E, P)
+        self.n_pixels = theta_gw.pixel_mask.shape[1]
+        if kind != "marginalized":
+            return
+        if binning:
+            # each sample's pixel: the masked-dense layout (E, P, S)
+            self.register_buffer("in_pix", theta_gw.pixels_pe_opt_nside[:, None, :]
+                                 == theta_gw.pixels_opt_nsides[:, :, None])
+        else:
+            self._build_marginalized(theta_gw, z_grids)
 
     def _build_marginalized(self, theta_gw: ThetaPEDet, z_grids: torch.Tensor
                             ) -> None:
-        """The per-pixel layouts and the λ-independent contraction factors,
-        built once as buffers:
+        """The per-pixel layouts of the fused dark-siren path, built once as
+        buffers:
 
         * ``pix_*`` (E*P, S_pp), ``pix_n_real``, ``pix_dl_fill``: the
-          per-pixel rectangle of the stats pass;
-        * ``row_*`` (R, 128): the chunk rows of the KDE pass, R = E*C;
-          ``row_pixel`` (R,) the (event, pixel) row of each chunk row;
-        * ``row_s1``, ``row_s2`` (R, G): s1 = p_cat * loc * tw and
-          s2 = (1 - P_compl) * loc * tw (loc the masked localization pdf, tw
-          the trapezoid weights) gathered per chunk row
+          per-pixel rectangle of the stats pass (and, with ``cut_grid``, of
+          the KDE on the event's effective grid);
+        * with ``cut_grid=None`` only, the chunk rows of the KDE pass:
+          ``row_*`` (R, 128), R = E*C; ``row_pixel`` (R,) the (event, pixel)
+          row of each chunk row; ``row_s1``, ``row_s2`` (R, G): s1 = p_cat *
+          loc * tw and s2 = (1 - P_compl) * loc * tw (loc the masked
+          localization pdf, tw the trapezoid weights) gathered per chunk row
           (``chimera_tpu/likelihood.py:987-1002, 1069``), computed in
           float64 from the z-grids as given: float32 trapezoid weights
           (differences of nearby grid points) cost the float32 likelihood
           several 1e-6 of relative accuracy.
         """
         compact = compact_samples_by_pixel(theta_gw)
-        rows = chunk_rows_from_compact(compact)
         n_ev, n_pix, _ = compact["dL"].shape
         for name in _LAYOUT_FIELDS:
             self.register_buffer("pix_" + name, compact[name].reshape(n_ev * n_pix, -1))
-            self.register_buffer("row_" + name, rows[name].reshape(-1, rows[name].shape[-1]))
         self.register_buffer("pix_n_real", compact["n_real"].reshape(-1))
         self.register_buffer("pix_dl_fill",
                              compact["dl_fill"].repeat_interleave(n_pix))
+        if self.cut_grid is not None:
+            return
+        rows = chunk_rows_from_compact(compact)
+        loc = torch.where(theta_gw.pixel_mask, theta_gw.gw_loc2d_pdf, 0.0)
+        for name in _LAYOUT_FIELDS:
+            self.register_buffer("row_" + name, rows[name].reshape(-1, rows[name].shape[-1]))
         row_pixel = (torch.arange(n_ev, device=rows["row_pix"].device)[:, None]
                      * n_pix + rows["row_pix"]).reshape(-1)
         self.register_buffer("row_pixel", row_pixel)
-        self.n_pixels = n_pix
         self.rows_per_event = rows["dL"].shape[1]
 
         gc = self.population.gal_cat
         f64, dt = torch.float64, self.z_grids.dtype
-        loc = torch.where(theta_gw.pixel_mask, theta_gw.gw_loc2d_pdf.to(f64), 0.0)
-        base = loc[:, :, None] * trapz_weights(z_grids.to(f64))[:, None, :]  # (E, P, G)
+        base = (loc.to(f64)[:, :, None]
+                * trapz_weights(z_grids.to(f64))[:, None, :])      # (E, P, G)
         g = z_grids.shape[1]
-        s1 = (gc.p_cat.to(f64) * base).reshape(-1, g)[row_pixel]
-        s2 = ((1.0 - gc.P_compl.to(f64)) * base).reshape(-1, g)[row_pixel]
+        if isinstance(gc, EmptyCatalog):
+            # no catalog term: p_gal = p_bkg (lambda_factors)
+            s1, s2 = torch.zeros_like(base), base
+        else:
+            s1 = gc.p_cat.to(f64) * base
+            s2 = (1.0 - gc.P_compl.to(f64)) * base
+        s1, s2 = (t.reshape(-1, g)[row_pixel] for t in (s1, s2))
         self.register_buffer("row_s1", s1.to(dt))
         self.register_buffer("row_s2", s2.to(dt))
 
     @classmethod
     def create(cls, theta_gw: ThetaPEDet, z_grids, population: Population,
                selection: SelectionFunction, kind=None, kernel="epan",
-               bw_method=None, cut_grid=2.0, binning=True, pe_neff=2.0
-               ) -> "HyperLikelihood":
+               bw_method=None, cut_grid=2.0, binning=True, num_bins=200,
+               pe_neff=2.0) -> "HyperLikelihood":
         """PE data, z-grids and injections are moved to the population's
         device and dtype; samples are sorted by distance.  Pixelated data
-        takes ``kind='marginalized'`` (or '1d' to ignore the pixels); other
-        data is spectral ('1d')."""
+        takes ``kind`` in ('1d', 'approximate', 'marginalized'); other data
+        is spectral ('1d')."""
         theta_gw = theta_gw.with_derived()
-        if kind == "approximate":
-            raise NotImplementedError(
-                "kind='approximate' is ROADMAP.md §1 item 8")
         if kind == "full":
             raise NotImplementedError("kind='full' is ROADMAP.md §1 item 11")
         if theta_gw.pixelated:
-            if kind not in ("1d", "marginalized"):
+            if kind not in KINDS:
                 raise ValueError("pixelated data requires kind in "
                                  "('1d', 'approximate', 'marginalized', 'full')")
         elif kind not in (None, "1d"):
@@ -183,19 +221,12 @@ class HyperLikelihood(nn.Module):
                              "(data.pixelize.pixelize_gw_catalog)")
         else:
             kind = "1d"
-        if binning:
-            raise NotImplementedError(
-                "binning=True is ROADMAP.md §1 item 12 (K4); pass binning=False")
-        if cut_grid is not None:
-            raise NotImplementedError(
-                "effective-grid KDEs (cut_grid) are ROADMAP.md §1 items 8 and 12 "
-                "(K1 modes b, d); pass cut_grid=None")
         if selection is None:
             raise ValueError("a SelectionFunction is required")
         ref = population.cosmo.H0
         updates = {f: torch.as_tensor(getattr(theta_gw, f), dtype=ref.dtype,
                                       device=ref.device) for f in _PE_FIELDS}
-        if kind == "marginalized":
+        if kind != "1d":
             updates.update({
                 f: torch.as_tensor(getattr(theta_gw, f), device=ref.device)
                 for f in _PIXEL_FIELDS if getattr(theta_gw, f) is not None})
@@ -203,7 +234,8 @@ class HyperLikelihood(nn.Module):
         z_grids = torch.as_tensor(z_grids, device=ref.device)
         _validate_shapes(theta_gw, z_grids, population, kind)
         hl = cls(_sort_samples_by_distance(theta_gw), z_grids, population,
-                 selection, kind, kernel, bw_method, pe_neff)
+                 selection, kind, kernel, bw_method, pe_neff, cut_grid,
+                 binning, num_bins)
         hl.selection.to(device=ref.device, dtype=ref.dtype)
         return hl
 
@@ -212,8 +244,9 @@ class HyperLikelihood(nn.Module):
         """Rebuild from ``convert.state_from_reference(jax_hyperlikelihood)``:
         the same PE data (and pixelation), z-grids, injections, population
         (its built tables and catalog included) and configuration.  The
-        JAX object's ``grad_engine`` has no counterpart here (the backward
-        follows the tensors' device) and is not read."""
+        JAX object's ``kde_engine`` and ``grad_engine`` have no counterpart
+        here (the kernels and the backward follow the tensors' device) and
+        are not read."""
         pop = Population.from_state(state, "population.", device, dtype)
         ref = pop.cosmo.H0
 
@@ -235,6 +268,7 @@ class HyperLikelihood(nn.Module):
                           bw_method=None if bw is None else bw.item(),
                           cut_grid=None if cut is None else float(cut),
                           binning=bool(state["binning"]),
+                          num_bins=int(state["num_bins"]),
                           pe_neff=float(state["pe_neff"]))
 
     def _apply(self, fn, *args, **kwargs):
@@ -249,38 +283,147 @@ class HyperLikelihood(nn.Module):
     def n_events(self) -> int:
         return self.z_grids.shape[0]
 
+    @property
+    def n_grid(self) -> int:
+        """Points of an effective grid: half the analysis grid's."""
+        return self.z_grids.shape[1] // 2
+
     def batch_numerators(self, pop_b: Population) -> torch.Tensor:
         """Per-event numerator integrals for a λ batch — (L, Nev)."""
+        if self.binning:
+            return self._numerators_binned(pop_b)
         if self.kind == "marginalized":
-            return self._numerators_marginalized(pop_b)
-        return self._numerators_1d(pop_b)
+            if self.cut_grid is None:
+                return self._numerators_marginalized(pop_b)
+            return self._numerators_marginalized_cut(pop_b)
+        return self._numerators_eventwise(pop_b)
 
-    def _numerators_1d(self, pop_b: Population) -> torch.Tensor:
-        """The fused weights+KDE pass, then ``numerators_from_densities``."""
-        den, stats = fused_weights_kde(
-            self.m1det, self.m2det, self.dL, self.inv_pe_prior,
-            pop_b.cosmo, pop_b.mass, self.z_grids,
-            kernel=self.kernel, bw_method=self.bw_method)
+    def _numerators_eventwise(self, pop_b: Population) -> torch.Tensor:
+        """'1d' and 'approximate', unbinned: the fused weights+KDE pass on
+        the analysis grids (K1a) or on effective grids (K1b), then
+        ``numerators_from_densities``."""
+        pe = (self.m1det, self.m2det, self.dL, self.inv_pe_prior,
+              pop_b.cosmo, pop_b.mass)
+        if self.cut_grid is None:
+            den, stats = fused_weights_kde(*pe, self.z_grids, kernel=self.kernel,
+                                           bw_method=self.bw_method)
+        else:
+            den, stats = fused_weights_kde(
+                *pe, kernel=self.kernel, bw_method=self.bw_method,
+                cut_grid=self.cut_grid, n_grid=self.n_grid)
         return self.numerators_from_densities(pop_b, den, stats)
 
     def numerators_from_densities(self, pop_b: Population, den: torch.Tensor,
                                   stats: dict) -> torch.Tensor:
-        """Spectral numerators (L, Nev) from the fused pass's outputs: the
-        densities, gated by N_eff, times p_cbc over the detector jacobian,
-        integrated over the z-grids."""
+        """Numerators (L, Nev) from the fused pass's outputs: the densities
+        (resampled from the effective grids onto the analysis grids with
+        ``cut_grid``), gated by N_eff, then the kind's z-integral
+        (``chimera_tpu/likelihood.py:796-839``)."""
         gate = stats["neff"] >= self.pe_neff
+        den = torch.nan_to_num(den)
+        if self.cut_grid is not None:
+            den = uniform_interp(self.z_grids[None], stats["lo"], stats["ub"], den)
         p_gw = torch.where(gate[..., None], torch.nan_to_num(den), 0.0)
+        return self._integrate_events(pop_b, p_gw)
+
+    def _integrate_events(self, pop_b: Population, p_gw: torch.Tensor
+                          ) -> torch.Tensor:
+        """p_gw (L, E, Nz) -> numerators (L, E): times p_cbc over the
+        detector jacobian for '1d'; for 'approximate' times the masked
+        localization pdf of each pixel first (``likelihood.py:541-546``)."""
+        if self.kind != "1d":
+            return self._integrate_pixels(
+                pop_b, p_gw[:, :, None, :] * self.loc[None, :, :, None])
         zg = self.z_grids[None]
         integrand = p_gw * p_cbc(pop_b, zg) / _jacobian(pop_b, zg)
         return trapz(integrand, zg, dim=-1)
 
+    def _integrate_pixels(self, pop_b: Population, p3: torch.Tensor
+                          ) -> torch.Tensor:
+        """p_gw (L, E, P, Nz) -> numerators (L, E): times p_cbc (an empty
+        catalog's lifted over the pixel axis) over the jacobian, integrated
+        over z and summed over pixels (``likelihood.py:691-706``)."""
+        zg = self.z_grids[None]
+        p_z = p_cbc(pop_b, zg)
+        if p_z.dim() == 3:
+            p_z = p_z[:, :, None, :]
+        integrand = p3 * p_z / _jacobian(pop_b, zg)[:, :, None, :]
+        return torch.sum(trapz(integrand, zg[:, :, None, :], dim=-1), dim=-1)
+
+    # -- the stage-by-stage (binned) path ------------------------------------
+
+    def _effective_grids(self, z: torch.Tensor) -> torch.Tensor:
+        """KDE grids per (λ, event): ``n_grid`` points over [min - c σ,
+        max + c σ] of the event's source-frame z (lo floored at 1e-8), or
+        the analysis grids without ``cut_grid`` (``likelihood.py:433-444``)."""
+        if self.cut_grid is None:
+            return self.z_grids[None]
+        c = self.cut_grid
+        lo, hi = torch.amin(z, dim=-1), torch.amax(z, dim=-1)
+        sig = torch.std(z, dim=-1, correction=0)
+        lb = torch.where(lo - c * sig > 0.0, lo - c * sig, 1e-8)
+        return linspace(lb, hi + c * sig, self.n_grid)
+
+    def _kde_to_grid(self, zs: torch.Tensor, ws: torch.Tensor,
+                     eff_grids: torch.Tensor) -> torch.Tensor:
+        """(..., S) samples and weights -> (..., Nz) densities on the
+        analysis grids: binning, the KDE parameters, one K4 launch over all
+        rows on ``eff_grids`` (broadcast to (..., G)), and with ``cut_grid``
+        the resampling (``likelihood.py:502-527``)."""
+        zs, ws = binning1d(zs, ws, self.num_bins)
+        wn, h = kde1d_params(zs, ws, self.bw_method)
+        lead, s = zs.shape[:-1], zs.shape[-1]
+        eff_grids = eff_grids.expand(*lead, eff_grids.shape[-1])
+        dens = kde1d_grid(zs.reshape(-1, s), wn.reshape(-1, s),
+                          eff_grids.reshape(-1, eff_grids.shape[-1]),
+                          h.reshape(-1), kernel=self.kernel).reshape(eff_grids.shape)
+        if self.cut_grid is None:
+            return dens
+        zg = self.z_grids if len(lead) == 2 else self.z_grids[:, None, :]
+        return uniform_interp(zg.expand(*lead, -1), eff_grids[..., 0],
+                              eff_grids[..., -1], dens)
+
+    def _numerators_binned(self, pop_b: Population) -> torch.Tensor:
+        """Every kind with ``binning=True`` (``likelihood.py:530-577``):
+        per-event norms and N_eff gates from the unbinned weights, then the
+        KDE per event ('1d', 'approximate') or per (event, pixel) of the
+        masked-dense layout ('marginalized': samples outside the pixel at
+        the event's min z with weight 0, so each pixel row's bins span
+        [event min z, pixel max z])."""
+        theta = ThetaPEDet(m1det=self.m1det, m2det=self.m2det, dL=self.dL,
+                           pe_prior=self.pe_prior)
+        th_src, w = theta_src_and_weights(pop_b, theta)             # (L, E, S)
+        z = th_src.z
+        norms = torch.mean(w, dim=-1)
+        sum_w, sum_w2 = torch.sum(w, dim=-1), torch.sum(w * w, dim=-1)
+        gate = sum_w * sum_w / sum_w2 >= self.pe_neff    # NaN compares False
+        eff = self._effective_grids(z)
+        if self.kind != "marginalized":
+            dens = self._kde_to_grid(z, w, eff)
+            p_gw = torch.where(gate[..., None],
+                               torch.nan_to_num(dens * norms[..., None]), 0.0)
+            return self._integrate_events(pop_b, p_gw)
+        z_fill = torch.amin(z, dim=-1)[..., None, None]
+        z_m = torch.where(self.in_pix, z[:, :, None, :], z_fill)     # (L, E, P, S)
+        w_m = torch.where(self.in_pix, w[:, :, None, :], 0.0)
+        dens = self._kde_to_grid(z_m, w_m, eff[:, :, None, :])
+        p = dens * self.loc[None, :, :, None] * norms[..., None, None]
+        p = torch.where(gate[..., None, None], torch.nan_to_num(p), 0.0)
+        return self._integrate_pixels(pop_b, p)
+
+    # -- the fused dark-siren paths ------------------------------------------
+
     def lambda_factors(self, pop_b: Population):
         """Per-λ contraction factors f1 = psi/(1+z)/jac and f2 = p_bkg * f1
         on the z-grids — (L, E, G) each — and the completeness fraction
-        fR — (L,) (``chimera_tpu/likelihood.py:1005-1016``)."""
+        fR — (L,) (``chimera_tpu/likelihood.py:1005-1016``).  An empty
+        catalog has p_gal = p_bkg = dV_c/dz and no catalog term (fR = 0)."""
         zg = self.z_grids[None]
         f1 = pop_b.rate.rate(zg) / (1.0 + zg) / _jacobian(pop_b, zg)
-        compl = pop_b.gal_cat.completeness
+        gc = pop_b.gal_cat
+        if isinstance(gc, EmptyCatalog):
+            return f1, gc.p_bkg(pop_b.cosmo, zg) * f1, torch.zeros_like(f1[:, 0, 0])
+        compl = gc.completeness
         return f1, compl.p_bkg(pop_b.cosmo, zg) * f1, compl.fR(pop_b.cosmo)
 
     def row_scales(self, stats: dict) -> torch.Tensor:
@@ -296,31 +439,70 @@ class HyperLikelihood(nn.Module):
         return torch.stack([inv_h[:, self.row_pixel], scale[:, self.row_pixel]],
                            dim=-1)
 
+    def _pixel_stats(self, pop_b: Population) -> dict:
+        """The stats pass (K1c) on the per-pixel rectangle's logical rows."""
+        return fused_row_stats(
+            self.pix_m1det, self.pix_m2det, self.pix_dL, self.pix_inv_pe_prior,
+            pop_b.cosmo, pop_b.mass, n_real=self.pix_n_real,
+            dl_fill=self.pix_dl_fill, logical_s=self.n_samples,
+            cut_grid=2.0 if self.cut_grid is None else self.cut_grid,
+            bw_method=self.bw_method)
+
+    def _event_sums(self, stats: dict):
+        """Per-event weight sums and N_eff gates from the pixel rows' sums
+        (the pixels partition the event's samples): (L, E) each."""
+        shape = (stats["sum_w"].shape[0], self.n_events, self.n_pixels)
+        sum_w = stats["sum_w"].reshape(shape).sum(dim=-1)
+        sum_w2 = stats["sum_w2"].reshape(shape).sum(dim=-1)
+        return sum_w, sum_w * sum_w / sum_w2 >= self.pe_neff
+
     def _numerators_marginalized(self, pop_b: Population) -> torch.Tensor:
         """Two kernel passes: row statistics on the per-pixel rectangle
         (K1c), then KDE + contraction on the chunk rows (K2); per event
 
             num = norms * (fR * sum_rows r1 + sum_rows r2),
 
-        gated by the event's N_eff (the pixels partition its samples, so its
-        weight sums are the pixel sums)."""
-        stats = fused_row_stats(
-            self.pix_m1det, self.pix_m2det, self.pix_dL, self.pix_inv_pe_prior,
-            pop_b.cosmo, pop_b.mass, n_real=self.pix_n_real,
-            dl_fill=self.pix_dl_fill, logical_s=self.n_samples, cut_grid=2.0,
-            bw_method=self.bw_method)
+        gated by the event's N_eff."""
+        stats = self._pixel_stats(pop_b)
         f1, f2, fr = self.lambda_factors(pop_b)
         r = fused_rows_contract(
             self.row_m1det, self.row_m2det, self.row_dL, self.row_inv_pe_prior,
             pop_b.cosmo, pop_b.mass, self.z_grids, self.row_scales(stats),
             self.row_s1, self.row_s2, f1, f2, kernel=self.kernel)
-        n, n_ev = r.shape[0], self.n_events
-        sum_w = stats["sum_w"].reshape(n, n_ev, self.n_pixels).sum(dim=-1)
-        sum_w2 = stats["sum_w2"].reshape(n, n_ev, self.n_pixels).sum(dim=-1)
-        gate = sum_w * sum_w / sum_w2 >= self.pe_neff
-        r = r.reshape(n, n_ev, self.rows_per_event, 2).sum(dim=2)
+        sum_w, gate = self._event_sums(stats)
+        r = r.reshape(r.shape[0], self.n_events, self.rows_per_event, 2).sum(dim=2)
         num = sum_w / self.n_samples * (fr[:, None] * r[..., 0] + r[..., 1])
         return torch.where(gate, torch.nan_to_num(num), 0.0)
+
+    def _numerators_marginalized_cut(self, pop_b: Population) -> torch.Tensor:
+        """'marginalized' with ``cut_grid``, two kernel passes
+        (``chimera_tpu/likelihood.py:842-930``): the stats pass (K1c) on
+        the events' full sample rows gives each event's effective-grid
+        bounds; the per-pixel KDE (K1d) runs on the logical pixel rows with
+        those bounds and unit mass; the densities are resampled onto the
+        analysis grids, times the localization pdf, the event's norm and
+        gate, then integrated."""
+        ev = fused_row_stats(self.m1det, self.m2det, self.dL, self.inv_pe_prior,
+                             pop_b.cosmo, pop_b.mass, cut_grid=self.cut_grid,
+                             bw_method=self.bw_method)
+        ext = torch.stack([ev["lo"].repeat_interleave(self.n_pixels, dim=1),
+                           ev["ub"].repeat_interleave(self.n_pixels, dim=1)],
+                          dim=-1)                                   # (L, B, 2)
+        den, stats = fused_weights_kde(
+            self.pix_m1det, self.pix_m2det, self.pix_dL, self.pix_inv_pe_prior,
+            pop_b.cosmo, pop_b.mass, kernel=self.kernel,
+            bw_method=self.bw_method, ext_bounds=ext, n_grid=self.n_grid,
+            n_real=self.pix_n_real, dl_fill=self.pix_dl_fill,
+            logical_s=self.n_samples, den_scale="unit")
+        sum_w, gate = self._event_sums(stats)
+        norms = sum_w / self.n_samples
+        n, n_ev, n_pix = den.shape[0], self.n_events, self.n_pixels
+        zg = self.z_grids.repeat_interleave(n_pix, dim=0)[None]
+        den = uniform_interp(zg, stats["lo"], stats["ub"], torch.nan_to_num(den))
+        p = den.reshape(n, n_ev, n_pix, -1) * self.loc[None, :, :, None]
+        p = p * norms[..., None, None]
+        p = torch.where(gate[..., None, None], torch.nan_to_num(p), 0.0)
+        return self._integrate_pixels(pop_b, p)
 
     def _finish(self, pop_b: Population, log_evs_sum: torch.Tensor,
                 n_exp: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,7 @@ from chimera_tpu_torch.models.population import (
     p_cbc,
     pop_rate_det,
     theta_det_to_src,
+    theta_src_and_weights,
 )
 from chimera_tpu_torch.models.rate import MadauDickinsonRate
 
@@ -22,4 +23,5 @@ __all__ = [
     "p_cbc",
     "pop_rate_det",
     "theta_det_to_src",
+    "theta_src_and_weights",
 ]

@@ -125,6 +125,15 @@ def theta_det_to_src(cosmo, theta_det, include_original_distances: bool = False
                     original_distances=dl if include_original_distances else None)
 
 
+def theta_src_and_weights(pop: Population, theta_det: ThetaPEDet
+                          ) -> tuple[ThetaSrc, torch.Tensor]:
+    """Source-frame samples and the population / PE-prior importance weights
+    p(m1, m2 | λ) / pe_prior, each with a leading λ axis."""
+    th_src = theta_det_to_src(pop.cosmo, theta_det)
+    weights = p_m1m2(pop.mass, th_src.m1src, th_src.m2src) / theta_det.pe_prior
+    return th_src, weights
+
+
 def p_cbc(pop: Population, z: torch.Tensor) -> torch.Tensor:
     """p_gal(z) psi(z) / (1+z) — the CBC redshift prior; ``z`` has a
     leading λ axis.  A pixelated catalog adds a pixel axis before the last:

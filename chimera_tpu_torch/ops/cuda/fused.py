@@ -1,37 +1,43 @@
 """Fused detector->source map + population weights (+ weighted KDE) for a
 λ batch: the counterpart of ``chimera_tpu/ops/pallas/fused.py::
-fused_weights_kde`` in the two modes the port's main paths run.
+fused_weights_kde`` in the modes the port's paths run.
 
 Per (λ, row), with S samples and G grid points:
 
     z_s  = z_from_dgw(cosmo_λ, dL_s)
     w_s  = p_m1m2(mass_λ, m1det_s/(1+z_s), m2det_s/(1+z_s)) * inv_pe_prior_s
     h    = bw_factor(N_eff) * std(z),  N_eff = (sum w)^2 / sum w^2
-    den  = sum_s w_s K((grid_g - z_s)/h) / (h S)
+    den  = sum_s w_s K((grid_g - z_s)/h) / (h S)       (den_scale='norms')
+        or sum_s w_s K((grid_g - z_s)/h) / (h sum w)   (den_scale='unit')
 
-* ``fused_weights_kde`` (K1a): the densities on the analysis grids with
-  ``den_scale='norms'`` — the spectral-siren hot loop.
-* ``fused_row_stats`` (K1c): the row statistics only, of the *logical* rows
-  of the dark-siren per-pixel layout (``n_real``, ``dl_fill``,
-  ``logical_s``: each row is one pixel's samples followed by zero-weight
-  fillers at ``dl_fill``, standing for the event's ``logical_s`` samples
-  with the out-of-pixel ones at the filler z).
-
+* ``fused_weights_kde``: the densities, on
+  - the analysis grids (K1a, ``grids``) — the spectral-siren hot loop;
+  - an effective grid per (λ, row), ``n_grid`` points over
+    [z_min - c σ, z_max + c σ] (K1b, ``cut_grid``);
+  - an effective grid over given bounds (K1d, ``ext_bounds``), on the
+    logical rows of the dark-siren per-pixel layout (``n_real``,
+    ``dl_fill``, ``logical_s``: each row is one pixel's samples followed by
+    zero-weight fillers at ``dl_fill``, standing for the event's
+    ``logical_s`` samples with the out-of-pixel ones at the filler z).
+* ``fused_row_stats`` (K1c): the row statistics only, of logical rows or of
+  plain ones.
 * ``fused_weights_kde_adjoint`` (K3): the backward of ``fused_weights_kde``
-  in the hyper-parameters — given cotangents of (den, stats), the gradients
-  of the two packed per-λ rows of ``pack_params``.
+  on the analysis grids in the hyper-parameters — given cotangents of (den,
+  stats), the gradients of the two packed per-λ rows of ``pack_params``.
 
 They run the hand-written CUDA kernels (``chimera_tpu_torch/csrc/
 fused_kde.cu``, ``fused_kde_adjoint.cu``) on CUDA tensors and the plain
 PyTorch versions ``fused_weights_kde_plain`` and
 ``fused_weights_kde_adjoint_plain`` on CPU tensors; on CUDA they launch the
-kernel or raise.
+kernel or raise.  ``fused_weights_kde.launches`` counts K1a launches,
+``.launches_b`` K1b and ``.launches_d`` K1d.
 
-Gradients.  On CPU tensors ``fused_weights_kde`` is its plain version and
-autograd differentiates it.  On CUDA tensors the K1a launch sits in a
+Gradients.  On CPU tensors every mode is its plain version and autograd
+differentiates it.  On CUDA tensors the K1a launch sits in a
 ``torch.autograd.Function`` whose backward returns gradients for the packed
 rows only (the PE data and grids get none: samplers differentiate
-hyper-parameters) by launching K3.
+hyper-parameters) by launching K3; the other modes raise when a model
+tensor requires grad.
 """
 
 from __future__ import annotations
@@ -82,32 +88,36 @@ def _bw_code(bw_method) -> tuple[int, float]:
 def fused_weights_kde_plain(m1det, m2det, dl, inv_pe_prior, cosmo, mass,
                             grids=None, kernel: str = "epan", bw_method=None,
                             n_real=None, dl_fill=None, logical_s=None,
-                            cut_grid=None, stats_only: bool = False):
+                            cut_grid=None, stats_only: bool = False,
+                            n_grid=None, ext_bounds=None,
+                            den_scale: str = "norms"):
     """Plain PyTorch version with the safe-math row statistics of
     ``chimera_tpu/ops/pallas/fused.py::_reference_impl``; chunked over rows
     so that no (L, E, G, S) tensor is ever materialized.
 
+    The grid is ``grids`` (E, G); or, with ``cut_grid``, ``n_grid`` points
+    over [z_min - c σ (floored at 1e-8), z_max + c σ] of each (λ, row); or,
+    with ``ext_bounds`` (L, E, 2), ``n_grid`` points over the given bounds.
     ``n_real`` (E,), ``dl_fill`` (E,) and ``logical_s`` give the row
     statistics of the logical rows of the per-pixel layout, in the TPU
-    kernel's form (fused.py:127-137); ``cut_grid`` fills the lo, ub stats
-    from the z range.  ``stats_only`` skips the KDE (den is None): the only
-    mode that takes the logical-row or cut_grid arguments here.
+    kernel's form (fused.py:127-137).  ``stats_only`` skips the KDE (den is
+    None); ``cut_grid`` then only fills the lo, ub stats.
 
     Returns den (L, E, G) and a dict of (L, E) stats."""
-    if not stats_only and (logical_s is not None or cut_grid is not None):
-        raise NotImplementedError(
-            "densities of the logical per-pixel rows or on effective grids "
-            "(K1 modes b, d) are ROADMAP.md §1 items 8 and 12")
     if logical_s is not None and (n_real is None or dl_fill is None):
         raise ValueError("logical_s requires n_real and dl_fill")
+    if not stats_only and ext_bounds is None and (cut_grid is None) == (grids is None):
+        raise ValueError("pass grids exactly when cut_grid is None")
+    if den_scale not in ("norms", "unit"):
+        raise ValueError(f"den_scale must be 'norms' or 'unit', not {den_scale!r}")
     e, s = dl.shape
-    g = 1 if stats_only else grids.shape[1]
+    on_grids = ext_bounds is None and cut_grid is None
+    g = 1 if stats_only else grids.shape[1] if on_grids else int(n_grid)
     n = max(cosmo.L, mass.L)
     dt = dl.dtype
     sl = float(s if logical_s is None else logical_s)
     tiny = torch.finfo(dt).tiny
-    den = None if stats_only else torch.empty((n, e, g), dtype=dt, device=dl.device)
-    stats = torch.zeros((n, e, 8), dtype=dt, device=dl.device)
+    dens, stats = [], []
     chunk = max(1, _PLAIN_BUDGET // (n * g * s))
     for e0 in range(0, e, chunk):
         rows = slice(e0, min(e, e0 + chunk))
@@ -136,22 +146,37 @@ def fused_weights_kde_plain(m1det, m2det, dl, inv_pe_prior, cosmo, mass,
         neff = torch.clamp(sum_w * sum_w / torch.where(sum_w2 > 0, sum_w2, 1.0),
                            1.0, sl)
         h = bw_factor(neff, 1, bw_method) * z_sig
-        st = stats[:, rows]
-        if cut_grid is not None:
+        if ext_bounds is not None:
+            lo, ub = ext_bounds[:, rows, 0], ext_bounds[:, rows, 1]
+        elif cut_grid is not None:
             lo = z_min - cut_grid * z_sig
-            st[..., 0] = torch.where(lo > 0.0, lo, 1e-8)
-            st[..., 1] = z_max + cut_grid * z_sig
-        st[..., 2] = sum_w / sl
-        st[..., 3] = neff
-        st[..., 4] = h
-        st[..., 5] = sum_w
-        st[..., 6] = sum_w2
-        st[..., 7] = z_sig
-        if not stats_only:
-            u = (grids[None, rows, :, None] - z[:, :, None, :]) / h[..., None, None]
-            d = torch.sum(w[:, :, None, :] * KERNELS[kernel](u), dim=-1)
-            den[:, rows] = d / h[..., None] / s
-    return den, _stats_dict(stats)
+            lo = torch.where(lo > 0.0, lo, 1e-8)
+            ub = z_max + cut_grid * z_sig
+        else:
+            lo = ub = torch.zeros_like(h)
+        stats.append(torch.stack([lo, ub, sum_w / sl, neff, h, sum_w, sum_w2,
+                                  z_sig], dim=-1))
+        if stats_only:
+            continue
+        if on_grids:
+            grid = grids[None, rows]                                # (1, c, G)
+        else:
+            delta = (ub - lo) / (g - 1)
+            grid = lo[..., None] + delta[..., None] * torch.arange(
+                g, dtype=dt, device=dl.device)                      # (n, c, G)
+        u = (grid[..., None] - z[:, :, None, :]) / h[..., None, None]
+        d = torch.sum(w[:, :, None, :] * KERNELS[kernel](u), dim=-1) / h[..., None]
+        if den_scale == "norms":
+            dens.append(d / sl)
+        else:
+            # rows below sqrt(tiny) total weight are defined as 0 (the
+            # reference's select, fused.py:459-468)
+            ok = sum_w > math.sqrt(tiny)
+            dens.append(torch.where(ok[..., None],
+                                    d / torch.where(ok, sum_w, 1.0)[..., None],
+                                    0.0))
+    den = None if stats_only else torch.cat(dens, dim=1)
+    return den, _stats_dict(torch.cat(stats, dim=1))
 
 
 def pack_params(cosmo: FLRW, mass: PowerLawPeak, n: int, dtype
@@ -206,18 +231,18 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
     silently short of their part."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name} has no backward on CUDA tensors: the dark-siren gradient "
-            "is ROADMAP.md §1 item 9")
+            f"{name} has no backward on CUDA tensors: its gradient is "
+            "ROADMAP.md §1 item 9")
 
 
 def launch(lib_name: str, symbol: str, dtype, device, args) -> None:
     """Call ``<symbol>_f32`` or ``<symbol>_f64`` of ``csrc/<lib_name>.cu`` on
-    the current stream; each arg is a tensor (its pointer), an int or a
-    float.  Raises on a refused launch."""
+    the current stream; each arg is a tensor (its pointer), None (a null
+    pointer), an int or a float.  Raises on a refused launch."""
     lib = build.load(lib_name)  # nvcc at first use
     fn = getattr(lib, f"{symbol}_{'f32' if dtype == torch.float32 else 'f64'}")
-    fn.argtypes = [ctypes.c_void_p if isinstance(a, torch.Tensor) else
-                   ctypes.c_double if isinstance(a, float) else ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p if a is None or isinstance(a, torch.Tensor)
+                   else ctypes.c_double if isinstance(a, float) else ctypes.c_int
                    for a in args] + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):
@@ -228,77 +253,153 @@ def launch(lib_name: str, symbol: str, dtype, device, args) -> None:
         raise RuntimeError(f"{symbol} kernel launch failed: cudaError {err}")
 
 
-def _launch_fused_kde(series, params, m1det, m2det, dl, inv_pe_prior, grids,
-                      cosmo, mass, kernel, bw_method):
-    """Launch K1a on checked inputs; returns den (L, E, G) and the stats
-    tensor (L, E, 8)."""
+# the kernel's modes (csrc/kde.cuh, FusedMode)
+_ANALYSIS_GRID, _EFFECTIVE_GRID, _EXTERNAL_BOUNDS, _STATS_ONLY = range(4)
+
+
+def _launch_k1(mode: int, series, params, m1det, m2det, dl, inv_pe_prior,
+               grids, cosmo, mass, kernel="epan", bw_method=None, n_grid=0,
+               ext_bounds=None, n_real=None, dl_fill=None, logical_s=None,
+               cut_grid=None, den_scale="norms"):
+    """Launch ``csrc/fused_kde.cu`` in ``mode`` on checked, contiguous
+    inputs; returns den (L, B, G) (None in the stats-only mode) and the
+    stats tensor (L, B, 8)."""
     bw_mode, bw_value = _bw_code(bw_method)
     dt = dl.dtype
-    e, s = dl.shape
-    n, g = series.shape[0], grids.shape[1]
-    den = torch.empty((n, e, g), dtype=dt, device=dl.device)
-    stats = torch.empty((n, e, 8), dtype=dt, device=dl.device)
+    b, s = dl.shape
+    n = series.shape[0]
+    g = grids.shape[1] if mode == _ANALYSIS_GRID else 0 if mode == _STATS_ONLY \
+        else n_grid
+    den = None if mode == _STATS_ONLY else torch.empty(
+        (n, b, g), dtype=dt, device=dl.device)
+    stats = torch.empty((n, b, 8), dtype=dt, device=dl.device)
     launch("fused_kde", "chimera_fused_kde", dt, dl.device,
-           [m1det, m2det, dl, inv_pe_prior, grids, series, params, den, stats,
-            n, e, s, g, cosmo.cheb_deg, mass.window_deg,
-            0 if kernel == "epan" else 1, bw_mode, float(bw_value)])
-    fused_weights_kde.launches += 1
+           [m1det, m2det, dl, inv_pe_prior, grids, ext_bounds, n_real, dl_fill,
+            series, params, den, stats, n, b, s, g, cosmo.cheb_deg,
+            mass.window_deg, 0 if logical_s is None else int(logical_s), mode,
+            0 if kernel == "epan" else 1, bw_mode, float(bw_value),
+            float(cut_grid or 0.0), int(den_scale == "unit")])
     return den, stats
 
 
-def fused_weights_kde(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids,
-                      kernel: str = "epan", bw_method=None):
-    """Fused hot loop of the spectral-siren likelihood for a λ batch.
+def _checked_rows(name, m1det, m2det, dl, inv_pe_prior, cosmo, mass, n_real,
+                  dl_fill, logical_s, sum_size):
+    """The checks every launch of ``csrc/fused_kde.cu`` shares: returns the
+    packed rows and the contiguous PE arrays, logical-row arrays."""
+    check_cuda_call(name, cosmo, mass, dl,
+                    {"m1det": m1det, "m2det": m2det, "inv_pe_prior": inv_pe_prior})
+    dt, dev = dl.dtype, dl.device
+    b, s = dl.shape
+    if logical_s is not None:
+        if n_real is None or dl_fill is None:
+            raise ValueError("logical_s requires n_real and dl_fill")
+        if n_real.shape != (b,) or dl_fill.shape != (b,):
+            raise ValueError(f"n_real and dl_fill must be ({b},)")
+        n_real = n_real.to(device=dev, dtype=torch.int64).contiguous()
+        dl_fill = dl_fill.to(device=dev, dtype=dt).contiguous()
+    else:
+        n_real = dl_fill = None
+    n = max(cosmo.L, mass.L)
+    series, params = (t.to(dev) for t in pack_params(cosmo, mass, n, dt))
+    smem = smem_bytes(series, sum_size, params, 2 * s)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"S = {s} samples need {smem} bytes of shared memory per block "
+            f"(z and w of every sample), over the {_SMEM_LIMIT}-byte limit")
+    pe = [t.contiguous() for t in (m1det, m2det, dl, inv_pe_prior)]
+    return series, params, pe, n_real, dl_fill
+
+
+def fused_weights_kde(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids=None,
+                      kernel: str = "epan", bw_method=None, *, cut_grid=None,
+                      n_grid=None, ext_bounds=None, n_real=None, dl_fill=None,
+                      logical_s=None, den_scale: str = "norms"):
+    """Fused weights + KDE of a λ batch.
 
     Args:
-      m1det, m2det, dl, inv_pe_prior: (E, S) detector-frame PE samples.
+      m1det, m2det, dl, inv_pe_prior: (B, S) detector-frame PE rows.
       cosmo, mass: λ-batched ``FLRW`` (chebyshev engine) and
         ``PowerLawPeak`` (analytic CDF engine).
-      grids: (E, G) analysis grids the densities are evaluated on.
+      grids: (B, G) analysis grids the densities are evaluated on (K1a); or
+      cut_grid, n_grid: ``n_grid`` points over [z_min - c σ, z_max + c σ]
+        of each (λ, row), lo floored at 1e-8 (K1b); or
+      ext_bounds, n_grid: (L, B, 2) bounds of each (λ, row)'s ``n_grid``
+        points (K1d).
+      n_real, dl_fill, logical_s: the rows are logical rows of the
+        per-pixel layout (see ``fused_row_stats``).
+      den_scale: 'norms' (1 / (h S)) or 'unit' (1 / (h sum w)).
 
     Returns:
-      den (L, E, G) — densities times the KDE norm sum(w)/S — and a dict of
-      (L, E) stats: lo, ub (zeros: no effective grid), norms, neff,
-      bandwidth, sum_w, sum_w2.
+      den (L, B, G) and a dict of (L, B) stats: lo, ub (the grid's bounds;
+      zeros on analysis grids), norms, neff, bandwidth, sum_w, sum_w2.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel and
     raise on anything it does not take; the kernel's row statistics are the
     raw formulas (a dead row gives NaN where the plain version clamps — the
     N_eff gate and nan_to_num downstream treat both alike).  Where a model
     tensor requires grad, the backward on CUDA tensors is the adjoint kernel
-    (``fused_weights_kde_adjoint``).
+    (``fused_weights_kde_adjoint``) on analysis grids with 'norms', and an
+    error otherwise.
     """
     if dl.device.type == "cpu":
-        return fused_weights_kde_plain(m1det, m2det, dl, inv_pe_prior, cosmo,
-                                       mass, grids, kernel, bw_method)
-    check_cuda_call("fused_weights_kde", cosmo, mass, dl,
-                    {"m1det": m1det, "m2det": m2det, "inv_pe_prior": inv_pe_prior})
+        return fused_weights_kde_plain(
+            m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids, kernel,
+            bw_method, n_real, dl_fill, logical_s, cut_grid, n_grid=n_grid,
+            ext_bounds=ext_bounds, den_scale=den_scale)
     if kernel not in ("epan", "gauss"):
         raise ValueError(f"unknown KDE kernel {kernel!r}")
-    dt = dl.dtype
-    e, s = dl.shape
-    g = grids.shape[1]
-    if grids.shape != (e, g) or grids.dtype != dt or grids.device != dl.device:
-        raise ValueError(f"grids must be ({e}, G) {dt} on {dl.device}")
+    if den_scale not in ("norms", "unit"):
+        raise ValueError(f"den_scale must be 'norms' or 'unit', not {den_scale!r}")
+    dt, dev = dl.dtype, dl.device
+    b, s = dl.shape
     n = max(cosmo.L, mass.L)
-    series, params = (t.to(dl.device) for t in pack_params(cosmo, mass, n, dt))
-    # K1a sums the Chebyshev series in the working dtype
-    smem = smem_bytes(series, dl.element_size(), params, 2 * s)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"S = {s} samples need {smem} bytes of shared memory per block "
-            f"(z and w of every sample), over the {_SMEM_LIMIT}-byte limit")
-    inputs = [t.contiguous() for t in (m1det, m2det, dl, inv_pe_prior, grids)]
-    if torch.is_grad_enabled() and (series.requires_grad or params.requires_grad):
-        den, stats = _FusedKDE.apply(series, params, *inputs, cosmo, mass,
+    if ext_bounds is not None:
+        mode = _EXTERNAL_BOUNDS
+        if ext_bounds.shape != (n, b, 2) or ext_bounds.dtype != dt \
+                or ext_bounds.device != dev:
+            raise ValueError(f"ext_bounds must be ({n}, {b}, 2) {dt} on {dev}")
+        ext_bounds = ext_bounds.contiguous()
+    elif (cut_grid is None) == (grids is None):
+        raise ValueError("pass grids exactly when cut_grid is None")
+    else:
+        mode = _ANALYSIS_GRID if grids is not None else _EFFECTIVE_GRID
+    if mode == _ANALYSIS_GRID:
+        g = grids.shape[1]
+        if grids.shape != (b, g) or grids.dtype != dt or grids.device != dev:
+            raise ValueError(f"grids must be ({b}, G) {dt} on {dev}")
+        grids = grids.contiguous()
+    elif n_grid is None or int(n_grid) < 2:
+        raise ValueError("an effective grid takes n_grid >= 2 points")
+    # the dark-siren mode (d) sums the Chebyshev series in float64, the
+    # spectral modes (a, b) in the working dtype
+    series, params, pe, n_real, dl_fill = _checked_rows(
+        "fused_weights_kde", m1det, m2det, dl, inv_pe_prior, cosmo, mass,
+        n_real, dl_fill, logical_s, 8 if mode == _EXTERNAL_BOUNDS else dl.element_size())
+    if mode == _ANALYSIS_GRID and logical_s is None and den_scale == "norms" \
+            and torch.is_grad_enabled() \
+            and (series.requires_grad or params.requires_grad):
+        den, stats = _FusedKDE.apply(series, params, *pe, grids, cosmo, mass,
                                      kernel, bw_method)
     else:
-        den, stats = _launch_fused_kde(series, params, *inputs, cosmo, mass,
-                                       kernel, bw_method)
+        refuse_grad("fused_weights_kde", series, params,
+                    *([] if ext_bounds is None else [ext_bounds]))
+        den, stats = _launch_k1(
+            mode, series, params, *pe, grids, cosmo, mass, kernel, bw_method,
+            n_grid=0 if n_grid is None else int(n_grid), ext_bounds=ext_bounds,
+            n_real=n_real, dl_fill=dl_fill, logical_s=logical_s,
+            cut_grid=cut_grid, den_scale=den_scale)
+    if mode == _ANALYSIS_GRID:
+        fused_weights_kde.launches += 1
+    elif mode == _EFFECTIVE_GRID:
+        fused_weights_kde.launches_b += 1
+    else:
+        fused_weights_kde.launches_d += 1
     return den, _stats_dict(stats)
 
 
 fused_weights_kde.launches = 0
+fused_weights_kde.launches_b = 0
+fused_weights_kde.launches_d = 0
 
 
 def unpack_params(cosmo: FLRW, mass: PowerLawPeak, series: torch.Tensor,
@@ -430,9 +531,8 @@ class _FusedKDE(torch.autograd.Function):
         ctx.save_for_backward(series, params, m1det, m2det, dl, inv_pe_prior,
                               grids)
         ctx.cfg = (cosmo, mass, kernel, bw_method)
-        return _launch_fused_kde(series, params, m1det, m2det, dl,
-                                 inv_pe_prior, grids, cosmo, mass, kernel,
-                                 bw_method)
+        return _launch_k1(_ANALYSIS_GRID, series, params, m1det, m2det, dl,
+                          inv_pe_prior, grids, cosmo, mass, kernel, bw_method)
 
     @staticmethod
     def backward(ctx, ct_den, ct_stats):
@@ -445,8 +545,8 @@ class _FusedKDE(torch.autograd.Function):
 
 
 def fused_row_stats_plain(m1det, m2det, dl, inv_pe_prior, cosmo, mass,
-                          n_real, dl_fill, logical_s: int, cut_grid: float = 2.0,
-                          bw_method=None) -> dict:
+                          n_real=None, dl_fill=None, logical_s=None,
+                          cut_grid: float = 2.0, bw_method=None) -> dict:
     """Plain PyTorch version of ``fused_row_stats`` (``_reference_impl`` in
     its stats-only mode)."""
     return fused_weights_kde_plain(
@@ -455,19 +555,20 @@ def fused_row_stats_plain(m1det, m2det, dl, inv_pe_prior, cosmo, mass,
         cut_grid=cut_grid, stats_only=True)[1]
 
 
-def fused_row_stats(m1det, m2det, dl, inv_pe_prior, cosmo, mass, n_real,
-                    dl_fill, logical_s: int, cut_grid: float = 2.0,
+def fused_row_stats(m1det, m2det, dl, inv_pe_prior, cosmo, mass, n_real=None,
+                    dl_fill=None, logical_s=None, cut_grid: float = 2.0,
                     bw_method=None) -> dict:
     """Row statistics of a λ batch with no KDE (the stats-only mode of the
     TPU kernel, K1c): the first pass of the dark-siren 'marginalized' path.
 
     Args:
-      m1det, m2det, dl, inv_pe_prior: (B, S) rows, each holding its
-        ``n_real[b]`` samples first and zero-weight fillers at ``dl_fill[b]``
-        after them (``data.pixelize.compact_samples_by_pixel``).
-      n_real, dl_fill, logical_s: (B,) int, (B,) and int — the statistics
-        are those of the logical row of ``logical_s`` samples, the
-        ``logical_s - n_real`` missing ones at z(dl_fill) with zero weight.
+      m1det, m2det, dl, inv_pe_prior: (B, S) rows.  With ``logical_s`` each
+        row holds its ``n_real[b]`` samples first and zero-weight fillers at
+        ``dl_fill[b]`` after them (``data.pixelize.compact_samples_by_pixel``).
+      n_real, dl_fill, logical_s: (B,) int, (B,) and int, or None — the
+        statistics are those of the logical row of ``logical_s`` samples,
+        the ``logical_s - n_real`` missing ones at z(dl_fill) with zero
+        weight; without them, of the rows as they are.
       cut_grid: lo, ub = the z range -/+ cut_grid sigma (lo floored at
         1e-8), as the TPU kernel computes them.
 
@@ -480,29 +581,14 @@ def fused_row_stats(m1det, m2det, dl, inv_pe_prior, cosmo, mass, n_real,
         return fused_row_stats_plain(m1det, m2det, dl, inv_pe_prior, cosmo,
                                      mass, n_real, dl_fill, logical_s,
                                      cut_grid, bw_method)
-    check_cuda_call("fused_row_stats", cosmo, mass, dl,
-                    {"m1det": m1det, "m2det": m2det, "inv_pe_prior": inv_pe_prior})
-    bw_mode, bw_value = _bw_code(bw_method)
-    dt = dl.dtype
-    b, s = dl.shape
-    if n_real.shape != (b,) or dl_fill.shape != (b,):
-        raise ValueError(f"n_real and dl_fill must be ({b},)")
-    n = max(cosmo.L, mass.L)
-    series, params = (t.to(dl.device) for t in pack_params(cosmo, mass, n, dt))
-    refuse_grad("fused_row_stats", series, params)
     # the dark-siren kernels sum the Chebyshev series in float64
-    smem = smem_bytes(series, 8, params, s)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"S = {s} samples need {smem} bytes of shared memory per block "
-            f"(z of every sample), over the {_SMEM_LIMIT}-byte limit")
-    inputs = [t.contiguous() for t in (m1det, m2det, dl, inv_pe_prior)]
-    stats = torch.empty((n, b, 8), dtype=dt, device=dl.device)
-    launch("fused_kde", "chimera_row_stats", dt, dl.device,
-           [*inputs, n_real.to(device=dl.device, dtype=torch.int64).contiguous(),
-            dl_fill.to(device=dl.device, dtype=dt).contiguous(), series, params,
-            stats, n, b, s, cosmo.cheb_deg, mass.window_deg, int(logical_s),
-            bw_mode, float(bw_value), float(cut_grid)])
+    series, params, pe, n_real, dl_fill = _checked_rows(
+        "fused_row_stats", m1det, m2det, dl, inv_pe_prior, cosmo, mass,
+        n_real, dl_fill, logical_s, 8)
+    refuse_grad("fused_row_stats", series, params)
+    _, stats = _launch_k1(_STATS_ONLY, series, params, *pe, None, cosmo, mass,
+                          bw_method=bw_method, n_real=n_real, dl_fill=dl_fill,
+                          logical_s=logical_s, cut_grid=cut_grid)
     fused_row_stats.launches += 1
     return _stats_dict(stats)
 

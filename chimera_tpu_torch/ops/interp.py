@@ -39,3 +39,23 @@ def _interp_rows(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.T
                     fp_lo + ((x - xp_lo) / torch.where(dx0, 1.0, dx)) * (fp_hi - fp_lo))
     f = torch.where(x < xp[:, :1], fp[:, :1], f)
     return torch.where(x > xp[:, -1:], fp[:, -1:], f)
+
+
+def uniform_interp(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                   fp: torch.Tensor, left: float = 0.0, right: float = 0.0
+                   ) -> torch.Tensor:
+    """Linear interpolation on uniform nodes ``linspace(lo, hi, M)`` by index
+    arithmetic (``chimera_tpu/ops/interp.py::uniform_interp``), batched over
+    rows: x (..., N), lo and hi (...,), fp (..., M) -> (..., N).  Outside
+    [lo, hi] the value is ``left`` / ``right``.  A row with hi == lo gives
+    NaN between them, as the reference; its index is taken as 0 (a float to
+    integer conversion of NaN is undefined in torch)."""
+    m = fp.shape[-1]
+    lo, hi = lo[..., None], hi[..., None]
+    t = (x - lo) / (hi - lo) * (m - 1)
+    i = torch.nan_to_num(torch.floor(t).clamp(0, m - 2), nan=0.0).long()
+    frac = t - i
+    val = (torch.gather(fp, -1, i) * (1.0 - frac)
+           + torch.gather(fp, -1, i + 1) * frac)
+    val = torch.where(x < lo, left, val)
+    return torch.where(x > hi, right, val)

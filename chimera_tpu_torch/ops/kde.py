@@ -1,5 +1,5 @@
-"""KDE bandwidth factor, kernels and the d-dimensional Gaussian KDE (part
-of ``chimera_tpu/ops/kde.py``).
+"""KDE bandwidth factor, kernels, the 1-D KDE's parameters and contraction
+and the d-dimensional Gaussian KDE (part of ``chimera_tpu/ops/kde.py``).
 
 The bandwidth conventions are the reference's: Scott/Silverman factor of the
 Kish effective sample size times the *unweighted* std of the samples (1-D),
@@ -37,6 +37,43 @@ def gaussian_kernel(u: torch.Tensor) -> torch.Tensor:
 
 
 KERNELS = {"epan": epanechnikov_kernel, "gauss": gaussian_kernel}
+
+
+def kde1d_params(dataset: torch.Tensor, weights: torch.Tensor | None, bw_method
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Unit-mass weights and bandwidth of 1-D KDEs over the last axis, with
+    the reference's conventions (``chimera_tpu/ops/kde.py::kde1d_params``):
+    Kish n_eff of the normalized weights, clipped to [1, S]; the Scott,
+    Silverman or fixed factor times the *unweighted* std of the dataset
+    (ddof 0), its variance floored at sqrt(tiny).  A row of zero weights
+    keeps zero weights and gets finite parameters.  Returns (..., S) weights
+    and (...,) bandwidths."""
+    s = dataset.shape[-1]
+    if weights is None:
+        weights = torch.full(dataset.shape, 1.0 / s, dtype=dataset.dtype,
+                             device=dataset.device)
+    else:
+        sw = torch.sum(weights, dim=-1, keepdim=True)
+        weights = weights / torch.where(sw > 0, sw, 1.0)
+    s2 = torch.sum(weights * weights, dim=-1)
+    neff = torch.clamp(1.0 / torch.where(s2 > 0, s2, 1.0), 1.0, float(s))
+    floor = math.sqrt(torch.finfo(dataset.dtype).tiny)
+    sig = torch.sqrt(torch.clamp_min(torch.var(dataset, dim=-1, correction=0),
+                                     floor))
+    return weights, bw_factor(neff, 1, bw_method) * sig
+
+
+def kde1d_core(dataset: torch.Tensor, grid: torch.Tensor,
+               norm_weights: torch.Tensor, bandwidth: torch.Tensor,
+               kernel: str = "epan") -> torch.Tensor:
+    """The raw 1-D KDE contraction, batched over leading axes: dataset and
+    normalized weights (..., S), grid (..., G), bandwidth (...,) -> (..., G)
+    = sum_s w_s K((g - z_s) / h) / h (``chimera_tpu/ops/kde.py::
+    kde1d_core``).  Materializes (..., G, S): callers chunk."""
+    h = bandwidth[..., None, None]
+    u = (grid[..., :, None] - dataset[..., None, :]) / h
+    return torch.sum(norm_weights[..., None, :] * KERNELS[kernel](u),
+                     dim=-1) / bandwidth[..., None]
 
 
 def _safe_norm_weights(weights, shape, dtype, device) -> torch.Tensor:

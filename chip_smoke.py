@@ -13,11 +13,16 @@ paths end to end through the entry points a user calls:
 * phases 11-14, hyper-parameter gradients and the HMC / ChEES samplers on
   the spectral headline likelihood (16 chains in H0, Om0, mu_g; every
   leapfrog step one batch forward through K1a and one backward through the
-  adjoint kernel K3).
+  adjoint kernel K3);
+* phases 15-18, the reference's default configuration (binning=True,
+  num_bins=200, cut_grid=2.0: the batched KDE K4) at both widths, the
+  unbinned effective-grid paths (K1b; the event stats pass K1c and the
+  per-pixel KDE on the event's bounds K1d) and kind 'approximate'.
 
-Each likelihood path checks float32 against float64, elementwise against the repo's
-1e-6 bar (the dark path on the repo's own precision mock,
-tests/data/f32_parity_dark.npz), and is timed.
+Each likelihood path checks float32 against float64, elementwise against the
+repo's 1e-6 bar or, binned, against BINNED_F32_BAR (the precision mocks:
+64 x 1024 x 300 spectral, the dark tests/data/f32_parity_dark.npz), and is
+timed; each batch of a path launches exactly its kernels, once each.
 
     python3 chip_smoke.py
 
@@ -57,6 +62,19 @@ KDE_OPS, CHEB_OPS = 7, 3
 # of the adjoint's Clenshaw work: the forward's recurrence, then value with
 # derivative (3 + 4) and the T_k projection (fma, sub, fma)
 ADJ_KDE_OPS, ADJ_CHEB_OPS = 11, 3 + 7 + 4
+# The float32 bar of the reference-default configuration (binning=True,
+# cut_grid=2.0): max(1e-6, 2 x the JAX package's own float32-vs-float64 gap
+# on the repo's precision mocks, as measured by
+# `PYTHONPATH=. python tests/test_torch_f32_parity.py --reference-gap`).
+# Binning moves a sample to the neighbouring bin where its float32 z lies
+# within rounding of a bin edge.
+REFERENCE_F32_GAP = {"1d": 1.2995178314968518e-07,
+                     "marginalized": 3.932049027578433e-05}
+BINNED_F32_BAR = {k: max(1e-6, 2.0 * v) for k, v in REFERENCE_F32_GAP.items()}
+# the spectral float32 precision mock (``mock``'s arguments): the shape of
+# tests/test_f32_parity.py::test_f32_loglike_parity, 64 events x 1024
+# samples x 300-point grids, 200 000 generated injections
+PRECISION_MOCK = (64, 1024, 200_000, 300, 300, SEED + 5)
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -103,14 +121,15 @@ def population(dtype, gal_cat=None, device=None):
         MadauDickinsonRate.create(device=device, dtype=dtype), gal_cat=gal_cat)
 
 
-def mock(n_events, n_samples, n_inj, z_res, oversample, seed):
+def mock(n_events, n_samples, n_inj, z_res, oversample, seed, device=None):
     """Port-generated float64 mock catalog, injections and z-grids, drawn on
-    the card at H0 = 70."""
+    the card (or ``device``) at H0 = 70."""
     from chimera_tpu_torch.data.mock import make_mock_catalog, make_mock_injections
     from chimera_tpu_torch.models import compute_z_grids
 
-    pop = population(F64)
-    gen = torch.Generator(device=DEV).manual_seed(seed)
+    device = DEV if device is None else device
+    pop = population(F64, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
     cat = make_mock_catalog(gen, pop, n_events=n_events, n_samples=n_samples,
                             snr_threshold=12.0, oversample=oversample)
     inj, n_gen = make_mock_injections(gen, pop, n_generated=n_inj,
@@ -120,13 +139,17 @@ def mock(n_events, n_samples, n_inj, z_res, oversample, seed):
     return cat, inj, n_gen, z_grids
 
 
-def likelihood(data, dtype, kernel="epan"):
+def likelihood(data, dtype, kernel="epan", **config):
+    """The spectral likelihood of a mock; unbinned on the analysis grids
+    unless ``config`` says otherwise."""
     from chimera_tpu_torch import HyperLikelihood, SelectionFunction
 
     cat, inj, n_gen, z_grids = data
-    return HyperLikelihood.create(cat, z_grids, population(dtype),
+    config = {"binning": False, "cut_grid": None, **config}
+    return HyperLikelihood.create(cat, z_grids,
+                                  population(dtype, device=z_grids.device),
                                   SelectionFunction.create(inj, n_gen),
-                                  kernel=kernel, binning=False, cut_grid=None)
+                                  kernel=kernel, **config)
 
 
 def kernel_inputs(hl, h0s):
@@ -135,22 +158,31 @@ def kernel_inputs(hl, h0s):
             pop_b.mass, hl.z_grids)
 
 
-def compare(args, den_tol, stat_tol):
-    """Kernel vs plain version on the same inputs; returns the errors."""
+def compare(args, den_tol, stat_tol, min_live=0.9, **kw):
+    """K1 (``fused_weights_kde``: ``args`` and keywords ``kw``, any mode)
+    against its plain version on the same inputs, on the rows with weight:
+    densities relative to each row's largest value, stats relative (lo and
+    ub to the largest ub).  Returns (den rel, den abs, stats rel)."""
     from chimera_tpu_torch.ops.cuda.fused import (fused_weights_kde,
                                                   fused_weights_kde_plain)
 
-    den_k, st_k = fused_weights_kde(*args)
-    den_p, st_p = fused_weights_kde_plain(*args)
+    den_k, st_k = fused_weights_kde(*args, **kw)
+    den_p, st_p = fused_weights_kde_plain(*args, **kw)
     torch.cuda.synchronize(DEV)
+    # errors in float64: a float32 floor of 1e-300 would be 0
+    den_k, den_p = den_k.double(), den_p.double()
+    st_k = {k: v.double() for k, v in st_k.items()}
+    st_p = {k: v.double() for k, v in st_p.items()}
     live = st_p["sum_w"] > 0
-    if live.float().mean() < 0.9:
-        raise AssertionError(f"only {int(live.sum())} live (λ, event) rows")
+    if live.float().mean() < min_live:
+        raise AssertionError(f"only {int(live.sum())} live (λ, row) pairs")
     row_max = den_p.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
     den_rel = ((den_k - den_p).abs() / row_max)[live].max().item()
     den_abs = (den_k - den_p).abs()[live].max().item()
-    stat_rel = max(((st_k[k] - st_p[k]).abs() / st_p[k].abs())[live].max().item()
-                   for k in ("norms", "neff", "bandwidth", "sum_w", "sum_w2"))
+    ub_max = st_p["ub"].abs().max().clamp_min(1e-300)
+    stat_rel = max(((st_k[k] - st_p[k]).abs() / (
+        ub_max if k in ("lo", "ub") else st_p[k].abs()))[live].max().item()
+        for k in ("lo", "ub", "norms", "neff", "bandwidth", "sum_w", "sum_w2"))
     if not (den_rel <= den_tol and stat_rel <= stat_tol):
         raise AssertionError(
             f"kernel vs plain: den {den_rel:.3e} (tol {den_tol:.0e}) of the row "
@@ -199,7 +231,7 @@ def spectral(smi: str) -> tuple[dict, tuple]:
           f"log L = {[round(v, 4) for v in ll.tolist()]} [{smi}]")
 
     # ---- 5. precision: float32 vs float64 through the kernel -------------
-    par = mock(64, 1024, 200_000, 300, 300, SEED + 5)
+    par = mock(*PRECISION_MOCK)
     h0s7 = torch.linspace(58.0, 100.0, 7, device=DEV)
     rel, diff, n_fin = f32_vs_f64(likelihood(par, F64), likelihood(par, F32),
                                   h0s7)
@@ -234,7 +266,7 @@ def spectral(smi: str) -> tuple[dict, tuple]:
           f"{k_call:.3f} ms, plain {p_call:.3f} ms per call "
           f"({p_call / k_call:.1f}x), bound {bound_ms:.3f} ms ({bound_by}); "
           f"den max err {den_rel:.3e} of row max, stats {stat_rel:.3e}")
-    return {"name": "fused_weights_kde", "route": "cuda",
+    return {"name": "fused_weights_kde (K1a)", "route": "cuda",
             "source": "chimera_tpu_torch/csrc/fused_kde.cu",
             "replaces": "chimera_tpu/ops/pallas/fused.py:71",
             "launches": launches, "max_abs_err": den_abs, "ms": k_call,
@@ -257,11 +289,11 @@ def check_log_like(ll, h0s, launches: dict) -> None:
         raise AssertionError(f"H0 argmax {h0_best} outside [60, 80]")
 
 
-def f32_vs_f64(hl64, hl32, h0s) -> tuple[float, float, int]:
+def f32_vs_f64(hl64, hl32, h0s, bar: float = 1e-6) -> tuple[float, float, int]:
     """Float32 against float64 log L over an H0 batch, elementwise relative,
-    held to the repo's 1e-6 bar (BASELINE.md, tests/test_f32_parity.py).
-    Returns the largest relative and absolute differences and the number
-    of finite values."""
+    held to ``bar``: the repo's 1e-6 (BASELINE.md, tests/test_f32_parity.py)
+    unless given.  Returns the largest relative and absolute differences
+    and the number of finite values."""
     ll64 = hl64.log_like_batch({"H0": h0s})
     ll32 = hl32.log_like_batch({"H0": h0s.to(F32)}).double()
     fin = torch.isfinite(ll64)
@@ -270,8 +302,8 @@ def f32_vs_f64(hl64, hl32, h0s) -> tuple[float, float, int]:
                              f"f32 {ll32.tolist()}")
     diff = (ll32 - ll64).abs()[fin]
     rel = (diff / ll64[fin].abs()).max().item()
-    if rel > 1e-6:
-        raise AssertionError(f"float32 vs float64: {rel:.3e} > 1e-6 "
+    if rel > bar:
+        raise AssertionError(f"float32 vs float64: {rel:.3e} > {bar:.3e} "
                              f"(f64 {ll64.tolist()}, f32 {ll32.tolist()})")
     return rel, diff.max().item(), int(fin.sum())
 
@@ -360,15 +392,17 @@ def parity_dark_mock(device):
     return cat, arr("zg"), gal_cat, inj, float(d["n_gen"])
 
 
-def dark_likelihood(data, dtype):
+def dark_likelihood(data, dtype, **config):
+    """The dark-siren likelihood of a mock; 'marginalized', unbinned on the
+    analysis grids unless ``config`` says otherwise."""
     from chimera_tpu_torch import HyperLikelihood, SelectionFunction
 
     cat, z_grids, gal_cat, inj, n_gen = data
+    config = {"kind": "marginalized", "binning": False, "cut_grid": None,
+              **config}
     return HyperLikelihood.create(cat, z_grids,
                                   population(dtype, gal_cat, z_grids.device),
-                                  SelectionFunction.create(inj, n_gen),
-                                  kind="marginalized", binning=False,
-                                  cut_grid=None)
+                                  SelectionFunction.create(inj, n_gen), **config)
 
 
 def dark_kernel_inputs(hl, h0s):
@@ -427,10 +461,11 @@ def dark_compare(stats_args, rows_args, stat_tol, r_tol):
     return stat_rel, stat_abs, r_rel, r_abs
 
 
-def dark(smi: str) -> list[dict]:
+def dark(smi: str) -> tuple[list[dict], tuple]:
     """Phases 7-10: K1c and K2 against their plain versions, the dark-siren
     batch end to end at the flagship width, float32 vs float64, timing.
-    Returns the two kernels' entries of the kernels line."""
+    Returns the two kernels' entries of the kernels line and the flagship
+    data."""
     from chimera_tpu_torch.ops.cuda.fused import (fused_row_stats,
                                                   fused_row_stats_plain)
     from chimera_tpu_torch.ops.cuda.rows import (fused_rows_contract,
@@ -531,13 +566,14 @@ def dark(smi: str) -> list[dict]:
             ("fused_row_stats", "fused_kde.cu", 71, k1, p1, k1_bound, stat_abs),
             ("fused_rows_contract", "rows_contract.cu", 495, k2, p2, k2_bound,
              r_abs)):
+        kid = "K1c" if name == "fused_row_stats" else "K2"
         k_call, p_call = statistics.median(kern), statistics.median(plain)
         phase(10, f"{name} vs plain", f"[{smi}] at the flagship, L = {n}: "
               f"kernel {k_call:.3f} ms, plain {p_call:.3f} ms per call "
               f"({p_call / k_call:.1f}x), bound {b_ms:.4f} ms ({b_by}); max "
               f"abs err {err:.3e}")
         entries.append({
-            "name": name, "route": "cuda",
+            "name": f"{name} ({kid})", "route": "cuda",
             "source": f"chimera_tpu_torch/csrc/{src}",
             "replaces": f"chimera_tpu/ops/pallas/fused.py:{line}",
             "launches": launches[name], "max_abs_err": err, "ms": k_call,
@@ -546,7 +582,7 @@ def dark(smi: str) -> list[dict]:
     phase(10, "errors", f"stats max rel {stat_rel:.3e}, r max {r_rel:.3e} of "
           f"the per-λ max; {live_pairs} of {n * r_rows} (λ, row) pairs carry "
           f"KDE work [{smi}]")
-    return entries
+    return entries, data
 
 
 # ---------------------------------------------------------------------------
@@ -880,12 +916,289 @@ def sampler(smi: str, full) -> dict:
           f"the cotangents of log L, max err {rel:.3e} of each gradient row's "
           f"max (tol 1e-3), {abs_err:.3e} abs; in float64 {rel64:.3e} (tol "
           f"1e-9)")
-    return {"name": "fused_weights_kde_adjoint", "route": "cuda",
+    return {"name": "fused_weights_kde_adjoint (K3)", "route": "cuda",
             "source": "chimera_tpu_torch/csrc/fused_kde_adjoint.cu",
             "replaces": "chimera_tpu/ops/pallas/fused.py:713",
             "launches": counts["hmc"][1], "max_abs_err": abs_err, "ms": k_call,
             "plain_ms": p_call, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# the reference-default configuration and the effective-grid paths
+# ---------------------------------------------------------------------------
+
+def counters() -> dict:
+    """Every kernel's launch counter: {kernel id: (wrapper, attribute)}."""
+    from chimera_tpu_torch.ops.cuda.fused import (fused_row_stats,
+                                                  fused_weights_kde,
+                                                  fused_weights_kde_adjoint)
+    from chimera_tpu_torch.ops.cuda.kde import kde1d_grid
+    from chimera_tpu_torch.ops.cuda.rows import fused_rows_contract
+
+    return {"K1a": (fused_weights_kde, "launches"),
+            "K1b": (fused_weights_kde, "launches_b"),
+            "K1c": (fused_row_stats, "launches"),
+            "K1d": (fused_weights_kde, "launches_d"),
+            "K2": (fused_rows_contract, "launches"),
+            "K3": (fused_weights_kde_adjoint, "launches"),
+            "K4": (kde1d_grid, "launches")}
+
+
+def counted(fn, expect: dict):
+    """Run ``fn`` with every launch count set to 0 just before; the counts
+    just after must be ``expect`` ({kernel id: launches}, 0 for the rest).
+    Returns fn's result and the counts."""
+    for wrapper, attr in counters().values():
+        setattr(wrapper, attr, 0)
+    out = fn()
+    torch.cuda.synchronize(DEV)
+    got = {k: getattr(w, a) for k, (w, a) in counters().items()}
+    if got != {k: expect.get(k, 0) for k in got}:
+        raise AssertionError(f"launches {got}, expected {expect}")
+    return out, got
+
+
+def captured(name: str, fn):
+    """Run ``fn`` with the likelihood module's ``name`` (a kernel wrapper)
+    recording its calls; returns the (args, kwargs) of the last call: the
+    inputs the main path hands the kernel."""
+    from chimera_tpu_torch import likelihood as module
+
+    real, calls = getattr(module, name), []
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        fn()
+    finally:
+        setattr(module, name, real)
+    return calls[-1]
+
+
+def kde_compare(args, kw, tol):
+    """K4 against its plain version on the same inputs: the largest error
+    relative to each row's largest density, over the rows with density;
+    returns (rel, abs)."""
+    from chimera_tpu_torch.ops.cuda.kde import kde1d_grid, kde1d_grid_plain
+
+    got, expect = kde1d_grid(*args, **kw), kde1d_grid_plain(*args, **kw)
+    torch.cuda.synchronize(DEV)
+    got, expect = got.double(), expect.double()
+    row_max = expect.abs().amax(dim=-1, keepdim=True)
+    rows = row_max[:, 0] > 0
+    if rows.float().mean() < 0.5:
+        raise AssertionError(f"only {int(rows.sum())} rows with density")
+    err = (got - expect).abs()
+    rel = (err / row_max.clamp_min(1e-300))[rows].max().item()
+    if not rel <= tol:
+        raise AssertionError(f"K4 vs plain: {rel:.3e} of the row max (tol {tol:.0e})")
+    if not torch.all(err[~rows] == 0):
+        raise AssertionError("K4 gave density where the plain version has none")
+    return rel, err.max().item()
+
+
+def k4_bound(args) -> tuple[float, str]:
+    z, _, grids, _ = args
+    b, s = z.shape
+    g = grids.shape[1]
+    return bound(z.element_size() * (2 * b * s + 2 * b * g + b), b * g * s * KDE_OPS)
+
+
+def reference_defaults(smi: str, full, dark_data) -> list[dict]:
+    """Phases 15-18: K4, K1b and K1d against their plain versions; the
+    reference-default configuration (binning=True, num_bins=200,
+    cut_grid=2.0) end to end at the spectral headline and the dark flagship
+    width; the unbinned effective-grid paths and kind 'approximate' there.
+    Returns the three kernels' entries of the kernels line."""
+    from chimera_tpu_torch.data.structs import ThetaPEDet
+    from chimera_tpu_torch.models import theta_src_and_weights
+    from chimera_tpu_torch.ops.binning import binning1d
+    from chimera_tpu_torch.ops.cuda.fused import (fused_row_stats,
+                                                  fused_weights_kde,
+                                                  fused_weights_kde_plain)
+    from chimera_tpu_torch.ops.cuda.kde import kde1d_grid, kde1d_grid_plain
+
+    binned = {"binning": True, "num_bins": 200, "cut_grid": 2.0}
+    h0s = torch.linspace(55.0, 95.0, 16, device=DEV)
+    h0s4 = torch.linspace(60.0, 80.0, 4, device=DEV)
+    batch = {"H0": h0s.to(F32)}
+    n, reps = len(h0s), 17
+
+    # ---- 15. kernels vs plain --------------------------------------------
+    for dtype, tol in ((F64, 1e-10), (F32, 1e-4)):
+        hl = dark_likelihood(dark_data, dtype, **binned)
+        args, kw = captured("kde1d_grid",
+                            lambda: hl.log_like_batch({"H0": h0s.to(dtype)}))
+        rel, _ = kde_compare(args, kw, tol)
+        b, s = args[0].shape
+        phase(15, f"K4 vs plain {dtype}", f"{b} rows x {s} bins x "
+              f"{args[2].shape[1]} grid (the binned dark flagship, L = {n}): "
+              f"max err {rel:.3e} of the row max (tol {tol:.0e}) [{smi}]")
+        del hl, args
+    small = mock(64, 4096, 200_000, 500, 300, SEED + 3)
+    for dtype, tol in ((F64, 1e-10), (F32, 1e-4)):
+        hl = likelihood(small, dtype, cut_grid=2.0)
+        args, kw = captured("fused_weights_kde",
+                            lambda: hl.log_like_batch({"H0": h0s4.to(dtype)}))
+        den_rel, _, stat_rel = compare(args, tol, tol, **kw)
+        phase(15, f"K1b vs plain {dtype}", f"{args[2].shape[0]} x "
+              f"{args[2].shape[1]} x {kw['n_grid']}, L = 4: "
+              f"den max err {den_rel:.3e} of the row max, stats {stat_rel:.3e} "
+              f"(tol {tol:.0e}) [{smi}]")
+    del small
+    small, _ = dark_mock(64, 1024, 15, 500, 100_000, 10_000, SEED + 7)
+    for dtype, tol in ((F64, 1e-10), (F32, 1e-4)):
+        hl = dark_likelihood(small, dtype, cut_grid=2.0)
+        args, kw = captured("fused_weights_kde",
+                            lambda: hl.log_like_batch({"H0": h0s4.to(dtype)}))
+        den_rel, _, stat_rel = compare(args, tol, tol, min_live=0.3, **kw)
+        phase(15, f"K1d vs plain {dtype}", f"{hl.n_events} events, {args[2].shape[0]} "
+              f"pixel rows x {args[2].shape[1]} slots x {kw['n_grid']}, L = 4: "
+              f"den max err {den_rel:.3e} of the row max, stats {stat_rel:.3e} "
+              f"(tol {tol:.0e}) [{smi}]")
+    del small
+
+    # ---- 16. and 17. the reference's defaults end to end -----------------
+    entries = {}
+    for num, name, data, make, kind, prec in (
+            (16, "spectral", full, likelihood, "1d", mock(*PRECISION_MOCK)),
+            (17, "dark", dark_data, dark_likelihood, "marginalized",
+             parity_dark_mock(DEV))):
+        hl = make(data, F32, **binned)
+        torch.cuda.reset_peak_memory_stats(DEV)
+        ll, _ = counted(lambda: hl.log_like_batch(batch), {"K4": 1})
+        peak = torch.cuda.max_memory_allocated(DEV) / 2**30
+        check_log_like(ll, h0s, {"kde1d_grid": 1})
+        rel, diff, n_fin = f32_vs_f64(make(prec, F64, **binned),
+                                      make(prec, F32, **binned),
+                                      torch.linspace(58.0, 100.0, 7, device=DEV),
+                                      BINNED_F32_BAR[kind])
+        total = cuda_ms(lambda: hl.log_like_batch(batch), reps)
+        # the stages before K4: the table rebuild, z and weights of every
+        # sample, the binning (of the masked-dense layout for the dark kind)
+        pop_b = hl.population.update_batch(batch)
+        theta = ThetaPEDet(m1det=hl.m1det, m2det=hl.m2det, dL=hl.dL,
+                           pe_prior=hl.pe_prior)
+        stages = {"table rebuild": cuda_ms(
+            lambda: hl.population.update_batch(batch), reps),
+            "z and weights": cuda_ms(
+                lambda: theta_src_and_weights(pop_b, theta), reps)}
+        b_args, b_kw = captured("binning1d", lambda: hl.log_like_batch(batch))
+        stages["binning"] = cuda_ms(lambda: binning1d(*b_args, **b_kw), reps)
+        del b_args, pop_b
+        args, kw = captured("kde1d_grid", lambda: hl.log_like_batch(batch))
+        stages["K4"] = kern = cuda_ms(lambda: kde1d_grid(*args, **kw), reps)
+        plain = cuda_ms(lambda: kde1d_grid_plain(*args, **kw), 1)
+        k_rel, k_abs = kde_compare(args, kw, 1e-4)
+        t_med, t_mad = med_mad([t / n for t in total])
+        split = {k: med_mad([t / n for t in v]) for k, v in stages.items()}
+        rest = t_med - sum(m for m, _ in split.values())
+        b_ms, b_by = k4_bound(args)
+        phase(num, f"reference defaults, {name}", f"{kind}, binning=True, "
+              f"num_bins=200, cut_grid=2.0; {hl.n_events} events x "
+              f"{hl.n_samples} samples x {hl.z_grids.shape[1]} grid; launches "
+              f"K4 1, K1/K2 0; peak memory {peak:.2f} GiB; H0 argmax "
+              f"{h0s[int(torch.argmax(ll))].item():.2f}; log L = "
+              f"{[round(v, 4) for v in ll.tolist()]} [{smi}]")
+        phase(num, "precision", f"float32 vs float64 log L on the precision "
+              f"mock: max rel err {rel:.3e} (bar {BINNED_F32_BAR[kind]:.3e}), "
+              f"max abs {diff:.3e}, over {n_fin} of 7 H0 values [{smi}]")
+        phase(num, "timing", f"[{smi}] per λ over {reps} batches of {n}: total "
+              f"{t_med:.4f} ± {t_mad:.4f} ms (median ± MAD); "
+              + "; ".join(f"{k} {m:.4f} ± {d:.4f} ms" for k, (m, d) in split.items())
+              + f"; rest {rest:.4f} ms; K4 per call "
+              f"{statistics.median(kern):.3f} ms at {args[0].shape[0]} rows x "
+              f"{args[0].shape[1]} x {args[2].shape[1]}, plain {plain[0]:.3f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}); max err {k_rel:.3e} of the row max")
+        entries["K4"] = {
+            "name": "kde1d_grid (K4)", "route": "cuda",
+            "source": "chimera_tpu_torch/csrc/kde1d.cu",
+            "replaces": "chimera_tpu/ops/pallas/kde.py:37", "launches": 1,
+            "max_abs_err": k_abs, "ms": statistics.median(kern),
+            "plain_ms": plain[0], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+        del hl, args, prec
+
+    # ---- 18. the unbinned effective-grid paths ---------------------------
+    cut = {"binning": False, "cut_grid": 2.0}
+    for name, data, make, kind, launched in (
+            ("spectral", full, likelihood, "1d", {"K1b": 1}),
+            ("dark", dark_data, dark_likelihood, "marginalized",
+             {"K1c": 1, "K1d": 1})):
+        hl = make(data, F32, **cut)
+        ll, _ = counted(lambda: hl.log_like_batch(batch), launched)
+        check_log_like(ll, h0s, {"fused_weights_kde": 1})
+        total = cuda_ms(lambda: hl.log_like_batch(batch), reps)
+        args, kw = captured("fused_weights_kde", lambda: hl.log_like_batch(batch))
+        kern = cuda_ms(lambda: fused_weights_kde(*args, **kw), reps)
+        plain = cuda_ms(lambda: fused_weights_kde_plain(*args, **kw), 1, 0)
+        den_rel, den_abs, stat_rel = compare(
+            args, 1e-4, 1e-4, min_live=0.9 if kind == "1d" else 0.3, **kw)
+        t_med, t_mad = med_mad([t / n for t in total])
+        k_med, k_mad = med_mad([t / n for t in kern])
+        rest_ms = t_med - k_med
+        cosmo, mass = args[4], args[5]
+        q, g = 12 + mass.window_deg, kw["n_grid"]
+        cheb = CHEB_OPS * cosmo.cheb_deg
+        if kind == "1d":
+            e, s = args[2].shape
+            kid, rest = "K1b", ""
+            b_ms, b_by = bound(4 * (4 * e * s + n * q + n * e * (g + 8))
+                               + 8 * n * (cosmo.cheb_deg + 2),
+                               n * e * s * (cheb + KDE_OPS * g))
+        else:
+            b = args[2].shape[0]
+            n_real = int(kw["n_real"].sum())
+            kid = "K1d"
+            ev = captured("fused_row_stats", lambda: hl.log_like_batch(batch))
+            k1c = med_mad([t / n for t in cuda_ms(
+                lambda: fused_row_stats(*ev[0], **ev[1]), reps)])
+            rest = f"K1c (on the events) {k1c[0]:.4f} ± {k1c[1]:.4f} ms; "
+            rest_ms -= k1c[0]
+            b_ms, b_by = bound(4 * (4 * n_real + b + 2 * n * b + n * q
+                                    + n * b * (g + 8)) + 8 * b
+                               + 8 * n * (cosmo.cheb_deg + 2),
+                               n * n_real * (cheb + KDE_OPS * g))
+        prec = mock(*PRECISION_MOCK) if kind == "1d" else parity_dark_mock(DEV)
+        rel, _, _ = f32_vs_f64(make(prec, F64, **cut), make(prec, F32, **cut),
+                               torch.linspace(58.0, 100.0, 7, device=DEV))
+        phase(18, f"unbinned cut_grid=2.0, {name}", f"{kind}: launches "
+              f"{launched}; H0 argmax {h0s[int(torch.argmax(ll))].item():.2f}; "
+              f"log L = {[round(v, 4) for v in ll.tolist()]}; float32 vs float64 "
+              f"on the precision mock {rel:.3e} (bar 1e-6) [{smi}]")
+        phase(18, "timing", f"[{smi}] per λ over {reps} batches of {n}: total "
+              f"{t_med:.4f} ± {t_mad:.4f} ms (median ± MAD); {kid} "
+              f"{k_med:.4f} ± {k_mad:.4f} ms; {rest}rest {rest_ms:.4f} ms; "
+              f"{kid} per call "
+              f"{statistics.median(kern):.3f} ms, plain {plain[0]:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}); den max err {den_rel:.3e} of the row max, "
+              f"stats {stat_rel:.3e}")
+        entries[kid] = {
+            "name": f"fused_weights_kde ({kid})", "route": "cuda",
+            "source": "chimera_tpu_torch/csrc/fused_kde.cu",
+            "replaces": "chimera_tpu/ops/pallas/fused.py:71", "launches": 1,
+            "max_abs_err": den_abs, "ms": statistics.median(kern),
+            "plain_ms": plain[0], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+        del hl, args, kw, prec
+    for binning, launched in ((True, {"K4": 1}), (False, {"K1b": 1})):
+        hl = dark_likelihood(dark_data, F32, kind="approximate", binning=binning,
+                             cut_grid=2.0)
+        ll, _ = counted(lambda: hl.log_like_batch(batch), launched)
+        check_log_like(ll, h0s, {"kernel": 1})
+        t_med, t_mad = med_mad([t / n for t in cuda_ms(
+            lambda: hl.log_like_batch(batch), 5)])
+        phase(18, f"approximate, binning={binning}", f"dark flagship data, "
+              f"cut_grid=2.0: launches {launched}; H0 argmax "
+              f"{h0s[int(torch.argmax(ll))].item():.2f}; {t_med:.4f} ± "
+              f"{t_mad:.4f} ms per λ over 5 batches of {n}; log L = "
+              f"{[round(v, 4) for v in ll.tolist()]} [{smi}]")
+        del hl
+    return [entries["K1b"], entries["K1d"], entries["K4"]]
 
 
 def main() -> None:
@@ -904,7 +1217,7 @@ def main() -> None:
 
     # ---- 2. kernel builds, one nvcc per source, in parallel --------------
     t0 = time.perf_counter()
-    names = ["fused_kde", "rows_contract", "fused_kde_adjoint"]
+    names = ["fused_kde", "rows_contract", "fused_kde_adjoint", "kde1d"]
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(build.load, names))
     for name in names:
@@ -917,7 +1230,9 @@ def main() -> None:
     phase(2, "kernel builds", f"{time.perf_counter() - t0:.2f} s in all [{smi}]")
 
     k1a, full = spectral(smi)
-    kernels = [k1a, *dark(smi), sampler(smi, full)]
+    dark_entries, dark_data = dark(smi)
+    kernels = [k1a, *dark_entries, sampler(smi, full),
+               *reference_defaults(smi, full, dark_data)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels of the PyTorch port, on the card: K1a
-(spectral) and its adjoint K3, K1c and K2 (dark siren).
+(spectral) and its adjoint K3, K1c and K2 (dark siren), the effective-grid
+modes K1b and K1d and the batched KDE K4 (the reference's binned defaults).
 
 Every test here needs a CUDA card and nvcc (marker ``cuda``) and skips
 without one.  The file imports no JAX, so it runs on a machine without it:
@@ -40,7 +41,7 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _spectral_hl(dead_event: bool):
+def _spectral_inputs(dead_event: bool):
     pop = Population.create(FLRW.create(device="cpu"),
                             PowerLawPeak.create(device="cpu"),
                             MadauDickinsonRate.create(device="cpu"))
@@ -53,9 +54,12 @@ def _spectral_hl(dead_event: bool):
         prior = cat.pe_prior.clone()
         prior[5] = torch.inf
         cat = cat.update(pe_prior=prior)
-    return HyperLikelihood.create(cat, z_grids, pop,
-                                  SelectionFunction.create(inj, n_gen),
-                                  binning=False, cut_grid=None)
+    return cat, z_grids, pop, SelectionFunction.create(inj, n_gen)
+
+
+def _spectral_hl(dead_event: bool, **config):
+    config = {"binning": False, "cut_grid": None, **config}
+    return HyperLikelihood.create(*_spectral_inputs(dead_event), **config)
 
 
 @pytest.fixture(scope="module")
@@ -262,8 +266,9 @@ def test_hmc_repeats_bit_for_bit(cuda, live_cpu_hl):
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def dark_cpu_hl():
-    """'marginalized' likelihood on port-made data, float64 on the CPU: 16
+def dark_inputs():
+    """The inputs of a 'marginalized' likelihood on port-made data, float64
+    on the CPU: 16
     events x 256 samples, nside {8, 16}, ~6 pixels per event, 64-point
     grids, 3000 background galaxies, 20k generated injections.  Every sample
     of event 3's first pixel has zero weight (infinite PE prior): a dead
@@ -292,10 +297,14 @@ def dark_cpu_hl():
         DVdzCompleteness.create(z_range=(0.0, 3.0), device="cpu"))
     inj, n_gen = make_mock_injections(gen, pop, n_generated=20_000)
     pop = Population.create(pop.cosmo, pop.mass, pop.rate, gal_cat=gc)
-    return HyperLikelihood.create(cat, z_grids, pop,
-                                  SelectionFunction.create(inj, n_gen),
-                                  kind="marginalized", binning=False,
-                                  cut_grid=None)
+    return cat, z_grids, pop, SelectionFunction.create(inj, n_gen)
+
+
+@pytest.fixture(scope="module")
+def dark_cpu_hl(dark_inputs):
+    """The dark-siren flagship configuration on those inputs."""
+    return HyperLikelihood.create(*dark_inputs, kind="marginalized",
+                                  binning=False, cut_grid=None)
 
 
 def _dark_args(hl, kernel):
@@ -378,3 +387,183 @@ def test_dark_gradient_is_refused_on_the_card(cuda, dark_cpu_hl):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         card.log_like_batch({"H0": h0})
     assert torch.all(torch.isfinite(card.log_like_batch({"H0": h0.detach()})))
+
+
+# ---------------------------------------------------------------------------
+# K1b, K1d and K4: the reference's defaults and the effective-grid paths
+# ---------------------------------------------------------------------------
+
+def _launches() -> dict:
+    from chimera_tpu_torch.ops.cuda.kde import kde1d_grid
+
+    return {"K1a": fused_weights_kde.launches, "K1b": fused_weights_kde.launches_b,
+            "K1c": fused_row_stats.launches, "K1d": fused_weights_kde.launches_d,
+            "K2": fused_rows_contract.launches, "K4": kde1d_grid.launches}
+
+
+def _launched(fn, expect: dict):
+    """fn() and the check that it launched exactly ``expect``."""
+    before = _launches()
+    out = fn()
+    torch.cuda.synchronize()
+    after = _launches()
+    assert {k: after[k] - before[k] for k in after} == \
+        {k: expect.get(k, 0) for k in after}
+    return out
+
+
+def _check_rows(den, st, den_p, st_p, live, tol):
+    row_max = den_p.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+    assert ((den - den_p).abs() / row_max)[live].max().item() <= tol
+    ub_max = st_p["ub"].abs().max()
+    for k in ("lo", "ub", "norms", "neff", "bandwidth", "sum_w", "sum_w2"):
+        ref = ub_max if k in ("lo", "ub") else st_p[k].abs()
+        rel = ((st[k] - st_p[k]).abs() / ref)[live].max().item()
+        assert rel <= tol, (k, rel)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("kernel", ["epan", "gauss"])
+def test_k4_matches_plain(cuda, dtype, tol, kernel):
+    """K4 on 300 rows of 200 normalized weights (a dead row among them) on
+    250- and 500-point grids (the two register tilings)."""
+    from chimera_tpu_torch.ops.cuda.kde import kde1d_grid, kde1d_grid_plain
+
+    gen = torch.Generator().manual_seed(4)
+    z = 1.0 + 0.2 * torch.randn((300, 200), generator=gen, dtype=torch.float64)
+    w = torch.rand((300, 200), generator=gen, dtype=torch.float64)
+    w[7] = 0.0
+    w = w / w.sum(dim=1, keepdim=True).clamp_min(1e-300)
+    h = 0.02 + 0.08 * torch.rand(300, generator=gen, dtype=torch.float64)
+    for g in (250, 500):
+        grids = torch.linspace(0.3, 1.8, g, dtype=torch.float64)[None] \
+            * (0.8 + 0.4 * torch.rand((300, 1), generator=gen, dtype=torch.float64))
+        args = [t.to(device=cuda, dtype=dtype) for t in (z, w, grids, h)]
+        out = _launched(lambda: kde1d_grid(*args, kernel=kernel), {"K4": 1})
+        expect = kde1d_grid_plain(*args, kernel=kernel)
+        row_max = expect.abs().amax(dim=1)
+        live = row_max > 0
+        assert not live[7] and live.sum() == 299
+        assert ((out - expect).abs().amax(dim=1)[live] / row_max[live]).max() <= tol
+        assert torch.all(out[7] == 0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("kernel", ["epan", "gauss"])
+def test_k1b_matches_plain(cuda, cpu_hl, dtype, tol, kernel):
+    """K1b: each (λ, event)'s own 32-point effective grid, 'norms'; the
+    dead event is left out."""
+    args = _kernel_args(copy.deepcopy(cpu_hl).to(device=cuda, dtype=dtype))[:6]
+    kw = {"kernel": kernel, "cut_grid": 2.0, "n_grid": 32}
+    den, st = _launched(lambda: fused_weights_kde(*args, **kw), {"K1b": 1})
+    den_p, st_p = fused_weights_kde_plain(*args, **kw)
+    live = torch.ones_like(st_p["sum_w"], dtype=torch.bool)
+    live[:, 5] = False
+    _check_rows(den, st, den_p, st_p, live, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("kernel", ["epan", "gauss"])
+def test_k1d_matches_plain(cuda, dark_inputs, dtype, tol, kernel):
+    """K1c on the event rows (no logical rows) and K1d on the per-pixel
+    logical rows with those bounds, 'unit', on the pixel rows with weight
+    (the dead pixel and the padding pixels are left out)."""
+    hl = HyperLikelihood.create(*dark_inputs, kind="marginalized",
+                                binning=False, cut_grid=2.0)
+    hl = copy.deepcopy(hl).to(device=cuda, dtype=dtype)
+    pop_b = hl.population.update_batch({"H0": H0S})
+    ev_args = (hl.m1det, hl.m2det, hl.dL, hl.inv_pe_prior, pop_b.cosmo,
+               pop_b.mass)
+    ev = _launched(lambda: fused_row_stats(*ev_args, cut_grid=2.0), {"K1c": 1})
+    ev_p = fused_row_stats_plain(*ev_args, cut_grid=2.0)
+    for k in ("lo", "ub", "neff", "bandwidth", "sum_w"):
+        rel = ((ev[k] - ev_p[k]).abs() / ev_p[k].abs()).max().item()
+        assert rel <= tol, (k, rel)
+    ext = torch.stack([ev_p["lo"], ev_p["ub"]], dim=-1).repeat_interleave(
+        hl.n_pixels, dim=1)
+    args = (hl.pix_m1det, hl.pix_m2det, hl.pix_dL, hl.pix_inv_pe_prior,
+            pop_b.cosmo, pop_b.mass)
+    kw = {"kernel": kernel, "ext_bounds": ext, "n_grid": 32,
+          "n_real": hl.pix_n_real, "dl_fill": hl.pix_dl_fill,
+          "logical_s": hl.n_samples, "den_scale": "unit"}
+    den, st = _launched(lambda: fused_weights_kde(*args, **kw), {"K1d": 1})
+    den_p, st_p = fused_weights_kde_plain(*args, **kw)
+    live = st_p["sum_w"] > 0
+    assert 0.3 < live.float().mean() < 1.0
+    _check_rows(den, st, den_p, st_p, live, tol)
+
+
+CONFIGS = [
+    ("spectral", {"binning": True, "cut_grid": 2.0}, {"K4": 1}),
+    ("spectral", {"binning": True, "cut_grid": None}, {"K4": 1}),
+    ("spectral", {"binning": False, "cut_grid": 2.0}, {"K1b": 1}),
+    ("marginalized", {"binning": True, "cut_grid": 2.0}, {"K4": 1}),
+    ("marginalized", {"binning": False, "cut_grid": 2.0}, {"K1c": 1, "K1d": 1}),
+    ("approximate", {"binning": True, "cut_grid": 2.0}, {"K4": 1}),
+    ("approximate", {"binning": False, "cut_grid": 2.0}, {"K1b": 1}),
+    ("approximate", {"binning": False, "cut_grid": None}, {"K1a": 1}),
+]
+
+
+@pytest.mark.parametrize("kind,config,launched", CONFIGS)
+def test_configurations_match_cpu(cuda, dark_inputs, kind, config, launched):
+    """Every new (kind, binning, cut_grid) path on the card: the launches of
+    one batch exactly, and log L within 1e-10 of the CPU's in float64."""
+    if kind == "spectral":
+        cpu = _spectral_hl(dead_event=False, **config)
+    else:
+        cpu = HyperLikelihood.create(*dark_inputs, kind=kind, **config)
+    card = copy.deepcopy(cpu).to(cuda)
+    got = _launched(lambda: card.log_like_batch({"H0": H0S}), launched).cpu()
+    expect = cpu.log_like_batch({"H0": H0S})
+    assert torch.all(torch.isfinite(expect))
+    torch.testing.assert_close(got, expect, rtol=1e-10, atol=0)
+
+
+def test_reference_defaults_run_on_the_card(cuda):
+    """``create(theta, z_grids, pop, sel)`` with no keyword: models built
+    without a device live on the card in float32, the likelihood bins (K4
+    once), and log L is the CPU's float64 one within 1e-5 (the bar of a
+    float32 log L over 16 events)."""
+    cat, z_grids, _, sel = _spectral_inputs(dead_event=False)
+    card_pop = Population.create(FLRW.create(), PowerLawPeak.create(),
+                                 MadauDickinsonRate.create())
+    assert card_pop.cosmo.H0.device.type == "cuda"
+    hl = HyperLikelihood.create(cat, z_grids, card_pop, sel)
+    assert (hl.kind, hl.binning, hl.num_bins, hl.cut_grid) == ("1d", True, 200, 2.0)
+    assert hl.dL.device.type == "cuda"
+    got = _launched(lambda: hl.log_like_batch({"H0": H0S}), {"K4": 1}).cpu()
+    cpu = HyperLikelihood.create(cat, z_grids, Population.create(
+        FLRW.create(device="cpu"), PowerLawPeak.create(device="cpu"),
+        MadauDickinsonRate.create(device="cpu")), sel)
+    assert got.dtype == torch.float32
+    expect = cpu.log_like_batch({"H0": H0S})
+    assert ((got.double() - expect).abs() / expect.abs()).max() <= 1e-5
+
+
+def test_new_kernels_refuse_grad(cuda, cpu_hl, dark_inputs):
+    """K4, K1b and K1d have no backward: each raises where a model tensor
+    (or, for K4, an input) requires grad, instead of dropping its part."""
+    from chimera_tpu_torch.ops.cuda.kde import kde1d_grid
+
+    h0 = torch.tensor(H0S, dtype=torch.float64, device=cuda, requires_grad=True)
+    for config in ({"binning": True, "cut_grid": 2.0},
+                   {"binning": False, "cut_grid": 2.0}):
+        card = copy.deepcopy(_spectral_hl(dead_event=False, **config)).to(cuda)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            card.log_like_batch({"H0": h0})
+    z = torch.rand((4, 200), dtype=torch.float64, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="kde1d_grid"):
+        kde1d_grid(z, z.detach(), z.detach()[:, :50], z.detach()[:, 0])
+    hl = copy.deepcopy(HyperLikelihood.create(
+        *dark_inputs, kind="marginalized", binning=False, cut_grid=2.0)).to(cuda)
+    pop_b = hl.population.update_batch({"H0": h0})
+    ext = torch.ones((len(H0S), hl.pix_dL.shape[0], 2), dtype=torch.float64,
+                     device=cuda)
+    ext[..., 0] = 0.01
+    with pytest.raises(NotImplementedError, match="fused_weights_kde"):
+        fused_weights_kde(hl.pix_m1det, hl.pix_m2det, hl.pix_dL,
+                          hl.pix_inv_pe_prior, pop_b.cosmo, pop_b.mass,
+                          ext_bounds=ext, n_grid=32, n_real=hl.pix_n_real,
+                          dl_fill=hl.pix_dl_fill, logical_s=hl.n_samples,
+                          den_scale="unit")

@@ -10,8 +10,24 @@ The mock is built here with the JAX package and kept in
 to the same bar on the card (it imports no JAX).  Rewrite the file with
 
     PYTHONPATH=. python tests/test_torch_f32_parity.py
+
+The reference-default configuration (``binning=True, cut_grid=2.0``) has a
+float32 bar of its own: binning moves a sample into the neighbouring bin
+when its float32 z lies within rounding of a bin edge.  The JAX package's
+own float32-vs-float64 gap on the repo's two precision mocks (this dark one
+and the 64 x 1024 x 300 spectral one of ``test_f32_loglike_parity``) is
+measured by
+
+    PYTHONPATH=. python tests/test_torch_f32_parity.py --reference-gap
+
+and the port's float32 is held to max(1e-6, 2 x that gap)
+(``chip_smoke.BINNED_F32_BAR``), here and on the card.
 """
 
+import json
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import jax
@@ -109,6 +125,119 @@ def test_float32_meets_the_repo_bar(port_data, fiducial_population):
         {"H0": torch.as_tensor(H0S, dtype=torch.float32)})
     rel = np.abs(ll32.double().numpy() - ll64.numpy()) / np.abs(ll64.numpy())
     assert rel.max() <= 1e-6, rel
+
+
+# the JAX package in float32 (x64 off, in its own process) on the arrays of
+# a reference mock, binning=True and cut_grid=2.0; prints log L at H0S
+_EVAL_BINNED32 = r"""
+import json, sys
+sys.path.insert(0, sys.argv[3])
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", False)
+import numpy as np
+sys.path.insert(0, sys.argv[4])
+from test_torch_f32_parity import reference_likelihood
+ll = reference_likelihood(dict(np.load(sys.argv[1])), sys.argv[2]).log_like_batch(
+    {"H0": jax.numpy.linspace(58.0, 100.0, 7)})
+print(json.dumps(np.asarray(ll, np.float64).tolist()))
+"""
+
+
+def reference_spectral_mock(pop) -> dict:
+    """The arrays of ``tests/test_f32_parity.py::test_f32_loglike_parity``
+    (64 events x 1024 samples, 300-point z-grids, 200 000 generated
+    injections)."""
+    from chimera_tpu.data.mock import make_mock_catalog, make_mock_injections
+    from chimera_tpu.models import compute_z_grids
+
+    theta = make_mock_catalog(jax.random.PRNGKey(1), pop, n_events=64,
+                              n_samples=1024)
+    inj, n_gen = make_mock_injections(jax.random.PRNGKey(2), pop,
+                                      n_generated=200_000)
+    zg = compute_z_grids(pop.cosmo, theta, cosmo_prior={"H0": [40.0, 120.0]},
+                         z_int_res=300)
+    arrays = dict(m1=theta.m1det, m2=theta.m2det, dl=theta.dL,
+                  prior=theta.pe_prior, im1=inj.m1det, im2=inj.m2det,
+                  idl=inj.dL, ipd=inj.p_draw, zg=zg, n_gen=n_gen)
+    return {k: np.asarray(v) for k, v in arrays.items()}
+
+
+def reference_likelihood(d: dict, kind: str):
+    """The JAX likelihood of a mock's arrays in JAX's working dtype, with
+    the reference's defaults (binning, cut_grid=2.0): kind '1d' on the
+    spectral arrays, 'marginalized' on the dark ones."""
+    from chimera_tpu import HyperLikelihood as JHL
+    from chimera_tpu import SelectionFunction
+    from chimera_tpu.catalog import DVdzCompleteness, EmptyCatalog
+    from chimera_tpu.catalog.pixelated import PixelatedCatalog
+    from chimera_tpu.data.structs import ThetaInjDet, ThetaPEDet
+    from chimera_tpu.models import (FLRW, MadauDickinsonRate, Population,
+                                    PowerLawPeak)
+
+    f = jnp.asarray(0.0).dtype
+    arr = lambda k: jnp.asarray(d[k], f)  # noqa: E731
+    theta = ThetaPEDet(m1det=arr("m1"), m2det=arr("m2"), dL=arr("dl"),
+                       pe_prior=arr("prior"))
+    gal_cat = EmptyCatalog()
+    if kind == "marginalized":
+        theta = theta.update(
+            ra=arr("ra"), dec=arr("dec"), opt_nsides=jnp.asarray(d["opt_nsides"]),
+            pixels_opt_nsides=jnp.asarray(d["pixels"]), ra_pix=arr("ra_pix"),
+            dec_pix=arr("dec_pix"), gw_loc2d_pdf=arr("loc2d"),
+            pixels_pe_opt_nside=jnp.asarray(d["pix_pe"]),
+            pixel_mask=jnp.asarray(d["pmask"]))
+        gal_cat = PixelatedCatalog(
+            p_cat=arr("p_cat"), P_compl=arr("P_compl"),
+            pixel_mask=jnp.asarray(d["pmask"]), n_gal=jnp.asarray(d["n_gal"]),
+            completeness=DVdzCompleteness.create(z_range=(0.0, 3.0), kind="step"))
+    inj = ThetaInjDet(m1det=arr("im1"), m2det=arr("im2"), dL=arr("idl"),
+                      p_draw=arr("ipd"))
+    pop = Population.create(FLRW.create(H0=70.0, Om0=0.25), PowerLawPeak.create(),
+                            MadauDickinsonRate.create(), gal_cat=gal_cat)
+    return JHL.create(theta, arr("zg"), pop,
+                      SelectionFunction.create(inj, float(d["n_gen"])),
+                      kind=kind, kde_engine="xla")
+
+
+def reference_gap(arrays: dict, kind: str, tmp: Path) -> tuple[float, list]:
+    """The JAX package's float32 against its float64, elementwise relative,
+    on ``arrays`` with binning=True and cut_grid=2.0; returns the largest
+    gap and the float64 log L."""
+    ll64 = np.asarray(reference_likelihood(arrays, kind).log_like_batch(
+        {"H0": jnp.asarray(H0S)}))
+    data, script = tmp / f"{kind}.npz", tmp / "eval_binned32.py"
+    np.savez(data, **arrays)
+    script.write_text(_EVAL_BINNED32)
+    env = {k: v for k, v in os.environ.items() if k != "JAX_ENABLE_X64"}
+    here = Path(__file__).resolve().parent
+    out = subprocess.run([sys.executable, str(script), str(data), kind,
+                          str(here.parent), str(here)], check=True, env=env,
+                         capture_output=True, text=True, timeout=900)
+    ll32 = np.asarray(json.loads(out.stdout.strip().splitlines()[-1]))
+    return float(np.max(np.abs(ll32 - ll64) / np.abs(ll64))), ll64.tolist()
+
+
+if __name__ == "__main__" and "--reference-gap" in sys.argv:
+    import tempfile
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    from chimera_tpu.catalog import EmptyCatalog
+    from chimera_tpu.models import (FLRW, MadauDickinsonRate, Population,
+                                    PowerLawPeak)
+
+    fiducial = Population.create(FLRW.create(H0=70.0, Om0=0.25),
+                                 PowerLawPeak.create(), MadauDickinsonRate.create(),
+                                 gal_cat=EmptyCatalog())
+    with tempfile.TemporaryDirectory() as tmp, np.load(MOCK) as dark:
+        for kind, arrays in (("1d", reference_spectral_mock(fiducial)),
+                             ("marginalized", dict(dark))):
+            gap, ll64 = reference_gap(arrays, kind, Path(tmp))
+            print(json.dumps({"kind": kind, "binning": True, "cut_grid": 2.0,
+                              "float32_vs_float64_max_rel": gap,
+                              "log_like_float64": ll64}))
+    sys.exit(0)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""The arithmetic of the adjoint CUDA kernel K3 on the CPU.
+"""The arithmetic of the CUDA kernels on the CPU: the adjoint kernel K3,
+the fused pass K1 in its four modes and the batched KDE K4.
 
 A CUDA kernel has no interpret mode, but its arithmetic lives in device
 functions (``chimera_tpu_torch/csrc/adjoint.cuh`` and ``population.cuh``)
@@ -10,7 +11,14 @@ in the kernel's phases; here that emulation is held against
 float64 and float32, and put behind the likelihood as its backward to show
 what the float32 'kernel' engine does to d log L / dλ.  What the emulation
 cannot show: the block sums, the launch and the shared-memory layout
-(``tests/test_torch_cuda.py``, on the card)."""
+(``tests/test_torch_cuda.py``, on the card).
+
+K1 and K4 keep their arithmetic in ``csrc/kde.cuh``, written once for a
+block of threads; ``tests/host_emulation/fused_host.cpp`` runs it with a
+block of one thread and is held against ``fused_weights_kde_plain`` and
+``kde1d_grid_plain`` in every mode: analysis grids (K1a), effective grids
+(K1b), stats only (K1c, plain and logical rows) and external bounds on
+logical rows with unit mass (K1d)."""
 
 import ctypes
 import dataclasses
@@ -40,18 +48,27 @@ LAMBDA = {"H0": [62.0, 70.0, 81.0], "Om0": [0.2, 0.25, 0.33],
 WINDOW_LAMBDA = {"m_low": [4.0, 5.1, 8.0], "delta_m": [3.0, 4.8, 6.0]}
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+def _build_host(tmp_path_factory, name: str) -> ctypes.CDLL:
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the host emulation")
-    so = tmp_path_factory.mktemp("host_emulation") / "libadjoint_host.so"
+    so = tmp_path_factory.mktemp("host_emulation") / f"lib{name}.so"
     proc = subprocess.run(
         [gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-Wno-unknown-pragmas",
-         f"-I{HERE}", f"-I{CSRC}", "-o", str(so), str(HERE / "adjoint_host.cpp")],
+         f"-I{HERE}", f"-I{CSRC}", "-o", str(so), str(HERE / f"{name}.cpp")],
         capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    return _build_host(tmp_path_factory, "adjoint_host")
+
+
+@pytest.fixture(scope="module")
+def fused_host_lib(tmp_path_factory):
+    return _build_host(tmp_path_factory, "fused_host")
 
 
 def _population(dtype):
@@ -206,3 +223,132 @@ def test_emulated_kernel_engine_gradient(host_lib, data, monkeypatch, kernel,
     assert torch.all(torch.isfinite(expect))
     assert ((grad(F64, True) - expect).abs() / scale).max() <= 1e-11
     assert ((grad(F32, True) - expect).abs() / scale).max() <= tol32
+
+
+# ---------------------------------------------------------------------------
+# K1 in its four modes and K4
+# ---------------------------------------------------------------------------
+
+def _ptr(t):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _host_fused(lib, mode, m1det, m2det, dl, inv_pe_prior, cosmo, mass,
+                grids=None, kernel="epan", n_grid=0, ext_bounds=None,
+                n_real=None, dl_fill=None, logical_s=None, cut_grid=None,
+                den_scale="norms"):
+    """``fused._launch_k1``'s arguments on the host emulation."""
+    dt = dl.dtype
+    b, s = dl.shape
+    n = max(cosmo.L, mass.L)
+    series, params = fused.pack_params(cosmo, mass, n, dt)
+    g = grids.shape[1] if mode == fused._ANALYSIS_GRID else \
+        0 if mode == fused._STATS_ONLY else n_grid
+    den = torch.zeros((n, b, max(g, 1)), dtype=dt)
+    stats = torch.zeros((n, b, 8), dtype=dt)
+    fn = getattr(lib, "host_fused_kde_" + ("f64" if dt == F64 else "f32"))
+    fn.restype = None
+    keep = [t.contiguous() if t is not None else None for t in
+            (m1det, m2det, dl, inv_pe_prior, grids, ext_bounds, n_real, dl_fill)]
+    fn(*[_ptr(t) for t in (*keep, series, params, den, stats)], n, b, s, g,
+       cosmo.cheb_deg, mass.window_deg, logical_s or 0, mode,
+       0 if kernel == "epan" else 1, 0, ctypes.c_double(0.0),
+       ctypes.c_double(cut_grid or 0.0), int(den_scale == "unit"))
+    return den, fused._stats_dict(stats)
+
+
+def _pixel_rows(cat, dtype):
+    """Logical per-pixel rows of the mock's events (``data.pixelize.
+    compact_samples_by_pixel``): each sample dealt at random to one of
+    three pixels, a fourth pixel left empty (a dead row), 64-slot rows."""
+    from chimera_tpu_torch.data.pixelize import compact_samples_by_pixel
+
+    e, s = cat.dL.shape
+    gen = torch.Generator().manual_seed(11)
+    theta = cat.update(
+        pixels_opt_nsides=torch.arange(4).expand(e, 4),
+        pixels_pe_opt_nside=torch.randint(0, 3, (e, s), generator=gen))
+    c = compact_samples_by_pixel(theta, pad_multiple=64)
+    flat = [c[k].reshape(e * 4, -1).to(dtype)
+            for k in ("m1det", "m2det", "dL", "inv_pe_prior")]
+    return flat, c["n_real"].reshape(-1), c["dl_fill"].repeat_interleave(4).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("mode,kernel", [
+    ("analysis", "epan"), ("analysis", "gauss"), ("effective", "epan"),
+    ("effective", "gauss"), ("stats", "epan"), ("stats_logical", "epan"),
+    ("external", "epan"), ("external", "gauss")])
+def test_emulated_fused_modes_match_plain(fused_host_lib, data, mode, kernel,
+                                          dtype):
+    """Float64 within 1e-12 and float32 within 1e-4 of each density row's
+    largest value (the spectral modes sum the Chebyshev series in float32,
+    the plain version in float64), stats likewise, on the rows with
+    weight."""
+    cat, z_grids, _, _ = data
+    pop = _population(dtype).update_batch({"H0": [62.0, 70.0, 81.0]})
+    cosmo, mass = pop.cosmo, pop.mass
+    pe = [t.to(dtype) for t in (cat.m1det, cat.m2det, cat.dL, 1.0 / cat.pe_prior)]
+    kw = {"kernel": kernel}
+    if mode == "analysis":
+        m, kw["grids"] = fused._ANALYSIS_GRID, z_grids.to(dtype)
+    elif mode == "effective":
+        m, kw["cut_grid"], kw["n_grid"] = fused._EFFECTIVE_GRID, 2.0, 24
+    elif mode == "stats":
+        m, kw["cut_grid"] = fused._STATS_ONLY, 2.0
+    else:
+        pe, n_real, dl_fill = _pixel_rows(cat, dtype)
+        kw.update(n_real=n_real, dl_fill=dl_fill, logical_s=cat.dL.shape[1])
+        if mode == "stats_logical":
+            m, kw["cut_grid"] = fused._STATS_ONLY, 2.0
+        else:
+            m, kw["n_grid"], kw["den_scale"] = fused._EXTERNAL_BOUNDS, 24, "unit"
+            ev = fused.fused_row_stats_plain(
+                *[t.to(dtype) for t in (cat.m1det, cat.m2det, cat.dL,
+                                        1.0 / cat.pe_prior)], cosmo, mass)
+            kw["ext_bounds"] = torch.stack([ev["lo"], ev["ub"]], dim=-1
+                                           ).repeat_interleave(4, dim=1)
+    den, st = _host_fused(fused_host_lib, m, *pe, cosmo, mass, **kw)
+    stats_only = m == fused._STATS_ONLY
+    den_p, st_p = fused.fused_weights_kde_plain(
+        *pe, cosmo, mass, stats_only=stats_only, **kw)
+    tol = 1e-12 if dtype == F64 else 1e-4
+    live = st_p["sum_w"] > 0
+    assert 0 < int(live.sum()) and (mode not in ("stats_logical", "external")
+                                    or not live.all())
+    for k in fused.STAT_NAMES:
+        ref = st_p[k].abs().double() if k not in ("lo", "ub") \
+            else st_p["ub"].abs().max().double()
+        err = (st[k].double() - st_p[k].double()).abs() / ref.clamp_min(1e-300)
+        assert err[live].max() <= tol, k
+    if not stats_only:
+        # a row whose 24 grid points all miss its samples' support is 0
+        row_max = den_p.abs().amax(dim=-1).double().clamp_min(1e-300)
+        err = (den.double() - den_p.double()).abs().amax(dim=-1) / row_max
+        assert err[live].max() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(F64, 1e-12), (F32, 1e-5)])
+@pytest.mark.parametrize("kernel", ["epan", "gauss"])
+def test_emulated_kde1d_matches_plain(fused_host_lib, kernel, dtype, tol):
+    """K4's arithmetic against ``kde1d_grid_plain`` on 9 rows of 200 bin
+    centres, 250-point grids (more than two thread tiles of grid points:
+    the four-a-thread branch) and 130-point ones (the two-a-thread one)."""
+    from chimera_tpu_torch.ops.cuda.kde import kde1d_grid_plain
+
+    rng = np.random.default_rng(4)
+    for g in (250, 130):
+        z = torch.tensor(rng.normal(1.0, 0.2, (9, 200)), dtype=dtype)
+        w = torch.tensor(rng.uniform(size=(9, 200)), dtype=dtype)
+        w = w / w.sum(dim=1, keepdim=True)
+        grids = torch.tensor(np.linspace(0.3, 1.8, g)[None] * rng.uniform(
+            0.8, 1.2, (9, 1)), dtype=dtype)
+        h = torch.tensor(rng.uniform(0.02, 0.1, 9), dtype=dtype)
+        out = torch.zeros((9, g), dtype=dtype)
+        fn = getattr(fused_host_lib, "host_kde1d_" + ("f64" if dtype == F64 else "f32"))
+        fn.restype = None
+        fn(*[_ptr(t) for t in (z, w, grids, h, out)], 9, 200, g,
+           0 if kernel == "epan" else 1)
+        expect = kde1d_grid_plain(z, w, grids, h, kernel)
+        err = (out - expect).abs().amax(dim=1) / expect.abs().amax(dim=1)
+        assert err.max() <= tol

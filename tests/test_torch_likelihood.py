@@ -134,16 +134,20 @@ def test_state_carries_the_grad_engine(jax_hl, reference):
     assert _rel(hl.log_like_batch({"H0": H0S}), expect) <= 1e-10
 
 
-@pytest.mark.parametrize("kw", [{"binning": True}, {"cut_grid": 2.0},
-                                {"kind": "full"}])
+@pytest.mark.parametrize("kw", [{"binning": True}, {"cut_grid": 2.0}, {}])
 def test_unported_configurations_raise(state, kw):
+    """Kind 'full' is the one kind not ported, whatever the binning and
+    effective-grid settings; the reference's defaults run."""
     from chimera_tpu_torch.data.structs import ThetaPEDet
 
     hl = HyperLikelihood.from_state(state, "cpu", torch.float64)
     theta = ThetaPEDet(m1det=hl.m1det, m2det=hl.m2det, dL=hl.dL)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 11"):
         HyperLikelihood.create(theta, hl.z_grids, hl.population, hl.selection,
-                               **{"binning": False, "cut_grid": None, **kw})
+                               kind="full", **kw)
+    runs = HyperLikelihood.create(theta, hl.z_grids, hl.population,
+                                  hl.selection, **kw)
+    assert torch.all(torch.isfinite(runs.log_like_batch({"H0": H0S})))
 
 
 @pytest.mark.slow
@@ -179,7 +183,8 @@ import importlib, pkgutil, sys
 import chimera_tpu_torch
 for m in pkgutil.walk_packages(chimera_tpu_torch.__path__, "chimera_tpu_torch."):
     importlib.import_module(m.name)
-for name in ("ops.healpix", "ops.kde", "ops.cuda.fused", "ops.cuda.rows",
+for name in ("ops.healpix", "ops.kde", "ops.binning", "ops.interp",
+             "ops.cuda.fused", "ops.cuda.rows", "ops.cuda.kde",
              "data.pixelize", "data.mock", "catalog.completeness",
              "catalog.pixelated", "catalog.build", "likelihood", "convert"):
     assert "chimera_tpu_torch." + name in sys.modules, name
