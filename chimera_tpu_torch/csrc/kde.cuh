@@ -1,8 +1,8 @@
 // The arithmetic of the fused weights+KDE pass (fused_kde.cu, K1 in its
 // four modes) and of the batched 1-D KDE (kde1d.cu, K4), written once for
 // a block of threads.  A `Block` gives the thread's rank, the stride
-// (kSize) and the block-wide sums: DeviceBlock is a CUDA block of kThreads
-// threads; the host emulation (tests/host_emulation/fused_host.cpp) runs
+// (kSize) and the block-wide sums: DeviceBlock (population.cuh) is a CUDA
+// block of kThreads threads; the host emulation (tests/host_emulation/fused_host.cpp) runs
 // the same functions serially with a block of one thread.
 //
 // Semantics: chimera_tpu/ops/pallas/fused.py:71-219 (_fused_kernel) and
@@ -15,20 +15,6 @@
 #include "population.cuh"
 
 namespace {
-
-template <typename T>
-struct DeviceBlock {
-  T (*scratch)[kWarps];
-  static constexpr int kSize = kThreads;
-  __device__ __forceinline__ int rank() const { return threadIdx.x; }
-  template <int N>
-  __device__ __forceinline__ void sum(T (&v)[N]) const {
-    block_sum<T, N>(v, scratch);
-  }
-  __device__ __forceinline__ void minmax(T& lo, T& hi) const {
-    block_minmax(lo, hi, scratch);
-  }
-};
 
 // Where the fused pass's KDE grid comes from (fused.py:147-168), or none.
 enum FusedMode {

@@ -12,7 +12,8 @@
 //   MassModel<N> PowerLawPeak in the number type N: T in the forward
 //                kernels, a forward-mode dual number (adjoint.cuh) in the
 //                adjoint kernel, so the derivative is the same transcription.
-//   block_sum    deterministic block-wide sums of per-thread partials.
+//   block_sum    deterministic block-wide sums of per-thread partials;
+//   DeviceBlock  a CUDA block as the `Block` of kde.cuh and adjoint.cuh.
 //
 // Everything lives in an anonymous namespace: each kernel file compiles its
 // own copy.  The build hashes this header with every kernel source.
@@ -291,6 +292,28 @@ __device__ __forceinline__ void block_minmax(T& lo, T& hi, T (*scratch)[kWarps])
   }
   __syncthreads();
 }
+
+// A CUDA block of kThreads threads as the `Block` of the arithmetic written
+// once for a block (kde.cuh, adjoint.cuh): the thread's rank, the stride,
+// block-wide sums, min/max, any and a barrier.  The host emulation
+// (tests/host_emulation) runs the same functions with a block of one thread.
+template <typename T>
+struct DeviceBlock {
+  T (*scratch)[kWarps];
+  static constexpr int kSize = kThreads;
+  __device__ __forceinline__ int rank() const { return threadIdx.x; }
+  template <int N>
+  __device__ __forceinline__ void sum(T (&v)[N]) const {
+    block_sum<T, N>(v, scratch);
+  }
+  __device__ __forceinline__ void minmax(T& lo, T& hi) const {
+    block_minmax(lo, hi, scratch);
+  }
+  __device__ __forceinline__ bool any(bool v) const {
+    return __syncthreads_or(v) != 0;
+  }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
 
 // Scott (0), Silverman (1) or fixed (2) bandwidth factor of a 1-D KDE, in
 // the exp/log form of ops/kde.py::bw_factor.

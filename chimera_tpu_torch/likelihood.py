@@ -29,11 +29,15 @@ Each kernel runs as its CUDA kernel on CUDA tensors and as its plain
 PyTorch version on CPU tensors.  ``log_like_batch`` is differentiable in
 the hyper-parameters: pass tensors that require grad.  On CPU tensors the
 whole backward is autograd through the plain versions; on CUDA tensors the
-backward of K1a is the adjoint kernel K3 ('1d' and 'approximate',
-unbinned, ``cut_grid=None``), and every other path raises (ROADMAP.md §1
-item 9).  ``HyperLikelihood`` is an ``nn.Module`` whose buffers hold the
-PE data, layouts, z-grids and (in its ``selection``) the injections;
-``.to(device, dtype)`` moves them and the population's tensors together.
+backward of each fused launch is its adjoint kernel — K3 in the mode of
+K1a, K1b, K1c or K1d, K2b for K2 — so every unbinned path differentiates
+on the card, and the binned one raises (K4 has no backward; ROADMAP.md §1
+item 9).  The selects around the kernels' outputs (``row_scales``, the N_eff
+gates, ``nan_to_num`` before any product) keep the raw NaN of a dead row out
+of every backward product.  ``HyperLikelihood`` is an ``nn.Module`` whose
+buffers hold the PE data, layouts, z-grids and (in its ``selection``) the
+injections; ``.to(device, dtype)`` moves them and the population's tensors
+together.
 """
 
 from __future__ import annotations

@@ -22,22 +22,25 @@ Per (λ, row), with S samples and G grid points:
 * ``fused_row_stats`` (K1c): the row statistics only, of logical rows or of
   plain ones.
 * ``fused_weights_kde_adjoint`` (K3): the backward of ``fused_weights_kde``
-  on the analysis grids in the hyper-parameters — given cotangents of (den,
-  stats), the gradients of the two packed per-λ rows of ``pack_params``.
+  and ``fused_row_stats`` in the hyper-parameters, in every mode — given
+  cotangents of (den, stats), the gradients of the two packed per-λ rows of
+  ``pack_params`` (and of ``ext_bounds``).
 
 They run the hand-written CUDA kernels (``chimera_tpu_torch/csrc/
 fused_kde.cu``, ``fused_kde_adjoint.cu``) on CUDA tensors and the plain
 PyTorch versions ``fused_weights_kde_plain`` and
 ``fused_weights_kde_adjoint_plain`` on CPU tensors; on CUDA they launch the
 kernel or raise.  ``fused_weights_kde.launches`` counts K1a launches,
-``.launches_b`` K1b and ``.launches_d`` K1d.
+``.launches_b`` K1b and ``.launches_d`` K1d; ``fused_weights_kde_adjoint``
+counts K3 by the forward's mode the same way (``.launches`` on analysis
+grids, ``.launches_b``, ``.launches_c`` stats only, ``.launches_d``).
 
 Gradients.  On CPU tensors every mode is its plain version and autograd
-differentiates it.  On CUDA tensors the K1a launch sits in a
-``torch.autograd.Function`` whose backward returns gradients for the packed
-rows only (the PE data and grids get none: samplers differentiate
-hyper-parameters) by launching K3; the other modes raise when a model
-tensor requires grad.
+differentiates it.  On CUDA tensors each K1 launch whose model rows (or
+``ext_bounds``) require grad sits in a ``torch.autograd.Function`` whose
+backward launches K3 in the same mode and returns gradients for the packed
+rows and ``ext_bounds`` only (the PE data and grids get none: samplers
+differentiate hyper-parameters).
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ import torch
 from chimera_tpu_torch.models.cosmology import FLRW, z_from_dgw
 from chimera_tpu_torch.models.mass import PowerLawPeak, p_m1m2
 from chimera_tpu_torch.ops.cuda import build
-from chimera_tpu_torch.ops.kde import KERNELS, bw_factor
+from chimera_tpu_torch.ops.kde import KERNELS, bw_factor, clip, var_floor
 
 STAT_NAMES = ("lo", "ub", "norms", "neff", "bandwidth", "sum_w", "sum_w2")
 # per-λ PowerLawPeak scalars, the kernels' mass row, in the order of the
@@ -69,6 +72,13 @@ _PLAIN_BUDGET = 1 << 25
 # for its static shared memory (block-sum scratch and the dual mass model)
 _ADJOINT_MAX_DEG = 64
 _ADJOINT_STATIC_SMEM = 8192
+
+
+def plain_budget(t: torch.Tensor) -> int:
+    """Elements of one (L, rows, G, S) intermediate a plain version holds at
+    a time: 8x more on the card, whose 80 GB hold it and where the launches
+    of many small chunks bound the plain versions' time."""
+    return _PLAIN_BUDGET * (1 if t.device.type == "cpu" else 8)
 
 
 def _stats_dict(stats: torch.Tensor) -> dict:
@@ -118,7 +128,7 @@ def fused_weights_kde_plain(m1det, m2det, dl, inv_pe_prior, cosmo, mass,
     sl = float(s if logical_s is None else logical_s)
     tiny = torch.finfo(dt).tiny
     dens, stats = [], []
-    chunk = max(1, _PLAIN_BUDGET // (n * g * s))
+    chunk = max(1, plain_budget(dl) // (n * g * s))
     for e0 in range(0, e, chunk):
         rows = slice(e0, min(e, e0 + chunk))
         z = z_from_dgw(cosmo, dl[None, rows]).expand(n, -1, -1)     # (n, c, S)
@@ -142,9 +152,8 @@ def fused_weights_kde_plain(m1det, m2det, dl, inv_pe_prior, cosmo, mass,
             z_min, z_max = torch.minimum(z_min, zf), torch.maximum(z_max, zf)
         # dead rows (zero weight, zero spread) get finite stats; on live rows
         # both clamps are exact no-ops
-        z_sig = torch.sqrt(torch.clamp_min(z_var, math.sqrt(tiny)))
-        neff = torch.clamp(sum_w * sum_w / torch.where(sum_w2 > 0, sum_w2, 1.0),
-                           1.0, sl)
+        z_sig = torch.sqrt(var_floor(z_var))
+        neff = clip(sum_w * sum_w / torch.where(sum_w2 > 0, sum_w2, 1.0), 1.0, sl)
         h = bw_factor(neff, 1, bw_method) * z_sig
         if ext_bounds is not None:
             lo, ub = ext_bounds[:, rows, 0], ext_bounds[:, rows, 1]
@@ -203,6 +212,12 @@ def smem_bytes(series: torch.Tensor, sum_size: int, params: torch.Tensor,
     (csrc/population.cuh, series_bytes)."""
     head = (series.shape[1] * sum_size + 15) // 16 * 16
     return head + (n_values + params.shape[1]) * params.element_size()
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether a wrapper given ``t`` launches its kernel (a CUDA tensor) or
+    runs its plain version (a CPU tensor)."""
+    return t.device.type != "cpu"
 
 
 def check_cuda_call(name: str, cosmo, mass, dl, others: dict) -> None:
@@ -337,11 +352,10 @@ def fused_weights_kde(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids=None,
     raise on anything it does not take; the kernel's row statistics are the
     raw formulas (a dead row gives NaN where the plain version clamps — the
     N_eff gate and nan_to_num downstream treat both alike).  Where a model
-    tensor requires grad, the backward on CUDA tensors is the adjoint kernel
-    (``fused_weights_kde_adjoint``) on analysis grids with 'norms', and an
-    error otherwise.
+    tensor or ``ext_bounds`` requires grad, the backward on CUDA tensors is
+    the adjoint kernel (``fused_weights_kde_adjoint``) in the same mode.
     """
-    if dl.device.type == "cpu":
+    if not on_card(dl):
         return fused_weights_kde_plain(
             m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids, kernel,
             bw_method, n_real, dl_fill, logical_s, cut_grid, n_grid=n_grid,
@@ -375,19 +389,12 @@ def fused_weights_kde(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids=None,
     series, params, pe, n_real, dl_fill = _checked_rows(
         "fused_weights_kde", m1det, m2det, dl, inv_pe_prior, cosmo, mass,
         n_real, dl_fill, logical_s, 8 if mode == _EXTERNAL_BOUNDS else dl.element_size())
-    if mode == _ANALYSIS_GRID and logical_s is None and den_scale == "norms" \
-            and torch.is_grad_enabled() \
-            and (series.requires_grad or params.requires_grad):
-        den, stats = _FusedKDE.apply(series, params, *pe, grids, cosmo, mass,
-                                     kernel, bw_method)
-    else:
-        refuse_grad("fused_weights_kde", series, params,
-                    *([] if ext_bounds is None else [ext_bounds]))
-        den, stats = _launch_k1(
-            mode, series, params, *pe, grids, cosmo, mass, kernel, bw_method,
-            n_grid=0 if n_grid is None else int(n_grid), ext_bounds=ext_bounds,
-            n_real=n_real, dl_fill=dl_fill, logical_s=logical_s,
-            cut_grid=cut_grid, den_scale=den_scale)
+    den, stats = _run_k1(mode, series, params, ext_bounds, cosmo, mass, pe,
+                         grids, n_real, dl_fill, kernel=kernel,
+                         bw_method=bw_method,
+                         n_grid=0 if n_grid is None else int(n_grid),
+                         logical_s=logical_s, cut_grid=cut_grid,
+                         den_scale=den_scale)
     if mode == _ANALYSIS_GRID:
         fused_weights_kde.launches += 1
     elif mode == _EFFECTIVE_GRID:
@@ -417,131 +424,237 @@ def unpack_params(cosmo: FLRW, mass: PowerLawPeak, series: torch.Tensor,
     return cosmo, mass
 
 
+def _mode_of(grids, ext_bounds, stats_only: bool) -> int:
+    if stats_only:
+        return _STATS_ONLY
+    if ext_bounds is not None:
+        return _EXTERNAL_BOUNDS
+    return _ANALYSIS_GRID if grids is not None else _EFFECTIVE_GRID
+
+
 def fused_weights_kde_adjoint_plain(m1det, m2det, dl, inv_pe_prior, grids,
                                     series, params, ct_den, ct_stats,
                                     cosmo, mass, kernel: str = "epan",
-                                    bw_method=None):
+                                    bw_method=None, *, cut_grid=None,
+                                    n_grid=None, ext_bounds=None, n_real=None,
+                                    dl_fill=None, logical_s=None,
+                                    den_scale: str = "norms",
+                                    stats_only: bool = False):
     """Plain PyTorch version of ``fused_weights_kde_adjoint``: the
-    vector-Jacobian product of ``fused_weights_kde_plain`` in the packed
-    rows, by autograd, one chunk of events at a time so that no
-    (L, E, G, S) graph is ever held."""
+    vector-Jacobian product of ``fused_weights_kde_plain`` (of its
+    stats-only mode with ``stats_only``) in the packed rows and
+    ``ext_bounds``, by autograd, one chunk of rows at a time so that no
+    (L, E, G, S) graph is ever held.  Returns (d_series, d_params, d_ext),
+    d_ext None without ``ext_bounds``."""
     e, s = dl.shape
-    n, g = series.shape[0], grids.shape[1]
+    mode = _mode_of(grids, ext_bounds, stats_only)
+    n = series.shape[0]
+    g = 1 if stats_only else grids.shape[1] if mode == _ANALYSIS_GRID else int(n_grid)
     series = series.detach().requires_grad_()
     params = params.detach().requires_grad_()
-    d_series = torch.zeros_like(series)
-    d_params = torch.zeros_like(params)
-    chunk = max(1, _PLAIN_BUDGET // (n * g * s))
+    wrt = [series, params]
+    if ext_bounds is not None:
+        ext_bounds = ext_bounds.detach().requires_grad_()
+        wrt.append(ext_bounds)
+    grads = [torch.zeros_like(t) for t in wrt]
+
+    def part(t, rows, axis=0):
+        return None if t is None else t[(slice(None),) * axis + (rows,)]
+
+    chunk = max(1, plain_budget(dl) // (n * g * s))
     with torch.enable_grad():
         for e0 in range(0, e, chunk):
             rows = slice(e0, min(e, e0 + chunk))
             cos, mas = unpack_params(cosmo, mass, series, params)
             den, stats = fused_weights_kde_plain(
                 m1det[rows], m2det[rows], dl[rows], inv_pe_prior[rows], cos,
-                mas, grids[rows], kernel, bw_method)
-            out = torch.sum(den * ct_den[:, rows])
+                mas, part(grids, rows), kernel, bw_method,
+                n_real=part(n_real, rows), dl_fill=part(dl_fill, rows),
+                logical_s=logical_s, cut_grid=cut_grid, stats_only=stats_only,
+                n_grid=n_grid, ext_bounds=part(ext_bounds, rows, 1),
+                den_scale=den_scale)
+            out = 0.0 if stats_only else torch.sum(den * ct_den[:, rows])
             for i, k in enumerate(STAT_NAMES):
-                if i >= 2:  # lo, ub are constants on analysis grids
+                # lo, ub are constants on analysis grids
+                if i >= 2 or mode != _ANALYSIS_GRID:
                     out = out + torch.sum(stats[k] * ct_stats[:, rows, i])
-            gs, gp = torch.autograd.grad(out, (series, params))
-            d_series += gs
-            d_params += gp
-    return d_series, d_params
+            for acc, gr in zip(grads, torch.autograd.grad(out, wrt,
+                                                          allow_unused=True)):
+                if gr is not None:
+                    acc += gr
+    return (*grads, None) if ext_bounds is None else tuple(grads)
 
 
 def fused_weights_kde_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
                               params, ct_den, ct_stats, cosmo, mass,
-                              kernel: str = "epan", bw_method=None):
-    """Backward of ``fused_weights_kde`` in the hyper-parameters (K3).
+                              kernel: str = "epan", bw_method=None, *,
+                              cut_grid=None, n_grid=None, ext_bounds=None,
+                              n_real=None, dl_fill=None, logical_s=None,
+                              den_scale: str = "norms", stats_only: bool = False):
+    """Backward of ``fused_weights_kde`` (and, with ``stats_only``, of
+    ``fused_row_stats``) in the hyper-parameters (K3), in the forward's mode.
 
     Args:
-      m1det, m2det, dl, inv_pe_prior, grids: the forward's data.
+      m1det, m2det, dl, inv_pe_prior, grids: the forward's data (``grids``
+        on analysis grids only).
       series, params: the packed per-λ rows of ``pack_params``.
-      ct_den (L, E, G), ct_stats (L, E, 8): cotangents of the forward's
-        densities and of its stats in the order of ``STAT_NAMES`` (slots 0,
-        1 and 7 are not read: lo and ub are constants on analysis grids).
+      ct_den (L, E, G) (None with ``stats_only``), ct_stats (L, E, 8):
+        cotangents of the forward's densities and of its stats in the order
+        of ``STAT_NAMES`` (slot 7 is not read, nor are 0 and 1 on analysis
+        grids, where lo and ub are constants).
       cosmo, mass: the models the rows were packed from (their degrees and
         engines; the plain version rebuilds them around the rows).
+      cut_grid, n_grid, ext_bounds, n_real, dl_fill, logical_s, den_scale,
+        stats_only: the forward's mode, as ``fused_weights_kde`` and
+        ``fused_row_stats`` take it.
 
     Returns d_series (L, cheb_deg + 2 + window_deg) float64 and d_params
-    (L, 12), summed over events in a fixed order: equal inputs give equal
-    bits.  The row statistics are differentiated in their safe-math form
-    (variance floored, N_eff clamped to [1, S]), so a dead row with zero
-    cotangents adds exact zeros.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise.
+    (L, 12), summed over rows in a fixed order (equal inputs give equal
+    bits), and d_ext (L, E, 2), whose slots take the cotangents of the lo,
+    ub stats they pass through (None without ``ext_bounds``).  The row
+    statistics are differentiated in their safe-math form (variance floored,
+    N_eff clamped to [1, S] with ``jnp.clip``'s slopes), so a dead row with
+    zero cotangents adds exact zeros.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise.
     """
-    if dl.device.type == "cpu":
+    mode_kw = dict(cut_grid=cut_grid, n_grid=n_grid, ext_bounds=ext_bounds,
+                   n_real=n_real, dl_fill=dl_fill, logical_s=logical_s,
+                   den_scale=den_scale, stats_only=stats_only)
+    if not on_card(dl):
         return fused_weights_kde_adjoint_plain(
             m1det, m2det, dl, inv_pe_prior, grids, series, params, ct_den,
-            ct_stats, cosmo, mass, kernel, bw_method)
+            ct_stats, cosmo, mass, kernel, bw_method, **mode_kw)
     check_cuda_call("fused_weights_kde_adjoint", cosmo, mass, dl,
                     {"m1det": m1det, "m2det": m2det, "inv_pe_prior": inv_pe_prior})
     if kernel not in ("epan", "gauss"):
         raise ValueError(f"unknown KDE kernel {kernel!r}")
+    if den_scale not in ("norms", "unit"):
+        raise ValueError(f"den_scale must be 'norms' or 'unit', not {den_scale!r}")
+    mode = _mode_of(grids, ext_bounds, stats_only)
     bw_mode, bw_value = _bw_code(bw_method)
-    dt = dl.dtype
+    dt, dev = dl.dtype, dl.device
     e, s = dl.shape
-    g = grids.shape[1]
     n, q = series.shape
+    if mode == _ANALYSIS_GRID:
+        g = grids.shape[1]
+    elif mode == _STATS_ONLY:
+        g = 0
+    elif n_grid is None or int(n_grid) < 2:
+        raise ValueError("an effective grid takes n_grid >= 2 points")
+    else:
+        g = int(n_grid)
     if cosmo.cheb_deg > _ADJOINT_MAX_DEG or mass.window_deg > _ADJOINT_MAX_DEG:
         raise ValueError(
             f"the adjoint kernel takes Chebyshev degrees up to {_ADJOINT_MAX_DEG}")
-    expect = {"grids": ((e, g), dt), "series": ((n, cosmo.cheb_deg + 2
-                                                 + mass.window_deg), torch.float64),
-              "params": ((n, len(MASS_SCALARS)), dt),
-              "ct_den": ((n, e, g), dt), "ct_stats": ((n, e, 8), dt)}
-    given = {"grids": grids, "series": series, "params": params,
-             "ct_den": ct_den, "ct_stats": ct_stats}
-    for key, (shape, dtype) in expect.items():
-        t = given[key]
-        if tuple(t.shape) != shape or t.dtype != dtype or t.device != dl.device:
-            raise ValueError(f"{key} must be {shape} {dtype} on {dl.device}")
+    expect = {"series": (series, (n, cosmo.cheb_deg + 2 + mass.window_deg),
+                         torch.float64),
+              "params": (params, (n, len(MASS_SCALARS)), dt),
+              "ct_stats": (ct_stats, (n, e, 8), dt)}
+    if mode == _ANALYSIS_GRID:
+        expect["grids"] = (grids, (e, g), dt)
+    if mode != _STATS_ONLY:
+        expect["ct_den"] = (ct_den, (n, e, g), dt)
+    if mode == _EXTERNAL_BOUNDS:
+        expect["ext_bounds"] = (ext_bounds, (n, e, 2), dt)
+    for key, (t, shape, dtype) in expect.items():
+        if t is None or tuple(t.shape) != shape or t.dtype != dtype \
+                or t.device != dev:
+            raise ValueError(f"{key} must be {shape} {dtype} on {dev}")
+    if logical_s is not None:
+        if n_real is None or dl_fill is None:
+            raise ValueError("logical_s requires n_real and dl_fill")
+        if n_real.shape != (e,) or dl_fill.shape != (e,):
+            raise ValueError(f"n_real and dl_fill must be ({e},)")
+        n_real = n_real.to(device=dev, dtype=torch.int64).contiguous()
+        dl_fill = dl_fill.to(device=dev, dtype=dt).contiguous()
+    else:
+        n_real = dl_fill = None
     # z, w and their cotangents of every sample, the grid with its scaled
-    # cotangents, the model rows
-    smem = smem_bytes(series, dl.element_size(), params, 4 * s + 2 * g)
+    # cotangents, the model rows; the dark-siren modes (c, d) sum the
+    # Chebyshev series in float64 as their forward does
+    dense = mode in (_EXTERNAL_BOUNDS, _STATS_ONLY)
+    smem = smem_bytes(series, 8 if dense else dl.element_size(), params,
+                      4 * s + 2 * g)
     if smem > _SMEM_LIMIT - _ADJOINT_STATIC_SMEM:
         raise ValueError(
             f"S = {s} samples need {smem} bytes of shared memory per block "
             f"(z, w, dz and dw of every sample), over the "
             f"{_SMEM_LIMIT - _ADJOINT_STATIC_SMEM}-byte limit")
-    inputs = [t.contiguous() for t in (m1det, m2det, dl, inv_pe_prior, grids,
-                                       series, params, ct_den, ct_stats)]
+    inputs = [None if t is None else t.contiguous() for t in (
+        m1det, m2det, dl, inv_pe_prior, grids if mode == _ANALYSIS_GRID else None,
+        ext_bounds, n_real, dl_fill, series, params,
+        None if mode == _STATS_ONLY else ct_den, ct_stats)]
     partials = torch.empty((n, e, q + len(MASS_SCALARS)), dtype=torch.float64,
-                           device=dl.device)
-    d_series = torch.empty((n, q), dtype=torch.float64, device=dl.device)
-    d_params = torch.empty((n, len(MASS_SCALARS)), dtype=dt, device=dl.device)
-    launch("fused_kde_adjoint", "chimera_fused_kde_adjoint", dt, dl.device,
-           [*inputs, partials, d_series, d_params, n, e, s, g, cosmo.cheb_deg,
-            mass.window_deg, 0 if kernel == "epan" else 1, bw_mode,
-            float(bw_value)])
-    fused_weights_kde_adjoint.launches += 1
-    return d_series, d_params
+                           device=dev)
+    d_series = torch.empty((n, q), dtype=torch.float64, device=dev)
+    d_params = torch.empty((n, len(MASS_SCALARS)), dtype=dt, device=dev)
+    d_ext = None if ext_bounds is None else torch.empty((n, e, 2), dtype=dt,
+                                                        device=dev)
+    launch("fused_kde_adjoint", "chimera_fused_kde_adjoint", dt, dev,
+           [*inputs, partials, d_series, d_params, d_ext, n, e, s, g,
+            cosmo.cheb_deg, mass.window_deg,
+            0 if logical_s is None else int(logical_s), mode,
+            0 if kernel == "epan" else 1, bw_mode, float(bw_value),
+            float(cut_grid or 0.0), int(den_scale == "unit")])
+    counter = {_ANALYSIS_GRID: "launches", _EFFECTIVE_GRID: "launches_b",
+               _STATS_ONLY: "launches_c", _EXTERNAL_BOUNDS: "launches_d"}[mode]
+    setattr(fused_weights_kde_adjoint, counter,
+            getattr(fused_weights_kde_adjoint, counter) + 1)
+    return d_series, d_params, d_ext
 
 
 fused_weights_kde_adjoint.launches = 0
+fused_weights_kde_adjoint.launches_b = 0
+fused_weights_kde_adjoint.launches_c = 0
+fused_weights_kde_adjoint.launches_d = 0
 
 
 class _FusedKDE(torch.autograd.Function):
-    """K1a forward on CUDA tensors with K3 as the backward in the packed
-    rows."""
+    """K1 in any mode on CUDA tensors, with K3 in the same mode as the
+    backward in the packed rows and ``ext_bounds``."""
 
     @staticmethod
-    def forward(ctx, series, params, m1det, m2det, dl, inv_pe_prior, grids,
-                cosmo, mass, kernel, bw_method):
-        ctx.save_for_backward(series, params, m1det, m2det, dl, inv_pe_prior,
-                              grids)
-        ctx.cfg = (cosmo, mass, kernel, bw_method)
-        return _launch_k1(_ANALYSIS_GRID, series, params, m1det, m2det, dl,
-                          inv_pe_prior, grids, cosmo, mass, kernel, bw_method)
+    def forward(ctx, series, params, ext_bounds, mode, cosmo, mass, kw,
+                m1det, m2det, dl, inv_pe_prior, grids, n_real, dl_fill):
+        ctx.save_for_backward(series, params, ext_bounds, m1det, m2det, dl,
+                              inv_pe_prior, grids, n_real, dl_fill)
+        ctx.cfg = (mode, cosmo, mass, kw)
+        return _launch_k1(mode, series, params, m1det, m2det, dl, inv_pe_prior,
+                          grids, cosmo, mass, ext_bounds=ext_bounds,
+                          n_real=n_real, dl_fill=dl_fill, **kw)
 
     @staticmethod
     def backward(ctx, ct_den, ct_stats):
-        series, params, *data = ctx.saved_tensors
-        cosmo, mass, kernel, bw_method = ctx.cfg
-        d_series, d_params = fused_weights_kde_adjoint(
-            *data, series, params, ct_den.contiguous(), ct_stats.contiguous(),
-            cosmo, mass, kernel, bw_method)
-        return (d_series, d_params) + (None,) * 9
+        series, params, ext, m1, m2, dl, invp, grids, n_real, dl_fill = \
+            ctx.saved_tensors
+        mode, cosmo, mass, kw = ctx.cfg
+        n, b = params.shape[0], dl.shape[0]
+        if ct_stats is None:
+            ct_stats = torch.zeros((n, b, 8), dtype=dl.dtype, device=dl.device)
+        if ct_den is None and mode != _STATS_ONLY:
+            g = grids.shape[1] if mode == _ANALYSIS_GRID else kw["n_grid"]
+            ct_den = torch.zeros((n, b, g), dtype=dl.dtype, device=dl.device)
+        d_series, d_params, d_ext = fused_weights_kde_adjoint(
+            m1, m2, dl, invp, grids, series, params,
+            None if ct_den is None else ct_den.contiguous(),
+            ct_stats.contiguous(), cosmo, mass, kw["kernel"], kw["bw_method"],
+            cut_grid=kw["cut_grid"], n_grid=kw["n_grid"], ext_bounds=ext,
+            n_real=n_real, dl_fill=dl_fill, logical_s=kw["logical_s"],
+            den_scale=kw["den_scale"], stats_only=mode == _STATS_ONLY)
+        return (d_series, d_params, d_ext) + (None,) * 11
+
+
+def _run_k1(mode, series, params, ext_bounds, cosmo, mass, pe, grids, n_real,
+            dl_fill, **kw):
+    """Launch K1 in ``mode``: inside ``_FusedKDE`` where autograd records
+    the launch (a model row or ``ext_bounds`` requires grad), else bare."""
+    if torch.is_grad_enabled() and (
+            series.requires_grad or params.requires_grad
+            or (ext_bounds is not None and ext_bounds.requires_grad)):
+        return _FusedKDE.apply(series, params, ext_bounds, mode, cosmo, mass,
+                               kw, *pe, grids, n_real, dl_fill)
+    return _launch_k1(mode, series, params, *pe, grids, cosmo, mass,
+                      ext_bounds=ext_bounds, n_real=n_real, dl_fill=dl_fill, **kw)
 
 
 def fused_row_stats_plain(m1det, m2det, dl, inv_pe_prior, cosmo, mass,
@@ -575,9 +688,10 @@ def fused_row_stats(m1det, m2det, dl, inv_pe_prior, cosmo, mass, n_real=None,
     Returns a dict of (L, B) stats: lo, ub, norms (sum_w / logical_s), neff,
     bandwidth, sum_w, sum_w2.  CPU tensors take the plain version (the TPU
     kernel's safe-math); on CUDA the kernel keeps the raw formulas (NaN
-    neff and bandwidth on a zero-weight row).
+    neff and bandwidth on a zero-weight row), and where a model tensor
+    requires grad its backward is K3 in the stats-only mode.
     """
-    if dl.device.type == "cpu":
+    if not on_card(dl):
         return fused_row_stats_plain(m1det, m2det, dl, inv_pe_prior, cosmo,
                                      mass, n_real, dl_fill, logical_s,
                                      cut_grid, bw_method)
@@ -585,10 +699,10 @@ def fused_row_stats(m1det, m2det, dl, inv_pe_prior, cosmo, mass, n_real=None,
     series, params, pe, n_real, dl_fill = _checked_rows(
         "fused_row_stats", m1det, m2det, dl, inv_pe_prior, cosmo, mass,
         n_real, dl_fill, logical_s, 8)
-    refuse_grad("fused_row_stats", series, params)
-    _, stats = _launch_k1(_STATS_ONLY, series, params, *pe, None, cosmo, mass,
-                          bw_method=bw_method, n_real=n_real, dl_fill=dl_fill,
-                          logical_s=logical_s, cut_grid=cut_grid)
+    _, stats = _run_k1(_STATS_ONLY, series, params, None, cosmo, mass, pe, None,
+                       n_real, dl_fill, kernel="epan", bw_method=bw_method,
+                       n_grid=0, logical_s=logical_s, cut_grid=cut_grid,
+                       den_scale="norms")
     fused_row_stats.launches += 1
     return _stats_dict(stats)
 

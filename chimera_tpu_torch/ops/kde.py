@@ -27,6 +27,19 @@ def bw_factor(neff: torch.Tensor, d: int, bw_method) -> torch.Tensor:
     return torch.as_tensor(float(bw_method), dtype=neff.dtype, device=neff.device)
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: maximum with ``lo``, then minimum with ``hi``, whose
+    slope is half at a bound where ``torch.clamp``'s is 1 (a row with one
+    live sample sits at N_eff = 1 exactly)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+def var_floor(var: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum(var, sqrt(tiny))``: a variance floored so that the
+    bandwidth's backward partials stay finite on dead rows."""
+    return torch.maximum(var, var.new_tensor(math.sqrt(torch.finfo(var.dtype).tiny)))
+
+
 def epanechnikov_kernel(u: torch.Tensor) -> torch.Tensor:
     """0.75 (1 - u^2) on |u| <= 1, else 0 (the fused kernel's max form)."""
     return 0.75 * torch.clamp_min(1.0 - u * u, 0.0)
@@ -56,10 +69,8 @@ def kde1d_params(dataset: torch.Tensor, weights: torch.Tensor | None, bw_method
         sw = torch.sum(weights, dim=-1, keepdim=True)
         weights = weights / torch.where(sw > 0, sw, 1.0)
     s2 = torch.sum(weights * weights, dim=-1)
-    neff = torch.clamp(1.0 / torch.where(s2 > 0, s2, 1.0), 1.0, float(s))
-    floor = math.sqrt(torch.finfo(dataset.dtype).tiny)
-    sig = torch.sqrt(torch.clamp_min(torch.var(dataset, dim=-1, correction=0),
-                                     floor))
+    neff = clip(1.0 / torch.where(s2 > 0, s2, 1.0), 1.0, float(s))
+    sig = torch.sqrt(var_floor(torch.var(dataset, dim=-1, correction=0)))
     return weights, bw_factor(neff, 1, bw_method) * sig
 
 

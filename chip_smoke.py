@@ -17,7 +17,13 @@ paths end to end through the entry points a user calls:
 * phases 15-18, the reference's default configuration (binning=True,
   num_bins=200, cut_grid=2.0: the batched KDE K4) at both widths, the
   unbinned effective-grid paths (K1b; the event stats pass K1c and the
-  per-pixel KDE on the event's bounds K1d) and kind 'approximate'.
+  per-pixel KDE on the event's bounds K1d) and kind 'approximate';
+* phases 19-22, the dark-siren and effective-grid gradients: the adjoint
+  kernel K3 in the modes of K1b (K3b), K1c (K3c) and K1d (K3d) and the
+  rows-contraction adjoint K2b against their plain versions, the card's
+  gradient of the three unbinned paths against the CPU's and against
+  finite differences, value-and-gradient timing at full width, and HMC /
+  ChEES on the dark flagship.
 
 Each likelihood path checks float32 against float64, elementwise against the
 repo's 1e-6 bar or, binned, against BINNED_F32_BAR (the precision mocks:
@@ -62,6 +68,13 @@ KDE_OPS, CHEB_OPS = 7, 3
 # of the adjoint's Clenshaw work: the forward's recurrence, then value with
 # derivative (3 + 4) and the T_k projection (fma, sub, fma)
 ADJ_KDE_OPS, ADJ_CHEB_OPS = 11, 3 + 7 + 4
+# on a linear grid one more sum (the bound's: mul, fma)
+ADJ_LIN_KDE_OPS = 13
+# K2b's least work: one sweep over the (grid point, weighted sample) terms of
+# a live row forms u, K and K' once for the density's fma and the three
+# adjoint sums; per (live row, grid point) the factor products: t1, t2, a_g
+# (mul, fma), the scale's sum (fma), d_f1 and d_f2 (mul, fma each), c_g, den
+K2B_TERM_OPS, K2B_GRID_OPS = ADJ_KDE_OPS + 2, 15
 # The float32 bar of the reference-default configuration (binning=True,
 # cut_grid=2.0): max(1e-6, 2 x the JAX package's own float32-vs-float64 gap
 # on the repo's precision mocks, as measured by
@@ -604,9 +617,14 @@ def chain_points(n: int, dtype) -> torch.Tensor:
     return (centre + scale * noise).to(dtype)
 
 
+def batch_of(x: torch.Tensor) -> dict:
+    """The batch {name: (n,)} of the points ``x`` (n, 3)."""
+    return {p: x[:, i] for i, p in enumerate(PARAMS)}
+
+
 def log_like(hl, x: torch.Tensor) -> torch.Tensor:
     """log L (n,) at the points ``x`` (n, 3)."""
-    return hl.log_like_batch({p: x[:, i] for i, p in enumerate(PARAMS)})
+    return hl.log_like_batch(batch_of(x))
 
 
 def value_and_grad(hl, x: torch.Tensor):
@@ -628,7 +646,7 @@ def adjoint_inputs(hl, x: torch.Tensor, seed: int):
     and for the stats."""
     from chimera_tpu_torch.ops.cuda.fused import pack_params
 
-    pop_b = hl.population.update_batch({p: x[:, i] for i, p in enumerate(PARAMS)})
+    pop_b = hl.population.update_batch(batch_of(x))
     n, dt = x.shape[0], hl.dL.dtype
     series, params = pack_params(pop_b.cosmo, pop_b.mass, n, dt)
     gen = torch.Generator(device=DEV).manual_seed(seed)
@@ -646,8 +664,7 @@ def main_path_cotangents(hl, x: torch.Tensor):
     from chimera_tpu_torch.ops.cuda.fused import fused_weights_kde
 
     with torch.no_grad():
-        pop_b = hl.population.update_batch(
-            {p: x[:, i] for i, p in enumerate(PARAMS)})
+        pop_b = hl.population.update_batch(batch_of(x))
         den, stats = fused_weights_kde(hl.m1det, hl.m2det, hl.dL,
                                        hl.inv_pe_prior, pop_b.cosmo, pop_b.mass,
                                        hl.z_grids, kernel=hl.kernel)
@@ -657,33 +674,6 @@ def main_path_cotangents(hl, x: torch.Tensor):
     ct_den = torch.autograd.grad(total, den)[0]
     return ct_den.contiguous(), torch.zeros(
         (*ct_den.shape[:2], 8), dtype=ct_den.dtype, device=ct_den.device)
-
-
-def adjoint_compare(args, kernel: str, tol: float):
-    """K3 against its plain version on the same inputs: the largest error
-    of each gradient row relative to the row's largest entry, and the
-    largest absolute error."""
-    from chimera_tpu_torch.ops.cuda.fused import (fused_weights_kde_adjoint,
-                                                  fused_weights_kde_adjoint_plain)
-
-    got = fused_weights_kde_adjoint(*args, kernel)
-    again = fused_weights_kde_adjoint(*args, kernel)
-    expect = fused_weights_kde_adjoint_plain(*args, kernel)
-    torch.cuda.synchronize(DEV)
-    rel = abs_err = 0.0
-    for g, a, e in zip(got, again, expect):
-        if not torch.equal(g, a):
-            raise AssertionError("K3 gave different bits on the same inputs")
-        if not torch.all(torch.isfinite(g)):
-            raise AssertionError("K3 returned a non-finite gradient")
-        err = (g.double() - e.double()).abs()
-        row_max = e.double().abs().amax(dim=1, keepdim=True).clamp_min(1e-300)
-        rel = max(rel, (err / row_max).max().item())
-        abs_err = max(abs_err, err.max().item())
-    if not rel <= tol:
-        raise AssertionError(f"K3 vs plain ({kernel}): {rel:.3e} of the row "
-                             f"max (tol {tol:.0e})")
-    return rel, abs_err
 
 
 def cut_events(data, n: int):
@@ -733,7 +723,9 @@ def sampler(smi: str, full) -> dict:
         hl = likelihood(small, dtype)
         args = adjoint_inputs(hl, chain_points(4, dtype), SEED + 11)
         for kernel in ("epan", "gauss"):
-            rel, abs_err = adjoint_compare(args, kernel, tol)
+            rel, abs_err = grad_compare(
+                "K3", fused_weights_kde_adjoint, fused_weights_kde_adjoint_plain,
+                (*args, kernel), {}, tol)
             k_ms = statistics.median(cuda_ms(
                 lambda: fused_weights_kde_adjoint(*args, kernel), 5))
             p_ms = statistics.median(cuda_ms(
@@ -795,8 +787,7 @@ def sampler(smi: str, full) -> dict:
     _, g64 = value_and_grad(hl64, x)
 
     def log_n_exp(x):
-        pop_b = hl64.population.update_batch(
-            {p: x[:, i] for i, p in enumerate(PARAMS)})
+        pop_b = hl64.population.update_batch(batch_of(x))
         return torch.log(hl64.selection.n_exp(pop_b))
 
     def differences(fn, h):
@@ -878,7 +869,7 @@ def sampler(smi: str, full) -> dict:
     # ---- 14. timing at the headline, L = 16, float32 ---------------------
     reps = 17
     x = chain_points(n, F32)
-    batch = {p: x[:, i] for i, p in enumerate(PARAMS)}
+    batch = batch_of(x)
     total = cuda_ms(lambda: value_and_grad(hl, x), reps)
     forward = cuda_ms(lambda: hl.log_like_batch(batch), reps)
     one = cuda_ms(lambda: value_and_grad(hl, x[:1]), reps)
@@ -887,11 +878,12 @@ def sampler(smi: str, full) -> dict:
     args[7], args[8] = main_path_cotangents(hl, x)
     kern = cuda_ms(lambda: fused_weights_kde_adjoint(*args, "epan"), reps)
     plain = cuda_ms(lambda: fused_weights_kde_adjoint_plain(*args, "epan"), 1, 0)
-    rel, abs_err = adjoint_compare(args, "epan", 1e-3)
+    k3 = (fused_weights_kde_adjoint, fused_weights_kde_adjoint_plain)
+    rel, abs_err = grad_compare("K3", *k3, (*args, "epan"), {}, 1e-3)
     x64 = chain_points(n, F64)
     args64 = list(adjoint_inputs(hl64, x64, SEED + 14))
     args64[7], args64[8] = main_path_cotangents(hl64, x64)
-    rel64, _ = adjoint_compare(args64, "epan", 1e-9)
+    rel64, _ = grad_compare("K3", *k3, (*args64, "epan"), {}, 1e-9)
     del hl64, args64
     t_med, t_mad = med_mad([t / n for t in total])
     f_med, f_mad = med_mad([t / n for t in forward])
@@ -928,35 +920,53 @@ def sampler(smi: str, full) -> dict:
 # the reference-default configuration and the effective-grid paths
 # ---------------------------------------------------------------------------
 
-def counters() -> dict:
-    """Every kernel's launch counter: {kernel id: (wrapper, attribute)}."""
-    from chimera_tpu_torch.ops.cuda.fused import (fused_row_stats,
-                                                  fused_weights_kde,
-                                                  fused_weights_kde_adjoint)
-    from chimera_tpu_torch.ops.cuda.kde import kde1d_grid
-    from chimera_tpu_torch.ops.cuda.rows import fused_rows_contract
-
-    return {"K1a": (fused_weights_kde, "launches"),
-            "K1b": (fused_weights_kde, "launches_b"),
-            "K1c": (fused_row_stats, "launches"),
-            "K1d": (fused_weights_kde, "launches_d"),
-            "K2": (fused_rows_contract, "launches"),
-            "K3": (fused_weights_kde_adjoint, "launches"),
-            "K4": (kde1d_grid, "launches")}
-
-
 def counted(fn, expect: dict):
     """Run ``fn`` with every launch count set to 0 just before; the counts
     just after must be ``expect`` ({kernel id: launches}, 0 for the rest).
     Returns fn's result and the counts."""
-    for wrapper, attr in counters().values():
+    from chimera_tpu_torch.ops.cuda import launch_counters, launch_counts
+
+    for wrapper, attr in launch_counters().values():
         setattr(wrapper, attr, 0)
     out = fn()
     torch.cuda.synchronize(DEV)
-    got = {k: getattr(w, a) for k, (w, a) in counters().items()}
+    got = launch_counts()
     if got != {k: expect.get(k, 0) for k in got}:
         raise AssertionError(f"launches {got}, expected {expect}")
     return out, got
+
+
+class _Spy:
+    """A kernel wrapper that records its calls; its attributes (the launch
+    counters, which the wrapper bumps through its own module-level name)
+    are the wrapper's."""
+
+    def __init__(self, real):
+        object.__setattr__(self, "real", real)
+        object.__setattr__(self, "calls", [])
+
+    def __call__(self, *args, **kwargs):
+        self.calls.append((args, kwargs))
+        return self.real(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+    def __setattr__(self, name, value):
+        setattr(self.real, name, value)
+
+
+def calls_of(module, name: str, fn) -> list:
+    """Run ``fn`` with ``module.name`` (a kernel wrapper) recording its
+    calls; returns the (args, kwargs) of every call."""
+    real = getattr(module, name)
+    spy = _Spy(real)
+    setattr(module, name, spy)
+    try:
+        fn()
+    finally:
+        setattr(module, name, real)
+    return spy.calls
 
 
 def captured(name: str, fn):
@@ -965,18 +975,7 @@ def captured(name: str, fn):
     inputs the main path hands the kernel."""
     from chimera_tpu_torch import likelihood as module
 
-    real, calls = getattr(module, name), []
-
-    def spy(*args, **kwargs):
-        calls.append((args, kwargs))
-        return real(*args, **kwargs)
-
-    setattr(module, name, spy)
-    try:
-        fn()
-    finally:
-        setattr(module, name, real)
-    return calls[-1]
+    return calls_of(module, name, fn)[-1]
 
 
 def kde_compare(args, kw, tol):
@@ -1201,6 +1200,485 @@ def reference_defaults(smi: str, full, dark_data) -> list[dict]:
     return [entries["K1b"], entries["K1d"], entries["K4"]]
 
 
+# ---------------------------------------------------------------------------
+# the dark-siren and effective-grid gradients
+# ---------------------------------------------------------------------------
+
+# the three unbinned gradient paths: (likelihood maker's config, the kernels
+# one value-and-gradient call launches)
+DARK = {"kind": "marginalized", "binning": False, "cut_grid": None}
+DARK_CUT = {"kind": "marginalized", "binning": False, "cut_grid": 2.0}
+APPROX_CUT = {"kind": "approximate", "binning": False, "cut_grid": 2.0}
+GRAD_LAUNCHES = {"dark": {"K1c": 1, "K2": 1, "K3c": 1, "K2b": 1},
+                 "dark_cut": {"K1c": 1, "K1d": 1, "K3c": 1, "K3d": 1},
+                 "approx_cut": {"K1b": 1, "K3b": 1},
+                 "spectral_cut": {"K1b": 1, "K3b": 1}}
+
+
+def row_rel(got: torch.Tensor, expect: torch.Tensor) -> float:
+    """The largest error of an output relative to its row's largest entry
+    (a row is the last axis; the rows axis of an (L, N, 2) output)."""
+    g, e = got.double(), expect.double()
+    if g.dim() == 3 and g.shape[-1] == 2:
+        g, e = g.transpose(1, 2), e.transpose(1, 2)
+    return ((g - e).abs() / e.abs().amax(dim=-1, keepdim=True).clamp_min(
+        1e-300)).max().item()
+
+
+def in_float64(args, kw):
+    """A backward kernel's arguments with every float tensor and model in
+    float64 (the integer n_real stays)."""
+    import dataclasses
+
+    from chimera_tpu_torch.pytree import tensor_map
+
+    def f64(a):
+        if isinstance(a, torch.Tensor):
+            return a.double() if a.is_floating_point() else a
+        if dataclasses.is_dataclass(a):  # a model
+            return tensor_map(a, lambda t: t.double() if t.is_floating_point() else t)
+        return a
+
+    return [f64(a) for a in args], {k: f64(v) for k, v in kw.items()}
+
+
+def grad_compare(name: str, fn, plain, args, kw, tol, expect=None):
+    """A backward kernel (``fn``) against its plain version on the same
+    inputs (or against ``expect``, the plain version's outputs): each
+    output's largest error relative to its row's largest entry, and the
+    largest absolute error; equal bits on a second launch.  In float32 an
+    output further than ``tol`` from the float32 plain version is held to
+    ``tol`` against the float64 plain version on the same inputs (the exact
+    answer) instead, but for K3d's d_ext: it passes the stats' lo, ub
+    cotangents through and adds the KDE's cotangent of the bounds, and on
+    the dark cut_grid path the two nearly cancel (the resampled density
+    hardly depends on where the grid lies), so its kernel's own term is held
+    to 2x the float32 plain version's own error against float64.  Returns
+    (rel, abs)."""
+    got, again = fn(*args, **kw), fn(*args, **kw)
+    expect = plain(*args, **kw) if expect is None else expect
+    torch.cuda.synchronize(DEV)
+    f32 = args[2].dtype == F32
+    exact = None
+    rel = abs_err = 0.0
+    for i, (g, a, e) in enumerate(zip(got, again, expect)):
+        if g is None:
+            continue
+        if not torch.equal(g, a):
+            raise AssertionError(f"{name} gave different bits on the same inputs")
+        if not torch.all(torch.isfinite(g)):
+            raise AssertionError(f"{name} returned a non-finite gradient")
+        r = row_rel(g, e)
+        rel, abs_err = max(rel, r), max(
+            abs_err, (g.double() - e.double()).abs().max().item())
+        if r <= tol:
+            continue
+        if not f32:
+            raise AssertionError(f"{name} vs plain: output {i} {r:.3e} of the "
+                                 f"row max (tol {tol:.0e})")
+        if exact is None:
+            args64, kw64 = in_float64(args, kw)
+            exact = plain(*args64, **kw64)
+        x, bar = exact[i], tol
+        if i == 2 and kw.get("ext_bounds") is not None:  # K3d's d_ext
+            passed = args[8][..., :2]
+            g, e, x = g - passed, e - passed, x - passed.double()
+            bar = max(tol, 2 * row_rel(e, x))
+        k_err, p_err = row_rel(g, x), row_rel(e, x)
+        print(f"  {name} output {i} in float32: kernel vs plain {r:.3e} of the "
+              f"row max; against the float64 plain version on the same inputs: "
+              f"kernel {k_err:.3e} (bar {bar:.3e}), float32 plain {p_err:.3e}",
+              flush=True)
+        if k_err > bar:
+            raise AssertionError(
+                f"{name} vs plain: output {i} {r:.3e} of the row max (tol "
+                f"{tol:.0e}); against float64 kernel {k_err:.3e} (bar "
+                f"{bar:.3e}), float32 plain {p_err:.3e}")
+    return rel, abs_err
+
+
+def mode_inputs(hl, mode: str, lam: dict, seed: int, kernel=None,
+                n_grid=None):
+    """K3's arguments and keywords in the forward's ``mode`` on a
+    likelihood's data at the batch ``lam``, on the data's device, with
+    random cotangents: the stats pass of the logical pixel rows
+    ('stats_logical') or of the events ('stats', lo and ub cotangents
+    included), the events' effective grids ('auto'), the pixel rows on the
+    events' bounds ('ext', unit mass); ``n_grid`` points (the likelihood's
+    by default) and ``kernel`` (the likelihood's by default).  A dead pixel
+    row's bandwidth and bounds are rounding noise: they get no cotangent."""
+    from chimera_tpu_torch.ops.cuda.fused import fused_row_stats_plain, pack_params
+
+    pop_b = hl.population.update_batch(lam)
+    dt, dev = hl.dL.dtype, hl.dL.device
+    n_grid = hl.n_grid if n_grid is None else n_grid
+    ev = (hl.m1det, hl.m2det, hl.dL, hl.inv_pe_prior)
+    if mode in ("stats_logical", "ext"):
+        data = (hl.pix_m1det, hl.pix_m2det, hl.pix_dL, hl.pix_inv_pe_prior)
+        kw = {"n_real": hl.pix_n_real, "dl_fill": hl.pix_dl_fill,
+              "logical_s": hl.n_samples}
+    else:
+        data, kw = ev, {}
+    if mode in ("stats_logical", "stats"):
+        kw.update(cut_grid=2.0, stats_only=True)
+    elif mode == "auto":
+        kw.update(cut_grid=2.0, n_grid=n_grid)
+    else:
+        st = fused_row_stats_plain(*ev, pop_b.cosmo, pop_b.mass)
+        kw.update(n_grid=n_grid, den_scale="unit", ext_bounds=torch.stack(
+            [st["lo"], st["ub"]], dim=-1).repeat_interleave(hl.n_pixels, dim=1))
+    n, b = len(next(iter(lam.values()))), data[2].shape[0]
+    series, params = pack_params(pop_b.cosmo, pop_b.mass, n, dt)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ct_den = None if kw.get("stats_only") else torch.randn(
+        (n, b, kw["n_grid"]), generator=gen, device=dev, dtype=F64).to(dt)
+    ct_stats = torch.randn((n, b, 8), generator=gen, device=dev, dtype=F64).to(dt)
+    if "n_real" in kw:
+        for slot in (0, 1, 4):
+            ct_stats[:, kw["n_real"] == 0, slot] = 0.0
+    return (*data, None, series, params, ct_den, ct_stats, pop_b.cosmo,
+            pop_b.mass, kernel or hl.kernel), kw
+
+
+def rows_inputs(hl, lam: dict, seed: int, kernel=None):
+    """K2b's arguments on the main path's K2 inputs at the batch ``lam``,
+    on the data's device, with random cotangents of r."""
+    from chimera_tpu_torch.ops.cuda.fused import fused_row_stats_plain, pack_params
+
+    pop_b = hl.population.update_batch(lam)
+    n, dt, dev = len(next(iter(lam.values()))), hl.dL.dtype, hl.dL.device
+    st = fused_row_stats_plain(hl.pix_m1det, hl.pix_m2det, hl.pix_dL,
+                               hl.pix_inv_pe_prior, pop_b.cosmo, pop_b.mass,
+                               hl.pix_n_real, hl.pix_dl_fill, hl.n_samples)
+    f1, f2, _ = hl.lambda_factors(pop_b)
+    series, params = pack_params(pop_b.cosmo, pop_b.mass, n, dt)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ct = torch.randn((n, hl.row_dL.shape[0], 2), generator=gen, device=dev,
+                     dtype=F64).to(dt)
+    return (hl.row_m1det, hl.row_m2det, hl.row_dL, hl.row_inv_pe_prior,
+            hl.z_grids, series, params, hl.row_scales(st), hl.row_s1,
+            hl.row_s2, f1, f2, ct, pop_b.cosmo, pop_b.mass, kernel or hl.kernel)
+
+
+def backward_calls(hl, x):
+    """One value-and-gradient call at the points ``x`` with the two backward
+    kernels' wrappers recording their calls: {kernel id: [(args, kw)]}, the
+    inputs (the main path's cotangents among them) the backward hands
+    them."""
+    from chimera_tpu_torch.ops.cuda import fused, rows
+
+    out = {}
+
+    def k2b():
+        out["K2b"] = calls_of(rows, "fused_rows_contract_adjoint",
+                              lambda: value_and_grad(hl, x))
+
+    out["K3"] = calls_of(fused, "fused_weights_kde_adjoint", k2b)
+    return out
+
+
+def k3_id(kw) -> str:
+    if kw.get("stats_only"):
+        return "K3c"
+    return "K3d" if kw.get("ext_bounds") is not None else \
+        "K3b" if kw.get("cut_grid") is not None else "K3"
+
+
+def k3_bound(args, kw) -> tuple[float, str]:
+    """The least time of K3 on these inputs: the PE rows of the real
+    samples, the cotangents, the model rows and the gradients (the d_ext
+    bounds too), bytes; the pair terms of the
+    KDE adjoint (none in the stats-only mode) and the Clenshaw work of each
+    real sample, FP32 operations."""
+    m1, dl, ct_stats, cosmo = args[0], args[2], args[8], args[9]
+    n, b = ct_stats.shape[:2]
+    size = dl.element_size()
+    real = int(kw["n_real"].sum()) if kw.get("n_real") is not None else dl.numel()
+    g = 0 if kw.get("stats_only") else int(kw["n_grid"])
+    q = args[5].shape[1] + 12
+    n_bytes = (size * (4 * real + n * b * (g + 8)) + 2 * 8 * n * q
+               + (2 * 8 * b if kw.get("n_real") is not None else 0)
+               + (2 * size * 2 * n * b if kw.get("ext_bounds") is not None else 0))
+    return bound(n_bytes, n * real * (ADJ_LIN_KDE_OPS * g
+                                      + ADJ_CHEB_OPS * cosmo.cheb_deg))
+
+
+def k2b_bound(args) -> tuple[float, str]:
+    """The least time of K2b on these inputs, FP32 operations: on the live
+    (λ, row) pairs only (a scale, a weight and a cotangent), one sweep of
+    the (grid point, weighted sample) terms, the per-grid-point products and
+    each weighted sample's Clenshaw work; bytes: the rows, static and per-λ
+    factors, cotangents and gradients once each."""
+    dl, grids, hs, ct, cosmo = args[2], args[4], args[7], args[12], args[13]
+    n, r_rows = hs.shape[:2]
+    chunk = dl.shape[1]
+    e, g = grids.shape
+    size = dl.element_size()
+    weighted = (args[3] > 0).sum(dim=1)
+    live = (hs[..., 1] != 0) & (ct != 0).any(dim=-1) & (weighted > 0)[None]
+    terms = int((live * weighted[None]).sum())
+    q = args[5].shape[1] + 12
+    n_bytes = (size * (4 * r_rows * chunk + e * g + 2 * r_rows * g
+                       + 4 * n * e * g + 6 * n * r_rows) + 2 * 8 * n * q)
+    return bound(n_bytes, terms * (K2B_TERM_OPS * g + ADJ_CHEB_OPS * cosmo.cheb_deg)
+                 + int(live.sum()) * K2B_GRID_OPS * g)
+
+
+def dark_gradients(smi: str, full, dark_data) -> list[dict]:
+    """Phases 19-22: K3 in the modes of K1b, K1c and K1d and K2b against
+    their plain versions; the card's gradient of the three unbinned paths
+    against the CPU's, float32 against float64 and against finite
+    differences; value-and-gradient timing at full width with the split by
+    kernel; HMC and ChEES on the dark flagship.  Returns the new kernels'
+    entries of the kernels line."""
+    from chimera_tpu_torch.inference import (sample_hyperposterior,
+                                             sample_hyperposterior_chees)
+    from chimera_tpu_torch.ops.cuda import launch_counters, launch_counts
+    from chimera_tpu_torch.ops.cuda.fused import (fused_weights_kde_adjoint,
+                                                  fused_weights_kde_adjoint_plain)
+    from chimera_tpu_torch.ops.cuda.rows import (fused_rows_contract_adjoint,
+                                                 fused_rows_contract_adjoint_plain)
+
+    k3 = (fused_weights_kde_adjoint, fused_weights_kde_adjoint_plain)
+    k2b = (fused_rows_contract_adjoint, fused_rows_contract_adjoint_plain)
+
+    def compare(kid, call, tol):
+        fn, plain = k2b if kid == "K2b" else k3
+        return grad_compare(kid, fn, plain, call[0], call[1], tol)
+
+    # ---- 19. kernels vs plain on 64 events of each cell, L = 4 -----------
+    dark64, _ = dark_mock(64, 1024, 15, 500, 100_000, 10_000, SEED + 7)
+    spec64 = mock(64, 4096, 200_000, 500, 300, SEED + 3)
+    for dtype, tol in ((F64, 1e-9), (F32, 1e-3)):
+        x = chain_points(4, dtype)
+        hl = dark_likelihood(dark64, dtype)
+        lam = batch_of(x)
+        cases = [(f"K3c {m}", mode_inputs(hl, m, lam, SEED + 19))
+                 for m in ("stats_logical", "stats")]
+        cases.append(("K2b", (rows_inputs(hl, lam, SEED + 19), {})))
+        cases.append(("K3d ext", mode_inputs(dark_likelihood(dark64, dtype, **DARK_CUT),
+                                             "ext", lam, SEED + 19)))
+        cases.append(("K3b auto", mode_inputs(likelihood(spec64, dtype, cut_grid=2.0),
+                                              "auto", lam, SEED + 19)))
+        for name, call in cases:
+            rel, abs_err = compare(name.split()[0], call, tol)
+            phase(19, f"{name} vs plain {dtype}", f"random cotangents: max err "
+                  f"{rel:.3e} of each gradient row's max ({abs_err:.3e} abs, tol "
+                  f"{tol:.0e}), equal bits on a second launch [{smi}]")
+        # the cotangents each path's own backward hands the kernels
+        for path, make, data, cfg in (("dark", dark_likelihood, dark64, DARK),
+                                      ("dark_cut", dark_likelihood, dark64, DARK_CUT),
+                                      ("spectral_cut", likelihood, spec64,
+                                       {"cut_grid": 2.0})):
+            calls = backward_calls(make(data, dtype, **cfg), x)
+            for kid, call in [(k3_id(c[1]), c) for c in calls["K3"]] + \
+                    [("K2b", c) for c in calls["K2b"]]:
+                rel, abs_err = compare(kid, call, tol)
+                phase(19, f"{kid} on {path}'s cotangents {dtype}", f"max err "
+                      f"{rel:.3e} of each gradient row's max ({abs_err:.3e} "
+                      f"abs, tol {tol:.0e}) [{smi}]")
+    del spec64
+
+    # ---- 20. d log L / dλ of the three paths on 64 dark events -----------
+    n = 16
+    x = chain_points(n, F64)
+    for path, cfg in (("dark", DARK), ("dark_cut", DARK_CUT),
+                      ("approx_cut", APPROX_CUT)):
+        hl64 = dark_likelihood(dark64, F64, **cfg)
+        (ll, g64), _ = counted(lambda: value_and_grad(hl64, x), GRAD_LAUNCHES[path])
+        t0 = time.perf_counter()
+        ll_cpu, g_cpu = value_and_grad(copy.deepcopy(hl64).to("cpu"), x[:2].cpu())
+        seconds = time.perf_counter() - t0
+        rel, rel_ll = column_rel(g64[:2].cpu(), g_cpu), \
+            ((ll[:2].cpu() - ll_cpu).abs() / ll_cpu.abs()).max().item()
+        _, g32 = value_and_grad(dark_likelihood(dark64, F32, **cfg), x.to(F32))
+        rel32 = column_rel(g32, g64)
+
+        def log_n_exp(x):
+            pop_b = hl64.population.update_batch(batch_of(x))
+            return torch.log(hl64.selection.n_exp(pop_b))
+
+        def differences(fn, h):
+            step = torch.zeros_like(x)
+            step[:, 0] = h
+            up, down = x + step, x - step
+            with torch.no_grad():
+                return (fn(up) - fn(down)) / (up - down)[:, 0]
+
+        xg = x.clone().requires_grad_()
+        g_exp = torch.autograd.grad(log_n_exp(xg).sum(), xg)[0][:, 0]
+        fd_exp = differences(log_n_exp, 1e-6)
+        exp_err = ((g_exp - fd_exp).abs() / fd_exp.abs()).max().item()
+        fd = differences(lambda x: log_like(hl64, x), 1e-7)
+        fd_err = (g64[:, 0] - fd).abs() / fd.abs()
+        fd_med, fd_max = fd_err.median().item(), fd_err.max().item()
+        if not (torch.all(torch.isfinite(g64)) and torch.all(torch.isfinite(g32))
+                and rel <= 1e-9 and rel_ll <= 1e-10 and rel32 <= 1e-2
+                and exp_err <= 1e-6 and fd_med <= 1e-4 and fd_max <= 1e-3):
+            raise AssertionError(
+                f"gradient {path}: card vs CPU {rel:.3e} (tol 1e-9), log L "
+                f"{rel_ll:.3e} (tol 1e-10), float32 vs float64 {rel32:.3e} (tol "
+                f"1e-2); d/dH0 vs differences: log N_exp {exp_err:.3e} (tol "
+                f"1e-6), log L median {fd_med:.3e} (tol 1e-4), max {fd_max:.3e} "
+                f"(tol 1e-3)")
+        phase(20, f"gradient {path}", f"d log L/d(H0, Om0, mu_g), {n} chains, 64 "
+              f"events of the dark flagship, float64: card vs plain autograd on "
+              f"the CPU (2 chains, {seconds:.1f} s) max err {rel:.3e} of each "
+              f"parameter's largest slope (tol 1e-9), log L {rel_ll:.3e}; float32 "
+              f"vs float64 on the card {rel32:.3e}; d/dH0 vs central differences: "
+              f"log N_exp (step 1e-6) {exp_err:.3e} (tol 1e-6), log L (step "
+              f"1e-7) median {fd_med:.3e} (tol 1e-4), max {fd_max:.3e} (tol "
+              f"1e-3), {int((fd_err > 1e-4).sum())} chains over 1e-4; launches "
+              f"{GRAD_LAUNCHES[path]} [{smi}]")
+        del hl64
+    del dark64
+
+    # ---- 21. value-and-gradient timing at full width, L = 16, float32 ----
+    reps = 17
+    x = chain_points(n, F32)
+    batch = batch_of(x)
+    entries = {}
+    for path, make, data, cfg in (("dark", dark_likelihood, dark_data, DARK),
+                                  ("dark_cut", dark_likelihood, dark_data, DARK_CUT),
+                                  ("spectral_cut", likelihood, full,
+                                   {"cut_grid": 2.0})):
+        hl = make(data, F32, **cfg)
+        _, launched = counted(lambda: value_and_grad(hl, x), GRAD_LAUNCHES[path])
+        total = cuda_ms(lambda: value_and_grad(hl, x), reps)
+
+        def forward():
+            with torch.no_grad():
+                hl.log_like_batch(batch)
+
+        fwd = cuda_ms(forward, reps)
+        calls = backward_calls(hl, x)
+        kernels = [(k3_id(c[1]), c) for c in calls["K3"]] + \
+            [("K2b", c) for c in calls["K2b"]]
+        split = []
+        for kid, (args, kw) in kernels:
+            fn, plain = k2b if kid == "K2b" else k3
+            kern = cuda_ms(lambda: fn(*args, **kw), reps)
+            expect = []
+            plain_ms = cuda_ms(lambda: expect.append(plain(*args, **kw)), 1, 0)[0]
+            rel, abs_err = grad_compare(kid, fn, plain, args, kw, 1e-3, expect[0])
+            b_ms, b_by = k2b_bound(args) if kid == "K2b" else k3_bound(args, kw)
+            k_call = statistics.median(kern)
+            split.append((kid, med_mad([t / n for t in kern])))
+            phase(21, f"{kid} on {path}", f"[{smi}] L = {n}: kernel {k_call:.3f} "
+                  f"ms per call, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}, {100 * b_ms / k_call:.1f} % of it); on the path's "
+                  f"cotangents max err {rel:.3e} of each gradient row's max "
+                  f"({abs_err:.3e} abs)")
+            if kid not in entries:
+                name = "fused_rows_contract_adjoint" if kid == "K2b" \
+                    else "fused_weights_kde_adjoint"
+                entries[kid] = {
+                    "name": f"{name} ({kid})", "route": "cuda",
+                    "source": "chimera_tpu_torch/csrc/" + (
+                        "rows_contract_adjoint.cu" if kid == "K2b"
+                        else "fused_kde_adjoint.cu"),
+                    "replaces": "chimera_tpu/ops/pallas/fused.py:" + (
+                        "605" if kid == "K2b" else "713"),
+                    "launches": launched[kid], "max_abs_err": abs_err,
+                    "ms": k_call, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None}
+        del calls, kernels
+        t_med, t_mad = med_mad([t / n for t in total])
+        f_med, f_mad = med_mad([t / n for t in fwd])
+        rest = t_med - f_med - sum(m for _, (m, _) in split)
+        phase(21, f"timing {path}", f"[{smi}] per λ over {reps} calls of {n} "
+              f"(after a warm-up), float32: value and gradient {t_med:.4f} ± "
+              f"{t_mad:.4f} ms (median ± MAD); forward {f_med:.4f} ± {f_mad:.4f} "
+              f"ms; " + "; ".join(f"{k} {m:.4f} ± {d:.4f} ms" for k, (m, d) in split)
+              + f"; rest (glue backward) {rest:.4f} ms; launches per call "
+              f"{ {k: v for k, v in launched.items() if v} }")
+        del hl
+
+    # ---- 22. HMC and ChEES on the dark flagship, float32 -----------------
+    hl = dark_likelihood(dark_data, F32)
+    for name, run in (
+            ("hmc", lambda gen, prior: sample_hyperposterior(
+                gen, hl, list(PARAMS), BOUNDS, INIT, n_chains=n, n_warmup=4,
+                n_samples=4, n_leapfrog=4, init_step_size=0.03,
+                extra_log_prior=prior)),
+            ("chees", lambda gen, prior: sample_hyperposterior_chees(
+                gen, hl, list(PARAMS), BOUNDS, INIT, n_chains=n, n_warmup=4,
+                n_samples=4, max_steps=4, init_step_size=0.03,
+                extra_log_prior=prior))):
+        runs = []
+        for _ in range(2):
+            evals = [0]
+            for wrapper, attr in launch_counters().values():
+                setattr(wrapper, attr, 0)
+            t0 = time.perf_counter()
+            samples, stats = run(torch.Generator(device=DEV).manual_seed(SEED + 22),
+                                 counting_prior(evals))
+            torch.cuda.synchronize(DEV)
+            seconds = time.perf_counter() - t0
+            got = launch_counts()
+            runs.append(samples)
+            check_samples(name, samples, 4, n)
+            want = {k: evals[0] for k in ("K1c", "K2", "K3c", "K2b")}
+            if evals[0] < 9 or got != {k: want.get(k, 0) for k in got}:
+                raise AssertionError(f"{name}: {evals[0]} gradient evaluations "
+                                     f"but launches {got}")
+        if not all(torch.equal(runs[0][p], runs[1][p]) for p in PARAMS):
+            raise AssertionError(f"{name}: a second run under the same "
+                                 "generator seed gave other samples")
+        phase(22, name, f"dark flagship, {n} chains x (4 warm-up + 4 sampling "
+              f"steps) in {PARAMS}: {evals[0]} gradient evaluations = K1c = K2 "
+              f"= K3c = K2b launches, {seconds:.2f} s; samples finite and inside "
+              f"the bounds, equal bits on a second run; accept "
+              f"{float(stats['accept'].mean()):.2f}, step size "
+              f"{float(stats['step_size']):.4f}, H0 mean "
+              f"{float(samples['H0'].mean()):.2f} [{smi}]")
+    return [entries[k] for k in ("K3b", "K3c", "K3d", "K2b")]
+
+
+# K3 on analysis grids at the spectral headline (the samplers' backward):
+# ms per call on the main path's cotangents, in the tree it is run from, with
+# the float32 Epanechnikov instantiation's ptxas lines.  It uses only helpers
+# that chip_smoke.py has had since K3 was ported, so it runs in older trees.
+K3_TIMING = r"""
+import os, statistics, sys
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs
+from chimera_tpu_torch.ops.cuda import build
+from chimera_tpu_torch.ops.cuda.fused import fused_weights_kde_adjoint
+
+full = cs.mock(1000, 4096, 2_000_000, 500, 200, cs.SEED)
+hl = cs.likelihood(full, cs.F32)
+x = cs.chain_points(16, cs.F32)
+args = list(cs.adjoint_inputs(hl, x, cs.SEED + 14))
+args[7], args[8] = cs.main_path_cotangents(hl, x)
+t = cs.cuda_ms(lambda: fused_weights_kde_adjoint(*args, "epan"), 17, 3)
+log = build.build_info.get("fused_kde_adjoint", {}).get("log", "").splitlines()
+k3 = [i for i, ln in enumerate(log) if "entry function" in ln
+      and ("IffLi0ELi0" in ln or "IfLi0EEEv" in ln)]
+print(os.getcwd(), "K3 ms per call: median", f"{statistics.median(t):.4f}",
+      "min", f"{min(t):.4f}", "max", f"{max(t):.4f}", flush=True)
+print("  f32 epan ptxas:", " | ".join(
+    ln.split("ptxas info    :")[-1].strip() for i in k3 for ln in log[i:i + 4]
+    if "entry function" in ln or "spill" in ln or "registers" in ln))
+"""
+
+
+def k3_ab(other: str) -> None:
+    """K3 on analysis grids in the tree ``other`` (the parent, unpacked with
+    ``git archive``) and in this one, in one call on one card, in the order
+    other, this, this, other: ``python3 chip_smoke.py --k3-ab DIR``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py runs on the card only")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    here = str(Path(__file__).resolve().parent)
+    for tree in (other, here, here, other):
+        out = subprocess.run([sys.executable, "-c", K3_TIMING], cwd=tree,
+                             capture_output=True, text=True, check=True)
+        print(out.stdout.strip(), flush=True)
+
+
 def main() -> None:
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1217,7 +1695,8 @@ def main() -> None:
 
     # ---- 2. kernel builds, one nvcc per source, in parallel --------------
     t0 = time.perf_counter()
-    names = ["fused_kde", "rows_contract", "fused_kde_adjoint", "kde1d"]
+    names = ["fused_kde", "rows_contract", "fused_kde_adjoint",
+             "rows_contract_adjoint", "kde1d"]
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(build.load, names))
     for name in names:
@@ -1232,7 +1711,8 @@ def main() -> None:
     k1a, full = spectral(smi)
     dark_entries, dark_data = dark(smi)
     kernels = [k1a, *dark_entries, sampler(smi, full),
-               *reference_defaults(smi, full, dark_data)]
+               *reference_defaults(smi, full, dark_data),
+               *dark_gradients(smi, full, dark_data)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1240,4 +1720,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--k3-ab"]:
+        k3_ab(sys.argv[2])
+    else:
+        main()

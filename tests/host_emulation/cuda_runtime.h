@@ -19,6 +19,7 @@ struct double2 { double x, y; };
 inline float __shfl_down_sync(unsigned, float v, int) { return v; }
 inline double __shfl_down_sync(unsigned, double v, int) { return v; }
 inline void __syncthreads() {}
+inline int __syncthreads_or(int v) { return v; }
 
 struct HostIndex { int x; };
-static HostIndex threadIdx{0}, blockIdx{0};
+static HostIndex threadIdx{0}, blockIdx{0}, blockDim{1};

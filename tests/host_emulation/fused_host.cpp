@@ -7,18 +7,10 @@
 // tests/test_torch_host_emulation.py.
 #include <vector>
 
+#include "host_block.h"
 #include "kde.cuh"
 
 namespace {
-
-template <typename T>
-struct HostBlock {
-  static constexpr int kSize = 1;
-  int rank() const { return 0; }
-  template <int N>
-  void sum(T (&)[N]) const {}
-  void minmax(T&, T&) const {}
-};
 
 template <typename T, typename S, int KERNEL, int MODE>
 void run_mode(const FusedArgs<T>& a) {

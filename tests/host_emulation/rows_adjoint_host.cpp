@@ -1,0 +1,89 @@
+// Serial host emulation of the rows-contraction adjoint K2b
+// (chimera_tpu_torch/csrc/rows_contract_adjoint.cu) from the same device
+// functions (adjoint.cuh's rows_adjoint_event, population.cuh): per
+// (lambda, event) the kernel's sweep of the event's rows with a block of one
+// thread, and the events' gradients summed in event order in double.  Same
+// C interface as the kernel's, without the scratch buffer and the stream.
+// Built by tests/test_torch_host_emulation.py.
+#include <vector>
+
+#include "host_block.h"
+#include "adjoint.cuh"
+
+namespace {
+
+template <typename T, int KERNEL>
+void run_kernel(const RowsAdjointArgs<T>& a, double* d_series, T* d_params) {
+  using N = Dual<T, kDirs>;
+  using T2 = typename Pair<T>::type;
+  const int Q = a.cheb_deg + 2 + a.window_deg, P = Q + kMassScalars;
+  std::vector<double> ser(Q);
+  std::vector<T2> zw(a.chunk), gc(a.G);
+  std::vector<T> grid(a.G), f1(a.G), f2(a.G), df1(a.G), df2(a.G),
+      dz(a.chunk), dw(a.chunk);
+  const RowsSmem<T> sm{zw.data(), gc.data(), grid.data(), f1.data(),
+                       f2.data(), df1.data(), df2.data(), dz.data(),
+                       dw.data()};
+  for (int l = 0; l < a.L; ++l) {
+    for (int i = 0; i < Q; ++i) ser[i] = a.series[(size_t)l * Q + i];
+    const T* prm = a.params + (size_t)l * kMassScalars;
+    MassModel<N> mm;
+    SampleAdjoint<T, double>::seed_mass(mm, prm);
+    const Model<T, double> model(ser.data(), prm, a.cheb_deg, a.window_deg);
+    const SampleAdjoint<T, double> sample(ser.data(), a.cheb_deg,
+                                          a.window_deg);
+    std::vector<double> total(P, 0.0);
+    for (int e = 0; e < a.E; ++e) {
+      GradAcc<T> g;
+      g.zero();
+      rows_adjoint_event<T, KERNEL>(HostBlock<T>{}, model, sample, mm, a, l, e,
+                                    sm, g);
+      for (int i = 0; i < P; ++i) total[i] += double(g.at(i, a.cheb_deg,
+                                                          a.window_deg));
+    }
+    for (int i = 0; i < Q; ++i) d_series[(size_t)l * Q + i] = total[i];
+    for (int i = 0; i < kMassScalars; ++i)
+      d_params[(size_t)l * kMassScalars + i] = T(total[Q + i]);
+  }
+}
+
+template <typename T>
+void run(const T* m1, const T* m2, const T* dl, const T* invp, const T* grids,
+         const double* series, const T* params, const T* hs, const T* s1,
+         const T* s2, const T* f1, const T* f2, const T* ct, double* d_series,
+         T* d_params, T* d_hs, T* d_f1, T* d_f2, int L, int E, int C,
+         int chunk, int G, int cd, int wd, int kernel) {
+  const RowsAdjointArgs<T> a{m1, m2, dl, invp, grids, series, params, hs, s1,
+                             s2, f1, f2, ct, nullptr, d_hs, d_f1, d_f2, L, E,
+                             C, chunk, G, cd, wd};
+  if (kernel == 0) run_kernel<T, 0>(a, d_series, d_params);
+  else run_kernel<T, 1>(a, d_series, d_params);
+}
+
+}  // namespace
+
+extern "C" void host_rows_contract_adjoint_f32(
+    const float* m1, const float* m2, const float* dl, const float* invp,
+    const float* grids, const double* series, const float* params,
+    const float* hs, const float* s1, const float* s2, const float* f1,
+    const float* f2, const float* ct, double* partials, double* d_series,
+    float* d_params, float* d_hs, float* d_f1, float* d_f2, int L, int E,
+    int C, int chunk, int G, int cd, int wd, int kernel) {
+  (void)partials;
+  run<float>(m1, m2, dl, invp, grids, series, params, hs, s1, s2, f1, f2, ct,
+             d_series, d_params, d_hs, d_f1, d_f2, L, E, C, chunk, G, cd, wd,
+             kernel);
+}
+
+extern "C" void host_rows_contract_adjoint_f64(
+    const double* m1, const double* m2, const double* dl, const double* invp,
+    const double* grids, const double* series, const double* params,
+    const double* hs, const double* s1, const double* s2, const double* f1,
+    const double* f2, const double* ct, double* partials, double* d_series,
+    double* d_params, double* d_hs, double* d_f1, double* d_f2, int L, int E,
+    int C, int chunk, int G, int cd, int wd, int kernel) {
+  (void)partials;
+  run<double>(m1, m2, dl, invp, grids, series, params, hs, s1, s2, f1, f2, ct,
+              d_series, d_params, d_hs, d_f1, d_f2, L, E, C, chunk, G, cd, wd,
+              kernel);
+}

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels of the PyTorch port, on the card: K1a
 (spectral) and its adjoint K3, K1c and K2 (dark siren), the effective-grid
-modes K1b and K1d and the batched KDE K4 (the reference's binned defaults).
+modes K1b and K1d and the batched KDE K4 (the reference's binned defaults),
+K3 in the modes of K1b, K1c and K1d and the rows-contraction adjoint K2b
+(the dark-siren and effective-grid gradients).
 
 Every test here needs a CUDA card and nvcc (marker ``cuda``) and skips
 without one.  The file imports no JAX, so it runs on a machine without it:
@@ -16,9 +18,11 @@ import pytest
 import torch
 
 from chimera_tpu_torch import HyperLikelihood, SelectionFunction
+from chip_smoke import mode_inputs, row_rel, rows_inputs
 from chimera_tpu_torch.data.mock import make_mock_catalog, make_mock_injections
 from chimera_tpu_torch.models import (FLRW, MadauDickinsonRate, Population,
                                       PowerLawPeak, compute_z_grids)
+from chimera_tpu_torch.ops.cuda import launch_counts
 from chimera_tpu_torch.ops.cuda.fused import (fused_row_stats,
                                               fused_row_stats_plain,
                                               fused_weights_kde,
@@ -27,6 +31,8 @@ from chimera_tpu_torch.ops.cuda.fused import (fused_row_stats,
                                               fused_weights_kde_plain,
                                               pack_params)
 from chimera_tpu_torch.ops.cuda.rows import (fused_rows_contract,
+                                             fused_rows_contract_adjoint,
+                                             fused_rows_contract_adjoint_plain,
                                              fused_rows_contract_plain)
 
 H0S = [62.0, 70.0, 78.0]
@@ -187,7 +193,8 @@ def test_adjoint_kernel_matches_plain(cuda, cpu_hl, dtype, tol, kernel, bw_metho
     expect = fused_weights_kde_adjoint_plain(*args, kernel, bw_method)
     torch.cuda.synchronize()
     assert got[0].dtype == torch.float64 and got[1].dtype == dtype
-    for g, a, e in zip(got, again, expect):
+    assert got[2] is None
+    for g, a, e in zip(got[:2], again[:2], expect[:2]):
         assert torch.equal(g, a)
         assert torch.all(torch.isfinite(g))
         row_max = e.abs().amax(dim=1, keepdim=True)
@@ -379,34 +386,124 @@ def test_dark_log_like_batch_matches_cpu(cuda, dark_cpu_hl):
     torch.testing.assert_close(got, expect, rtol=1e-10, atol=0)
 
 
-def test_dark_gradient_is_refused_on_the_card(cuda, dark_cpu_hl):
-    """No adjoint kernel for the dark kind yet: a backward through K1c and
-    K2 raises instead of dropping their part."""
-    card = copy.deepcopy(dark_cpu_hl).to(cuda)
-    h0 = torch.tensor(H0S, dtype=torch.float64, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        card.log_like_batch({"H0": h0})
-    assert torch.all(torch.isfinite(card.log_like_batch({"H0": h0.detach()})))
+@pytest.mark.parametrize("path", ["dark", "dark_cut", "spectral_cut"])
+def test_dark_gradient_on_card_matches_cpu(cuda, dark_inputs, path):
+    """d log L / d(H0, Om0, mu_g) on the card against plain autograd on the
+    CPU, float64, 1e-9 relative: the dark flagship (K1c, K2, then K3 stats +
+    logical rows and K2b), 'marginalized' with cut_grid (K1c, K1d, then K3
+    ext and K3 stats) and 'approximate' with cut_grid (K1b, then K3 on the
+    effective grids), each kernel launched once; float32 within 1e-2 of
+    each parameter's largest slope (Epanechnikov's slope jumps at the
+    support's edge)."""
+    config = {"dark": ("marginalized", None), "dark_cut": ("marginalized", 2.0),
+              "spectral_cut": ("approximate", 2.0)}[path]
+    launched = {"dark": {"K1c": 1, "K2": 1, "K3c": 1, "K2b": 1},
+                "dark_cut": {"K1c": 1, "K1d": 1, "K3c": 1, "K3d": 1},
+                "spectral_cut": {"K1b": 1, "K3b": 1}}[path]
+    hl = HyperLikelihood.create(*dark_inputs, kind=config[0], binning=False,
+                                cut_grid=config[1])
+    card = copy.deepcopy(hl).to(cuda)
+    before = launch_counts()
+    got = _grad(card, cuda)
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == \
+        {k: launched.get(k, 0) for k in after}
+    expect = _grad(hl, "cpu")
+    assert torch.all(torch.isfinite(expect))
+    torch.testing.assert_close(got, expect, rtol=1e-9, atol=0)
+    got32 = _grad(copy.deepcopy(hl).to(cuda, torch.float32), cuda,
+                  torch.float32).double()
+    assert ((got32 - expect).abs() / expect.abs().amax(dim=0)).max() <= 1e-2
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+@pytest.mark.parametrize("mode,kernel,counter", [
+    ("stats_logical", "epan", "launches_c"), ("stats", "epan", "launches_c"),
+    ("auto", "epan", "launches_b"), ("auto", "gauss", "launches_b"),
+    ("ext", "epan", "launches_d"), ("ext", "gauss", "launches_d")])
+def test_adjoint_modes_match_plain(cuda, dark_cpu_hl, dtype, tol, mode, kernel,
+                                   counter):
+    """K3 in the modes of K1c (logical pixel rows with a dead pixel, and the
+    events), K1b and K1d against autograd through the plain version, random
+    cotangents for den and every stat: each gradient row (d_ext's too)
+    within tol of its largest entry, one launch on the mode's counter, equal
+    bits on a second launch."""
+    hl = copy.deepcopy(dark_cpu_hl).to(device=cuda, dtype=dtype)
+    args, kw = mode_inputs(hl, mode, LAMBDA, 4, kernel, n_grid=32)
+    before = getattr(fused_weights_kde_adjoint, counter)
+    got = fused_weights_kde_adjoint(*args, **kw)
+    assert getattr(fused_weights_kde_adjoint, counter) == before + 1
+    again = fused_weights_kde_adjoint(*args, **kw)
+    expect = fused_weights_kde_adjoint_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert (got[2] is None) == (mode != "ext")
+    for g, a, e in zip(got, again, expect):
+        if g is not None:
+            assert torch.equal(g, a) and torch.all(torch.isfinite(g))
+            assert row_rel(g, e) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+@pytest.mark.parametrize("kernel", ["epan", "gauss"])
+def test_rows_adjoint_matches_plain(cuda, dark_cpu_hl, dtype, tol, kernel):
+    """K2b against autograd through ``fused_rows_contract_plain`` on the
+    main path's inputs, random cotangents of r: d_series, d_params, d_hs,
+    d_f1, d_f2 within tol of each row's largest entry; the dead pixel's rows
+    and the padding rows get exact zeros; one launch, equal bits on a
+    second."""
+    hl = copy.deepcopy(dark_cpu_hl).to(device=cuda, dtype=dtype)
+    args = rows_inputs(hl, {"H0": H0S}, 6, kernel)
+    before = fused_rows_contract_adjoint.launches
+    got = fused_rows_contract_adjoint(*args)
+    assert fused_rows_contract_adjoint.launches == before + 1
+    again = fused_rows_contract_adjoint(*args)
+    expect = fused_rows_contract_adjoint_plain(*args)
+    torch.cuda.synchronize()
+    zero = (args[7][..., 1] == 0) | ~(hl.row_inv_pe_prior > 0).any(dim=1)
+    assert zero.any() and torch.all(got[2][zero] == 0)
+    for g, a, e in zip(got, again, expect):
+        assert torch.equal(g, a) and torch.all(torch.isfinite(g))
+        assert row_rel(g, e) <= tol
+
+
+def test_dark_hmc_repeats_bit_for_bit(cuda, dark_cpu_hl):
+    """HMC on the dark flagship configuration, float32: two runs under the
+    same generator seed give the same samples; each gradient evaluation is
+    one K2b and one K3 (stats + logical) launch."""
+    from chimera_tpu_torch.inference import sample_hyperposterior
+
+    card = copy.deepcopy(dark_cpu_hl).to(cuda, torch.float32)
+    bounds = {"H0": (40.0, 120.0), "Om0": (0.05, 0.6)}
+
+    def run():
+        before = launch_counts()
+        samples, _ = sample_hyperposterior(
+            torch.Generator(device=cuda).manual_seed(5), card, ["H0", "Om0"],
+            bounds, {"H0": 70.0, "Om0": 0.25}, n_chains=4, n_warmup=3,
+            n_samples=3, n_leapfrog=3)
+        after = launch_counts()
+        return samples, after["K2b"] - before["K2b"], after["K3c"] - before["K3c"]
+
+    first, k2b, k3c = run()
+    assert k2b == k3c >= 7
+    second, _, _ = run()
+    for k, lo_hi in bounds.items():
+        assert torch.all((first[k] > lo_hi[0]) & (first[k] < lo_hi[1]))
+        assert torch.equal(first[k], second[k])
 
 
 # ---------------------------------------------------------------------------
 # K1b, K1d and K4: the reference's defaults and the effective-grid paths
 # ---------------------------------------------------------------------------
 
-def _launches() -> dict:
-    from chimera_tpu_torch.ops.cuda.kde import kde1d_grid
-
-    return {"K1a": fused_weights_kde.launches, "K1b": fused_weights_kde.launches_b,
-            "K1c": fused_row_stats.launches, "K1d": fused_weights_kde.launches_d,
-            "K2": fused_rows_contract.launches, "K4": kde1d_grid.launches}
-
-
 def _launched(fn, expect: dict):
     """fn() and the check that it launched exactly ``expect``."""
-    before = _launches()
+    before = launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    after = _launches()
+    after = launch_counts()
     assert {k: after[k] - before[k] for k in after} == \
         {k: expect.get(k, 0) for k in after}
     return out
@@ -541,29 +638,18 @@ def test_reference_defaults_run_on_the_card(cuda):
     assert ((got.double() - expect).abs() / expect.abs()).max() <= 1e-5
 
 
-def test_new_kernels_refuse_grad(cuda, cpu_hl, dark_inputs):
-    """K4, K1b and K1d have no backward: each raises where a model tensor
-    (or, for K4, an input) requires grad, instead of dropping its part."""
+def test_new_kernels_refuse_grad(cuda, cpu_hl):
+    """K4 has no backward, in either package (``jax.grad`` through the JAX
+    package's Pallas KDE raises): the binned path raises where a model
+    tensor requires grad, and K4 where an input does, instead of dropping
+    their part.  (K1b and K1d have one: K3 in their modes.)"""
     from chimera_tpu_torch.ops.cuda.kde import kde1d_grid
 
     h0 = torch.tensor(H0S, dtype=torch.float64, device=cuda, requires_grad=True)
-    for config in ({"binning": True, "cut_grid": 2.0},
-                   {"binning": False, "cut_grid": 2.0}):
-        card = copy.deepcopy(_spectral_hl(dead_event=False, **config)).to(cuda)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            card.log_like_batch({"H0": h0})
+    card = copy.deepcopy(_spectral_hl(dead_event=False, binning=True,
+                                      cut_grid=2.0)).to(cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        card.log_like_batch({"H0": h0})
     z = torch.rand((4, 200), dtype=torch.float64, device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError, match="kde1d_grid"):
         kde1d_grid(z, z.detach(), z.detach()[:, :50], z.detach()[:, 0])
-    hl = copy.deepcopy(HyperLikelihood.create(
-        *dark_inputs, kind="marginalized", binning=False, cut_grid=2.0)).to(cuda)
-    pop_b = hl.population.update_batch({"H0": h0})
-    ext = torch.ones((len(H0S), hl.pix_dL.shape[0], 2), dtype=torch.float64,
-                     device=cuda)
-    ext[..., 0] = 0.01
-    with pytest.raises(NotImplementedError, match="fused_weights_kde"):
-        fused_weights_kde(hl.pix_m1det, hl.pix_m2det, hl.pix_dL,
-                          hl.pix_inv_pe_prior, pop_b.cosmo, pop_b.mass,
-                          ext_bounds=ext, n_grid=32, n_real=hl.pix_n_real,
-                          dl_fill=hl.pix_dl_fill, logical_s=hl.n_samples,
-                          den_scale="unit")

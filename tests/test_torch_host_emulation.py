@@ -1,24 +1,24 @@
-"""The arithmetic of the CUDA kernels on the CPU: the adjoint kernel K3,
-the fused pass K1 in its four modes and the batched KDE K4.
+"""The arithmetic of the CUDA kernels on the CPU: the adjoint kernel K3 in
+every mode, the rows-contraction adjoint K2b, the fused pass K1 in its four
+modes and the batched KDE K4.
 
 A CUDA kernel has no interpret mode, but its arithmetic lives in device
-functions (``chimera_tpu_torch/csrc/adjoint.cuh`` and ``population.cuh``)
-that a C++ compiler can build for the host once ``__device__`` and friends
-are defined away (``tests/host_emulation/cuda_runtime.h``).
-``tests/host_emulation/adjoint_host.cpp`` runs them serially per (λ, event)
-in the kernel's phases; here that emulation is held against
-``fused_weights_kde_adjoint_plain`` (autograd through the plain version),
-float64 and float32, and put behind the likelihood as its backward to show
-what the float32 'kernel' engine does to d log L / dλ.  What the emulation
-cannot show: the block sums, the launch and the shared-memory layout
-(``tests/test_torch_cuda.py``, on the card).
-
-K1 and K4 keep their arithmetic in ``csrc/kde.cuh``, written once for a
-block of threads; ``tests/host_emulation/fused_host.cpp`` runs it with a
-block of one thread and is held against ``fused_weights_kde_plain`` and
-``kde1d_grid_plain`` in every mode: analysis grids (K1a), effective grids
-(K1b), stats only (K1c, plain and logical rows) and external bounds on
-logical rows with unit mass (K1d)."""
+functions (``chimera_tpu_torch/csrc/adjoint.cuh``, ``kde.cuh`` and
+``population.cuh``) that a C++ compiler can build for the host once
+``__device__`` and friends are defined away
+(``tests/host_emulation/cuda_runtime.h``).  The kernels' per-row and
+per-event functions are written once for a block of threads;
+``tests/host_emulation/adjoint_host.cpp`` (K3), ``rows_adjoint_host.cpp``
+(K2b) and ``fused_host.cpp`` (K1, K4) run them with a block of one thread,
+behind the kernels' own C interfaces.  Here the emulations are held against
+the plain versions (``fused_weights_kde_adjoint_plain`` and
+``fused_rows_contract_adjoint_plain``, autograd through the plain forward;
+``fused_weights_kde_plain``, ``kde1d_grid_plain``), float64 and float32, and
+put in place of the launches behind the wrappers' CUDA branches, to show
+the autograd wiring of the card's backward and what the float32 kernel
+engine does to d log L / dλ.  What the emulation cannot show: the block
+sums, the launch and the shared-memory layout (``tests/test_torch_cuda.py``,
+on the card)."""
 
 import ctypes
 import dataclasses
@@ -35,7 +35,7 @@ from chimera_tpu_torch import HyperLikelihood, SelectionFunction
 from chimera_tpu_torch.data.mock import make_mock_catalog, make_mock_injections
 from chimera_tpu_torch.models import (FLRW, MadauDickinsonRate, Population,
                                       PowerLawPeak, compute_z_grids)
-from chimera_tpu_torch.ops.cuda import fused
+from chimera_tpu_torch.ops.cuda import fused, launch_counts, rows
 
 HERE = Path(__file__).resolve().parent / "host_emulation"
 CSRC = Path(fused.__file__).resolve().parents[2] / "csrc"
@@ -69,6 +69,11 @@ def host_lib(tmp_path_factory):
 @pytest.fixture(scope="module")
 def fused_host_lib(tmp_path_factory):
     return _build_host(tmp_path_factory, "fused_host")
+
+
+@pytest.fixture(scope="module")
+def rows_host_lib(tmp_path_factory):
+    return _build_host(tmp_path_factory, "rows_adjoint_host")
 
 
 def _population(dtype):
@@ -109,21 +114,36 @@ def _likelihood(data, dtype, kernel="epan", bw_method=None):
                                   binning=False, cut_grid=None)
 
 
+def _ptr(t):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
 def _host_adjoint(lib, m1det, m2det, dl, inv_pe_prior, grids, series, params,
-                  ct_den, ct_stats, cosmo, mass, kernel="epan", bw_method=None):
+                  ct_den, ct_stats, cosmo, mass, kernel="epan", bw_method=None,
+                  *, cut_grid=None, n_grid=None, ext_bounds=None, n_real=None,
+                  dl_fill=None, logical_s=None, den_scale="norms",
+                  stats_only=False):
     """``fused_weights_kde_adjoint``'s signature on the host emulation."""
+    mode = fused._mode_of(grids, ext_bounds, stats_only)
+    g = grids.shape[1] if mode == fused._ANALYSIS_GRID else \
+        0 if mode == fused._STATS_ONLY else int(n_grid)
     d_series, d_params = torch.zeros_like(series), torch.zeros_like(params)
+    d_ext = None if ext_bounds is None else torch.zeros_like(ext_bounds)
     fn = getattr(lib, "host_fused_kde_adjoint_"
                  + ("f64" if dl.dtype == F64 else "f32"))
     fn.restype = None
-    tensors = [t.contiguous() for t in (m1det, m2det, dl, inv_pe_prior, grids,
-                                        series, params, ct_den, ct_stats)]
+    keep = [None if t is None else t.contiguous() for t in (
+        m1det, m2det, dl, inv_pe_prior,
+        grids if mode == fused._ANALYSIS_GRID else None, ext_bounds, n_real,
+        dl_fill, series, params, ct_den, ct_stats)]
     bw_mode, bw_value = fused._bw_code(bw_method)
     e, s = dl.shape
-    fn(*[ctypes.c_void_p(t.data_ptr()) for t in (*tensors, d_series, d_params)],
-       series.shape[0], e, s, grids.shape[1], cosmo.cheb_deg, mass.window_deg,
-       0 if kernel == "epan" else 1, bw_mode, ctypes.c_double(bw_value))
-    return d_series, d_params
+    fn(*[_ptr(t) for t in (*keep, None, d_series, d_params, d_ext)],
+       series.shape[0], e, s, g, cosmo.cheb_deg, mass.window_deg,
+       logical_s or 0, mode, 0 if kernel == "epan" else 1, bw_mode,
+       ctypes.c_double(bw_value), ctypes.c_double(cut_grid or 0.0),
+       int(den_scale == "unit"))
+    return d_series, d_params, d_ext
 
 
 def _row_rel(got, expect):
@@ -181,7 +201,7 @@ def _emulated_kernel_engine(lib):
             series, params, *data = ctx.saved_tensors
             grads = _host_adjoint(lib, *data, series, params, ct_den, ct_stats,
                                   *ctx.cfg)
-            return (*grads, None, None, None, None) + (None,) * 5
+            return (*grads[:2], None, None, None, None) + (None,) * 5
 
     def fused_weights_kde(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids,
                           kernel="epan", bw_method=None):
@@ -228,10 +248,6 @@ def test_emulated_kernel_engine_gradient(host_lib, data, monkeypatch, kernel,
 # ---------------------------------------------------------------------------
 # K1 in its four modes and K4
 # ---------------------------------------------------------------------------
-
-def _ptr(t):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
-
 
 def _host_fused(lib, mode, m1det, m2det, dl, inv_pe_prior, cosmo, mass,
                 grids=None, kernel="epan", n_grid=0, ext_bounds=None,
@@ -352,3 +368,258 @@ def test_emulated_kde1d_matches_plain(fused_host_lib, kernel, dtype, tol):
         expect = kde1d_grid_plain(z, w, grids, h, kernel)
         err = (out - expect).abs().amax(dim=1) / expect.abs().amax(dim=1)
         assert err.max() <= tol
+
+
+# ---------------------------------------------------------------------------
+# K3 in the forward's other modes, K2b
+# ---------------------------------------------------------------------------
+
+def _adjoint_case(data, dtype, mode, kernel, seed=2):
+    """K3's arguments and mode keywords for ``mode`` on the emulation's
+    data, with random cotangents (a dead pixel row's bandwidth and bounds
+    are rounding noise, as in the forward tests: they get none)."""
+    cat, _, _, _ = data
+    pop = _population(dtype).update_batch(LAMBDA)
+    cosmo, mass = pop.cosmo, pop.mass
+    pe = [t.to(dtype) for t in (cat.m1det, cat.m2det, cat.dL, 1.0 / cat.pe_prior)]
+    if mode == "effective":
+        kw = {"cut_grid": 2.0, "n_grid": 24}
+    elif mode == "stats":
+        kw = {"cut_grid": 2.0, "stats_only": True}
+    else:
+        ev = fused.fused_row_stats_plain(*pe, cosmo, mass)
+        pe, n_real, dl_fill = _pixel_rows(cat, dtype)
+        kw = {"n_real": n_real, "dl_fill": dl_fill, "logical_s": cat.dL.shape[1]}
+        if mode == "stats_logical":
+            kw.update(cut_grid=2.0, stats_only=True)
+        else:
+            kw.update(n_grid=24, den_scale="unit", ext_bounds=torch.stack(
+                [ev["lo"], ev["ub"]], dim=-1).repeat_interleave(4, dim=1))
+    n, b = 3, pe[2].shape[0]
+    series, params = fused.pack_params(cosmo, mass, n, dtype)
+    gen = torch.Generator().manual_seed(seed)
+    ct_den = None if kw.get("stats_only") else torch.randn(
+        n, b, kw["n_grid"], generator=gen, dtype=F64).to(dtype)
+    ct_stats = torch.randn(n, b, 8, generator=gen, dtype=F64).to(dtype)
+    if "n_real" in kw:
+        for slot in (0, 1, 4):
+            ct_stats[:, kw["n_real"] == 0, slot] = 0.0
+    return (*pe, None, series, params, ct_den, ct_stats, cosmo, mass, kernel), kw
+
+
+@pytest.mark.parametrize("dtype,tol", [(F64, 1e-12), (F32, 1e-3)])
+@pytest.mark.parametrize("mode,kernel", [
+    ("effective", "epan"), ("effective", "gauss"), ("stats", "epan"),
+    ("stats_logical", "epan"), ("external", "epan"), ("external", "gauss")])
+def test_emulated_adjoint_modes_match_plain(host_lib, data, mode, kernel, dtype,
+                                            tol):
+    """K3 in the modes of K1b (effective grids: the chains of lo and ub
+    into the z range and σ), K1c (stats only, of plain rows and of the
+    logical per-pixel rows with a dead pixel: the fillers' zf, which ties
+    with the z minimum of the pixel holding the event's nearest sample) and
+    K1d (external bounds, logical rows, unit mass: d_ext): each gradient row
+    within tol of its largest entry."""
+    args, kw = _adjoint_case(data, dtype, mode, kernel)
+    expect = fused.fused_weights_kde_adjoint_plain(*args, **kw)
+    got = _host_adjoint(host_lib, *args, **kw)
+    assert (got[2] is None) == (expect[2] is None) == (mode != "external")
+    for g, e in zip(got, expect):
+        if g is None:
+            continue
+        assert e.abs().max() > 0
+        assert _row_rel(g.reshape(-1, g.shape[-1]), e.reshape(-1, e.shape[-1])) <= tol
+
+
+def _rows_case(data, dtype, kernel):
+    """K2b's arguments on chunk rows of 32 samples built from the emulation
+    data's per-pixel rows, (1/h, scale) from their plain stats pass, random
+    positive s, f factors and random cotangents (two rows without); and the
+    row numbers of two live rows whose scale is then set to 0."""
+    from chimera_tpu_torch.data.pixelize import (chunk_rows_from_compact,
+                                                 compact_samples_by_pixel)
+
+    cat, z_grids, _, _ = data
+    pop = _population(dtype).update_batch(LAMBDA)
+    cosmo, mass = pop.cosmo, pop.mass
+    e, s = cat.dL.shape
+    gen = torch.Generator().manual_seed(11)
+    theta = cat.update(pixels_opt_nsides=torch.arange(4).expand(e, 4),
+                       pixels_pe_opt_nside=torch.randint(0, 3, (e, s), generator=gen))
+    comp = compact_samples_by_pixel(theta, pad_multiple=64)
+    chunks = chunk_rows_from_compact(comp, chunk=32)
+    c = chunks["dL"].shape[1]
+    keys = ("m1det", "m2det", "dL", "inv_pe_prior")
+    flat = [chunks[k].reshape(e * c, -1).to(dtype) for k in keys]
+    pix = [comp[k].reshape(e * 4, -1).to(dtype) for k in keys]
+    st = fused.fused_row_stats_plain(*pix, cosmo, mass, comp["n_real"].reshape(-1),
+                                     comp["dl_fill"].repeat_interleave(4).to(dtype), s)
+    h, sum_w = st["bandwidth"], st["sum_w"]
+    row_pixel = (torch.arange(e)[:, None] * 4 + chunks["row_pix"]).reshape(-1)
+    scale = torch.where(sum_w > 0, 1.0 / (h * sum_w), 0.0)
+    hs = torch.stack([(1.0 / h)[:, row_pixel], scale[:, row_pixel]], dim=-1)
+    live = torch.nonzero((flat[3] > 0).any(dim=1)).flatten()
+    zeroed = live[[3, 9]]
+    hs[:, zeroed, 1] = 0.0
+    gen = torch.Generator().manual_seed(3)
+    g = z_grids.shape[1]
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, dtype=F64).to(dtype)
+
+    ct = torch.randn(3, e * c, 2, generator=gen, dtype=F64).to(dtype)
+    ct[:, live[[5, 6]]] = 0.0
+    series, params = fused.pack_params(cosmo, mass, 3, dtype)
+    return (*flat, z_grids.to(dtype), series, params, hs, rand(e * c, g),
+            rand(e * c, g), rand(3, e, g), rand(3, e, g), ct, cosmo, mass,
+            kernel), zeroed
+
+
+def _host_rows_adjoint(lib, m1det, m2det, dl, inv_pe_prior, grids, series,
+                       params, hs, s1, s2, f1, f2, ct_r, cosmo, mass,
+                       kernel="epan"):
+    """``rows.fused_rows_contract_adjoint``'s signature on the host
+    emulation."""
+    n, (r_rows, chunk), (e, g) = series.shape[0], dl.shape, grids.shape
+    outs = [torch.zeros_like(t) for t in (series, params, hs, f1, f2)]
+    fn = getattr(lib, "host_rows_contract_adjoint_"
+                 + ("f64" if dl.dtype == F64 else "f32"))
+    fn.restype = None
+    keep = [t.contiguous() for t in (m1det, m2det, dl, inv_pe_prior, grids,
+                                     series, params, hs, s1, s2, f1, f2, ct_r)]
+    fn(*[_ptr(t) for t in keep], None, *[_ptr(t) for t in outs], n, e,
+       r_rows // e, chunk, g, cosmo.cheb_deg, mass.window_deg,
+       0 if kernel == "epan" else 1)
+    return tuple(outs)
+
+
+@pytest.mark.parametrize("dtype,tol", [(F64, 1e-12), (F32, 1e-4)])
+@pytest.mark.parametrize("kernel", ["epan", "gauss"])
+def test_emulated_rows_adjoint_matches_plain(rows_host_lib, data, kernel, dtype,
+                                             tol):
+    """K2b against autograd through ``fused_rows_contract_plain``: every
+    output (d_series, d_params, d_hs, d_f1, d_f2) within tol of each row's
+    largest entry.  Padding rows (no weight), rows without a cotangent and
+    rows of scale 0 give exact zeros; a live row of scale 0 is one that r
+    has as 0 whatever its density, and its scale's cotangent is taken as 0
+    (on the main path scale is 0 only below sqrt(tiny) pixel weight, where
+    the density itself is of that size)."""
+    args, zeroed = _rows_case(data, dtype, kernel)
+    expect = list(rows.fused_rows_contract_adjoint_plain(*args))
+    got = _host_rows_adjoint(rows_host_lib, *args)
+    assert torch.all(got[2][:, zeroed] == 0) and torch.all(expect[2][:, zeroed, 0] == 0)
+    expect[2][:, zeroed, 1] = 0.0
+    dead = ~(args[3] > 0).any(dim=1)
+    assert dead.any() and torch.all(got[2][:, dead] == 0)
+    for g, e in zip(got, expect):
+        assert e.abs().max() > 0
+        assert _row_rel(g.reshape(-1, g.shape[-1]), e.reshape(-1, e.shape[-1])) <= tol
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' CUDA branches with the emulations as the launches
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def dark_data():
+    """8 events x 256 samples of a port-generated dark siren (σ_sky 0.03
+    rad, nside {8, 16}, 6 pixels asked, 48-point grids, 3000 background
+    galaxies, step completeness)."""
+    from chimera_tpu_torch.catalog import DVdzCompleteness
+    from chimera_tpu_torch.catalog.build import build_pixelated_catalog
+    from chimera_tpu_torch.data.mock import make_mock_galaxies
+    from chimera_tpu_torch.data.pixelize import pixelize_gw_catalog
+
+    pop = _population(F64)
+    gen = torch.Generator().manual_seed(9)
+    cat, truths = make_mock_catalog(gen, pop, n_events=8, n_samples=256,
+                                    snr_threshold=12.0, sigma_sky_rad=0.03,
+                                    oversample=300, return_truths=True)
+    inj, n_gen = make_mock_injections(gen, pop, n_generated=20_000,
+                                      snr_threshold=12.0)
+    gal = make_mock_galaxies(gen, pop, truths, n_background=3000)
+    cat = pixelize_gw_catalog(cat, nside_list=[8, 16], mean_npixels_event=6,
+                              sky_conf=0.9)
+    z_grids = compute_z_grids(pop.cosmo, cat, cosmo_prior={"H0": [40.0, 120.0]},
+                              z_int_res=48)
+    compl = DVdzCompleteness.create(z_range=(0.0, 3.0), kind="step",
+                                    device="cpu", dtype=F64)
+    gal_cat = build_pixelated_catalog(gal, cat, z_grids, pop.cosmo, compl,
+                                      z_err=0.01)
+    return cat, z_grids, gal_cat, inj, n_gen
+
+
+def _emulate_the_card(monkeypatch, libs, cosmo, mass):
+    """Make the kernel wrappers of ``fused`` and ``rows`` take their CUDA
+    branches on CPU tensors, with ``launch`` calling the host emulation of
+    the same C interface (K2's forward, which has none, runs its plain
+    version on the launch's own arguments; ``cosmo``, ``mass``: models of
+    the batch's degrees, around which the packed rows are unpacked)."""
+    def launch(lib_name, symbol, dtype, device, args):
+        if lib_name == "rows_contract":
+            (m1, m2, dl, invp, grids, series, params, hs, s1, s2, f1, f2,
+             out) = args[:13]
+            models = fused.unpack_params(cosmo, mass, series, params)
+            out.copy_(rows.fused_rows_contract_plain(
+                m1, m2, dl, invp, *models, grids, hs, s1, s2, f1, f2,
+                "epan" if args[-1] == 0 else "gauss"))
+            return
+        fn = getattr(libs[lib_name], symbol.replace("chimera", "host")
+                     + ("_f32" if dtype == F32 else "_f64"))
+        fn.restype = None
+        fn(*[_ptr(a) if isinstance(a, torch.Tensor) or a is None
+             else ctypes.c_double(a) if isinstance(a, float) else a for a in args])
+
+    for module in (fused, rows):
+        monkeypatch.setattr(module, "on_card", lambda t: True)
+        monkeypatch.setattr(module, "launch", launch)
+        monkeypatch.setattr(module, "check_cuda_call", lambda *args: None)
+
+
+@pytest.mark.parametrize("kind,cut_grid,launched", [
+    ("marginalized", None, {"K1c": 1, "K2": 1, "K3c": 1, "K2b": 1}),
+    ("marginalized", 2.0, {"K1c": 1, "K1d": 1, "K3c": 1, "K3d": 1}),
+    ("1d", 2.0, {"K1b": 1, "K3b": 1})])
+def test_emulated_card_gradient(host_lib, fused_host_lib, rows_host_lib, data,
+                                dark_data, monkeypatch, kind, cut_grid, launched):
+    """d log L / d(H0, Om0, mu_g) of the three unbinned paths of the dark
+    and spectral gradients, through the wrappers' CUDA branches — the
+    autograd Functions around K1 and K2, K1's raw statistics (NaN on the
+    dead pixel rows, scrubbed by the likelihood's selects), the cotangent
+    slots the backward hands K3 and K2b — with the kernels' host emulations
+    as the launches, float64: within 1e-11 of autograd through the plain
+    versions, with each kernel launched exactly as on the card."""
+    from chimera_tpu_torch.catalog import PixelatedCatalog
+
+    if kind == "1d":
+        cat, z_grids, inj, n_gen = data
+        gal_cat = None
+    else:
+        cat, z_grids, gal_cat, inj, n_gen = dark_data
+    pop = _population(F64)
+    if isinstance(gal_cat, PixelatedCatalog):
+        pop = Population.create(pop.cosmo, pop.mass, pop.rate, gal_cat=gal_cat)
+    hl = HyperLikelihood.create(cat, z_grids, pop, SelectionFunction.create(inj, n_gen),
+                                kind=kind, binning=False, cut_grid=cut_grid)
+    x0 = torch.tensor([[66.0, 0.24, 33.5], [71.0, 0.27, 34.0], [77.0, 0.3, 34.6]],
+                      dtype=F64)
+
+    def grad():
+        x = x0.clone().requires_grad_()
+        ll = hl.log_like_batch({"H0": x[:, 0], "Om0": x[:, 1], "mu_g": x[:, 2]})
+        return ll.detach(), torch.autograd.grad(ll.sum(), x)[0]
+
+    ll, expect = grad()
+    assert torch.all(torch.isfinite(expect))
+    batch = hl.population.update_batch({"H0": x0[:, 0]})
+    _emulate_the_card(monkeypatch, {"fused_kde": fused_host_lib,
+                                    "fused_kde_adjoint": host_lib,
+                                    "rows_contract_adjoint": rows_host_lib},
+                      batch.cosmo, batch.mass)
+    before = launch_counts()
+    ll_card, got = grad()
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == \
+        {k: launched.get(k, 0) for k in after}
+    assert torch.allclose(ll_card, ll, rtol=1e-12, atol=0)
+    scale = expect.abs().amax(dim=0)
+    assert ((got - expect).abs() / scale).max() <= 1e-11
