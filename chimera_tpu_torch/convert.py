@@ -32,7 +32,8 @@ def state_from_reference(obj) -> dict[str, np.ndarray]:
 
     Each dataclass contributes ``<path>.__class__`` (its class name);
     ``None`` fields and nested containers (the dark-siren sample layouts,
-    which the port rebuilds) are skipped.  A ``HyperLikelihood`` whose
+    which the port rebuilds) are skipped, but for ``compact_rows``: whether
+    a ``compact`` layout holds the chunk rows.  A ``HyperLikelihood`` whose
     ``create`` padded the sample or event axis for its TPU tiling is sliced
     back to the real samples and events — the PE data, the z-grids and the
     event-indexed arrays of a pixelated catalog: the port's kernels tile
@@ -40,6 +41,11 @@ def state_from_reference(obj) -> dict[str, np.ndarray]:
     """
     state: dict[str, np.ndarray] = {}
     _flatten(obj, "", state)
+    compact = getattr(obj, "compact", None)
+    if isinstance(compact, dict):
+        # the layout itself is rebuilt; whether it has chunk rows selects the
+        # port's rows (K1c + K2) or contract (K1e) pass
+        state["compact_rows"] = np.asarray("rows" in compact)
     if hasattr(obj, "theta_gw") and hasattr(obj, "z_grids"):
         n_s = getattr(obj, "n_samples_real", None)
         n_e = getattr(obj, "n_events_input", None)

@@ -1,7 +1,7 @@
 // Fused detector->source map + population weights (+ weighted KDE) for a
 // batch of L hyper-parameter samples (lambda): one kernel template,
 // fused_kde_kernel, that replaces chimera_tpu/ops/pallas/fused.py::
-// _fused_kernel in four of its modes.  Semantics: fused.py:71-219 (kernel)
+// _fused_kernel in its five modes.  Semantics: fused.py:71-219 (kernel)
 // and fused.py:372-482 (_reference_impl); the plain PyTorch twin is
 // chimera_tpu_torch/ops/cuda/fused.py::fused_weights_kde_plain.  The
 // arithmetic is in kde.cuh, the model device functions in population.cuh.
@@ -26,7 +26,14 @@
 //                         'marginalized' (both cut_grid settings);
 //   K1d  kExternalBounds  grid over the given (lo, ub) of each (lambda,
 //                         row), logical-row stats, 'unit': pass 2 of
-//                         'marginalized' with cut_grid.
+//                         'marginalized' with cut_grid;
+//   K1e  kContract        the (B, G) analysis grids, logical-row stats,
+//                         'unit' with the dead-row guard, and the density
+//                         contracted in the block against s1 f1 and s2 f2
+//                         (fused.py:192-211): r (L, B, 2) and the stats, no
+//                         (L, B, G) density in HBM: the one pass of
+//                         'marginalized', cut_grid=None, on a layout
+//                         without chunk rows.
 // Logical rows (n_real given: the dark-siren per-pixel rectangle,
 // data/pixelize.py::compact_samples_by_pixel) map only their n_real real
 // slots and add the logical fillers analytically (kde.cuh, row_stats).
@@ -37,7 +44,9 @@
 // (B, S) PE rows (lambda-independent, L2-resident across the lambda batch)
 // and writes only the (L, B, G) densities.  Phase A is ~1/10 of the work:
 // two Clenshaw series and a handful of exp/log per sample.  K1c does phase A
-// only, of the real samples.
+// only, of the real samples; K1d and K1e do phase B on the real samples of
+// each logical row only (the fillers weigh nothing), K1e writing two values
+// a row.
 //
 // What the design does about it: every intermediate stays on chip.  z and w
 // of the block's row live in shared memory as interleaved (z, w) pairs, so
@@ -103,6 +112,8 @@ int launch_kernel(const FusedArgs<T>& a, int mode, cudaStream_t stream) {
       return launch_mode<T, T, KERNEL, kEffectiveGrid>(a, stream);
     case kExternalBounds:
       return launch_mode<T, double, KERNEL, kExternalBounds>(a, stream);
+    case kContract:
+      return launch_mode<T, double, KERNEL, kContract>(a, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -111,19 +122,24 @@ int launch_kernel(const FusedArgs<T>& a, int mode, cudaStream_t stream) {
 template <typename T>
 int launch(const T* m1, const T* m2, const T* dl, const T* invp,
            const T* grids, const T* ext, const long long* n_real,
-           const T* dl_fill, const double* series, const T* params, T* den,
+           const T* dl_fill, const double* series, const T* params,
+           const T* s1, const T* s2, const T* f1, const T* f2, T* den,
            T* stats, int L, int B, int S, int G, int cheb_deg, int window_deg,
            int logical_s, int mode, int kernel, int bw_mode, double bw_value,
-           double cut_grid, int unit_scale, void* stream) {
+           double cut_grid, int unit_scale, int npix, void* stream) {
   const bool dense = mode != kStatsOnly;
+  const bool grid_given = mode == kAnalysisGrid || mode == kContract;
   if (L <= 0 || B <= 0 || S <= 0 || (dense && G <= 0)
-      || (dense && mode != kAnalysisGrid && G < 2)
-      || (n_real != nullptr && logical_s <= 0))
+      || (dense && !grid_given && G < 2)
+      || (n_real != nullptr && logical_s <= 0)
+      || (mode == kContract && (npix <= 0 || B % npix != 0 || s1 == nullptr
+                                || s2 == nullptr || f1 == nullptr
+                                || f2 == nullptr)))
     return (int)cudaErrorInvalidValue;
   const FusedArgs<T> a{m1, m2, dl, invp, grids, ext, n_real, dl_fill, series,
-                       params, den, stats, L, B, S, G, cheb_deg, window_deg,
-                       logical_s, bw_mode, unit_scale, (T)bw_value,
-                       (T)cut_grid};
+                       params, s1, s2, f1, f2, den, stats, L, B, S, G,
+                       cheb_deg, window_deg, logical_s, bw_mode, unit_scale,
+                       npix, (T)bw_value, (T)cut_grid};
   auto s = static_cast<cudaStream_t>(stream);
   if (!dense) return launch_mode<T, double, 0, kStatsOnly>(a, s);
   if (kernel == 0) return launch_kernel<T, 0>(a, mode, s);
@@ -133,31 +149,36 @@ int launch(const T* m1, const T* m2, const T* dl, const T* invp,
 }  // namespace
 
 // C interface (loaded with ctypes by chimera_tpu_torch/ops/cuda/fused.py).
-// grids, ext, n_real and dl_fill may be null where the mode does not read
-// them (den too in the stats-only mode).  Returns the CUDA error code of the
-// launch (0 = cudaSuccess).
+// grids, ext, n_real, dl_fill and s1, s2, f1, f2 may be null where the mode
+// does not read them (den too in the stats-only mode); npix, the rows per
+// event of f1 and f2, is read in the contract mode only.  Returns the CUDA
+// error code of the launch (0 = cudaSuccess).
 extern "C" int chimera_fused_kde_f32(
     const float* m1, const float* m2, const float* dl, const float* invp,
     const float* grids, const float* ext, const long long* n_real,
     const float* dl_fill, const double* series, const float* params,
+    const float* s1, const float* s2, const float* f1, const float* f2,
     float* den, float* stats, int L, int B, int S, int G, int cheb_deg,
     int window_deg, int logical_s, int mode, int kernel, int bw_mode,
-    double bw_value, double cut_grid, int unit_scale, void* stream) {
+    double bw_value, double cut_grid, int unit_scale, int npix,
+    void* stream) {
   return launch<float>(m1, m2, dl, invp, grids, ext, n_real, dl_fill, series,
-                       params, den, stats, L, B, S, G, cheb_deg, window_deg,
-                       logical_s, mode, kernel, bw_mode, bw_value, cut_grid,
-                       unit_scale, stream);
+                       params, s1, s2, f1, f2, den, stats, L, B, S, G,
+                       cheb_deg, window_deg, logical_s, mode, kernel, bw_mode,
+                       bw_value, cut_grid, unit_scale, npix, stream);
 }
 
 extern "C" int chimera_fused_kde_f64(
     const double* m1, const double* m2, const double* dl, const double* invp,
     const double* grids, const double* ext, const long long* n_real,
     const double* dl_fill, const double* series, const double* params,
+    const double* s1, const double* s2, const double* f1, const double* f2,
     double* den, double* stats, int L, int B, int S, int G, int cheb_deg,
     int window_deg, int logical_s, int mode, int kernel, int bw_mode,
-    double bw_value, double cut_grid, int unit_scale, void* stream) {
-  return launch<double>(m1, m2, dl, invp, grids, ext, n_real, dl_fill, series,
-                        params, den, stats, L, B, S, G, cheb_deg, window_deg,
-                        logical_s, mode, kernel, bw_mode, bw_value, cut_grid,
-                        unit_scale, stream);
+    double bw_value, double cut_grid, int unit_scale, int npix,
+    void* stream) {
+  return launch<double>(m1, m2, dl, invp, grids, ext, n_real, dl_fill,
+                        series, params, s1, s2, f1, f2, den, stats, L, B, S,
+                        G, cheb_deg, window_deg, logical_s, mode, kernel,
+                        bw_mode, bw_value, cut_grid, unit_scale, npix, stream);
 }

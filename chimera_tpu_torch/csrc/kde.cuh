@@ -1,14 +1,16 @@
 // The arithmetic of the fused weights+KDE pass (fused_kde.cu, K1 in its
-// four modes) and of the batched 1-D KDE (kde1d.cu, K4), written once for
-// a block of threads.  A `Block` gives the thread's rank, the stride
-// (kSize) and the block-wide sums: DeviceBlock (population.cuh) is a CUDA
-// block of kThreads threads; the host emulation (tests/host_emulation/fused_host.cpp) runs
-// the same functions serially with a block of one thread.
+// five modes) and of the batched 1-D KDE and its adjoint (kde1d.cu, K4 and
+// K4b), written once for a block of threads.  A `Block` gives the thread's
+// rank, the stride (kSize) and the block-wide sums: DeviceBlock
+// (population.cuh) is a CUDA block of kThreads threads; the host emulation
+// (tests/host_emulation/fused_host.cpp) runs the same functions serially
+// with a block of one thread.
 //
 // Semantics: chimera_tpu/ops/pallas/fused.py:71-219 (_fused_kernel) and
-// :372-482 (_reference_impl); chimera_tpu/ops/kde.py:94-102 (kde1d_core).
-// The plain PyTorch versions are ops/cuda/fused.py::fused_weights_kde_plain
-// and ops/cuda/kde.py::kde1d_grid_plain.
+// :372-482 (_reference_impl); chimera_tpu/ops/kde.py:94-102 (kde1d_core)
+// and its vector-Jacobian product.  The plain PyTorch versions are
+// ops/cuda/fused.py::fused_weights_kde_plain and ops/cuda/kde.py::
+// kde1d_grid_plain and kde1d_grid_adjoint_plain.
 
 #pragma once
 
@@ -22,6 +24,8 @@ enum FusedMode {
   kEffectiveGrid = 1,   // (b) linspace over [z_min - c sigma, z_max + c sigma]
   kExternalBounds = 2,  // (d) linspace over the given (lo, ub) of (l, b)
   kStatsOnly = 3,       // (c) no KDE
+  kContract = 4,        // (e) the (B, G) grids given, unit mass, the
+                        //     density contracted in the block (fused.py:192-211)
 };
 
 template <typename T>
@@ -36,9 +40,13 @@ struct FusedArgs {
   const T* dl_fill;           // (B,) with n_real
   const double* series;       // (L, cheb_deg + 2 + window_deg)
   const T* params;            // (L, kMassScalars)
-  T* den;                     // (L, B, G), not in mode (c)
+  const T* s1;                // (B, G), mode (e): the static factors
+  const T* s2;                // (B, G)
+  const T* f1;                // (L, B / npix, G), mode (e): per-lambda factors
+  const T* f2;                // (L, B / npix, G)
+  T* den;                     // (L, B, G); r (L, B, 2) in mode (e); not in (c)
   T* stats;                   // (L, B, 8)
-  int L, B, S, G, cheb_deg, window_deg, logical_s, bw_mode, unit_scale;
+  int L, B, S, G, cheb_deg, window_deg, logical_s, bw_mode, unit_scale, npix;
   T bw_value, cut_grid;
 };
 
@@ -180,9 +188,55 @@ __device__ __forceinline__ void contract(
     contract_tiles<T, KERNEL, 4>(blk, zw, n, G, inv_h, scale, grid_at, out);
 }
 
+// sqrt of the smallest normal T: a row of less total weight has no
+// unit-mass density (fused.py:459-468)
+template <typename T>
+__device__ __forceinline__ T sqrt_tiny() {
+  if constexpr (sizeof(T) == 4) return T(1.0842021724855044e-19);
+  else return T(1.4916681462400413e-154);
+}
+
+// Mode (e): r[0] += sum_g den[g] s1[g] f1[g], r[1] likewise with s2, f2,
+// for den[g] = sum_{s < n} w_s K((grid[g] - z_s) inv_h) (the kernel
+// shape; the caller applies the row's scale).  Each thread holds GPT grid
+// points in registers as contract_tiles does and folds its densities into
+// its two partial sums at once: no density leaves the registers.
+template <typename T, int KERNEL, int GPT, typename Block>
+__device__ __forceinline__ void contract_epilogue_tiles(
+    const Block& blk, const typename Pair<T>::type* zw, int n, int G,
+    T inv_h, const T* grid, const T* s1, const T* s2, const T* f1,
+    const T* f2, T (&r)[2]) {
+  for (int g0 = 0; g0 < G; g0 += Block::kSize * GPT) {
+    T gv[GPT], sum[GPT];
+#pragma unroll
+    for (int k = 0; k < GPT; ++k) {
+      const int idx = g0 + k * Block::kSize + blk.rank();
+      gv[k] = grid[idx < G ? idx : G - 1];
+      sum[k] = T(0);
+    }
+#pragma unroll 4
+    for (int s = 0; s < n; ++s) {
+      const typename Pair<T>::type p = zw[s];
+#pragma unroll
+      for (int k = 0; k < GPT; ++k)
+        sum[k] += p.y * kernel_shape<T, KERNEL>((gv[k] - p.x) * inv_h);
+    }
+#pragma unroll
+    for (int k = 0; k < GPT; ++k) {
+      const int idx = g0 + k * Block::kSize + blk.rank();
+      if (idx < G) {
+        r[0] += sum[k] * s1[idx] * f1[idx];
+        r[1] += sum[k] * s2[idx] * f2[idx];
+      }
+    }
+  }
+}
+
 // One (lambda, row) of the fused pass: phase A, the stats (lo, ub, norms,
 // neff, h, sum w, sum w^2, sigma_z), then the KDE on the mode's grid with
-// den_scale 'norms' (1 / (h S_l)) or 'unit' (1 / (h sum w)).
+// den_scale 'norms' (1 / (h S_l)) or 'unit' (1 / (h sum w)); in mode (e)
+// the unit-mass KDE contracted in the block, r = (r1, r2) of the row, 0
+// exactly where the row's weight is below sqrt(tiny).
 template <typename T, typename S, int KERNEL, int MODE, typename Block>
 __device__ __forceinline__ void fused_row(const Block& blk,
                                           const Model<T, S>& model,
@@ -203,6 +257,31 @@ __device__ __forceinline__ void fused_row(const Block& blk,
   }
   if (MODE == kStatsOnly) return;
   const T inv_h = T(1) / st.h;
+  if (MODE == kContract) {
+    // every thread holds the same block sums: the branch is block-uniform
+    T r[2] = {T(0), T(0)};
+    if (st.sum_w > sqrt_tiny<T>()) {
+      const T* grid = a.grids + (size_t)b * a.G;
+      const size_t fr = ((size_t)l * (a.B / a.npix) + b / a.npix) * a.G;
+      const T* s1 = a.s1 + (size_t)b * a.G;
+      const T* s2 = a.s2 + (size_t)b * a.G;
+      if (a.G <= 2 * Block::kSize)
+        contract_epilogue_tiles<T, KERNEL, 2>(blk, zw, st.n, a.G, inv_h, grid,
+                                              s1, s2, a.f1 + fr, a.f2 + fr, r);
+      else
+        contract_epilogue_tiles<T, KERNEL, 4>(blk, zw, st.n, a.G, inv_h, grid,
+                                              s1, s2, a.f1 + fr, a.f2 + fr, r);
+      blk.template sum<2>(r);
+      const T scale = kernel_norm<T, KERNEL>() * inv_h / st.sum_w;
+      r[0] *= scale;
+      r[1] *= scale;
+    }
+    if (blk.rank() == 0) {
+      a.den[out_row * 2] = r[0];
+      a.den[out_row * 2 + 1] = r[1];
+    }
+    return;
+  }
   const T scale = kernel_norm<T, KERNEL>() * inv_h
                   / (a.unit_scale ? st.sum_w : st.sl);
   T* out = a.den + out_row * a.G;
@@ -227,6 +306,87 @@ __device__ __forceinline__ void kde_row(const Block& blk,
   const T inv_h = T(1) / h;
   contract<T, KERNEL>(blk, zw, S, G, inv_h, kernel_norm<T, KERNEL>() * inv_h,
                       [grid](int g) { return grid[g]; }, out);
+}
+
+// The kernel's shape k (as kernel_shape) and the factor f of its slope,
+// K'(u) = -kernel_slope_norm() u f: Epanechnikov f = 1 on the closed
+// support |u| <= 1 (kde1d_core's select form, whose slope at |u| = 1 is
+// all of -1.5 u), 0 outside; Gaussian f = k = exp(-u^2 / 2).
+template <typename T, int KERNEL>
+__device__ __forceinline__ void shape_and_slope(T u, T& k, T& f) {
+  if (KERNEL == 0) {
+    k = dmax(T(1) - u * u, T(0));
+    f = dabs(u) <= T(1) ? T(1) : T(0);
+  } else {
+    k = dexp(T(-0.5) * u * u);
+    f = k;
+  }
+}
+
+// 1.5 (Epanechnikov: d/du 0.75 (1 - u^2) = -1.5 u), 1/sqrt(2 pi) (Gaussian)
+template <typename T, int KERNEL>
+__device__ __forceinline__ T kernel_slope_norm() {
+  return KERNEL == 0 ? T(1.5) : T(0.39894228040143267794);
+}
+
+// K4b, one row: the cotangents of kde_row's out given d_out, with
+// u = (grid_g - z_s) / h, K(u) = norm k, K'(u) = -slope u f:
+//
+//   d_w[s]    = (norm / h)     sum_g d_out[g] k
+//   d_z[s]    = (slope / h^2)  w_s sum_g d_out[g] u f
+//   d_grid[g] = -(slope / h^2) d_out[g] sum_s w_s u f
+//   d_h       = sum_g d_out[g] ((slope / h^2) sum_s w_s u^2 f - out[g] / h)
+//
+// zw holds the row's (z, w) pairs, gd its (grid, d_out) pairs, both in the
+// arithmetic type A (double: the sum of d_z over the grid cancels to a small
+// part of its terms where a smooth cotangent spans a sample's support, and a
+// float32 sum misses the float64 one by several 1e-3 of its row's largest
+// entry on the binned main path, chip_smoke.py phase 24); the outputs are
+// rounded to the working type T once.  A
+// sample-major sweep (a thread per sample) gives d_w and d_z, a grid-major
+// sweep (a thread per grid point) d_grid and the block-summed d_h.
+template <typename A, int KERNEL, typename Block, typename T>
+__device__ __forceinline__ void kde_row_adjoint(
+    const Block& blk, const typename Pair<A>::type* zw, int S,
+    const typename Pair<A>::type* gd, int G, const T* out, A h, T* d_z,
+    T* d_w, T* d_grid, T* d_h) {
+  const A inv_h = A(1) / h;
+  const A c_w = kernel_norm<A, KERNEL>() * inv_h;
+  const A c_s = kernel_slope_norm<A, KERNEL>() * inv_h * inv_h;
+  for (int s = blk.rank(); s < S; s += Block::kSize) {
+    const typename Pair<A>::type p = zw[s];
+    A a0 = A(0), a1 = A(0);
+#pragma unroll 4
+    for (int g = 0; g < G; ++g) {
+      const typename Pair<A>::type q = gd[g];
+      const A u = (q.x - p.x) * inv_h;
+      A k, f;
+      shape_and_slope<A, KERNEL>(u, k, f);
+      a0 += q.y * k;
+      a1 += q.y * u * f;
+    }
+    d_w[s] = T(c_w * a0);
+    d_z[s] = T(c_s * p.y * a1);
+  }
+  A acc[1] = {A(0)};
+  for (int g = blk.rank(); g < G; g += Block::kSize) {
+    const typename Pair<A>::type q = gd[g];
+    A b0 = A(0), b1 = A(0);
+#pragma unroll 4
+    for (int s = 0; s < S; ++s) {
+      const typename Pair<A>::type p = zw[s];
+      const A u = (q.x - p.x) * inv_h;
+      A k, f;
+      shape_and_slope<A, KERNEL>(u, k, f);
+      const A wuf = p.y * u * f;
+      b0 += wuf;
+      b1 += wuf * u;
+    }
+    d_grid[g] = T(-c_s * q.y * b0);
+    acc[0] += q.y * (c_s * b1 - inv_h * A(out[g]));
+  }
+  blk.template sum<1>(acc);
+  if (blk.rank() == 0) *d_h = T(acc[0]);
 }
 
 }  // namespace

@@ -1,7 +1,9 @@
 // Batched weighted 1-D KDE on per-row grids (K4): replaces
 // chimera_tpu/ops/pallas/kde.py::_kde_kernel (launched by kde1d_grid,
 // kde.py:67-117), the KDE of the stage-by-stage path that every binned
-// configuration takes.  Per row b of B:
+// configuration takes; and its adjoint (K4b), the counterpart of jax.vjp of
+// chimera_tpu/ops/kde.py::kde1d_core (XLA: the JAX package has no kernel
+// for it).  Per row b of B:
 //
 //   out[b, g] = sum_s w[b, s] K((grid[b, g] - z[b, s]) / h[b]) / h[b]
 //
@@ -20,6 +22,16 @@
 // in registers (two a thread up to 256 points, four above); the kernel
 // constant and 1/h are applied once per output.  The TPU kernel's 8 x 128
 // tiling with the bandwidth folded into the operands is not carried over.
+//
+// K4b, given d_out (B, G) and the forward's out, returns d_z, d_w (B, S),
+// d_grid (B, G) and d_h (B,) (kde.cuh, kde_row_adjoint): one block per row,
+// the row's (z, w) and (grid, d_out) pairs in shared memory in double
+// (2 (S + G) doubles; the arithmetic is double in both instantiations, as
+// d_z's sums cancel), a sample-major sweep for d_z and d_w, a grid-major one
+// for d_grid and d_h, which the block sums in a fixed order (equal bits
+// every run).  Each sweep forms u and the kernel's shape and slope factor of
+// all B * G * S terms again: twice the work of one fused sweep, at the
+// card's double rate, and no atomics.
 
 #include "kde.cuh"
 
@@ -57,6 +69,58 @@ int launch_kernel(const T* z, const T* w, const T* grids, const T* h, T* out,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int KERNEL>
+__global__ void __launch_bounds__(kThreads)
+kde1d_adjoint_kernel(const T* __restrict__ z, const T* __restrict__ w,
+                     const T* __restrict__ grids, const T* __restrict__ h,
+                     const T* __restrict__ out, const T* __restrict__ d_out,
+                     T* __restrict__ d_z, T* __restrict__ d_w,
+                     T* __restrict__ d_grid, T* __restrict__ d_h, int S,
+                     int G) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  double2* zw = reinterpret_cast<double2*>(smem);  // arithmetic in double
+  double2* gd = zw + S;
+  __shared__ double scratch[1][kWarps];
+  const size_t b = blockIdx.x;
+  for (int s = threadIdx.x; s < S; s += kThreads)
+    zw[s] = make_double2(z[b * S + s], w[b * S + s]);
+  for (int g = threadIdx.x; g < G; g += kThreads)
+    gd[g] = make_double2(grids[b * G + g], d_out[b * G + g]);
+  __syncthreads();
+  const DeviceBlock<double> blk{scratch};
+  kde_row_adjoint<double, KERNEL>(blk, zw, S, gd, G, out + b * G, double(h[b]),
+                                  d_z + b * S, d_w + b * S, d_grid + b * G,
+                                  d_h + b);
+}
+
+template <typename T, int KERNEL>
+int launch_adjoint_kernel(const T* z, const T* w, const T* grids,
+                          const T* h, const T* out, const T* d_out, T* d_z,
+                          T* d_w, T* d_grid, T* d_h, int B, int S, int G,
+                          cudaStream_t stream) {
+  const size_t smem = (size_t)(S + G) * sizeof(double2);
+  auto kernel = kde1d_adjoint_kernel<T, KERNEL>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)B, kThreads, smem, stream>>>(z, w, grids, h, out, d_out,
+                                                  d_z, d_w, d_grid, d_h, S, G);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_adjoint(const T* z, const T* w, const T* grids, const T* h,
+                   const T* out, const T* d_out, T* d_z, T* d_w, T* d_grid,
+                   T* d_h, int B, int S, int G, int kernel, void* stream) {
+  if (B <= 0 || S <= 0 || G <= 0) return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (kernel == 0)
+    return launch_adjoint_kernel<T, 0>(z, w, grids, h, out, d_out, d_z, d_w,
+                                       d_grid, d_h, B, S, G, s);
+  return launch_adjoint_kernel<T, 1>(z, w, grids, h, out, d_out, d_z, d_w,
+                                     d_grid, d_h, B, S, G, s);
+}
+
 template <typename T>
 int launch(const T* z, const T* w, const T* grids, const T* h, T* out, int B,
            int S, int G, int kernel, void* stream) {
@@ -82,4 +146,22 @@ extern "C" int chimera_kde1d_f64(const double* z, const double* w,
                                  double* out, int B, int S, int G, int kernel,
                                  void* stream) {
   return launch<double>(z, w, grids, h, out, B, S, G, kernel, stream);
+}
+
+extern "C" int chimera_kde1d_adjoint_f32(
+    const float* z, const float* w, const float* grids, const float* h,
+    const float* out, const float* d_out, float* d_z, float* d_w,
+    float* d_grid, float* d_h, int B, int S, int G, int kernel,
+    void* stream) {
+  return launch_adjoint<float>(z, w, grids, h, out, d_out, d_z, d_w, d_grid,
+                               d_h, B, S, G, kernel, stream);
+}
+
+extern "C" int chimera_kde1d_adjoint_f64(
+    const double* z, const double* w, const double* grids, const double* h,
+    const double* out, const double* d_out, double* d_z, double* d_w,
+    double* d_grid, double* d_h, int B, int S, int G, int kernel,
+    void* stream) {
+  return launch_adjoint<double>(z, w, grids, h, out, d_out, d_z, d_w, d_grid,
+                                d_h, B, S, G, kernel, stream);
 }

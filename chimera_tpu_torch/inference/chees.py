@@ -13,6 +13,11 @@ Change-in-the-Estimator-of-the-Expected-Square criterion
 whose gradient in the trajectory time comes from quantities the leapfrog
 already computed (end positions and momenta).  All chains advance in
 lock-step batched calls; only the number of calls per iteration varies.
+
+Its target and Metropolis step are ``hmc.py``'s, with the same deliberate
+differences from the JAX samplers: a non-finite log density (the +inf of a
+gated N_exp) counts as -inf, and a proposal whose gradient is not finite is
+rejected as divergent.
 """
 
 from __future__ import annotations

@@ -18,6 +18,19 @@ length is a Python int drawn once per step), and every tensor carried
 between steps is detached, so no graph outlives its leapfrog step.  The
 generator's stream differs from JAX's: chains agree with the JAX package's
 as distributions, not number for number.
+
+Two deliberate differences from the JAX samplers, where the likelihood
+itself stays the reference's:
+
+- every non-finite log density counts as -inf.  A λ whose injection N_eff
+  falls below its gate has N_exp = 0 and log L = +inf in both packages
+  (``selection.py``, ``likelihood.py::_finish``); the JAX samplers map only
+  NaN to -inf, so a proposal there is accepted and the chain sticks;
+- a proposal whose gradient is not finite is a divergent trajectory and is
+  rejected.  A gated event gives d log L / d(H0, Om0) = 0 / 0 = NaN in both
+  packages (``likelihood.py::log_like_batch``); that NaN also reaches the
+  proposal's momentum and energy, which the JAX step rejects for being NaN:
+  the check states the rule instead of leaning on that.
 """
 
 from __future__ import annotations
@@ -90,6 +103,12 @@ def _transform(hl, param_names, bounds) -> Transform:
                      torch.tensor(hi, dtype=ref.dtype, device=ref.device))
 
 
+def _finite_or_neginf(lp: torch.Tensor) -> torch.Tensor:
+    """A log density with every non-finite value (NaN, and the +inf of a
+    gated N_exp) taken as -inf: no sampler moves there."""
+    return torch.where(torch.isfinite(lp), lp, -torch.inf)
+
+
 def make_transformed_log_prob(hl, param_names: list[str],
                               bounds: dict[str, tuple[float, float]],
                               extra_log_prior=None):
@@ -106,8 +125,7 @@ def make_transformed_log_prob(hl, param_names: list[str],
         lp = hl.log_like_batch({p: v[None] for p, v in lam.items()})[0]
         if extra_log_prior is not None:
             lp = lp + extra_log_prior(lam)
-        lp = torch.where(torch.isnan(lp), -torch.inf, lp)
-        return lp + tr.log_jacobian(y)
+        return _finite_or_neginf(lp) + tr.log_jacobian(y)
 
     return log_density, tr
 
@@ -129,8 +147,7 @@ def make_transformed_log_prob_batch(hl, param_names: list[str],
         lp = hl.log_like_batch(lam)
         if extra_log_prior is not None:
             lp = lp + extra_log_prior(lam)
-        lp = torch.where(torch.isnan(lp), -torch.inf, lp)
-        return lp + tr.log_jacobian(ys)
+        return _finite_or_neginf(lp) + tr.log_jacobian(ys)
 
     return log_density_batch, tr
 
@@ -184,11 +201,14 @@ def _leapfrog(vgrad, y, p, grad, logp, eps, inv_mass, n_steps: int):
 
 def _accept(state: HMCState, y1, p1, grad1, logp1, p0, inv_mass, u):
     """Metropolis step on the proposal; returns the new state and the
-    acceptance probabilities.  A NaN energy change rejects."""
+    acceptance probabilities.  A NaN energy change rejects, and so does a
+    proposal whose gradient is not finite (a divergent trajectory)."""
     ke0 = 0.5 * torch.sum(inv_mass * p0 * p0, dim=-1)
     ke1 = 0.5 * torch.sum(inv_mass * p1 * p1, dim=-1)
     log_accept = (logp1 - ke1) - (state.logp - ke0)
-    log_accept = torch.where(torch.isnan(log_accept), -torch.inf, log_accept)
+    divergent = torch.isnan(log_accept) | ~torch.all(torch.isfinite(grad1),
+                                                     dim=-1)
+    log_accept = torch.where(divergent, -torch.inf, log_accept)
     accept_prob = torch.clamp_max(torch.exp(log_accept), 1.0)
     acc = u < accept_prob
     # each (y, logp, grad) triple is self-consistent, so a select keeps the

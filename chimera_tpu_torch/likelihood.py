@@ -20,21 +20,25 @@ included.  The engine follows the JAX package on the TPU
     (K1b), then for 'approximate' the 2-D localization pdf per pixel;
   - 'marginalized': the stats-only pass (K1c) on the per-pixel rectangle,
     then the rows-contract kernel (K2) over dense 128-sample chunk rows
-    (``cut_grid=None``); or, with ``cut_grid``, K1c on the events for the
-    event-level effective-grid bounds, then the per-pixel KDE on them (K1d)
-    and the resampling.  The layouts and the λ-independent contraction
-    factors are built once, in ``create``.
+    (``cut_grid=None``); or, on a layout without chunk rows (a JAX object
+    whose ``compact`` has no 'rows', ``chunk_rows=False``), one contract
+    pass (K1e) on the per-pixel rectangle, the KDE contracted in the
+    kernel; or, with ``cut_grid``, K1c on the events for the event-level
+    effective-grid bounds, then the per-pixel KDE on them (K1d) and the
+    resampling.  The layouts and the λ-independent contraction factors are
+    built once, in ``create``.
 
 Each kernel runs as its CUDA kernel on CUDA tensors and as its plain
 PyTorch version on CPU tensors.  ``log_like_batch`` is differentiable in
 the hyper-parameters: pass tensors that require grad.  On CPU tensors the
 whole backward is autograd through the plain versions; on CUDA tensors the
-backward of each fused launch is its adjoint kernel — K3 in the mode of
-K1a, K1b, K1c or K1d, K2b for K2 — so every unbinned path differentiates
-on the card, and the binned one raises (K4 has no backward; ROADMAP.md §1
-item 9).  The selects around the kernels' outputs (``row_scales``, the N_eff
-gates, ``nan_to_num`` before any product) keep the raw NaN of a dead row out
-of every backward product.  ``HyperLikelihood`` is an ``nn.Module`` whose
+backward of each kernel launch is its adjoint kernel — K3 in the mode of
+K1a, K1b, K1c or K1d, K2b for K2, K4b for K4 — so every path
+differentiates on the card, the binned one included, but the contract
+pass, which raises (K1e has no adjoint kernel; ROADMAP.md §1 item 15).
+The selects around the kernels' outputs (``row_scales``, the N_eff gates,
+``nan_to_num`` before any product) keep the raw NaN of a dead row out of
+every backward product.  ``HyperLikelihood`` is an ``nn.Module`` whose
 buffers hold the PE data, layouts, z-grids and (in its ``selection``) the
 injections; ``.to(device, dtype)`` moves them and the population's tensors
 together.
@@ -118,12 +122,17 @@ class HyperLikelihood(nn.Module):
     hyper-likelihood over a λ batch.
 
     Build it with :meth:`create` (mirrors ``chimera_tpu``'s constructor
-    surface) or :meth:`from_state` (from a built JAX object)."""
+    surface) or :meth:`from_state` (from a built JAX object).
+    ``chunk_rows`` says whether the unbinned 'marginalized' layout without
+    effective grids has the 128-sample chunk rows (K1c + K2, what ``create``
+    builds in both packages) or not (the contract pass K1e, as a JAX object
+    whose ``compact`` has no 'rows')."""
 
     def __init__(self, theta_gw: ThetaPEDet, z_grids: torch.Tensor,
                  population: Population, selection: SelectionFunction,
                  kind: str, kernel: str, bw_method, pe_neff: float,
-                 cut_grid: float | None, binning: bool, num_bins: int):
+                 cut_grid: float | None, binning: bool, num_bins: int,
+                 chunk_rows: bool = True):
         super().__init__()
         self.kind = kind
         self.population = population
@@ -134,6 +143,7 @@ class HyperLikelihood(nn.Module):
         self.cut_grid = None if cut_grid is None else float(cut_grid)
         self.binning = bool(binning)
         self.num_bins = int(num_bins)
+        self.chunk_rows = bool(chunk_rows)
         self.register_buffer("z_grids", z_grids.to(theta_gw.dL.dtype))
         self.n_samples = theta_gw.dL.shape[1]
         for name in _PE_FIELDS:
@@ -161,15 +171,18 @@ class HyperLikelihood(nn.Module):
         * ``pix_*`` (E*P, S_pp), ``pix_n_real``, ``pix_dl_fill``: the
           per-pixel rectangle of the stats pass (and, with ``cut_grid``, of
           the KDE on the event's effective grid);
-        * with ``cut_grid=None`` only, the chunk rows of the KDE pass:
-          ``row_*`` (R, 128), R = E*C; ``row_pixel`` (R,) the (event, pixel)
-          row of each chunk row; ``row_s1``, ``row_s2`` (R, G): s1 = p_cat *
+        * with ``cut_grid=None`` only, the contraction factors s1 = p_cat *
           loc * tw and s2 = (1 - P_compl) * loc * tw (loc the masked
-          localization pdf, tw the trapezoid weights) gathered per chunk row
-          (``chimera_tpu/likelihood.py:987-1002, 1069``), computed in
-          float64 from the z-grids as given: float32 trapezoid weights
-          (differences of nearby grid points) cost the float32 likelihood
-          several 1e-6 of relative accuracy.
+          localization pdf, tw the trapezoid weights;
+          ``chimera_tpu/likelihood.py:987-1002``), computed in float64 from
+          the z-grids as given (float32 trapezoid weights, differences of
+          nearby grid points, cost the float32 likelihood several 1e-6 of
+          relative accuracy): per (event, pixel) row, ``pix_s1``,
+          ``pix_s2`` (E*P, G), for the contract pass (``chunk_rows=False``);
+          or the chunk rows of the KDE pass: ``row_*`` (R, 128), R = E*C;
+          ``row_pixel`` (R,) the (event, pixel) row of each chunk row;
+          ``row_s1``, ``row_s2`` (R, G), the factors gathered per chunk row
+          (``likelihood.py:1069``).
         """
         compact = compact_samples_by_pixel(theta_gw)
         n_ev, n_pix, _ = compact["dL"].shape
@@ -180,15 +193,7 @@ class HyperLikelihood(nn.Module):
                              compact["dl_fill"].repeat_interleave(n_pix))
         if self.cut_grid is not None:
             return
-        rows = chunk_rows_from_compact(compact)
         loc = torch.where(theta_gw.pixel_mask, theta_gw.gw_loc2d_pdf, 0.0)
-        for name in _LAYOUT_FIELDS:
-            self.register_buffer("row_" + name, rows[name].reshape(-1, rows[name].shape[-1]))
-        row_pixel = (torch.arange(n_ev, device=rows["row_pix"].device)[:, None]
-                     * n_pix + rows["row_pix"]).reshape(-1)
-        self.register_buffer("row_pixel", row_pixel)
-        self.rows_per_event = rows["dL"].shape[1]
-
         gc = self.population.gal_cat
         f64, dt = torch.float64, self.z_grids.dtype
         base = (loc.to(f64)[:, :, None]
@@ -200,9 +205,20 @@ class HyperLikelihood(nn.Module):
         else:
             s1 = gc.p_cat.to(f64) * base
             s2 = (1.0 - gc.P_compl.to(f64)) * base
-        s1, s2 = (t.reshape(-1, g)[row_pixel] for t in (s1, s2))
-        self.register_buffer("row_s1", s1.to(dt))
-        self.register_buffer("row_s2", s2.to(dt))
+        s1, s2 = (t.reshape(-1, g) for t in (s1, s2))
+        if not self.chunk_rows:
+            self.register_buffer("pix_s1", s1.to(dt))
+            self.register_buffer("pix_s2", s2.to(dt))
+            return
+        rows = chunk_rows_from_compact(compact)
+        for name in _LAYOUT_FIELDS:
+            self.register_buffer("row_" + name, rows[name].reshape(-1, rows[name].shape[-1]))
+        row_pixel = (torch.arange(n_ev, device=rows["row_pix"].device)[:, None]
+                     * n_pix + rows["row_pix"]).reshape(-1)
+        self.register_buffer("row_pixel", row_pixel)
+        self.rows_per_event = rows["dL"].shape[1]
+        self.register_buffer("row_s1", s1[row_pixel].to(dt))
+        self.register_buffer("row_s2", s2[row_pixel].to(dt))
 
     @classmethod
     def create(cls, theta_gw: ThetaPEDet, z_grids, population: Population,
@@ -213,6 +229,17 @@ class HyperLikelihood(nn.Module):
         device and dtype; samples are sorted by distance.  Pixelated data
         takes ``kind`` in ('1d', 'approximate', 'marginalized'); other data
         is spectral ('1d')."""
+        return cls._create(theta_gw, z_grids, population, selection, kind,
+                           kernel, bw_method, cut_grid, binning, num_bins,
+                           pe_neff)
+
+    @classmethod
+    def _create(cls, theta_gw: ThetaPEDet, z_grids, population: Population,
+                selection: SelectionFunction, kind, kernel, bw_method,
+                cut_grid, binning, num_bins, pe_neff, chunk_rows=True
+                ) -> "HyperLikelihood":
+        """``create`` with the layout's ``chunk_rows`` as well (what
+        ``from_state`` reads off the JAX object)."""
         theta_gw = theta_gw.with_derived()
         if kind == "full":
             raise NotImplementedError("kind='full' is ROADMAP.md §1 item 11")
@@ -239,7 +266,7 @@ class HyperLikelihood(nn.Module):
         _validate_shapes(theta_gw, z_grids, population, kind)
         hl = cls(_sort_samples_by_distance(theta_gw), z_grids, population,
                  selection, kind, kernel, bw_method, pe_neff, cut_grid,
-                 binning, num_bins)
+                 binning, num_bins, chunk_rows)
         hl.selection.to(device=ref.device, dtype=ref.dtype)
         return hl
 
@@ -250,7 +277,8 @@ class HyperLikelihood(nn.Module):
         (its built tables and catalog included) and configuration.  The
         JAX object's ``kde_engine`` and ``grad_engine`` have no counterpart
         here (the kernels and the backward follow the tensors' device) and
-        are not read."""
+        are not read; whether its ``compact`` has chunk rows
+        (``compact_rows``) selects the rows or the contract pass."""
         pop = Population.from_state(state, "population.", device, dtype)
         ref = pop.cosmo.H0
 
@@ -267,13 +295,14 @@ class HyperLikelihood(nn.Module):
                                            ref.dtype)
         bw = state.get("bw_method")
         cut = state.get("cut_grid")
-        return cls.create(theta, arr("z_grids", torch.float64), pop, sel,
-                          kind=str(state["kind"]), kernel=str(state["kernel"]),
-                          bw_method=None if bw is None else bw.item(),
-                          cut_grid=None if cut is None else float(cut),
-                          binning=bool(state["binning"]),
-                          num_bins=int(state["num_bins"]),
-                          pe_neff=float(state["pe_neff"]))
+        return cls._create(theta, arr("z_grids", torch.float64), pop, sel,
+                           kind=str(state["kind"]), kernel=str(state["kernel"]),
+                           bw_method=None if bw is None else bw.item(),
+                           cut_grid=None if cut is None else float(cut),
+                           binning=bool(state["binning"]),
+                           num_bins=int(state["num_bins"]),
+                           pe_neff=float(state["pe_neff"]),
+                           chunk_rows=bool(state.get("compact_rows", True)))
 
     def _apply(self, fn, *args, **kwargs):
         # .to()/.cuda()/.double() also move the population's tensors
@@ -297,9 +326,11 @@ class HyperLikelihood(nn.Module):
         if self.binning:
             return self._numerators_binned(pop_b)
         if self.kind == "marginalized":
-            if self.cut_grid is None:
+            if self.cut_grid is not None:
+                return self._numerators_marginalized_cut(pop_b)
+            if self.chunk_rows:
                 return self._numerators_marginalized(pop_b)
-            return self._numerators_marginalized_cut(pop_b)
+            return self._numerators_marginalized_contract(pop_b)
         return self._numerators_eventwise(pop_b)
 
     def _numerators_eventwise(self, pop_b: Population) -> torch.Tensor:
@@ -473,8 +504,33 @@ class HyperLikelihood(nn.Module):
             self.row_m1det, self.row_m2det, self.row_dL, self.row_inv_pe_prior,
             pop_b.cosmo, pop_b.mass, self.z_grids, self.row_scales(stats),
             self.row_s1, self.row_s2, f1, f2, kernel=self.kernel)
+        return self._contracted_numerators(stats, r, fr, self.rows_per_event)
+
+    def _numerators_marginalized_contract(self, pop_b: Population
+                                          ) -> torch.Tensor:
+        """One kernel pass (K1e, ``chimera_tpu/likelihood.py:933-984``): the
+        row statistics and the unit-mass KDE of each logical pixel row on
+        the analysis grids, contracted in the kernel against s1 f1 and
+        s2 f2, then the mixture of ``_numerators_marginalized``."""
+        f1, f2, fr = self.lambda_factors(pop_b)
+        r, stats = fused_weights_kde(
+            self.pix_m1det, self.pix_m2det, self.pix_dL, self.pix_inv_pe_prior,
+            pop_b.cosmo, pop_b.mass,
+            self.z_grids.repeat_interleave(self.n_pixels, dim=0),
+            kernel=self.kernel, bw_method=self.bw_method,
+            n_real=self.pix_n_real, dl_fill=self.pix_dl_fill,
+            logical_s=self.n_samples, den_scale="unit",
+            contract=(self.pix_s1, self.pix_s2, f1, f2))
+        return self._contracted_numerators(stats, r, fr, self.n_pixels)
+
+    def _contracted_numerators(self, stats: dict, r: torch.Tensor,
+                               fr: torch.Tensor, rows_per_event: int
+                               ) -> torch.Tensor:
+        """num = norms * (fR * sum_rows r1 + sum_rows r2) per event, gated by
+        its N_eff, from the pixel rows' stats and r (L, E * rows_per_event,
+        2)."""
         sum_w, gate = self._event_sums(stats)
-        r = r.reshape(r.shape[0], self.n_events, self.rows_per_event, 2).sum(dim=2)
+        r = r.reshape(r.shape[0], self.n_events, rows_per_event, 2).sum(dim=2)
         num = sum_w / self.n_samples * (fr[:, None] * r[..., 0] + r[..., 1])
         return torch.where(gate, torch.nan_to_num(num), 0.0)
 

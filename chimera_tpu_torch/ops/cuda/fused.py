@@ -18,7 +18,10 @@ Per (λ, row), with S samples and G grid points:
     logical rows of the dark-siren per-pixel layout (``n_real``,
     ``dl_fill``, ``logical_s``: each row is one pixel's samples followed by
     zero-weight fillers at ``dl_fill``, standing for the event's
-    ``logical_s`` samples with the out-of-pixel ones at the filler z).
+    ``logical_s`` samples with the out-of-pixel ones at the filler z);
+  - or, with ``contract`` (K1e), the unit-mass densities of those logical
+    rows on the analysis grids contracted in the kernel against the
+    dark-siren factors: r (L, B, 2) in place of the densities.
 * ``fused_row_stats`` (K1c): the row statistics only, of logical rows or of
   plain ones.
 * ``fused_weights_kde_adjoint`` (K3): the backward of ``fused_weights_kde``
@@ -31,7 +34,8 @@ fused_kde.cu``, ``fused_kde_adjoint.cu``) on CUDA tensors and the plain
 PyTorch versions ``fused_weights_kde_plain`` and
 ``fused_weights_kde_adjoint_plain`` on CPU tensors; on CUDA they launch the
 kernel or raise.  ``fused_weights_kde.launches`` counts K1a launches,
-``.launches_b`` K1b and ``.launches_d`` K1d; ``fused_weights_kde_adjoint``
+``.launches_b`` K1b, ``.launches_d`` K1d and ``.launches_e`` K1e;
+``fused_weights_kde_adjoint``
 counts K3 by the forward's mode the same way (``.launches`` on analysis
 grids, ``.launches_b``, ``.launches_c`` stats only, ``.launches_d``).
 
@@ -40,7 +44,8 @@ differentiates it.  On CUDA tensors each K1 launch whose model rows (or
 ``ext_bounds``) require grad sits in a ``torch.autograd.Function`` whose
 backward launches K3 in the same mode and returns gradients for the packed
 rows and ``ext_bounds`` only (the PE data and grids get none: samplers
-differentiate hyper-parameters).
+differentiate hyper-parameters).  K1e has no adjoint kernel: on CUDA
+tensors that require grad it raises (ROADMAP.md §1 item 15).
 """
 
 from __future__ import annotations
@@ -54,7 +59,8 @@ import torch
 from chimera_tpu_torch.models.cosmology import FLRW, z_from_dgw
 from chimera_tpu_torch.models.mass import PowerLawPeak, p_m1m2
 from chimera_tpu_torch.ops.cuda import build
-from chimera_tpu_torch.ops.kde import KERNELS, bw_factor, clip, var_floor
+from chimera_tpu_torch.ops.kde import (MAX_FORM_KERNELS, bw_factor, clip,
+                                       var_floor)
 
 STAT_NAMES = ("lo", "ub", "norms", "neff", "bandwidth", "sum_w", "sum_w2")
 # per-λ PowerLawPeak scalars, the kernels' mass row, in the order of the
@@ -100,7 +106,7 @@ def fused_weights_kde_plain(m1det, m2det, dl, inv_pe_prior, cosmo, mass,
                             n_real=None, dl_fill=None, logical_s=None,
                             cut_grid=None, stats_only: bool = False,
                             n_grid=None, ext_bounds=None,
-                            den_scale: str = "norms"):
+                            den_scale: str = "norms", contract=None):
     """Plain PyTorch version with the safe-math row statistics of
     ``chimera_tpu/ops/pallas/fused.py::_reference_impl``; chunked over rows
     so that no (L, E, G, S) tensor is ever materialized.
@@ -113,7 +119,14 @@ def fused_weights_kde_plain(m1det, m2det, dl, inv_pe_prior, cosmo, mass,
     kernel's form (fused.py:127-137).  ``stats_only`` skips the KDE (den is
     None); ``cut_grid`` then only fills the lo, ub stats.
 
-    Returns den (L, E, G) and a dict of (L, E) stats."""
+    ``contract`` = (s1, s2, f1, f2): the contract epilogue of the
+    ``npix`` branch of ``_reference_impl`` (fused.py:462-482), on the
+    analysis grids with ``den_scale='unit'``: the rows are E_ev events of
+    npix = E / E_ev rows each, s1, s2 (E, G) per-row factors and f1, f2
+    (L, E_ev, G) per-(λ, event) ones; in place of den it returns
+    r (L, E, 2) = (sum_g den s1 f1, sum_g den s2 f2), a dead row exactly 0.
+
+    Returns den (L, E, G) (or r) and a dict of (L, E) stats."""
     if logical_s is not None and (n_real is None or dl_fill is None):
         raise ValueError("logical_s requires n_real and dl_fill")
     if not stats_only and ext_bounds is None and (cut_grid is None) == (grids is None):
@@ -121,6 +134,13 @@ def fused_weights_kde_plain(m1det, m2det, dl, inv_pe_prior, cosmo, mass,
     if den_scale not in ("norms", "unit"):
         raise ValueError(f"den_scale must be 'norms' or 'unit', not {den_scale!r}")
     e, s = dl.shape
+    if contract is not None:
+        s1, s2, f1, f2 = contract
+        npix = e // f1.shape[1]
+        if grids is None or ext_bounds is not None or stats_only \
+                or den_scale != "unit" or npix * f1.shape[1] != e:
+            raise ValueError("contract takes the analysis grids, "
+                             "den_scale='unit' and E_ev x npix rows")
     on_grids = ext_bounds is None and cut_grid is None
     g = 1 if stats_only else grids.shape[1] if on_grids else int(n_grid)
     n = max(cosmo.L, mass.L)
@@ -174,16 +194,23 @@ def fused_weights_kde_plain(m1det, m2det, dl, inv_pe_prior, cosmo, mass,
             grid = lo[..., None] + delta[..., None] * torch.arange(
                 g, dtype=dt, device=dl.device)                      # (n, c, G)
         u = (grid[..., None] - z[:, :, None, :]) / h[..., None, None]
-        d = torch.sum(w[:, :, None, :] * KERNELS[kernel](u), dim=-1) / h[..., None]
+        d = torch.sum(w[:, :, None, :] * MAX_FORM_KERNELS[kernel](u),
+                      dim=-1) / h[..., None]
         if den_scale == "norms":
             dens.append(d / sl)
         else:
             # rows below sqrt(tiny) total weight are defined as 0 (the
             # reference's select, fused.py:459-468)
             ok = sum_w > math.sqrt(tiny)
-            dens.append(torch.where(ok[..., None],
-                                    d / torch.where(ok, sum_w, 1.0)[..., None],
-                                    0.0))
+            d = torch.where(ok[..., None],
+                            d / torch.where(ok, sum_w, 1.0)[..., None], 0.0)
+            if contract is not None:
+                ev = torch.arange(rows.start, rows.stop,
+                                  device=dl.device) // npix
+                d = torch.stack([torch.sum(d * s1[rows] * f1[:, ev], dim=-1),
+                                 torch.sum(d * s2[rows] * f2[:, ev], dim=-1)],
+                                dim=-1)
+            dens.append(d)
     den = None if stats_only else torch.cat(dens, dim=1)
     return den, _stats_dict(torch.cat(stats, dim=1))
 
@@ -240,14 +267,13 @@ def check_cuda_call(name: str, cosmo, mass, dl, others: dict) -> None:
             raise ValueError(f"{key} must be {tuple(dl.shape)} {dt} on {dl.device}")
 
 
-def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+def refuse_grad(name: str, why: str, *tensors: torch.Tensor) -> None:
     """Raise where autograd would record a kernel launch that has no
     backward: its outputs would come back as constants and the gradient be
     silently short of their part."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name} has no backward on CUDA tensors: its gradient is "
-            "ROADMAP.md §1 item 9")
+            f"{name} has no backward on CUDA tensors: {why}")
 
 
 def launch(lib_name: str, symbol: str, dtype, device, args) -> None:
@@ -269,31 +295,35 @@ def launch(lib_name: str, symbol: str, dtype, device, args) -> None:
 
 
 # the kernel's modes (csrc/kde.cuh, FusedMode)
-_ANALYSIS_GRID, _EFFECTIVE_GRID, _EXTERNAL_BOUNDS, _STATS_ONLY = range(4)
+_ANALYSIS_GRID, _EFFECTIVE_GRID, _EXTERNAL_BOUNDS, _STATS_ONLY, _CONTRACT = \
+    range(5)
 
 
 def _launch_k1(mode: int, series, params, m1det, m2det, dl, inv_pe_prior,
                grids, cosmo, mass, kernel="epan", bw_method=None, n_grid=0,
                ext_bounds=None, n_real=None, dl_fill=None, logical_s=None,
-               cut_grid=None, den_scale="norms"):
+               cut_grid=None, den_scale="norms", contract=None):
     """Launch ``csrc/fused_kde.cu`` in ``mode`` on checked, contiguous
-    inputs; returns den (L, B, G) (None in the stats-only mode) and the
-    stats tensor (L, B, 8)."""
+    inputs; returns den (L, B, G) (None in the stats-only mode, r (L, B, 2)
+    in the contract mode) and the stats tensor (L, B, 8)."""
     bw_mode, bw_value = _bw_code(bw_method)
     dt = dl.dtype
     b, s = dl.shape
     n = series.shape[0]
-    g = grids.shape[1] if mode == _ANALYSIS_GRID else 0 if mode == _STATS_ONLY \
-        else n_grid
+    g = grids.shape[1] if mode in (_ANALYSIS_GRID, _CONTRACT) \
+        else 0 if mode == _STATS_ONLY else n_grid
     den = None if mode == _STATS_ONLY else torch.empty(
-        (n, b, g), dtype=dt, device=dl.device)
+        (n, b, 2 if mode == _CONTRACT else g), dtype=dt, device=dl.device)
     stats = torch.empty((n, b, 8), dtype=dt, device=dl.device)
+    s1, s2, f1, f2 = (None,) * 4 if contract is None else contract
     launch("fused_kde", "chimera_fused_kde", dt, dl.device,
            [m1det, m2det, dl, inv_pe_prior, grids, ext_bounds, n_real, dl_fill,
-            series, params, den, stats, n, b, s, g, cosmo.cheb_deg,
-            mass.window_deg, 0 if logical_s is None else int(logical_s), mode,
+            series, params, s1, s2, f1, f2, den, stats, n, b, s, g,
+            cosmo.cheb_deg, mass.window_deg,
+            0 if logical_s is None else int(logical_s), mode,
             0 if kernel == "epan" else 1, bw_mode, float(bw_value),
-            float(cut_grid or 0.0), int(den_scale == "unit")])
+            float(cut_grid or 0.0), int(den_scale == "unit"),
+            0 if f1 is None else b // f1.shape[1]])
     return den, stats
 
 
@@ -328,7 +358,7 @@ def _checked_rows(name, m1det, m2det, dl, inv_pe_prior, cosmo, mass, n_real,
 def fused_weights_kde(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids=None,
                       kernel: str = "epan", bw_method=None, *, cut_grid=None,
                       n_grid=None, ext_bounds=None, n_real=None, dl_fill=None,
-                      logical_s=None, den_scale: str = "norms"):
+                      logical_s=None, den_scale: str = "norms", contract=None):
     """Fused weights + KDE of a λ batch.
 
     Args:
@@ -343,23 +373,30 @@ def fused_weights_kde(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids=None,
       n_real, dl_fill, logical_s: the rows are logical rows of the
         per-pixel layout (see ``fused_row_stats``).
       den_scale: 'norms' (1 / (h S)) or 'unit' (1 / (h sum w)).
+      contract: (s1, s2, f1, f2), with ``grids`` and ``den_scale='unit'``
+        (K1e): the dark-siren epilogue in the kernel.  The B rows are E_ev
+        events of B / E_ev (event, pixel) rows; s1, s2 (B, G) per-row and
+        f1, f2 (L, E_ev, G) per-(λ, event) factors.
 
     Returns:
-      den (L, B, G) and a dict of (L, B) stats: lo, ub (the grid's bounds;
-      zeros on analysis grids), norms, neff, bandwidth, sum_w, sum_w2.
+      den (L, B, G) — with ``contract`` r (L, B, 2) = (sum_g den s1 f1,
+      sum_g den s2 f2), 0 on a row below sqrt(tiny) weight — and a dict of
+      (L, B) stats: lo, ub (the grid's bounds; zeros on analysis grids),
+      norms, neff, bandwidth, sum_w, sum_w2.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel and
     raise on anything it does not take; the kernel's row statistics are the
     raw formulas (a dead row gives NaN where the plain version clamps — the
     N_eff gate and nan_to_num downstream treat both alike).  Where a model
     tensor or ``ext_bounds`` requires grad, the backward on CUDA tensors is
-    the adjoint kernel (``fused_weights_kde_adjoint``) in the same mode.
+    the adjoint kernel (``fused_weights_kde_adjoint``) in the same mode;
+    with ``contract`` (K1e, no adjoint kernel) it raises.
     """
     if not on_card(dl):
         return fused_weights_kde_plain(
             m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids, kernel,
             bw_method, n_real, dl_fill, logical_s, cut_grid, n_grid=n_grid,
-            ext_bounds=ext_bounds, den_scale=den_scale)
+            ext_bounds=ext_bounds, den_scale=den_scale, contract=contract)
     if kernel not in ("epan", "gauss"):
         raise ValueError(f"unknown KDE kernel {kernel!r}")
     if den_scale not in ("norms", "unit"):
@@ -377,36 +414,65 @@ def fused_weights_kde(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids=None,
         raise ValueError("pass grids exactly when cut_grid is None")
     else:
         mode = _ANALYSIS_GRID if grids is not None else _EFFECTIVE_GRID
-    if mode == _ANALYSIS_GRID:
+    if contract is not None:
+        if mode != _ANALYSIS_GRID or den_scale != "unit":
+            raise ValueError("contract takes the analysis grids and "
+                             "den_scale='unit'")
+        mode = _CONTRACT
+    if mode in (_ANALYSIS_GRID, _CONTRACT):
         g = grids.shape[1]
         if grids.shape != (b, g) or grids.dtype != dt or grids.device != dev:
             raise ValueError(f"grids must be ({b}, G) {dt} on {dev}")
         grids = grids.contiguous()
     elif n_grid is None or int(n_grid) < 2:
         raise ValueError("an effective grid takes n_grid >= 2 points")
-    # the dark-siren mode (d) sums the Chebyshev series in float64, the
+    if contract is not None:
+        contract = _checked_contract(contract, n, b, g, dt, dev)
+    # the dark-siren modes (d, e) sum the Chebyshev series in float64, the
     # spectral modes (a, b) in the working dtype
     series, params, pe, n_real, dl_fill = _checked_rows(
         "fused_weights_kde", m1det, m2det, dl, inv_pe_prior, cosmo, mass,
-        n_real, dl_fill, logical_s, 8 if mode == _EXTERNAL_BOUNDS else dl.element_size())
-    den, stats = _run_k1(mode, series, params, ext_bounds, cosmo, mass, pe,
-                         grids, n_real, dl_fill, kernel=kernel,
-                         bw_method=bw_method,
-                         n_grid=0 if n_grid is None else int(n_grid),
-                         logical_s=logical_s, cut_grid=cut_grid,
-                         den_scale=den_scale)
-    if mode == _ANALYSIS_GRID:
-        fused_weights_kde.launches += 1
-    elif mode == _EFFECTIVE_GRID:
-        fused_weights_kde.launches_b += 1
+        n_real, dl_fill, logical_s,
+        8 if mode in (_EXTERNAL_BOUNDS, _CONTRACT) else dl.element_size())
+    kw = dict(kernel=kernel, bw_method=bw_method,
+              n_grid=0 if n_grid is None else int(n_grid), logical_s=logical_s,
+              cut_grid=cut_grid, den_scale=den_scale)
+    if mode == _CONTRACT:
+        refuse_grad("fused_weights_kde with contract (K1e)",
+                    "K1e's adjoint is ROADMAP.md §1 item 15", series, params,
+                    *contract)
+        den, stats = _launch_k1(mode, series, params, *pe, grids, cosmo, mass,
+                                n_real=n_real, dl_fill=dl_fill,
+                                contract=contract, **kw)
     else:
-        fused_weights_kde.launches_d += 1
+        den, stats = _run_k1(mode, series, params, ext_bounds, cosmo, mass, pe,
+                             grids, n_real, dl_fill, **kw)
+    counter = {_ANALYSIS_GRID: "launches", _EFFECTIVE_GRID: "launches_b",
+               _EXTERNAL_BOUNDS: "launches_d", _CONTRACT: "launches_e"}[mode]
+    setattr(fused_weights_kde, counter,
+            getattr(fused_weights_kde, counter) + 1)
     return den, _stats_dict(stats)
 
 
 fused_weights_kde.launches = 0
 fused_weights_kde.launches_b = 0
 fused_weights_kde.launches_d = 0
+fused_weights_kde.launches_e = 0
+
+
+def _checked_contract(contract, n: int, b: int, g: int, dt, dev):
+    """K1e's factors, checked and contiguous: s1, s2 (B, G); f1, f2
+    (L, E_ev, G) with B a multiple of E_ev."""
+    s1, s2, f1, f2 = contract
+    e_ev = f1.shape[1] if f1.dim() == 3 else 0
+    if e_ev <= 0 or b % e_ev:
+        raise ValueError(f"f1 must be ({n}, E_ev, {g}) with {b} rows a "
+                         "multiple of E_ev")
+    for key, t, shape in (("s1", s1, (b, g)), ("s2", s2, (b, g)),
+                          ("f1", f1, (n, e_ev, g)), ("f2", f2, (n, e_ev, g))):
+        if tuple(t.shape) != shape or t.dtype != dt or t.device != dev:
+            raise ValueError(f"{key} must be {shape} {dt} on {dev}")
+    return tuple(t.contiguous() for t in contract)
 
 
 def unpack_params(cosmo: FLRW, mass: PowerLawPeak, series: torch.Tensor,

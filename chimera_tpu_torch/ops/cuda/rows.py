@@ -32,7 +32,7 @@ from chimera_tpu_torch.ops.cuda.fused import (_ADJOINT_MAX_DEG,
                                               launch, on_card, pack_params,
                                               plain_budget, smem_bytes,
                                               unpack_params)
-from chimera_tpu_torch.ops.kde import KERNELS
+from chimera_tpu_torch.ops.kde import MAX_FORM_KERNELS
 
 def _rows_per_event(dl, grids) -> int:
     r_rows, e_ev = dl.shape[0], grids.shape[0]
@@ -52,7 +52,7 @@ def fused_rows_contract_plain(m1det, m2det, dl, inv_pe_prior, cosmo, mass,
     c = _rows_per_event(dl, grids)
     g = grids.shape[1]
     n = max(cosmo.L, mass.L)
-    kfn = KERNELS[kernel]
+    kfn = MAX_FORM_KERNELS[kernel]
     out = torch.empty((n, r_rows, 2), dtype=dl.dtype, device=dl.device)
     step = c * max(1, plain_budget(dl) // (n * g * chunk * c))
     for r0 in range(0, r_rows, step):

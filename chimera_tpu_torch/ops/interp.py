@@ -49,13 +49,19 @@ def uniform_interp(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     rows: x (..., N), lo and hi (...,), fp (..., M) -> (..., N).  Outside
     [lo, hi] the value is ``left`` / ``right``.  A row with hi == lo gives
     NaN between them, as the reference; its index is taken as 0 (a float to
-    integer conversion of NaN is undefined in torch)."""
+    integer conversion of NaN is undefined in torch).  The nodes are read by
+    indexing, whose backward accumulates by a sorted ``index_put_``: equal
+    inputs give equal gradient bits on CUDA too (``torch.gather``'s backward
+    adds by atomics)."""
     m = fp.shape[-1]
     lo, hi = lo[..., None], hi[..., None]
     t = (x - lo) / (hi - lo) * (m - 1)
     i = torch.nan_to_num(torch.floor(t).clamp(0, m - 2), nan=0.0).long()
     frac = t - i
-    val = (torch.gather(fp, -1, i) * (1.0 - frac)
-           + torch.gather(fp, -1, i + 1) * frac)
+    rows = fp.expand(*i.shape[:-1], m).reshape(-1, m)
+    r = torch.arange(rows.shape[0], device=fp.device)[:, None]
+    i2 = i.reshape(rows.shape[0], -1)
+    val = (rows[r, i2].reshape(i.shape) * (1.0 - frac)
+           + rows[r, i2 + 1].reshape(i.shape) * frac)
     val = torch.where(x < lo, left, val)
     return torch.where(x > hi, right, val)

@@ -41,15 +41,30 @@ def var_floor(var: torch.Tensor) -> torch.Tensor:
 
 
 def epanechnikov_kernel(u: torch.Tensor) -> torch.Tensor:
-    """0.75 (1 - u^2) on |u| <= 1, else 0 (the fused kernel's max form)."""
-    return 0.75 * torch.clamp_min(1.0 - u * u, 0.0)
+    """0.75 (1 - u^2) on |u| <= 1, else 0, in the select form of
+    ``chimera_tpu/ops/kde.py::epanechnikov_kernel`` (``kde1d_core``'s): its
+    slope at |u| = 1 exactly is all of -1.5 u."""
+    return torch.where(torch.abs(u) <= 1.0, 0.75 * (1.0 - u * u), 0.0)
+
+
+def epanechnikov_max_form(u: torch.Tensor) -> torch.Tensor:
+    """The same values in the max form of the Pallas kernels and their
+    references (``0.75 * jnp.maximum(0, 1 - u^2)``, ``ops/pallas/fused.py``)
+    whose slope at |u| = 1 exactly is half of -1.5 u: ``torch.maximum``
+    splits it as ``jnp.maximum`` does (``torch.clamp_min`` keeps all of
+    it)."""
+    q = 1.0 - u * u
+    return 0.75 * torch.maximum(q, q.new_zeros(()))
 
 
 def gaussian_kernel(u: torch.Tensor) -> torch.Tensor:
     return torch.exp(-0.5 * u * u) * (1.0 / _SQRT_2PI)
 
 
+# the 1-D KDE's kernels (kde1d_core); the fused passes' plain versions take
+# the max form, as their references do
 KERNELS = {"epan": epanechnikov_kernel, "gauss": gaussian_kernel}
+MAX_FORM_KERNELS = {"epan": epanechnikov_max_form, "gauss": gaussian_kernel}
 
 
 def kde1d_params(dataset: torch.Tensor, weights: torch.Tensor | None, bw_method

@@ -23,7 +23,16 @@ paths end to end through the entry points a user calls:
   rows-contraction adjoint K2b against their plain versions, the card's
   gradient of the three unbinned paths against the CPU's and against
   finite differences, value-and-gradient timing at full width, and HMC /
-  ChEES on the dark flagship.
+  ChEES on the dark flagship;
+* phase 23, the contract path ('marginalized', cut_grid=None, on a
+  per-pixel layout without chunk rows) at the flagship width: the contract
+  pass K1e against its plain version and the rows path, one K1e launch a
+  batch, float32 vs float64, timing next to the rows path;
+* phases 24-25, the gradient of the reference's defaults (binned,
+  cut_grid=2.0) for '1d' and 'marginalized': K4's adjoint K4b against its
+  plain version, the card's gradient against the CPU's, one K4 and one K4b
+  a gradient call, value-and-gradient timing and peak memory at full
+  width; HMC / ChEES on the binned spectral headline.
 
 Each likelihood path checks float32 against float64, elementwise against the
 repo's 1e-6 bar or, binned, against BINNED_F32_BAR (the precision mocks:
@@ -1000,6 +1009,25 @@ def kde_compare(args, kw, tol):
     return rel, err.max().item()
 
 
+def accumulation_ms(dataset, weights, num_bins=200, reps=17):
+    """Per-call ms of the bin sums of ``binning1d`` on its inputs: the
+    sorted ``index_put_`` it makes, whose order is fixed, and an atomic
+    ``scatter_add_`` of the same index, whose order is not (medians)."""
+    lo = torch.amin(dataset, dim=-1, keepdim=True)
+    span = torch.amax(dataset, dim=-1, keepdim=True) - lo
+    pos = torch.nan_to_num(torch.floor((dataset - lo) / span * num_bins))
+    rows = dataset.numel() // dataset.shape[-1]
+    idx = (pos.clamp(0, num_bins - 1).long().reshape(rows, -1)
+           + torch.arange(rows, device=dataset.device)[:, None] * num_bins
+           ).reshape(-1)
+    w = weights.reshape(-1)
+    out = torch.zeros(rows * num_bins, dtype=w.dtype, device=w.device)
+    return (statistics.median(cuda_ms(
+                lambda: out.zero_().index_put_((idx,), w, accumulate=True), reps)),
+            statistics.median(cuda_ms(
+                lambda: out.zero_().scatter_add_(0, idx, w), reps)))
+
+
 def k4_bound(args) -> tuple[float, str]:
     z, _, grids, _ = args
     b, s = z.shape
@@ -1088,6 +1116,7 @@ def reference_defaults(smi: str, full, dark_data) -> list[dict]:
                 lambda: theta_src_and_weights(pop_b, theta), reps)}
         b_args, b_kw = captured("binning1d", lambda: hl.log_like_batch(batch))
         stages["binning"] = cuda_ms(lambda: binning1d(*b_args, **b_kw), reps)
+        acc = accumulation_ms(*b_args, **b_kw, reps=reps)
         del b_args, pop_b
         args, kw = captured("kde1d_grid", lambda: hl.log_like_batch(batch))
         stages["K4"] = kern = cuda_ms(lambda: kde1d_grid(*args, **kw), reps)
@@ -1109,7 +1138,9 @@ def reference_defaults(smi: str, full, dark_data) -> list[dict]:
         phase(num, "timing", f"[{smi}] per λ over {reps} batches of {n}: total "
               f"{t_med:.4f} ± {t_mad:.4f} ms (median ± MAD); "
               + "; ".join(f"{k} {m:.4f} ± {d:.4f} ms" for k, (m, d) in split.items())
-              + f"; rest {rest:.4f} ms; K4 per call "
+              + f"; rest {rest:.4f} ms; the binning's accumulation per call "
+              f"{acc[0]:.3f} ms (sorted index_put_, equal bits), "
+              f"{acc[1]:.3f} ms (atomic scatter_add_); K4 per call "
               f"{statistics.median(kern):.3f} ms at {args[0].shape[0]} rows x "
               f"{args[0].shape[1]} x {args[2].shape[1]}, plain {plain[0]:.3f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}); max err {k_rel:.3e} of the row max")
@@ -1215,14 +1246,16 @@ GRAD_LAUNCHES = {"dark": {"K1c": 1, "K2": 1, "K3c": 1, "K2b": 1},
                  "spectral_cut": {"K1b": 1, "K3b": 1}}
 
 
-def row_rel(got: torch.Tensor, expect: torch.Tensor) -> float:
+def row_rel(got: torch.Tensor, expect: torch.Tensor, floor: float = 1e-300
+            ) -> float:
     """The largest error of an output relative to its row's largest entry
-    (a row is the last axis; the rows axis of an (L, N, 2) output)."""
+    (a row is the last axis; the rows axis of an (L, N, 2) output), the
+    row's scale floored at ``floor``."""
     g, e = got.double(), expect.double()
     if g.dim() == 3 and g.shape[-1] == 2:
         g, e = g.transpose(1, 2), e.transpose(1, 2)
     return ((g - e).abs() / e.abs().amax(dim=-1, keepdim=True).clamp_min(
-        1e-300)).max().item()
+        floor)).max().item()
 
 
 def in_float64(args, kw):
@@ -1253,8 +1286,13 @@ def grad_compare(name: str, fn, plain, args, kw, tol, expect=None):
     cotangents through and adds the KDE's cotangent of the bounds, and on
     the dark cut_grid path the two nearly cancel (the resampled density
     hardly depends on where the grid lies), so its kernel's own term is held
-    to 2x the float32 plain version's own error against float64.  Returns
-    (rel, abs)."""
+    to 2x the float32 plain version's own error against float64.  Against
+    float64 a row's scale is floored at float32's smallest normal number
+    (the binned dark path hands K4b rows of cotangents so small that its
+    outputs are float32 subnormals).  Returns (rel, abs): the largest error
+    held to a bar (against float64 where the float32 plain version is
+    further off) and the largest absolute error against the plain
+    version."""
     got, again = fn(*args, **kw), fn(*args, **kw)
     expect = plain(*args, **kw) if expect is None else expect
     torch.cuda.synchronize(DEV)
@@ -1269,9 +1307,9 @@ def grad_compare(name: str, fn, plain, args, kw, tol, expect=None):
         if not torch.all(torch.isfinite(g)):
             raise AssertionError(f"{name} returned a non-finite gradient")
         r = row_rel(g, e)
-        rel, abs_err = max(rel, r), max(
-            abs_err, (g.double() - e.double()).abs().max().item())
+        abs_err = max(abs_err, (g.double() - e.double()).abs().max().item())
         if r <= tol:
+            rel = max(rel, r)
             continue
         if not f32:
             raise AssertionError(f"{name} vs plain: output {i} {r:.3e} of the "
@@ -1279,12 +1317,15 @@ def grad_compare(name: str, fn, plain, args, kw, tol, expect=None):
         if exact is None:
             args64, kw64 = in_float64(args, kw)
             exact = plain(*args64, **kw64)
-        x, bar = exact[i], tol
+        # a row of float64 values below float32's smallest normal number
+        # holds float32 subnormals, which keep 2^-149 absolute, no relative
+        # accuracy: its scale is floored there
+        x, bar, tiny = exact[i], tol, torch.finfo(F32).tiny
         if i == 2 and kw.get("ext_bounds") is not None:  # K3d's d_ext
             passed = args[8][..., :2]
             g, e, x = g - passed, e - passed, x - passed.double()
-            bar = max(tol, 2 * row_rel(e, x))
-        k_err, p_err = row_rel(g, x), row_rel(e, x)
+            bar = max(tol, 2 * row_rel(e, x, tiny))
+        k_err, p_err = row_rel(g, x, tiny), row_rel(e, x, tiny)
         print(f"  {name} output {i} in float32: kernel vs plain {r:.3e} of the "
               f"row max; against the float64 plain version on the same inputs: "
               f"kernel {k_err:.3e} (bar {bar:.3e}), float32 plain {p_err:.3e}",
@@ -1294,6 +1335,7 @@ def grad_compare(name: str, fn, plain, args, kw, tol, expect=None):
                 f"{name} vs plain: output {i} {r:.3e} of the row max (tol "
                 f"{tol:.0e}); against float64 kernel {k_err:.3e} (bar "
                 f"{bar:.3e}), float32 plain {p_err:.3e}")
+        rel = max(rel, k_err)
     return rel, abs_err
 
 
@@ -1635,6 +1677,340 @@ def dark_gradients(smi: str, full, dark_data) -> list[dict]:
     return [entries[k] for k in ("K3b", "K3c", "K3d", "K2b")]
 
 
+# ---------------------------------------------------------------------------
+# the contract pass (K1e) and the binned gradient (K4b)
+# ---------------------------------------------------------------------------
+
+BINNED = {"binning": True, "num_bins": 200, "cut_grid": 2.0}
+# K4b's least work: one sweep over the (row, grid point, bin) terms forms u,
+# the kernel and its slope once for the four adjoint sums (d_w, d_z, d_grid,
+# d_h), two operations more than K3's term
+K4B_TERM_OPS = ADJ_KDE_OPS + 2
+# K1e's contraction per (λ, live row, grid point): two products into two sums
+K1E_GRID_OPS = 4
+
+
+def contract_likelihood(data, dtype):
+    """The dark-siren likelihood of a mock on the contract path:
+    'marginalized', unbinned, cut_grid=None, on a per-pixel layout without
+    chunk rows (``chunk_rows=False``, as a JAX object whose ``compact`` has
+    no 'rows'): one K1e launch a batch."""
+    from chimera_tpu_torch import HyperLikelihood, SelectionFunction
+
+    cat, z_grids, gal_cat, inj, n_gen = data
+    return HyperLikelihood._create(
+        cat, z_grids, population(dtype, gal_cat, z_grids.device),
+        SelectionFunction.create(inj, n_gen), kind="marginalized",
+        kernel="epan", bw_method=None, cut_grid=None, binning=False,
+        num_bins=200, pe_neff=2.0, chunk_rows=False)
+
+
+def contract_inputs(hl, lam: dict, kernel=None):
+    """K1e's arguments and keywords on a contract-path likelihood's data at
+    the batch ``lam``, as ``_numerators_marginalized_contract`` passes
+    them."""
+    pop_b = hl.population.update_batch(lam)
+    f1, f2, _ = hl.lambda_factors(pop_b)
+    args = (hl.pix_m1det, hl.pix_m2det, hl.pix_dL, hl.pix_inv_pe_prior,
+            pop_b.cosmo, pop_b.mass,
+            hl.z_grids.repeat_interleave(hl.n_pixels, dim=0))
+    kw = {"kernel": kernel or hl.kernel, "n_real": hl.pix_n_real,
+          "dl_fill": hl.pix_dl_fill, "logical_s": hl.n_samples,
+          "den_scale": "unit", "contract": (hl.pix_s1, hl.pix_s2, f1, f2)}
+    return args, kw
+
+
+def contract_compare(args, kw, r_tol, stat_tol):
+    """K1e against its plain version on the same inputs: r1 and r2 relative
+    to their largest value over the rows of each λ, exact zeros on the rows
+    without weight, the stats relative on the rows with weight.  Returns
+    (r rel, r abs, stats rel)."""
+    from chimera_tpu_torch.ops.cuda.fused import (fused_weights_kde,
+                                                  fused_weights_kde_plain)
+
+    r_k, st_k = fused_weights_kde(*args, **kw)
+    r_p, st_p = fused_weights_kde_plain(*args, **kw)
+    torch.cuda.synchronize(DEV)
+    live = st_p["sum_w"] > 0
+    if live.float().mean() < 0.3 or live.all():
+        raise AssertionError(f"{int(live.sum())} of {live.numel()} (λ, row) "
+                             "pairs with weight")
+    if not (torch.all(r_k[~live] == 0) and torch.all(r_p[~live] == 0)):
+        raise AssertionError("K1e: a row without weight did not give 0")
+    r_rel = row_rel(r_k, r_p)
+    r_abs = (r_k.double() - r_p.double()).abs().max().item()
+    stat_rel = max(((st_k[k].double() - st_p[k].double()).abs()
+                    / st_p[k].double().abs())[live].max().item()
+                   for k in ("norms", "neff", "bandwidth", "sum_w", "sum_w2"))
+    if not (r_rel <= r_tol and stat_rel <= stat_tol):
+        raise AssertionError(
+            f"K1e vs plain: r {r_rel:.3e} (tol {r_tol:.0e}) of the per-λ max, "
+            f"stats {stat_rel:.3e} (tol {stat_tol:.0e}) relative")
+    return r_rel, r_abs, stat_rel
+
+
+def k1e_bound(args, kw) -> tuple[float, str]:
+    """The least time of K1e on these inputs: the PE rows of the real
+    samples, the grids, the factors, the model rows, r and the stats,
+    bytes; each real sample's Clenshaw work and KDE terms and the
+    contraction of each live (λ, row), FP32 operations."""
+    dl, cosmo, grids = args[2], args[4], args[6]
+    s1, _, f1, _ = kw["contract"]
+    n, e_ev, g = f1.shape
+    b = dl.shape[0]
+    size = dl.element_size()
+    real = int(kw["n_real"].sum())
+    live = int((kw["n_real"] > 0).sum())
+    q = 12 + (args[5].window_deg)
+    n_bytes = (size * (4 * real + b + 3 * b * g + 2 * n * e_ev * g + n * q
+                       + n * b * (2 + 8)) + 8 * b
+               + 8 * n * (cosmo.cheb_deg + 2 + args[5].window_deg))
+    return bound(n_bytes, n * real * (CHEB_OPS * cosmo.cheb_deg + KDE_OPS * g)
+                 + n * live * g * K1E_GRID_OPS)
+
+
+def k4b_bound(args) -> tuple[float, str]:
+    """The least time of K4b on these inputs: z, w, the grids, h, out and
+    d_out read once, the four cotangents written once, bytes; the
+    (row, grid point, bin) terms, FP32 operations."""
+    z, grids = args[0], args[2]
+    b, s = z.shape
+    g = grids.shape[1]
+    return bound(z.element_size() * (4 * b * s + 4 * b * g + 2 * b),
+                 b * g * s * K4B_TERM_OPS)
+
+
+def contract_path(smi: str, dark_data) -> dict:
+    """Phase 23: K1e against its plain version, the contract path against
+    the rows path, end to end at the flagship width (one K1e launch a
+    batch), float32 vs float64 on the dark precision mock, timing next to
+    the rows path.  Returns K1e's entry of the kernels line."""
+    from chimera_tpu_torch.ops.cuda.fused import (fused_weights_kde,
+                                                  fused_weights_kde_plain)
+
+    h0s = torch.linspace(55.0, 95.0, 16, device=DEV)
+    h0s4 = torch.linspace(60.0, 80.0, 4, device=DEV)
+    batch = {"H0": h0s.to(F32)}
+    n, reps = len(h0s), 17
+
+    # ---- 23. K1e vs plain at 64 events, L = 4; the two paths agree -------
+    dark64, _ = dark_mock(64, 1024, 15, 500, 100_000, 10_000, SEED + 7)
+    for dtype, tol in ((F64, 1e-10), (F32, 1e-4)):
+        hl = contract_likelihood(dark64, dtype)
+        lam = {"H0": h0s4.to(dtype)}
+        args, kw = captured("fused_weights_kde", lambda: hl.log_like_batch(lam))
+        r_rel, _, stat_rel = contract_compare(args, kw, tol, tol)
+        ll_c = hl.log_like_batch(lam).double()
+        ll_r = dark_likelihood(dark64, dtype).log_like_batch(lam).double()
+        rel_paths = ((ll_c - ll_r).abs() / ll_r.abs()).max().item()
+        # float64 holds the two paths to 1e-10; float32 is reported
+        if dtype == F64 and not rel_paths <= 1e-10:
+            raise AssertionError(f"contract vs rows path: log L {rel_paths:.3e}")
+        phase(23, f"K1e vs plain {dtype}", f"{hl.n_events} events, "
+              f"{args[2].shape[0]} pixel rows x {args[2].shape[1]} slots x "
+              f"{args[6].shape[1]} grid, L = 4: r max err {r_rel:.3e} of the "
+              f"per-λ max, stats {stat_rel:.3e} (tol {tol:.0e}); log L vs the "
+              f"rows path (K1c + K2) {rel_paths:.3e} [{smi}]")
+        del hl, args, kw
+    del dark64
+
+    # ---- 23. end to end at build_dark's width, float32 -------------------
+    hl = contract_likelihood(dark_data, F32)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    ll, _ = counted(lambda: hl.log_like_batch(batch), {"K1e": 1})
+    peak = torch.cuda.max_memory_allocated(DEV) / 2**30
+    check_log_like(ll, h0s, {"K1e": 1})
+    par = parity_dark_mock(DEV)
+    rel, diff, n_fin = f32_vs_f64(contract_likelihood(par, F64),
+                                  contract_likelihood(par, F32),
+                                  torch.linspace(58.0, 100.0, 7, device=DEV))
+    del par
+    b, s_pp = hl.pix_dL.shape
+    phase(23, "contract path", f"'marginalized', cut_grid=None, no chunk rows: "
+          f"{hl.n_events} events x {hl.n_samples} samples x "
+          f"{hl.z_grids.shape[1]} grid, {b} pixel rows x {s_pp} slots, "
+          f"{int(hl.pix_n_real.sum())} real samples; launches K1e 1, K1c/K2 0; "
+          f"peak memory {peak:.2f} GiB; H0 argmax "
+          f"{h0s[int(torch.argmax(ll))].item():.2f}; log L = "
+          f"{[round(v, 4) for v in ll.tolist()]}; float32 vs float64 on "
+          f"{PARITY_DARK.name}: {rel:.3e} (bar 1e-6), max abs {diff:.3e}, over "
+          f"{n_fin} of 7 H0 values [{smi}]")
+
+    # ---- 23. timing at full width, next to the rows path -----------------
+    total = cuda_ms(lambda: hl.log_like_batch(batch), reps)
+    args, kw = captured("fused_weights_kde", lambda: hl.log_like_batch(batch))
+    kern = cuda_ms(lambda: fused_weights_kde(*args, **kw), reps)
+    plain = cuda_ms(lambda: fused_weights_kde_plain(*args, **kw), 1, 0)
+    r_rel, r_abs, stat_rel = contract_compare(args, kw, 1e-4, 1e-4)
+    rows_hl = dark_likelihood(dark_data, F32)
+    rows_total = cuda_ms(lambda: rows_hl.log_like_batch(batch), reps)
+    del rows_hl
+    t_med, t_mad = med_mad([t / n for t in total])
+    k_med, k_mad = med_mad([t / n for t in kern])
+    r_med, r_mad = med_mad([t / n for t in rows_total])
+    b_ms, b_by = k1e_bound(args, kw)
+    k_call = statistics.median(kern)
+    phase(23, "timing", f"[{smi}] per λ over {reps} batches of {n}: contract "
+          f"path {t_med:.4f} ± {t_mad:.4f} ms (median ± MAD), K1e {k_med:.4f} ± "
+          f"{k_mad:.4f} ms, rest {t_med - k_med:.4f} ms; rows path (K1c + K2) "
+          f"{r_med:.4f} ± {r_mad:.4f} ms; K1e per call {k_call:.3f} ms, plain "
+          f"{plain[0]:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
+          f"{100 * b_ms / k_call:.1f} % of it); r max err {r_rel:.3e} of the "
+          f"per-λ max, stats {stat_rel:.3e}")
+    return {"name": "fused_weights_kde contract (K1e)", "route": "cuda",
+            "source": "chimera_tpu_torch/csrc/fused_kde.cu",
+            "replaces": "chimera_tpu/ops/pallas/fused.py:192", "launches": 1,
+            "max_abs_err": r_abs, "ms": k_call, "plain_ms": plain[0],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def binned_gradients(smi: str, full, dark_data) -> dict:
+    """Phases 24-25: the gradient of the reference's defaults (binning=True,
+    num_bins=200, cut_grid=2.0) for '1d' (the spectral headline) and
+    'marginalized' (the dark flagship): K4b against its plain version on
+    each path's own cotangents, the card's float64 gradient against the
+    CPU's at 64 events, exactly one K4 and one K4b a gradient call,
+    value-and-gradient timing and peak memory at full width; HMC and ChEES
+    on the binned spectral headline.  Returns K4b's entry of the kernels
+    line."""
+    from chimera_tpu_torch.inference import (sample_hyperposterior,
+                                             sample_hyperposterior_chees)
+    from chimera_tpu_torch.ops.cuda import kde, launch_counters, launch_counts
+    from chimera_tpu_torch.ops.cuda.kde import (kde1d_grid_adjoint,
+                                                kde1d_grid_adjoint_plain)
+
+    k4b = (kde1d_grid_adjoint, kde1d_grid_adjoint_plain)
+    n, reps = 16, 17
+    once = {"K4": 1, "K4b": 1}
+
+    def k4b_call(hl, x):
+        return calls_of(kde, "kde1d_grid_adjoint",
+                        lambda: value_and_grad(hl, x))[-1]
+
+    # ---- 24. 64 events: the card vs the CPU, K4b vs plain ----------------
+    dark64, _ = dark_mock(64, 1024, 15, 500, 100_000, 10_000, SEED + 7)
+    x = chain_points(n, F64)
+    for name, make, data in (("spectral", likelihood, cut_events(full, 64)),
+                             ("dark", dark_likelihood, dark64)):
+        hl64 = make(data, F64, **BINNED)
+        (ll, g64), _ = counted(lambda: value_and_grad(hl64, x), once)
+        t0 = time.perf_counter()
+        ll_cpu, g_cpu = value_and_grad(copy.deepcopy(hl64).to("cpu"), x[:4].cpu())
+        seconds = time.perf_counter() - t0
+        rel = column_rel(g64[:4].cpu(), g_cpu)
+        rel_ll = ((ll[:4].cpu() - ll_cpu).abs() / ll_cpu.abs()).max().item()
+        hl32 = make(data, F32, **BINNED)
+        _, g32 = value_and_grad(hl32, x.to(F32))
+        rel32 = column_rel(g32, g64)
+        if not (torch.all(torch.isfinite(g64)) and torch.all(torch.isfinite(g32))
+                and rel <= 1e-9 and rel_ll <= 1e-10):
+            raise AssertionError(
+                f"binned gradient {name}: card vs CPU {rel:.3e} (tol 1e-9), "
+                f"log L {rel_ll:.3e} (tol 1e-10), float32 {rel32:.3e}")
+        errs = [grad_compare("K4b", *k4b, *k4b_call(h, xx), tol)[0]
+                for h, xx, tol in ((hl64, x, 1e-9), (hl32, x.to(F32), 1e-3))]
+        phase(24, f"binned gradient {name}", f"d log L/d(H0, Om0, mu_g), {n} "
+              f"chains, 64 events, binning=True, num_bins=200, cut_grid=2.0, "
+              f"float64: K4 + K4b on the card vs plain autograd on the CPU "
+              f"(4 chains, {seconds:.1f} s) max err {rel:.3e} of each "
+              f"parameter's largest slope (tol 1e-9), log L {rel_ll:.3e}; "
+              f"float32 vs float64 on the card {rel32:.3e}; K4b vs plain on the "
+              f"path's cotangents {errs[0]:.3e} (float64, tol 1e-9), "
+              f"{errs[1]:.3e} (float32, tol 1e-3); launches {once} [{smi}]")
+        del hl64, hl32
+    del dark64
+
+    # ---- 24. value-and-gradient timing at full width, L = 16, float32 ----
+    x = chain_points(n, F32)
+    batch = batch_of(x)
+    entry = None
+    for name, make, data in (("spectral", likelihood, full),
+                             ("dark", dark_likelihood, dark_data)):
+        hl = make(data, F32, **BINNED)
+        torch.cuda.reset_peak_memory_stats(DEV)
+        counted(lambda: value_and_grad(hl, x), once)
+        peak = torch.cuda.max_memory_allocated(DEV) / 2**30
+        total = cuda_ms(lambda: value_and_grad(hl, x), reps)
+
+        def forward():
+            with torch.no_grad():
+                hl.log_like_batch(batch)
+
+        fwd = cuda_ms(forward, reps)
+        args, kw = k4b_call(hl, x)
+        kern = cuda_ms(lambda: kde1d_grid_adjoint(*args, **kw), reps)
+        expect = []
+        plain_ms = cuda_ms(lambda: expect.append(kde1d_grid_adjoint_plain(
+            *args, **kw)), 1, 0)[0]
+        rel, abs_err = grad_compare("K4b", *k4b, args, kw, 1e-3, expect[0])
+        del expect
+        t_med, t_mad = med_mad([t / n for t in total])
+        f_med, f_mad = med_mad([t / n for t in fwd])
+        k_med, k_mad = med_mad([t / n for t in kern])
+        b_ms, b_by = k4b_bound(args)
+        k_call = statistics.median(kern)
+        b, s = args[0].shape
+        phase(24, f"timing binned {name}", f"[{smi}] per λ over {reps} calls "
+              f"of {n}, float32: value and gradient {t_med:.4f} ± {t_mad:.4f} "
+              f"ms (median ± MAD); forward {f_med:.4f} ± {f_mad:.4f} ms; K4b "
+              f"{k_med:.4f} ± {k_mad:.4f} ms; rest (glue backward) "
+              f"{t_med - f_med - k_med:.4f} ms; peak memory of one call "
+              f"{peak:.2f} GiB; K4b per call {k_call:.3f} ms at {b} rows x {s} "
+              f"bins x {args[2].shape[1]} grid, plain {plain_ms:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / k_call:.1f} % of it); on "
+              f"the path's cotangents max err {rel:.3e} of each row's max "
+              f"({abs_err:.3e} abs)")
+        entry = {"name": "kde1d_grid_adjoint (K4b)", "route": "cuda",
+                 "source": "chimera_tpu_torch/csrc/kde1d.cu",
+                 "replaces": "chimera_tpu/ops/kde.py:94", "launches": 1,
+                 "max_abs_err": abs_err, "ms": k_call, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        del hl, args, kw
+
+    # ---- 25. HMC and ChEES on the binned spectral headline, float32 ------
+    hl = likelihood(full, F32, **BINNED)
+    for name, run in (
+            ("hmc", lambda gen, prior: sample_hyperposterior(
+                gen, hl, list(PARAMS), BOUNDS, INIT, n_chains=n, n_warmup=4,
+                n_samples=4, n_leapfrog=4, init_step_size=0.03,
+                extra_log_prior=prior)),
+            ("chees", lambda gen, prior: sample_hyperposterior_chees(
+                gen, hl, list(PARAMS), BOUNDS, INIT, n_chains=n, n_warmup=4,
+                n_samples=4, max_steps=4, init_step_size=0.03,
+                extra_log_prior=prior))):
+        runs = []
+        for _ in range(2):
+            evals = [0]
+            for wrapper, attr in launch_counters().values():
+                setattr(wrapper, attr, 0)
+            t0 = time.perf_counter()
+            samples, stats = run(torch.Generator(device=DEV).manual_seed(SEED + 25),
+                                 counting_prior(evals))
+            torch.cuda.synchronize(DEV)
+            seconds = time.perf_counter() - t0
+            got = launch_counts()
+            runs.append(samples)
+            check_samples(name, samples, 4, n)
+            want = {"K4": evals[0], "K4b": evals[0]}
+            if evals[0] < 9 or got != {k: want.get(k, 0) for k in got}:
+                raise AssertionError(f"{name}: {evals[0]} gradient evaluations "
+                                     f"but launches {got}")
+        if not all(torch.equal(runs[0][p], runs[1][p]) for p in PARAMS):
+            raise AssertionError(f"{name}: a second run under the same "
+                                 "generator seed gave other samples")
+        if name == "hmc":
+            entry["launches"] = evals[0]
+        phase(25, name, f"binned spectral headline (binning=True, "
+              f"num_bins=200, cut_grid=2.0), {n} chains x (4 warm-up + 4 "
+              f"sampling steps) in {PARAMS}: {evals[0]} gradient evaluations = "
+              f"K4 = K4b launches, {seconds:.2f} s; samples finite and inside "
+              f"the bounds, equal bits on a second run; accept "
+              f"{float(stats['accept'].mean()):.2f}, step size "
+              f"{float(stats['step_size']):.4f}, H0 mean "
+              f"{float(samples['H0'].mean()):.2f} [{smi}]")
+    return entry
+
+
 # K3 on analysis grids at the spectral headline (the samplers' backward):
 # ms per call on the main path's cotangents, in the tree it is run from, with
 # the float32 Epanechnikov instantiation's ptxas lines.  It uses only helpers
@@ -1712,7 +2088,9 @@ def main() -> None:
     dark_entries, dark_data = dark(smi)
     kernels = [k1a, *dark_entries, sampler(smi, full),
                *reference_defaults(smi, full, dark_data),
-               *dark_gradients(smi, full, dark_data)]
+               *dark_gradients(smi, full, dark_data),
+               contract_path(smi, dark_data),
+               binned_gradients(smi, full, dark_data)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

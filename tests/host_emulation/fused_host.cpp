@@ -1,8 +1,9 @@
 // Serial host emulation of the fused weights+KDE kernel
-// (chimera_tpu_torch/csrc/fused_kde.cu, K1 in its four modes) and of the
-// batched KDE (chimera_tpu_torch/csrc/kde1d.cu, K4) from the same device
-// functions (kde.cuh, population.cuh): per (lambda, row) the kernel's
-// phases with a block of one thread, whose block sums are the identity.
+// (chimera_tpu_torch/csrc/fused_kde.cu, K1 in its five modes) and of the
+// batched KDE and its adjoint (chimera_tpu_torch/csrc/kde1d.cu, K4 and K4b)
+// from the same device functions (kde.cuh, population.cuh): per (lambda,
+// row) the kernel's phases with a block of one thread, whose block sums are
+// the identity.
 // Same C interfaces as the kernels', without the stream.  Built by
 // tests/test_torch_host_emulation.py.
 #include <vector>
@@ -32,19 +33,21 @@ void run_kernel(const FusedArgs<T>& a, int mode) {
   if (mode == kEffectiveGrid) run_mode<T, T, KERNEL, kEffectiveGrid>(a);
   if (mode == kExternalBounds) run_mode<T, double, KERNEL, kExternalBounds>(a);
   if (mode == kStatsOnly) run_mode<T, double, KERNEL, kStatsOnly>(a);
+  if (mode == kContract) run_mode<T, double, KERNEL, kContract>(a);
 }
 
 template <typename T>
 void run(const T* m1, const T* m2, const T* dl, const T* invp, const T* grids,
          const T* ext, const long long* n_real, const T* dl_fill,
-         const double* series, const T* params, T* den, T* stats, int L,
-         int B, int S, int G, int cheb_deg, int window_deg, int logical_s,
-         int mode, int kernel, int bw_mode, double bw_value, double cut_grid,
-         int unit_scale) {
+         const double* series, const T* params, const T* s1, const T* s2,
+         const T* f1, const T* f2, T* den, T* stats, int L, int B, int S,
+         int G, int cheb_deg, int window_deg, int logical_s, int mode,
+         int kernel, int bw_mode, double bw_value, double cut_grid,
+         int unit_scale, int npix) {
   const FusedArgs<T> a{m1, m2, dl, invp, grids, ext, n_real, dl_fill, series,
-                       params, den, stats, L, B, S, G, cheb_deg, window_deg,
-                       logical_s, bw_mode, unit_scale, (T)bw_value,
-                       (T)cut_grid};
+                       params, s1, s2, f1, f2, den, stats, L, B, S, G,
+                       cheb_deg, window_deg, logical_s, bw_mode, unit_scale,
+                       npix, (T)bw_value, (T)cut_grid};
   if (kernel == 0) run_kernel<T, 0>(a, mode);
   else run_kernel<T, 1>(a, mode);
 }
@@ -63,19 +66,41 @@ void run_kde1d(const T* z, const T* w, const T* grids, const T* h, T* out,
   }
 }
 
+template <typename T, int KERNEL>
+void run_kde1d_adjoint(const T* z, const T* w, const T* grids, const T* h,
+                       const T* out, const T* d_out, T* d_z, T* d_w,
+                       T* d_grid, T* d_h, int B, int S, int G) {
+  std::vector<double2> zw(S), gd(G);
+  for (int b = 0; b < B; ++b) {
+    for (int s = 0; s < S; ++s) {
+      zw[s].x = z[(size_t)b * S + s];
+      zw[s].y = w[(size_t)b * S + s];
+    }
+    for (int g = 0; g < G; ++g) {
+      gd[g].x = grids[(size_t)b * G + g];
+      gd[g].y = d_out[(size_t)b * G + g];
+    }
+    kde_row_adjoint<double, KERNEL>(
+        HostBlock<double>{}, zw.data(), S, gd.data(), G, out + (size_t)b * G,
+        double(h[b]), d_z + (size_t)b * S, d_w + (size_t)b * S,
+        d_grid + (size_t)b * G, d_h + b);
+  }
+}
+
 }  // namespace
 
 #define FUSED_ARGS(T)                                                        \
   const T *m1, const T *m2, const T *dl, const T *invp, const T *grids,     \
       const T *ext, const long long *n_real, const T *dl_fill,              \
-      const double *series, const T *params, T *den, T *stats, int L, int B, \
-      int S, int G, int cheb_deg, int window_deg, int logical_s, int mode,   \
-      int kernel, int bw_mode, double bw_value, double cut_grid,             \
-      int unit_scale
+      const double *series, const T *params, const T *s1, const T *s2,      \
+      const T *f1, const T *f2, T *den, T *stats, int L, int B, int S, int G, \
+      int cheb_deg, int window_deg, int logical_s, int mode, int kernel,     \
+      int bw_mode, double bw_value, double cut_grid, int unit_scale,         \
+      int npix
 #define FUSED_CALL                                                            \
-  run(m1, m2, dl, invp, grids, ext, n_real, dl_fill, series, params, den,    \
-      stats, L, B, S, G, cheb_deg, window_deg, logical_s, mode, kernel,      \
-      bw_mode, bw_value, cut_grid, unit_scale)
+  run(m1, m2, dl, invp, grids, ext, n_real, dl_fill, series, params, s1, s2, \
+      f1, f2, den, stats, L, B, S, G, cheb_deg, window_deg, logical_s, mode,  \
+      kernel, bw_mode, bw_value, cut_grid, unit_scale, npix)
 
 extern "C" void host_fused_kde_f32(FUSED_ARGS(float)) { FUSED_CALL; }
 extern "C" void host_fused_kde_f64(FUSED_ARGS(double)) { FUSED_CALL; }
@@ -93,3 +118,17 @@ extern "C" void host_kde1d_f64(const double* z, const double* w,
   if (kernel == 0) run_kde1d<double, 0>(z, w, grids, h, out, B, S, G);
   else run_kde1d<double, 1>(z, w, grids, h, out, B, S, G);
 }
+
+#define KDE1D_ADJOINT(T, NAME)                                               \
+  extern "C" void NAME(const T* z, const T* w, const T* grids, const T* h,   \
+                       const T* out, const T* d_out, T* d_z, T* d_w,        \
+                       T* d_grid, T* d_h, int B, int S, int G, int kernel) { \
+    if (kernel == 0)                                                         \
+      run_kde1d_adjoint<T, 0>(z, w, grids, h, out, d_out, d_z, d_w, d_grid,  \
+                              d_h, B, S, G);                                 \
+    else                                                                     \
+      run_kde1d_adjoint<T, 1>(z, w, grids, h, out, d_out, d_z, d_w, d_grid,  \
+                              d_h, B, S, G);                                 \
+  }
+KDE1D_ADJOINT(float, host_kde1d_adjoint_f32)
+KDE1D_ADJOINT(double, host_kde1d_adjoint_f64)

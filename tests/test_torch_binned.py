@@ -2,8 +2,9 @@
 default configuration, ``binning=True, num_bins=200, cut_grid=2.0`` —
 against the JAX package on identical inputs: the binning, the uniform-grid
 interpolation, the 1-D KDE's parameters and contraction, the batched KDE's
-plain version (K4), ``log_like_batch`` for every kind with and without
-effective grids, its gradient, and the float32 bar of the configuration.
+plain version (K4) and the plain version of its adjoint (K4b),
+``log_like_batch`` for every kind with and without effective grids, its
+gradient, and the float32 bar of the configuration.
 
 Data: conftest's session fixtures (the spectral ``mock_catalog``, 16 events
 x 256 samples on ``mock_z_grids`` of 200 points; the dark
@@ -28,9 +29,11 @@ from chimera_tpu.ops.pallas.kde import kde1d_grid as pallas_kde1d_grid
 from chimera_tpu_torch import HyperLikelihood
 from chimera_tpu_torch.convert import state_from_reference
 from chimera_tpu_torch.ops.binning import binning1d
-from chimera_tpu_torch.ops.cuda.kde import kde1d_grid_plain
+from chimera_tpu_torch.ops.cuda.kde import (kde1d_grid_adjoint_plain,
+                                            kde1d_grid_plain)
 from chimera_tpu_torch.ops.interp import uniform_interp
-from chimera_tpu_torch.ops.kde import kde1d_core, kde1d_params
+from chimera_tpu_torch.ops.kde import (MAX_FORM_KERNELS, KERNELS, kde1d_core,
+                                       kde1d_params)
 
 F64, F32 = torch.float64, torch.float32
 H0S = np.linspace(55.0, 95.0, 9)
@@ -130,6 +133,63 @@ def test_kde1d_grid_plain_matches_the_pallas_kernel(kernel):
                                atol=1e-12 * np.abs(expect).max())
 
 
+def test_epanechnikov_slope_at_the_support_edge():
+    """At |u| = 1 exactly the select form of ``kde1d_core`` keeps all of
+    the slope -1.5 u and the max form of the Pallas kernels' references
+    half of it, in both packages (``torch.clamp_min`` would keep all of it
+    in the max form)."""
+    u = np.array([-2.0, -1.0, -0.5, 0.0, 0.5, 1.0, 2.0])
+    for port, ref in ((KERNELS["epan"], jkde.epanechnikov_kernel),
+                      (MAX_FORM_KERNELS["epan"],
+                       lambda v: 0.75 * jnp.maximum(0.0, 1.0 - v * v))):
+        x = _t(u).requires_grad_()
+        got = torch.autograd.grad(port(x).sum(), x)[0]
+        expect = np.asarray(jax.grad(lambda v: jnp.sum(ref(v)))(jnp.asarray(u)))
+        np.testing.assert_array_equal(port(x).detach().numpy(),
+                                      np.asarray(ref(jnp.asarray(u))))
+        np.testing.assert_array_equal(got.numpy(), expect)
+    assert expect[1] == 0.75 and expect[5] == -0.75
+
+
+@pytest.mark.parametrize("kernel", ["epan", "gauss"])
+def test_kde1d_grid_adjoint_plain_matches_jax_vjp(kernel):
+    """K4b's plain version against ``jax.vjp`` of ``kde1d_core`` row by row,
+    d_z, d_w, d_grids and d_h each within 1e-9 of its row's largest entry
+    (d_h of the largest |d_h|), on 200 bin centres x 150 grid points: a row
+    of zero weights, a zero-span row, and a row whose grid points sit at
+    |u| = 1 exactly of some samples (z and grid on multiples of 1/8, h =
+    1/4), where the select form takes all of the slope."""
+    z, w = _rows(3, s=200)
+    rng = np.random.default_rng(3)
+    z[3] = rng.integers(4, 12, 200) / 8.0
+    grid = np.linspace(0.0, 3.0, 150)[None] * np.linspace(0.8, 1.2, 6)[:, None]
+    grid[3] = np.arange(150) / 8.0 - 4.0
+    wn, h = (np.array(a) for a in jkde.kde1d_params(jnp.asarray(z),
+                                                     jnp.asarray(w), None))
+    h[3] = 0.25
+    d_out = rng.normal(size=(6, 150))
+
+    def vjp(z, g, w, h, d):
+        out, pull = jax.vjp(lambda *a: jkde.kde1d_core(*a, kernel), z, g, w, h)
+        return (out, *pull(d))
+
+    out, ez, eg, ew, eh = jax.vmap(vjp)(*(jnp.asarray(a) for a in
+                                          (z, grid, wn, h, d_out)))
+    # the inputs a backward hands it require grad: it records no graph
+    got = kde1d_grid_adjoint_plain(
+        *(_t(a).requires_grad_() for a in (z, wn, grid, h, out)), _t(d_out),
+        kernel)
+    assert not any(g.requires_grad for g in got)
+    ties = np.abs((grid[3][:, None] - z[3][None, :]) / 0.25) == 1.0
+    assert ties.any() and np.all(np.asarray(out)[1] == 0)
+    for g, e in zip(got, (ez, ew, eg, eh)):
+        e = np.asarray(e).reshape(6, -1) if np.ndim(e) == 2 else np.asarray(e)[None]
+        g = g.detach().numpy().reshape(e.shape)
+        assert np.all(np.isfinite(g))
+        scale = np.maximum(np.abs(e).max(axis=-1, keepdims=True), 1e-300)
+        assert np.max(np.abs(g - e) / scale) <= 1e-9
+
+
 # ---------------------------------------------------------------------------
 # the likelihood end to end
 # ---------------------------------------------------------------------------
@@ -211,6 +271,28 @@ def test_binned_gradient(spectral):
     got = torch.autograd.grad(hl.log_like_batch({"H0": h}).sum(), h)[0]
     assert np.all(np.isfinite(expect)) and np.all(expect != 0)
     assert _rel(got, expect) <= 1e-9
+
+
+@pytest.mark.parametrize("kind,cut_grid", [
+    ("approximate", 2.0), ("approximate", None), ("marginalized", 2.0),
+    ("marginalized", None)])
+def test_binned_gradient_of_the_dark_kinds(dark_siren_setup, kind, cut_grid):
+    """d log L / d(H0, mu_g) of binned 'approximate' and 'marginalized'
+    (the masked-dense pixel layout), with and without effective grids:
+    autograd through the plain versions against ``jax.grad`` of the vmap
+    engine, within 1e-9."""
+    jhl = _jax_hl(dark_siren_setup, kind=kind, binning=True, cut_grid=cut_grid)
+    h0s, mus = np.array([62.0, 70.0, 77.5]), np.array([33.0, 34.0, 35.0])
+    expect = jax.grad(lambda h, m: jnp.sum(jhl.log_like_batch(
+        {"H0": h, "mu_g": m})), argnums=(0, 1))(jnp.asarray(h0s), jnp.asarray(mus))
+    hl = HyperLikelihood.from_state(state_from_reference(jhl), "cpu", F64)
+    assert (hl.kind, hl.binning, hl.cut_grid) == (kind, True, cut_grid)
+    h, m = (torch.tensor(a, dtype=F64, requires_grad=True) for a in (h0s, mus))
+    got = torch.autograd.grad(hl.log_like_batch({"H0": h, "mu_g": m}).sum(),
+                              (h, m))
+    for g, e in zip(got, expect):
+        assert np.all(np.isfinite(e)) and np.all(np.asarray(e) != 0)
+        assert _rel(g, e) <= 1e-9
 
 
 @pytest.mark.parametrize("kind", ["1d", "marginalized"])

@@ -2,7 +2,8 @@
 (spectral) and its adjoint K3, K1c and K2 (dark siren), the effective-grid
 modes K1b and K1d and the batched KDE K4 (the reference's binned defaults),
 K3 in the modes of K1b, K1c and K1d and the rows-contraction adjoint K2b
-(the dark-siren and effective-grid gradients).
+(the dark-siren and effective-grid gradients), the contract pass K1e and
+K4's adjoint K4b (the binned gradient).
 
 Every test here needs a CUDA card and nvcc (marker ``cuda``) and skips
 without one.  The file imports no JAX, so it runs on a machine without it:
@@ -18,7 +19,8 @@ import pytest
 import torch
 
 from chimera_tpu_torch import HyperLikelihood, SelectionFunction
-from chip_smoke import mode_inputs, row_rel, rows_inputs
+from chip_smoke import (contract_inputs, grad_compare, mode_inputs, row_rel,
+                        rows_inputs)
 from chimera_tpu_torch.data.mock import make_mock_catalog, make_mock_injections
 from chimera_tpu_torch.models import (FLRW, MadauDickinsonRate, Population,
                                       PowerLawPeak, compute_z_grids)
@@ -639,17 +641,172 @@ def test_reference_defaults_run_on_the_card(cuda):
 
 
 def test_new_kernels_refuse_grad(cuda, cpu_hl):
-    """K4 has no backward, in either package (``jax.grad`` through the JAX
-    package's Pallas KDE raises): the binned path raises where a model
-    tensor requires grad, and K4 where an input does, instead of dropping
-    their part.  (K1b and K1d have one: K3 in their modes.)"""
-    from chimera_tpu_torch.ops.cuda.kde import kde1d_grid
+    """The binned path's gradient runs on the card: K4 forward, K4b
+    backward (the JAX package has no kernel for it: ``jax.grad`` through
+    its Pallas KDE raises), one launch each, within 1e-9 of autograd
+    through the plain versions on the CPU in float64; K4 on an input that
+    requires grad gives that input its cotangent.  (The kernel without a
+    backward is now K1e: ``test_contract_gradient_raises_on_the_card``.)"""
+    from chimera_tpu_torch.ops.cuda.kde import kde1d_grid, kde1d_grid_plain
 
+    cpu = _spectral_hl(dead_event=False, binning=True, cut_grid=2.0)
+    card = copy.deepcopy(cpu).to(cuda)
+    got = _launched(lambda: _grad(card, cuda), {"K4": 1, "K4b": 1})
+    expect = _grad(cpu, "cpu")
+    assert torch.all(torch.isfinite(expect))
+    torch.testing.assert_close(got, expect, rtol=1e-9, atol=0)
+    z = (1.0 + 0.2 * torch.rand((4, 200), dtype=torch.float64, device=cuda)
+         ).requires_grad_()
+    w = torch.full((4, 200), 1.0 / 200, dtype=torch.float64, device=cuda)
+    grids = torch.linspace(0.5, 1.5, 50, dtype=torch.float64, device=cuda
+                           ).expand(4, 50).contiguous()
+    h = torch.full((4,), 0.1, dtype=torch.float64, device=cuda)
+    d_z = torch.autograd.grad(kde1d_grid(z, w, grids, h).sum(), z)[0]
+    zc = z.detach().cpu().requires_grad_()
+    expect = torch.autograd.grad(kde1d_grid_plain(
+        zc, w.cpu(), grids.cpu(), h.cpu()).sum(), zc)[0]
+    torch.testing.assert_close(d_z.cpu(), expect, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("kind,cut_grid", [
+    ("approximate", 2.0), ("approximate", None), ("marginalized", 2.0),
+    ("marginalized", None)])
+def test_binned_gradient_on_card_matches_cpu(cuda, dark_inputs, kind, cut_grid):
+    """d log L / d(H0, Om0, mu_g) of binned 'approximate' and 'marginalized'
+    (the masked-dense pixel layout) on the card, with and without effective
+    grids: one K4 and one K4b launch, float64 within 1e-9 of autograd on
+    the CPU."""
+    cpu = HyperLikelihood.create(*dark_inputs, kind=kind, binning=True,
+                                 cut_grid=cut_grid)
+    card = copy.deepcopy(cpu).to(cuda)
+    got = _launched(lambda: _grad(card, cuda), {"K4": 1, "K4b": 1})
+    expect = _grad(cpu, "cpu")
+    assert torch.all(torch.isfinite(expect))
+    torch.testing.assert_close(got, expect, rtol=1e-9, atol=0)
+
+
+def _k4_rows(gen, g: int):
+    """K4's inputs on 300 rows of 200 normalized weights: a row of zero
+    weights (7) and a row whose grid points sit at |u| = 1 exactly of some
+    samples (11: z and grid on multiples of 1/8, h = 1/4)."""
+    f64 = torch.float64
+    z = 1.0 + 0.2 * torch.randn((300, 200), generator=gen, dtype=f64)
+    w = torch.rand((300, 200), generator=gen, dtype=f64)
+    w[7] = 0.0
+    w = w / w.sum(dim=1, keepdim=True).clamp_min(1e-300)
+    h = 0.02 + 0.08 * torch.rand(300, generator=gen, dtype=f64)
+    grids = torch.linspace(0.3, 1.8, g, dtype=f64)[None] \
+        * (0.8 + 0.4 * torch.rand((300, 1), generator=gen, dtype=f64))
+    z[11] = torch.randint(4, 12, (200,), generator=gen).to(f64) / 8.0
+    grids[11] = torch.arange(g, dtype=f64) / 8.0 - 4.0
+    h[11] = 0.25
+    return z, w, grids, h
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 1e-3)])
+@pytest.mark.parametrize("kernel", ["epan", "gauss"])
+def test_k4b_matches_plain(cuda, dtype, tol, kernel):
+    """K4b against ``kde1d_grid_adjoint_plain`` on 250- and 500-point grids:
+    d_z, d_w, d_grids within tol of each row's largest entry, d_h of the
+    largest |d_h| (``chip_smoke.grad_compare``: in float32, where the
+    float32 plain version itself is further off, against the float64 one on
+    the same inputs); one launch, equal bits on a second; the row of zero
+    weights gets finite cotangents, zero but for d_w."""
+    from chimera_tpu_torch.ops.cuda.kde import (kde1d_grid, kde1d_grid_adjoint,
+                                                kde1d_grid_adjoint_plain)
+
+    gen = torch.Generator().manual_seed(5)
+    for g in (250, 500):
+        z, w, grids, h = (t.to(device=cuda, dtype=dtype) for t in _k4_rows(gen, g))
+        out = kde1d_grid(z, w, grids, h, kernel=kernel)
+        d_out = torch.randn((300, g), generator=gen, dtype=torch.float64
+                            ).to(device=cuda, dtype=dtype)
+        args = (z, w, grids, h, out, d_out, kernel)
+        got = _launched(lambda: kde1d_grid_adjoint(*args), {"K4b": 1})
+        grad_compare("K4b", kde1d_grid_adjoint, kde1d_grid_adjoint_plain,
+                     args, {}, tol)
+        assert all(torch.all(t[7] == 0) for t in (got[0], got[2], got[3]))
+
+
+@pytest.fixture(scope="module")
+def contract_cpu_hl(dark_inputs):
+    """The dark flagship configuration on a layout without chunk rows: the
+    contract path (K1e)."""
+    return HyperLikelihood._create(
+        *dark_inputs, kind="marginalized", kernel="epan", bw_method=None,
+        cut_grid=None, binning=False, num_bins=200, pe_neff=2.0,
+        chunk_rows=False)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("kernel", ["epan", "gauss"])
+def test_k1e_matches_plain(cuda, contract_cpu_hl, dtype, tol, kernel):
+    """K1e on the logical pixel rows (a dead pixel among them) against its
+    plain version: r1 and r2 within tol of their largest value over the
+    rows of each λ, exact zeros on the rows without weight, the stats of
+    the rows with weight within tol; one launch."""
+    from chimera_tpu_torch.ops.cuda.fused import fused_weights_kde_plain
+
+    hl = copy.deepcopy(contract_cpu_hl).to(device=cuda, dtype=dtype)
+    args, kw = contract_inputs(hl, {"H0": H0S}, kernel)
+    r, st = _launched(lambda: fused_weights_kde(*args, **kw), {"K1e": 1})
+    r_p, st_p = fused_weights_kde_plain(*args, **kw)
+    live = st_p["sum_w"] > 0
+    assert not live.all() and torch.all(r[~live] == 0)
+    assert row_rel(r, r_p) <= tol
+    for k in ("norms", "neff", "bandwidth", "sum_w", "sum_w2"):
+        rel = ((st[k] - st_p[k]).abs() / st_p[k].abs())[live].max().item()
+        assert rel <= tol, (k, rel)
+
+
+def test_contract_path_matches_cpu(cuda, contract_cpu_hl, dark_cpu_hl):
+    """The contract path on the card: one K1e launch a batch and nothing
+    else, log L within 1e-10 of the CPU's and of the rows path's in
+    float64."""
+    card = copy.deepcopy(contract_cpu_hl).to(cuda)
+    got = _launched(lambda: card.log_like_batch({"H0": H0S}), {"K1e": 1}).cpu()
+    expect = contract_cpu_hl.log_like_batch({"H0": H0S})
+    assert torch.all(torch.isfinite(expect))
+    torch.testing.assert_close(got, expect, rtol=1e-10, atol=0)
+    torch.testing.assert_close(got, dark_cpu_hl.log_like_batch({"H0": H0S}),
+                               rtol=1e-10, atol=0)
+
+
+def test_contract_gradient_raises_on_the_card(cuda, contract_cpu_hl):
+    """K1e has no adjoint kernel (the JAX package's backward of the contract
+    epilogue is XLA's recompute, whose (L, B, G, S_pp) intermediate no card
+    holds at the flagship): the contract path's gradient raises on CUDA
+    tensors instead of coming back short, and runs on CPU tensors."""
+    card = copy.deepcopy(contract_cpu_hl).to(cuda)
     h0 = torch.tensor(H0S, dtype=torch.float64, device=cuda, requires_grad=True)
-    card = copy.deepcopy(_spectral_hl(dead_event=False, binning=True,
-                                      cut_grid=2.0)).to(cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="K1e's adjoint"):
         card.log_like_batch({"H0": h0})
-    z = torch.rand((4, 200), dtype=torch.float64, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="kde1d_grid"):
-        kde1d_grid(z, z.detach(), z.detach()[:, :50], z.detach()[:, 0])
+    assert torch.all(torch.isfinite(_grad(contract_cpu_hl, "cpu")))
+
+
+def test_binned_hmc_repeats_bit_for_bit(cuda):
+    """HMC on the reference's defaults (binned, cut_grid=2.0), float32: two
+    runs under the same generator seed give the same samples (the binning
+    and the resampling accumulate in a fixed order); each gradient
+    evaluation is one K4 and one K4b launch."""
+    from chimera_tpu_torch.inference import sample_hyperposterior
+
+    card = copy.deepcopy(_spectral_hl(dead_event=False, binning=True,
+                                      cut_grid=2.0)).to(cuda, torch.float32)
+    bounds = {"H0": (40.0, 120.0), "Om0": (0.05, 0.6)}
+
+    def run():
+        before = launch_counts()
+        samples, _ = sample_hyperposterior(
+            torch.Generator(device=cuda).manual_seed(5), card, ["H0", "Om0"],
+            bounds, {"H0": 70.0, "Om0": 0.25}, n_chains=4, n_warmup=3,
+            n_samples=3, n_leapfrog=3)
+        after = launch_counts()
+        return samples, after["K4"] - before["K4"], after["K4b"] - before["K4b"]
+
+    first, k4, k4b = run()
+    assert k4 == k4b >= 7
+    second, _, _ = run()
+    for k, lo_hi in bounds.items():
+        assert torch.all((first[k] > lo_hi[0]) & (first[k] < lo_hi[1]))
+        assert torch.equal(first[k], second[k])

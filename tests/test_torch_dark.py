@@ -1,7 +1,8 @@
 """The dark-siren 'marginalized' slice of the PyTorch port against the JAX
 package on identical inputs: the pixelization and its sample layouts, the
-pixelated-catalog build, the two kernels' plain versions (K1c stats pass,
-K2 rows contract) and ``log_like_batch`` end to end.
+pixelated-catalog build, the kernels' plain versions (K1c stats pass, K2
+rows contract, K1e contract pass) and ``log_like_batch`` end to end, on the
+rows path and on the contract path (a layout without chunk rows).
 
 Data: the session fixtures ``dark_siren_setup`` / ``dark_siren_extras``
 (8 events x 256 PE samples, nside {8, 16}, ~6 pixels per event, 100-point
@@ -32,7 +33,8 @@ from chimera_tpu_torch.convert import state_from_reference
 from chimera_tpu_torch.data import pixelize as tpix
 from chimera_tpu_torch.data.structs import ThetaPEDet
 from chimera_tpu_torch.models import FLRW, PowerLawPeak
-from chimera_tpu_torch.ops.cuda.fused import STAT_NAMES, fused_row_stats
+from chimera_tpu_torch.ops.cuda.fused import (STAT_NAMES, fused_row_stats,
+                                              fused_weights_kde)
 from chimera_tpu_torch.ops.cuda.rows import fused_rows_contract
 
 F64 = torch.float64
@@ -217,6 +219,44 @@ def test_rows_contract_plain_matches_rows_reference(jax_hl, batch4, kernel):
                                atol=1e-12 * np.abs(expect).max())
 
 
+@pytest.mark.parametrize("kernel", ["epan", "gauss"])
+def test_contract_plain_matches_reference_impl(jax_hl, batch4, kernel):
+    """K1e: the contract epilogue (``_reference_impl``'s ``npix`` branch) on
+    the JAX per-pixel layout and contraction factors: r within 1e-10 (of
+    each λ's largest |r|), exactly 0 on the dead pixel rows, and the stats
+    of the rows with weight."""
+    pop_b, cosmo, mass = batch4
+    c = jax_hl.compact
+    e, p, s_pp = c["dL"].shape
+    flat = [c[k].reshape(e * p, s_pp) for k in ("m1det", "m2det", "dL", "inv_pe_prior")]
+    n_real, dl_fill = c["n_real"].reshape(-1), jnp.repeat(c["dl_fill"], p)
+    grids = jnp.repeat(jax_hl.z_grids, p, axis=0)
+    s1, s2 = _marg_static_factors(jax_hl)
+    f1, f2, _ = _marg_lambda_factors(jax_hl, pop_b)
+    cfg = _FusedCfg(kernel=kernel, bw_method=None, cut_grid=None,
+                    n_grid=grids.shape[1], den_scale="unit", interpret=False,
+                    logical_s=256, npix=p)
+    r_e, st_e = _reference_impl(cfg, *flat, pop_b.cosmo, pop_b.mass, grids,
+                                n_real, dl_fill, None, s1, s2, f1, f2)
+    r, st = fused_weights_kde(*[_t(a) for a in flat], cosmo, mass, _t(grids),
+                              kernel=kernel, n_real=_t(n_real, torch.int64),
+                              dl_fill=_t(dl_fill), logical_s=256,
+                              den_scale="unit",
+                              contract=tuple(_t(a) for a in (s1, s2, f1, f2)))
+    r_e = np.asarray(r_e)
+    live = np.asarray(n_real) > 0
+    assert r.shape == r_e.shape == (4, e * p, 2) and not live.all()
+    assert np.all(r.numpy()[:, ~live] == 0) and np.all(r_e[:, ~live] == 0)
+    # r2 is 0 where the catalog is complete (P_compl = 1)
+    scale = np.maximum(np.abs(r_e).max(axis=1, keepdims=True), 1e-300)
+    assert np.abs(r_e[..., 0]).max() > 0
+    assert np.max(np.abs(r.numpy() - r_e) / scale) <= 1e-10
+    for k in ("norms", "neff", "bandwidth", "sum_w", "sum_w2"):
+        np.testing.assert_allclose(st[k].numpy()[:, live],
+                                   np.asarray(st_e[k])[:, live], rtol=1e-10,
+                                   atol=0, err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # end to end
 # ---------------------------------------------------------------------------
@@ -234,6 +274,28 @@ def test_log_like_batch(jax_hl, state, batch):
     got32 = HyperLikelihood.from_state(state, "cpu", torch.float32).log_like_batch(hyper)
     assert got32.dtype == torch.float32
     assert _rel(got32, expect) <= 1e-5
+
+
+@pytest.mark.parametrize("batch", ["H0", "multi"])
+def test_contract_path_log_like_batch(jax_hl, state, batch):
+    """A JAX object whose layout has no chunk rows (its ``compact`` without
+    'rows', which ``_fused_batch_marginalized`` sends to the contract pass)
+    comes over as the port's contract path (one K1e pass): float64 within
+    1e-10 of the JAX package's log L and of the port's rows path."""
+    hyper = {"H0": H0S} if batch == "H0" else MULTI
+    no_rows = pytree.replace(jax_hl, compact={
+        k: v for k, v in jax_hl.compact.items() if k != "rows"})
+    expect = np.asarray(no_rows.log_like_batch(
+        {k: jnp.asarray(v) for k, v in hyper.items()}))
+    assert np.all(np.isfinite(expect))
+    st = state_from_reference(no_rows)
+    assert not st["compact_rows"] and state["compact_rows"]
+    hl = HyperLikelihood.from_state(st, "cpu", F64)
+    assert not hl.chunk_rows and hasattr(hl, "pix_s1") and not hasattr(hl, "row_dL")
+    got = hl.log_like_batch(hyper)
+    assert _rel(got, expect) <= 1e-10
+    rows = HyperLikelihood.from_state(state, "cpu", F64).log_like_batch(hyper)
+    assert _rel(got, rows.numpy()) <= 1e-10
 
 
 def test_compute_all(jax_hl, state):

@@ -35,7 +35,7 @@ from chimera_tpu_torch import HyperLikelihood, SelectionFunction
 from chimera_tpu_torch.data.mock import make_mock_catalog, make_mock_injections
 from chimera_tpu_torch.models import (FLRW, MadauDickinsonRate, Population,
                                       PowerLawPeak, compute_z_grids)
-from chimera_tpu_torch.ops.cuda import fused, launch_counts, rows
+from chimera_tpu_torch.ops.cuda import fused, kde, launch_counts, rows
 
 HERE = Path(__file__).resolve().parent / "host_emulation"
 CSRC = Path(fused.__file__).resolve().parents[2] / "csrc"
@@ -252,24 +252,27 @@ def test_emulated_kernel_engine_gradient(host_lib, data, monkeypatch, kernel,
 def _host_fused(lib, mode, m1det, m2det, dl, inv_pe_prior, cosmo, mass,
                 grids=None, kernel="epan", n_grid=0, ext_bounds=None,
                 n_real=None, dl_fill=None, logical_s=None, cut_grid=None,
-                den_scale="norms"):
+                den_scale="norms", contract=None):
     """``fused._launch_k1``'s arguments on the host emulation."""
     dt = dl.dtype
     b, s = dl.shape
     n = max(cosmo.L, mass.L)
     series, params = fused.pack_params(cosmo, mass, n, dt)
-    g = grids.shape[1] if mode == fused._ANALYSIS_GRID else \
+    g = grids.shape[1] if mode in (fused._ANALYSIS_GRID, fused._CONTRACT) else \
         0 if mode == fused._STATS_ONLY else n_grid
-    den = torch.zeros((n, b, max(g, 1)), dtype=dt)
+    den = torch.zeros((n, b, 2 if mode == fused._CONTRACT else max(g, 1)),
+                      dtype=dt)
     stats = torch.zeros((n, b, 8), dtype=dt)
     fn = getattr(lib, "host_fused_kde_" + ("f64" if dt == F64 else "f32"))
     fn.restype = None
+    factors = [None] * 4 if contract is None else [t.contiguous() for t in contract]
     keep = [t.contiguous() if t is not None else None for t in
             (m1det, m2det, dl, inv_pe_prior, grids, ext_bounds, n_real, dl_fill)]
-    fn(*[_ptr(t) for t in (*keep, series, params, den, stats)], n, b, s, g,
-       cosmo.cheb_deg, mass.window_deg, logical_s or 0, mode,
+    fn(*[_ptr(t) for t in (*keep, series, params, *factors, den, stats)], n, b,
+       s, g, cosmo.cheb_deg, mass.window_deg, logical_s or 0, mode,
        0 if kernel == "epan" else 1, 0, ctypes.c_double(0.0),
-       ctypes.c_double(cut_grid or 0.0), int(den_scale == "unit"))
+       ctypes.c_double(cut_grid or 0.0), int(den_scale == "unit"),
+       0 if contract is None else b // contract[2].shape[1])
     return den, fused._stats_dict(stats)
 
 
@@ -294,13 +297,15 @@ def _pixel_rows(cat, dtype):
 @pytest.mark.parametrize("mode,kernel", [
     ("analysis", "epan"), ("analysis", "gauss"), ("effective", "epan"),
     ("effective", "gauss"), ("stats", "epan"), ("stats_logical", "epan"),
-    ("external", "epan"), ("external", "gauss")])
+    ("external", "epan"), ("external", "gauss"), ("contract", "epan"),
+    ("contract", "gauss")])
 def test_emulated_fused_modes_match_plain(fused_host_lib, data, mode, kernel,
                                           dtype):
     """Float64 within 1e-12 and float32 within 1e-4 of each density row's
     largest value (the spectral modes sum the Chebyshev series in float32,
     the plain version in float64), stats likewise, on the rows with
-    weight."""
+    weight; the contract mode's r1 and r2 each within the same of their
+    largest value over the rows, and exactly 0 on the dead pixel rows."""
     cat, z_grids, _, _ = data
     pop = _population(dtype).update_batch({"H0": [62.0, 70.0, 81.0]})
     cosmo, mass = pop.cosmo, pop.mass
@@ -317,6 +322,11 @@ def test_emulated_fused_modes_match_plain(fused_host_lib, data, mode, kernel,
         kw.update(n_real=n_real, dl_fill=dl_fill, logical_s=cat.dL.shape[1])
         if mode == "stats_logical":
             m, kw["cut_grid"] = fused._STATS_ONLY, 2.0
+        elif mode == "contract":
+            m, kw["den_scale"] = fused._CONTRACT, "unit"
+            kw["grids"] = z_grids.to(dtype).repeat_interleave(4, dim=0)
+            kw["contract"] = _contract_factors(pe[2].shape[0], 4, 3,
+                                               z_grids.shape[1], dtype)
         else:
             m, kw["n_grid"], kw["den_scale"] = fused._EXTERNAL_BOUNDS, 24, "unit"
             ev = fused.fused_row_stats_plain(
@@ -337,11 +347,81 @@ def test_emulated_fused_modes_match_plain(fused_host_lib, data, mode, kernel,
             else st_p["ub"].abs().max().double()
         err = (st[k].double() - st_p[k].double()).abs() / ref.clamp_min(1e-300)
         assert err[live].max() <= tol, k
-    if not stats_only:
+    if m == fused._CONTRACT:
+        assert torch.all(den[~live] == 0) and torch.all(den_p[~live] == 0)
+        r_max = den_p.double().abs().amax(dim=1, keepdim=True)
+        assert ((den.double() - den_p.double()).abs() / r_max).max() <= tol
+    elif not stats_only:
         # a row whose 24 grid points all miss its samples' support is 0
         row_max = den_p.abs().amax(dim=-1).double().clamp_min(1e-300)
         err = (den.double() - den_p.double()).abs().amax(dim=-1) / row_max
         assert err[live].max() <= tol
+
+
+def _contract_factors(b: int, npix: int, n: int, g: int, dtype, seed=6):
+    """Random positive K1e factors: s1, s2 (b, g) per row, f1, f2
+    (n, b / npix, g) per (λ, event)."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, dtype=F64).to(dtype)
+
+    return (rand(b, g), rand(b, g), rand(n, b // npix, g), rand(n, b // npix, g))
+
+
+def _kde_rows(dtype, b=9, s=200, g=250, seed=4):
+    """K4's inputs: b rows of s normalized weights on g-point grids, the
+    bandwidths, a row of zero weights (row 1) and, for the Epanechnikov
+    slope, a row whose grid points sit at |u| = 1 exactly of some samples
+    (row 2: z and the grid on multiples of 1/8, h = 1/4)."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(1.0, 0.2, (b, s))
+    w = rng.uniform(size=(b, s))
+    w[1] = 0.0
+    z[2] = rng.integers(4, 12, s) / 8.0
+    w = w / np.maximum(w.sum(axis=1, keepdims=True), 1e-300)
+    grids = np.linspace(0.3, 1.8, g)[None] * rng.uniform(0.8, 1.2, (b, 1))
+    grids[2] = np.arange(g) / 8.0 - 4.0
+    h = rng.uniform(0.02, 0.1, b)
+    h[2] = 0.25
+    return [torch.tensor(a, dtype=dtype) for a in (z, w, grids, h)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(F64, 1e-12), (F32, 1e-6)])
+@pytest.mark.parametrize("kernel", ["epan", "gauss"])
+def test_emulated_kde1d_adjoint_matches_plain(fused_host_lib, kernel, dtype,
+                                              tol):
+    """K4b's arithmetic against ``kde1d_grid_adjoint_plain``: d_z, d_w,
+    d_grids and d_h within tol of each row's largest entry (d_h of the
+    largest |d_h|), on 250- and 130-point grids; in float32 against the
+    float64 plain version on the same inputs (the kernel computes in
+    double, and rounds its outputs to float32 once).  The row of zero
+    weights gets finite cotangents, zero but for d_w; the row with ties at
+    |u| = 1 takes all of the Epanechnikov slope there (``kde1d_core``'s
+    select form), as the plain version does."""
+    from chimera_tpu_torch.ops.cuda.kde import (kde1d_grid_adjoint_plain,
+                                                kde1d_grid_plain)
+
+    for g in (250, 130):
+        z, w, grids, h = _kde_rows(dtype, g=g)
+        out = kde1d_grid_plain(z, w, grids, h, kernel)
+        d_out = torch.tensor(np.random.default_rng(g).normal(size=out.shape),
+                             dtype=dtype)
+        got = [torch.zeros_like(t) for t in (z, w, grids, h)]
+        fn = getattr(fused_host_lib, "host_kde1d_adjoint_"
+                     + ("f64" if dtype == F64 else "f32"))
+        fn.restype = None
+        fn(*[_ptr(t) for t in (z, w, grids, h, out, d_out, *got)], 9, 200, g,
+           0 if kernel == "epan" else 1)
+        expect = kde1d_grid_adjoint_plain(
+            *(t.double() for t in (z, w, grids, h, out, d_out)), kernel)
+        for k, e in zip(got, expect):
+            assert torch.all(torch.isfinite(k))
+            if k.dim() == 1:
+                k, e = k[None], e[None]
+            scale = e.double().abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+            assert ((k.double() - e.double()).abs() / scale).max() <= tol
+        assert all(torch.all(t[1] == 0) for t in (got[0], got[2], got[3]))
 
 
 @pytest.mark.parametrize("dtype,tol", [(F64, 1e-12), (F32, 1e-5)])
@@ -549,11 +629,12 @@ def dark_data():
 
 
 def _emulate_the_card(monkeypatch, libs, cosmo, mass):
-    """Make the kernel wrappers of ``fused`` and ``rows`` take their CUDA
-    branches on CPU tensors, with ``launch`` calling the host emulation of
-    the same C interface (K2's forward, which has none, runs its plain
-    version on the launch's own arguments; ``cosmo``, ``mass``: models of
-    the batch's degrees, around which the packed rows are unpacked)."""
+    """Make the kernel wrappers of ``fused``, ``rows`` and ``kde`` take
+    their CUDA branches on CPU tensors, with ``launch`` calling the host
+    emulation of the same C interface (K2's forward, which has none, runs
+    its plain version on the launch's own arguments; ``cosmo``, ``mass``:
+    models of the batch's degrees, around which the packed rows are
+    unpacked)."""
     def launch(lib_name, symbol, dtype, device, args):
         if lib_name == "rows_contract":
             (m1, m2, dl, invp, grids, series, params, hs, s1, s2, f1, f2,
@@ -573,33 +654,43 @@ def _emulate_the_card(monkeypatch, libs, cosmo, mass):
         monkeypatch.setattr(module, "on_card", lambda t: True)
         monkeypatch.setattr(module, "launch", launch)
         monkeypatch.setattr(module, "check_cuda_call", lambda *args: None)
+    monkeypatch.setattr(kde, "_check", lambda *args: None)
+
+
+def _dark_hl(dark_data):
+    """The dark data's likelihood arguments: PE data, grids, the population
+    with its pixelated catalog, the selection."""
+    cat, z_grids, gal_cat, inj, n_gen = dark_data
+    pop = _population(F64)
+    pop = Population.create(pop.cosmo, pop.mass, pop.rate, gal_cat=gal_cat)
+    return cat, z_grids, pop, SelectionFunction.create(inj, n_gen)
 
 
 @pytest.mark.parametrize("kind,cut_grid,launched", [
     ("marginalized", None, {"K1c": 1, "K2": 1, "K3c": 1, "K2b": 1}),
     ("marginalized", 2.0, {"K1c": 1, "K1d": 1, "K3c": 1, "K3d": 1}),
-    ("1d", 2.0, {"K1b": 1, "K3b": 1})])
+    ("1d", 2.0, {"K1b": 1, "K3b": 1}), ("1d", None, {"K1a": 1, "K3": 1}),
+    ("1d", 2.0, {"K4": 1, "K4b": 1}), ("1d", None, {"K4": 1, "K4b": 1}),
+    ("approximate", 2.0, {"K4": 1, "K4b": 1}),
+    ("marginalized", 2.0, {"K4": 1, "K4b": 1}),
+    ("marginalized", None, {"K4": 1, "K4b": 1})])
 def test_emulated_card_gradient(host_lib, fused_host_lib, rows_host_lib, data,
                                 dark_data, monkeypatch, kind, cut_grid, launched):
-    """d log L / d(H0, Om0, mu_g) of the three unbinned paths of the dark
-    and spectral gradients, through the wrappers' CUDA branches — the
-    autograd Functions around K1 and K2, K1's raw statistics (NaN on the
-    dead pixel rows, scrubbed by the likelihood's selects), the cotangent
-    slots the backward hands K3 and K2b — with the kernels' host emulations
-    as the launches, float64: within 1e-11 of autograd through the plain
-    versions, with each kernel launched exactly as on the card."""
-    from chimera_tpu_torch.catalog import PixelatedCatalog
-
+    """d log L / d(H0, Om0, mu_g) through the wrappers' CUDA branches with
+    the kernels' host emulations as the launches, float64: within 1e-11 of
+    autograd through the plain versions, with each kernel launched exactly
+    as on the card.  Unbinned: the autograd Functions around K1 and K2, K1's
+    raw statistics (NaN on the dead pixel rows, scrubbed by the likelihood's
+    selects), the cotangent slots the backward hands K3 and K2b.  Binned
+    (the launches name K4): the autograd Function around K4, the saved
+    output and cotangent its backward hands K4b."""
     if kind == "1d":
         cat, z_grids, inj, n_gen = data
-        gal_cat = None
+        args = (cat, z_grids, _population(F64), SelectionFunction.create(inj, n_gen))
     else:
-        cat, z_grids, gal_cat, inj, n_gen = dark_data
-    pop = _population(F64)
-    if isinstance(gal_cat, PixelatedCatalog):
-        pop = Population.create(pop.cosmo, pop.mass, pop.rate, gal_cat=gal_cat)
-    hl = HyperLikelihood.create(cat, z_grids, pop, SelectionFunction.create(inj, n_gen),
-                                kind=kind, binning=False, cut_grid=cut_grid)
+        args = _dark_hl(dark_data)
+    hl = HyperLikelihood.create(*args, kind=kind, binning="K4" in launched,
+                                cut_grid=cut_grid)
     x0 = torch.tensor([[66.0, 0.24, 33.5], [71.0, 0.27, 34.0], [77.0, 0.3, 34.6]],
                       dtype=F64)
 
@@ -613,7 +704,8 @@ def test_emulated_card_gradient(host_lib, fused_host_lib, rows_host_lib, data,
     batch = hl.population.update_batch({"H0": x0[:, 0]})
     _emulate_the_card(monkeypatch, {"fused_kde": fused_host_lib,
                                     "fused_kde_adjoint": host_lib,
-                                    "rows_contract_adjoint": rows_host_lib},
+                                    "rows_contract_adjoint": rows_host_lib,
+                                    "kde1d": fused_host_lib},
                       batch.cosmo, batch.mass)
     before = launch_counts()
     ll_card, got = grad()
@@ -623,3 +715,36 @@ def test_emulated_card_gradient(host_lib, fused_host_lib, rows_host_lib, data,
     assert torch.allclose(ll_card, ll, rtol=1e-12, atol=0)
     scale = expect.abs().amax(dim=0)
     assert ((got - expect).abs() / scale).max() <= 1e-11
+
+
+def test_emulated_contract_path(fused_host_lib, dark_data, monkeypatch):
+    """'marginalized', unbinned, cut_grid=None on a layout without chunk
+    rows: one K1e launch a batch through the CUDA branch of
+    ``fused_weights_kde`` (its raw statistics, the r it hands the mixture),
+    with K1e's host emulation as the launch, float64: log L within 1e-12 of
+    the plain version's and of the rows path's (K1c + K2); its gradient
+    raises on the card, as K1e has no adjoint kernel."""
+    args = _dark_hl(dark_data)
+    contract = HyperLikelihood._create(
+        *args, kind="marginalized", kernel="epan", bw_method=None,
+        cut_grid=None, binning=False, num_bins=200, pe_neff=2.0,
+        chunk_rows=False)
+    assert not hasattr(contract, "row_dL") and contract.pix_s1.shape == \
+        (contract.pix_dL.shape[0], contract.z_grids.shape[1])
+    rows_ll = HyperLikelihood.create(*args, kind="marginalized", binning=False,
+                                     cut_grid=None).log_like_batch(LAMBDA)
+    plain = contract.log_like_batch(LAMBDA)
+    assert torch.all(torch.isfinite(plain))
+    assert torch.allclose(plain, rows_ll, rtol=1e-12, atol=0)
+    batch = contract.population.update_batch({"H0": LAMBDA["H0"]})
+    _emulate_the_card(monkeypatch, {"fused_kde": fused_host_lib}, batch.cosmo,
+                      batch.mass)
+    before = launch_counts()
+    card = contract.log_like_batch(LAMBDA)
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == \
+        {k: int(k == "K1e") for k in after}
+    assert torch.allclose(card, plain, rtol=1e-12, atol=0)
+    h0 = torch.tensor(LAMBDA["H0"], dtype=F64, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="K1e's adjoint"):
+        contract.log_like_batch({"H0": h0})

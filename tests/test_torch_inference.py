@@ -21,8 +21,9 @@ from chimera_tpu_torch.inference import (AdaptState, HMCState, Transform,
                                          run_chees, run_hmc,
                                          sample_hyperposterior,
                                          sample_hyperposterior_chees)
-from chimera_tpu_torch.inference.chees import _halton
-from chimera_tpu_torch.inference.hmc import _da_update, _hmc_step
+from chimera_tpu_torch.inference.chees import _chees_grad, _halton, _trajectory
+from chimera_tpu_torch.inference.hmc import (_accept, _batch_value_and_grad,
+                                             _da_update, _hmc_step)
 from chimera_tpu_torch.models import (FLRW, MadauDickinsonRate, Population,
                                       PowerLawPeak, compute_z_grids)
 
@@ -349,3 +350,89 @@ def test_cpu_gradient_launches_no_kernel(small_hl):
     assert torch.all(torch.isfinite(grad)) and torch.all(grad != 0.0)
     assert (fused_weights_kde.launches,
             fused_weights_kde_adjoint.launches) == before
+
+
+# -- the samplers' deliberate differences from the JAX samplers -------------
+
+@pytest.fixture(scope="module")
+def gated_hl():
+    """The reproduction of ROADMAP.md §3: 8 events x 128 samples x 64-point
+    grids, 3 000 generated injections (89 detected), drawn by the port
+    (``chip_smoke.mock``, seed 0), float64.  At mu_g = 30 the injections'
+    N_eff falls below its gate: N_exp = 0 and log L = +inf, as in the JAX
+    package."""
+    import chip_smoke
+
+    return chip_smoke.likelihood(
+        chip_smoke.mock(8, 128, 3000, 64, 300, 0, device="cpu"), F64)
+
+
+def _one_step(sampler, logp, y0, target, eps=0.1):
+    """One trajectory of one leapfrog step from y0 (C, D) to ``target``
+    (the momenta solved for it), accepted by uniforms of 0 wherever its
+    acceptance probability is above 0: HMC's ``_hmc_step`` fed its draws,
+    or ChEES's ``_trajectory`` and Metropolis step (whose trajectory-time
+    gradient must stay finite)."""
+    vgrad = _batch_value_and_grad(logp)
+    lp0, g0 = vgrad(y0)
+    state = HMCState(y0, lp0, g0)
+    p0 = (target - y0) / eps - 0.5 * eps * g0
+    u = torch.zeros(y0.shape[0], dtype=F64)
+    inv_mass = torch.ones(y0.shape[1], dtype=F64)
+    if sampler == "hmc":
+        return _hmc_step(None, state, _t(eps), inv_mass, 1, logp,
+                         draws=(p0, 1, u))
+    y1, p1, grad1, logp1, p0, n = _trajectory(state, p0, _t(eps), inv_mass,
+                                              _t(eps), 4, vgrad)
+    assert n == 1
+    new, acc = _accept(state, y1, p1, grad1, logp1, p0, inv_mass, u)
+    assert torch.isfinite(_chees_grad(state, y1, p1, inv_mass, acc, 0.5))
+    return new, acc
+
+
+@pytest.mark.parametrize("sampler", ["hmc", "chees"])
+def test_gated_n_exp_is_rejected(gated_hl, sampler):
+    """log L stays the reference's +inf at the gated λ, the samplers' log
+    density there is -inf, and a proposal there is rejected (the JAX
+    samplers accept it and stick); the other chain's proposal is taken."""
+    from chimera_tpu_torch.inference import make_transformed_log_prob_batch
+
+    ll = gated_hl.log_like_batch({"mu_g": _t([34.0, 30.0])})
+    assert torch.isfinite(ll[0]) and ll[1] == torch.inf
+    logp, tr = make_transformed_log_prob_batch(gated_hl, ["mu_g"],
+                                               {"mu_g": (25.0, 45.0)})
+    y0 = tr.unconstrain(_t([[34.0], [34.0]]))
+    target = tr.unconstrain(_t([[34.5], [30.0]]))
+    assert torch.isfinite(logp(target)[0]) and logp(target)[1] == -torch.inf
+    new, acc = _one_step(sampler, logp, y0, target)
+    assert acc[1] == 0 and torch.equal(new.y[1], y0[1])
+    assert acc[0] > 0 and not torch.equal(new.y[0], y0[0])
+    assert torch.all(torch.isfinite(new.logp)) and torch.all(torch.isfinite(new.grad))
+
+
+class _NaNSlope(torch.autograd.Function):
+    """-y^2 / 2 with a NaN slope above y = 1 (a gated event's 0 / 0 in
+    d log L / dH0, on a log density that is finite)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        ctx.save_for_backward(y)
+        return -0.5 * y * y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * torch.where(y > 1.0, torch.nan, -y)
+
+
+@pytest.mark.parametrize("sampler", ["hmc", "chees"])
+def test_nonfinite_gradient_is_divergent(sampler):
+    """A proposal whose log density is finite but whose gradient is not is
+    a divergent trajectory: rejected, and the state keeps a finite
+    gradient."""
+    logp = lambda ys: torch.sum(_NaNSlope.apply(ys), dim=-1)  # noqa: E731
+    y0 = _t([[0.0], [0.0]])
+    new, acc = _one_step(sampler, logp, y0, _t([[0.5], [1.5]]))
+    assert acc[1] == 0 and torch.equal(new.y[1], y0[1])
+    assert acc[0] > 0 and torch.allclose(new.y[0], _t([0.5]))
+    assert torch.all(torch.isfinite(new.grad))
