@@ -4,26 +4,39 @@
 // (ops/cuda/fused.py::fused_weights_kde_plain, ops/cuda/rows.py::
 // fused_rows_contract_plain):
 //
-//   Dual<T, N>          forward-mode dual number with N directions.  The
-//                       mass model of population.cuh, MassModel<N>,
-//                       instantiated on it gives w and its partials in the
-//                       12 mass scalars, in z and in the window series' value
-//                       from the very code of the forward: the derivative
-//                       cannot drift.
+//   prologue_kernel     per lambda, once a launch: the two Chebyshev series
+//                       in the summation type, the mass model's 16 fields
+//                       and the Jacobian of its derived pl_norm and
+//                       log_sigma in the 12 scalars (a record, copied by
+//                       every block).
+//   Dual<T, N>          forward-mode dual number with N directions: the
+//                       prologue's engine for that Jacobian (MassModel<N>
+//                       of population.cuh on it), and the host tests' oracle
+//                       of the reverse sweep below.
 //   kde_pair            one (grid point, sample) term of the KDE adjoint.
 //   RowAdjoint          the chain through the safe-math row statistics.
 //   SampleAdjoint       the chain of one sample's (dz, dw) through
-//                       z(dL | cosmo) and w(m1, m2, z | mass) to the packed
-//                       rows' gradients, the Chebyshev series summed in S as
-//                       the forward sums them (population.cuh, Model).
+//                       z(dL | cosmo) and w(m1, m2, z | mass): the mass model
+//                       by a hand-written reverse sweep (mass_vjp) into the
+//                       fields' cotangents, the two Chebyshev series summed
+//                       in S as the forward sums them (population.cuh,
+//                       Model), the cotangents of the two series' values
+//                       left as points (t, a) to project.
+//   project             the projections sum_s a_s T_k(t_s) of a row, 64
+//                       coefficients per thread in registers, then reduced
+//                       and scattered over the warp 32 at a time: lane j
+//                       keeps the coefficients k = j (mod 32).  No
+//                       per-thread array is indexed at run time.
 //   adjoint_row         K3 for one (lambda, row) in every mode of the
 //                       forward (kde.cuh, FusedMode);
 //   rows_adjoint_event  K2b for one (lambda, event);
 //                       both written once for a `Block` (population.cuh,
-//                       DeviceBlock; a block of one thread in the host
-//                       emulation, tests/host_emulation).
+//                       DeviceBlock; WarpBlock, a warp as a block of its
+//                       own; a block of one thread in the host emulation,
+//                       tests/host_emulation).
 //   store_partials,     the fixed-order sums of the per-thread gradients:
-//   reduce_events_kernel  over the block, then over the rows or events.
+//   reduce_events_kernel  over the block, with the derived fields chained
+//                       to the scalars once, then over the blocks.
 
 #pragma once
 
@@ -37,8 +50,10 @@ constexpr int kDirs = 14;     // 12 mass scalars, z, the window series' value
 constexpr int kZDir = 12;
 constexpr int kCdfDir = 13;
 // largest Chebyshev degree of either series (_ADJOINT_MAX_DEG in
-// ops/cuda/fused.py): the size of the per-thread coefficient accumulators
+// ops/cuda/fused.py): two chunks of 32 projected coefficients
 constexpr int kMaxDeg = 64;
+constexpr int kChunk = 32;
+static_assert(kMaxDeg == 2 * kChunk, "project() runs two chunks");
 
 template <typename T, int N>
 struct Dual {
@@ -137,8 +152,179 @@ DUAL_TN bool operator==(const Dual<T, N>& a, const Dual<T, N>& b) { return a.v =
 #undef DUAL_TN
 
 
+// The cotangents of the mass model's fields that carry one: the 12 scalars
+// (MASS_SCALARS in ops/cuda/fused.py), then pl_norm and log_sigma, which
+// derive() fills; the other two derived fields, peak_hi and m1_floor, enter
+// comparisons only.
+enum MassGrad {
+  kMLow, kMHigh, kAlpha, kBeta, kDeltaM, kLambdaPeak, kMuG, kSigmaG,
+  kPeakNorm, kNormPM1, kMJoin, kCdfAtJoin, kPlNorm, kLogSigma, kMassGrads
+};
+constexpr int kDerived = kMassGrads - kMassScalars;  // carried and chained
+constexpr int kMassFields = kMassScalars + 4;         // the derived 4 too
+
+// Per-lambda constants of the mass model's reverse sweep (SampleAdjoint::
+// mass_vjp), written by the prologue after the fields: reciprocals of the
+// fields it divides by, and the closed form's power at m_join.
+template <typename T>
+struct MassConsts {
+  T inv_pl_norm, inv_peak_norm, inv_norm_p_m1;
+  T inv_den2;       // 1 / (2 sigma_g^2)
+  T inv_window;     // 1 / (m_join - m_low)
+  T ap, inv_ap;     // 1 + beta and its reciprocal
+  T inv_m_join, log_m_join, pow_join;  // m_join^(1 + beta)
+  T pad[2];         // to 16 bytes in float and double
+};
+constexpr int kConsts = sizeof(MassConsts<float>) / sizeof(float);
+static_assert(kConsts == 12, "the record's constants take 12 values");
+
+template <typename T>
+__device__ __forceinline__ void write_consts(const MassModel<T>& m,
+                                             MassConsts<T>& k) {
+  k.inv_pl_norm = T(1) / m.pl_norm;
+  k.inv_peak_norm = T(1) / m.peak_norm;
+  k.inv_norm_p_m1 = T(1) / m.norm_p_m1;
+  k.inv_den2 = T(1) / (T(2) * (m.sigma_g * m.sigma_g));
+  k.inv_window = T(1) / (m.m_join - m.m_low);
+  k.ap = T(1) + m.beta;
+  k.inv_ap = T(1) / k.ap;
+  k.inv_m_join = T(1) / m.m_join;
+  k.log_m_join = dlog(m.m_join);
+  k.pow_join = dexp(k.ap * k.log_m_join);
+  k.pad[0] = k.pad[1] = T(0);
+}
+
+// the dual mass model of a lambda's 12 scalars, direction i for scalar i
+template <typename T>
+__device__ __forceinline__ void seed_mass(MassModel<Dual<T, kDirs>>& mm,
+                                          const T* s) {
+  mm.m_low = seed<T, kDirs>(s[0], 0);
+  mm.m_high = seed<T, kDirs>(s[1], 1);
+  mm.alpha = seed<T, kDirs>(s[2], 2);
+  mm.beta = seed<T, kDirs>(s[3], 3);
+  mm.delta_m = seed<T, kDirs>(s[4], 4);
+  mm.lambda_peak = seed<T, kDirs>(s[5], 5);
+  mm.mu_g = seed<T, kDirs>(s[6], 6);
+  mm.sigma_g = seed<T, kDirs>(s[7], 7);
+  mm.peak_norm = seed<T, kDirs>(s[8], 8);
+  mm.norm_p_m1 = seed<T, kDirs>(s[9], 9);
+  mm.m_join = seed<T, kDirs>(s[10], 10);
+  mm.cdf_at_join = seed<T, kDirs>(s[11], 11);
+  mm.derive();
+}
+
+// ---------------------------------------------------------------------------
+// The per-lambda prologue
+// ---------------------------------------------------------------------------
+
+// A lambda's record: the series row (cheb_logh, dgw_lo, dgw_max, window) in
+// S, padded to 16 bytes (series_bytes), then in T the 16 mass fields (the
+// 12 scalars, pl_norm, peak_hi, log_sigma, m1_floor), the Jacobian
+// (kDerived, 12) of pl_norm and log_sigma in the scalars and the reverse
+// sweep's MassConsts: 52 values, a multiple of 16 bytes.
+constexpr int kRecordValues = kMassFields + kDerived * kMassScalars + kConsts;
+template <typename T, typename S>
+__host__ __device__ constexpr size_t record_bytes(int cd, int wd) {
+  return series_bytes<S>(cd, wd) + kRecordValues * sizeof(T);
+}
+
+template <typename T, typename S>
+struct Record {
+  const S* series;
+  const T* fields;  // kMassFields
+  const T* jac;     // (kDerived, kMassScalars)
+  const MassConsts<T>* consts;
+  __device__ __forceinline__ Record(const unsigned char* p, int cd, int wd)
+      : series(reinterpret_cast<const S*>(p)),
+        fields(reinterpret_cast<const T*>(p + series_bytes<S>(cd, wd))),
+        jac(fields + kMassFields),
+        consts(reinterpret_cast<const MassConsts<T>*>(
+            jac + kDerived * kMassScalars)) {}
+};
+
+// Write a lambda's record from its packed rows (series in double, the 12 mass
+// scalars); the threads rank, rank + stride, ... share the series, rank 0
+// runs the dual derive() for the derived fields and their Jacobian.
+template <typename T, typename S>
+__device__ __forceinline__ void write_record(const double* series,
+                                             const T* params, int cd, int wd,
+                                             unsigned char* rec, int rank,
+                                             int stride) {
+  S* ser = reinterpret_cast<S*>(rec);
+  for (int i = rank; i < cd + 2 + wd; i += stride) ser[i] = S(series[i]);
+  if (rank != 0) return;
+  T* f = reinterpret_cast<T*>(rec + series_bytes<S>(cd, wd));
+  MassModel<Dual<T, kDirs>> mm;
+  seed_mass(mm, params);
+  for (int i = 0; i < kMassScalars; ++i) f[i] = params[i];
+  f[kMassScalars] = mm.pl_norm.v;
+  f[kMassScalars + 1] = mm.peak_hi.v;
+  f[kMassScalars + 2] = mm.log_sigma.v;
+  f[kMassScalars + 3] = mm.m1_floor.v;
+  for (int i = 0; i < kMassScalars; ++i) {
+    f[kMassFields + i] = mm.pl_norm.d[i];
+    f[kMassFields + kMassScalars + i] = mm.log_sigma.d[i];
+  }
+  MassModel<T> m;
+  m.m_low = params[0]; m.m_high = params[1]; m.alpha = params[2];
+  m.beta = params[3]; m.delta_m = params[4]; m.lambda_peak = params[5];
+  m.mu_g = params[6]; m.sigma_g = params[7]; m.peak_norm = params[8];
+  m.norm_p_m1 = params[9]; m.m_join = params[10]; m.cdf_at_join = params[11];
+  m.derive();
+  write_consts(m, *reinterpret_cast<MassConsts<T>*>(
+      f + kMassFields + kDerived * kMassScalars));
+}
+
+// One block per lambda: its record at records + l * record_bytes.
+template <typename T, typename S>
+__global__ void prologue_kernel(const double* __restrict__ series,
+                                const T* __restrict__ params, int cd, int wd,
+                                unsigned char* __restrict__ records) {
+  const int l = blockIdx.x;
+  write_record<T, S>(series + (size_t)l * (cd + 2 + wd),
+                     params + (size_t)l * kMassScalars, cd, wd,
+                     records + (size_t)l * record_bytes<T, S>(cd, wd),
+                     threadIdx.x, blockDim.x);
+}
+
+// A block's copy of its lambda's record into shared memory (16-byte words;
+// the caller synchronizes).
+__device__ __forceinline__ void copy_record(const unsigned char* rec,
+                                            unsigned char* dst, size_t bytes) {
+  const int4* s = reinterpret_cast<const int4*>(rec);
+  int4* d = reinterpret_cast<int4*>(dst);
+  for (size_t i = threadIdx.x; i < bytes / 16; i += blockDim.x) d[i] = s[i];
+}
+
+// The records sit in the kernels' `partials` scratch after its n partial
+// rows of P doubles, on a 16-byte boundary: the wrapper allocates
+// records_offset(n) doubles and L records more (nothing is allocated on the
+// device side).
+__host__ __device__ constexpr size_t records_offset(size_t n_partials) {
+  return (n_partials + 1) / 2 * 2;
+}
+
+#ifdef __CUDACC__
+// The prologue on the stream: the first launch of the adjoints' entry
+// points, counted with their kernel.
+template <typename T, typename S>
+cudaError_t write_records(const double* series, const T* params, int L,
+                          int cd, int wd, unsigned char* records,
+                          cudaStream_t stream) {
+  prologue_kernel<T, S><<<L, 32, 0, stream>>>(series, params, cd, wd,
+                                              records);
+  return cudaGetLastError();
+}
+#endif
+
+// ---------------------------------------------------------------------------
+// The KDE adjoint's terms and the row statistics
+// ---------------------------------------------------------------------------
+
 // the packed rows' columns: cheb_logh, dgw_lo, dgw_max, window, mass scalars
 constexpr int kMaxP = 2 * kMaxDeg + 2 + kMassScalars;
+// store_partials' columns: those and the derived fields' cotangents
+constexpr int kRedCols = kMaxP + kDerived;
 constexpr int kSamplesPerThread = 4;
 
 // One (grid point, sample) term of the KDE adjoint
@@ -146,14 +332,29 @@ constexpr int kSamplesPerThread = 4;
 // density cotangent over the density's scale.  The kernel-shape constants
 // are left to kde_sample: a0 sums c1 K(u), a1 sums -c1 K'(u), a2 sums
 // -c1 K'(u) u, each over its constant; with FRAC, a3 sums -c1 K'(u) frac,
-// frac = dg/dub of a linear grid g = lo + (ub - lo) frac.  Epanechnikov has
-// the open support -1 < u < 1.
+// frac = dg/dub of a linear grid g = lo + (ub - lo) frac.  Epanechnikov's
+// 0.75 max(0, 1 - u^2) takes half the slope at |u| = 1, as jnp.maximum does
+// in the Pallas references (and MAX_FORM_KERNELS in ops/kde.py): its
+// weight is 1 inside the support, 1/2 on its edge and 0 outside, formed as
+// saturate(q 2^e + 1/2) in one instruction.  That is exact because q = 1 - u^2
+// of a u in T is 0 or at least ulp(1) / 2 in size (u within an ulp of 1
+// or farther): 2^e = 2^26 (float), 2^55 (double) sends every q != 0 to 0
+// or 1.
+template <typename T>
+__device__ __forceinline__ T support_weight(T q) {
+  if constexpr (sizeof(T) == 4) {
+    return __saturatef(fmaf(q, 67108864.0f, 0.5f));
+  } else {
+    return fmin(fmax(fma(q, 36028797018963968.0, 0.5), 0.0), 1.0);
+  }
+}
+
 template <typename T, int KERNEL, bool FRAC = false>
 __device__ __forceinline__ void kde_pair(T u, T c1, T frac, T& a0, T& a1,
                                          T& a2, T& a3) {
   if (KERNEL == 0) {
     const T q = T(1) - u * u;
-    const T m = q > T(0) ? c1 : T(0);
+    const T m = c1 * support_weight(q);
     const T mu = m * u;
     a0 += m * q;
     a1 += mu;
@@ -243,140 +444,481 @@ struct RowAdjoint {
   }
 };
 
-// Per-thread gradients of the packed rows (ops/cuda/fused.py, pack_params).
-template <typename T>
+// ---------------------------------------------------------------------------
+// Per-thread gradients and the projections
+// ---------------------------------------------------------------------------
+
+// A thread's gradients of the packed rows (ops/cuda/fused.py, pack_params)
+// in a warp of kLanes lanes: of each Chebyshev series the coefficients
+// k = lane + kLanes i that the warp's projections leave in this lane (2 of
+// 64 on the card, all of them in the host's warp of one lane); the distance
+// bounds' and the mass fields' cotangents (MassGrad) summed over its own
+// samples.
+template <typename T, int kLanes>
 struct GradAcc {
-  T cheb[kMaxDeg], win[kMaxDeg], mass[kMassScalars];
+  static constexpr int kPer = kMaxDeg / kLanes;
+  T cheb[kPer], win[kPer];
   T lo, hi;
+  T mass[kMassGrads];
 
   __device__ __forceinline__ void zero() {
-    for (int k = 0; k < kMaxDeg; ++k) cheb[k] = win[k] = T(0);
 #pragma unroll
-    for (int i = 0; i < kMassScalars; ++i) mass[i] = T(0);
+    for (int i = 0; i < kPer; ++i) cheb[i] = win[i] = T(0);
+#pragma unroll
+    for (int i = 0; i < kMassGrads; ++i) mass[i] = T(0);
     lo = hi = T(0);
   }
+};
 
-  // column i of the packed rows: cheb_logh, dgw_lo, dgw_max, window, mass
-  __device__ __forceinline__ T at(int i, int cd, int wd) const {
-    if (i < cd) return cheb[i];
-    if (i == cd) return lo;
-    if (i == cd + 1) return hi;
-    if (i < cd + 2 + wd) return win[i - cd - 2];
-    return mass[i - cd - 2 - wd];
+// Column i of the packed rows' gradient held by a warp of one lane (the
+// host emulation): cheb_logh, dgw_lo, dgw_max, window, then the mass
+// scalars with the derived fields chained to them through the prologue's
+// Jacobian jac (kDerived, 12).
+template <typename T>
+__device__ __forceinline__ T column(const GradAcc<T, 1>& g, const T* jac,
+                                    int i, int cd, int wd) {
+  if (i < cd) return g.cheb[i];
+  if (i == cd) return g.lo;
+  if (i == cd + 1) return g.hi;
+  if (i < cd + 2 + wd) return g.win[i - cd - 2];
+  const int s = i - cd - 2 - wd;
+  T t = g.mass[s];
+  for (int d = 0; d < kDerived; ++d)
+    t += g.mass[kMassScalars + d] * jac[d * kMassScalars + s];
+  return t;
+}
+
+// acc[k / 32][k % 32] += a T_k(t) for k < n: the adjoint of a Chebyshev sum
+// in its coefficients (ops/chebyshev.py, _ChebEval.backward), by the
+// recurrence T_{k+1} = 2 t T_k - T_{k-1}, in registers.
+template <typename T>
+__device__ __forceinline__ void cheb_accumulate(T (&acc)[2][kChunk], int n,
+                                                T t, T a) {
+  const T t2 = T(2) * t;
+  T tk = T(1), tk1 = t;  // T_k, T_{k+1}
+#pragma unroll
+  for (int k = 0; k < 2 * kChunk; ++k) {
+    if (k < n) acc[k / kChunk][k % kChunk] += a * tk;
+    const T next = t2 * tk1 - tk;
+    tk = tk1;
+    tk1 = next;
   }
+}
+
+// One stage of a warp's reduce-scatter of 2 OFF values a lane: the lane
+// keeps the half of v[0, 2 OFF) whose index has its bit OFF (rs_keep) and
+// adds its partner's (lane ^ OFF) copy of that half, which the partner
+// sends (rs_send).  After the stages 16, 8, 4, 2, 1 lane j holds in v[0]
+// the sum over the warp's lanes of their v[j]: the sum over 32 lanes in a
+// fixed tree, the same bits in every run.
+template <int OFF, typename T>
+__device__ __forceinline__ T rs_keep(const T (&v)[kChunk], int i, int lane) {
+  return (lane & OFF) ? v[i + OFF] : v[i];
+}
+template <int OFF, typename T>
+__device__ __forceinline__ T rs_send(const T (&v)[kChunk], int i, int lane) {
+  return (lane & OFF) ? v[i] : v[i + OFF];
+}
+template <int OFF, typename T>
+__device__ __forceinline__ void rs_stage(T (&v)[kChunk], int lane) {
+#pragma unroll
+  for (int i = 0; i < OFF; ++i)
+    v[i] = rs_keep<OFF>(v, i, lane)
+           + __shfl_xor_sync(0xffffffffu, rs_send<OFF>(v, i, lane), OFF);
+}
+
+// The chunk's sums over the warp: lane j ends with the total of v[j] in
+// v[0] (kLanes = 32); a warp of one lane keeps v as it is.
+template <int kLanes, typename T>
+__device__ __forceinline__ void warp_scatter(T (&v)[kChunk], int lane) {
+  static_assert(kLanes == 1 || kLanes == 32, "a warp of 32 lanes or of one");
+  if (kLanes == 32) {
+    rs_stage<16>(v, lane);
+    rs_stage<8>(v, lane);
+    rs_stage<4>(v, lane);
+    rs_stage<2>(v, lane);
+    rs_stage<1>(v, lane);
+  }
+}
+
+// Adds a row's projections sum_s a_s T_k(t_s), k < n, to the lanes'
+// coefficients (GradAcc's cheb or win): this thread's points are pts(s) of
+// its slots s = rank, rank + kSize, ... < cnt (those with a = 0 add
+// nothing and are skipped), and (te, ae) where extra.  Each thread sums its
+// own points in registers, in slot order; then the warp's reduce-scatter,
+// one chunk of 32 coefficients at a time.  Every thread of the block takes
+// part (the warp's exchange).
+template <typename T, typename Block, typename Points, int kPer>
+__device__ __forceinline__ void project(const Block& blk, const Points& pts,
+                                        int cnt, bool extra, T te, T ae,
+                                        int n, T (&coef)[kPer]) {
+  T acc[2][kChunk];
+#pragma unroll
+  for (int i = 0; i < kChunk; ++i) acc[0][i] = acc[1][i] = T(0);
+  for (int s = blk.rank(); s < cnt; s += Block::kSize) {
+    T t, a;
+    pts(s, t, a);
+    if (a != T(0)) cheb_accumulate(acc, n, t, a);
+  }
+  if (extra) cheb_accumulate(acc, n, te, ae);
+  constexpr int kOut = kChunk / Block::kLanes;
+  warp_scatter<Block::kLanes>(acc[0], blk.lane());
+#pragma unroll
+  for (int j = 0; j < kOut; ++j) coef[j] += acc[0][j];
+  if (n > kChunk) {  // n is uniform over the block
+    warp_scatter<Block::kLanes>(acc[1], blk.lane());
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) coef[kOut + j] += acc[1][j];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The mass model's reverse sweep
+// ---------------------------------------------------------------------------
+
+// tpl_unnorm(m, a, lo, hi) = m^a on [lo, hi] with what its cotangents need
+// (population.cuh, the same operations); lo and hi enter comparisons only.
+// The reverse sweep keeps few values live: what a vjp can recompute from
+// its arguments, it recomputes.
+template <typename T>
+struct TplUnnorm {
+  bool on;
+  T lx, y;
+  __device__ __forceinline__ TplUnnorm(T m, T a, T lo, T hi) {
+    on = lo <= m && m <= hi;
+    lx = on ? dlog(dmax(m, T(1e-30))) : T(0);
+    y = on ? dexp(a * lx) : T(0);
+  }
+  // adds the cotangents of m and a, given gy, the value's
+  __device__ __forceinline__ void vjp(T m, T a, T gy, T& gm, T& ga) const {
+    if (!on) return;
+    const T g = gy * y;
+    ga += g * lx;
+    if (m > T(1e-30)) gm += g * a / m;
+  }
+};
+
+// smoothing(m, dm, m_low), the LVK low-mass window, and its cotangents
+template <typename T>
+struct Smoothing {
+  bool inside;
+  T x, y;
+  __device__ __forceinline__ Smoothing(T m, T dm, T m_low) {
+    inside = !(m < m_low) && !(m >= m_low + dm);
+    x = T(0);
+    if (!inside) {
+      y = m < m_low ? T(0) : T(1);
+      return;
+    }
+    const T eps = T(1e-99);
+    x = dm / (m - m_low + eps) + dm / (m - m_low - dm + eps);
+    y = dexp(-(dmax(x, T(0)) + dlog1p(dexp(-dabs(x)))));
+  }
+  // adds the cotangents of m, dm and m_low, given gy
+  __device__ __forceinline__ void vjp(T m, T dm, T m_low, T gy, T& gm,
+                                      T& gdm, T& gml) const {
+    if (!inside) return;
+    const T eps = T(1e-99);
+    const T d1 = m - m_low + eps, d2 = m - m_low - dm + eps;
+    const T q1 = dm / d1, q2 = dm / d2;
+    const T ex = dexp(-dabs(x));
+    const T gsp = -gy * y;  // the softplus's
+    const T sign = x > T(0) ? T(1) : (x < T(0) ? T(-1) : T(0));
+    const T gx = (x > T(0) ? gsp : T(0)) - gsp / (T(1) + ex) * ex * sign;
+    const T g1 = -gx * q1 / d1, g2 = -gx * q2 / d2;
+    gdm += gx / d1 + gx / d2 - g2;
+    gm += g1 + g2;
+    gml -= g1 + g2;
+  }
+};
+
+// primary(m) = ((1 - lambda_peak) pl + lambda_peak peak) smoothing(m) and
+// its cotangents (into gm and the fields' g)
+// (the divisions by the fields as products with the per-lambda reciprocals
+// of MassConsts: the gradient moves by rounding only)
+template <typename T>
+struct Primary {
+  TplUnnorm<T> pl_t;
+  Smoothing<T> sm;
+  bool in_peak;
+  T pl, dx, q, pu, peak, pdf, y;
+  __device__ __forceinline__ Primary(const MassModel<T>& mm,
+                                     const MassConsts<T>& k, T m)
+      : pl_t(m, -mm.alpha, mm.m_low, mm.m_high),
+        sm(m, mm.delta_m, mm.m_low) {
+    pl = pl_t.y * k.inv_pl_norm;
+    in_peak = mm.m_low <= m && m <= mm.peak_hi;
+    dx = q = pu = peak = T(0);
+    if (in_peak) {
+      dx = m - mm.mu_g;
+      q = dx * dx * k.inv_den2;
+      pu = dexp(T(-0.91893853320467274178) - mm.log_sigma - q);
+      peak = pu * k.inv_peak_norm;
+    }
+    pdf = (T(1) - mm.lambda_peak) * pl + mm.lambda_peak * peak;
+    y = pdf * sm.y;
+  }
+  __device__ __forceinline__ void vjp(const MassModel<T>& mm,
+                                      const MassConsts<T>& k, T m, T gy,
+                                      T& gm, T* g) const {
+    const T gpdf = gy * sm.y;
+    sm.vjp(m, mm.delta_m, mm.m_low, gy * pdf, gm, g[kDeltaM], g[kMLow]);
+    g[kLambdaPeak] += gpdf * (peak - pl);
+    const T gpl = gpdf * (T(1) - mm.lambda_peak) * k.inv_pl_norm;
+    g[kPlNorm] -= gpl * pl;
+    T ga = T(0);
+    pl_t.vjp(m, -mm.alpha, gpl, gm, ga);
+    g[kAlpha] -= ga;
+    if (in_peak) {
+      const T gpeak = gpdf * mm.lambda_peak * k.inv_peak_norm;
+      g[kPeakNorm] -= gpeak * peak;
+      const T garg = gpeak * pu;  // the exponent's
+      g[kLogSigma] -= garg;
+      const T gq = garg * k.inv_den2;
+      const T gdx = -gq * T(2) * dx;
+      g[kSigmaG] += gq * q * T(4) * mm.sigma_g;
+      gm += gdx;
+      g[kMuG] -= gdx;
+    }
+  }
+};
+
+// p_m1m2 of one sample in the dual mass model (the reverse sweep's oracle
+// in the host tests): p and its derivatives in the 12 scalars, in z and in
+// the window series' value, given the window's value and slope at t_win
+// (cdf_val, cdf_slope) where m1 lies in the window.
+template <typename T>
+__device__ __forceinline__ Dual<T, kDirs> joint_dual(
+    const MassModel<Dual<T, kDirs>>& mm, T m1det, T m2det, T z, T cdf_val,
+    T cdf_slope) {
+  using N = Dual<T, kDirs>;
+  N inv1pz(T(1) / (T(1) + z));
+  inv1pz.d[kZDir] = -inv1pz.v * inv1pz.v;
+  const N m1 = N(m1det) * inv1pz;
+  const N m2 = N(m2det) * inv1pz;
+  const N m1c = clip(m1, mm.m_low, mm.m_high);
+  N cdf;
+  if (m1c <= mm.m_join) {
+    const N x = clip(m1c, mm.m_low, mm.m_join);
+    const N tw = (N(2) * x - (mm.m_low + mm.m_join)) / (mm.m_join - mm.m_low);
+    cdf = chain(tw, cdf_val, cdf_slope);
+    cdf.d[kCdfDir] = T(1);
+  } else {
+    cdf = mm.cdf_above_join(m1c);
+  }
+  return mm.joint(m1, m2, cdf);
+}
+
+// A point to project: a distance series' (t, a) and the window's (tw, b);
+// b = 0 outside the window.
+template <typename T>
+struct SamplePoints {
+  T t, a, tw, b;
 };
 
 // One sample's chain from (dz, dw) to the packed rows, the two Chebyshev
 // series summed in S as the forward's Model<T, S> sums them.
 template <typename T, typename S>
 struct SampleAdjoint {
-  using N = Dual<T, kDirs>;
   const S* cheb_logh;
   const S* window;
+  const MassConsts<T>* consts;
   int cheb_deg, window_deg;
   S dgw_lo, dgw_max, log_lo, log_hi;
 
-  // ser: this lambda's series row in S (cheb_logh, dgw_lo, dgw_max, window)
-  __device__ __forceinline__ SampleAdjoint(const S* ser, int cd, int wd) {
-    cheb_logh = ser;
-    cheb_deg = cd;
-    window_deg = wd;
-    dgw_lo = ser[cd];
-    dgw_max = ser[cd + 1];
-    window = ser + cd + 2;
-    log_lo = dlog(dgw_lo);
-    log_hi = dlog(dgw_max);
+  // the lambda's forward model (its series and their bounds, the same
+  // values) and its reverse sweep's constants k
+  __device__ __forceinline__ SampleAdjoint(const Model<T, S>& m,
+                                           const MassConsts<T>* k) {
+    consts = k;
+    cheb_logh = m.cheb_logh;
+    window = m.window;
+    cheb_deg = m.cheb_deg;
+    window_deg = m.window_deg;
+    dgw_lo = m.dgw_lo;
+    dgw_max = m.dgw_max;
+    log_lo = m.log_lo;
+    log_hi = m.log_hi;
   }
 
-  // the dual mass model of a lambda's 12 scalars, direction i for scalar i
-  static __device__ __forceinline__ void seed_mass(MassModel<N>& mm,
-                                                   const T* s) {
-    mm.m_low = seed<T, kDirs>(s[0], 0);
-    mm.m_high = seed<T, kDirs>(s[1], 1);
-    mm.alpha = seed<T, kDirs>(s[2], 2);
-    mm.beta = seed<T, kDirs>(s[3], 3);
-    mm.delta_m = seed<T, kDirs>(s[4], 4);
-    mm.lambda_peak = seed<T, kDirs>(s[5], 5);
-    mm.mu_g = seed<T, kDirs>(s[6], 6);
-    mm.sigma_g = seed<T, kDirs>(s[7], 7);
-    mm.peak_norm = seed<T, kDirs>(s[8], 8);
-    mm.norm_p_m1 = seed<T, kDirs>(s[9], 9);
-    mm.m_join = seed<T, kDirs>(s[10], 10);
-    mm.cdf_at_join = seed<T, kDirs>(s[11], 11);
-    mm.derive();
-  }
-
-  // z = d exp(c(t)) at dL (Model::z_from_dgw) with what its chain needs
+  // z = d exp(c(t)) at dL (Model::z_from_dgw) with what its chain needs,
+  // t and the series' slope ds rounded to T once summed in S
   struct ZPoint {
-    T d, z;
-    S t, ds;
+    T d, z, t, ds;
   };
   __device__ __forceinline__ ZPoint z_at(T dl) const {
     ZPoint p;
     p.d = clip(dl, T(dgw_lo), T(dgw_max));
-    p.t = (S(2) * S(dlog(p.d)) - (log_lo + log_hi)) / (log_hi - log_lo);
-    p.z = p.d * dexp(T(clenshaw_d(cheb_logh, cheb_deg, p.t, p.ds)));
+    const S t = (S(2) * S(dlog(p.d)) - (log_lo + log_hi)) / (log_hi - log_lo);
+    S ds;
+    p.z = p.d * dexp(T(clenshaw_d(cheb_logh, cheb_deg, t, ds)));
+    p.t = T(t);
+    p.ds = T(ds);
     return p;
   }
 
-  // the chain of dz, the cotangent of z at dL, to the distance series
-  __device__ __forceinline__ void chain_z(const ZPoint& p, T dl, T dz,
-                                          GradAcc<T>& g) const {
+  // the chain of dz, the cotangent of z at dL, to the distance bounds (lo,
+  // hi); returns a, the cotangent of the series' value c(t), to project
+  __device__ __forceinline__ T chain_z(const ZPoint& p, T dl, T dz, T& lo,
+                                       T& hi) const {
     const T span = T(log_hi - log_lo);
-    const T t = T(p.t);
-    const T a = dz * p.z;  // the cotangent of c(t)
-    cheb_project(g.cheb, cheb_deg, t, a);
-    const T dt = a * T(p.ds);
-    g.lo += dt * (t - T(1)) / span / T(dgw_lo);
-    g.hi -= dt * (t + T(1)) / span / T(dgw_max);
+    const T t = p.t;
+    const T a = dz * p.z;
+    const T dt = a * p.ds;
+    lo += dt * (t - T(1)) / span / T(dgw_lo);
+    hi -= dt * (t + T(1)) / span / T(dgw_max);
     const T dd = (a + dt * (T(2) / span)) / p.d;  // the cotangent of d
-    if (dl < T(dgw_lo)) g.lo += dd;
-    else if (dl > T(dgw_max)) g.hi += dd;
+    if (dl < T(dgw_lo)) lo += dd;
+    else if (dl > T(dgw_max)) hi += dd;
+    return a;
+  }
+
+  // The reverse sweep of p_m1m2 at (m1det, m2det) / (1 + z) (population.cuh,
+  // MassModel::joint with Model::conditional_cdf), each branch and clip
+  // taking the slope the dual takes: ties of clip go to the bound, and a
+  // p21 zeroed by the m1_floor test or the finite guard carries none.
+  // Given gw, the cotangent of p, it adds the mass fields' cotangents to gm
+  // and returns z's; the window's point (t_win, its value's cotangent b)
+  // goes to tw, b (b = 0 outside the window).
+  __device__ __forceinline__ T mass_vjp(const MassModel<T>& mm, T m1det,
+                                        T m2det, T z, T gw, T* gm, T& tw,
+                                        T& b) const {
+    const MassConsts<T>& k = *consts;
+    const T ip = T(1) / (T(1) + z);
+    const T m1 = m1det * ip, m2 = m2det * ip;
+    const T s1 = dmax(m1, mm.m_low);
+    const T m1c = dmin(s1, mm.m_high);
+    const bool in_window = m1c <= mm.m_join;
+    T cdf, dsw = T(0), tws = T(0);
+    bool x_join = false, x_m1c = false;
+    // above the join: tpl_cdf(beta, m_join, m1c) = (m1c^ap - m_join^ap) / ap
+    T mp = T(0), la = T(0), pa = T(0), c = T(0);
+    tw = b = T(0);
+    if (in_window) {
+      const T s2 = dmax(m1c, mm.m_low);
+      const T x = dmin(s2, mm.m_join);
+      x_join = !(s2 < mm.m_join);
+      x_m1c = !x_join && m1c > mm.m_low;
+      // the window's t as Model::conditional_cdf forms it, in S
+      const S lo = S(mm.m_low), hi = S(mm.m_join);
+      const S ts = (S(2) * S(x) - (lo + hi)) / (hi - lo);
+      tws = T(ts);
+      S ds;
+      cdf = T(clenshaw_d(window, window_deg, ts, ds));
+      dsw = T(ds);
+      tw = tws;
+    } else {
+      mp = dmax(m1c, T(1e-30));
+      la = dlog(mp);
+      if (mm.beta == T(-1)) {
+        c = k.log_m_join - la;
+      } else {
+        pa = dexp(k.ap * la);
+        c = (pa - k.pow_join) * k.inv_ap;
+      }
+      cdf = mm.cdf_at_join + c;
+    }
+    // joint: p1 p21, p21 = secondary / cdf
+    const TplUnnorm<T> tu(m2, mm.beta, mm.m_low, m1);
+    const Smoothing<T> sm2(m2, mm.delta_m, mm.m_low);
+    const T sec = tu.y * sm2.y;
+    const bool ok = cdf > T(0);
+    const T inv_cdf = T(1) / (ok ? cdf : T(1));
+    const T p21 = sec * inv_cdf;
+    if (!(ok && m1 > mm.m1_floor) || !finite(p21)) return T(0);
+    const Primary<T> prim(mm, k, m1);
+    const T p1 = prim.y * k.inv_norm_p_m1;
+    const T gp1 = gw * p21 * k.inv_norm_p_m1, gp21 = gw * p1;
+    const T gsec = gp21 * inv_cdf, gcdf = -gsec * p21;
+    gm[kNormPM1] -= gp1 * p1;
+    T gm1 = T(0), gm2 = T(0), gm1c = T(0);
+    prim.vjp(mm, k, m1, gp1, gm1, gm);
+    tu.vjp(m2, mm.beta, gsec * sm2.y, gm2, gm[kBeta]);
+    sm2.vjp(m2, mm.delta_m, mm.m_low, gsec * tu.y, gm2, gm[kDeltaM],
+            gm[kMLow]);
+    if (in_window) {
+      b = gcdf;
+      const T gnum = gcdf * dsw * k.inv_window;  // t = num / den
+      const T gden = -gnum * tws;
+      gm[kMLow] -= gnum + gden;
+      gm[kMJoin] += gden - gnum;
+      const T gx = T(2) * gnum;
+      if (x_join) gm[kMJoin] += gx;
+      else if (x_m1c) gm1c += gx;
+      else gm[kMLow] += gx;
+    } else {
+      gm[kCdfAtJoin] += gcdf;
+      T gmp;
+      if (mm.beta == T(-1)) {
+        gm[kMJoin] += gcdf * k.inv_m_join;
+        gmp = -gcdf / mp;
+      } else {
+        const T ga = gcdf * k.inv_ap;  // the cotangent of pa; pow_join's -ga
+        gm[kBeta] += ga * (pa * la - k.pow_join * k.log_m_join) - ga * c;
+        gmp = ga * pa * k.ap / mp;
+        gm[kMJoin] -= ga * k.pow_join * k.ap * k.inv_m_join;
+      }
+      if (m1c > T(1e-30)) gm1c += gmp;
+    }
+    if (!(s1 < mm.m_high)) gm[kMHigh] += gm1c;
+    else if (m1 > mm.m_low) gm1 += gm1c;
+    else gm[kMLow] += gm1c;
+    return -(gm1 * m1det + gm2 * m2det) * ip * ip;
+  }
+
+  // dz, dw: the cotangents of this sample's z and w; the points to project
+  template <typename Acc>
+  __device__ __forceinline__ SamplePoints<T> add(const MassModel<T>& mm,
+                                                 T m1det, T m2det, T dl,
+                                                 T inv_prior, T dz, T dw,
+                                                 Acc& g) const {
+    const ZPoint zp = z_at(dl);
+    SamplePoints<T> p;
+    const T gz = mass_vjp(mm, m1det, m2det, zp.z, dw * inv_prior, g.mass,
+                          p.tw, p.b);
+    p.t = zp.t;
+    p.a = chain_z(zp, dl, dz + gz, g.lo, g.hi);
+    return p;
   }
 
   // a z with no weight attached (the logical rows' fillers at dl_fill)
-  __device__ __forceinline__ void add_z(T dl, T dz, GradAcc<T>& g) const {
-    chain_z(z_at(dl), dl, dz, g);
-  }
-
-  // dz, dw: the cotangents of this sample's z and w
-  __device__ __forceinline__ void add(const MassModel<N>& mm, T m1det,
-                                      T m2det, T dl, T inv_prior, T dz, T dw,
-                                      GradAcc<T>& g) const {
+  template <typename Acc>
+  __device__ __forceinline__ SamplePoints<T> add_z(T dl, T dz, Acc& g) const {
     const ZPoint zp = z_at(dl);
-
-    // ---- w as a dual in the mass scalars, z and the window's value ----
-    N inv1pz(T(1) / (T(1) + zp.z));
-    inv1pz.d[kZDir] = -inv1pz.v * inv1pz.v;
-    const N m1 = N(m1det) * inv1pz;
-    const N m2 = N(m2det) * inv1pz;
-    const N m1c = clip(m1, mm.m_low, mm.m_high);
-    const bool in_window = m1c <= mm.m_join;
-    N cdf;
-    T t_win = T(0);
-    if (in_window) {
-      const N x = clip(m1c, mm.m_low, mm.m_join);
-      const N tw = (N(2) * x - (mm.m_low + mm.m_join)) / (mm.m_join - mm.m_low);
-      // the window's t in S as Model::conditional_cdf has it (the dual's
-      // own value where S is T)
-      const S lo = S(mm.m_low.v), hi = S(mm.m_join.v);
-      const S ts = std::is_same<S, T>::value
-                       ? S(tw.v) : (S(2) * S(x.v) - (lo + hi)) / (hi - lo);
-      S dsw;
-      const S val = clenshaw_d(window, window_deg, ts, dsw);
-      cdf = chain(tw, T(val), T(dsw));
-      cdf.d[kCdfDir] = T(1);
-      t_win = T(ts);
-    } else {
-      cdf = mm.cdf_above_join(m1c);
-    }
-    const N p = mm.joint(m1, m2, cdf);
-    const T gw = dw * inv_prior;  // the cotangent of p_m1m2
-#pragma unroll
-    for (int i = 0; i < kMassScalars; ++i) g.mass[i] += gw * p.d[i];
-    if (in_window) cheb_project(g.win, window_deg, t_win, gw * p.d[kCdfDir]);
-    chain_z(zp, dl, dz + gw * p.d[kZDir], g);
+    SamplePoints<T> p;
+    p.t = zp.t;
+    p.a = chain_z(zp, dl, dz, g.lo, g.hi);
+    p.tw = p.b = T(0);
+    return p;
   }
+};
+
+// A warp as a `Block` of its own (K3c on logical rows: a warp a row): its
+// sums, min/max and any over its 32 lanes by xor exchanges, whose pairwise
+// sums are commutative so that every lane holds the same bits.
+template <typename T>
+struct WarpBlock {
+  static constexpr int kSize = 32;
+  static constexpr int kLanes = 32;
+  __device__ __forceinline__ int rank() const { return threadIdx.x % 32; }
+  __device__ __forceinline__ int lane() const { return threadIdx.x % 32; }
+  template <int N>
+  __device__ __forceinline__ void sum(T (&v)[N]) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      for (int o = 16; o > 0; o >>= 1)
+        v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+  }
+  __device__ __forceinline__ void minmax(T& lo, T& hi) const {
+    for (int o = 16; o > 0; o >>= 1) {
+      lo = dmin(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = dmax(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    }
+  }
+  __device__ __forceinline__ bool any(bool v) const {
+    return __any_sync(0xffffffffu, v) != 0;
+  }
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
 };
 
 // ---------------------------------------------------------------------------
@@ -397,14 +939,17 @@ struct AdjointArgs {
   const T* params;            // (L, kMassScalars)
   const T* ct_den;            // (L, B, G), not in kStatsOnly
   const T* ct_stats;          // (L, B, 8), STAT_NAMES
-  double* partials;           // (L, B, P): per row, the packed rows' gradients
+  double* partials;           // (L, blocks, P): per block, the packed rows' gradients
   T* d_ext;                   // (L, B, 2), kExternalBounds
   int L, B, S, G, cheb_deg, window_deg, logical_s, bw_mode, unit_scale;
   T bw_value, cut_grid;
 };
 
-// The block's shared arrays: z, w, dz, dw of the row's samples and the G
-// (grid point, scaled density cotangent) pairs.
+// The block's shared arrays: z, w, dz, dw of the row's samples, the G
+// (grid point, scaled density cotangent) pairs, and the stash of phase D's
+// points to project for `cap` samples at a time, four arrays of cap values
+// from st on (t, a of the distance series, tw, b of the window): the row's
+// z, w, dz, dw themselves (st = z, cap = S) or arrays of their own.
 template <typename T>
 struct AdjointSmem {
   T* z;
@@ -412,6 +957,8 @@ struct AdjointSmem {
   T* dz;
   T* dw;
   typename Pair<T>::type* gc;
+  T* st;
+  int cap;
 };
 
 // K3 for the (lambda l, row b) of the forward in MODE (kde.cuh, FusedMode),
@@ -440,13 +987,15 @@ struct AdjointSmem {
 //            bounds' cotangents to d_ext (fused.py:939-945).  Then the row
 //            statistics (RowAdjoint), with sum w's extra term of 'unit'.
 //   phase D  per real sample the chain through z and w (SampleAdjoint); the
-//            fillers' zf once, by rank 0.
-template <typename T, typename S, int KERNEL, int MODE, typename Block>
+//            fillers' zf once, by rank 0; the projections of the two series'
+//            cotangents onto their coefficients (project), sm.cap samples
+//            at a time.
+template <typename T, typename S, int KERNEL, int MODE, typename Block,
+          typename Acc>
 __device__ __forceinline__ void adjoint_row(
     const Block& blk, const Model<T, S>& model,
-    const SampleAdjoint<T, S>& sample, const MassModel<Dual<T, kDirs>>& mm,
-    const AdjointArgs<T>& a, int l, int b, const AdjointSmem<T>& sm,
-    GradAcc<T>& g) {
+    const SampleAdjoint<T, S>& sample, const AdjointArgs<T>& a, int l, int b,
+    const AdjointSmem<T>& sm, Acc& g) {
   using T2 = typename Pair<T>::type;
   constexpr bool kRange = MODE == kEffectiveGrid || MODE == kStatsOnly;
   constexpr bool kKde = MODE != kStatsOnly;
@@ -611,25 +1160,74 @@ __device__ __forceinline__ void adjoint_row(
   }
 
   // ---- phase D: per sample, through z and w to the packed rows ------------
-  for (int s = blk.rank(); s < n; s += Block::kSize) {
-    const T z = sm.z[s], w = sm.w[s];
-    T dz = cz * (z - z_mean);
-    if (kKde) dz = sm.dz[s] + dz;
-    if (kRange) {
-      if (z == z_lo) dz += share[0];
-      if (z == z_hi) dz += share[1];
+  // (a tile of sm.cap samples at a time; stash slot j of sample t0 + j is
+  // the sample's own thread's, the sample's slot itself where cap = S)
+  int t0 = 0;
+  do {
+    const int cnt = n - t0 < sm.cap ? n - t0 : sm.cap;
+    for (int j = blk.rank(); j < cnt; j += Block::kSize) {
+      const int s = t0 + j;
+      const T z = sm.z[s], w = sm.w[s];
+      T dz = cz * (z - z_mean);
+      if (kKde) dz = sm.dz[s] + dz;
+      if (kRange) {
+        if (z == z_lo) dz += share[0];
+        if (z == z_hi) dz += share[1];
+      }
+      const T dw = kKde ? sm.dw[s] + d_sw + T(2) * w * d_sw2
+                        : d_sw + T(2) * w * d_sw2;
+      const SamplePoints<T> p = sample.add(model.mass, a.m1[row + s],
+                                           a.m2[row + s], a.dl[row + s],
+                                           a.invp[row + s], dz, dw, g);
+      sm.st[j] = p.t;
+      sm.st[sm.cap + j] = p.a;
+      sm.st[2 * sm.cap + j] = p.tw;
+      sm.st[3 * sm.cap + j] = p.b;
     }
-    const T dw = kKde ? sm.dw[s] + d_sw + T(2) * w * d_sw2
-                      : d_sw + T(2) * w * d_sw2;
-    sample.add(mm, a.m1[row + s], a.m2[row + s], a.dl[row + s],
-               a.invp[row + s], dz, dw, g);
-  }
-  if (logical && blk.rank() == 0) {
-    T d_zf = f_log * cz * dzf;
-    if (min_zf) d_zf += d_zmin;
-    if (max_zf) d_zf += d_zmax;
-    if (d_zf != T(0)) sample.add_z(a.dl_fill[b], d_zf, g);
-  }
+    SamplePoints<T> fill{T(0), T(0), T(0), T(0)};
+    bool has_fill = false;
+    if (logical && t0 == 0 && blk.rank() == 0) {
+      T d_zf = f_log * cz * dzf;
+      if (min_zf) d_zf += d_zmin;
+      if (max_zf) d_zf += d_zmax;
+      has_fill = d_zf != T(0);
+      if (has_fill) fill = sample.add_z(a.dl_fill[b], d_zf, g);
+    }
+    project(blk, [&](int j, T& t, T& c) {
+              t = sm.st[j];
+              c = sm.st[sm.cap + j];
+            }, cnt, has_fill, fill.t, fill.a, model.cheb_deg, g.cheb);
+    project(blk, [&](int j, T& t, T& c) {
+              t = sm.st[2 * sm.cap + j];
+              c = sm.st[3 * sm.cap + j];
+            }, cnt, false, T(0), T(0), model.window_deg, g.win);
+    t0 += sm.cap;
+  } while (t0 < n);
+  blk.sync();  // the slots are the next row's
+}
+
+// K3c on logical rows (stats_rows_kernel in fused_kde_adjoint.cu): blocks
+// of one warp, a warp a row, kWarpRows rows a block in row order.
+constexpr int kWarpRows = 4;
+
+// K3c on logical rows: z and w of S samples and a stash of kStash samples'
+// 4 points
+constexpr int kStash = 128;
+template <typename T, typename S>
+__host__ __device__ __forceinline__ size_t warp_rows_smem(int cd, int wd,
+                                                          int n_samples) {
+  return record_bytes<T, S>(cd, wd)
+         + (2 * (size_t)n_samples + 4 * kStash) * sizeof(T);
+}
+
+// Whether K3c takes the warp-a-row kernel: logical rows do (warp_rows_smem
+// is at most the block kernel's record and 4 S values, which the wrapper
+// checks against the limit, where S >= 2 kStash, and a few KB where S is
+// smaller); plain rows (the events of the dark cut_grid path, S real
+// samples each) keep a block a row.
+template <typename T>
+__host__ __device__ __forceinline__ bool warp_rows(const AdjointArgs<T>& a) {
+  return a.n_real != nullptr;
 }
 
 // ---------------------------------------------------------------------------
@@ -685,12 +1283,11 @@ struct RowsSmem {
 //
 // A row that K2 writes as an exact zero (scale 0, no weight, or no
 // cotangent) gives exact zero cotangents without either pass.
-template <typename T, int KERNEL, typename Block>
+template <typename T, int KERNEL, typename Block, typename Acc>
 __device__ __forceinline__ void rows_adjoint_event(
     const Block& blk, const Model<T, double>& model,
-    const SampleAdjoint<T, double>& sample,
-    const MassModel<Dual<T, kDirs>>& mm, const RowsAdjointArgs<T>& a, int l,
-    int e, const RowsSmem<T>& sm, GradAcc<T>& g) {
+    const SampleAdjoint<T, double>& sample, const RowsAdjointArgs<T>& a,
+    int l, int e, const RowsSmem<T>& sm, Acc& g) {
   using T2 = typename Pair<T>::type;
   const int G = a.G;
   const size_t R = (size_t)a.E * a.C;
@@ -798,10 +1395,22 @@ __device__ __forceinline__ void rows_adjoint_event(
     }
 
     // ---- phase D: per sample, through z and w to the packed rows ----------
-    for (int s = blk.rank(); s < a.chunk; s += Block::kSize)
+    // (the slots' zw and dz, dw become the points to project)
+    for (int s = blk.rank(); s < a.chunk; s += Block::kSize) {
+      SamplePoints<T> p{T(0), T(0), T(0), T(0)};
       if (a.invp[base + s] != T(0))
-        sample.add(mm, a.m1[base + s], a.m2[base + s], a.dl[base + s],
-                   a.invp[base + s], sm.dz[s], sm.dw[s], g);
+        p = sample.add(model.mass, a.m1[base + s], a.m2[base + s],
+                       a.dl[base + s], a.invp[base + s], sm.dz[s], sm.dw[s],
+                       g);
+      sm.dz[s] = p.t;
+      sm.dw[s] = p.a;
+      sm.zw[s].x = p.tw;
+      sm.zw[s].y = p.b;
+    }
+    project(blk, [&](int s, T& t, T& c) { t = sm.dz[s]; c = sm.dw[s]; },
+            a.chunk, false, T(0), T(0), model.cheb_deg, g.cheb);
+    project(blk, [&](int s, T& t, T& c) { t = sm.zw[s].x; c = sm.zw[s].y; },
+            a.chunk, false, T(0), T(0), model.window_deg, g.win);
     blk.sync();  // zw and gc are rewritten by the next row
   }
   for (int i = blk.rank(); i < G; i += Block::kSize) {
@@ -811,21 +1420,47 @@ __device__ __forceinline__ void rows_adjoint_event(
 }
 
 // The block's per-thread gradients summed in a fixed order into out[0, P)
-// (P = cd + 2 + wd + kMassScalars columns of the packed rows).
-template <typename T>
-__device__ __forceinline__ void store_partials(const GradAcc<T>& g, int cd,
-                                               int wd, double* out,
-                                               T (*red)[kMaxP]) {
+// (P = cd + 2 + wd + kMassScalars columns of the packed rows): the
+// coefficients as the warps' projections left them (k = lane + 32 i), the
+// distance bounds and the mass fields (MassGrad) summed over each warp, then
+// the warps in order; the derived fields' cotangents chained to the 12
+// scalars through the prologue's Jacobian jac (kDerived, 12), once.  A
+// block of W warps.
+template <int W, typename T>
+__device__ __forceinline__ void store_partials(const GradAcc<T, 32>& g,
+                                               const T* jac, int cd, int wd,
+                                               double* out,
+                                               T (*red)[kRedCols]) {
   const int P = cd + 2 + wd + kMassScalars;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = 0; i < P; ++i) {
-    const T v = warp_sum(g.at(i, cd, wd));
-    if (lane == 0) red[warp][i] = v;
+#pragma unroll
+  for (int i = 0; i < GradAcc<T, 32>::kPer; ++i) {
+    const int k = lane + 32 * i;
+    if (k < cd) red[warp][k] = g.cheb[i];
+    if (k < wd) red[warp][cd + 2 + k] = g.win[i];
+  }
+  T v = warp_sum(g.lo);
+  if (lane == 0) red[warp][cd] = v;
+  v = warp_sum(g.hi);
+  if (lane == 0) red[warp][cd + 1] = v;
+#pragma unroll
+  for (int f = 0; f < kMassGrads; ++f) {
+    v = warp_sum(g.mass[f]);
+    if (lane == 0) red[warp][cd + 2 + wd + f] = v;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < P; i += kThreads) {
+  for (int i = threadIdx.x; i < P + kDerived; i += 32 * W) {
     T t = T(0);
-    for (int w = 0; w < kWarps; ++w) t += red[w][i];
+    for (int w = 0; w < W; ++w) t += red[w][i];
+    red[W][i] = t;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < P; i += 32 * W) {
+    T t = red[W][i];
+    const int s = i - (P - kMassScalars);
+    if (s >= 0)
+      for (int d = 0; d < kDerived; ++d)
+        t += red[W][P + d] * jac[d * kMassScalars + s];
     out[i] = double(t);
   }
 }

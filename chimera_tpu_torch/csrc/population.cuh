@@ -11,7 +11,8 @@
 //                1e-99 window eps (0 in float), the divisor guard of p_m1m2.
 //   MassModel<N> PowerLawPeak in the number type N: T in the forward
 //                kernels, a forward-mode dual number (adjoint.cuh) in the
-//                adjoint kernel, so the derivative is the same transcription.
+//                adjoint kernels' prologue (the derived fields' Jacobian)
+//                and as their reverse sweep's oracle in the host tests.
 //   block_sum    deterministic block-wide sums of per-thread partials;
 //   DeviceBlock  a CUDA block as the `Block` of kde.cuh and adjoint.cuh.
 //
@@ -86,22 +87,6 @@ __device__ __forceinline__ T clenshaw_d(const T* __restrict__ c, int n, T t,
   }
   ds = b1 + t * d1 - d2;
   return t * b1 - b2 + c[0];
-}
-
-// acc[k] += a T_k(t) for k < n: the adjoint of a Chebyshev sum in its
-// coefficients (ops/chebyshev.py, _ChebEval.backward)
-template <typename T>
-__device__ __forceinline__ void cheb_project(T* acc, int n, T t, T a) {
-  acc[0] += a;
-  if (n < 2) return;
-  acc[1] += a * t;
-  T t_km1 = T(1), t_k = t;
-  for (int k = 2; k < n; ++k) {
-    const T t_kp = T(2) * t * t_k - t_km1;
-    acc[k] += a * t_kp;
-    t_km1 = t_k;
-    t_k = t_kp;
-  }
 }
 
 template <typename T>
@@ -202,8 +187,11 @@ struct Model {
   MassModel<T> mass;
 
   // series: cheb_logh[cd], dgw_lo, dgw_max, cheb_cdf_window[wd]; s: the
-  // MASS_SCALARS (ops/cuda/fused.py, pack_params)
-  __device__ Model(const S* series, const T* s, int cd, int wd) {
+  // MASS_SCALARS (ops/cuda/fused.py, pack_params); derived: pl_norm,
+  // peak_hi, log_sigma, m1_floor as MassModel::derive() gives them (the
+  // adjoint kernels' per-lambda prologue), or null to derive them here
+  __device__ Model(const S* series, const T* s, int cd, int wd,
+                   const T* derived = nullptr) {
     cheb_logh = series;
     cheb_deg = cd;
     window_deg = wd;
@@ -214,7 +202,12 @@ struct Model {
     mass.beta = s[3]; mass.delta_m = s[4]; mass.lambda_peak = s[5];
     mass.mu_g = s[6]; mass.sigma_g = s[7]; mass.peak_norm = s[8];
     mass.norm_p_m1 = s[9]; mass.m_join = s[10]; mass.cdf_at_join = s[11];
-    mass.derive();
+    if (derived == nullptr) {
+      mass.derive();
+    } else {
+      mass.pl_norm = derived[0]; mass.peak_hi = derived[1];
+      mass.log_sigma = derived[2]; mass.m1_floor = derived[3];
+    }
     log_lo = dlog(dgw_lo);
     log_hi = dlog(dgw_max);
   }
@@ -251,10 +244,10 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// Block-wide sums of N values per thread, in a fixed order (deterministic);
-// every thread receives the totals.
-template <typename T, int N>
-__device__ __forceinline__ void block_sum(T (&v)[N], T (*scratch)[kWarps]) {
+// Block-wide sums of N values per thread over a block of W warps, in a
+// fixed order (deterministic); every thread receives the totals.
+template <typename T, int N, int W = kWarps>
+__device__ __forceinline__ void block_sum(T (&v)[N], T (*scratch)[W]) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -265,15 +258,15 @@ __device__ __forceinline__ void block_sum(T (&v)[N], T (*scratch)[kWarps]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     T t = T(0);
-    for (int w = 0; w < kWarps; ++w) t += scratch[i][w];
+    for (int w = 0; w < W; ++w) t += scratch[i][w];
     v[i] = t;
   }
   __syncthreads();
 }
 
 // Block-wide min of lo and max of hi; every thread receives both.
-template <typename T>
-__device__ __forceinline__ void block_minmax(T& lo, T& hi, T (*scratch)[kWarps]) {
+template <typename T, int W = kWarps>
+__device__ __forceinline__ void block_minmax(T& lo, T& hi, T (*scratch)[W]) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int o = 16; o > 0; o >>= 1) {
     lo = dmin(lo, __shfl_down_sync(0xffffffffu, lo, o));
@@ -286,28 +279,31 @@ __device__ __forceinline__ void block_minmax(T& lo, T& hi, T (*scratch)[kWarps])
   __syncthreads();
   lo = scratch[0][0];
   hi = scratch[1][0];
-  for (int w = 1; w < kWarps; ++w) {
+  for (int w = 1; w < W; ++w) {
     lo = dmin(lo, scratch[0][w]);
     hi = dmax(hi, scratch[1][w]);
   }
   __syncthreads();
 }
 
-// A CUDA block of kThreads threads as the `Block` of the arithmetic written
-// once for a block (kde.cuh, adjoint.cuh): the thread's rank, the stride,
-// block-wide sums, min/max, any and a barrier.  The host emulation
+// A CUDA block of W warps (kThreads threads by default) as the `Block` of
+// the arithmetic written once for a block (kde.cuh, adjoint.cuh): the
+// thread's rank, the stride, its lane in its warp, block-wide sums,
+// min/max, any and a barrier.  The host emulation
 // (tests/host_emulation) runs the same functions with a block of one thread.
-template <typename T>
+template <typename T, int W = kWarps>
 struct DeviceBlock {
-  T (*scratch)[kWarps];
-  static constexpr int kSize = kThreads;
+  T (*scratch)[W];
+  static constexpr int kSize = 32 * W;
+  static constexpr int kLanes = 32;  // lanes of the warps the block is cut in
   __device__ __forceinline__ int rank() const { return threadIdx.x; }
+  __device__ __forceinline__ int lane() const { return threadIdx.x % 32; }
   template <int N>
   __device__ __forceinline__ void sum(T (&v)[N]) const {
-    block_sum<T, N>(v, scratch);
+    block_sum<T, N, W>(v, scratch);
   }
   __device__ __forceinline__ void minmax(T& lo, T& hi) const {
-    block_minmax(lo, hi, scratch);
+    block_minmax<T, W>(lo, hi, scratch);
   }
   __device__ __forceinline__ bool any(bool v) const {
     return __syncthreads_or(v) != 0;

@@ -22,11 +22,15 @@
 // the samples over threads, dw, dz and the 1/h adjoint per sample, chained
 // through z and w (SampleAdjoint) into per-thread gradients that the block
 // sums into `partials` (L, E, P).  A second kernel sums those over the
-// events.  The Chebyshev series are summed in double, as in K2.
+// events.  The Chebyshev series are summed in double, as in K2.  A
+// prologue writes each lambda's record first, and the mass model's
+// derivative is K3's reverse sweep (adjoint.cuh): the three launches count
+// as one K2b.
 //
 // What bounds it on an H100: arithmetic.  Two sweeps of the live rows'
 // (grid point, sample) pairs, ~7 and ~11 FP32 operations a pair, and the
-// dual mass model per sample with weight.  Rows that K2 writes as exact
+// mass model's reverse sweep and the two projections per sample with
+// weight.  Rows that K2 writes as exact
 // zeros (scale 0, no weight, or here also no cotangent) are skipped whole
 // and give exact zero cotangents.  Later work: one sweep for both passes
 // and the pruning of K2.
@@ -36,15 +40,14 @@
 namespace {
 
 template <typename T, int KERNEL>  // KERNEL 0: Epanechnikov, 1: Gaussian
-__global__ void __launch_bounds__(kThreads)
-rows_adjoint_kernel(const RowsAdjointArgs<T> a) {
-  using N = Dual<T, kDirs>;
+__global__ void __launch_bounds__(kThreads, 4)
+rows_adjoint_kernel(const RowsAdjointArgs<T> a,
+                    const unsigned char* __restrict__ records) {
   using T2 = typename Pair<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
-  double* ser = reinterpret_cast<double*>(smem);  // series, summed in double
+  const size_t rb = record_bytes<T, double>(a.cheb_deg, a.window_deg);
   RowsSmem<T> sm;
-  sm.zw = reinterpret_cast<T2*>(smem + series_bytes<double>(a.cheb_deg,
-                                                            a.window_deg));
+  sm.zw = reinterpret_cast<T2*>(smem + rb);
   sm.gc = sm.zw + a.chunk;
   sm.grid = reinterpret_cast<T*>(sm.gc + a.G);
   sm.f1 = sm.grid + a.G;
@@ -53,44 +56,47 @@ rows_adjoint_kernel(const RowsAdjointArgs<T> a) {
   sm.df2 = sm.df1 + a.G;
   sm.dz = sm.df2 + a.G;
   sm.dw = sm.dz + a.chunk;
-  T* prm = sm.dw + a.chunk;  // this lambda's mass scalars
   __shared__ T scratch[2][kWarps];
-  __shared__ T red[kWarps][kMaxP];
-  __shared__ MassModel<N> dual_mass;
+  __shared__ T red[kWarps + 1][kRedCols];
 
   const int l = blockIdx.x % a.L;
   const int e = blockIdx.x / a.L;
-  const int Q = a.cheb_deg + 2 + a.window_deg;
-  for (int i = threadIdx.x; i < Q; i += kThreads)
-    ser[i] = a.series[(size_t)l * Q + i];
-  for (int i = threadIdx.x; i < kMassScalars; i += kThreads)
-    prm[i] = a.params[(size_t)l * kMassScalars + i];
+  copy_record(records + (size_t)l * rb, smem, rb);
   __syncthreads();
-  if (threadIdx.x == 0) SampleAdjoint<T, double>::seed_mass(dual_mass, prm);
-  const Model<T, double> model(ser, prm, a.cheb_deg, a.window_deg);
-  const SampleAdjoint<T, double> sample(ser, a.cheb_deg, a.window_deg);
-  GradAcc<T> g;
+  const Record<T, double> rec(smem, a.cheb_deg, a.window_deg);
+  const Model<T, double> model(rec.series, rec.fields, a.cheb_deg,
+                               a.window_deg, rec.fields + kMassScalars);
+  const SampleAdjoint<T, double> sample(model, rec.consts);
+  GradAcc<T, 32> g;
   g.zero();
-  rows_adjoint_event<T, KERNEL>(DeviceBlock<T>{scratch}, model, sample,
-                                dual_mass, a, l, e, sm, g);
-  store_partials(g, a.cheb_deg, a.window_deg,
-                 a.partials + ((size_t)l * a.E + e) * (Q + kMassScalars), red);
+  rows_adjoint_event<T, KERNEL>(DeviceBlock<T>{scratch}, model, sample, a, l,
+                                e, sm, g);
+  const int P = a.cheb_deg + 2 + a.window_deg + kMassScalars;
+  store_partials<kWarps>(g, rec.jac, a.cheb_deg, a.window_deg,
+                 a.partials + ((size_t)l * a.E + e) * P, red);
 }
 
 template <typename T, int KERNEL>
 int launch_kernel(const RowsAdjointArgs<T>& a, double* d_series, T* d_params,
                   cudaStream_t stream) {
-  const size_t smem = series_bytes<double>(a.cheb_deg, a.window_deg)
-                      + ((size_t)a.chunk + a.G) * sizeof(typename Pair<T>::type)
-                      + (5 * (size_t)a.G + 2 * (size_t)a.chunk + kMassScalars)
-                        * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      rows_adjoint_kernel<T, KERNEL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int P = a.cheb_deg + 2 + a.window_deg + kMassScalars;
+  unsigned char* records = reinterpret_cast<unsigned char*>(
+      a.partials + records_offset((size_t)a.L * a.E * P));
+  cudaError_t err = write_records<T, double>(a.series, a.params, a.L,
+                                             a.cheb_deg, a.window_deg, records,
+                                             stream);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)a.L * (unsigned)a.E);
-  rows_adjoint_kernel<T, KERNEL><<<grid, kThreads, smem, stream>>>(a);
-  err = cudaGetLastError();
+  const size_t smem = record_bytes<T, double>(a.cheb_deg, a.window_deg)
+                      + ((size_t)a.chunk + a.G) * sizeof(typename Pair<T>::type)
+                      + (5 * (size_t)a.G + 2 * (size_t)a.chunk) * sizeof(T);
+  err = cudaFuncSetAttribute(rows_adjoint_kernel<T, KERNEL>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err == cudaSuccess) {
+    const dim3 grid((unsigned)a.L * (unsigned)a.E);
+    rows_adjoint_kernel<T, KERNEL><<<grid, kThreads, smem, stream>>>(a, records);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return (int)err;
   reduce_events_kernel<T><<<a.L, 160, 0, stream>>>(
       a.partials, d_series, d_params, a.E, a.cheb_deg + 2 + a.window_deg);
@@ -118,7 +124,8 @@ int launch(const T* m1, const T* m2, const T* dl, const T* invp,
 }  // namespace
 
 // C interface (loaded with ctypes by chimera_tpu_torch/ops/cuda/rows.py).
-// `partials` is scratch of (L, E, P) doubles.  Returns the CUDA error code
+// `partials` is scratch of records_offset(L E P) doubles and L prologue
+// records (record_bytes each, adjoint.cuh) more.  Returns the CUDA error code
 // of the launches (0 = cudaSuccess).
 extern "C" int chimera_rows_contract_adjoint_f32(
     const float* m1, const float* m2, const float* dl, const float* invp,

@@ -74,10 +74,14 @@ _SMEM_LIMIT = 232448 - 1024
 # elements of one (L, events, G, S) intermediate in the plain version
 _PLAIN_BUDGET = 1 << 25
 # largest Chebyshev degree of either series in the adjoint kernel (its
-# per-thread coefficient accumulators, csrc/fused_kde_adjoint.cu), and room
-# for its static shared memory (block-sum scratch and the dual mass model)
+# projections run in two chunks of 32 coefficients, csrc/adjoint.cuh), and
+# room for its static shared memory (block-sum scratch of up to 8 warps)
 _ADJOINT_MAX_DEG = 64
-_ADJOINT_STATIC_SMEM = 8192
+_ADJOINT_STATIC_SMEM = 12288
+# the per-λ record of the adjoint kernels' prologue past the mass scalars:
+# the 4 derived mass fields, the (2, 12) Jacobian of the two that carry a
+# cotangent and the reverse sweep's 12 constants (csrc/adjoint.cuh)
+_RECORD_EXTRA = 4 + 2 * 12 + 12
 
 
 def plain_budget(t: torch.Tensor) -> int:
@@ -239,6 +243,20 @@ def smem_bytes(series: torch.Tensor, sum_size: int, params: torch.Tensor,
     (csrc/population.cuh, series_bytes)."""
     head = (series.shape[1] * sum_size + 15) // 16 * 16
     return head + (n_values + params.shape[1]) * params.element_size()
+
+
+def adjoint_scratch(n: int, rows: int, series: torch.Tensor, sum_size: int,
+                    params: torch.Tensor) -> torch.Tensor:
+    """The adjoint kernels' ``partials`` scratch (K3, K2b): a row of the
+    packed rows' gradients per (λ, row), then, on a 16-byte boundary, each
+    λ's record of their prologue: the series in the summation type of
+    ``sum_size`` bytes, the mass fields and the Jacobian of the derived ones
+    (csrc/adjoint.cuh, records_offset and record_bytes)."""
+    p = series.shape[1] + params.shape[1]
+    record = ((series.shape[1] * sum_size + 15) // 16 * 16
+              + (params.shape[1] + _RECORD_EXTRA) * params.element_size())
+    return torch.empty((n * rows * p + 1) // 2 * 2 + n * record // 8,
+                       dtype=torch.float64, device=params.device)
 
 
 def on_card(t: torch.Tensor) -> bool:
@@ -635,12 +653,13 @@ def fused_weights_kde_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
         dl_fill = dl_fill.to(device=dev, dtype=dt).contiguous()
     else:
         n_real = dl_fill = None
-    # z, w and their cotangents of every sample, the grid with its scaled
-    # cotangents, the model rows; the dark-siren modes (c, d) sum the
-    # Chebyshev series in float64 as their forward does
+    # the λ's record (the series, the mass fields and the Jacobian of the
+    # derived ones), z, w and their cotangents of every sample, the grid with
+    # its scaled cotangents; the dark-siren modes (c, d) sum the Chebyshev
+    # series in float64 as their forward does
     dense = mode in (_EXTERNAL_BOUNDS, _STATS_ONLY)
     smem = smem_bytes(series, 8 if dense else dl.element_size(), params,
-                      4 * s + 2 * g)
+                      4 * s + 2 * g + _RECORD_EXTRA)
     if smem > _SMEM_LIMIT - _ADJOINT_STATIC_SMEM:
         raise ValueError(
             f"S = {s} samples need {smem} bytes of shared memory per block "
@@ -650,8 +669,8 @@ def fused_weights_kde_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
         m1det, m2det, dl, inv_pe_prior, grids if mode == _ANALYSIS_GRID else None,
         ext_bounds, n_real, dl_fill, series, params,
         None if mode == _STATS_ONLY else ct_den, ct_stats)]
-    partials = torch.empty((n, e, q + len(MASS_SCALARS)), dtype=torch.float64,
-                           device=dev)
+    partials = adjoint_scratch(n, e, series, 8 if dense else dl.element_size(),
+                               params)
     d_series = torch.empty((n, q), dtype=torch.float64, device=dev)
     d_params = torch.empty((n, len(MASS_SCALARS)), dtype=dt, device=dev)
     d_ext = None if ext_bounds is None else torch.empty((n, e, 2), dtype=dt,

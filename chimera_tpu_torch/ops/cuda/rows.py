@@ -27,7 +27,9 @@ import torch
 from chimera_tpu_torch.models.cosmology import z_from_dgw
 from chimera_tpu_torch.models.mass import p_m1m2
 from chimera_tpu_torch.ops.cuda.fused import (_ADJOINT_MAX_DEG,
-                                              _ADJOINT_STATIC_SMEM, _SMEM_LIMIT,
+                                              adjoint_scratch,
+                                              _ADJOINT_STATIC_SMEM,
+                                              _RECORD_EXTRA, _SMEM_LIMIT,
                                               MASS_SCALARS, check_cuda_call,
                                               launch, on_card, pack_params,
                                               plain_budget, smem_bytes,
@@ -247,17 +249,16 @@ def fused_rows_contract_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
             ("ct_r", ct_r, (n, e_ev * c, 2), dt)):
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev:
             raise ValueError(f"{key} must be {shape} {dtype} on {dev}")
-    # (z, w) and (dz, dw) of the row's samples, the grid with its c_g, f1,
-    # f2 and their cotangents
-    smem = smem_bytes(series, 8, params, 4 * chunk + 7 * g)
+    # the λ's record, (z, w) and (dz, dw) of the row's samples, the grid
+    # with its c_g, f1, f2 and their cotangents
+    smem = smem_bytes(series, 8, params, 4 * chunk + 7 * g + _RECORD_EXTRA)
     if smem > _SMEM_LIMIT - _ADJOINT_STATIC_SMEM:
         raise ValueError(
             f"chunk = {chunk} and G = {g} need {smem} bytes of shared memory "
             f"per block, over the {_SMEM_LIMIT - _ADJOINT_STATIC_SMEM}-byte limit")
     inputs = [t.contiguous() for t in (m1det, m2det, dl, inv_pe_prior, grids,
                                        series, params, hs, s1, s2, f1, f2, ct_r)]
-    partials = torch.empty((n, e_ev, q + len(MASS_SCALARS)), dtype=torch.float64,
-                           device=dev)
+    partials = adjoint_scratch(n, e_ev, series, 8, params)
     d_series = torch.empty((n, q), dtype=torch.float64, device=dev)
     d_params = torch.empty((n, len(MASS_SCALARS)), dtype=dt, device=dev)
     d_hs = torch.empty((n, e_ev * c, 2), dtype=dt, device=dev)

@@ -65,18 +65,27 @@ SEED = 20261016
 PARITY_DARK = Path(__file__).resolve().parent / "tests" / "data" / "f32_parity_dark.npz"
 DEV = torch.device("cuda", 0)
 F32, F64 = torch.float32, torch.float64
-# published peaks of one H100 SXM at 700 W: HBM bytes/s and FP32 FLOP/s
-# outside the tensor cores (an FMA counts 2)
+# published peaks of one H100 SXM at 700 W (NVIDIA's H100 data sheet): HBM
+# bytes/s, FP32 and FP64 FLOP/s outside the tensor cores (an FMA counts 2)
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_FP64 = 34e12
 # FP32 operations of one KDE term: (g - z), * 1/h, u*u, 1 - u^2, max, fma;
 # of one Clenshaw coefficient: fma and subtract
 KDE_OPS, CHEB_OPS = 7, 3
 # of one term of the KDE adjoint: (g - z), * 1/h, u*u, 1 - u^2, compare and
 # select, then fma, mul, add, fma into the three sums; of one coefficient
-# of the adjoint's Clenshaw work: the forward's recurrence, then value with
-# derivative (3 + 4) and the T_k projection (fma, sub, fma)
-ADJ_KDE_OPS, ADJ_CHEB_OPS = 11, 3 + 7 + 4
+# of the adjoint's Clenshaw work: the sums, one recurrence of the value with
+# its derivative (3 + 4, which gives both z and dz/dt), in the series'
+# summation type; and the T_k projection (fma, sub, fma), in the working
+# dtype
+ADJ_KDE_OPS, ADJ_CHEB_SUM_OPS, ADJ_CHEB_PROJ_OPS = 11, 3 + 4, 4
+# the mass model per real sample in the adjoints: p_m1m2's forward (~90:
+# the clip, the window's t or the closed form above m_join, primary's
+# power law, peak and smoothing window, secondary's, the divisions) and its
+# reverse sweep's backward (~110), a transcendental counted as one
+# operation; the sweep's recompute of the forward is not counted
+MASS_OPS = 200
 # on a linear grid one more sum (the bound's: mul, fma)
 ADJ_LIN_KDE_OPS = 13
 # K2b's least work: one sweep over the (grid point, weighted sample) terms of
@@ -99,10 +108,16 @@ BINNED_F32_BAR = {k: max(1e-6, 2.0 * v) for k, v in REFERENCE_F32_GAP.items()}
 PRECISION_MOCK = (64, 1024, 200_000, 300, 300, SEED + 5)
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    """The least time (ms) for moving n_bytes and doing n_ops FP32
-    operations on the card, and which of the two bounds it."""
-    t_b, t_o = n_bytes / PEAK_BYTES, n_ops / PEAK_FP32
+def bound(n_bytes: float, n_ops: float, n_ops64: float = 0.0
+          ) -> tuple[float, str]:
+    """The least time (ms) for moving n_bytes and doing n_ops FP32 and
+    n_ops64 FP64 operations on the card, and which of the two bounds it.
+    An FP64 operation takes a dispatch slot as an FP32 one does (FP32 at its
+    peak fills every slot) and the FP64 pipes run at half the FP32 rate:
+    the operations take max((n_ops + n_ops64) / PEAK_FP32,
+    n_ops64 / PEAK_FP64)."""
+    t_b = n_bytes / PEAK_BYTES
+    t_o = max((n_ops + n_ops64) / PEAK_FP32, n_ops64 / PEAK_FP64)
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
@@ -904,13 +919,7 @@ def sampler(smi: str, full) -> dict:
           f"backward (rest) {t_med - f_med - k_med:.4f} ms; a batch of one "
           f"chain {o_med:.3f} ± {o_mad:.3f} ms per call")
     k_call, p_call = statistics.median(kern), plain[0]
-    e, s = hl.dL.shape
-    g = hl.z_grids.shape[1]
-    cosmo, mass = args[9], args[10]
-    q = cosmo.cheb_deg + 2 + mass.window_deg
-    bound_ms, bound_by = bound(
-        4 * (4 * e * s + e * g + n * e * (g + 8) + 2 * n * 12) + 8 * 2 * n * q,
-        n * e * s * (ADJ_KDE_OPS * g + ADJ_CHEB_OPS * cosmo.cheb_deg))
+    bound_ms, bound_by = k3_bound((*args, "epan"), {})
     phase(14, "K3 vs plain", f"[{smi}] at 1000 x 4096 x 500, L = {n}: kernel "
           f"{k_call:.3f} ms, plain {p_call:.3f} ms per call "
           f"({p_call / k_call:.1f}x), bound {bound_ms:.3f} ms ({bound_by}); on "
@@ -922,7 +931,7 @@ def sampler(smi: str, full) -> dict:
             "replaces": "chimera_tpu/ops/pallas/fused.py:713",
             "launches": counts["hmc"][1], "max_abs_err": abs_err, "ms": k_call,
             "plain_ms": p_call, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": None, "redesigned": 7}
 
 
 # ---------------------------------------------------------------------------
@@ -1426,44 +1435,96 @@ def k3_id(kw) -> str:
         "K3b" if kw.get("cut_grid") is not None else "K3"
 
 
+def window_pairs(cosmo, mass, m1det, dl, mask=None) -> int:
+    """The (λ, sample) pairs, where ``mask`` ((B, S) or (L, B, S)) holds,
+    whose source mass m1det / (1 + z) clipped to [m_low, m_high] lies at or
+    below m_join: those that sum the conditional CDF's window series."""
+    from chimera_tpu_torch.models.cosmology import z_from_dgw
+
+    n = max(cosmo.L, mass.L)
+    with torch.no_grad():
+        z = z_from_dgw(cosmo, dl[None]).expand(n, -1, -1)
+        col = [getattr(mass, k).expand(n)[:, None, None].to(z.dtype)
+               for k in ("m_low", "m_high", "m_join")]
+        m1c = torch.minimum(torch.maximum(m1det[None] / (1.0 + z), col[0]), col[1])
+        inside = m1c <= col[2]
+        if mask is not None:
+            inside = inside & (mask if mask.dim() == 3 else mask[None])
+        return int(inside.sum())
+
+
+def adjoint_ops(dl, cosmo, mass, pairs: int, in_window: int, terms: int,
+                dark: bool) -> tuple[float, float]:
+    """The FP32 and FP64 operations of an adjoint kernel's per-sample work
+    and its pair terms: ``pairs`` (λ, real sample) pairs of Clenshaw work on
+    the distance series and the mass model (MASS_OPS), ``in_window`` of them
+    on the window series too, and ``terms`` operations of KDE-adjoint
+    terms; the series' sums in double where ``dark`` (the dark-siren modes
+    and K2b) or in float64, the rest in the working dtype."""
+    coefs = pairs * cosmo.cheb_deg + in_window * mass.window_deg
+    sums = ADJ_CHEB_SUM_OPS * coefs
+    rest = ADJ_CHEB_PROJ_OPS * coefs + MASS_OPS * pairs + terms
+    if dl.dtype == F64:
+        return 0.0, float(sums + rest)
+    return (float(rest), float(sums)) if dark else (float(sums + rest), 0.0)
+
+
 def k3_bound(args, kw) -> tuple[float, str]:
-    """The least time of K3 on these inputs: the PE rows of the real
+    """The least time of K3 on these inputs: bytes — the PE rows of the real
     samples, the cotangents, the model rows and the gradients (the d_ext
-    bounds too), bytes; the pair terms of the
-    KDE adjoint (none in the stats-only mode) and the Clenshaw work of each
-    real sample, FP32 operations."""
-    m1, dl, ct_stats, cosmo = args[0], args[2], args[8], args[9]
+    bounds too); operations — the pair terms of the KDE adjoint (none in
+    the stats-only mode) and each real sample's Clenshaw and mass-model work
+    (adjoint_ops; the series summed in double in the dark-siren modes, K3c
+    and K3d, priced at the FP64 rate)."""
+    m1, dl, grids, ct_stats, cosmo, mass = (args[0], args[2], args[4], args[8],
+                                            args[9], args[10])
     n, b = ct_stats.shape[:2]
     size = dl.element_size()
-    real = int(kw["n_real"].sum()) if kw.get("n_real") is not None else dl.numel()
-    g = 0 if kw.get("stats_only") else int(kw["n_grid"])
+    mask = None
+    if kw.get("n_real") is not None:
+        mask = torch.arange(dl.shape[1], device=dl.device)[None] \
+            < kw["n_real"].to(dl.device)[:, None]
+    real = int(mask.sum()) if mask is not None else dl.numel()
+    g = 0 if kw.get("stats_only") else grids.shape[1] if grids is not None \
+        else int(kw["n_grid"])
+    term_ops = ADJ_KDE_OPS if grids is not None else ADJ_LIN_KDE_OPS
+    dark = bool(kw.get("stats_only")) or kw.get("ext_bounds") is not None
+    ops = adjoint_ops(dl, cosmo, mass, n * real,
+                      window_pairs(cosmo, mass, m1, dl, mask),
+                      n * real * term_ops * g, dark)
     q = args[5].shape[1] + 12
     n_bytes = (size * (4 * real + n * b * (g + 8)) + 2 * 8 * n * q
+               + (size * b * g if grids is not None else 0)
                + (2 * 8 * b if kw.get("n_real") is not None else 0)
                + (2 * size * 2 * n * b if kw.get("ext_bounds") is not None else 0))
-    return bound(n_bytes, n * real * (ADJ_LIN_KDE_OPS * g
-                                      + ADJ_CHEB_OPS * cosmo.cheb_deg))
+    return bound(n_bytes, *ops)
 
 
 def k2b_bound(args) -> tuple[float, str]:
-    """The least time of K2b on these inputs, FP32 operations: on the live
+    """The least time of K2b on these inputs, operations: on the live
     (λ, row) pairs only (a scale, a weight and a cotangent), one sweep of
     the (grid point, weighted sample) terms, the per-grid-point products and
-    each weighted sample's Clenshaw work; bytes: the rows, static and per-λ
-    factors, cotangents and gradients once each."""
-    dl, grids, hs, ct, cosmo = args[2], args[4], args[7], args[12], args[13]
+    each weighted sample's Clenshaw and mass-model work (adjoint_ops, the
+    series summed in double); bytes: the rows, static and per-λ factors,
+    cotangents and gradients once each."""
+    m1, dl, grids, hs, ct, cosmo, mass = (args[0], args[2], args[4], args[7],
+                                          args[12], args[13], args[14])
     n, r_rows = hs.shape[:2]
     chunk = dl.shape[1]
     e, g = grids.shape
     size = dl.element_size()
-    weighted = (args[3] > 0).sum(dim=1)
-    live = (hs[..., 1] != 0) & (ct != 0).any(dim=-1) & (weighted > 0)[None]
-    terms = int((live * weighted[None]).sum())
+    weighted = args[3] > 0
+    live = (hs[..., 1] != 0) & (ct != 0).any(dim=-1) & weighted.any(dim=1)[None]
+    terms = int((live * weighted.sum(dim=1)[None]).sum())
+    in_window = window_pairs(cosmo, mass, m1, dl,
+                             weighted[None] & live[..., None])
+    ops = adjoint_ops(dl, cosmo, mass, terms, in_window,
+                      terms * K2B_TERM_OPS * g
+                      + int(live.sum()) * K2B_GRID_OPS * g, True)
     q = args[5].shape[1] + 12
     n_bytes = (size * (4 * r_rows * chunk + e * g + 2 * r_rows * g
                        + 4 * n * e * g + 6 * n * r_rows) + 2 * 8 * n * q)
-    return bound(n_bytes, terms * (K2B_TERM_OPS * g + ADJ_CHEB_OPS * cosmo.cheb_deg)
-                 + int(live.sum()) * K2B_GRID_OPS * g)
+    return bound(n_bytes, *ops)
 
 
 def dark_gradients(smi: str, full, dark_data) -> list[dict]:
@@ -1624,6 +1685,8 @@ def dark_gradients(smi: str, full, dark_data) -> list[dict]:
                     "launches": launched[kid], "max_abs_err": abs_err,
                     "ms": k_call, "plain_ms": plain_ms, "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": None}
+                if kid == "K3c":
+                    entries[kid]["redesigned"] = 7
         del calls, kernels
         t_med, t_mad = med_mad([t / n for t in total])
         f_med, f_mad = med_mad([t / n for t in fwd])
@@ -1667,6 +1730,9 @@ def dark_gradients(smi: str, full, dark_data) -> list[dict]:
         if not all(torch.equal(runs[0][p], runs[1][p]) for p in PARAMS):
             raise AssertionError(f"{name}: a second run under the same "
                                  "generator seed gave other samples")
+        if name == "hmc":  # the launches of the dark flagship's sampler run
+            entries["K3c"]["launches"] = got["K3c"]
+            entries["K2b"]["launches"] = got["K2b"]
         phase(22, name, f"dark flagship, {n} chains x (4 warm-up + 4 sampling "
               f"steps) in {PARAMS}: {evals[0]} gradient evaluations = K1c = K2 "
               f"= K3c = K2b launches, {seconds:.2f} s; samples finite and inside "
@@ -2011,45 +2077,75 @@ def binned_gradients(smi: str, full, dark_data) -> dict:
     return entry
 
 
-# K3 on analysis grids at the spectral headline (the samplers' backward):
-# ms per call on the main path's cotangents, in the tree it is run from, with
-# the float32 Epanechnikov instantiation's ptxas lines.  It uses only helpers
-# that chip_smoke.py has had since K3 was ported, so it runs in older trees.
+# The adjoint kernel in the tree it is run from, on the main paths' own
+# cotangents, ms per call: K3 on analysis grids at the spectral headline
+# (the samplers' backward); the stats-only mode on the same rows (phases A,
+# C and D alone, the series summed in double); K3 on the first 2 points of
+# the same grids (phases A, C and D as K3 runs them, the pair loop 1/250 of
+# its work; K3 less either is the pair loop's marginal cost, not its time:
+# other blocks' work hides in it); K3c on the dark flagship's logical pixel
+# rows and on the dark cut_grid path's event rows.  Then the ptxas lines of
+# the float32 Epanechnikov K3 and the float32 K3c instantiations of a tree
+# that builds them in that process.  It uses only helpers that chip_smoke.py has had
+# since K3c was ported, so it runs in older trees.
 K3_TIMING = r"""
 import os, statistics, sys
 sys.path.insert(0, os.getcwd())
 import chip_smoke as cs
 from chimera_tpu_torch.ops.cuda import build
-from chimera_tpu_torch.ops.cuda.fused import fused_weights_kde_adjoint
+from chimera_tpu_torch.ops.cuda.fused import fused_weights_kde_adjoint as k3
 
+print(os.getcwd(), flush=True)
+
+def report(name, fn):
+    t = cs.cuda_ms(fn, 17, 3)
+    print(f"  {name}: median {statistics.median(t):.4f} min {min(t):.4f} "
+          f"max {max(t):.4f} ms per call", flush=True)
+
+x = cs.chain_points(16, cs.F32)
 full = cs.mock(1000, 4096, 2_000_000, 500, 200, cs.SEED)
 hl = cs.likelihood(full, cs.F32)
-x = cs.chain_points(16, cs.F32)
 args = list(cs.adjoint_inputs(hl, x, cs.SEED + 14))
 args[7], args[8] = cs.main_path_cotangents(hl, x)
-t = cs.cuda_ms(lambda: fused_weights_kde_adjoint(*args, "epan"), 17, 3)
+report("K3, spectral headline", lambda: k3(*args, "epan"))
+stats = args[:4] + [None] + args[5:7] + [None] + args[8:]
+report("stats-only mode on the same rows",
+       lambda: k3(*stats, "epan", cut_grid=2.0, stats_only=True))
+short = args[:4] + [args[4][:, :2].contiguous()] + args[5:7] \
+    + [args[7][..., :2].contiguous()] + args[8:]
+report("K3 on 2 grid points of the same rows", lambda: k3(*short, "epan"))
+del hl, full, args, stats
+data, _ = cs.dark_mock(1000, 1024, 15, 500, 500_000, 50_000, cs.SEED + 8)
+for path, cfg in (("dark", cs.DARK), ("dark_cut", cs.DARK_CUT)):
+    hl = cs.dark_likelihood(data, cs.F32, **cfg)
+    for a, kw in cs.backward_calls(hl, x)["K3"]:
+        if kw.get("stats_only"):
+            rows = "logical pixel rows" if kw.get("n_real") is not None \
+                else "event rows"
+            report(f"K3c, {path} path's {rows}", lambda: k3(*a, **kw))
+    del hl
 log = build.build_info.get("fused_kde_adjoint", {}).get("log", "").splitlines()
-k3 = [i for i, ln in enumerate(log) if "entry function" in ln
-      and ("IffLi0ELi0" in ln or "IfLi0EEEv" in ln)]
-print(os.getcwd(), "K3 ms per call: median", f"{statistics.median(t):.4f}",
-      "min", f"{min(t):.4f}", "max", f"{max(t):.4f}", flush=True)
-print("  f32 epan ptxas:", " | ".join(
-    ln.split("ptxas info    :")[-1].strip() for i in k3 for ln in log[i:i + 4]
-    if "entry function" in ln or "spill" in ln or "registers" in ln))
+for i, ln in enumerate(log):
+    if "entry function" in ln and any(k in ln for k in (
+            "IffLi0ELi0", "IfdLi0ELi3", "stats_rows_kernelIf")):
+        print("  ptxas:", " | ".join(
+            m.split("ptxas info    :")[-1].strip() for m in log[i:i + 4]
+            if "entry function" in m or "spill" in m or "registers" in m))
 """
 
 
-def k3_ab(other: str) -> None:
-    """K3 on analysis grids in the tree ``other`` (the parent, unpacked with
-    ``git archive``) and in this one, in one call on one card, in the order
-    other, this, this, other: ``python3 chip_smoke.py --k3-ab DIR``."""
+def k3_ab(others: list[str]) -> None:
+    """The adjoint kernel (K3_TIMING) in the trees ``others`` (the parent,
+    unpacked with ``git archive``, or variants) and in this one, in one call
+    on one card, in the order others, this, this, others reversed:
+    ``python3 chip_smoke.py --k3-ab DIR [DIR ...]``."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the card only")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     here = str(Path(__file__).resolve().parent)
-    for tree in (other, here, here, other):
+    for tree in (*others, here, here, *others[::-1]):
         out = subprocess.run([sys.executable, "-c", K3_TIMING], cwd=tree,
                              capture_output=True, text=True, check=True)
         print(out.stdout.strip(), flush=True)
@@ -2079,7 +2175,8 @@ def main() -> None:
         info = build.build_info.get(name, {})
         ptxas = [ln.split("ptxas info    :")[-1].strip()
                  for ln in info.get("log", "").splitlines()
-                 if "entry function" in ln or "registers" in ln]
+                 if "entry function" in ln or "registers" in ln
+                 or "spill" in ln]
         phase(2, f"kernel build {name}", f"nvcc {info.get('seconds', 0.0):.2f} s; "
               + " | ".join(ptxas) + f" [{smi}]")
     phase(2, "kernel builds", f"{time.perf_counter() - t0:.2f} s in all [{smi}]")
@@ -2099,6 +2196,6 @@ def main() -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--k3-ab"]:
-        k3_ab(sys.argv[2])
+        k3_ab(sys.argv[2:])
     else:
         main()

@@ -1,10 +1,17 @@
 // Serial host emulation of the adjoint kernel K3
 // (chimera_tpu_torch/csrc/fused_kde_adjoint.cu) in every mode, from the same
-// device functions (adjoint.cuh's adjoint_row, population.cuh): per
-// (lambda, row) the kernel's phases with a block of one thread, whose block
-// sums are the identity, and the rows' gradients summed in row order in
+// device functions (adjoint.cuh's write_record and adjoint_row,
+// population.cuh): per lambda the prologue's record, per block of the
+// kernel (a row, or kWarpRows logical rows of K3c in row order) the
+// kernel's phases with a block of one thread,
+// whose block sums are the identity and whose warp of one lane keeps every
+// projected coefficient, and the blocks' gradients summed in block order in
 // double.  Same C interface as the kernel's (its `partials` scratch is not
-// used), without the stream.  Built by tests/test_torch_host_emulation.py.
+// used), without the stream.  Also the host tests' checks of three pieces:
+// the reverse sweep of the mass model against the dual one (host_mass_vjp),
+// the warp's projections emulated lane by lane (host_warp_project) and the
+// kernels' layout of their scratch (host_adjoint_scratch).
+// Built by tests/test_torch_host_emulation.py.
 #include <algorithm>
 #include <vector>
 
@@ -13,29 +20,68 @@
 
 namespace {
 
+// acc[k] += a T_k(t) for k < n, serially: the adjoint of a Chebyshev sum in
+// its coefficients (ops/chebyshev.py, _ChebEval.backward), the oracle of
+// the warp's projections.
+void cheb_project(double* acc, int n, double t, double a) {
+  acc[0] += a;
+  if (n < 2) return;
+  acc[1] += a * t;
+  double t_km1 = 1.0, t_k = t;
+  for (int k = 2; k < n; ++k) {
+    const double t_kp = 2.0 * t * t_k - t_km1;
+    acc[k] += a * t_kp;
+    t_km1 = t_k;
+    t_k = t_kp;
+  }
+}
+
+// A record's bytes in doubles (16-byte aligned storage).
+template <typename T, typename S>
+std::vector<double> record_storage(int cd, int wd) {
+  return std::vector<double>(record_bytes<T, S>(cd, wd) / sizeof(double) + 2);
+}
+
 template <typename T, typename S, int KERNEL, int MODE>
 void run_mode(const AdjointArgs<T>& a, double* d_series, T* d_params) {
-  using N = Dual<T, kDirs>;
-  const int Q = a.cheb_deg + 2 + a.window_deg, P = Q + kMassScalars;
-  std::vector<S> ser(Q);
-  std::vector<T> z(a.S), w(a.S), dz(a.S), dw(a.S);
+  const int cd = a.cheb_deg, wd = a.window_deg;
+  const int Q = cd + 2 + wd, P = Q + kMassScalars;
+  std::vector<double> store = record_storage<T, S>(cd, wd);
+  unsigned char* rec_bytes = reinterpret_cast<unsigned char*>(store.data());
+  // the kernels' layouts: z, w, dz, dw of a row in one array (its stash),
+  // or z, w and a stash of kStash samples' points
+  std::vector<T> zwd(4 * a.S), z(a.S), w(a.S), stash(4 * kStash);
   std::vector<typename Pair<T>::type> gc(std::max(a.G, 1));
-  const AdjointSmem<T> sm{z.data(), w.data(), dz.data(), dw.data(), gc.data()};
+  const bool by_warp = MODE == kStatsOnly && warp_rows(a);
+  const AdjointSmem<T> sm =
+      by_warp ? AdjointSmem<T>{z.data(), w.data(), nullptr, nullptr,
+                               gc.data(), stash.data(), kStash}
+              : AdjointSmem<T>{zwd.data(), zwd.data() + a.S,
+                               zwd.data() + 2 * a.S, zwd.data() + 3 * a.S,
+                               gc.data(), zwd.data(), a.S};
+  const int n_blocks = by_warp ? (a.B + kWarpRows - 1) / kWarpRows : a.B;
   for (int l = 0; l < a.L; ++l) {
-    for (int i = 0; i < Q; ++i) ser[i] = S(a.series[(size_t)l * Q + i]);
-    const T* prm = a.params + (size_t)l * kMassScalars;
-    MassModel<N> mm;
-    SampleAdjoint<T, S>::seed_mass(mm, prm);
-    const Model<T, S> model(ser.data(), prm, a.cheb_deg, a.window_deg);
-    const SampleAdjoint<T, S> sample(ser.data(), a.cheb_deg, a.window_deg);
+    write_record<T, S>(a.series + (size_t)l * Q,
+                       a.params + (size_t)l * kMassScalars, cd, wd, rec_bytes,
+                       0, 1);
+    const Record<T, S> rec(rec_bytes, cd, wd);
+    const Model<T, S> model(rec.series, rec.fields, cd, wd,
+                            rec.fields + kMassScalars);
+    const SampleAdjoint<T, S> sample(model, rec.consts);
     std::vector<double> total(P, 0.0);
-    for (int b = 0; b < a.B; ++b) {
-      GradAcc<T> g;
+    for (int blk = 0; blk < n_blocks; ++blk) {
+      GradAcc<T, 1> g;
       g.zero();
-      adjoint_row<T, S, KERNEL, MODE>(HostBlock<T>{}, model, sample, mm, a, l,
-                                      b, sm, g);
-      for (int i = 0; i < P; ++i) total[i] += double(g.at(i, a.cheb_deg,
-                                                          a.window_deg));
+      if (by_warp) {
+        for (int b = blk * kWarpRows; b < (blk + 1) * kWarpRows && b < a.B;
+             ++b)
+          adjoint_row<T, S, KERNEL, MODE>(HostBlock<T>{}, model, sample, a,
+                                          l, b, sm, g);
+      } else {
+        adjoint_row<T, S, KERNEL, MODE>(HostBlock<T>{}, model, sample, a, l,
+                                        blk, sm, g);
+      }
+      for (int i = 0; i < P; ++i) total[i] += double(column(g, rec.jac, i, cd, wd));
     }
     for (int i = 0; i < Q; ++i) d_series[(size_t)l * Q + i] = total[i];
     for (int i = 0; i < kMassScalars; ++i)
@@ -98,4 +144,118 @@ extern "C" void host_fused_kde_adjoint_f64(
   run<double>(m1, m2, dl, invp, grids, ext, n_real, dl_fill, series, params,
               ct_den, ct_stats, d_series, d_params, d_ext, L, B, S, G, cd, wd,
               logical_s, mode, kernel, bw_mode, bw_value, cut_grid, unit_scale);
+}
+
+// The mass model's reverse sweep (SampleAdjoint::mass_vjp, through the
+// prologue's Jacobian) against the dual one (joint_dual), float64, at n
+// points: scalars (n, 12) the mass scalars, m1det, m2det, z and gw (n,), the
+// window series (wd) in double.  out_rev and out_dual (n, 14): the
+// cotangents of the 12 scalars, of z and of the window series' value;
+// t_win (n, 2): the window's t of each (0 outside the window).
+extern "C" void host_mass_vjp(const double* scalars, const double* m1det,
+                              const double* m2det, const double* z,
+                              const double* gw, const double* window, int wd,
+                              int n, double* out_rev, double* out_dual,
+                              double* t_win) {
+  const int cd = 1;
+  std::vector<double> ser(cd + 2 + wd);
+  ser[0] = 0.0;
+  ser[1] = 1.0;
+  ser[2] = 2.0;
+  for (int k = 0; k < wd; ++k) ser[cd + 2 + k] = window[k];
+  std::vector<double> store = record_storage<double, double>(cd, wd);
+  unsigned char* rec_bytes = reinterpret_cast<unsigned char*>(store.data());
+  for (int i = 0; i < n; ++i) {
+    const double* s = scalars + (size_t)i * kMassScalars;
+    write_record<double, double>(ser.data(), s, cd, wd, rec_bytes, 0, 1);
+    const Record<double, double> rec(rec_bytes, cd, wd);
+    const Model<double, double> model(rec.series, rec.fields, cd, wd,
+                                      rec.fields + kMassScalars);
+    const SampleAdjoint<double, double> sample(model, rec.consts);
+    GradAcc<double, 1> g;
+    g.zero();
+    double tw, b;
+    const double gz = sample.mass_vjp(model.mass, m1det[i], m2det[i], z[i],
+                                      gw[i], g.mass, tw, b);
+    double* r = out_rev + (size_t)i * kDirs;
+    for (int k = 0; k < kMassScalars; ++k)
+      r[k] = column(g, rec.jac, cd + 2 + wd + k, cd, wd);
+    r[kZDir] = gz;
+    r[kCdfDir] = b;
+    // the dual: the window's value and slope where the reverse sweep took them
+    MassModel<Dual<double, kDirs>> mm;
+    seed_mass(mm, s);
+    double val = 0.0, slope = 0.0;
+    if (b != 0.0 || tw != 0.0) val = clenshaw_d(ser.data() + cd + 2, wd, tw, slope);
+    const Dual<double, kDirs> p = joint_dual(mm, m1det[i], m2det[i], z[i], val,
+                                             slope);
+    double* d = out_dual + (size_t)i * kDirs;
+    for (int k = 0; k < kDirs; ++k) d[k] = gw[i] * p.d[k];
+    t_win[2 * i] = tw;
+    t_win[2 * i + 1] = p.v;
+  }
+}
+
+// The projections sum_s a_s T_k(t_s), k < deg, of n points with the warp of
+// the kernels emulated lane by lane: point s on lane s % 32, each lane's
+// 64 coefficients in registers (cheb_accumulate), then the stages of the
+// reduce-scatter of each chunk of 32 as a fixed-order loop over the lanes
+// (rs_keep, rs_send); lane j keeps k = j and j + 32.  Against cheb_project
+// in a serial loop (serial).
+extern "C" void host_warp_project(const double* t, const double* a, int n,
+                                  int deg, double* warp, double* serial) {
+  for (int k = 0; k < deg; ++k) serial[k] = 0.0;
+  for (int s = 0; s < n; ++s) cheb_project(serial, deg, t[s], a[s]);
+  double acc[32][2][kChunk], sent[32][kChunk];
+  for (int j = 0; j < 32; ++j) {
+    for (int i = 0; i < kChunk; ++i) acc[j][0][i] = acc[j][1][i] = 0.0;
+    for (int s = j; s < n; s += 32) cheb_accumulate(acc[j], deg, t[s], a[s]);
+  }
+  for (int c = 0; c < 2; ++c) {
+    double v[32][kChunk];
+    for (int j = 0; j < 32; ++j)
+      for (int i = 0; i < kChunk; ++i) v[j][i] = acc[j][c][i];
+    for (int off = 16; off > 0; off /= 2) {
+      for (int j = 0; j < 32; ++j)
+        for (int i = 0; i < off; ++i)
+          sent[j][i] = off == 16 ? rs_send<16>(v[j], i, j)
+                     : off == 8 ? rs_send<8>(v[j], i, j)
+                     : off == 4 ? rs_send<4>(v[j], i, j)
+                     : off == 2 ? rs_send<2>(v[j], i, j) : rs_send<1>(v[j], i, j);
+      for (int j = 0; j < 32; ++j)
+        for (int i = 0; i < off; ++i)
+          v[j][i] = (off == 16 ? rs_keep<16>(v[j], i, j)
+                     : off == 8 ? rs_keep<8>(v[j], i, j)
+                     : off == 4 ? rs_keep<4>(v[j], i, j)
+                     : off == 2 ? rs_keep<2>(v[j], i, j) : rs_keep<1>(v[j], i, j))
+                    + sent[j ^ off][i];
+    }
+    for (int j = 0; j < 32; ++j)
+      if (32 * c + j < deg) warp[32 * c + j] = v[j][0];
+  }
+}
+
+// z(dL) of n distances as the float64 kernels compute it (Model::z_from_dgw,
+// the series in double), from one lambda's packed rows.
+extern "C" void host_z_from_dgw(const double* series, const double* params,
+                                int cd, int wd, const double* dl, int n,
+                                double* z) {
+  const Model<double, double> model(series, params, cd, wd);
+  for (int i = 0; i < n; ++i) z[i] = model.z_from_dgw(dl[i]);
+}
+
+// The adjoint kernels' `partials` scratch in doubles as the kernels lay it
+// out (fused_kde_adjoint.cu, rows_contract_adjoint.cu): L rows x P partial
+// rows up to records_offset, then L prologue records; T of t_size bytes,
+// the series summed in S of s_size bytes.  *record: record_bytes.
+extern "C" long long host_adjoint_scratch(int t_size, int s_size, int L,
+                                          int rows, int cd, int wd,
+                                          long long* record) {
+  const size_t P = cd + 2 + wd + kMassScalars;
+  const size_t rb = t_size == 8 ? record_bytes<double, double>(cd, wd)
+                    : s_size == 8 ? record_bytes<float, double>(cd, wd)
+                                  : record_bytes<float, float>(cd, wd);
+  *record = (long long)rb;
+  return (long long)(records_offset((size_t)L * rows * P)
+                     + (size_t)L * rb / sizeof(double));
 }

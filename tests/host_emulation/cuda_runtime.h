@@ -15,11 +15,18 @@
 
 struct float2 { float x, y; };
 struct double2 { double x, y; };
+struct int4 { int x, y, z, w; };
 
 inline float __shfl_down_sync(unsigned, float v, int) { return v; }
 inline double __shfl_down_sync(unsigned, double v, int) { return v; }
+inline float __shfl_xor_sync(unsigned, float v, int) { return v; }
+inline double __shfl_xor_sync(unsigned, double v, int) { return v; }
 inline void __syncthreads() {}
+inline void __syncwarp() {}
 inline int __syncthreads_or(int v) { return v; }
+inline int __any_sync(unsigned, int v) { return v; }
+// clamps to [0, 1], NaN to 0, as the .sat modifier does
+inline float __saturatef(float x) { return x > 0.0f ? (x < 1.0f ? x : 1.0f) : 0.0f; }
 
 struct HostIndex { int x; };
 static HostIndex threadIdx{0}, blockIdx{0}, blockDim{1};

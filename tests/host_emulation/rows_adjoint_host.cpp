@@ -1,8 +1,9 @@
 // Serial host emulation of the rows-contraction adjoint K2b
 // (chimera_tpu_torch/csrc/rows_contract_adjoint.cu) from the same device
-// functions (adjoint.cuh's rows_adjoint_event, population.cuh): per
-// (lambda, event) the kernel's sweep of the event's rows with a block of one
-// thread, and the events' gradients summed in event order in double.  Same
+// functions (adjoint.cuh's write_record and rows_adjoint_event,
+// population.cuh): per lambda the prologue's record, per (lambda, event)
+// the kernel's sweep of the event's rows with a block of one thread, and
+// the events' gradients summed in event order in double.  Same
 // C interface as the kernel's, without the scratch buffer and the stream.
 // Built by tests/test_torch_host_emulation.py.
 #include <vector>
@@ -14,10 +15,11 @@ namespace {
 
 template <typename T, int KERNEL>
 void run_kernel(const RowsAdjointArgs<T>& a, double* d_series, T* d_params) {
-  using N = Dual<T, kDirs>;
   using T2 = typename Pair<T>::type;
-  const int Q = a.cheb_deg + 2 + a.window_deg, P = Q + kMassScalars;
-  std::vector<double> ser(Q);
+  const int cd = a.cheb_deg, wd = a.window_deg;
+  const int Q = cd + 2 + wd, P = Q + kMassScalars;
+  std::vector<double> store(record_bytes<T, double>(cd, wd) / sizeof(double) + 2);
+  unsigned char* rec_bytes = reinterpret_cast<unsigned char*>(store.data());
   std::vector<T2> zw(a.chunk), gc(a.G);
   std::vector<T> grid(a.G), f1(a.G), f2(a.G), df1(a.G), df2(a.G),
       dz(a.chunk), dw(a.chunk);
@@ -25,21 +27,20 @@ void run_kernel(const RowsAdjointArgs<T>& a, double* d_series, T* d_params) {
                        f2.data(), df1.data(), df2.data(), dz.data(),
                        dw.data()};
   for (int l = 0; l < a.L; ++l) {
-    for (int i = 0; i < Q; ++i) ser[i] = a.series[(size_t)l * Q + i];
-    const T* prm = a.params + (size_t)l * kMassScalars;
-    MassModel<N> mm;
-    SampleAdjoint<T, double>::seed_mass(mm, prm);
-    const Model<T, double> model(ser.data(), prm, a.cheb_deg, a.window_deg);
-    const SampleAdjoint<T, double> sample(ser.data(), a.cheb_deg,
-                                          a.window_deg);
+    write_record<T, double>(a.series + (size_t)l * Q,
+                            a.params + (size_t)l * kMassScalars, cd, wd,
+                            rec_bytes, 0, 1);
+    const Record<T, double> rec(rec_bytes, cd, wd);
+    const Model<T, double> model(rec.series, rec.fields, cd, wd,
+                                 rec.fields + kMassScalars);
+    const SampleAdjoint<T, double> sample(model, rec.consts);
     std::vector<double> total(P, 0.0);
     for (int e = 0; e < a.E; ++e) {
-      GradAcc<T> g;
+      GradAcc<T, 1> g;
       g.zero();
-      rows_adjoint_event<T, KERNEL>(HostBlock<T>{}, model, sample, mm, a, l, e,
+      rows_adjoint_event<T, KERNEL>(HostBlock<T>{}, model, sample, a, l, e,
                                     sm, g);
-      for (int i = 0; i < P; ++i) total[i] += double(g.at(i, a.cheb_deg,
-                                                          a.window_deg));
+      for (int i = 0; i < P; ++i) total[i] += double(column(g, rec.jac, i, cd, wd));
     }
     for (int i = 0; i < Q; ++i) d_series[(size_t)l * Q + i] = total[i];
     for (int i = 0; i < kMassScalars; ++i)

@@ -22,6 +22,7 @@ on the card)."""
 
 import ctypes
 import dataclasses
+import math
 import shutil
 import subprocess
 from pathlib import Path
@@ -35,6 +36,7 @@ from chimera_tpu_torch import HyperLikelihood, SelectionFunction
 from chimera_tpu_torch.data.mock import make_mock_catalog, make_mock_injections
 from chimera_tpu_torch.models import (FLRW, MadauDickinsonRate, Population,
                                       PowerLawPeak, compute_z_grids)
+from chimera_tpu_torch.models.cosmology import z_from_dgw
 from chimera_tpu_torch.ops.cuda import fused, kde, launch_counts, rows
 
 HERE = Path(__file__).resolve().parent / "host_emulation"
@@ -634,7 +636,14 @@ def _emulate_the_card(monkeypatch, libs, cosmo, mass):
     emulation of the same C interface (K2's forward, which has none, runs
     its plain version on the launch's own arguments; ``cosmo``, ``mass``:
     models of the batch's degrees, around which the packed rows are
-    unpacked)."""
+    unpacked).  Every launch counter the emulated launches move is restored
+    with the rest of the patch, so a later test in the same process starts
+    from the counts it had."""
+    from chimera_tpu_torch.ops.cuda import launch_counters
+
+    for wrapper, attr in launch_counters().values():
+        monkeypatch.setattr(wrapper, attr, getattr(wrapper, attr))
+
     def launch(lib_name, symbol, dtype, device, args):
         if lib_name == "rows_contract":
             (m1, m2, dl, invp, grids, series, params, hs, s1, s2, f1, f2,
@@ -748,3 +757,271 @@ def test_emulated_contract_path(fused_host_lib, dark_data, monkeypatch):
     h0 = torch.tensor(LAMBDA["H0"], dtype=F64, requires_grad=True)
     with pytest.raises(NotImplementedError, match="K1e's adjoint"):
         contract.log_like_batch({"H0": h0})
+
+
+# ---------------------------------------------------------------------------
+# the pieces of the adjoint kernels' design: the mass model's reverse sweep,
+# the warp's projections, K3c's several rows a block, the Epanechnikov tie
+# ---------------------------------------------------------------------------
+
+def _mass_points(mass, rng):
+    """(scalars (n, 12), m1det, m2det, z) at points that reach every branch
+    and clip tie of p_m1m2: m1 below m_low, in the smoothing window, at
+    m_low, m_join, m_high and the peak's 5 sigma cut exactly (z = 0), below
+    and above m_join, above m_high; m2 in the window, at and near m1; and
+    the closed form's log branch (beta = -1) and the power law's (alpha =
+    1)."""
+    base = np.array([float(getattr(mass, k)) for k in fused.MASS_SCALARS])
+    m_low, m_high, _, _, dm, _, mu, sig, _, _, m_join, _ = base
+    pts = []
+
+    def add(m1, m2, z, **change):
+        s = base.copy()
+        for k, v in change.items():
+            s[fused.MASS_SCALARS.index(k)] = v
+        pts.append((s, m1, m2, z))
+
+    for _ in range(40):                       # anywhere
+        m1 = rng.uniform(2.0, 1.2 * m_high)
+        add(m1, m1 * rng.uniform(0.05, 1.0), rng.uniform(0.0, 1.5))
+    for _ in range(20):                       # in the CDF's window
+        m1, z = rng.uniform(m_low + dm, m_join), rng.uniform(0.0, 1.5)
+        add(m1 * (1 + z), m1 * (1 + z) * rng.uniform(0.5, 1.0), z)
+    for m1 in (0.8 * m_low, m_low + 0.3 * dm, m_low + 0.9 * dm,
+               0.97 * m_join, 1.03 * m_join, 1.1 * m_high):
+        z = rng.uniform(0.05, 0.8)
+        add(m1 * (1 + z), m_low * (1 + z) * 1.01, z)           # m2 in the window
+        add(m1 * (1 + z), m1 * (1 + z) * (1 - 1e-9), z)        # m2 near m1
+        add(m1 * (1 + z), 0.5 * m1 * (1 + z), z)
+    for m1 in (m_low, m_join, m_high, mu + 5.0 * sig):        # exact ties
+        add(m1, m1, 0.0)
+        add(m1, 0.6 * m1, 0.0)
+    for _ in range(6):
+        m1 = rng.uniform(m_low + dm, m_high)
+        add(m1, 0.7 * m1, rng.uniform(0.0, 1.0), beta=-1.0)
+        add(m1, 0.7 * m1, rng.uniform(0.0, 1.0), alpha=1.0)
+    s, m1, m2, z = zip(*pts)
+    return (np.array(s), np.array(m1), np.array(m2), np.array(z))
+
+
+def test_mass_vjp_matches_dual(host_lib):
+    """The hand-written reverse sweep of the mass model (the cotangents of
+    the 12 scalars through the prologue's Jacobian of the derived fields,
+    of z and of the window series' value) against the dual numbers it
+    replaced, float64, within 1e-12 of each point's largest entry, at
+    points that reach every branch and clip tie."""
+    mass = _population(F64).mass
+    rng = np.random.default_rng(17)
+    scalars, m1, m2, z = _mass_points(mass, rng)
+    n = len(m1)
+    gw = rng.normal(size=n)
+    window = mass.cheb_cdf_window.double().contiguous()
+    arrays = [np.ascontiguousarray(a, dtype=np.float64) for a in
+              (scalars, m1, m2, z, gw)]
+    rev, dual, tw = np.zeros((n, 14)), np.zeros((n, 14)), np.zeros((n, 2))
+    fn = host_lib.host_mass_vjp
+    fn.restype = None
+    fn(*[a.ctypes.data_as(ctypes.c_void_p) for a in arrays],
+       ctypes.c_void_p(window.data_ptr()), window.numel(), n,
+       *[a.ctypes.data_as(ctypes.c_void_p) for a in (rev, dual, tw)])
+    assert np.all(np.isfinite(rev)) and np.all(np.isfinite(dual))
+    p = tw[:, 1]
+    in_window = tw[:, 0] != 0.0
+    assert in_window.sum() > 10 and (~in_window & (p > 0)).sum() > 10
+    assert (p == 0).sum() > 3                        # below m_low, zeroed p21
+    scale = np.maximum(np.abs(dual).max(axis=1, keepdims=True), 1e-300)
+    assert (np.abs(rev - dual) / scale).max() <= 1e-12
+    assert np.all(np.abs(dual[:, :12]).max(axis=0) > 0)  # each scalar's slope
+    assert (np.abs(dual[:, 12]) > 0).sum() > 30      # z's slope is exercised
+    assert (np.abs(dual[:, 13]) > 0).sum() > 10      # and the window's value
+
+
+@pytest.mark.parametrize("deg", [64, 48, 33, 1])
+def test_warp_projection_matches_cheb_project(host_lib, deg):
+    """The projections sum_s a_s T_k(t_s) of a warp of 32 lanes, emulated
+    lane by lane in a fixed order (each lane's chunk of 32 coefficients in
+    registers, the five reduce-scatter stages, lane j keeping k = j and
+    j + 32), against cheb_project in a serial loop: float64 within 1e-12 of
+    the largest coefficient."""
+    rng = np.random.default_rng(deg)
+    n = 101
+    t = np.ascontiguousarray(rng.uniform(-1.0, 1.0, n))
+    a = np.ascontiguousarray(rng.normal(size=n))
+    warp, serial = np.zeros(deg), np.zeros(deg)
+    fn = host_lib.host_warp_project
+    fn.restype = None
+    fn(t.ctypes.data_as(ctypes.c_void_p), a.ctypes.data_as(ctypes.c_void_p),
+       n, deg, warp.ctypes.data_as(ctypes.c_void_p),
+       serial.ctypes.data_as(ctypes.c_void_p))
+    assert np.abs(serial).max() > 0
+    assert np.abs(warp - serial).max() <= 1e-12 * np.abs(serial).max()
+
+
+
+@pytest.mark.parametrize("dtype,sum_size", [(F32, 4), (F32, 8), (F64, 8)])
+def test_scratch_layout_matches_the_kernels(host_lib, dtype, sum_size):
+    """The wrappers' sizes of the adjoints' prologue record and ``partials``
+    scratch (``fused.smem_bytes`` with ``_RECORD_EXTRA``,
+    ``fused.adjoint_scratch``, which K3 and K2b allocate) against the
+    kernels' own layout (record_bytes, records_offset in csrc/adjoint.cuh),
+    in each working dtype and summation type, at series lengths that do and
+    do not fill 16 bytes: a smaller scratch would let the prologue write
+    past its end on the card."""
+    fn = host_lib.host_adjoint_scratch
+    fn.restype = ctypes.c_longlong
+    for n, rows_, cd, wd in [(3, 37, 13, 48), (1, 1, 64, 64), (16, 5, 32, 47)]:
+        series = torch.zeros(n, cd + 2 + wd, dtype=F64)
+        params = torch.zeros(n, 12, dtype=dtype)
+        record = ctypes.c_longlong()
+        doubles = fn(torch.finfo(dtype).bits // 8, sum_size, n, rows_, cd, wd,
+                     ctypes.byref(record))
+        assert fused.smem_bytes(series, sum_size, params,
+                                fused._RECORD_EXTRA) == record.value
+        assert fused.adjoint_scratch(n, rows_, series, sum_size,
+                                     params).numel() == doubles
+
+def _logical_rows(data, dtype, n_rows=37, width=200, logical_s=260):
+    """``n_rows`` logical rows of ``width`` slots (the kernel takes 4 rows
+    a block; the last block is short) drawn from pairs of the
+    emulation's events: real counts from 0 (an empty row) to ``width`` (a
+    full one, over the 128 samples phase D stashes at a time), the fillers
+    after them at dl_fill with no weight, one row whose fillers sit below
+    every real distance (they hold the minimum z), the rest above."""
+    cat = data[0]
+    rng = np.random.default_rng(23)
+    n_real = rng.integers(1, width, n_rows)
+    n_real[0], n_real[5], n_real[17] = 0, width, 1
+    rows = [torch.zeros(n_rows, width, dtype=F64) for _ in range(4)]
+    dl_fill = torch.zeros(n_rows, dtype=F64)
+    n_ev = cat.dL.shape[0]
+    src = [cat.m1det, cat.m2det, cat.dL, 1.0 / cat.pe_prior]
+    for b in range(n_rows):
+        e, k = b % n_ev, int(n_real[b])
+        pool = [torch.cat([t[e], t[(e + 1) % n_ev]]) for t in src]
+        pick = torch.as_tensor(rng.choice(len(pool[0]), k, replace=False))
+        for r, p in zip(rows, pool):
+            r[b, :k] = p[pick]
+        real_dl = rows[2][b, :k]
+        dl_fill[b] = (0.5 * real_dl.min() if b == 9 else 1.5 * real_dl.max()) \
+            if k else 2000.0
+        rows[0][b, k:], rows[1][b, k:] = 30.0, 20.0
+        rows[2][b, k:] = dl_fill[b]
+        rows[3][b, k:] = 0.0
+    return ([r.to(dtype) for r in rows], torch.as_tensor(n_real),
+            dl_fill.to(dtype), logical_s)
+
+
+@pytest.mark.parametrize("dtype,tol", [(F64, 1e-12), (F32, 1e-3)])
+def test_emulated_stats_rows_blocks(host_lib, data, dtype, tol):
+    """K3c on logical rows as the kernel runs them, several rows a block (a
+    warp a row, 4 rows a block, the block's gradients summed once, phase D
+    128 samples at a time): rows of unequal real counts, an empty row, a
+    full one of 200, a row whose fillers hold the minimum z (its lo
+    cotangent goes to zf) and a short last block, against the plain
+    version, each gradient row within tol of its largest entry."""
+    pop = _population(dtype).update_batch(LAMBDA)
+    pe, n_real, dl_fill, logical_s = _logical_rows(data, dtype)
+    series, params = fused.pack_params(pop.cosmo, pop.mass, 3, dtype)
+    gen = torch.Generator().manual_seed(4)
+    ct_stats = torch.randn(3, len(n_real), 8, generator=gen, dtype=F64).to(dtype)
+    ct_stats[:, 0, :] = 0.0  # the empty row: dead, its stats are noise
+    kw = {"n_real": n_real, "dl_fill": dl_fill, "logical_s": logical_s,
+          "cut_grid": 2.0, "stats_only": True}
+    args = (*pe, None, series, params, None, ct_stats, pop.cosmo, pop.mass,
+            "epan")
+    zf = z_from_dgw(pop.cosmo, dl_fill[None])
+    z9 = z_from_dgw(pop.cosmo, pe[2][None, 9, :n_real[9]])
+    assert torch.all(zf[:, 9] < z9.amin(-1))  # row 9's fillers hold the minimum
+    expect = fused.fused_weights_kde_adjoint_plain(*args, **kw)
+    got = _host_adjoint(host_lib, *args, **kw)
+    for g, e in zip(got[:2], expect[:2]):
+        assert e.abs().max() > 0
+        assert _row_rel(g, e) <= tol
+
+
+
+def _tie_bandwidth(z0, z_sig):
+    """A grid point g and a bandwidth factor c with h = c z_sig such that
+    (g - z0) / h and (g - z0) * (1 / h) are exactly 1."""
+    g = z0 + 0.5 * z_sig
+    for _ in range(400):
+        g = math.nextafter(g, math.inf)
+        d = g - z0
+        c = d / z_sig
+        for _ in range(8):
+            if c * z_sig == d and d * (1.0 / d) == 1.0:
+                return g, c
+            c = math.nextafter(c, math.inf if c * z_sig < d else -math.inf)
+    raise AssertionError("no tie found")
+
+
+def _off_edge(z, h, g, gen):
+    """(E, g) grid points off the support's edge: z0 + h (-0.8 .. 0.8)."""
+    return z[:, :1] + h * (torch.rand(len(z), g, generator=gen,
+                                      dtype=z.dtype) * 1.6 - 0.8)
+
+
+def test_epanechnikov_tie_takes_half_the_slope(host_lib, rows_host_lib, data):
+    """K3 and K2b at a constructed Epanechnikov tie, float64: a grid point
+    picked after h so that u = (g - z) / h is exactly 1 for a sample, where
+    0.75 max(0, 1 - u^2) has half its slope (jnp.maximum's, as the Pallas
+    references and the plain versions take it): the emulations within 1e-12
+    of the plain versions (a kernel taking all of the slope, or none, misses
+    by the tie's term)."""
+    cat = data[0]
+    pop = _population(F64).update_batch({"H0": [70.0]})
+    series, params = fused.pack_params(pop.cosmo, pop.mass, 1, F64)
+    gen = torch.Generator().manual_seed(12)
+    # K3 on analysis grids: rows of two samples and a fixed bandwidth factor,
+    # so that h is the same sum of two terms in the kernel and the plain
+    # version; samples whose z the float64 kernel and the plain version round
+    # alike (exp differs in the last bit at a few), the tie on row 0
+    dl = cat.dL[6:].reshape(-1, 2)
+    z = z_from_dgw(pop.cosmo, dl[None])[0]
+    zk = torch.empty_like(z)
+    fn = host_lib.host_z_from_dgw
+    fn.restype = None
+    fn(_ptr(series), _ptr(params), pop.cosmo.cheb_deg, pop.mass.window_deg,
+       _ptr(dl.contiguous()), dl.numel(), _ptr(zk))
+    pick = torch.nonzero((z == zk).all(dim=1)).flatten()[:4]
+    assert len(pick) == 4
+    pe = [t[6:].reshape(-1, 2)[pick].contiguous() for t in (
+        cat.m1det, cat.m2det, cat.dL, 1.0 / cat.pe_prior)]
+    z = z[pick]
+    grid = _off_edge(z, 0.01, 8, gen)
+    _, st = fused.fused_weights_kde_plain(*pe, pop.cosmo, pop.mass, grid,
+                                          bw_method=1.0)
+    g0, c = _tie_bandwidth(float(z[0, 0]), float(st["bandwidth"][0, 0]))
+    grid[0, 0] = g0
+    h = fused.fused_weights_kde_plain(*pe, pop.cosmo, pop.mass, grid,
+                                      bw_method=c)[1]["bandwidth"][0, 0]
+    assert (grid[0, 0] - z[0, 0]) / h == 1.0
+    assert (grid[0, 0] - z[0, 0]) * (1.0 / h) == 1.0
+    ct_den = torch.randn(1, 4, grid.shape[1], generator=gen, dtype=F64)
+    args = (*pe, grid, series, params, ct_den, torch.zeros(1, 4, 8, dtype=F64),
+            pop.cosmo, pop.mass, "epan", c)
+    expect = fused.fused_weights_kde_adjoint_plain(*args)
+    got = _host_adjoint(host_lib, *args)
+    assert _row_rel(got[0], expect[0]) <= 1e-12
+    assert _row_rel(got[1], expect[1]) <= 1e-12
+    # K2b, 1/h an input: two events of two rows of two samples, the tie on
+    # each event's first sample at 1/h a power of two
+    rows_pe = [t.reshape(4, 2) for t in pe]
+    zr = z.reshape(4, 2)
+    grids = _off_edge(zr[::2], 0.01, 8, gen)
+    inv_h = torch.zeros(4, dtype=F64)
+    for e in range(2):
+        z0 = float(zr[2 * e, 0])
+        k = next(k for k in range(3, 12) if (z0 + 2.0 ** -k) - z0 == 2.0 ** -k)
+        grids[e, 0], inv_h[2 * e:2 * e + 2] = z0 + 2.0 ** -k, 2.0 ** k
+    assert torch.all((grids[:, 0] - zr[::2, 0]) * inv_h[::2] == 1.0)
+    hs = torch.stack([inv_h[None], torch.full((1, 4), 0.3, dtype=F64)], dim=-1)
+    s12 = [torch.rand(4, 8, generator=gen, dtype=F64) for _ in range(2)]
+    f12 = [torch.rand(1, 2, 8, generator=gen, dtype=F64) for _ in range(2)]
+    ct_r = torch.randn(1, 4, 2, generator=gen, dtype=F64)
+    rargs = (*rows_pe, grids, series, params, hs, *s12, *f12, ct_r, pop.cosmo,
+             pop.mass, "epan")
+    expect = rows.fused_rows_contract_adjoint_plain(*rargs)
+    got = _host_rows_adjoint(rows_host_lib, *rargs)
+    for g, e in zip(got, expect):
+        assert _row_rel(g.reshape(-1, g.shape[-1]), e.reshape(-1, e.shape[-1])) <= 1e-12

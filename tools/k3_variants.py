@@ -1,0 +1,130 @@
+"""Attribution of the adjoint kernel K3's time on the card: variant trees
+with one change each, timed against each other by ``chip_smoke.py
+--k3-ab``, and the instruction mix of K3's pair loop (phase B) in SASS.
+
+    git archive <parent commit> | tar -x -C build/parent
+    python3 tools/k3_variants.py trees build/parent
+    python3 chip_smoke.py --k3-ab build/parent build/k3/sel ...
+    cuobjdump -sass build/kernels/fused_kde_adjoint-*.so > k3.sass   # on the card
+    python3 tools/k3_variants.py sass k3.sass
+
+``trees`` writes build/k3/<name>, a copy of what ``--k3-ab`` runs of this
+tree (or of the parent's, for the names that start with ``parent_``):
+``chip_smoke.py`` and ``chimera_tpu_torch/``, with the substitutions of
+VARIANTS; each must match once.  The variants change timing only: the
+early returns leave the gradients unfinished.  ``sass`` prints, for the
+float32 Epanechnikov K3 (``fused_kde_adjoint_kernel<float, float, 0, 0>``)
+of each dump, the instructions of its pair loop: the innermost loop with
+one shared-memory load, 2 grid points x kSamplesPerThread = 4 samples, 8
+(grid point, sample) terms an iteration."""
+
+import collections
+import re
+import shutil
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+ADJ = "chimera_tpu_torch/csrc/adjoint.cuh"
+FKA = "chimera_tpu_torch/csrc/fused_kde_adjoint.cu"
+_WEIGHT = "const T m = c1 * support_weight(q);"
+_WARPS = "return mode == kAnalysisGrid || mode == kEffectiveGrid ? 8 : kWarps;"
+_BOUNDS = "__launch_bounds__(32 * row_warps(MODE), 16 / row_warps(MODE))"
+_AFTER_B = "    blk.template sum<4>(kde);\n  }\n"
+_PHASE_A = ("  for (int s = blk.rank(); s < n; s += Block::kSize) {\n"
+            "    const T z = model.z_from_dgw(a.dl[row + s]);")
+# the Epanechnikov weight as the parent's select (full slope at |u| = 1)
+# and as a select that keeps half of it; K3 and K3b in blocks of 4 warps;
+# no register cap; and, in this tree and the parent's, K3 up to phase B
+# (no phases C, D) and phase B alone (phase A's chain skipped too)
+_NO_D = (ADJ, _AFTER_B, _AFTER_B.replace("  }\n", "    return;\n  }\n"))
+_NO_A = (ADJ, _PHASE_A, _PHASE_A.replace("s < n;", "s < 0;"))
+VARIANTS = {
+    "sel": [(ADJ, _WEIGHT, "const T m = q > T(0) ? c1 : T(0);")],
+    "sel2": [(ADJ, _WEIGHT, "const T m = q > T(0) ? c1 "
+              ": (q == T(0) ? T(0.5) * c1 : T(0));")],
+    "w4": [(FKA, _WARPS, "return kWarps;")],
+    "nocap": [(FKA, _BOUNDS, "__launch_bounds__(32 * row_warps(MODE))")],
+    "w4_nocap": [(FKA, _WARPS, "return kWarps;"),
+                 (FKA, _BOUNDS, "__launch_bounds__(32 * row_warps(MODE))")],
+    "noD": [_NO_D],
+    "noAD": [_NO_D, _NO_A],
+    "parent_noD": [_NO_D],
+    "parent_noAD": [_NO_D, _NO_A],
+}
+
+
+def substitute(text: str, changes, path: str) -> str:
+    """``text`` of ``path`` with each (path, old, new) of ``changes`` that
+    names it applied; each old must occur once."""
+    for file, old, new in changes:
+        if file == path:
+            if text.count(old) != 1:
+                raise ValueError(f"{path}: {old!r} occurs {text.count(old)} times")
+            text = text.replace(old, new)
+    return text
+
+
+def trees(parent: Path, out: Path = ROOT / "build" / "k3") -> list[Path]:
+    """Write every variant tree under ``out``; returns their paths."""
+    made = []
+    for name, changes in VARIANTS.items():
+        base = parent if name.startswith("parent_") else ROOT
+        dst = out / name
+        shutil.rmtree(dst, ignore_errors=True)
+        shutil.copytree(base / "chimera_tpu_torch", dst / "chimera_tpu_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy2(base / "chip_smoke.py", dst / "chip_smoke.py")
+        for file in {c[0] for c in changes}:
+            p = dst / file
+            p.write_text(substitute(p.read_text(), changes, file))
+        made.append(dst)
+    return made
+
+
+def pair_loop(sass: str) -> collections.Counter:
+    """Opcode counts of K3's pair loop in ``cuobjdump -sass`` output."""
+    kernel, lines = None, []
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = "fused_kde_adjoint_kernelIffLi0ELi0E" in line
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if kernel and m:
+            lines.append((int(m.group(1), 16), m.group(2)))
+    loops = []
+    for addr, ins in lines:
+        m = re.search(r"BRA .*?0x([0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) < addr:
+            loops.append((int(m.group(1), 16), addr))
+    best = None
+    for lo, hi in loops:
+        inner = not any(lo < a <= b < hi for a, b in loops)
+        ops = collections.Counter(
+            re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0].split(".")[0]
+            for a, ins in lines if lo <= a <= hi)
+        fp = ops["FFMA"] + ops["FMUL"] + ops["FADD"]
+        if inner and ops["LDS"] == 1 and (best is None or fp > best[0]):
+            best = (fp, ops)
+    if best is None:
+        raise ValueError("no pair loop found: is K3's float32 build in the dump?")
+    return best[1]
+
+
+def main() -> None:
+    if sys.argv[1:2] == ["trees"] and len(sys.argv) == 3:
+        for p in trees(Path(sys.argv[2]).resolve()):
+            print(p)
+    elif sys.argv[1:2] == ["sass"] and len(sys.argv) > 2:
+        for f in sys.argv[2:]:
+            ops = pair_loop(Path(f).read_text())
+            print(f"{f}: {sum(ops.values())} instructions an iteration of 8 "
+                  f"terms: {dict(ops.most_common())}; per term FP32 "
+                  f"{(ops['FFMA'] + ops['FMUL'] + ops['FADD']) / 8:g}, "
+                  f"compare and select {(ops['FSETP'] + ops['FSEL']) / 8:g}")
+    else:
+        raise SystemExit(__doc__)
+
+
+if __name__ == "__main__":
+    main()
