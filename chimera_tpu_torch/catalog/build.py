@@ -7,7 +7,7 @@ N(z; z_gal, z_err (1 + z_gal)) times dV_C/dz (or p_bkg) on the event's
 z-grid, normalized by its trapezoid integral, then weight-averaged over the
 galaxies of each (event, pixel) voxel.  The galaxy -> voxel assignment is
 host numpy (a CSR gather); the Gaussian sums run on the galaxies' device as
-chunked ``index_add_`` into the (Nev * P, Nz) accumulator.
+chunked accumulating ``index_put_`` into the (Nev * P, Nz) accumulator.
 """
 
 from __future__ import annotations
@@ -81,8 +81,12 @@ def _p_cat_segments(mu, sig, w, seg, z_grids, bkg_grids, max_npix: int):
         g = g * bkg_grids[e]
         norm = trapz(g, zg, dim=1)
         g = g / torch.where(norm > 0, norm, 1.0)[:, None]
-        acc_p.index_add_(0, seg_c, w_eff[:, None] * g)
-        acc_w.index_add_(0, seg_c, w_eff)
+        # on CUDA an accumulating index_put_ sorts the voxel indices and sums
+        # each voxel's galaxies in order, so the same catalog gives the same
+        # bits (index_add_ sums by atomics, in an order that changes from run
+        # to run); the integer counts are exact in any order
+        acc_p.index_put_((seg_c,), w_eff[:, None] * g, accumulate=True)
+        acc_w.index_put_((seg_c,), w_eff, accumulate=True)
         acc_n.index_add_(0, e, in_z.to(torch.int64))
     p_cat = acc_p / torch.where(acc_w > 0, acc_w, 1.0)[:, None]
     p_cat = torch.where(torch.isfinite(p_cat), p_cat, 0.0)

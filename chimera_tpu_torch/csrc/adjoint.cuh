@@ -1260,6 +1260,8 @@ template <typename T>
 struct RowsSmem {
   typename Pair<T>::type* zw;  // (z, w) of the row's samples
   typename Pair<T>::type* gc;  // (grid point, c_g)
+  typename Pair<T>::type* zt;  // (z_lo, z_hi) of each kTileS samples (pass 1)
+  typename Pair<T>::type* gt;  // (g_lo, g_hi) of each kGridTile points (pass 2)
   T* grid;
   T* f1;
   T* f2;
@@ -1268,6 +1270,17 @@ struct RowsSmem {
   T* dz;                       // the row's samples' cotangents
   T* dw;
 };
+
+// grid points a tile of K2b's pruned pass 2
+constexpr int kGridTile = 32;
+
+// the largest |u| whose u^2 is finite, with room: a pass-2 tile is skipped
+// only where every u of its pairs lies within it (below)
+template <typename T>
+__device__ __forceinline__ T max_u() {
+  if constexpr (sizeof(T) == 4) return T(1e19);
+  else return T(1e154);
+}
 
 // K2b for (lambda l, event e): the vector-Jacobian product of
 // _rows_reference (chimera_tpu/ops/pallas/fused.py:613-640) over the
@@ -1283,11 +1296,27 @@ struct RowsSmem {
 //
 // A row that K2 writes as an exact zero (scale 0, no weight, or no
 // cotangent) gives exact zero cotangents without either pass.
-template <typename T, int KERNEL, typename Block, typename Acc>
+//
+// With PRUNE (the default for the Epanechnikov kernel; the host emulation's
+// oracle takes it off) both passes skip tiles of pairs whose terms are
+// exactly zero, and every output keeps the bits of the full loops.  Pass 1
+// takes its densities from contract_pruned (kde.cuh, which states the
+// argument) into gc, then runs its epilogue in the full loop's layout, so
+// that d_scale's per-thread sums keep their order.  Pass 2 keeps a sample a
+// thread; each thread skips the kGridTile-point tiles (bounds in gt, over
+// every point, spoiled by a non-finite point or c_g) whose corners give
+// u > 1, or u < -1, at both ends within max_u: there the support weight of
+// kde_pair is 0 (|u| > 1 strictly: at |u| = 1 it is 1/2), m = c_g * 0 is +-0
+// and so are m q, m u and m u^2 (q and u finite), which leave a0, a1, a2 as
+// they were.  A non-finite z or NaN 1/h fails the test.  The Gaussian
+// kernel keeps the full loops: none of its terms is exactly zero.
+template <typename T, int KERNEL, bool PRUNE = KERNEL == 0, typename Block,
+          typename Acc>
 __device__ __forceinline__ void rows_adjoint_event(
     const Block& blk, const Model<T, double>& model,
     const SampleAdjoint<T, double>& sample, const RowsAdjointArgs<T>& a,
     int l, int e, const RowsSmem<T>& sm, Acc& g) {
+  static_assert(!PRUNE || KERNEL == 0, "only Epanechnikov terms are pruned");
   using T2 = typename Pair<T>::type;
   const int G = a.G;
   const size_t R = (size_t)a.E * a.C;
@@ -1336,20 +1365,30 @@ __device__ __forceinline__ void rows_adjoint_event(
     const T* s1r = a.s1 + row * G;
     const T* s2r = a.s2 + row * G;
     T part[1] = {T(0)};
+    if (PRUNE) {  // the densities into gc's second entries
+      tile_bounds<T, kTileS, true>(blk, sm.zw, a.chunk, sm.zt);
+      contract_pruned<T, kTileS, kTileG>(
+          blk, sm.zw, sm.zt, a.chunk, G, inv_h,
+          [&sm](int i) { return sm.grid[i]; },
+          [&sm](int i, T sum) { sm.gc[i].y = sum; });
+      blk.sync();
+    }
     for (int g0 = 0; g0 < G; g0 += Block::kSize * kGridPerThread) {
       T gv[kGridPerThread], sum[kGridPerThread];
 #pragma unroll
       for (int k = 0; k < kGridPerThread; ++k) {
         const int idx = g0 + k * Block::kSize + blk.rank();
         gv[k] = sm.grid[idx < G ? idx : G - 1];
-        sum[k] = T(0);
+        sum[k] = PRUNE && idx < G ? sm.gc[idx].y : T(0);
       }
+      if (!PRUNE) {
 #pragma unroll 4
-      for (int s = 0; s < a.chunk; ++s) {
-        const T2 p = sm.zw[s];
+        for (int s = 0; s < a.chunk; ++s) {
+          const T2 p = sm.zw[s];
 #pragma unroll
-        for (int k = 0; k < kGridPerThread; ++k)
-          sum[k] += p.y * kernel_shape<T, KERNEL>((gv[k] - p.x) * inv_h);
+          for (int k = 0; k < kGridPerThread; ++k)
+            sum[k] += p.y * kernel_shape<T, KERNEL>((gv[k] - p.x) * inv_h);
+        }
       }
 #pragma unroll
       for (int k = 0; k < kGridPerThread; ++k) {
@@ -1369,17 +1408,32 @@ __device__ __forceinline__ void rows_adjoint_event(
       }
     }
     blk.template sum<1>(part);  // ends in a barrier: gc is complete
+    if (PRUNE) tile_bounds<T, kGridTile, false>(blk, sm.gc, G, sm.gt);
 
     // ---- pass 2: per sample, dw, dz and the 1/h adjoint --------------------
     T wb_sum[1] = {T(0)};
+    const bool prune = PRUNE && inv_h > T(0);
+    const int tile = PRUNE ? kGridTile : G;  // the full loop: one tile
     for (int s = blk.rank(); s < a.chunk; s += Block::kSize) {
       const T2 zw = sm.zw[s];
       T dw = T(0), dz = T(0);
       if (a.invp[base + s] != T(0)) {  // the fillers carry no weight
         T a0 = T(0), a1 = T(0), a2 = T(0), a3 = T(0);
-        for (int i = 0; i < G; ++i) {
-          const T2 p = sm.gc[i];
-          kde_pair<T, KERNEL>((p.x - zw.x) * inv_h, p.y, T(0), a0, a1, a2, a3);
+        for (int t = 0; t * tile < G; ++t) {
+          if (PRUNE) {
+            const T2 b = sm.gt[t];
+            const T u_lo = (b.x - zw.x) * inv_h, u_hi = (b.y - zw.x) * inv_h;
+            const bool skip = prune
+                && ((u_lo > T(1) && u_hi <= max_u<T>())
+                    || (u_hi < T(-1) && u_lo >= -max_u<T>()));
+            blk.tile(skip);
+            if (skip) continue;
+          }
+          const int i1 = (t + 1) * tile < G ? (t + 1) * tile : G;
+          for (int i = t * tile; i < i1; ++i) {
+            const T2 p = sm.gc[i];
+            kde_pair<T, KERNEL>((p.x - zw.x) * inv_h, p.y, T(0), a0, a1, a2, a3);
+          }
         }
         T wb;
         kde_sample<T, KERNEL>(a0, a1, a2, zw.y, inv_h, dw, dz, wb);

@@ -38,28 +38,36 @@
 // data/pixelize.py::compact_samples_by_pixel) map only their n_real real
 // slots and add the logical fillers analytically (kde.cuh, row_stats).
 //
-// What bounds it on an H100: arithmetic, not bytes.  Phase B evaluates
-// L*B*G*n kernel terms -- 16 * 1000 * 500 * 4096 = 3.3e10 per batch at the
-// spectral headline, ~5 FP32 instructions each -- while the kernel reads the
-// (B, S) PE rows (lambda-independent, L2-resident across the lambda batch)
-// and writes only the (L, B, G) densities.  Phase A is ~1/10 of the work:
-// two Clenshaw series and a handful of exp/log per sample.  K1c does phase A
-// only, of the real samples; K1d and K1e do phase B on the real samples of
-// each logical row only (the fillers weigh nothing), K1e writing two values
-// a row.
+// What bounds it on an H100: arithmetic, not bytes.  Phase A -- two
+// Clenshaw series and a handful of exp/log per sample, 16 * 1000 * 4096
+// samples per batch at the spectral headline -- is most of K1a once its
+// pair loop is pruned; the kernel reads the (B, S) PE rows
+// (lambda-independent, L2-resident across the lambda batch) and writes only
+// the (L, B, G) densities.  K1a's pair loop evaluates only the tiles of
+// (grid point, sample) pairs that can be non-zero: at the headline 0.81 %
+// of the L*B*G*S = 3.3e10 terms are, and its 32 x 32 tiles keep ~7 % of
+// them.  K1b, K1d and K1e keep the full loop over the real samples of each
+// row, ~5 FP32 instructions a term; K1c does phase A only.
 //
 // What the design does about it: every intermediate stays on chip.  z and w
 // of the block's row live in shared memory as interleaved (z, w) pairs, so
-// one broadcast load feeds the grid points each thread holds in registers
-// (two for grids up to 256 points, four above); the kernel-shape constant
-// and the density scale are applied once per density, leaving sub, mul,
-// fma, max and fma per term.  The raw row statistics of the TPU kernel are
-// kept (a dead row gives NaN, which the caller's N_eff gate and nan_to_num
-// remove).  The two Chebyshev series are summed in T in the spectral modes
-// (a, b) and in double in the dark-siren modes (c, d), whose float32
-// likelihood needs it (population.cuh, Model).  Later work: prune the
-// sample loop to the kernel support (samples are sorted by distance, hence
-// by z) and put the contraction on tensor cores.
+// one broadcast load feeds the grid points each thread holds in registers;
+// the kernel-shape constant and the density scale are applied once per
+// density, leaving sub, mul, fma, max and fma per term.  K1a with the
+// Epanechnikov kernel (kde.cuh, contract_pruned): after phase A each warp
+// bounds the z of 32-sample tiles of its row (the samples are sorted by
+// distance, hence by z), then takes runs of 32 consecutive grid points, a
+// point a lane, tests the tiles 32 at a time against the run's corners
+// with the kernel's own arithmetic and walks the kept ones in order: the
+// densities have the bits of the full loop (the argument is in kde.cuh).
+// The Gaussian kernel, whose terms are never exactly zero, and the other
+// modes keep the full loop (contract: two grid points a thread for grids
+// up to 256 points, four above).  The raw row statistics of the TPU kernel
+// are kept (a dead row gives NaN, which the caller's N_eff gate and
+// nan_to_num remove).  The two Chebyshev series are summed in T in the
+// spectral modes (a, b) and in double in the dark-siren modes (c, d),
+// whose float32 likelihood needs it (population.cuh, Model).  Later work:
+// phase A, and the same pruned loop in K1b, K1d and K1e.
 
 #include "kde.cuh"
 
@@ -74,6 +82,7 @@ fused_kde_kernel(const FusedArgs<T> a) {
   T2* zw = reinterpret_cast<T2*>(smem + series_bytes<S>(a.cheb_deg,
                                                         a.window_deg));
   T* prm = reinterpret_cast<T*>(zw + a.S);  // this lambda's mass scalars
+  T2* tiles = reinterpret_cast<T2*>(prm + kMassScalars);  // pruned loop's
   __shared__ T scratch[3][kWarps];
 
   const int l = blockIdx.x % a.L;
@@ -86,14 +95,18 @@ fused_kde_kernel(const FusedArgs<T> a) {
   __syncthreads();
   const Model<T, S> model(ser, prm, a.cheb_deg, a.window_deg);
   const DeviceBlock<T> blk{scratch};
-  fused_row<T, S, KERNEL, MODE>(blk, model, a, l, b, zw);
+  fused_row<T, S, KERNEL, MODE>(blk, model, a, l, b, zw, tiles);
 }
 
 template <typename T, typename S, int KERNEL, int MODE>
 int launch_mode(const FusedArgs<T>& a, cudaStream_t stream) {
+  const bool pruned = MODE == kAnalysisGrid && KERNEL == 0;
   const size_t smem = series_bytes<S>(a.cheb_deg, a.window_deg)
                       + (size_t)a.S * sizeof(typename Pair<T>::type)
-                      + kMassScalars * sizeof(T);
+                      + kMassScalars * sizeof(T)
+                      + (pruned ? (size_t)(a.S + kTileS - 1) / kTileS
+                                      * sizeof(typename Pair<T>::type)
+                                : 0);
   auto kernel = fused_kde_kernel<T, S, KERNEL, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -188,6 +188,140 @@ __device__ __forceinline__ void contract(
     contract_tiles<T, KERNEL, 4>(blk, zw, n, G, inv_h, scale, grid_at, out);
 }
 
+// ---------------------------------------------------------------------------
+// The pair loop pruned to the Epanechnikov support (K1a, K2b's pass 1)
+// ---------------------------------------------------------------------------
+//
+// A term w K((g - z) inv_h) of the Epanechnikov kernel is exactly zero where
+// |u| >= 1: max(1 - u^2, 0) is then +0 (1 - u^2 <= 0, or NaN, selects the
+// 0), and an fma or add of w * (+0) = +-0 leaves a sum's bits as they were
+// for any finite w (a sum that starts at +0 never becomes -0).  Rounding is
+// monotone, so for every g >= g_lo and z <= z_hi (inv_h > 0)
+//   fl(fl(g - z) inv_h) >= fl(fl(g_lo - z_hi) inv_h),
+// and if the kernel's own expression gives u >= 1 at a tile's corner (its
+// lowest grid point against its highest z), every pair of the tile has
+// u >= 1; mirrored, u <= -1 from the highest grid point against the lowest
+// z.  Such a tile is skipped; the others run the full loop's arithmetic
+// in the same sample order, so every density keeps the bits of `contract`.
+// The bounds are computed, not assumed: the min and max of the tile's z
+// over its samples with weight (w = 0 gives a zero term whatever z is) and
+// of the run's grid points.  A sample with a non-finite z or w, or a
+// non-finite grid point, spoils its tile's bounds to (-largest, largest),
+// which no corner test passes; a NaN bandwidth fails every comparison.  A
+// row out of order, or a z that float32 rounding of the Chebyshev inverse
+// takes out of order, costs speed only.  The Gaussian kernel's terms are
+// never exactly zero: it keeps `contract`.
+
+// samples a tile and grid points a run (a warp's, one a lane on the card)
+constexpr int kTileS = 32;
+constexpr int kTileG = 32;
+
+// (lo, hi) of each tile of TILE entries of x[0, n), the pairs (x, y) of
+// (z, w) or (grid point, c): the min and max x, over the entries whose y is
+// not 0 where WEIGHTED; (-largest, largest) for a tile with a non-finite x
+// or y, (largest, -largest) for one with nothing to bound.  The warps take
+// the tiles in turn, TILE / kLanes entries a lane; ends in a barrier.
+template <typename T, int TILE, bool WEIGHTED, typename Block>
+__device__ __forceinline__ void tile_bounds(
+    const Block& blk, const typename Pair<T>::type* x, int n,
+    typename Pair<T>::type* tiles) {
+  static_assert(TILE % Block::kLanes == 0, "a tile is whole lanes");
+  constexpr int kPer = TILE / Block::kLanes;
+  const int warps = Block::kSize / Block::kLanes;
+  const int warp = blk.rank() / Block::kLanes, lane = blk.lane();
+  const int n_tiles = (n + TILE - 1) / TILE;
+  for (int t = warp; t < n_tiles; t += warps) {
+    T lo = largest<T>(), hi = -largest<T>();
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = t * TILE + j * Block::kLanes + lane;
+      if (i < n) {
+        const typename Pair<T>::type p = x[i];
+        if (!(finite(p.x) && finite(p.y))) {
+          lo = -largest<T>();
+          hi = largest<T>();
+        } else if (!WEIGHTED || p.y != T(0)) {
+          lo = dmin(lo, p.x);
+          hi = dmax(hi, p.x);
+        }
+      }
+    }
+    blk.warp_minmax(lo, hi);
+    if (lane == 0) {
+      tiles[t].x = lo;
+      tiles[t].y = hi;
+    }
+  }
+  blk.sync();
+}
+
+// As contract, Epanechnikov only, with its pair loop pruned: store(g, sum)
+// for g < G receives sum_{s < n} w_s max(1 - u^2, 0), u = (grid(g) - z_s)
+// inv_h, of the same bits as contract_tiles' sum.  `tiles` holds the
+// (z_lo, z_hi) of each TILE_S samples of zw (tile_bounds, WEIGHTED).  Each
+// warp takes runs of TILE_G consecutive grid points in turn, TILE_G /
+// kLanes a lane; per run its lanes test TILE_S-sample tiles kLanes at a
+// time and the warp walks the tiles that a ballot keeps, in order: the
+// decision is warp-uniform.
+template <typename T, int TILE_S, int TILE_G, typename Block, typename GridAt,
+          typename Store>
+__device__ __forceinline__ void contract_pruned(
+    const Block& blk, const typename Pair<T>::type* zw,
+    const typename Pair<T>::type* tiles, int n, int G, T inv_h,
+    const GridAt& grid_at, const Store& store) {
+  static_assert(TILE_G % Block::kLanes == 0, "a run is whole lanes");
+  constexpr int kGpt = TILE_G / Block::kLanes;
+  const int warps = Block::kSize / Block::kLanes;
+  const int warp = blk.rank() / Block::kLanes, lane = blk.lane();
+  const int n_tiles = (n + TILE_S - 1) / TILE_S;
+  const bool prune = inv_h > T(0);
+  for (int g0 = warp * TILE_G; g0 < G; g0 += warps * TILE_G) {
+    T gv[kGpt], sum[kGpt];
+    T lo = largest<T>(), hi = -largest<T>();
+#pragma unroll
+    for (int k = 0; k < kGpt; ++k) {
+      const int idx = g0 + k * Block::kLanes + lane;
+      gv[k] = grid_at(idx < G ? idx : G - 1);
+      sum[k] = T(0);
+      if (idx < G) {
+        if (finite(gv[k])) {
+          lo = dmin(lo, gv[k]);
+          hi = dmax(hi, gv[k]);
+        } else {
+          lo = -largest<T>();
+          hi = largest<T>();
+        }
+      }
+    }
+    blk.warp_minmax(lo, hi);
+    for (int t0 = 0; t0 < n_tiles; t0 += Block::kLanes) {
+      bool keep = false;
+      if (t0 + lane < n_tiles) {
+        const typename Pair<T>::type b = tiles[t0 + lane];
+        keep = !(prune && ((lo - b.y) * inv_h >= T(1)
+                           || (hi - b.x) * inv_h <= T(-1)));
+        blk.tile(!keep);
+      }
+      for (unsigned m = blk.ballot(keep); m != 0u; m &= m - 1u) {
+        const int t = t0 + __ffs((int)m) - 1;
+        const int s1 = (t + 1) * TILE_S < n ? (t + 1) * TILE_S : n;
+#pragma unroll 4
+        for (int s = t * TILE_S; s < s1; ++s) {
+          const typename Pair<T>::type p = zw[s];
+#pragma unroll
+          for (int k = 0; k < kGpt; ++k)
+            sum[k] += p.y * kernel_shape<T, 0>((gv[k] - p.x) * inv_h);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kGpt; ++k) {
+      const int idx = g0 + k * Block::kLanes + lane;
+      if (idx < G) store(idx, sum[k]);
+    }
+  }
+}
+
 // sqrt of the smallest normal T: a row of less total weight has no
 // unit-mass density (fused.py:459-468)
 template <typename T>
@@ -236,12 +370,18 @@ __device__ __forceinline__ void contract_epilogue_tiles(
 // neff, h, sum w, sum w^2, sigma_z), then the KDE on the mode's grid with
 // den_scale 'norms' (1 / (h S_l)) or 'unit' (1 / (h sum w)); in mode (e)
 // the unit-mass KDE contracted in the block, r = (r1, r2) of the row, 0
-// exactly where the row's weight is below sqrt(tiny).
-template <typename T, typename S, int KERNEL, int MODE, typename Block>
+// exactly where the row's weight is below sqrt(tiny).  On the analysis
+// grids the Epanechnikov KDE takes the pruned pair loop (contract_pruned,
+// its sample tiles' bounds in `tiles`, ceil(S / kTileS) pairs) unless
+// PRUNE is false (the host emulation's oracle); the other modes keep
+// contract.
+template <typename T, typename S, int KERNEL, int MODE, bool PRUNE = true,
+          typename Block>
 __device__ __forceinline__ void fused_row(const Block& blk,
                                           const Model<T, S>& model,
                                           const FusedArgs<T>& a, int l, int b,
-                                          typename Pair<T>::type* zw) {
+                                          typename Pair<T>::type* zw,
+                                          typename Pair<T>::type* tiles) {
   const RowStats<T> st = row_stats<T, S, MODE>(blk, model, a, l, b, zw);
   const size_t out_row = (size_t)l * a.B + b;
   if (blk.rank() == 0) {
@@ -287,8 +427,15 @@ __device__ __forceinline__ void fused_row(const Block& blk,
   T* out = a.den + out_row * a.G;
   if (MODE == kAnalysisGrid) {
     const T* grid = a.grids + (size_t)b * a.G;
-    contract<T, KERNEL>(blk, zw, st.n, a.G, inv_h, scale,
-                        [grid](int g) { return grid[g]; }, out);
+    if (KERNEL == 0 && PRUNE) {
+      tile_bounds<T, kTileS, true>(blk, zw, st.n, tiles);
+      contract_pruned<T, kTileS, kTileG>(
+          blk, zw, tiles, st.n, a.G, inv_h, [grid](int g) { return grid[g]; },
+          [out, scale](int g, T sum) { out[g] = sum * scale; });
+    } else {
+      contract<T, KERNEL>(blk, zw, st.n, a.G, inv_h, scale,
+                          [grid](int g) { return grid[g]; }, out);
+    }
   } else {
     const T lo = st.lo, delta = (st.ub - st.lo) / T(a.G - 1);
     contract<T, KERNEL>(blk, zw, st.n, a.G, inv_h, scale,

@@ -289,8 +289,10 @@ __device__ __forceinline__ void block_minmax(T& lo, T& hi, T (*scratch)[W]) {
 // A CUDA block of W warps (kThreads threads by default) as the `Block` of
 // the arithmetic written once for a block (kde.cuh, adjoint.cuh): the
 // thread's rank, the stride, its lane in its warp, block-wide sums,
-// min/max, any and a barrier.  The host emulation
-// (tests/host_emulation) runs the same functions with a block of one thread.
+// min/max, any and a barrier; over the thread's warp a min/max and a
+// ballot.  The host emulation (tests/host_emulation) runs the same
+// functions with a block of one thread, whose `tile` tallies the tiles the
+// pruned pair loops (kde.cuh) test and skip.
 template <typename T, int W = kWarps>
 struct DeviceBlock {
   T (*scratch)[W];
@@ -309,6 +311,18 @@ struct DeviceBlock {
     return __syncthreads_or(v) != 0;
   }
   __device__ __forceinline__ void sync() const { __syncthreads(); }
+  // min of lo and max of hi over the thread's warp; every lane receives both
+  __device__ __forceinline__ void warp_minmax(T& lo, T& hi) const {
+    for (int o = 16; o > 0; o >>= 1) {
+      lo = dmin(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = dmax(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    }
+  }
+  // the lanes of the thread's warp where v holds, bit j for lane j
+  __device__ __forceinline__ unsigned ballot(bool v) const {
+    return __ballot_sync(0xffffffffu, v);
+  }
+  __device__ __forceinline__ void tile(bool) const {}
 };
 
 // Scott (0), Silverman (1) or fixed (2) bandwidth factor of a 1-D KDE, in

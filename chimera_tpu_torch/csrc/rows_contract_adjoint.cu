@@ -27,13 +27,20 @@
 // derivative is K3's reverse sweep (adjoint.cuh): the three launches count
 // as one K2b.
 //
-// What bounds it on an H100: arithmetic.  Two sweeps of the live rows'
-// (grid point, sample) pairs, ~7 and ~11 FP32 operations a pair, and the
-// mass model's reverse sweep and the two projections per sample with
-// weight.  Rows that K2 writes as exact
-// zeros (scale 0, no weight, or here also no cotangent) are skipped whole
-// and give exact zero cotangents.  Later work: one sweep for both passes
-// and the pruning of K2.
+// What bounds it on an H100: arithmetic, and since both passes are pruned
+// to the Epanechnikov support (adjoint.cuh, rows_adjoint_event), the
+// per-sample work: phase A and the chain through z and w (the mass model's
+// reverse sweep, the two projections) of every weighted sample of a live
+// row.  Pass 1 takes the densities from K1a's pruned loop (kde.cuh,
+// contract_pruned: 32-sample tiles against runs of 32 grid points) and
+// keeps the full loop's layout for its per-grid-point epilogue, so that
+// d_scale sums in the same order; pass 2 keeps a sample a thread and skips
+// the 32-point grid tiles that its support misses.  At the flagship 0.94 %
+// of the (λ, row, grid point, slot) pairs are terms of the closed support,
+// and the passes evaluate ~5 % and ~4 % of the pairs; every output keeps
+// the bits of the full loops, which the Gaussian kernel runs.  Rows that
+// K2 writes as exact zeros (scale 0, no weight, or here also no cotangent)
+// are skipped whole and give exact zero cotangents.
 
 #include "adjoint.cuh"
 
@@ -49,7 +56,9 @@ rows_adjoint_kernel(const RowsAdjointArgs<T> a,
   RowsSmem<T> sm;
   sm.zw = reinterpret_cast<T2*>(smem + rb);
   sm.gc = sm.zw + a.chunk;
-  sm.grid = reinterpret_cast<T*>(sm.gc + a.G);
+  sm.zt = sm.gc + a.G;
+  sm.gt = sm.zt + (a.chunk + kTileS - 1) / kTileS;
+  sm.grid = reinterpret_cast<T*>(sm.gt + (a.G + kGridTile - 1) / kGridTile);
   sm.f1 = sm.grid + a.G;
   sm.f2 = sm.f1 + a.G;
   sm.df1 = sm.f2 + a.G;
@@ -87,7 +96,9 @@ int launch_kernel(const RowsAdjointArgs<T>& a, double* d_series, T* d_params,
                                              stream);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = record_bytes<T, double>(a.cheb_deg, a.window_deg)
-                      + ((size_t)a.chunk + a.G) * sizeof(typename Pair<T>::type)
+                      + ((size_t)a.chunk + a.G + (a.chunk + kTileS - 1) / kTileS
+                         + (a.G + kGridTile - 1) / kGridTile)
+                            * sizeof(typename Pair<T>::type)
                       + (5 * (size_t)a.G + 2 * (size_t)a.chunk) * sizeof(T);
   err = cudaFuncSetAttribute(rows_adjoint_kernel<T, KERNEL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -78,6 +78,13 @@ _PLAIN_BUDGET = 1 << 25
 # room for its static shared memory (block-sum scratch of up to 8 warps)
 _ADJOINT_MAX_DEG = 64
 _ADJOINT_STATIC_SMEM = 12288
+# the tile widths of the pruned Epanechnikov pair loops (csrc/kde.cuh
+# kTileS, kTileG; csrc/adjoint.cuh kGridTile): samples a tile and grid
+# points a warp's run in K1a and K2b's pass 1, grid points a tile in K2b's
+# pass 2; each tile's (lo, hi) takes two values of shared memory
+_TILE_S = 32
+_TILE_G = 32
+_GRID_TILE = 32
 # the per-λ record of the adjoint kernels' prologue past the mass scalars:
 # the 4 derived mass fields, the (2, 12) Jacobian of the two that carry a
 # cotangent and the reverse sweep's 12 constants (csrc/adjoint.cuh)
@@ -346,9 +353,11 @@ def _launch_k1(mode: int, series, params, m1det, m2det, dl, inv_pe_prior,
 
 
 def _checked_rows(name, m1det, m2det, dl, inv_pe_prior, cosmo, mass, n_real,
-                  dl_fill, logical_s, sum_size):
+                  dl_fill, logical_s, sum_size, tiles=False):
     """The checks every launch of ``csrc/fused_kde.cu`` shares: returns the
-    packed rows and the contiguous PE arrays, logical-row arrays."""
+    packed rows and the contiguous PE arrays, logical-row arrays.  ``tiles``:
+    the launch takes the pruned pair loop, whose sample tiles' bounds take
+    shared memory too."""
     check_cuda_call(name, cosmo, mass, dl,
                     {"m1det": m1det, "m2det": m2det, "inv_pe_prior": inv_pe_prior})
     dt, dev = dl.dtype, dl.device
@@ -364,7 +373,8 @@ def _checked_rows(name, m1det, m2det, dl, inv_pe_prior, cosmo, mass, n_real,
         n_real = dl_fill = None
     n = max(cosmo.L, mass.L)
     series, params = (t.to(dev) for t in pack_params(cosmo, mass, n, dt))
-    smem = smem_bytes(series, sum_size, params, 2 * s)
+    smem = smem_bytes(series, sum_size, params,
+                      2 * s + (2 * -(-s // _TILE_S) if tiles else 0))
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"S = {s} samples need {smem} bytes of shared memory per block "
@@ -451,7 +461,8 @@ def fused_weights_kde(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids=None,
     series, params, pe, n_real, dl_fill = _checked_rows(
         "fused_weights_kde", m1det, m2det, dl, inv_pe_prior, cosmo, mass,
         n_real, dl_fill, logical_s,
-        8 if mode in (_EXTERNAL_BOUNDS, _CONTRACT) else dl.element_size())
+        8 if mode in (_EXTERNAL_BOUNDS, _CONTRACT) else dl.element_size(),
+        tiles=mode == _ANALYSIS_GRID and kernel == "epan")
     kw = dict(kernel=kernel, bw_method=bw_method,
               n_grid=0 if n_grid is None else int(n_grid), logical_s=logical_s,
               cut_grid=cut_grid, den_scale=den_scale)

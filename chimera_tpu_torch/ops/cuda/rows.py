@@ -29,7 +29,8 @@ from chimera_tpu_torch.models.mass import p_m1m2
 from chimera_tpu_torch.ops.cuda.fused import (_ADJOINT_MAX_DEG,
                                               adjoint_scratch,
                                               _ADJOINT_STATIC_SMEM,
-                                              _RECORD_EXTRA, _SMEM_LIMIT,
+                                              _GRID_TILE, _RECORD_EXTRA,
+                                              _SMEM_LIMIT, _TILE_S,
                                               MASS_SCALARS, check_cuda_call,
                                               launch, on_card, pack_params,
                                               plain_budget, smem_bytes,
@@ -250,8 +251,9 @@ def fused_rows_contract_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev:
             raise ValueError(f"{key} must be {shape} {dtype} on {dev}")
     # the λ's record, (z, w) and (dz, dw) of the row's samples, the grid
-    # with its c_g, f1, f2 and their cotangents
-    smem = smem_bytes(series, 8, params, 4 * chunk + 7 * g + _RECORD_EXTRA)
+    # with its c_g, f1, f2 and their cotangents, the pruned passes' tiles
+    smem = smem_bytes(series, 8, params, 4 * chunk + 7 * g + _RECORD_EXTRA
+                      + 2 * (-(-chunk // _TILE_S) - (-g // _GRID_TILE)))
     if smem > _SMEM_LIMIT - _ADJOINT_STATIC_SMEM:
         raise ValueError(
             f"chunk = {chunk} and G = {g} need {smem} bytes of shared memory "

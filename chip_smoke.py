@@ -80,12 +80,13 @@ KDE_OPS, CHEB_OPS = 7, 3
 # summation type; and the T_k projection (fma, sub, fma), in the working
 # dtype
 ADJ_KDE_OPS, ADJ_CHEB_SUM_OPS, ADJ_CHEB_PROJ_OPS = 11, 3 + 4, 4
-# the mass model per real sample in the adjoints: p_m1m2's forward (~90:
-# the clip, the window's t or the closed form above m_join, primary's
-# power law, peak and smoothing window, secondary's, the divisions) and its
+# the mass model per real sample: p_m1m2's forward (~90: the clip, the
+# window's t or the closed form above m_join, primary's power law, peak and
+# smoothing window, secondary's, the divisions), in the adjoints with its
 # reverse sweep's backward (~110), a transcendental counted as one
 # operation; the sweep's recompute of the forward is not counted
-MASS_OPS = 200
+MASS_FWD_OPS = 90
+MASS_OPS = MASS_FWD_OPS + 110
 # on a linear grid one more sum (the bound's: mul, fma)
 ADJ_LIN_KDE_OPS = 13
 # K2b's least work: one sweep over the (grid point, weighted sample) terms of
@@ -242,10 +243,13 @@ def spectral(smi: str) -> tuple[dict, tuple]:
         den_rel, den_abs, stat_rel = compare(args, den_tol, stat_tol)
         k_ms = statistics.median(cuda_ms(lambda: fused_weights_kde(*args), 5))
         p_ms = statistics.median(cuda_ms(lambda: fused_weights_kde_plain(*args), 2))
+        pairs = k1a_pairs(args)
         phase(3, f"kernel vs plain {dtype}",
               f"den max err {den_rel:.3e} of row max ({den_abs:.3e} abs), "
               f"stats max rel err {stat_rel:.3e}; kernel {k_ms:.3f} ms, "
-              f"plain {p_ms:.3f} ms per call [{smi}]")
+              f"plain {p_ms:.3f} ms per call; live pairs "
+              f"{pairs['live'] / pairs['all']:.4%} of all, the pruned loop "
+              f"evaluates {pairs['tiled'] / pairs['all']:.4%} [{smi}]")
     del small
 
     # ---- 4. end to end at full width, float32 ----------------------------
@@ -293,16 +297,17 @@ def spectral(smi: str) -> tuple[dict, tuple]:
           f"{r_med:.4f} ± {r_mad:.4f} ms; kernel {k_med:.4f} ± {k_mad:.4f} ms; "
           f"rest {t_med - r_med - k_med:.4f} ms")
     k_call, p_call = statistics.median(kern), statistics.median(plain)
-    e, s = hl.dL.shape
-    g, p = hl.z_grids.shape[1], 12 + args[5].window_deg
-    bound_ms, bound_by = bound(
-        4 * ((4 * e * s + e * g) + n * p + n * e * (g + 8))
-        + 8 * n * (args[4].cheb_deg + 2),
-        n * e * s * (CHEB_OPS * args[4].cheb_deg + KDE_OPS * g))
+    pairs = k1a_pairs(args)
+    bound_ms, bound_by = k1a_bound(args, pairs)
+    all_ms, all_by = k1a_bound(args)
     phase(6, "kernel vs plain", f"[{smi}] at 1000 x 4096 x 500, L = 16: kernel "
           f"{k_call:.3f} ms, plain {p_call:.3f} ms per call "
-          f"({p_call / k_call:.1f}x), bound {bound_ms:.3f} ms ({bound_by}); "
-          f"den max err {den_rel:.3e} of row max, stats {stat_rel:.3e}")
+          f"({p_call / k_call:.1f}x), bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{100 * bound_ms / k_call:.1f} % of it; on every pair {all_ms:.3f} "
+          f"ms, {all_by}); live pairs {pairs['live']} of {pairs['all']} "
+          f"({pairs['live'] / pairs['all']:.4%}), the pruned loop evaluates "
+          f"{pairs['tiled'] / pairs['all']:.4%}; den max err {den_rel:.3e} of "
+          f"row max, stats {stat_rel:.3e}")
     return {"name": "fused_weights_kde (K1a)", "route": "cuda",
             "source": "chimera_tpu_torch/csrc/fused_kde.cu",
             "replaces": "chimera_tpu/ops/pallas/fused.py:71",
@@ -1500,11 +1505,150 @@ def k3_bound(args, kw) -> tuple[float, str]:
     return bound(n_bytes, *ops)
 
 
-def k2b_bound(args) -> tuple[float, str]:
+def _tile_bounds(x: torch.Tensor, valid: torch.Tensor, width: int):
+    """The min and max of the valid entries of each tile of ``width``
+    consecutive entries of the rows of x (N, n): (N, ceil(n / width)) each,
+    +inf and -inf where a tile has none."""
+    pad = (-x.shape[-1]) % width
+    x = torch.nn.functional.pad(x, (0, pad)).unflatten(-1, (-1, width))
+    valid = torch.nn.functional.pad(valid, (0, pad)).unflatten(-1, (-1, width))
+    return (torch.where(valid, x, torch.inf).amin(-1),
+            torch.where(valid, x, -torch.inf).amax(-1))
+
+
+def _in_support(z, keep, h, grid, closed: bool) -> int:
+    """The (row, grid point, sample) triples with |g - z| < h (<= h where
+    ``closed``) and ``keep``: z, keep (N, S), h (N,), grid (N, G), counted
+    with searchsorted on each row's sorted z (no (N, G, S) tensor)."""
+    zs, order = torch.sort(z, dim=-1)
+    c = torch.nn.functional.pad(torch.gather(keep, -1, order).cumsum(-1), (1, 0))
+    hi = torch.searchsorted(zs, (grid + h[:, None]).contiguous(), right=closed)
+    lo = torch.searchsorted(zs, (grid - h[:, None]).contiguous(), right=not closed)
+    return int((c.gather(-1, hi) - c.gather(-1, lo)).sum())
+
+
+def _tiled_terms(z, w, h, grid) -> int:
+    """The pair terms that the pruned density loop evaluates: _TILE_G grid
+    points x _TILE_S samples a tile (ops/cuda/fused.py, the kernels' tile
+    widths), less the tiles whose corner proves every |u| >= 1 (the
+    kernels' test, here in float64) over the samples with weight."""
+    from chimera_tpu_torch.ops.cuda.fused import _TILE_G as TILE_G
+    from chimera_tpu_torch.ops.cuda.fused import _TILE_S as TILE_S
+
+    zlo, zhi = _tile_bounds(z, w != 0, TILE_S)
+    glo, ghi = _tile_bounds(grid, torch.ones_like(grid, dtype=torch.bool), TILE_G)
+    inv_h = (1.0 / h)[:, None, None]
+    dead = ((glo[:, :, None] - zhi[:, None]) * inv_h >= 1.0) \
+        | ((ghi[:, :, None] - zlo[:, None]) * inv_h <= -1.0)
+    n_g = torch.nn.functional.pad(torch.ones_like(grid), (0, (-grid.shape[-1]) % TILE_G)
+                                  ).unflatten(-1, (-1, TILE_G)).sum(-1)
+    n_s = torch.nn.functional.pad(torch.ones_like(z), (0, (-z.shape[-1]) % TILE_S)
+                                  ).unflatten(-1, (-1, TILE_S)).sum(-1)
+    return int((~dead * n_g[:, :, None] * n_s[:, None]).sum())
+
+
+def _z_and_w(m1, m2, dl, invp, cosmo, mass):
+    """z and w of every (λ, row, sample), float64 (the plain version's)."""
+    from chimera_tpu_torch.models.cosmology import z_from_dgw
+    from chimera_tpu_torch.models.mass import p_m1m2
+
+    z = z_from_dgw(cosmo, dl[None])
+    inv1pz = 1.0 / (1.0 + z)
+    w = p_m1m2(mass, m1[None] * inv1pz, m2[None] * inv1pz) * invp[None]
+    n = max(cosmo.L, mass.L)
+    return z.expand(n, -1, -1).double(), w.expand(n, -1, -1).double()
+
+
+def k1a_pairs(args) -> dict:
+    """K1a's pair terms on its inputs ``args`` (kernel_inputs): 'all'
+    (λ, row, grid point, sample); 'live', those with |g - z| < h and
+    w != 0, the terms of the Epanechnikov density that are not exactly 0;
+    'tiled', those the pruned loop evaluates."""
+    from chimera_tpu_torch.ops.cuda.fused import fused_row_stats_plain
+
+    m1, m2, dl, invp, cosmo, mass, grids = args
+    with torch.no_grad():
+        h = fused_row_stats_plain(m1, m2, dl, invp, cosmo, mass)["bandwidth"]
+        z, w = _z_and_w(m1, m2, dl, invp, cosmo, mass)
+        grid = grids.double()
+        out = {"all": z.numel() * grid.shape[1], "live": 0, "tiled": 0}
+        for l in range(z.shape[0]):
+            out["live"] += _in_support(z[l], w[l] != 0, h[l].double(), grid, False)
+            out["tiled"] += _tiled_terms(z[l], w[l], h[l].double(), grid)
+    return out
+
+
+def k2b_pairs(args) -> dict:
+    """K2b's pair terms on its inputs ``args`` (rows_inputs' order): 'all'
+    (λ, row, grid point, slot); 'live_rows', those of the rows with a
+    scale, a cotangent and a weight (the rest K2b skips whole); 'density',
+    those of the live rows with |g - z| < h and w != 0 (pass 1's non-zero
+    terms); 'live', those with |g - z| <= h of a weighted sample (the
+    adjoint sums' non-zero terms); 'pass1' and 'pass2', the terms the
+    pruned passes evaluate (pass 2: the kernel's _GRID_TILE grid points a
+    tile for each weighted sample, less the tiles its corners prove outside
+    the closed support)."""
+    from chimera_tpu_torch.ops.cuda.fused import _GRID_TILE as GRID_TILE
+
+    m1, m2, dl, invp, grids, hs, ct, cosmo, mass = (
+        args[0], args[1], args[2], args[3], args[4], args[7], args[12],
+        args[13], args[14])
+    (r_rows, chunk), (e, g) = dl.shape, grids.shape
+    weighted = invp > 0
+    live = (hs[..., 1] != 0) & (ct != 0).any(dim=-1) & weighted.any(dim=1)[None]
+    out = {"all": hs.shape[0] * r_rows * chunk * g,
+           "live_rows": int(live.sum()) * chunk * g,
+           "density": 0, "live": 0, "pass1": 0, "pass2": 0}
+    with torch.no_grad():
+        z, w = _z_and_w(m1, m2, dl, invp, cosmo, mass)
+        grid_rows = grids.double().repeat_interleave(r_rows // e, dim=0)
+        for l in range(z.shape[0]):
+            rows = live[l]
+            zz, ww, gg = z[l][rows], w[l][rows], grid_rows[rows]
+            hh, wt = 1.0 / hs[l, rows, 0].double(), weighted[rows]
+            out["density"] += _in_support(zz, ww != 0, hh, gg, False)
+            out["live"] += _in_support(zz, wt, hh, gg, True)
+            out["pass1"] += _tiled_terms(zz, ww, hh, gg)
+            glo, ghi = _tile_bounds(gg, torch.ones_like(gg, dtype=torch.bool),
+                                    GRID_TILE)
+            u_lo = (glo[:, :, None] - zz[:, None]) / hh[:, None, None]
+            u_hi = (ghi[:, :, None] - zz[:, None]) / hh[:, None, None]
+            kept = ~((u_lo > 1.0) | (u_hi < -1.0)) & wt[:, None]
+            n_g = torch.full_like(glo, GRID_TILE)
+            n_g[:, -1] = g - GRID_TILE * (glo.shape[1] - 1)
+            out["pass2"] += int((kept * n_g[:, :, None]).sum())
+    return out
+
+
+def k1a_bound(args, pairs: dict | None = None) -> tuple[float, str]:
+    """The least time of K1a on these inputs: bytes, the PE rows and grids
+    read and the densities and stats written once; operations, per
+    (λ, sample) the distance series' Clenshaw sum and the mass model's
+    forward (and the window series where the source mass lies in its
+    window), per (λ, row, grid point) the density's scale, and the KDE's
+    pair terms: those of ``pairs['live']`` (k1a_pairs: the terms that are
+    not exactly 0), or every pair where ``pairs`` is None (the all-pairs
+    count, which charges the series only)."""
+    m1, dl, cosmo, mass, grids = args[0], args[2], args[4], args[5], args[6]
+    n, (e, s), g = max(cosmo.L, mass.L), dl.shape, grids.shape[1]
+    q = 12 + mass.window_deg
+    n_bytes = (dl.element_size() * ((4 * e * s + e * g) + n * q + n * e * (g + 8))
+               + 8 * n * (cosmo.cheb_deg + 2))
+    if pairs is None:
+        return bound(n_bytes, n * e * s * (CHEB_OPS * cosmo.cheb_deg + KDE_OPS * g))
+    ops = (n * e * s * (CHEB_OPS * cosmo.cheb_deg + MASS_FWD_OPS)
+           + CHEB_OPS * mass.window_deg * window_pairs(cosmo, mass, m1, dl)
+           + n * e * g + KDE_OPS * pairs["live"])
+    return bound(n_bytes, ops)
+
+
+def k2b_bound(args, pairs: dict | None = None) -> tuple[float, str]:
     """The least time of K2b on these inputs, operations: on the live
-    (λ, row) pairs only (a scale, a weight and a cotangent), one sweep of
-    the (grid point, weighted sample) terms, the per-grid-point products and
-    each weighted sample's Clenshaw and mass-model work (adjoint_ops, the
+    (λ, row) pairs only (a scale, a weight and a cotangent), the
+    (grid point, weighted sample) terms of the closed support
+    (``pairs['live']`` of k2b_pairs; every (grid point, weighted sample)
+    term where ``pairs`` is None), the per-grid-point products and each
+    weighted sample's Clenshaw and mass-model work (adjoint_ops, the
     series summed in double); bytes: the rows, static and per-λ factors,
     cotangents and gradients once each."""
     m1, dl, grids, hs, ct, cosmo, mass = (args[0], args[2], args[4], args[7],
@@ -1515,12 +1659,13 @@ def k2b_bound(args) -> tuple[float, str]:
     size = dl.element_size()
     weighted = args[3] > 0
     live = (hs[..., 1] != 0) & (ct != 0).any(dim=-1) & weighted.any(dim=1)[None]
-    terms = int((live * weighted.sum(dim=1)[None]).sum())
+    samples = int((live * weighted.sum(dim=1)[None]).sum())
+    terms = samples * g if pairs is None else pairs["live"]
     in_window = window_pairs(cosmo, mass, m1, dl,
                              weighted[None] & live[..., None])
-    ops = adjoint_ops(dl, cosmo, mass, terms, in_window,
-                      terms * K2B_TERM_OPS * g
-                      + int(live.sum()) * K2B_GRID_OPS * g, True)
+    ops = adjoint_ops(dl, cosmo, mass, samples, in_window,
+                      terms * K2B_TERM_OPS + int(live.sum()) * K2B_GRID_OPS * g,
+                      True)
     q = args[5].shape[1] + 12
     n_bytes = (size * (4 * r_rows * chunk + e * g + 2 * r_rows * g
                        + 4 * n * e * g + 6 * n * r_rows) + 2 * 8 * n * q)
@@ -1664,14 +1809,28 @@ def dark_gradients(smi: str, full, dark_data) -> list[dict]:
             expect = []
             plain_ms = cuda_ms(lambda: expect.append(plain(*args, **kw)), 1, 0)[0]
             rel, abs_err = grad_compare(kid, fn, plain, args, kw, 1e-3, expect[0])
-            b_ms, b_by = k2b_bound(args) if kid == "K2b" else k3_bound(args, kw)
+            extra = ""
+            if kid == "K2b":
+                pairs = k2b_pairs(args)
+                b_ms, b_by = k2b_bound(args, pairs)
+                all_ms = k2b_bound(args)[0]
+                extra = (f"; on every pair of the live rows {all_ms:.4f} ms; "
+                         f"live pairs {pairs['live']} of {pairs['all']} "
+                         f"({pairs['live'] / pairs['all']:.4%}; "
+                         f"{pairs['live'] / pairs['live_rows']:.4%} of the live "
+                         f"rows'), density terms {pairs['density'] / pairs['all']:.4%}"
+                         f"; the pruned passes evaluate "
+                         f"{pairs['pass1'] / pairs['all']:.4%} and "
+                         f"{pairs['pass2'] / pairs['all']:.4%}")
+            else:
+                b_ms, b_by = k3_bound(args, kw)
             k_call = statistics.median(kern)
             split.append((kid, med_mad([t / n for t in kern])))
             phase(21, f"{kid} on {path}", f"[{smi}] L = {n}: kernel {k_call:.3f} "
                   f"ms per call, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
-                  f"({b_by}, {100 * b_ms / k_call:.1f} % of it); on the path's "
-                  f"cotangents max err {rel:.3e} of each gradient row's max "
-                  f"({abs_err:.3e} abs)")
+                  f"({b_by}, {100 * b_ms / k_call:.1f} % of it){extra}; on the "
+                  f"path's cotangents max err {rel:.3e} of each gradient row's "
+                  f"max ({abs_err:.3e} abs)")
             if kid not in entries:
                 name = "fused_rows_contract_adjoint" if kid == "K2b" \
                     else "fused_weights_kde_adjoint"
@@ -2134,21 +2293,154 @@ for i, ln in enumerate(log):
 """
 
 
-def k3_ab(others: list[str]) -> None:
-    """The adjoint kernel (K3_TIMING) in the trees ``others`` (the parent,
-    unpacked with ``git archive``, or variants) and in this one, in one call
-    on one card, in the order others, this, this, others reversed:
-    ``python3 chip_smoke.py --k3-ab DIR [DIR ...]``."""
+# K1a and K2b in the tree it is run from, ms per call: K1a at the spectral
+# headline (16 λ, float32) and on the first 2 of its 500 grid points (phase
+# A and the row stats; the pair loop 1/250 of its work); K2b on the dark
+# flagship path's own cotangents and on 2 grid points of the same rows
+# (phases A and D).  End to end, ms per λ at the 16 points of phase 14: the
+# spectral headline's value-and-gradient call and forward batch (phases 14
+# and 6) and the dark flagship's value-and-gradient call (phase 21).  The
+# outputs of the kernel calls, of the Gaussian kernel's on the same inputs,
+# and of float64 K1a (64 events, L = 4) and K2b (the same call's inputs in
+# float64) go to the file argv[1] with a hash of each call's inputs, for
+# --k3-ab to hold bit for bit against this tree's.  Then the live pairs (where the tree's chip_smoke.py counts them) and the ptxas
+# lines of the float32 Epanechnikov K1a and K2b of a tree that builds them
+# in that process.  It uses only helpers that chip_smoke.py has had since
+# K2b was ported, so it runs in older trees.
+PAIR_TIMING = r"""
+import hashlib, os, statistics, sys
+sys.path.insert(0, os.getcwd())
+import torch
+import chip_smoke as cs
+from chimera_tpu_torch.ops.cuda import build
+from chimera_tpu_torch.ops.cuda.fused import fused_weights_kde as k1
+from chimera_tpu_torch.ops.cuda.rows import fused_rows_contract_adjoint as k2b
+
+print(os.getcwd(), flush=True)
+saved = {}
+
+def report(name, fn, n=1):
+    t = [v / n for v in cs.cuda_ms(fn, 17, 3)]
+    print(f"  {name}: median {statistics.median(t):.4f} min {min(t):.4f} "
+          f"max {max(t):.4f} ms per " + ("λ" if n > 1 else "call"), flush=True)
+
+def keep(name, inputs, out):
+    if isinstance(out[-1], dict):
+        out = (out[0], *out[-1].values())
+    saved[name] = [t.detach().cpu() for t in out]
+    h = hashlib.sha256()
+    for t in inputs:
+        if torch.is_tensor(t):
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    saved[name + ", inputs"] = h.hexdigest()
+
+def k2b_two_points(a):
+    a = list(a)
+    for i in (4, 8, 9, 10, 11):  # grids, s1, s2, f1, f2
+        a[i] = a[i][..., :2].contiguous()
+    return a
+
+full = cs.mock(1000, 4096, 2_000_000, 500, 200, cs.SEED)
+hl = cs.likelihood(full, cs.F32)
+args = cs.kernel_inputs(hl, torch.linspace(55.0, 95.0, 16, device=cs.DEV).to(cs.F32))
+short = args[:6] + (args[6][:, :2].contiguous(),)
+report("K1a, spectral headline", lambda: k1(*args))
+report("K1a on 2 grid points of the same rows", lambda: k1(*short))
+for kernel in ("epan", "gauss"):
+    keep(f"K1a float32 {kernel}", args, k1(*args, kernel=kernel))
+if hasattr(cs, "k1a_pairs"):
+    print(f"  K1a pair terms: {cs.k1a_pairs(args)}", flush=True)
+x = cs.chain_points(16, cs.F32)
+report("spectral value and gradient", lambda: cs.value_and_grad(hl, x), 16)
+report("spectral forward batch", lambda: hl.log_like_batch(cs.batch_of(x)), 16)
+del full, hl, args, short
+small = cs.mock(64, 4096, 200_000, 500, 300, cs.SEED + 3)
+args = cs.kernel_inputs(cs.likelihood(small, cs.F64),
+                        torch.linspace(60.0, 80.0, 4, device=cs.DEV).double())
+for kernel in ("epan", "gauss"):
+    keep(f"K1a float64 {kernel}", args, k1(*args, kernel=kernel))
+del small, args
+data, _ = cs.dark_mock(1000, 1024, 15, 500, 500_000, 50_000, cs.SEED + 8)
+hl = cs.dark_likelihood(data, cs.F32)
+(a, kw), = cs.backward_calls(hl, x)["K2b"]
+report("dark flagship value and gradient", lambda: cs.value_and_grad(hl, x), 16)
+report("K2b, dark flagship", lambda: k2b(*a, **kw))
+report("K2b on 2 grid points of the same rows", lambda: k2b(*k2b_two_points(a), **kw))
+if hasattr(cs, "k2b_pairs"):
+    print(f"  K2b pair terms: {cs.k2b_pairs(a)}", flush=True)
+for dtype, call in (("float32", list(a)), ("float64", cs.in_float64(a, kw)[0])):
+    for kernel in ("epan", "gauss"):
+        call[15] = kernel
+        keep(f"K2b {dtype} {kernel}", call, k2b(*call))
+torch.save(saved, sys.argv[1])
+for name, key in (("fused_kde", "fused_kde_kernelIffLi0ELi0E"),
+                  ("rows_contract_adjoint", "rows_adjoint_kernelIfLi0E")):
+    log = build.build_info.get(name, {}).get("log", "").splitlines()
+    for i, ln in enumerate(log):
+        if "entry function" in ln and key in ln:
+            print("  ptxas:", " | ".join(
+                m.split("ptxas info    :")[-1].strip() for m in log[i:i + 4]
+                if "entry function" in m or "spill" in m or "registers" in m))
+"""
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors hold the same bits (NaNs and signed zeros too)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    view = torch.int64 if a.element_size() == 8 else torch.int32
+    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+
+
+def k3_ab(others: list[str], variants: list[str]) -> None:
+    """The adjoint kernel (K3_TIMING) and K1a and K2b (PAIR_TIMING) in the
+    trees ``others`` (the parent, unpacked with ``git archive``) and
+    ``variants`` (trees that change timing only, tools/k3_variants.py) and
+    in this one, in one call on one card, in the order others, variants,
+    this, this, variants reversed, others reversed:
+    ``python3 chip_smoke.py --k3-ab DIR ... [--variants DIR ...]``.  Fails
+    unless every tree of ``others`` gives K1a and K2b outputs of the same
+    bits as this tree on the same inputs; a variant's are reported."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the card only")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     here = str(Path(__file__).resolve().parent)
-    for tree in (*others, here, here, *others[::-1]):
-        out = subprocess.run([sys.executable, "-c", K3_TIMING], cwd=tree,
-                             capture_output=True, text=True, check=True)
-        print(out.stdout.strip(), flush=True)
+    out_dir = Path(here) / "build" / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    trees = (*others, *variants)
+    runs = []
+    for i, tree in enumerate((*trees, here, here, *trees[::-1])):
+        for script, extra in ((K3_TIMING, []),
+                              (PAIR_TIMING, [str(out_dir / f"run{i}.pt")])):
+            out = subprocess.run([sys.executable, "-c", script, *extra], cwd=tree,
+                                 capture_output=True, text=True)
+            print(out.stdout.strip(), flush=True)
+            if out.returncode != 0:
+                raise RuntimeError(f"{tree}: {out.stderr[-4000:]}")
+        runs.append((tree, out_dir / f"run{i}.pt"))
+    ref = torch.load(runs[len(trees)][1])
+    failed = []
+    for tree, path in runs:
+        got = torch.load(path)
+        for key, expect in ref.items():
+            if isinstance(expect, str):
+                ok = got[key] == expect
+                diff = "" if ok else "the inputs differ"
+            else:
+                ok = all(same_bits(g, e) for g, e in zip(got[key], expect))
+                diff = "" if ok else "max abs diff " + ", ".join(
+                    f"{(g.double() - e.double()).abs().max().item():.3e}"
+                    for g, e in zip(got[key], expect))
+            print(f"  {tree}: {key}: " + ("same bits as this tree" if ok
+                                          else "DIFFERS, " + diff), flush=True)
+            if not ok and tree not in variants:
+                failed.append(f"{tree}: {key}")
+    if failed:
+        raise AssertionError(f"outputs differ from this tree's: {failed}")
 
 
 def main() -> None:
@@ -2196,6 +2488,8 @@ def main() -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--k3-ab"]:
-        k3_ab(sys.argv[2:])
+        dirs = sys.argv[2:]
+        cut = dirs.index("--variants") if "--variants" in dirs else len(dirs)
+        k3_ab(dirs[:cut], dirs[cut + 1:])
     else:
         main()

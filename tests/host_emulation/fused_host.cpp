@@ -4,7 +4,9 @@
 // from the same device functions (kde.cuh, population.cuh): per (lambda,
 // row) the kernel's phases with a block of one thread, whose block sums are
 // the identity.
-// Same C interfaces as the kernels', without the stream.  Built by
+// Same C interfaces as the kernels', without the stream; besides, K1a
+// with the unpruned loop (its pruned loop's oracle), the pruned loop on
+// given (z, w) and a tally of the tiles it skips.  Built by
 // tests/test_torch_host_emulation.py.
 #include <vector>
 
@@ -13,23 +15,31 @@
 
 namespace {
 
-template <typename T, typename S, int KERNEL, int MODE>
+// the tiles that the pruned pair loop tested and skipped (host_tile_tally)
+long long g_tally[2] = {0, 0};
+// kAnalysisGrid's oracle: the unpruned loop of contract (host_fused_kde_unpruned)
+bool g_unpruned = false;
+
+template <typename T, typename S, int KERNEL, int MODE, bool PRUNE = true>
 void run_mode(const FusedArgs<T>& a) {
   const int Q = a.cheb_deg + 2 + a.window_deg;
   std::vector<S> ser(Q);
-  std::vector<typename Pair<T>::type> zw(a.S);
+  std::vector<typename Pair<T>::type> zw(a.S), tiles((a.S + kTileS - 1) / kTileS);
   for (int l = 0; l < a.L; ++l) {
     for (int i = 0; i < Q; ++i) ser[i] = S(a.series[(size_t)l * Q + i]);
     const Model<T, S> model(ser.data(), a.params + (size_t)l * kMassScalars,
                             a.cheb_deg, a.window_deg);
     for (int b = 0; b < a.B; ++b)
-      fused_row<T, S, KERNEL, MODE>(HostBlock<T>{}, model, a, l, b, zw.data());
+      fused_row<T, S, KERNEL, MODE, PRUNE>(HostBlock<T>{g_tally}, model, a, l,
+                                           b, zw.data(), tiles.data());
   }
 }
 
 template <typename T, int KERNEL>
 void run_kernel(const FusedArgs<T>& a, int mode) {
-  if (mode == kAnalysisGrid) run_mode<T, T, KERNEL, kAnalysisGrid>(a);
+  if (mode == kAnalysisGrid && g_unpruned)
+    run_mode<T, T, KERNEL, kAnalysisGrid, false>(a);
+  else if (mode == kAnalysisGrid) run_mode<T, T, KERNEL, kAnalysisGrid>(a);
   if (mode == kEffectiveGrid) run_mode<T, T, KERNEL, kEffectiveGrid>(a);
   if (mode == kExternalBounds) run_mode<T, double, KERNEL, kExternalBounds>(a);
   if (mode == kStatsOnly) run_mode<T, double, KERNEL, kStatsOnly>(a);
@@ -50,6 +60,33 @@ void run(const T* m1, const T* m2, const T* dl, const T* invp, const T* grids,
                        npix, (T)bw_value, (T)cut_grid};
   if (kernel == 0) run_kernel<T, 0>(a, mode);
   else run_kernel<T, 1>(a, mode);
+}
+
+// The Epanechnikov densities (the shape without its constant) of rows of
+// given (z, w) on their grids at 1/h: the pruned loop (tile_bounds and
+// contract_pruned) where prune, else the unpruned one of contract.
+template <typename T>
+void run_contract(const T* z, const T* w, const T* grids, const T* inv_h,
+                  T* out, int B, int S, int G, int prune) {
+  std::vector<typename Pair<T>::type> zw(S), tiles((S + kTileS - 1) / kTileS);
+  const HostBlock<T> blk{g_tally};
+  for (int b = 0; b < B; ++b) {
+    for (int s = 0; s < S; ++s) {
+      zw[s].x = z[(size_t)b * S + s];
+      zw[s].y = w[(size_t)b * S + s];
+    }
+    const T* grid = grids + (size_t)b * G;
+    T* o = out + (size_t)b * G;
+    auto grid_at = [grid](int g) { return grid[g]; };
+    if (prune) {
+      tile_bounds<T, kTileS, true>(blk, zw.data(), S, tiles.data());
+      contract_pruned<T, kTileS, kTileG>(blk, zw.data(), tiles.data(), S, G,
+                                         inv_h[b], grid_at,
+                                         [o](int g, T sum) { o[g] = sum; });
+    } else {
+      contract<T, 0>(blk, zw.data(), S, G, inv_h[b], T(1), grid_at, o);
+    }
+  }
 }
 
 template <typename T, int KERNEL>
@@ -104,6 +141,37 @@ void run_kde1d_adjoint(const T* z, const T* w, const T* grids, const T* h,
 
 extern "C" void host_fused_kde_f32(FUSED_ARGS(float)) { FUSED_CALL; }
 extern "C" void host_fused_kde_f64(FUSED_ARGS(double)) { FUSED_CALL; }
+
+// K1a with the unpruned pair loop (contract), the pruned loop's oracle
+#define UNPRUNED(T, NAME)                                                    \
+  extern "C" void NAME(FUSED_ARGS(T)) {                                      \
+    g_unpruned = true;                                                       \
+    FUSED_CALL;                                                              \
+    g_unpruned = false;                                                      \
+  }
+UNPRUNED(float, host_fused_kde_unpruned_f32)
+UNPRUNED(double, host_fused_kde_unpruned_f64)
+
+extern "C" void host_contract_f32(const float* z, const float* w,
+                                  const float* grids, const float* inv_h,
+                                  float* out, int B, int S, int G, int prune) {
+  run_contract<float>(z, w, grids, inv_h, out, B, S, G, prune);
+}
+
+extern "C" void host_contract_f64(const double* z, const double* w,
+                                  const double* grids, const double* inv_h,
+                                  double* out, int B, int S, int G,
+                                  int prune) {
+  run_contract<double>(z, w, grids, inv_h, out, B, S, G, prune);
+}
+
+// the tiles that the pruned pair loops tested and skipped since the last
+// call: out[0] tested, out[1] skipped
+extern "C" void host_tile_tally(long long* out) {
+  out[0] = g_tally[0];
+  out[1] = g_tally[1];
+  g_tally[0] = g_tally[1] = 0;
+}
 
 extern "C" void host_kde1d_f32(const float* z, const float* w,
                                const float* grids, const float* h, float* out,

@@ -3,13 +3,17 @@
 // the serial host emulations.  Its block sums, min/max and any are the
 // thread's own values; its barrier is nothing.  It is a warp of one lane,
 // which keeps every coefficient of the adjoint's projections
-// (adjoint.cuh, project).
+// (adjoint.cuh, project), whose min/max is its own and whose ballot is its
+// own bit.  Where `tally` is given, `tile` counts the tiles that the pruned
+// pair loops (kde.cuh, contract_pruned; adjoint.cuh, rows_adjoint_event)
+// test, in tally[0], and skip, in tally[1].
 #pragma once
 
 template <typename T>
 struct HostBlock {
   static constexpr int kSize = 1;
   static constexpr int kLanes = 1;
+  long long* tally = nullptr;
   int rank() const { return 0; }
   int lane() const { return 0; }
   template <int N>
@@ -17,4 +21,12 @@ struct HostBlock {
   void minmax(T&, T&) const {}
   bool any(bool v) const { return v; }
   void sync() const {}
+  void warp_minmax(T&, T&) const {}
+  unsigned ballot(bool v) const { return v ? 1u : 0u; }
+  void tile(bool skipped) const {
+    if (tally != nullptr) {
+      ++tally[0];
+      tally[1] += skipped;
+    }
+  }
 };

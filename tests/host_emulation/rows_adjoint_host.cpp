@@ -4,7 +4,9 @@
 // population.cuh): per lambda the prologue's record, per (lambda, event)
 // the kernel's sweep of the event's rows with a block of one thread, and
 // the events' gradients summed in event order in double.  Same
-// C interface as the kernel's, without the scratch buffer and the stream.
+// C interface as the kernel's, without the scratch buffer and the stream;
+// besides, K2b with the full loops (the pruned passes' oracle), the
+// kernel's z(dL) and a tally of the tiles the passes skip.
 // Built by tests/test_torch_host_emulation.py.
 #include <vector>
 
@@ -13,19 +15,23 @@
 
 namespace {
 
-template <typename T, int KERNEL>
+// the tiles that the pruned passes tested and skipped (host_tile_tally)
+long long g_tally[2] = {0, 0};
+
+template <typename T, int KERNEL, bool PRUNE>
 void run_kernel(const RowsAdjointArgs<T>& a, double* d_series, T* d_params) {
   using T2 = typename Pair<T>::type;
   const int cd = a.cheb_deg, wd = a.window_deg;
   const int Q = cd + 2 + wd, P = Q + kMassScalars;
   std::vector<double> store(record_bytes<T, double>(cd, wd) / sizeof(double) + 2);
   unsigned char* rec_bytes = reinterpret_cast<unsigned char*>(store.data());
-  std::vector<T2> zw(a.chunk), gc(a.G);
+  std::vector<T2> zw(a.chunk), gc(a.G), zt((a.chunk + kTileS - 1) / kTileS),
+      gt((a.G + kGridTile - 1) / kGridTile);
   std::vector<T> grid(a.G), f1(a.G), f2(a.G), df1(a.G), df2(a.G),
       dz(a.chunk), dw(a.chunk);
-  const RowsSmem<T> sm{zw.data(), gc.data(), grid.data(), f1.data(),
-                       f2.data(), df1.data(), df2.data(), dz.data(),
-                       dw.data()};
+  const RowsSmem<T> sm{zw.data(), gc.data(), zt.data(), gt.data(),
+                       grid.data(), f1.data(), f2.data(), df1.data(),
+                       df2.data(), dz.data(), dw.data()};
   for (int l = 0; l < a.L; ++l) {
     write_record<T, double>(a.series + (size_t)l * Q,
                             a.params + (size_t)l * kMassScalars, cd, wd,
@@ -38,8 +44,8 @@ void run_kernel(const RowsAdjointArgs<T>& a, double* d_series, T* d_params) {
     for (int e = 0; e < a.E; ++e) {
       GradAcc<T, 1> g;
       g.zero();
-      rows_adjoint_event<T, KERNEL>(HostBlock<T>{}, model, sample, a, l, e,
-                                    sm, g);
+      rows_adjoint_event<T, KERNEL, PRUNE>(HostBlock<T>{g_tally}, model,
+                                           sample, a, l, e, sm, g);
       for (int i = 0; i < P; ++i) total[i] += double(column(g, rec.jac, i, cd, wd));
     }
     for (int i = 0; i < Q; ++i) d_series[(size_t)l * Q + i] = total[i];
@@ -48,17 +54,19 @@ void run_kernel(const RowsAdjointArgs<T>& a, double* d_series, T* d_params) {
   }
 }
 
+// prune = false: the full loops, the pruned passes' oracle
 template <typename T>
 void run(const T* m1, const T* m2, const T* dl, const T* invp, const T* grids,
          const double* series, const T* params, const T* hs, const T* s1,
          const T* s2, const T* f1, const T* f2, const T* ct, double* d_series,
          T* d_params, T* d_hs, T* d_f1, T* d_f2, int L, int E, int C,
-         int chunk, int G, int cd, int wd, int kernel) {
+         int chunk, int G, int cd, int wd, int kernel, bool prune = true) {
   const RowsAdjointArgs<T> a{m1, m2, dl, invp, grids, series, params, hs, s1,
                              s2, f1, f2, ct, nullptr, d_hs, d_f1, d_f2, L, E,
                              C, chunk, G, cd, wd};
-  if (kernel == 0) run_kernel<T, 0>(a, d_series, d_params);
-  else run_kernel<T, 1>(a, d_series, d_params);
+  if (kernel == 0 && prune) run_kernel<T, 0, true>(a, d_series, d_params);
+  else if (kernel == 0) run_kernel<T, 0, false>(a, d_series, d_params);
+  else run_kernel<T, 1, false>(a, d_series, d_params);
 }
 
 }  // namespace
@@ -87,4 +95,46 @@ extern "C" void host_rows_contract_adjoint_f64(
   run<double>(m1, m2, dl, invp, grids, series, params, hs, s1, s2, f1, f2, ct,
               d_series, d_params, d_hs, d_f1, d_f2, L, E, C, chunk, G, cd, wd,
               kernel);
+}
+
+// K2b with the full loops of both passes, the pruned passes' oracle
+#define ROWS_UNPRUNED(T, NAME)                                               \
+  extern "C" void NAME(                                                      \
+      const T* m1, const T* m2, const T* dl, const T* invp, const T* grids,  \
+      const double* series, const T* params, const T* hs, const T* s1,       \
+      const T* s2, const T* f1, const T* f2, const T* ct, double* partials,  \
+      double* d_series, T* d_params, T* d_hs, T* d_f1, T* d_f2, int L,       \
+      int E, int C, int chunk, int G, int cd, int wd, int kernel) {          \
+    (void)partials;                                                          \
+    run<T>(m1, m2, dl, invp, grids, series, params, hs, s1, s2, f1, f2, ct,  \
+           d_series, d_params, d_hs, d_f1, d_f2, L, E, C, chunk, G, cd, wd,  \
+           kernel, false);                                                   \
+  }
+ROWS_UNPRUNED(float, host_rows_contract_adjoint_unpruned_f32)
+ROWS_UNPRUNED(double, host_rows_contract_adjoint_unpruned_f64)
+
+// z(dL) of n distances as K2b computes them (Model<T, double>::z_from_dgw),
+// from one lambda's packed rows
+#define ROWS_Z(T, NAME)                                                      \
+  extern "C" void NAME(const double* series, const T* params, int cd, int wd, \
+                       const T* dl, int n, T* z) {                           \
+    const Model<T, double> model(series, params, cd, wd);                    \
+    for (int i = 0; i < n; ++i) z[i] = model.z_from_dgw(dl[i]);              \
+  }
+ROWS_Z(float, host_rows_z_f32)
+ROWS_Z(double, host_rows_z_f64)
+
+// the tiles that the pruned passes tested and skipped since the last call:
+// out[0] tested, out[1] skipped
+// the tile widths of the pruned pair loops: kTileS, kTileG, kGridTile
+extern "C" void host_tile_widths(int* out) {
+  out[0] = kTileS;
+  out[1] = kTileG;
+  out[2] = kGridTile;
+}
+
+extern "C" void host_tile_tally(long long* out) {
+  out[0] = g_tally[0];
+  out[1] = g_tally[1];
+  g_tally[0] = g_tally[1] = 0;
 }

@@ -16,9 +16,11 @@ the plain versions (``fused_weights_kde_adjoint_plain`` and
 ``fused_weights_kde_plain``, ``kde1d_grid_plain``), float64 and float32, and
 put in place of the launches behind the wrappers' CUDA branches, to show
 the autograd wiring of the card's backward and what the float32 kernel
-engine does to d log L / dλ.  What the emulation cannot show: the block
-sums, the launch and the shared-memory layout (``tests/test_torch_cuda.py``,
-on the card)."""
+engine does to d log L / dλ.  K1a's and K2b's pair loops pruned to the
+Epanechnikov support are held bit for bit to the unpruned loops, with the
+card's tile widths.  What the emulation cannot show: the block sums, the
+launch and the shared-memory layout (``tests/test_torch_cuda.py``, on the
+card)."""
 
 import ctypes
 import dataclasses
@@ -254,8 +256,9 @@ def test_emulated_kernel_engine_gradient(host_lib, data, monkeypatch, kernel,
 def _host_fused(lib, mode, m1det, m2det, dl, inv_pe_prior, cosmo, mass,
                 grids=None, kernel="epan", n_grid=0, ext_bounds=None,
                 n_real=None, dl_fill=None, logical_s=None, cut_grid=None,
-                den_scale="norms", contract=None):
-    """``fused._launch_k1``'s arguments on the host emulation."""
+                den_scale="norms", contract=None, entry="host_fused_kde_"):
+    """``fused._launch_k1``'s arguments on the host emulation (``entry``:
+    the emulation's C entry, less its dtype suffix)."""
     dt = dl.dtype
     b, s = dl.shape
     n = max(cosmo.L, mass.L)
@@ -265,7 +268,7 @@ def _host_fused(lib, mode, m1det, m2det, dl, inv_pe_prior, cosmo, mass,
     den = torch.zeros((n, b, 2 if mode == fused._CONTRACT else max(g, 1)),
                       dtype=dt)
     stats = torch.zeros((n, b, 8), dtype=dt)
-    fn = getattr(lib, "host_fused_kde_" + ("f64" if dt == F64 else "f32"))
+    fn = getattr(lib, entry + ("f64" if dt == F64 else "f32"))
     fn.restype = None
     factors = [None] * 4 if contract is None else [t.contiguous() for t in contract]
     keep = [t.contiguous() if t is not None else None for t in
@@ -558,13 +561,12 @@ def _rows_case(data, dtype, kernel):
 
 def _host_rows_adjoint(lib, m1det, m2det, dl, inv_pe_prior, grids, series,
                        params, hs, s1, s2, f1, f2, ct_r, cosmo, mass,
-                       kernel="epan"):
+                       kernel="epan", entry="host_rows_contract_adjoint_"):
     """``rows.fused_rows_contract_adjoint``'s signature on the host
-    emulation."""
+    emulation (``entry``: its C entry, less the dtype suffix)."""
     n, (r_rows, chunk), (e, g) = series.shape[0], dl.shape, grids.shape
     outs = [torch.zeros_like(t) for t in (series, params, hs, f1, f2)]
-    fn = getattr(lib, "host_rows_contract_adjoint_"
-                 + ("f64" if dl.dtype == F64 else "f32"))
+    fn = getattr(lib, entry + ("f64" if dl.dtype == F64 else "f32"))
     fn.restype = None
     keep = [t.contiguous() for t in (m1det, m2det, dl, inv_pe_prior, grids,
                                      series, params, hs, s1, s2, f1, f2, ct_r)]
@@ -858,6 +860,17 @@ def test_warp_projection_matches_cheb_project(host_lib, deg):
 
 
 
+def test_tile_widths_match_the_kernels(rows_host_lib):
+    """The wrappers' tile widths of the pruned pair loops (``fused._TILE_S``,
+    ``_TILE_G``, ``_GRID_TILE``: the shared memory of the tile bounds that
+    ``fused.py`` and ``rows.py`` check, and the terms that
+    ``chip_smoke.py`` counts) against the kernels' kTileS, kTileG and
+    kGridTile (csrc/kde.cuh, csrc/adjoint.cuh)."""
+    out = (ctypes.c_int * 3)()
+    rows_host_lib.host_tile_widths(out)
+    assert list(out) == [fused._TILE_S, fused._TILE_G, fused._GRID_TILE]
+
+
 @pytest.mark.parametrize("dtype,sum_size", [(F32, 4), (F32, 8), (F64, 8)])
 def test_scratch_layout_matches_the_kernels(host_lib, dtype, sum_size):
     """The wrappers' sizes of the adjoints' prologue record and ``partials``
@@ -1025,3 +1038,232 @@ def test_epanechnikov_tie_takes_half_the_slope(host_lib, rows_host_lib, data):
     got = _host_rows_adjoint(rows_host_lib, *rargs)
     for g, e in zip(got, expect):
         assert _row_rel(g.reshape(-1, g.shape[-1]), e.reshape(-1, e.shape[-1])) <= 1e-12
+
+
+# ---------------------------------------------------------------------------
+# K1a and K2b: the pair loops pruned to the Epanechnikov support keep the bits
+# ---------------------------------------------------------------------------
+
+def _same_bits(a, b) -> bool:
+    """Whether two float tensors hold the same bits, signed zeros too, with
+    NaN where the other has NaN (a NaN's sign and payload follow operand
+    order, which a compiler may swap in an add)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    view = torch.int64 if a.element_size() == 8 else torch.int32
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a[~nan].view(view), b[~nan].view(view))
+
+
+def _tally(lib) -> tuple[int, int]:
+    """The tiles the pruned loops tested and skipped since the last call."""
+    out = (ctypes.c_longlong * 2)()
+    lib.host_tile_tally(out)
+    return out[0], out[1]
+
+
+def _host_contract(lib, z, w, grids, inv_h, prune):
+    """The Epanechnikov densities (without the constant) of rows of (z, w)
+    on their grids at 1/h, pruned (contract_pruned) or not (contract)."""
+    b, s = z.shape
+    out = torch.zeros(b, grids.shape[1], dtype=z.dtype)
+    keep = [t.contiguous() for t in (z, w, grids, inv_h)]
+    fn = getattr(lib, "host_contract_" + ("f64" if z.dtype == F64 else "f32"))
+    fn.restype = None
+    fn(*[_ptr(t) for t in (*keep, out)], b, s, grids.shape[1], int(prune))
+    return out
+
+
+CONTRACT_CASES = ("sorted", "tie", "rounds_to_one", "unsorted", "fillers",
+                  "zero_weight", "nan_h", "zero_h", "non_finite_z",
+                  "non_finite_w", "non_finite_grid")
+
+
+def _contract_case(case: str, dtype, s: int = 256, g: int = 200):
+    """A row of 256 dL-sorted samples (z ~ N(1, 0.1), w in [0.1, 1.1)) on a
+    200-point grid over [0.4, 1.6] at h = 2^-6, changed as ``case`` says:
+    grid points at exactly z +- h on a 2^-12 lattice ('tie', u = +-1); at
+    z + h (1 + k eps), |k| <= 4, with h not a power of two
+    ('rounds_to_one'); the samples shuffled ('unsorted'); the last 48
+    samples weightless at z = 0.5, the tail of a dark row ('fillers'); no
+    weight; a NaN or zero bandwidth; an infinite and a NaN z, an infinite
+    w, a NaN grid point.  Returns z, w, grid and 1/h in ``dtype``."""
+    gen = torch.Generator().manual_seed(21)
+    z = torch.sort(1.0 + 0.1 * torch.randn(s, generator=gen, dtype=F64)).values
+    w = torch.rand(s, generator=gen, dtype=F64) + 0.1
+    grid = torch.linspace(0.4, 1.6, g, dtype=F64)
+    inv_h = 64.0
+    if case == "tie":
+        z = torch.round(z * 4096.0) / 4096.0
+        pick = z[::16]
+        grid = torch.sort(torch.cat([grid[:g - 2 * len(pick)],
+                                     pick + 2.0 ** -6, pick - 2.0 ** -6])).values
+    elif case == "rounds_to_one":
+        h = 0.0173
+        inv_h = 1.0 / h
+        eps = torch.finfo(dtype).eps
+        edge = (z[::16, None] + h * (1.0 + eps * torch.arange(
+            -4, 5, dtype=F64))[None]).flatten()
+        grid = torch.sort(torch.cat([grid[:g - len(edge)], edge])).values
+    elif case == "unsorted":
+        perm = torch.randperm(s, generator=gen)
+        z, w = z[perm], w[perm]
+    elif case == "fillers":
+        z[-48:], w[-48:] = 0.5, 0.0
+    elif case == "zero_weight":
+        w[:] = 0.0
+    elif case == "nan_h":
+        inv_h = math.nan
+    elif case == "zero_h":
+        inv_h = math.inf
+    elif case == "non_finite_z":
+        z[40], z[41], z[120] = math.inf, -math.inf, math.nan
+    elif case == "non_finite_w":
+        w[100] = math.inf
+    elif case == "non_finite_grid":
+        grid[5] = math.nan
+    return (z.to(dtype), w.to(dtype), grid.to(dtype),
+            torch.tensor(inv_h, dtype=F64).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("case", CONTRACT_CASES)
+def test_pruned_contract_keeps_the_bits(fused_host_lib, case, dtype):
+    """The pruned pair loop (kde.cuh, tile_bounds and contract_pruned, with
+    the card's 32 x 32 tiles) gives the bits of the unpruned one
+    (contract) on every case of _contract_case, float64 and float32; on
+    the dL-sorted row it skips more than half of the tiles, on a row
+    without weight all of them and at a NaN bandwidth none."""
+    z, w, grid, inv_h = _contract_case(case, dtype)
+    args = (z[None], w[None], grid[None], inv_h[None])
+    expect = _host_contract(fused_host_lib, *args, prune=False)
+    _tally(fused_host_lib)
+    got = _host_contract(fused_host_lib, *args, prune=True)
+    tested, skipped = _tally(fused_host_lib)
+    assert _same_bits(got, expect)
+    assert tested == 7 * 8  # 7 runs of 32 grid points x 8 tiles of 32 samples
+    if case in ("sorted", "tie", "rounds_to_one"):
+        assert expect.abs().max() > 0 and skipped > tested // 2
+    if case == "zero_weight":
+        assert skipped == tested and torch.all(got == 0)
+    if case == "nan_h":
+        assert skipped == 0
+    if case == "tie":  # u = +-1 exactly at some pairs
+        u = (grid[:, None] - z[None]) * inv_h
+        assert (u == 1).any() and (u == -1).any()
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+def test_pruned_k1a_keeps_the_bits(fused_host_lib, data, dtype):
+    """K1a (the analysis-grid mode, Epanechnikov) with the pruned loop gives
+    densities and stats of the same bits as the unpruned mode (contract),
+    float64 and float32, on the emulation data's rows sorted by distance
+    as ``create`` sorts them (some tiles skipped) and in the catalog's
+    order."""
+    cat, z_grids, _, _ = data
+    pop = _population(dtype).update_batch({"H0": [62.0, 70.0, 81.0]})
+    hl = _likelihood(data, dtype)
+    rows_sorted = [hl.m1det, hl.m2det, hl.dL, hl.inv_pe_prior]
+    rows_raw = [t.to(dtype) for t in (cat.m1det, cat.m2det, cat.dL,
+                                      1.0 / cat.pe_prior)]
+    for pe in (rows_sorted, rows_raw):
+        kw = {"grids": z_grids.to(dtype)}
+        _tally(fused_host_lib)
+        den, st = _host_fused(fused_host_lib, fused._ANALYSIS_GRID, *pe,
+                              pop.cosmo, pop.mass, **kw)
+        tested, skipped = _tally(fused_host_lib)
+        den_u, st_u = _host_fused(fused_host_lib, fused._ANALYSIS_GRID, *pe,
+                                  pop.cosmo, pop.mass, **kw,
+                                  entry="host_fused_kde_unpruned_")
+        assert _tally(fused_host_lib) == (0, 0)
+        assert tested > 0 and (pe is rows_raw or skipped > 0)
+        assert _same_bits(den, den_u) and den.abs().max() > 0
+        for k in fused.STAT_NAMES:
+            assert _same_bits(st[k], st_u[k]), k
+
+
+def _sorted_data(data, n_grid: int = 200):
+    """The emulation data with each event's samples sorted by distance (as
+    ``create`` sorts them) and ``n_grid``-point grids."""
+    cat, _, inj, n_gen = data
+    cat = likelihood_module._sort_samples_by_distance(cat)
+    z_grids = compute_z_grids(_population(F64).cosmo, cat,
+                              cosmo_prior={"H0": [40.0, 120.0]},
+                              z_int_res=n_grid)
+    return cat, z_grids, inj, n_gen
+
+
+ROWS_CASES = ("pixel_rows", "sorted", "tie", "unsorted", "nan_h")
+
+
+def _rows_prune_case(rows_host_lib, data, dtype, case):
+    """K2b's arguments (_rows_case, Epanechnikov): on the emulation data's
+    chunk rows in catalog order, with their weightless fillers at each
+    pixel's tail, dead rows and rows without scale or cotangent
+    ('pixel_rows'); on the dL-sorted data with 200-point grids ('sorted');
+    that with, at the first λ, 1/h = 2^k on each event's rows and the
+    event's first two 32-point grid tiles ending at z - 2^-k and starting
+    at z + 2^-k exactly for one sample z, u = -1 and 1 at the tiles'
+    corners ('tie'); the sorted rows' samples shuffled within each row
+    ('unsorted'); a NaN 1/h on two live rows ('nan_h')."""
+    args, _ = _rows_case(data if case == "pixel_rows" else _sorted_data(data),
+                         dtype, "epan")
+    args = list(args)
+    m1, m2, dl, invp, grids, series, params, hs = args[:8]
+    live = torch.nonzero((invp > 0).any(dim=1)).flatten()
+    if case == "tie":
+        e_ev, per = grids.shape[0], dl.shape[0] // grids.shape[0]
+        dl = dl.contiguous()
+        z, ser0, prm0 = torch.empty_like(dl), series[0].clone(), params[0].clone()
+        fn = getattr(rows_host_lib, "host_rows_z_" + ("f64" if dtype == F64 else "f32"))
+        fn.restype = None
+        fn(_ptr(ser0), _ptr(prm0), args[13].cheb_deg, args[14].window_deg,
+           _ptr(dl), dl.numel(), _ptr(z))
+        grids, hs = grids.clone(), hs.clone()
+        for e in range(e_ev):
+            r = next(r for r in live.tolist() if r // per == e)
+            z0 = float(z[r][(z[r] > 0.05) & (invp[r] > 0)][0])
+            k = next(k for k in range(5, 14)
+                     if float(torch.tensor(z0 + 2.0 ** -k, dtype=dtype)) - z0
+                     == 2.0 ** -k)
+            hs[0, e * per:(e + 1) * per, 0] = 2.0 ** k
+            # the first grid tile ends at z0 - h, the second starts at z0 + h
+            step = 2.0 ** -k * torch.arange(32, dtype=F64)
+            grids[e, :64] = torch.cat([z0 - 2.0 ** -k - step.flip(0),
+                                       z0 + 2.0 ** -k + step]).to(dtype)
+        args[4], args[7] = grids, hs
+    elif case == "unsorted":
+        perm = torch.argsort(torch.rand(dl.shape, generator=torch.Generator(
+        ).manual_seed(5)), dim=1)
+        for i in range(4):
+            args[i] = torch.take_along_dim(args[i], perm, dim=1)
+    elif case == "nan_h":
+        hs = hs.clone()
+        hs[:, live[[1, 4]], 0] = math.nan
+        args[7] = hs
+    return args
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("case", ROWS_CASES)
+def test_pruned_rows_adjoint_keeps_the_bits(rows_host_lib, data, case, dtype):
+    """K2b with both passes pruned (adjoint.cuh, rows_adjoint_event) gives
+    every output (d_series, d_params, d_hs, d_f1, d_f2) of the same bits as
+    the full loops (the emulation's oracle, host_rows_contract_adjoint_
+    unpruned), float64 and float32, on every case of _rows_prune_case; on
+    the dL-sorted rows more than half of the tiles are skipped."""
+    args = _rows_prune_case(rows_host_lib, data, dtype, case)
+    _tally(rows_host_lib)  # what earlier emulations left
+    expect = _host_rows_adjoint(rows_host_lib, *args,
+                                entry="host_rows_contract_adjoint_unpruned_")
+    assert _tally(rows_host_lib) == (0, 0)
+    got = _host_rows_adjoint(rows_host_lib, *args)
+    tested, skipped = _tally(rows_host_lib)
+    assert tested > 0
+    for g, e in zip(got, expect):
+        assert _same_bits(g, e)
+    if case == "sorted":
+        assert skipped > tested // 2
+    if case != "nan_h":
+        assert all(torch.isfinite(g).all() for g in got)

@@ -1,10 +1,11 @@
-"""Attribution of the adjoint kernel K3's time on the card: variant trees
-with one change each, timed against each other by ``chip_smoke.py
---k3-ab``, and the instruction mix of K3's pair loop (phase B) in SASS.
+"""Attribution of the adjoint kernels' time on the card (K3 and K2b):
+variant trees with one change each, timed against each other by
+``chip_smoke.py --k3-ab``, and the instruction mix of K3's pair loop
+(phase B) in SASS.
 
     git archive <parent commit> | tar -x -C build/parent
     python3 tools/k3_variants.py trees build/parent
-    python3 chip_smoke.py --k3-ab build/parent build/k3/sel ...
+    python3 chip_smoke.py --k3-ab build/parent --variants build/k3/sel ...
     cuobjdump -sass build/kernels/fused_kde_adjoint-*.so > k3.sass   # on the card
     python3 tools/k3_variants.py sass k3.sass
 
@@ -39,6 +40,18 @@ _PHASE_A = ("  for (int s = blk.rank(); s < n; s += Block::kSize) {\n"
 # (no phases C, D) and phase B alone (phase A's chain skipped too)
 _NO_D = (ADJ, _AFTER_B, _AFTER_B.replace("  }\n", "    return;\n  }\n"))
 _NO_A = (ADJ, _PHASE_A, _PHASE_A.replace("s < n;", "s < 0;"))
+# K2b without its pass 2 (no sample's dw, dz or 1/h adjoint; phase D still
+# chains every weighted sample): with K2b on 2 grid points (phases A and
+# D, PAIR_TIMING in chip_smoke.py) it splits K2b's time into A + D, pass 1
+# and pass 2
+_K2B_PASS2 = "if (a.invp[base + s] != T(0)) {  // the fillers carry no weight"
+_NO_P2 = (ADJ, _K2B_PASS2, "if (false) {")
+# the pruned pair loop (K1a, K2b's pass 1) with runs of 64 grid points, two
+# a lane; its tests and bounds without its kept tiles' terms (its
+# overhead alone)
+KDE = "chimera_tpu_torch/csrc/kde.cuh"
+FUSED = "chimera_tpu_torch/ops/cuda/fused.py"
+_KEPT = "for (unsigned m = blk.ballot(keep); m != 0u; m &= m - 1u) {"
 VARIANTS = {
     "sel": [(ADJ, _WEIGHT, "const T m = q > T(0) ? c1 : T(0);")],
     "sel2": [(ADJ, _WEIGHT, "const T m = q > T(0) ? c1 "
@@ -51,6 +64,12 @@ VARIANTS = {
     "noAD": [_NO_D, _NO_A],
     "parent_noD": [_NO_D],
     "parent_noAD": [_NO_D, _NO_A],
+    "k2b_nop2": [_NO_P2],
+    "parent_k2b_nop2": [_NO_P2],
+    "tile64": [(KDE, "constexpr int kTileG = 32;", "constexpr int kTileG = 64;"),
+               (FUSED, "_TILE_G = 32", "_TILE_G = 64")],
+    "pair_noloop": [(KDE, _KEPT, _KEPT.replace("blk.ballot(keep)",
+                                               "blk.ballot(keep) & 0u"))],
 }
 
 
