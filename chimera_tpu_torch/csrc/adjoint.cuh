@@ -2,7 +2,8 @@
 // of the rows contraction (K2b, rows_contract_adjoint.cu), each the
 // derivative of the forward as the plain versions compute it
 // (ops/cuda/fused.py::fused_weights_kde_plain, ops/cuda/rows.py::
-// fused_rows_contract_plain):
+// fused_rows_contract_plain), and the rows contraction itself (K2,
+// rows_contract.cu), which shares K2b's layout and pruned pair loop:
 //
 //   prologue_kernel     per lambda, once a launch: the two Chebyshev series
 //                       in the summation type, the mass model's 16 fields
@@ -29,6 +30,7 @@
 //                       per-thread array is indexed at run time.
 //   adjoint_row         K3 for one (lambda, row) in every mode of the
 //                       forward (kde.cuh, FusedMode);
+//   rows_contract_event K2, the rows contraction, for one (lambda, event);
 //   rows_adjoint_event  K2b for one (lambda, event);
 //                       both written once for a `Block` (population.cuh,
 //                       DeviceBlock; WarpBlock, a warp as a block of its
@@ -893,34 +895,6 @@ struct SampleAdjoint {
   }
 };
 
-// A warp as a `Block` of its own (K3c on logical rows: a warp a row): its
-// sums, min/max and any over its 32 lanes by xor exchanges, whose pairwise
-// sums are commutative so that every lane holds the same bits.
-template <typename T>
-struct WarpBlock {
-  static constexpr int kSize = 32;
-  static constexpr int kLanes = 32;
-  __device__ __forceinline__ int rank() const { return threadIdx.x % 32; }
-  __device__ __forceinline__ int lane() const { return threadIdx.x % 32; }
-  template <int N>
-  __device__ __forceinline__ void sum(T (&v)[N]) const {
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-      for (int o = 16; o > 0; o >>= 1)
-        v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
-  }
-  __device__ __forceinline__ void minmax(T& lo, T& hi) const {
-    for (int o = 16; o > 0; o >>= 1) {
-      lo = dmin(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-      hi = dmax(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-    }
-  }
-  __device__ __forceinline__ bool any(bool v) const {
-    return __any_sync(0xffffffffu, v) != 0;
-  }
-  __device__ __forceinline__ void sync() const { __syncwarp(); }
-};
-
 // ---------------------------------------------------------------------------
 // K3: the adjoint of the fused pass for one (lambda, row)
 // ---------------------------------------------------------------------------
@@ -1228,6 +1202,155 @@ __host__ __device__ __forceinline__ size_t warp_rows_smem(int cd, int wd,
 template <typename T>
 __host__ __device__ __forceinline__ bool warp_rows(const AdjointArgs<T>& a) {
   return a.n_real != nullptr;
+}
+
+// ---------------------------------------------------------------------------
+// K2: the rows contraction for one (lambda, event)
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct RowsArgs {
+  const T* m1;
+  const T* m2;
+  const T* dl;
+  const T* invp;
+  const T* grids;             // (E, G)
+  const double* series;       // (L, cheb_deg + 2 + window_deg)
+  const T* params;            // (L, kMassScalars)
+  const T* hs;                // (L, R, 2): 1/h, scale
+  const T* s1;                // (R, G)
+  const T* s2;
+  const T* f1;                // (L, E, G)
+  const T* f2;
+  T* out;                     // (L, R, 2): r
+  int L, E, C, chunk, G, cheb_deg, window_deg;
+};
+
+template <typename T>
+struct RowsContractSmem {
+  typename Pair<T>::type* zw;  // (z, w) of the row's samples
+  typename Pair<T>::type* zt;  // (z_lo, z_hi) of each kTileS samples (PRUNE)
+  T* grid;                     // the event's grid, f1 and f2 rows
+  T* f1;
+  T* f2;
+  T* den;                      // the row's densities (PRUNE)
+};
+
+// K2 for (lambda l, event e): r of the event's C rows in row order
+// (_rows_reference, chimera_tpu/ops/pallas/fused.py:613-640).  Per row r
+// with (1/h, scale) = hs[l, r]:
+//
+//   phase A  z_s = z_from_dgw(cosmo_l, dL_rs), w_s = p_m1m2(...) inv_prior,
+//            one slot a thread;
+//   phase B  den_g = sum_s w_s K((g - z_s) / h) and, grid points over
+//            threads (kGridPerThread a thread), r1 = scale kc sum_g den_g
+//            s1[r, g] f1[g], r2 likewise, the block summing the threads'
+//            partials.
+//
+// A row of scale 0 (a dead pixel) is written as exact zeros without phase
+// A, a row without weight (the padding rows that round each event up to C
+// among them) after it: the TPU kernel computes exact zeros there.  With
+// PRUNE (the default for the Epanechnikov kernel; the host emulation's
+// oracle takes it off) phase B takes the densities from contract_pruned
+// (kde.cuh: 32-sample tiles of the row against runs of 32 grid points, the
+// tiles whose every term is exactly zero skipped, the argument there) into
+// sm.den, and the contraction then runs in the full loop's layout and
+// order, so that r keeps the full loop's bits.  The Gaussian kernel, whose
+// terms are never exactly zero, keeps the full loop.
+template <typename T, int KERNEL, bool PRUNE = KERNEL == 0, typename Block>
+__device__ __forceinline__ void rows_contract_event(
+    const Block& blk, const Model<T, double>& model, const RowsArgs<T>& a,
+    int l, int e, const RowsContractSmem<T>& sm) {
+  static_assert(!PRUNE || KERNEL == 0, "only Epanechnikov terms are pruned");
+  using T2 = typename Pair<T>::type;
+  const int G = a.G;
+  const size_t R = (size_t)a.E * a.C;
+  const size_t ev = (size_t)l * a.E + e;
+  for (int i = blk.rank(); i < G; i += Block::kSize) {
+    sm.grid[i] = a.grids[(size_t)e * G + i];
+    sm.f1[i] = a.f1[ev * G + i];
+    sm.f2[i] = a.f2[ev * G + i];
+  }
+  blk.sync();
+  const T kconst = kernel_norm<T, KERNEL>();
+
+  for (int c = 0; c < a.C; ++c) {
+    const size_t row = (size_t)e * a.C + c;
+    const size_t hrow = (size_t)l * R + row;
+    const T inv_h = a.hs[hrow * 2];
+    const T scale = a.hs[hrow * 2 + 1];
+    T* o = a.out + hrow * 2;
+    if (scale == T(0)) {  // dead pixel: block-uniform branch
+      if (blk.rank() == 0) o[0] = o[1] = T(0);
+      continue;
+    }
+
+    // ---- phase A: the row's source frame and weights ---------------------
+    const size_t base = row * a.chunk;
+    const T* m1 = a.m1 + base;
+    const T* m2 = a.m2 + base;
+    const T* dl = a.dl + base;
+    const T* invp = a.invp + base;
+    bool live = false;
+    for (int s = blk.rank(); s < a.chunk; s += Block::kSize) {
+      const T z = model.z_from_dgw(dl[s]);
+      const T inv1pz = T(1) / (T(1) + z);
+      const T w = model.p_m1m2(m1[s] * inv1pz, m2[s] * inv1pz) * invp[s];
+      T2 p;
+      p.x = z;
+      p.y = w;
+      sm.zw[s] = p;
+      live = live || w != T(0);
+    }
+    if (!blk.any(live)) {  // no weight anywhere: r = 0 exactly
+      if (blk.rank() == 0) o[0] = o[1] = T(0);
+      continue;
+    }
+
+    // ---- phase B: KDE on the event grid, contracted against s1, s2 -------
+    if (PRUNE) {  // the densities into sm.den
+      tile_bounds<T, kTileS, true>(blk, sm.zw, a.chunk, sm.zt);
+      contract_pruned<T, kTileS, kTileG>(
+          blk, sm.zw, sm.zt, a.chunk, G, inv_h,
+          [&sm](int i) { return sm.grid[i]; },
+          [&sm](int i, T sum) { sm.den[i] = sum; });
+      blk.sync();
+    }
+    const T* s1r = a.s1 + row * G;
+    const T* s2r = a.s2 + row * G;
+    T r[2] = {T(0), T(0)};
+    for (int g0 = 0; g0 < G; g0 += Block::kSize * kGridPerThread) {
+      T gv[kGridPerThread], sum[kGridPerThread];
+#pragma unroll
+      for (int k = 0; k < kGridPerThread; ++k) {
+        const int idx = g0 + k * Block::kSize + blk.rank();
+        gv[k] = sm.grid[idx < G ? idx : G - 1];
+        sum[k] = PRUNE && idx < G ? sm.den[idx] : T(0);
+      }
+      if (!PRUNE) {
+#pragma unroll 4
+        for (int s = 0; s < a.chunk; ++s) {
+          const T2 p = sm.zw[s];
+#pragma unroll
+          for (int k = 0; k < kGridPerThread; ++k)
+            sum[k] += p.y * kernel_shape<T, KERNEL>((gv[k] - p.x) * inv_h);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kGridPerThread; ++k) {
+        const int idx = g0 + k * Block::kSize + blk.rank();
+        if (idx < G) {
+          r[0] += sum[k] * s1r[idx] * sm.f1[idx];
+          r[1] += sum[k] * s2r[idx] * sm.f2[idx];
+        }
+      }
+    }
+    blk.template sum<2>(r);  // ends in a barrier: zw and den are free again
+    if (blk.rank() == 0) {
+      o[0] = r[0] * kconst * scale;
+      o[1] = r[1] * kconst * scale;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -47,7 +47,16 @@
 // (grid point, sample) pairs that can be non-zero: at the headline 0.81 %
 // of the L*B*G*S = 3.3e10 terms are, and its 32 x 32 tiles keep ~7 % of
 // them.  K1b, K1d and K1e keep the full loop over the real samples of each
-// row, ~5 FP32 instructions a term; K1c does phase A only.
+// row, ~5 FP32 instructions a term; K1c does phase A only: on logical
+// rows, ~S_l / npix real samples each (the dark flagship's pixel rows,
+// ~128), a block of kThreads threads a row left most threads idle behind
+// a block's fixed costs, so K1c there gives each row one warp
+// (logical_stats_kernel, kde.cuh: logical_row_stats), whose lanes keep the
+// partial sums of the block's ranks and fold them as the block would: the
+// same bits, the series and mass scalars loaded once per kStatsRows rows,
+// shuffles in place of five block barriers.  What bounds it then is phase
+// A's instructions per sample and each row's filler z, folds and tail.  Plain rows (the events of the
+// dark cut_grid path, S real samples each) keep a block a row.
 //
 // What the design does about it: every intermediate stays on chip.  z and w
 // of the block's row live in shared memory as interleaved (z, w) pairs, so
@@ -65,7 +74,7 @@
 // up to 256 points, four above).  The raw row statistics of the TPU kernel
 // are kept (a dead row gives NaN, which the caller's N_eff gate and
 // nan_to_num remove).  The two Chebyshev series are summed in T in the
-// spectral modes (a, b) and in double in the dark-siren modes (c, d),
+// spectral modes (a, b) and in double in the dark-siren modes (c, d, e),
 // whose float32 likelihood needs it (population.cuh, Model).  Later work:
 // phase A, and the same pruned loop in K1b, K1d and K1e.
 
@@ -96,6 +105,50 @@ fused_kde_kernel(const FusedArgs<T> a) {
   const Model<T, S> model(ser, prm, a.cheb_deg, a.window_deg);
   const DeviceBlock<T> blk{scratch};
   fused_row<T, S, KERNEL, MODE>(blk, model, a, l, b, zw, tiles);
+}
+
+// K1c on logical rows (n_real given): kStatsWarps warps a block (one), a
+// warp a row, kStatsRows rows of one lambda a block in row order (warp w
+// takes the block's rows w, w + kStatsWarps, ...), the lambda's series and
+// mass scalars loaded once a block, each warp's z of its row in shared
+// memory; the sums replay those of the block-a-row kernel (kde.cuh,
+// logical_row_stats).
+template <typename T>
+__global__ void __launch_bounds__(32 * kStatsWarps)
+logical_stats_kernel(const FusedArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* ser = reinterpret_cast<double*>(smem);
+  T* prm = reinterpret_cast<T*>(smem + series_bytes<double>(a.cheb_deg,
+                                                            a.window_deg));
+  T* z = prm + kMassScalars;  // (kStatsWarps, S): each warp's row
+
+  const int l = blockIdx.x % a.L;
+  const int blk = blockIdx.x / a.L;
+  const int Q = a.cheb_deg + 2 + a.window_deg;
+  for (int i = threadIdx.x; i < Q; i += 32 * kStatsWarps)
+    ser[i] = a.series[(size_t)l * Q + i];
+  for (int i = threadIdx.x; i < kMassScalars; i += 32 * kStatsWarps)
+    prm[i] = a.params[(size_t)l * kMassScalars + i];
+  __syncthreads();
+  const Model<T, double> model(ser, prm, a.cheb_deg, a.window_deg);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int end = (blk + 1) * kStatsRows < a.B ? (blk + 1) * kStatsRows : a.B;
+  for (int b = blk * kStatsRows + warp; b < end; b += kStatsWarps)
+    logical_row_stats(model, a, l, b, lane, z + (size_t)warp * a.S);
+}
+
+template <typename T>
+int launch_logical_stats(const FusedArgs<T>& a, cudaStream_t stream) {
+  const size_t smem = series_bytes<double>(a.cheb_deg, a.window_deg)
+                      + (kMassScalars + (size_t)kStatsWarps * a.S) * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      logical_stats_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((a.B + kStatsRows - 1) / kStatsRows);
+  logical_stats_kernel<T><<<(unsigned)a.L * blocks, 32 * kStatsWarps, smem,
+                            stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, typename S, int KERNEL, int MODE>
@@ -154,7 +207,9 @@ int launch(const T* m1, const T* m2, const T* dl, const T* invp,
                        cheb_deg, window_deg, logical_s, bw_mode, unit_scale,
                        npix, (T)bw_value, (T)cut_grid};
   auto s = static_cast<cudaStream_t>(stream);
-  if (!dense) return launch_mode<T, double, 0, kStatsOnly>(a, s);
+  if (!dense)
+    return n_real != nullptr ? launch_logical_stats<T>(a, s)
+                             : launch_mode<T, double, 0, kStatsOnly>(a, s);
   if (kernel == 0) return launch_kernel<T, 0>(a, mode, s);
   return launch_kernel<T, 1>(a, mode, s);
 }

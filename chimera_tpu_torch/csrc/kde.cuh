@@ -62,6 +62,35 @@ __device__ __forceinline__ T largest() {
   else return T(DBL_MAX);
 }
 
+// The row statistics after the sums (fused.py:126-141): sigma_z with the
+// logical fillers, N_eff, h and the mode's lo and ub, given st's n and sl,
+// the sums of w, w^2 and z (acc) and of (z - z_mean)^2 (ss) over the real
+// samples, the fillers' z_f and the z range.
+template <typename T, int MODE>
+__device__ __forceinline__ void finish_stats(RowStats<T>& st,
+                                             const FusedArgs<T>& a, int l,
+                                             int b, const T (&acc)[3], T ss,
+                                             T zf, T z_mean, T f_log, T z_lo,
+                                             T z_hi) {
+  const T dz = zf - z_mean;
+  st.z_sig = dsqrt((ss + f_log * dz * dz) / st.sl);
+  st.sum_w = acc[0];
+  st.sum_w2 = acc[1];
+  st.neff = st.sum_w * st.sum_w / st.sum_w2;
+  st.h = bw_factor(st.neff, a.bw_mode, a.bw_value) * st.z_sig;
+  if (MODE == kEffectiveGrid || MODE == kStatsOnly) {
+    const T lo = z_lo - a.cut_grid * st.z_sig;
+    st.lo = lo > T(0) ? lo : T(1e-8);
+    st.ub = z_hi + a.cut_grid * st.z_sig;
+  } else if (MODE == kExternalBounds) {
+    st.lo = a.ext[((size_t)l * a.B + b) * 2];
+    st.ub = a.ext[((size_t)l * a.B + b) * 2 + 1];
+  } else {
+    st.lo = T(0);  // analysis grids: no effective grid
+    st.ub = T(0);
+  }
+}
+
 // Phase A and the row statistics of (l, b) (fused.py:102-141, the raw
 // formulas: a row without weight gives NaN neff and h).  z and w of the
 // row's first n slots go to zw.  A logical row (n_real given) maps only its
@@ -113,24 +142,178 @@ __device__ __forceinline__ RowStats<T> row_stats(
     ss[0] += d * d;
   }
   blk.template sum<1>(ss);
-  const T dz = zf - z_mean;
-  st.z_sig = dsqrt((ss[0] + f_log * dz * dz) / st.sl);
-  st.sum_w = acc[0];
-  st.sum_w2 = acc[1];
-  st.neff = st.sum_w * st.sum_w / st.sum_w2;
-  st.h = bw_factor(st.neff, a.bw_mode, a.bw_value) * st.z_sig;
-  if (MODE == kEffectiveGrid || MODE == kStatsOnly) {
-    const T lo = z_lo - a.cut_grid * st.z_sig;
-    st.lo = lo > T(0) ? lo : T(1e-8);
-    st.ub = z_hi + a.cut_grid * st.z_sig;
-  } else if (MODE == kExternalBounds) {
-    st.lo = a.ext[((size_t)l * a.B + b) * 2];
-    st.ub = a.ext[((size_t)l * a.B + b) * 2 + 1];
-  } else {
-    st.lo = T(0);  // analysis grids: no effective grid
-    st.ub = T(0);
-  }
+  finish_stats<T, MODE>(st, a, l, b, acc, ss[0], zf, z_mean, f_log, z_lo,
+                        z_hi);
   return st;
+}
+
+// The row statistics (stats row l, b: lo, ub, norms, neff, h, sum w,
+// sum w^2, sigma_z), written by one thread.
+template <typename T>
+__device__ __forceinline__ void write_stats(const RowStats<T>& st,
+                                            const FusedArgs<T>& a,
+                                            size_t out_row) {
+  T* o = a.stats + out_row * 8;
+  o[0] = st.lo;
+  o[1] = st.ub;
+  o[2] = st.sum_w / st.sl;
+  o[3] = st.neff;
+  o[4] = st.h;
+  o[5] = st.sum_w;
+  o[6] = st.sum_w2;
+  o[7] = st.z_sig;
+}
+
+// ---------------------------------------------------------------------------
+// K1c on logical rows: a warp a row, the block's sums replayed
+// ---------------------------------------------------------------------------
+//
+// logical_stats_kernel (fused_kde.cu) gives each logical row (the dark
+// siren's pixel rows, ~S_l / npix real samples) one warp in place of a
+// block of kThreads threads, and keeps that block's sums.  In row_stats the
+// block's rank t sums the samples t, t + kThreads, ... in order; its warps
+// fold their ranks' partials with warp_sum's shuffle-down pattern and
+// block_sum adds the warps' totals to T(0) in warp order; block_minmax
+// folds the same way with dmin and dmax (whose NaN handling follows the
+// operand order).  Here lane j keeps the partials of the ranks j + 32 k,
+// k < kReplay, fed in the same order: its i-th sample, lane + 32 i, is rank
+// lane + 32 (i mod kReplay)'s, so the lane feeds its current partials and
+// rotates the kReplay of them after each sample, kReplay at a time, and no
+// per-thread array is indexed at run time.  replay_sum and replay_minmax
+// then fold rank k's partials over the warp as warp k would and combine the
+// kReplay totals as block_sum and block_minmax do: every sum, the z range
+// and the stats have the bits of the block-a-row kernel.
+
+// the block's warps that a lane's partials stand for
+constexpr int kReplay = kThreads / 32;
+// logical_stats_kernel's warps a block and rows a block (_STATS_WARPS in
+// ops/cuda/fused.py sizes its shared memory: a row's z for each warp).  One
+// warp taking 4 rows in turn: blocks of 4 warps, a row each, took ~25 %
+// longer at the dark flagship on an H100 (PERF.md §6): a block holds its
+// slot until the warp of its largest pixel ends.
+constexpr int kStatsWarps = 1;
+constexpr int kStatsRows = 4;
+
+// rotate v[0] <- v[1] <- ... <- v[kReplay - 1] <- v[0]
+template <typename T>
+__device__ __forceinline__ void rotate(T (&v)[kReplay]) {
+  const T first = v[0];
+#pragma unroll
+  for (int k = 0; k + 1 < kReplay; ++k) v[k] = v[k + 1];
+  v[kReplay - 1] = first;
+}
+
+// Pass 1 of row_stats for lane `lane` of a warp standing for the block:
+// z and w of the row's samples lane + 32 i (i < ceil(n / kThreads)
+// kReplay), z to z[s]; rank lane + 32 k's sums of w, w^2 and z in
+// acc[.][k], its z range in lo[k], hi[k] (which start at the caller's).
+template <typename T, typename S>
+__device__ __forceinline__ void rank_partials(
+    const Model<T, S>& model, const FusedArgs<T>& a, size_t row, int n,
+    int lane, T* z, T (&acc)[3][kReplay], T (&lo)[kReplay],
+    T (&hi)[kReplay]) {
+  const int steps = (n + kThreads - 1) / kThreads * kReplay;
+  for (int i = 0; i < steps; ++i) {
+    const int s = lane + 32 * i;
+    if (s < n) {
+      const T zs = model.z_from_dgw(a.dl[row + s]);
+      const T inv1pz = T(1) / (T(1) + zs);
+      const T w = model.p_m1m2(a.m1[row + s] * inv1pz, a.m2[row + s] * inv1pz)
+                  * a.invp[row + s];
+      z[s] = zs;
+      acc[0][0] += w;
+      acc[1][0] += w * w;
+      acc[2][0] += zs;
+      lo[0] = dmin(lo[0], zs);
+      hi[0] = dmax(hi[0], zs);
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) rotate(acc[j]);
+    rotate(lo);
+    rotate(hi);
+  }
+}
+
+// Pass 2 of row_stats for that lane: rank lane + 32 k's sum of
+// (z - z_mean)^2 in ss[k].
+template <typename T>
+__device__ __forceinline__ void rank_squares(const T* z, int n, int lane,
+                                             T z_mean, T (&ss)[kReplay]) {
+  const int steps = (n + kThreads - 1) / kThreads * kReplay;
+  for (int i = 0; i < steps; ++i) {
+    const int s = lane + 32 * i;
+    if (s < n) {
+      const T d = z[s] - z_mean;
+      ss[0] += d * d;
+    }
+    rotate(ss);
+  }
+}
+
+// block_sum of the ranks' partials v[k] (rank lane + 32 k), replayed by the
+// warp; every lane receives the total.
+template <typename T>
+__device__ __forceinline__ T replay_sum(const T (&v)[kReplay]) {
+  T t = T(0);
+#pragma unroll
+  for (int k = 0; k < kReplay; ++k)
+    t += __shfl_sync(0xffffffffu, warp_sum(v[k]), 0);
+  return t;
+}
+
+// block_minmax of the ranks' lo[k] and hi[k], replayed by the warp.
+template <typename T>
+__device__ __forceinline__ void replay_minmax(T (&lo)[kReplay],
+                                              T (&hi)[kReplay], T& z_lo,
+                                              T& z_hi) {
+#pragma unroll
+  for (int k = 0; k < kReplay; ++k) {
+    for (int o = 16; o > 0; o >>= 1) {
+      lo[k] = dmin(lo[k], __shfl_down_sync(0xffffffffu, lo[k], o));
+      hi[k] = dmax(hi[k], __shfl_down_sync(0xffffffffu, hi[k], o));
+    }
+    lo[k] = __shfl_sync(0xffffffffu, lo[k], 0);
+    hi[k] = __shfl_sync(0xffffffffu, hi[k], 0);
+  }
+  z_lo = lo[0];
+  z_hi = hi[0];
+#pragma unroll
+  for (int k = 1; k < kReplay; ++k) {
+    z_lo = dmin(z_lo, lo[k]);
+    z_hi = dmax(z_hi, hi[k]);
+  }
+}
+
+// K1c's stats of the logical row (l, b) by one warp (row_stats in
+// kStatsOnly with n_real given, and fused_row's write), z of its real
+// samples in z[0, S).
+template <typename T, typename S>
+__device__ __forceinline__ void logical_row_stats(const Model<T, S>& model,
+                                                  const FusedArgs<T>& a,
+                                                  int l, int b, int lane,
+                                                  T* z) {
+  RowStats<T> st;
+  const long long nr = a.n_real[b];
+  st.n = nr < 0 ? 0 : (nr > a.S ? a.S : (int)nr);
+  const T zf = model.z_from_dgw(a.dl_fill[b]);
+  st.sl = T(a.logical_s);
+  T acc[3][kReplay], lo[kReplay], hi[kReplay], ss[kReplay];
+#pragma unroll
+  for (int k = 0; k < kReplay; ++k) {
+    acc[0][k] = acc[1][k] = acc[2][k] = ss[k] = T(0);
+    lo[k] = hi[k] = zf;
+  }
+  rank_partials(model, a, (size_t)b * a.S, st.n, lane, z, acc, lo, hi);
+  const T sums[3] = {replay_sum(acc[0]), replay_sum(acc[1]),
+                     replay_sum(acc[2])};
+  T z_lo, z_hi;
+  replay_minmax(lo, hi, z_lo, z_hi);
+  const T f_log = st.sl - T(st.n);
+  const T z_mean = (sums[2] + f_log * zf) / st.sl;
+  rank_squares(z, st.n, lane, z_mean, ss);
+  finish_stats<T, kStatsOnly>(st, a, l, b, sums, replay_sum(ss), zf, z_mean,
+                              f_log, z_lo, z_hi);
+  if (lane == 0) write_stats(st, a, (size_t)l * a.B + b);
 }
 
 // The kernel's shape without its constant: Epanechnikov max(1 - u^2, 0),
@@ -384,17 +567,7 @@ __device__ __forceinline__ void fused_row(const Block& blk,
                                           typename Pair<T>::type* tiles) {
   const RowStats<T> st = row_stats<T, S, MODE>(blk, model, a, l, b, zw);
   const size_t out_row = (size_t)l * a.B + b;
-  if (blk.rank() == 0) {
-    T* o = a.stats + out_row * 8;
-    o[0] = st.lo;
-    o[1] = st.ub;
-    o[2] = st.sum_w / st.sl;
-    o[3] = st.neff;
-    o[4] = st.h;
-    o[5] = st.sum_w;
-    o[6] = st.sum_w2;
-    o[7] = st.z_sig;
-  }
+  if (blk.rank() == 0) write_stats(st, a, out_row);
   if (MODE == kStatsOnly) return;
   const T inv_h = T(1) / st.h;
   if (MODE == kContract) {

@@ -14,7 +14,8 @@
 //                adjoint kernels' prologue (the derived fields' Jacobian)
 //                and as their reverse sweep's oracle in the host tests.
 //   block_sum    deterministic block-wide sums of per-thread partials;
-//   DeviceBlock  a CUDA block as the `Block` of kde.cuh and adjoint.cuh.
+//   DeviceBlock  a CUDA block as the `Block` of kde.cuh and adjoint.cuh;
+//   WarpBlock    a warp as a `Block` of its own.
 //
 // Everything lives in an anonymous namespace: each kernel file compiles its
 // own copy.  The build hashes this header with every kernel source.
@@ -323,6 +324,34 @@ struct DeviceBlock {
     return __ballot_sync(0xffffffffu, v);
   }
   __device__ __forceinline__ void tile(bool) const {}
+};
+
+// A warp as a `Block` of its own (K3c on logical rows: a warp a row): its
+// sums, min/max and any over its 32 lanes by xor exchanges, whose pairwise
+// sums are commutative so that every lane holds the same bits.
+template <typename T>
+struct WarpBlock {
+  static constexpr int kSize = 32;
+  static constexpr int kLanes = 32;
+  __device__ __forceinline__ int rank() const { return threadIdx.x % 32; }
+  __device__ __forceinline__ int lane() const { return threadIdx.x % 32; }
+  template <int N>
+  __device__ __forceinline__ void sum(T (&v)[N]) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      for (int o = 16; o > 0; o >>= 1)
+        v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+  }
+  __device__ __forceinline__ void minmax(T& lo, T& hi) const {
+    for (int o = 16; o > 0; o >>= 1) {
+      lo = dmin(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = dmax(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    }
+  }
+  __device__ __forceinline__ bool any(bool v) const {
+    return __any_sync(0xffffffffu, v) != 0;
+  }
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
 };
 
 // Scott (0), Silverman (1) or fixed (2) bandwidth factor of a 1-D KDE, in

@@ -21,154 +21,76 @@
 // One thread block per (lambda, event), lambda fastest in blockIdx.x so the
 // blocks that read one event's rows and static factors run together and
 // find them in L2.  The block keeps the event's grid and its f1, f2 row in
-// shared memory and sweeps the event's C rows: phase A puts the row's
-// (z, w) pairs in shared memory, each thread holds kGridPerThread grid
-// points in registers against each broadcast pair, multiplies its densities
-// into s1 and s2 (read once, coalesced) and the block reduces the two sums.
+// shared memory and sweeps the event's C rows (adjoint.cuh,
+// rows_contract_event, which the host emulation runs too): phase A puts
+// the row's (z, w) pairs in shared memory, phase B forms the row's
+// densities on the grid and the contraction multiplies them into s1 and s2
+// (read once, coalesced), each thread holding kGridPerThread grid points,
+// and the block reduces the two sums.
 //
-// What bounds it on an H100: arithmetic.  Phase B is L * R * chunk * G
-// kernel terms at ~5 FP32 instructions each (16 * 16 000 * 128 * 500 =
-// 1.6e10 at the dark flagship) against a read of the rows and of s1, s2
-// (R * G values each, L2-resident across the lambda batch).  What the design
-// does about it: rows whose scale is 0 (dead pixels) or whose weights are
-// all 0 (the padding rows that round each event up to C, about half of the
-// rows at the flagship) are written as exact zeros without phase B, which is
-// what the TPU kernel computes there; the kernel-shape constant is applied
-// once per row.  Later work: prune the sample loop to the kernel support
-// and put the contraction on tensor cores.
+// What bounds it on an H100: phase A and the per-row work.  Rows whose
+// scale is 0 (dead pixels) are written as exact zeros without either
+// phase, rows whose weights are all 0 (the padding rows that round each
+// event up to C among them) after phase A; the kernel-shape constant is
+// applied once per row.  With the Epanechnikov kernel phase B evaluates
+// only the (32 grid points, 32 samples) tiles of pairs that can be
+// non-zero (kde.cuh, contract_pruned, on the dL-sorted samples): at the
+// flagship about 1 % of the L * R * chunk * G = 1.6e10 pair terms are, and
+// the tiles keep a few percent of the pairs, so that what remains per row
+// is phase A (the 64-term Clenshaw inverse in double and the mass model of
+// each of its 128 slots), the tile bounds, the grid points' epilogue and
+// five barriers.  The densities keep the bits of the full loop, which the
+// Gaussian kernel (none of whose terms is exactly zero) runs.
 
-#include "population.cuh"
+#include "adjoint.cuh"
 
 namespace {
 
 template <typename T, int KERNEL>  // KERNEL 0: Epanechnikov, 1: Gaussian
 __global__ void __launch_bounds__(kThreads)
-rows_contract_kernel(const T* __restrict__ m1det, const T* __restrict__ m2det,
-                     const T* __restrict__ dl, const T* __restrict__ inv_prior,
-                     const T* __restrict__ grids,
-                     const double* __restrict__ series,
-                     const T* __restrict__ params,
-                     const T* __restrict__ hs, const T* __restrict__ s1,
-                     const T* __restrict__ s2, const T* __restrict__ f1,
-                     const T* __restrict__ f2, T* __restrict__ out, int L,
-                     int E, int C, int chunk, int G, int cheb_deg,
-                     int window_deg) {
+rows_contract_kernel(const RowsArgs<T> a) {
   using T2 = typename Pair<T>::type;
+  constexpr bool kPrune = KERNEL == 0;
   extern __shared__ __align__(16) unsigned char smem[];
   double* ser = reinterpret_cast<double*>(smem);  // series, summed in double
-  T2* zw = reinterpret_cast<T2*>(smem + series_bytes<double>(cheb_deg, window_deg));
-  T* grid = reinterpret_cast<T*>(zw + chunk);  // the event's G grid points
-  T* f1s = grid + G;                          // f1[l, e, :]
-  T* f2s = f1s + G;                           // f2[l, e, :]
-  T* prm = f2s + G;                           // this lambda's mass scalars
+  RowsContractSmem<T> sm;
+  sm.zw = reinterpret_cast<T2*>(smem + series_bytes<double>(a.cheb_deg,
+                                                            a.window_deg));
+  sm.zt = sm.zw + a.chunk;
+  sm.grid = reinterpret_cast<T*>(
+      sm.zt + (kPrune ? (a.chunk + kTileS - 1) / kTileS : 0));
+  sm.f1 = sm.grid + a.G;
+  sm.f2 = sm.f1 + a.G;
+  sm.den = sm.f2 + a.G;
+  T* prm = sm.den + (kPrune ? a.G : 0);  // this lambda's mass scalars
   __shared__ T scratch[2][kWarps];
 
-  const int l = blockIdx.x % L;
-  const int e = blockIdx.x / L;
-  const int tid = threadIdx.x;
-  const size_t R = (size_t)E * C;
-  const size_t ev = (size_t)l * E + e;
-  const int Q = cheb_deg + 2 + window_deg;
-  for (int i = tid; i < Q; i += kThreads) ser[i] = series[(size_t)l * Q + i];
-  for (int i = tid; i < kMassScalars; i += kThreads)
-    prm[i] = params[(size_t)l * kMassScalars + i];
-  for (int i = tid; i < G; i += kThreads) {
-    grid[i] = grids[(size_t)e * G + i];
-    f1s[i] = f1[ev * G + i];
-    f2s[i] = f2[ev * G + i];
-  }
+  const int l = blockIdx.x % a.L;
+  const int e = blockIdx.x / a.L;
+  const int Q = a.cheb_deg + 2 + a.window_deg;
+  for (int i = threadIdx.x; i < Q; i += kThreads)
+    ser[i] = a.series[(size_t)l * Q + i];
+  for (int i = threadIdx.x; i < kMassScalars; i += kThreads)
+    prm[i] = a.params[(size_t)l * kMassScalars + i];
   __syncthreads();
-  const Model<T, double> model(ser, prm, cheb_deg, window_deg);
-  const T kconst = KERNEL == 0 ? T(0.75) : T(0.39894228040143267794);
-
-  for (int c = 0; c < C; ++c) {
-    const size_t row = (size_t)e * C + c;
-    const size_t hrow = (size_t)l * R + row;
-    const T inv_h = hs[hrow * 2];
-    const T scale = hs[hrow * 2 + 1];
-    T* o = out + hrow * 2;
-    if (scale == T(0)) {  // dead pixel: block-uniform branch
-      if (tid == 0) o[0] = o[1] = T(0);
-      continue;
-    }
-
-    // ---- phase A: the row's source frame and weights -------------------
-    const size_t base = row * chunk;
-    int live = 0;
-    for (int s = tid; s < chunk; s += kThreads) {
-      const T z = model.z_from_dgw(dl[base + s]);
-      const T inv1pz = T(1) / (T(1) + z);
-      const T w = model.p_m1m2(m1det[base + s] * inv1pz,
-                               m2det[base + s] * inv1pz) * inv_prior[base + s];
-      T2 p;
-      p.x = z;
-      p.y = w;
-      zw[s] = p;
-      live |= (w != T(0));
-    }
-    if (!__syncthreads_or(live)) {  // zero weight everywhere: r = 0 exactly
-      if (tid == 0) o[0] = o[1] = T(0);
-      continue;
-    }
-
-    // ---- phase B: KDE on the event grid, contracted against s1, s2 -----
-    const T* s1r = s1 + row * G;
-    const T* s2r = s2 + row * G;
-    T r[2] = {T(0), T(0)};
-    for (int g0 = 0; g0 < G; g0 += kThreads * kGridPerThread) {
-      T gv[kGridPerThread], sum[kGridPerThread];
-#pragma unroll
-      for (int k = 0; k < kGridPerThread; ++k) {
-        const int idx = g0 + k * kThreads + tid;
-        gv[k] = grid[idx < G ? idx : G - 1];
-        sum[k] = T(0);
-      }
-#pragma unroll 4
-      for (int s = 0; s < chunk; ++s) {
-        const T2 p = zw[s];
-#pragma unroll
-        for (int k = 0; k < kGridPerThread; ++k) {
-          const T u = (gv[k] - p.x) * inv_h;
-          T kern;
-          if (KERNEL == 0) kern = dmax(T(1) - u * u, T(0));
-          else kern = dexp(T(-0.5) * u * u);
-          sum[k] += p.y * kern;
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kGridPerThread; ++k) {
-        const int idx = g0 + k * kThreads + tid;
-        if (idx < G) {
-          r[0] += sum[k] * s1r[idx] * f1s[idx];
-          r[1] += sum[k] * s2r[idx] * f2s[idx];
-        }
-      }
-    }
-    block_sum<T, 2>(r, scratch);  // ends in __syncthreads: zw is free again
-    if (tid == 0) {
-      o[0] = r[0] * kconst * scale;
-      o[1] = r[1] * kconst * scale;
-    }
-  }
+  const Model<T, double> model(ser, prm, a.cheb_deg, a.window_deg);
+  rows_contract_event<T, KERNEL>(DeviceBlock<T>{scratch}, model, a, l, e, sm);
 }
 
 template <typename T, int KERNEL>
-int launch_kernel(const T* m1, const T* m2, const T* dl, const T* invp,
-                  const T* grids, const double* series, const T* params,
-                  const T* hs, const T* s1, const T* s2, const T* f1,
-                  const T* f2, T* out, int L, int E, int C, int chunk, int G,
-                  int cheb_deg, int window_deg, cudaStream_t stream) {
-  const size_t smem = series_bytes<double>(cheb_deg, window_deg)
-                      + (size_t)chunk * sizeof(typename Pair<T>::type)
-                      + (3 * (size_t)G + kMassScalars) * sizeof(T);
+int launch_kernel(const RowsArgs<T>& a, cudaStream_t stream) {
+  const bool prune = KERNEL == 0;
+  const size_t smem = series_bytes<double>(a.cheb_deg, a.window_deg)
+                      + ((size_t)a.chunk
+                         + (prune ? (a.chunk + kTileS - 1) / kTileS : 0))
+                            * sizeof(typename Pair<T>::type)
+                      + ((3 + prune) * (size_t)a.G + kMassScalars) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
       rows_contract_kernel<T, KERNEL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)L * (unsigned)E);
-  rows_contract_kernel<T, KERNEL><<<grid, kThreads, smem, stream>>>(
-      m1, m2, dl, invp, grids, series, params, hs, s1, s2, f1, f2, out, L, E,
-      C, chunk, G, cheb_deg, window_deg);
+  const dim3 grid((unsigned)a.L * (unsigned)a.E);
+  rows_contract_kernel<T, KERNEL><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -180,14 +102,11 @@ int launch(const T* m1, const T* m2, const T* dl, const T* invp,
            int window_deg, int kernel, void* stream) {
   if (L <= 0 || E <= 0 || C <= 0 || chunk <= 0 || G <= 0)
     return (int)cudaErrorInvalidValue;
+  const RowsArgs<T> a{m1, m2, dl, invp, grids, series, params, hs, s1, s2,
+                      f1, f2, out, L, E, C, chunk, G, cheb_deg, window_deg};
   auto s = static_cast<cudaStream_t>(stream);
-  if (kernel == 0)
-    return launch_kernel<T, 0>(m1, m2, dl, invp, grids, series, params, hs,
-                               s1, s2, f1, f2, out, L, E, C, chunk, G,
-                               cheb_deg, window_deg, s);
-  return launch_kernel<T, 1>(m1, m2, dl, invp, grids, series, params, hs, s1,
-                             s2, f1, f2, out, L, E, C, chunk, G, cheb_deg,
-                             window_deg, s);
+  if (kernel == 0) return launch_kernel<T, 0>(a, s);
+  return launch_kernel<T, 1>(a, s);
 }
 
 }  // namespace

@@ -85,6 +85,9 @@ _ADJOINT_STATIC_SMEM = 12288
 _TILE_S = 32
 _TILE_G = 32
 _GRID_TILE = 32
+# warps a block of K1c on logical rows, a row's z each in shared memory
+# (csrc/kde.cuh kStatsWarps)
+_STATS_WARPS = 1
 # the per-λ record of the adjoint kernels' prologue past the mass scalars:
 # the 4 derived mass fields, the (2, 12) Jacobian of the two that carry a
 # cotangent and the reverse sweep's 12 constants (csrc/adjoint.cuh)
@@ -353,11 +356,12 @@ def _launch_k1(mode: int, series, params, m1det, m2det, dl, inv_pe_prior,
 
 
 def _checked_rows(name, m1det, m2det, dl, inv_pe_prior, cosmo, mass, n_real,
-                  dl_fill, logical_s, sum_size, tiles=False):
+                  dl_fill, logical_s, sum_size, tiles=False, stats_only=False):
     """The checks every launch of ``csrc/fused_kde.cu`` shares: returns the
     packed rows and the contiguous PE arrays, logical-row arrays.  ``tiles``:
     the launch takes the pruned pair loop, whose sample tiles' bounds take
-    shared memory too."""
+    shared memory too; ``stats_only`` on logical rows: the launch takes the
+    warp-a-row kernel, whose block keeps the z of _STATS_WARPS rows."""
     check_cuda_call(name, cosmo, mass, dl,
                     {"m1det": m1det, "m2det": m2det, "inv_pe_prior": inv_pe_prior})
     dt, dev = dl.dtype, dl.device
@@ -373,12 +377,15 @@ def _checked_rows(name, m1det, m2det, dl, inv_pe_prior, cosmo, mass, n_real,
         n_real = dl_fill = None
     n = max(cosmo.L, mass.L)
     series, params = (t.to(dev) for t in pack_params(cosmo, mass, n, dt))
+    by_warp = stats_only and n_real is not None
     smem = smem_bytes(series, sum_size, params,
-                      2 * s + (2 * -(-s // _TILE_S) if tiles else 0))
+                      _STATS_WARPS * s if by_warp
+                      else 2 * s + (2 * -(-s // _TILE_S) if tiles else 0))
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"S = {s} samples need {smem} bytes of shared memory per block "
-            f"(z and w of every sample), over the {_SMEM_LIMIT}-byte limit")
+            + (f"(z of {_STATS_WARPS} rows" if by_warp else "(z and w")
+            + f" of every sample), over the {_SMEM_LIMIT}-byte limit")
     pe = [t.contiguous() for t in (m1det, m2det, dl, inv_pe_prior)]
     return series, params, pe, n_real, dl_fill
 
@@ -794,7 +801,7 @@ def fused_row_stats(m1det, m2det, dl, inv_pe_prior, cosmo, mass, n_real=None,
     # the dark-siren kernels sum the Chebyshev series in float64
     series, params, pe, n_real, dl_fill = _checked_rows(
         "fused_row_stats", m1det, m2det, dl, inv_pe_prior, cosmo, mass,
-        n_real, dl_fill, logical_s, 8)
+        n_real, dl_fill, logical_s, 8, stats_only=True)
     _, stats = _run_k1(_STATS_ONLY, series, params, None, cosmo, mass, pe, None,
                        n_real, dl_fill, kernel="epan", bw_method=bw_method,
                        n_grid=0, logical_s=logical_s, cut_grid=cut_grid,

@@ -99,8 +99,11 @@ def _launch_k2(series, params, m1det, m2det, dl, inv_pe_prior, grids, hs, s1,
                s2, f1, f2, cosmo, mass, kernel, dims):
     e_ev, c, chunk, g, n = dims
     dt, dev = dl.dtype, dl.device
-    # the Chebyshev series are summed in float64 (models.cosmology.z_from_dgw)
-    smem = smem_bytes(series, 8, params, 2 * chunk + 3 * g)
+    # the Chebyshev series are summed in float64 (models.cosmology.z_from_dgw);
+    # the pruned Epanechnikov loop keeps its sample tiles' bounds and the
+    # row's densities in shared memory too
+    smem = smem_bytes(series, 8, params, 2 * chunk + 3 * g + (
+        2 * -(-chunk // _TILE_S) + g if kernel == "epan" else 0))
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"chunk = {chunk} and G = {g} need {smem} bytes of shared memory "

@@ -94,6 +94,9 @@ ADJ_LIN_KDE_OPS = 13
 # adjoint sums; per (live row, grid point) the factor products: t1, t2, a_g
 # (mul, fma), the scale's sum (fma), d_f1 and d_f2 (mul, fma each), c_g, den
 K2B_TERM_OPS, K2B_GRID_OPS = ADJ_KDE_OPS + 2, 15
+# K2's per (live row, grid point) products: den s1, then f1 into r1's sum
+# (mul, fma), the same for r2
+K2_GRID_OPS = 4
 # The float32 bar of the reference-default configuration (binning=True,
 # cut_grid=2.0): max(1e-6, 2 x the JAX package's own float32-vs-float64 gap
 # on the repo's precision mocks, as measured by
@@ -590,40 +593,38 @@ def dark(smi: str) -> tuple[list[dict], tuple]:
           f"K2 {c_med:.4f} ± {c_mad:.4f} ms; rest "
           f"{t_med - r_med - a_med - c_med:.4f} ms")
 
-    cosmo, mass = stats_args[4], stats_args[5]
-    e, g = hl.z_grids.shape
-    p = 12 + mass.window_deg
-    inv_bytes = 8 * n * (cosmo.cheb_deg + 2)
-    cheb = CHEB_OPS * cosmo.cheb_deg
-    scaled = rows_args[7][..., 1] > 0
-    weighted = (hl.row_inv_pe_prior > 0).any(dim=1)
-    live_pairs = int((scaled & weighted[None]).sum())
-    k1_bound = bound(4 * (4 * n_real + 3 * b + n * p + 8 * n * b) + inv_bytes,
-                     n * n_real * cheb)
-    k2_bound = bound(4 * (4 * r_rows * chunk + e * g + 2 * r_rows * g
-                          + 2 * n * e * g + 4 * n * r_rows + n * p) + inv_bytes,
-                     live_pairs * chunk * (cheb + KDE_OPS * g))
+    pairs = k2_pairs(rows_args)
+    bounds = {"K1c": (k1c_bound(stats_args), k1c_bound(stats_args, False)[0]),
+              "K2": (k2_bound(rows_args, pairs), k2_bound(rows_args)[0])}
     entries = []
-    for name, src, line, kern, plain, (b_ms, b_by), err in (
-            ("fused_row_stats", "fused_kde.cu", 71, k1, p1, k1_bound, stat_abs),
-            ("fused_rows_contract", "rows_contract.cu", 495, k2, p2, k2_bound,
-             r_abs)):
+    for name, src, line, kern, plain, err in (
+            ("fused_row_stats", "fused_kde.cu", 71, k1, p1, stat_abs),
+            ("fused_rows_contract", "rows_contract.cu", 495, k2, p2, r_abs)):
         kid = "K1c" if name == "fused_row_stats" else "K2"
+        (b_ms, b_by), old_ms = bounds[kid]
         k_call, p_call = statistics.median(kern), statistics.median(plain)
         phase(10, f"{name} vs plain", f"[{smi}] at the flagship, L = {n}: "
               f"kernel {k_call:.3f} ms, plain {p_call:.3f} ms per call "
-              f"({p_call / k_call:.1f}x), bound {b_ms:.4f} ms ({b_by}); max "
-              f"abs err {err:.3e}")
+              f"({p_call / k_call:.1f}x), bound {b_ms:.4f} ms ({b_by}, "
+              f"{100 * b_ms / k_call:.1f} % of it; the all-slots count "
+              f"{old_ms:.4f} ms); max abs err {err:.3e}")
         entries.append({
             "name": f"{name} ({kid})", "route": "cuda",
             "source": f"chimera_tpu_torch/csrc/{src}",
             "replaces": f"chimera_tpu/ops/pallas/fused.py:{line}",
             "launches": launches[name], "max_abs_err": err, "ms": k_call,
             "plain_ms": p_call, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None})
+            "library_ms": None, "redesigned": 9})
     phase(10, "errors", f"stats max rel {stat_rel:.3e}, r max {r_rel:.3e} of "
-          f"the per-λ max; {live_pairs} of {n * r_rows} (λ, row) pairs carry "
-          f"KDE work [{smi}]")
+          f"the per-λ max [{smi}]")
+    phase(10, "K2 work", f"{pairs['mapped']} of {n * r_rows} (λ, row) pairs "
+          f"have a scale and are mapped in phase A, {pairs['mapped_dead']} "
+          f"({pairs['mapped_dead'] / pairs['mapped']:.2%}) of them without "
+          f"weight (written as zeros); {pairs['live_rows']} live, "
+          f"{pairs['samples']} weighted samples; density terms "
+          f"{pairs['density']} of {pairs['all']} ({pairs['density'] / pairs['all']:.4%}), "
+          f"the pruned loop evaluates {pairs['tiled']} "
+          f"({pairs['tiled'] / pairs['all']:.4%}) [{smi}]")
     return entries, data
 
 
@@ -1672,13 +1673,115 @@ def k2b_bound(args, pairs: dict | None = None) -> tuple[float, str]:
     return bound(n_bytes, *ops)
 
 
-def dark_gradients(smi: str, full, dark_data) -> list[dict]:
+def k2_pairs(args) -> dict:
+    """K2's work on its inputs ``args`` (fused_rows_contract's order): 'all'
+    (λ, row, grid point, slot) terms; 'mapped', the (λ, row) pairs with a
+    scale, whose slots K2 maps in phase A; 'mapped_dead', those of them
+    without a sample of non-zero weight, which K2 then writes as exact
+    zeros; 'live_rows', the (λ, row) pairs with a scale and a weight, and
+    'samples', their weighted samples (phase A's least work);
+    'in_window', those of them whose source mass lies in the CDF's window
+    (window_pairs); 'density', the live rows' terms with |g - z| < h and
+    w != 0 (the Epanechnikov density's terms that are not exactly 0);
+    'tiled', the terms the pruned loop evaluates (_tiled_terms)."""
+    m1, m2, dl, invp, cosmo, mass, grids, hs = args[:8]
+    (r_rows, chunk), (e, g) = dl.shape, grids.shape
+    scaled = hs[..., 1] != 0
+    weighted = invp > 0
+    out = {"all": hs.shape[0] * r_rows * chunk * g, "density": 0, "tiled": 0}
+    with torch.no_grad():
+        z, w = _z_and_w(m1, m2, dl, invp, cosmo, mass)
+        has_w = (w != 0).any(dim=-1)
+        live = scaled & has_w
+        out.update(mapped=int(scaled.sum()),
+                   mapped_dead=int((scaled & ~has_w).sum()),
+                   live_rows=int(live.sum()),
+                   samples=int((live * weighted.sum(dim=1)[None]).sum()),
+                   in_window=window_pairs(cosmo, mass, m1, dl,
+                                          weighted[None] & live[..., None]))
+        grid_rows = grids.double().repeat_interleave(r_rows // e, dim=0)
+        for l in range(z.shape[0]):
+            rows = live[l]
+            zz, ww, gg = z[l][rows], w[l][rows], grid_rows[rows]
+            hh = 1.0 / hs[l, rows, 0].double()
+            out["density"] += _in_support(zz, ww != 0, hh, gg, False)
+            out["tiled"] += _tiled_terms(zz, ww, hh, gg)
+    return out
+
+
+def k2_bound(args, pairs: dict | None = None) -> tuple[float, str]:
+    """The least time of K2 on these inputs: bytes, the rows, grids, static
+    and per-λ factors, (1/h, scale), the model rows and r once each;
+    operations, on the live (λ, row) pairs only (a scale and a weight), per
+    weighted sample the distance series' Clenshaw sum in double, the mass
+    model's forward and, where the source mass lies in the CDF's window,
+    the window series in double; per grid point the two products into the
+    two sums (K2_GRID_OPS); and the density terms that are not exactly 0
+    (``pairs['density']`` of k2_pairs).  Where ``pairs`` is None, the
+    all-slots count: every (grid point, slot) term of the rows with a scale
+    and a weighted slot, and each slot's series in FP32."""
+    m1, dl, cosmo, mass, grids, hs = args[0], args[2], args[4], args[5], \
+        args[6], args[7]
+    n, r_rows = hs.shape[:2]
+    chunk = dl.shape[1]
+    e, g = grids.shape
+    size = dl.element_size()
+    p = 12 + mass.window_deg
+    n_bytes = (size * (4 * r_rows * chunk + e * g + 2 * r_rows * g + 2 * n * e * g
+                       + 4 * n * r_rows + n * p) + 8 * n * (cosmo.cheb_deg + 2))
+    weighted = args[3] > 0
+    if pairs is None:
+        rows = int(((hs[..., 1] > 0) & weighted.any(dim=1)[None]).sum())
+        return bound(n_bytes, rows * chunk * (CHEB_OPS * cosmo.cheb_deg
+                                              + KDE_OPS * g))
+    ops64 = CHEB_OPS * (pairs["samples"] * cosmo.cheb_deg
+                        + pairs["in_window"] * mass.window_deg)
+    ops = (pairs["samples"] * MASS_FWD_OPS + KDE_OPS * pairs["density"]
+           + pairs["live_rows"] * K2_GRID_OPS * g)
+    return bound(n_bytes, 0.0, ops + ops64) if dl.dtype == F64 \
+        else bound(n_bytes, ops, ops64)
+
+
+def k1c_bound(args, per_sample: bool = True) -> tuple[float, str]:
+    """The least time of K1c on its inputs ``args`` (fused_row_stats'
+    order; logical rows where n_real is given, else every slot is real):
+    bytes, the real samples' PE rows, the logical-row arrays, the model rows
+    and the stats once each; operations, per (λ, real sample) the distance
+    series' Clenshaw sum in double, the mass model's forward (MASS_FWD_OPS)
+    and, in the CDF's window, the window series in double, and per (λ,
+    logical row) the fillers' distance series.  ``per_sample`` False: the
+    all-slots count, the distance series alone in FP32."""
+    m1, dl, cosmo, mass = args[0], args[2], args[4], args[5]
+    n_real = args[6] if len(args) > 6 else None
+    n, (b, s) = max(cosmo.L, mass.L), dl.shape
+    size = dl.element_size()
+    mask = None
+    if n_real is not None:
+        mask = torch.arange(s, device=dl.device)[None] < n_real.to(dl.device)[:, None]
+    real = int(mask.sum()) if mask is not None else b * s
+    p = 12 + mass.window_deg
+    n_bytes = (size * (4 * real + n * p + 8 * n * b) + 8 * n * (cosmo.cheb_deg + 2)
+               + ((8 + size) * b if n_real is not None else 0))
+    if not per_sample:
+        return bound(n_bytes, n * real * CHEB_OPS * cosmo.cheb_deg)
+    fill_rows = b if n_real is not None else 0
+    ops64 = CHEB_OPS * (n * (real + fill_rows) * cosmo.cheb_deg
+                        + window_pairs(cosmo, mass, m1, dl, mask) * mass.window_deg)
+    ops = n * real * MASS_FWD_OPS
+    return bound(n_bytes, 0.0, ops + ops64) if dl.dtype == F64 \
+        else bound(n_bytes, ops, ops64)
+
+
+def dark_gradients(smi: str, full, dark_data, forward_entries: list[dict]
+                   ) -> list[dict]:
     """Phases 19-22: K3 in the modes of K1b, K1c and K1d and K2b against
     their plain versions; the card's gradient of the three unbinned paths
     against the CPU's, float32 against float64 and against finite
     differences; value-and-gradient timing at full width with the split by
     kernel; HMC and ChEES on the dark flagship.  Returns the new kernels'
-    entries of the kernels line."""
+    entries of the kernels line; the dark forward's entries
+    (``forward_entries``:
+    K1c's, K2's) take their launches from the same HMC run."""
     from chimera_tpu_torch.inference import (sample_hyperposterior,
                                              sample_hyperposterior_chees)
     from chimera_tpu_torch.ops.cuda import launch_counters, launch_counts
@@ -1892,6 +1995,8 @@ def dark_gradients(smi: str, full, dark_data) -> list[dict]:
         if name == "hmc":  # the launches of the dark flagship's sampler run
             entries["K3c"]["launches"] = got["K3c"]
             entries["K2b"]["launches"] = got["K2b"]
+            for kid, entry in zip(("K1c", "K2"), forward_entries):
+                entry["launches"] = got[kid]
         phase(22, name, f"dark flagship, {n} chains x (4 warm-up + 4 sampling "
               f"steps) in {PARAMS}: {evals[0]} gradient evaluations = K1c = K2 "
               f"= K3c = K2b launches, {seconds:.2f} s; samples finite and inside "
@@ -2293,20 +2398,24 @@ for i, ln in enumerate(log):
 """
 
 
-# K1a and K2b in the tree it is run from, ms per call: K1a at the spectral
-# headline (16 λ, float32) and on the first 2 of its 500 grid points (phase
-# A and the row stats; the pair loop 1/250 of its work); K2b on the dark
-# flagship path's own cotangents and on 2 grid points of the same rows
-# (phases A and D).  End to end, ms per λ at the 16 points of phase 14: the
-# spectral headline's value-and-gradient call and forward batch (phases 14
-# and 6) and the dark flagship's value-and-gradient call (phase 21).  The
-# outputs of the kernel calls, of the Gaussian kernel's on the same inputs,
-# and of float64 K1a (64 events, L = 4) and K2b (the same call's inputs in
-# float64) go to the file argv[1] with a hash of each call's inputs, for
-# --k3-ab to hold bit for bit against this tree's.  Then the live pairs (where the tree's chip_smoke.py counts them) and the ptxas
-# lines of the float32 Epanechnikov K1a and K2b of a tree that builds them
-# in that process.  It uses only helpers that chip_smoke.py has had since
-# K2b was ported, so it runs in older trees.
+# K1a, K2b, K2 and K1c in the tree it is run from, ms per call: K1a at the
+# spectral headline (16 λ, float32) and on the first 2 of its 500 grid
+# points (phase A and the row stats; the pair loop 1/250 of its work); K2b
+# on the dark flagship path's own cotangents and on 2 grid points of the
+# same rows (phases A and D); K2 at the dark flagship on rows_inputs' rows
+# ((1/h, scale) from the plain stats pass, so they do not depend on K1c);
+# K1c on the flagship's logical pixel rows and on the events (the dark
+# cut_grid path's rows).  End to end, ms per λ at the 16 points of phase
+# 14: the spectral headline's value-and-gradient call and forward batch
+# (phases 14 and 6) and the dark flagship's value-and-gradient call (phase
+# 21).  The outputs of the kernel calls, of the Gaussian kernel's on the
+# same inputs, and of float64 K1a (64 events, L = 4), K2b, K2 and K1c (the
+# same calls' inputs in float64) go to the file argv[1] with a hash of
+# each call's inputs, for --k3-ab to hold bit for bit against this
+# tree's.  Then the live pairs (where the tree's chip_smoke.py counts them)
+# and the ptxas lines of the float32 Epanechnikov K1a, K1c, K2 and K2b of a
+# tree that builds them in that process.  It uses only helpers that
+# chip_smoke.py has had since K2b was ported, so it runs in older trees.
 PAIR_TIMING = r"""
 import hashlib, os, statistics, sys
 sys.path.insert(0, os.getcwd())
@@ -2314,6 +2423,8 @@ import torch
 import chip_smoke as cs
 from chimera_tpu_torch.ops.cuda import build
 from chimera_tpu_torch.ops.cuda.fused import fused_weights_kde as k1
+from chimera_tpu_torch.ops.cuda.fused import fused_row_stats as k1c
+from chimera_tpu_torch.ops.cuda.rows import fused_rows_contract as k2
 from chimera_tpu_torch.ops.cuda.rows import fused_rows_contract_adjoint as k2b
 
 print(os.getcwd(), flush=True)
@@ -2372,8 +2483,34 @@ for dtype, call in (("float32", list(a)), ("float64", cs.in_float64(a, kw)[0])):
     for kernel in ("epan", "gauss"):
         call[15] = kernel
         keep(f"K2b {dtype} {kernel}", call, k2b(*call))
+del a, kw
+h0s = torch.linspace(55.0, 95.0, 16, device=cs.DEV).to(cs.F32)
+r = cs.rows_inputs(hl, {"H0": h0s}, cs.SEED + 9)
+
+def k2_call(r, kernel):
+    return (*r[:4], r[13], r[14], r[4], *r[7:12], kernel)
+
+report("K2, dark flagship", lambda: k2(*k2_call(r, "epan")))
+if hasattr(cs, "k2_pairs"):
+    print(f"  K2 work: {cs.k2_pairs(k2_call(r, 'epan'))}", flush=True)
+for dtype, call in (("float32", r), ("float64", cs.in_float64(r, {})[0])):
+    for kernel in ("epan", "gauss"):
+        c = k2_call(call, kernel)
+        keep(f"K2 {dtype} {kernel}", c, [k2(*c)])
+del r
+stats_args, _ = cs.dark_kernel_inputs(hl, h0s)
+pop_b = hl.population.update_batch({"H0": h0s})
+ev = (hl.m1det, hl.m2det, hl.dL, hl.inv_pe_prior, pop_b.cosmo, pop_b.mass)
+report("K1c, dark flagship's logical pixel rows", lambda: k1c(*stats_args))
+report("K1c, dark cut_grid path's event rows", lambda: k1c(*ev))
+for dtype, call in (("float32", stats_args),
+                    ("float64", cs.in_float64(stats_args, {})[0])):
+    keep(f"K1c {dtype} pixel rows", call, list(k1c(*call).values()))
 torch.save(saved, sys.argv[1])
 for name, key in (("fused_kde", "fused_kde_kernelIffLi0ELi0E"),
+                  ("fused_kde", "fused_kde_kernelIfdLi0ELi3E"),
+                  ("fused_kde", "logical_stats_kernelIf"),
+                  ("rows_contract", "rows_contract_kernelIfLi0E"),
                   ("rows_contract_adjoint", "rows_adjoint_kernelIfLi0E")):
     log = build.build_info.get(name, {}).get("log", "").splitlines()
     for i, ln in enumerate(log):
@@ -2395,14 +2532,15 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def k3_ab(others: list[str], variants: list[str]) -> None:
-    """The adjoint kernel (K3_TIMING) and K1a and K2b (PAIR_TIMING) in the
-    trees ``others`` (the parent, unpacked with ``git archive``) and
-    ``variants`` (trees that change timing only, tools/k3_variants.py) and
-    in this one, in one call on one card, in the order others, variants,
-    this, this, variants reversed, others reversed:
+    """The adjoint kernel (K3_TIMING) and K1a, K2b, K2 and K1c
+    (PAIR_TIMING) in the trees ``others`` (the parent, unpacked with ``git
+    archive``) and ``variants`` (trees that change timing only,
+    tools/k3_variants.py) and in this one, in one call on one card, in the
+    order others, variants, this, this, variants reversed, others reversed:
     ``python3 chip_smoke.py --k3-ab DIR ... [--variants DIR ...]``.  Fails
-    unless every tree of ``others`` gives K1a and K2b outputs of the same
-    bits as this tree on the same inputs; a variant's are reported."""
+    unless every tree of ``others`` gives K1a, K2b, K2 and K1c outputs of
+    the same bits as this tree on the same inputs; a variant's are
+    reported."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the card only")
     print(subprocess.run(
@@ -2477,7 +2615,7 @@ def main() -> None:
     dark_entries, dark_data = dark(smi)
     kernels = [k1a, *dark_entries, sampler(smi, full),
                *reference_defaults(smi, full, dark_data),
-               *dark_gradients(smi, full, dark_data),
+               *dark_gradients(smi, full, dark_data, dark_entries),
                contract_path(smi, dark_data),
                binned_gradients(smi, full, dark_data)]
     print(json.dumps({"kernels": kernels}), flush=True)

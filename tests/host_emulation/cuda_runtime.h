@@ -19,6 +19,8 @@ struct int4 { int x, y, z, w; };
 
 inline float __shfl_down_sync(unsigned, float v, int) { return v; }
 inline double __shfl_down_sync(unsigned, double v, int) { return v; }
+inline float __shfl_sync(unsigned, float v, int) { return v; }
+inline double __shfl_sync(unsigned, double v, int) { return v; }
 inline float __shfl_xor_sync(unsigned, float v, int) { return v; }
 inline double __shfl_xor_sync(unsigned, double v, int) { return v; }
 inline void __syncthreads() {}

@@ -4,10 +4,17 @@
 // from the same device functions (kde.cuh, population.cuh): per (lambda,
 // row) the kernel's phases with a block of one thread, whose block sums are
 // the identity.
+// K1c on logical rows runs as its kernel does, a warp a row (kde.cuh,
+// logical_row_stats): each of the 32 lanes' partials from the kernel's own
+// device functions in turn, then the warp's shuffle-down folds emulated
+// lane by lane.
 // Same C interfaces as the kernels', without the stream; besides, K1a
 // with the unpruned loop (its pruned loop's oracle), the pruned loop on
-// given (z, w) and a tally of the tiles it skips.  Built by
-// tests/test_torch_host_emulation.py.
+// given (z, w) and a tally of the tiles it skips, and K1c on logical rows
+// in the block-a-row layout that the warp's sums replay, its kThreads
+// ranks and their warps emulated one by one (the replay's oracle).  Built
+// by tests/test_torch_host_emulation.py.
+#include <array>
 #include <vector>
 
 #include "host_block.h"
@@ -19,6 +26,162 @@ namespace {
 long long g_tally[2] = {0, 0};
 // kAnalysisGrid's oracle: the unpruned loop of contract (host_fused_kde_unpruned)
 bool g_unpruned = false;
+
+// K1c on logical rows in the block-a-row layout (host_logical_stats_block)
+bool g_block_layout = false;
+
+// warp_sum's (or block_minmax's) shuffle-down fold over the 32 lanes' v,
+// emulated: at each offset o every lane j combines its value with lane
+// j + o's as they were before the step (its own where j + o is past the
+// warp); lane 0's result.
+template <typename T, typename Op>
+T fold_down(std::array<T, 32> v, Op op) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const std::array<T, 32> src = v;
+    for (int j = 0; j < 32; ++j) v[j] = op(v[j], j + o < 32 ? src[j + o] : src[j]);
+  }
+  return v[0];
+}
+
+template <typename T>
+T add(T x, T y) { return x + y; }
+
+// logical_row_stats of row (l, b) lane by lane: rank_partials and
+// rank_squares of each lane, replay_sum's and replay_minmax's folds.
+template <typename T>
+void warp_row(const Model<T, double>& model, const FusedArgs<T>& a, int l,
+              int b, T* z) {
+  RowStats<T> st;
+  const long long nr = a.n_real[b];
+  st.n = nr < 0 ? 0 : (nr > a.S ? a.S : (int)nr);
+  const T zf = model.z_from_dgw(a.dl_fill[b]);
+  st.sl = T(a.logical_s);
+  std::vector<std::array<T, kReplay>> acc(32 * 3), lo(32), hi(32), ss(32);
+  for (int j = 0; j < 32; ++j) {
+    T p[3][kReplay], q[kReplay], r[kReplay];
+    for (int k = 0; k < kReplay; ++k) {
+      p[0][k] = p[1][k] = p[2][k] = T(0);
+      q[k] = r[k] = zf;
+    }
+    rank_partials(model, a, (size_t)b * a.S, st.n, j, z, p, q, r);
+    for (int k = 0; k < kReplay; ++k) {
+      for (int i = 0; i < 3; ++i) acc[3 * j + i][k] = p[i][k];
+      lo[j][k] = q[k];
+      hi[j][k] = r[k];
+    }
+  }
+  // rank k's partials over the lanes, folded as warp k would fold them
+  auto lanes = [](const std::vector<std::array<T, kReplay>>& v, int stride,
+                  int off, int k) {
+    std::array<T, 32> out;
+    for (int j = 0; j < 32; ++j) out[j] = v[stride * j + off][k];
+    return out;
+  };
+  T sums[3];
+  for (int i = 0; i < 3; ++i) {
+    sums[i] = T(0);
+    for (int k = 0; k < kReplay; ++k) sums[i] += fold_down(lanes(acc, 3, i, k), add<T>);
+  }
+  T z_lo = fold_down(lanes(lo, 1, 0, 0), dmin<T>);
+  T z_hi = fold_down(lanes(hi, 1, 0, 0), dmax<T>);
+  for (int k = 1; k < kReplay; ++k) {
+    z_lo = dmin(z_lo, fold_down(lanes(lo, 1, 0, k), dmin<T>));
+    z_hi = dmax(z_hi, fold_down(lanes(hi, 1, 0, k), dmax<T>));
+  }
+  const T f_log = st.sl - T(st.n);
+  const T z_mean = (sums[2] + f_log * zf) / st.sl;
+  for (int j = 0; j < 32; ++j) {
+    T q[kReplay];
+    for (int k = 0; k < kReplay; ++k) q[k] = T(0);
+    rank_squares(z, st.n, j, z_mean, q);
+    for (int k = 0; k < kReplay; ++k) ss[j][k] = q[k];
+  }
+  T ss_sum = T(0);
+  for (int k = 0; k < kReplay; ++k) ss_sum += fold_down(lanes(ss, 1, 0, k), add<T>);
+  finish_stats<T, kStatsOnly>(st, a, l, b, sums, ss_sum, zf, z_mean, f_log,
+                              z_lo, z_hi);
+  write_stats(st, a, (size_t)l * a.B + b);
+}
+
+// row_stats of row (l, b) as the block-a-row kernel runs it (kStatsOnly,
+// logical): rank t's loops over the samples t, t + kThreads, ..., each
+// warp's shuffle-down folds, block_sum's and block_minmax's sums over the
+// warps in order.
+template <typename T>
+void block_row(const Model<T, double>& model, const FusedArgs<T>& a, int l,
+               int b, T* z) {
+  RowStats<T> st;
+  const long long nr = a.n_real[b];
+  st.n = nr < 0 ? 0 : (nr > a.S ? a.S : (int)nr);
+  const T zf = model.z_from_dgw(a.dl_fill[b]);
+  st.sl = T(a.logical_s);
+  const size_t row = (size_t)b * a.S;
+  std::array<std::array<T, kThreads>, 3> acc{};
+  std::array<T, kThreads> lo, hi, ss{};
+  for (int t = 0; t < kThreads; ++t) {
+    lo[t] = hi[t] = zf;
+    for (int s = t; s < st.n; s += kThreads) {
+      const T zs = model.z_from_dgw(a.dl[row + s]);
+      const T inv1pz = T(1) / (T(1) + zs);
+      const T w = model.p_m1m2(a.m1[row + s] * inv1pz, a.m2[row + s] * inv1pz)
+                  * a.invp[row + s];
+      z[s] = zs;
+      acc[0][t] += w;
+      acc[1][t] += w * w;
+      acc[2][t] += zs;
+      lo[t] = dmin(lo[t], zs);
+      hi[t] = dmax(hi[t], zs);
+    }
+  }
+  auto warp = [](const std::array<T, kThreads>& v, int w) {
+    std::array<T, 32> out;
+    for (int j = 0; j < 32; ++j) out[j] = v[32 * w + j];
+    return out;
+  };
+  T sums[3];
+  for (int i = 0; i < 3; ++i) {
+    sums[i] = T(0);
+    for (int w = 0; w < kWarps; ++w) sums[i] += fold_down(warp(acc[i], w), add<T>);
+  }
+  T z_lo = fold_down(warp(lo, 0), dmin<T>), z_hi = fold_down(warp(hi, 0), dmax<T>);
+  for (int w = 1; w < kWarps; ++w) {
+    z_lo = dmin(z_lo, fold_down(warp(lo, w), dmin<T>));
+    z_hi = dmax(z_hi, fold_down(warp(hi, w), dmax<T>));
+  }
+  const T f_log = st.sl - T(st.n);
+  const T z_mean = (sums[2] + f_log * zf) / st.sl;
+  for (int t = 0; t < kThreads; ++t)
+    for (int s = t; s < st.n; s += kThreads) {
+      const T d = z[s] - z_mean;
+      ss[t] += d * d;
+    }
+  T ss_sum = T(0);
+  for (int w = 0; w < kWarps; ++w) ss_sum += fold_down(warp(ss, w), add<T>);
+  finish_stats<T, kStatsOnly>(st, a, l, b, sums, ss_sum, zf, z_mean, f_log,
+                              z_lo, z_hi);
+  write_stats(st, a, (size_t)l * a.B + b);
+}
+
+// K1c on logical rows: per lambda, the kernel's blocks of kStatsRows rows,
+// warp w of a block taking its rows w, w + kStatsWarps, ... (or the
+// block-a-row layout, a row at a time).
+template <typename T>
+void run_logical_stats(const FusedArgs<T>& a) {
+  const int Q = a.cheb_deg + 2 + a.window_deg;
+  std::vector<T> z(a.S);
+  for (int l = 0; l < a.L; ++l) {
+    const Model<T, double> model(a.series + (size_t)l * Q,
+                                 a.params + (size_t)l * kMassScalars,
+                                 a.cheb_deg, a.window_deg);
+    for (int blk = 0; blk * kStatsRows < a.B; ++blk)
+      for (int w = 0; w < kStatsWarps; ++w)
+        for (int b = blk * kStatsRows + w;
+             b < (blk + 1) * kStatsRows && b < a.B; b += kStatsWarps) {
+          if (g_block_layout) block_row(model, a, l, b, z.data());
+          else warp_row(model, a, l, b, z.data());
+        }
+  }
+}
 
 template <typename T, typename S, int KERNEL, int MODE, bool PRUNE = true>
 void run_mode(const FusedArgs<T>& a) {
@@ -42,7 +205,8 @@ void run_kernel(const FusedArgs<T>& a, int mode) {
   else if (mode == kAnalysisGrid) run_mode<T, T, KERNEL, kAnalysisGrid>(a);
   if (mode == kEffectiveGrid) run_mode<T, T, KERNEL, kEffectiveGrid>(a);
   if (mode == kExternalBounds) run_mode<T, double, KERNEL, kExternalBounds>(a);
-  if (mode == kStatsOnly) run_mode<T, double, KERNEL, kStatsOnly>(a);
+  if (mode == kStatsOnly && a.n_real != nullptr) run_logical_stats<T>(a);
+  else if (mode == kStatsOnly) run_mode<T, double, KERNEL, kStatsOnly>(a);
   if (mode == kContract) run_mode<T, double, KERNEL, kContract>(a);
 }
 
@@ -151,6 +315,16 @@ extern "C" void host_fused_kde_f64(FUSED_ARGS(double)) { FUSED_CALL; }
   }
 UNPRUNED(float, host_fused_kde_unpruned_f32)
 UNPRUNED(double, host_fused_kde_unpruned_f64)
+
+// K1c on logical rows in the block-a-row layout, the warp's oracle
+#define BLOCK_LAYOUT(T, NAME)                                                \
+  extern "C" void NAME(FUSED_ARGS(T)) {                                      \
+    g_block_layout = true;                                                   \
+    FUSED_CALL;                                                              \
+    g_block_layout = false;                                                  \
+  }
+BLOCK_LAYOUT(float, host_logical_stats_block_f32)
+BLOCK_LAYOUT(double, host_logical_stats_block_f64)
 
 extern "C" void host_contract_f32(const float* z, const float* w,
                                   const float* grids, const float* inv_h,

@@ -1,12 +1,13 @@
-// Serial host emulation of the rows-contraction adjoint K2b
-// (chimera_tpu_torch/csrc/rows_contract_adjoint.cu) from the same device
-// functions (adjoint.cuh's write_record and rows_adjoint_event,
-// population.cuh): per lambda the prologue's record, per (lambda, event)
-// the kernel's sweep of the event's rows with a block of one thread, and
-// the events' gradients summed in event order in double.  Same
-// C interface as the kernel's, without the scratch buffer and the stream;
-// besides, K2b with the full loops (the pruned passes' oracle), the
-// kernel's z(dL) and a tally of the tiles the passes skip.
+// Serial host emulation of the rows contraction K2
+// (chimera_tpu_torch/csrc/rows_contract.cu) and of its adjoint K2b
+// (rows_contract_adjoint.cu) from the same device functions (adjoint.cuh's
+// rows_contract_event, write_record and rows_adjoint_event,
+// population.cuh): per (lambda, event) the kernels' sweep of the event's
+// rows with a block of one thread; for K2b per lambda the prologue's record
+// first and the events' gradients summed in event order in double.  Same
+// C interfaces as the kernels', without the scratch buffer and the stream;
+// besides, K2 and K2b with the full loops (the pruned loops' oracle), the
+// kernels' z(dL) and a tally of the tiles the loops skip.
 // Built by tests/test_torch_host_emulation.py.
 #include <vector>
 
@@ -54,6 +55,40 @@ void run_kernel(const RowsAdjointArgs<T>& a, double* d_series, T* d_params) {
   }
 }
 
+// K2: per (lambda, event) the kernel's sweep of the event's rows
+// (rows_contract_event) with a block of one thread; PRUNE false: the full
+// loop, the pruned loop's oracle.
+template <typename T, int KERNEL, bool PRUNE>
+void run_contract(const RowsArgs<T>& a) {
+  using T2 = typename Pair<T>::type;
+  const int Q = a.cheb_deg + 2 + a.window_deg;
+  std::vector<T2> zw(a.chunk), zt((a.chunk + kTileS - 1) / kTileS);
+  std::vector<T> grid(a.G), f1(a.G), f2(a.G), den(a.G);
+  const RowsContractSmem<T> sm{zw.data(), zt.data(), grid.data(), f1.data(),
+                               f2.data(), den.data()};
+  for (int l = 0; l < a.L; ++l) {
+    const Model<T, double> model(a.series + (size_t)l * Q,
+                                 a.params + (size_t)l * kMassScalars,
+                                 a.cheb_deg, a.window_deg);
+    for (int e = 0; e < a.E; ++e)
+      rows_contract_event<T, KERNEL, PRUNE>(HostBlock<T>{g_tally}, model, a,
+                                            l, e, sm);
+  }
+}
+
+template <typename T>
+void contract(const T* m1, const T* m2, const T* dl, const T* invp,
+              const T* grids, const double* series, const T* params,
+              const T* hs, const T* s1, const T* s2, const T* f1, const T* f2,
+              T* out, int L, int E, int C, int chunk, int G, int cd, int wd,
+              int kernel, bool prune) {
+  const RowsArgs<T> a{m1, m2, dl, invp, grids, series, params, hs, s1, s2,
+                      f1, f2, out, L, E, C, chunk, G, cd, wd};
+  if (kernel == 0 && prune) run_contract<T, 0, true>(a);
+  else if (kernel == 0) run_contract<T, 0, false>(a);
+  else run_contract<T, 1, false>(a);
+}
+
 // prune = false: the full loops, the pruned passes' oracle
 template <typename T>
 void run(const T* m1, const T* m2, const T* dl, const T* invp, const T* grids,
@@ -96,6 +131,22 @@ extern "C" void host_rows_contract_adjoint_f64(
               d_series, d_params, d_hs, d_f1, d_f2, L, E, C, chunk, G, cd, wd,
               kernel);
 }
+
+// K2 (rows_contract.cu's C interface, without the stream), and K2 with the
+// full loop, the pruned loop's oracle
+#define ROWS_CONTRACT(T, NAME, PRUNE)                                        \
+  extern "C" void NAME(                                                      \
+      const T* m1, const T* m2, const T* dl, const T* invp, const T* grids,  \
+      const double* series, const T* params, const T* hs, const T* s1,       \
+      const T* s2, const T* f1, const T* f2, T* out, int L, int E, int C,    \
+      int chunk, int G, int cd, int wd, int kernel) {                        \
+    contract<T>(m1, m2, dl, invp, grids, series, params, hs, s1, s2, f1, f2, \
+                out, L, E, C, chunk, G, cd, wd, kernel, PRUNE);              \
+  }
+ROWS_CONTRACT(float, host_rows_contract_f32, true)
+ROWS_CONTRACT(double, host_rows_contract_f64, true)
+ROWS_CONTRACT(float, host_rows_contract_unpruned_f32, false)
+ROWS_CONTRACT(double, host_rows_contract_unpruned_f64, false)
 
 // K2b with the full loops of both passes, the pruned passes' oracle
 #define ROWS_UNPRUNED(T, NAME)                                               \

@@ -1,9 +1,11 @@
 """The hand-written CUDA kernels of the PyTorch port, on the card: K1a
-(spectral) and its adjoint K3, K1c and K2 (dark siren), the effective-grid
-modes K1b and K1d and the batched KDE K4 (the reference's binned defaults),
-K3 in the modes of K1b, K1c and K1d and the rows-contraction adjoint K2b
-(the dark-siren and effective-grid gradients), the contract pass K1e and
-K4's adjoint K4b (the binned gradient).
+(spectral) and its adjoint K3, K1c and K2 (dark siren: K1c on logical rows
+a warp a row, K2's pair loop pruned, both repeating bit for bit), the
+effective-grid modes K1b and K1d and the batched KDE K4 (the reference's
+binned defaults), K3 in the modes of K1b, K1c and K1d and the
+rows-contraction adjoint K2b (the dark-siren and effective-grid
+gradients), the contract pass K1e and K4's adjoint K4b (the binned
+gradient).
 
 Every test here needs a CUDA card and nvcc (marker ``cuda``) and skips
 without one.  The file imports no JAX, so it runs on a machine without it:
@@ -522,6 +524,61 @@ def test_catalog_build_repeats_bit_for_bit(cuda):
                                              z_err=0.01).p_cat for _ in range(2))
     assert torch.count_nonzero(first) > 0
     assert torch.equal(first.view(torch.int64), second.view(torch.int64))
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int64 if t.element_size() == 8 else torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kernel", ["epan", "gauss"])
+def test_dark_forward_repeats_bit_for_bit(cuda, dark_cpu_hl, dtype, kernel):
+    """K1c on logical rows (a warp a row) and K2 (its Epanechnikov pair loop
+    pruned) give the same bits on a second launch with the same inputs."""
+    stats_args, rows_args = _dark_args(
+        copy.deepcopy(dark_cpu_hl).to(device=cuda, dtype=dtype), kernel)
+    first, second = (fused_row_stats(*stats_args) for _ in range(2))
+    for k in first:
+        assert torch.equal(_bits(first[k]), _bits(second[k])), k
+    r1, r2 = (fused_rows_contract(*rows_args) for _ in range(2))
+    assert r1.abs().amax() > 0 and torch.equal(_bits(r1), _bits(r2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_logical_stats_over_many_waves(cuda, dark_cpu_hl, dtype):
+    """K1c on 200 copies of the dark inputs' logical pixel rows (~20 000
+    rows x 3 λ: several waves of blocks of 4 rows on the card) gives the
+    same stats as the same rows split over two calls at a row that is not
+    a block's first, and the same as K1c on the rows once, copy by copy;
+    within 1e-10 (float64) or 1e-5 (float32) of the plain version."""
+    hl = copy.deepcopy(dark_cpu_hl).to(device=cuda, dtype=dtype)
+    pop_b = hl.population.update_batch({"H0": H0S})
+    reps = 200
+    rows = [t.repeat(reps, 1) for t in (hl.pix_m1det, hl.pix_m2det, hl.pix_dL,
+                                        hl.pix_inv_pe_prior)]
+    n_real, dl_fill = hl.pix_n_real.repeat(reps), hl.pix_dl_fill.repeat(reps)
+    b = rows[0].shape[0]
+    assert 3 * b // 4 > 132 * 32  # more blocks than one wave holds (32 an SM)
+
+    def stats(sl):
+        return fused_row_stats(*[t[sl] for t in rows], pop_b.cosmo, pop_b.mass,
+                               n_real[sl], dl_fill[sl], hl.n_samples)
+
+    whole = stats(slice(None))
+    cut = 4 * (b // 8) + 1
+    head, tail = stats(slice(0, cut)), stats(slice(cut, None))
+    once = fused_row_stats(hl.pix_m1det, hl.pix_m2det, hl.pix_dL,
+                           hl.pix_inv_pe_prior, pop_b.cosmo, pop_b.mass,
+                           hl.pix_n_real, hl.pix_dl_fill, hl.n_samples)
+    plain = fused_row_stats_plain(*rows, pop_b.cosmo, pop_b.mass, n_real,
+                                  dl_fill, hl.n_samples)
+    live = plain["sum_w"] > 0
+    tol = 1e-10 if dtype == torch.float64 else 1e-5
+    for k in whole:
+        assert torch.equal(_bits(whole[k]), _bits(torch.cat([head[k], tail[k]], dim=1))), k
+        assert torch.equal(_bits(whole[k]), _bits(once[k].repeat(1, reps))), k
+        ref = plain["ub"].abs().max() if k in ("lo", "ub") else plain[k].abs()[live]
+        assert ((whole[k] - plain[k]).abs()[live] / ref).max() <= tol, k
 
 
 # ---------------------------------------------------------------------------

@@ -39,6 +39,7 @@ from chimera_tpu_torch.data.mock import make_mock_catalog, make_mock_injections
 from chimera_tpu_torch.models import (FLRW, MadauDickinsonRate, Population,
                                       PowerLawPeak, compute_z_grids)
 from chimera_tpu_torch.models.cosmology import z_from_dgw
+from chimera_tpu_torch.models.mass import p_m1m2
 from chimera_tpu_torch.ops.cuda import fused, kde, launch_counts, rows
 
 HERE = Path(__file__).resolve().parent / "host_emulation"
@@ -256,9 +257,11 @@ def test_emulated_kernel_engine_gradient(host_lib, data, monkeypatch, kernel,
 def _host_fused(lib, mode, m1det, m2det, dl, inv_pe_prior, cosmo, mass,
                 grids=None, kernel="epan", n_grid=0, ext_bounds=None,
                 n_real=None, dl_fill=None, logical_s=None, cut_grid=None,
-                den_scale="norms", contract=None, entry="host_fused_kde_"):
+                den_scale="norms", contract=None, entry="host_fused_kde_",
+                raw=False):
     """``fused._launch_k1``'s arguments on the host emulation (``entry``:
-    the emulation's C entry, less its dtype suffix)."""
+    the emulation's C entry, less its dtype suffix); the stats as a dict,
+    or the (L, B, 8) tensor where ``raw``."""
     dt = dl.dtype
     b, s = dl.shape
     n = max(cosmo.L, mass.L)
@@ -278,7 +281,7 @@ def _host_fused(lib, mode, m1det, m2det, dl, inv_pe_prior, cosmo, mass,
        0 if kernel == "epan" else 1, 0, ctypes.c_double(0.0),
        ctypes.c_double(cut_grid or 0.0), int(den_scale == "unit"),
        0 if contract is None else b // contract[2].shape[1])
-    return den, fused._stats_dict(stats)
+    return den, stats if raw else fused._stats_dict(stats)
 
 
 def _pixel_rows(cat, dtype):
@@ -632,29 +635,19 @@ def dark_data():
     return cat, z_grids, gal_cat, inj, n_gen
 
 
-def _emulate_the_card(monkeypatch, libs, cosmo, mass):
+def _emulate_the_card(monkeypatch, libs):
     """Make the kernel wrappers of ``fused``, ``rows`` and ``kde`` take
     their CUDA branches on CPU tensors, with ``launch`` calling the host
-    emulation of the same C interface (K2's forward, which has none, runs
-    its plain version on the launch's own arguments; ``cosmo``, ``mass``:
-    models of the batch's degrees, around which the packed rows are
-    unpacked).  Every launch counter the emulated launches move is restored
-    with the rest of the patch, so a later test in the same process starts
-    from the counts it had."""
+    emulation of the same C interface (``libs``: the emulations by kernel
+    source name).  Every launch counter the emulated launches move is
+    restored with the rest of the patch, so a later test in the same
+    process starts from the counts it had."""
     from chimera_tpu_torch.ops.cuda import launch_counters
 
     for wrapper, attr in launch_counters().values():
         monkeypatch.setattr(wrapper, attr, getattr(wrapper, attr))
 
     def launch(lib_name, symbol, dtype, device, args):
-        if lib_name == "rows_contract":
-            (m1, m2, dl, invp, grids, series, params, hs, s1, s2, f1, f2,
-             out) = args[:13]
-            models = fused.unpack_params(cosmo, mass, series, params)
-            out.copy_(rows.fused_rows_contract_plain(
-                m1, m2, dl, invp, *models, grids, hs, s1, s2, f1, f2,
-                "epan" if args[-1] == 0 else "gauss"))
-            return
         fn = getattr(libs[lib_name], symbol.replace("chimera", "host")
                      + ("_f32" if dtype == F32 else "_f64"))
         fn.restype = None
@@ -712,12 +705,11 @@ def test_emulated_card_gradient(host_lib, fused_host_lib, rows_host_lib, data,
 
     ll, expect = grad()
     assert torch.all(torch.isfinite(expect))
-    batch = hl.population.update_batch({"H0": x0[:, 0]})
     _emulate_the_card(monkeypatch, {"fused_kde": fused_host_lib,
                                     "fused_kde_adjoint": host_lib,
+                                    "rows_contract": rows_host_lib,
                                     "rows_contract_adjoint": rows_host_lib,
-                                    "kde1d": fused_host_lib},
-                      batch.cosmo, batch.mass)
+                                    "kde1d": fused_host_lib})
     before = launch_counts()
     ll_card, got = grad()
     after = launch_counts()
@@ -747,9 +739,7 @@ def test_emulated_contract_path(fused_host_lib, dark_data, monkeypatch):
     plain = contract.log_like_batch(LAMBDA)
     assert torch.all(torch.isfinite(plain))
     assert torch.allclose(plain, rows_ll, rtol=1e-12, atol=0)
-    batch = contract.population.update_batch({"H0": LAMBDA["H0"]})
-    _emulate_the_card(monkeypatch, {"fused_kde": fused_host_lib}, batch.cosmo,
-                      batch.mass)
+    _emulate_the_card(monkeypatch, {"fused_kde": fused_host_lib})
     before = launch_counts()
     card = contract.log_like_batch(LAMBDA)
     after = launch_counts()
@@ -1267,3 +1257,160 @@ def test_pruned_rows_adjoint_keeps_the_bits(rows_host_lib, data, case, dtype):
         assert skipped > tested // 2
     if case != "nan_h":
         assert all(torch.isfinite(g).all() for g in got)
+
+
+# ---------------------------------------------------------------------------
+# K2 and K1c: the dark flagship's forward redesigned keeps the bits
+# ---------------------------------------------------------------------------
+
+def _host_rows_contract(lib, m1det, m2det, dl, inv_pe_prior, grids, series,
+                        params, hs, s1, s2, f1, f2, cosmo, mass, kernel="epan",
+                        entry="host_rows_contract_"):
+    """``rows._launch_k2``'s launch on the host emulation (``entry``: its C
+    entry, less the dtype suffix); returns r (L, R, 2)."""
+    n, (r_rows, chunk), (e, g) = series.shape[0], dl.shape, grids.shape
+    out = torch.zeros((n, r_rows, 2), dtype=dl.dtype)
+    fn = getattr(lib, entry + ("f64" if dl.dtype == F64 else "f32"))
+    fn.restype = None
+    keep = [t.contiguous() for t in (m1det, m2det, dl, inv_pe_prior, grids,
+                                     series, params, hs, s1, s2, f1, f2)]
+    fn(*[_ptr(t) for t in (*keep, out)], n, e, r_rows // e, chunk, g,
+       cosmo.cheb_deg, mass.window_deg, 0 if kernel == "epan" else 1)
+    return out
+
+
+def _k2_args(args):
+    """K2's arguments in the order of _host_rows_contract from K2b's
+    (_rows_case): the rows, grids, packed rows, hs and factors."""
+    return (*args[:12], args[13], args[14], args[15])
+
+
+@pytest.mark.parametrize("dtype,tol", [(F64, 1e-10), (F32, 1e-4)])
+@pytest.mark.parametrize("kernel", ["epan", "gauss"])
+def test_emulated_rows_contract_matches_plain(rows_host_lib, data, kernel,
+                                              dtype, tol):
+    """K2 (adjoint.cuh, rows_contract_event; the Epanechnikov kernel's pair
+    loop pruned) against ``fused_rows_contract_plain`` on the chunk rows of
+    _rows_case: r within tol of each λ's largest |r| (float32: phase 7's
+    bar), exact zeros on the rows of scale 0 and on the padding rows."""
+    args, zeroed = _rows_case(data, dtype, kernel)
+    m1, m2, dl, invp, grids, _, _, hs, s1, s2, f1, f2, _, cosmo, mass, _ = args
+    expect = rows.fused_rows_contract_plain(m1, m2, dl, invp, cosmo, mass,
+                                            grids, hs, s1, s2, f1, f2, kernel)
+    got = _host_rows_contract(rows_host_lib, *_k2_args(args))
+    dead = ~(invp > 0).any(dim=1)
+    assert dead.any() and torch.all(got[:, dead] == 0)
+    assert torch.all(got[:, zeroed] == 0) and torch.all(expect[:, zeroed] == 0)
+    r_max = expect.double().abs().amax(dim=(1, 2), keepdim=True)
+    assert torch.all(r_max > 0)
+    assert ((got.double() - expect.double()).abs() / r_max).max() <= tol
+
+
+K2_CASES = ROWS_CASES + ("near_edge", "non_finite")
+
+
+def _near_edge(rows_host_lib, args, dtype):
+    """The dL-sorted rows of K2 with, at the first λ, 1/h = 2^8 on the rows
+    of each event and the event's first two 32-point grid tiles ending at
+    z_lo - h (1 - 2^-10) and starting at z_hi + h (1 - 2^-10), for the
+    (z_lo, z_hi) of the first 32-sample tile of the event's first row with
+    a scale and more than 4 samples of non-zero weight there: pairs at |u| = 1 - 2^-10 on both tile corners, just inside the
+    support."""
+    m1, m2, dl, invp, grids, series, params, hs = args[:8]
+    per = dl.shape[0] // grids.shape[0]
+    z = torch.empty_like(dl)
+    fn = getattr(rows_host_lib, "host_rows_z_" + ("f64" if dtype == F64 else "f32"))
+    fn.restype = None
+    fn(_ptr(series[0].clone()), _ptr(params[0].clone()), args[13].cheb_deg,
+       args[14].window_deg, _ptr(dl.contiguous()), dl.numel(), _ptr(z))
+    # the weights at the first λ as the plain version has them: the tile
+    # bounds are over the samples with w != 0
+    cosmo, mass = args[13], args[14]
+    inv1pz = 1.0 / (1.0 + z_from_dgw(cosmo, dl[None])[0])
+    w = p_m1m2(mass, m1[None] * inv1pz, m2[None] * inv1pz)[0] * invp
+    weighted = w[:, :32] != 0
+    live = torch.nonzero((weighted.sum(dim=1) > 4) & (hs[0, :, 1] != 0)).flatten()
+    grids, hs = grids.clone(), hs.clone()
+    events = sorted({r // per for r in live.tolist()})
+    assert len(events) > grids.shape[0] // 2
+    for e in events:
+        r = next(r for r in live.tolist() if r // per == e)
+        zt = z[r, :32][weighted[r]].double()
+        h = 2.0 ** -8
+        hs[0, e * per:(e + 1) * per, 0] = 1.0 / h
+        edge = h * (1.0 - 2.0 ** -10)
+        step = h * torch.arange(32, dtype=F64)
+        grids[e, :64] = torch.cat([zt.min() - edge - step.flip(0),
+                                   zt.max() + edge + step]).to(dtype)
+    args[4], args[7] = grids, hs
+    return args
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("case", K2_CASES)
+def test_pruned_rows_contract_keeps_the_bits(rows_host_lib, data, case, dtype):
+    """K2 with its pair loop pruned gives r of the same bits as the full
+    loop (host_rows_contract_unpruned), float64 and float32, on the cases
+    of _rows_prune_case (chunk rows with fillers, dead, padding and scale-0
+    rows; dL-sorted rows; a tie at |u| = 1 on tile corners; rows out of z
+    order; a NaN bandwidth), on the sorted rows with tile corners at
+    |u| = 1 - 2^-10 ('near_edge', _near_edge) and with an infinite weight
+    on one live row, a NaN grid point and, at the third λ, an infinite z
+    of every sample ('non_finite': that row NaN at that λ, the others 0);
+    on the dL-sorted rows more than half of the tiles are skipped."""
+    if case == "near_edge":
+        args = _near_edge(rows_host_lib,
+                          _rows_prune_case(rows_host_lib, data, dtype, "sorted"),
+                          dtype)
+    elif case == "non_finite":
+        args = _rows_prune_case(rows_host_lib, data, dtype, "sorted")
+        invp, grids, series = args[3].clone(), args[4].clone(), args[5].clone()
+        live = torch.nonzero((invp > 0).any(dim=1)).flatten()
+        r = int(live[2])
+        invp[r, int(torch.nonzero(invp[r] > 0)[0])] = math.inf
+        grids[1, 40] = math.nan
+        series[2, 0] += 1e4  # exp of the distance series overflows: z = inf
+        args[3], args[4], args[5] = invp, grids, series
+    else:
+        args = _rows_prune_case(rows_host_lib, data, dtype, case)
+    k2 = _k2_args(args)
+    _tally(rows_host_lib)  # what earlier emulations left
+    expect = _host_rows_contract(rows_host_lib, *k2,
+                                 entry="host_rows_contract_unpruned_")
+    assert _tally(rows_host_lib) == (0, 0)
+    got = _host_rows_contract(rows_host_lib, *k2)
+    tested, skipped = _tally(rows_host_lib)
+    assert tested > 0 and _same_bits(got, expect)
+    assert expect.abs().nan_to_num().amax() > 0
+    if case == "sorted":
+        assert skipped > tested // 2
+    if case == "non_finite":
+        assert torch.isnan(got[2, r]).all() and torch.all(got[2, :r] == 0)
+    elif case != "nan_h":
+        assert torch.all(torch.isfinite(got))
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+def test_logical_stats_warp_replays_the_block(fused_host_lib, data, dtype):
+    """K1c on logical rows a warp a row (kde.cuh, logical_row_stats: lane j
+    keeps the partials of the block's ranks j + 32 k and the warp folds them
+    as the block's warps would), emulated lane by lane, gives stats of the
+    same bits as the block-a-row layout, its 128 ranks and 4 warps emulated
+    one by one (host_logical_stats_block), float64 and float32: rows of
+    unequal real counts, an empty row, one of 200 real samples (over 128),
+    one whose fillers hold the minimum z, 37 rows (a short last block of
+    4)."""
+    pop = _population(dtype).update_batch(LAMBDA)
+    pe, n_real, dl_fill, logical_s = _logical_rows(data, dtype)
+    kw = {"n_real": n_real, "dl_fill": dl_fill, "logical_s": logical_s,
+          "cut_grid": 2.0, "raw": True}
+    _, got = _host_fused(fused_host_lib, fused._STATS_ONLY, *pe, pop.cosmo,
+                         pop.mass, **kw)
+    _, expect = _host_fused(fused_host_lib, fused._STATS_ONLY, *pe, pop.cosmo,
+                            pop.mass, entry="host_logical_stats_block_", **kw)
+    assert _same_bits(got, expect)
+    assert torch.all(got[:, n_real > 0, 5] > 0) and torch.all(got[:, 0, 5] == 0)
+    zf = z_from_dgw(pop.cosmo, dl_fill[None])
+    z9 = z_from_dgw(pop.cosmo, pe[2][None, 9, :n_real[9]])
+    assert torch.all(zf[:, 9] < z9.amin(-1))  # row 9's fillers hold the minimum
+    assert int(n_real.max()) > 128 and len(n_real) % 4 == 1

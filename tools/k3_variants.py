@@ -1,4 +1,4 @@
-"""Attribution of the adjoint kernels' time on the card (K3 and K2b):
+"""Attribution of the kernels' time on the card (K3, K2b and K2):
 variant trees with one change each, timed against each other by
 ``chip_smoke.py --k3-ab``, and the instruction mix of K3's pair loop
 (phase B) in SASS.
@@ -12,7 +12,7 @@ variant trees with one change each, timed against each other by
 ``trees`` writes build/k3/<name>, a copy of what ``--k3-ab`` runs of this
 tree (or of the parent's, for the names that start with ``parent_``):
 ``chip_smoke.py`` and ``chimera_tpu_torch/``, with the substitutions of
-VARIANTS; each must match once.  The variants change timing only: the
+VARIANTS; each must match once (of an ``Either``, one alternative's).  The variants change timing only: the
 early returns leave the gradients unfinished.  ``sass`` prints, for the
 float32 Epanechnikov K3 (``fused_kde_adjoint_kernel<float, float, 0, 0>``)
 of each dump, the instructions of its pair loop: the innermost loop with
@@ -52,6 +52,35 @@ _NO_P2 = (ADJ, _K2B_PASS2, "if (false) {")
 KDE = "chimera_tpu_torch/csrc/kde.cuh"
 FUSED = "chimera_tpu_torch/ops/cuda/fused.py"
 _KEPT = "for (unsigned m = blk.ballot(keep); m != 0u; m &= m - 1u) {"
+# K2 with its phase B skipped (every row written as zeros after phase A and
+# the barrier that tests its weight) and K2 with phase A's per-sample work
+# replaced by a stand-in of a few operations (z proportional to dL, w the
+# inverse prior: rows keep their weight and their dL order): the split of
+# K2's time into phase A and the per-row overhead, and phase B.  Each names
+# the code of its redesign (adjoint.cuh, rows_contract_event) and of the
+# parent's kernel (rows_contract.cu).
+RC = "chimera_tpu_torch/csrc/rows_contract.cu"
+_RC_LIVE = "if (!__syncthreads_or(live)) {"
+_RC_A = ("      const T z = model.z_from_dgw(dl[base + s]);\n"
+         "      const T inv1pz = T(1) / (T(1) + z);\n"
+         "      const T w = model.p_m1m2(m1det[base + s] * inv1pz,\n"
+         "                               m2det[base + s] * inv1pz) * inv_prior[base + s];")
+_RC_A_NEW = ("      const T z = T(2.3e-4) * dl[base + s];\n"
+             "      const T w = inv_prior[base + s];")
+_K2_LIVE = "if (!blk.any(live)) {  // no weight anywhere"
+_K2_A = ("      const T z = model.z_from_dgw(dl[s]);\n"
+         "      const T inv1pz = T(1) / (T(1) + z);\n"
+         "      const T w = model.p_m1m2(m1[s] * inv1pz, m2[s] * inv1pz) * invp[s];")
+_K2_A_NEW = ("      const T z = T(2.3e-4) * dl[s];\n"
+             "      const T w = invp[s];")
+
+
+class Either(tuple):
+    """Alternative lists of changes: the first whose every old text occurs
+    once in the tree is the one applied (the code of the parent, or of this
+    tree)."""
+
+
 VARIANTS = {
     "sel": [(ADJ, _WEIGHT, "const T m = q > T(0) ? c1 : T(0);")],
     "sel2": [(ADJ, _WEIGHT, "const T m = q > T(0) ? c1 "
@@ -70,7 +99,15 @@ VARIANTS = {
                (FUSED, "_TILE_G = 32", "_TILE_G = 64")],
     "pair_noloop": [(KDE, _KEPT, _KEPT.replace("blk.ballot(keep)",
                                                "blk.ballot(keep) & 0u"))],
+    "k2_noB": [Either((
+        [(ADJ, _K2_LIVE, _K2_LIVE.replace("live)", "live) || true"))],
+        [(RC, _RC_LIVE, "if (!__syncthreads_or(live) || true) {")]))],
+    "k2_constA": [Either(([(ADJ, _K2_A, _K2_A_NEW)], [(RC, _RC_A, _RC_A_NEW)]))],
+    # K1c on logical rows in blocks of 4 warps, a row each
+    "k1c_w4": [(KDE, "constexpr int kStatsWarps = 1;", "constexpr int kStatsWarps = 4;")],
 }
+VARIANTS["parent_k2_noB"] = VARIANTS["k2_noB"]
+VARIANTS["parent_k2_constA"] = VARIANTS["k2_constA"]
 
 
 def substitute(text: str, changes, path: str) -> str:
@@ -84,11 +121,30 @@ def substitute(text: str, changes, path: str) -> str:
     return text
 
 
+def resolve(changes, base: Path) -> list:
+    """The (path, old, new) changes of a variant for the tree at ``base``:
+    each Either's first alternative whose every old occurs once there."""
+    out = []
+    for change in changes:
+        if not isinstance(change, Either):
+            out.append(change)
+            continue
+        for alt in change:
+            if all((base / f).is_file() and (base / f).read_text().count(old) == 1
+                   for f, old, _ in alt):
+                out.extend(alt)
+                break
+        else:
+            raise ValueError(f"no alternative of {change!r} matches {base}")
+    return out
+
+
 def trees(parent: Path, out: Path = ROOT / "build" / "k3") -> list[Path]:
     """Write every variant tree under ``out``; returns their paths."""
     made = []
     for name, changes in VARIANTS.items():
         base = parent if name.startswith("parent_") else ROOT
+        changes = resolve(changes, base)
         dst = out / name
         shutil.rmtree(dst, ignore_errors=True)
         shutil.copytree(base / "chimera_tpu_torch", dst / "chimera_tpu_torch",
