@@ -328,6 +328,8 @@ constexpr int kMaxP = 2 * kMaxDeg + 2 + kMassScalars;
 // store_partials' columns: those and the derived fields' cotangents
 constexpr int kRedCols = kMaxP + kDerived;
 constexpr int kSamplesPerThread = 4;
+// grid points a tile of K3b's pruned phase B and K2b's pruned pass 2
+constexpr int kGridTile = 32;
 
 // One (grid point, sample) term of the KDE adjoint
 // (chimera_tpu/ops/pallas/fused.py:877-892), u = (g - z) / h and c1 the
@@ -377,6 +379,60 @@ __device__ __forceinline__ void kde_pair(T u, T c1, T frac, T& a0, T& a1,
 template <typename T, int KERNEL>
 __device__ __forceinline__ T kernel_slope() {
   return KERNEL == 0 ? T(1.5) : T(0.39894228040143267794);
+}
+
+// Phase B's pair sums of a thread's kSamplesPerThread samples zv (slot j:
+// the row's sample s0 + j kSize + rank, of n) over the G (grid point, c1)
+// pairs gc, in grid order (kde_pair; frac = i inv_gm1 of grid point i).
+// With PRUNE the grid is walked in tiles of kGridTile points (their bounds
+// in gt) and slot j skips a tile where the corners prove, for every lane of
+// the warp with a sample, u > 1 or u < -1 (outside_support; a ballot, so
+// the decision is the warp's), when prune.
+template <typename T, int KERNEL, bool FRAC, bool PRUNE, typename Block>
+__device__ __forceinline__ void slot_pair_sums(
+    const Block& blk, const T (&zv)[kSamplesPerThread], int s0, int n,
+    const typename Pair<T>::type* gc, const typename Pair<T>::type* gt, int G,
+    T inv_h, bool prune, T inv_gm1, T (&a0)[kSamplesPerThread],
+    T (&a1)[kSamplesPerThread], T (&a2)[kSamplesPerThread],
+    T (&a3)[kSamplesPerThread]) {
+  using T2 = typename Pair<T>::type;
+  if constexpr (!PRUNE) {
+#pragma unroll 2
+    for (int i = 0; i < G; ++i) {
+      const T2 p = gc[i];
+      const T frac = T(i) * inv_gm1;
+#pragma unroll
+      for (int j = 0; j < kSamplesPerThread; ++j)
+        kde_pair<T, KERNEL, FRAC>((p.x - zv[j]) * inv_h, p.y, frac, a0[j],
+                                  a1[j], a2[j], a3[j]);
+    }
+  } else {
+    for (int t = 0; t * kGridTile < G; ++t) {
+      const T2 b = gt[t];
+      bool keep[kSamplesPerThread], any = false;
+#pragma unroll
+      for (int j = 0; j < kSamplesPerThread; ++j) {
+        const int idx = s0 + j * Block::kSize + blk.rank();
+        const bool out = idx >= n
+            || (prune && outside_support((b.x - zv[j]) * inv_h,
+                                         (b.y - zv[j]) * inv_h));
+        keep[j] = blk.ballot(!out) != 0u;
+        if (idx < n) blk.tile(!keep[j]);
+        any = any || keep[j];
+      }
+      if (!any) continue;
+      const int i1 = (t + 1) * kGridTile < G ? (t + 1) * kGridTile : G;
+      for (int i = t * kGridTile; i < i1; ++i) {
+        const T2 p = gc[i];
+        const T frac = T(i) * inv_gm1;
+#pragma unroll
+        for (int j = 0; j < kSamplesPerThread; ++j)
+          if (keep[j])
+            kde_pair<T, KERNEL, FRAC>((p.x - zv[j]) * inv_h, p.y, frac,
+                                      a0[j], a1[j], a2[j], a3[j]);
+      }
+    }
+  }
 }
 
 // From a sample's pair sums: dw = sum_g c1 K(u), dz = -(w / h) sum_g c1 K'(u)
@@ -933,6 +989,7 @@ struct AdjointSmem {
   typename Pair<T>::type* gc;
   T* st;
   int cap;
+  typename Pair<T>::type* gt;  // K3b's pruned phase B: (g_lo, g_hi) a tile
 };
 
 // K3 for the (lambda l, row b) of the forward in MODE (kde.cuh, FusedMode),
@@ -964,8 +1021,24 @@ struct AdjointSmem {
 //            fillers' zf once, by rank 0; the projections of the two series'
 //            cotangents onto their coefficients (project), sm.cap samples
 //            at a time.
-template <typename T, typename S, int KERNEL, int MODE, typename Block,
-          typename Acc>
+//
+// With PRUNE (the default for the Epanechnikov kernel; the host emulation's
+// oracle takes it off), K3b's phase B (kEffectiveGrid; the other modes keep
+// the full loop) walks the row's linear grid in tiles of kGridTile points
+// (bounds in sm.gt over every point, spoiled by a non-finite point or c1)
+// and, for each of a thread's kSamplesPerThread slots, skips a tile where
+// every lane of the warp holds a sample (or none) whose corners give u > 1,
+// or u < -1, at both ends within max_u (outside_support, kde.cuh; a ballot:
+// the warp stays converged).  There the support weight is 0 (|u| > 1
+// strictly: at |u| = 1 it is 1/2), m = c1 * 0 is +-0 and so are m q, m u,
+// m u^2 and m u frac (q, u and frac finite), which leave a0-a3 as they
+// were.  Each sample keeps its thread, its slot and its grid order, so
+// every sum and the block sums of kde[] keep the full loop's bits.  The
+// samples are sorted by dL (likelihood.py), so a warp's 32 samples of a
+// slot lie in a sliver of the row's z range.  Tiles of 16 or 8 points keep
+// fewer terms but cost more tests: they took longer on an H100 (PERF.md).
+template <typename T, typename S, int KERNEL, int MODE, bool PRUNE = KERNEL == 0,
+          typename Block, typename Acc>
 __device__ __forceinline__ void adjoint_row(
     const Block& blk, const Model<T, S>& model,
     const SampleAdjoint<T, S>& sample, const AdjointArgs<T>& a, int l, int b,
@@ -1057,6 +1130,10 @@ __device__ __forceinline__ void adjoint_row(
     }
     blk.sync();
     const T inv_gm1 = kLinear ? T(1) / T(a.G - 1) : T(0);
+    constexpr bool kPrune = PRUNE && KERNEL == 0 && MODE == kEffectiveGrid;
+    if constexpr (kPrune)
+      tile_bounds<T, kGridTile, false>(blk, sm.gc, a.G, sm.gt);
+    const bool prune = kPrune && inv_h > T(0);
     for (int s0 = 0; s0 < n; s0 += Block::kSize * kSamplesPerThread) {
       T zv[kSamplesPerThread], a0[kSamplesPerThread], a1[kSamplesPerThread],
           a2[kSamplesPerThread], a3[kSamplesPerThread];
@@ -1066,15 +1143,9 @@ __device__ __forceinline__ void adjoint_row(
         zv[j] = sm.z[idx < n ? idx : n - 1];
         a0[j] = a1[j] = a2[j] = a3[j] = T(0);
       }
-#pragma unroll 2
-      for (int i = 0; i < a.G; ++i) {
-        const T2 p = sm.gc[i];
-        const T frac = T(i) * inv_gm1;
-#pragma unroll
-        for (int j = 0; j < kSamplesPerThread; ++j)
-          kde_pair<T, KERNEL, kLinear>((p.x - zv[j]) * inv_h, p.y, frac,
-                                       a0[j], a1[j], a2[j], a3[j]);
-      }
+      slot_pair_sums<T, KERNEL, kLinear, kPrune>(blk, zv, s0, n, sm.gc, sm.gt,
+                                                  a.G, inv_h, prune, inv_gm1,
+                                                  a0, a1, a2, a3);
 #pragma unroll
       for (int j = 0; j < kSamplesPerThread; ++j) {
         const int idx = s0 + j * Block::kSize + blk.rank();
@@ -1393,17 +1464,6 @@ struct RowsSmem {
   T* dz;                       // the row's samples' cotangents
   T* dw;
 };
-
-// grid points a tile of K2b's pruned pass 2
-constexpr int kGridTile = 32;
-
-// the largest |u| whose u^2 is finite, with room: a pass-2 tile is skipped
-// only where every u of its pairs lies within it (below)
-template <typename T>
-__device__ __forceinline__ T max_u() {
-  if constexpr (sizeof(T) == 4) return T(1e19);
-  else return T(1e154);
-}
 
 // K2b for (lambda l, event e): the vector-Jacobian product of
 // _rows_reference (chimera_tpu/ops/pallas/fused.py:613-640) over the

@@ -65,8 +65,12 @@
 // K3b take blocks of 8 warps (their rows of S samples fill them; 16 warps an
 // SM), K3d and K3c's event rows blocks of 4, and K3c's logical rows (~S /
 // npix real samples, unequal) blocks of one warp, so that a warp with a
-// large pixel holds back no other.  Later work: prune the grid loop to the
-// kernel support of the dL-sorted samples.
+// large pixel holds back no other.  K3b's Epanechnikov phase B skips the
+// tiles of kGridTile grid points whose corners prove every term of a warp's
+// 32 samples of a slot exactly zero (adjoint_row: a ballot; the dL-sorted
+// samples of a slot lie in a sliver of the row, their support ~ +-h of
+// it); its tiles' bounds are ceil(G / kGridTile) pairs more of shared
+// memory.  Later work: the same pruning for K3 on analysis grids and K3d.
 
 #include "adjoint.cuh"
 
@@ -95,6 +99,7 @@ fused_kde_adjoint_kernel(const AdjointArgs<T> a,
   sm.gc = reinterpret_cast<T2*>(sm.dw + a.S);  // G (grid point, c1) pairs
   sm.st = sm.z;  // phase D's stash: the row's own slots
   sm.cap = a.S;
+  sm.gt = sm.gc + a.G;  // K3b's tile bounds
   constexpr int W = row_warps(MODE);
   __shared__ T scratch[4][W];
   __shared__ T red[W + 1][kRedCols];
@@ -178,8 +183,11 @@ int launch_mode(const AdjointArgs<T>& a, double* d_series, T* d_params,
       err = cudaGetLastError();
     }
   } else {
+    const size_t tiles = MODE == kEffectiveGrid && KERNEL == 0
+                             ? (a.G + kGridTile - 1) / kGridTile : 0;
     const size_t smem = rb + ((size_t)4 * a.S
-                              + (MODE == kStatsOnly ? 0 : 2 * (size_t)a.G))
+                              + (MODE == kStatsOnly ? 0 : 2 * (size_t)a.G)
+                              + 2 * tiles)
                                  * sizeof(T);
     auto kernel = fused_kde_adjoint_kernel<T, S, KERNEL, MODE>;
     err = cudaFuncSetAttribute(

@@ -399,6 +399,76 @@ __device__ __forceinline__ void contract(
 constexpr int kTileS = 32;
 constexpr int kTileG = 32;
 
+// the largest |u| whose u^2 is finite, with room: an adjoint's tile is
+// skipped only where every u of its pairs lies within it (K2b's pass 2,
+// K3b's phase B, K4b's sweeps: outside_support)
+template <typename T>
+__device__ __forceinline__ T max_u() {
+  if constexpr (sizeof(T) == 4) return T(1e19);
+  else return T(1e154);
+}
+
+// Whether the u of a tile's pairs, all in [u_lo, u_hi], are all > 1 or all
+// < -1, within max_u: there an adjoint's Epanechnikov terms are exactly 0.
+// The support's closed edge |u| = 1 is not skipped (an adjoint's slope
+// factor is not 0 there); a NaN u fails both tests.  (K2b's pass 2 makes
+// the same test inline: called from there, nvcc scheduled K2b otherwise
+// and it ran 0.5-4 % slower on an H100, PERF.md.)
+template <typename T>
+__device__ __forceinline__ bool outside_support(T u_lo, T u_hi) {
+  return (u_lo > T(1) && u_hi <= max_u<T>())
+         || (u_hi < T(-1) && u_lo >= -max_u<T>());
+}
+
+// (lo, hi) of each tile of TILE entries of x[0, n), the pairs (x, y): the
+// min and max x over every entry; (-largest, largest) for a tile with a
+// non-finite x, or a y that is not finite or is above max_u in size, which
+// no outside_support test passes (K4b: a skipped term y u f is then
+// y u 0 with |y u| finite).  A thread a tile, for tiles narrower than a
+// warp (tile_bounds takes a warp a tile); ends in a barrier.
+template <typename T, int TILE, typename Block>
+__device__ __forceinline__ void thread_tile_bounds(
+    const Block& blk, const typename Pair<T>::type* x, int n,
+    typename Pair<T>::type* tiles) {
+  for (int t = blk.rank(); t * TILE < n; t += Block::kSize) {
+    T lo = largest<T>(), hi = -largest<T>();
+    const int i1 = (t + 1) * TILE < n ? (t + 1) * TILE : n;
+    for (int i = t * TILE; i < i1; ++i) {
+      const typename Pair<T>::type p = x[i];
+      if (!(finite(p.x) && dabs(p.y) <= max_u<T>())) {
+        lo = -largest<T>();
+        hi = largest<T>();
+        break;
+      }
+      lo = dmin(lo, p.x);
+      hi = dmax(hi, p.x);
+    }
+    tiles[t].x = lo;
+    tiles[t].y = hi;
+  }
+  blk.sync();
+}
+
+// body(i0, i1) for each tile [i0, i1) of TILE of the n entries, in order,
+// but those that outside(t) proves exactly zero (tested and tallied) where
+// prune.  A warp walks the tiles in step, so it spends the union of its
+// lanes' kept tiles, with every lane on the same entry (a broadcast load):
+// lanes each on their own next kept tile, which spend only the lanes' most,
+// took the same time at K4b's two binned shapes on an H100 (PERF.md §6).
+template <int TILE, typename Block, typename Outside, typename Body>
+__device__ __forceinline__ void walk_tiles(const Block& blk, int n, bool prune,
+                                           const Outside& outside,
+                                           const Body& body) {
+  for (int t = 0; t * TILE < n; ++t) {
+    if (prune) {
+      const bool skip = outside(t);
+      blk.tile(skip);
+      if (skip) continue;
+    }
+    body(t * TILE, (t + 1) * TILE < n ? (t + 1) * TILE : n);
+  }
+}
+
 // (lo, hi) of each tile of TILE entries of x[0, n), the pairs (x, y) of
 // (z, w) or (grid point, c): the min and max x, over the entries whose y is
 // not 0 where WEIGHTED; (-largest, largest) for a tile with a non-finite x
@@ -649,6 +719,11 @@ __device__ __forceinline__ T kernel_slope_norm() {
   return KERNEL == 0 ? T(1.5) : T(0.39894228040143267794);
 }
 
+// bins and grid points a tile of K4b's pruned sweeps (_K4B_TILE in
+// ops/cuda/fused.py sizes their bounds' shared memory; tiles of 8 took
+// longer on an H100, PERF.md)
+constexpr int kK4bTile = 16;
+
 // K4b, one row: the cotangents of kde_row's out given d_out, with
 // u = (grid_g - z_s) / h, K(u) = norm k, K'(u) = -slope u f:
 //
@@ -665,42 +740,107 @@ __device__ __forceinline__ T kernel_slope_norm() {
 // rounded to the working type T once.  A
 // sample-major sweep (a thread per sample) gives d_w and d_z, a grid-major
 // sweep (a thread per grid point) d_grid and the block-summed d_h.
-template <typename A, int KERNEL, typename Block, typename T>
+//
+// With PRUNE (the default for the Epanechnikov kernel; the host emulation's
+// oracle takes it off) each sweep walks its inputs in tiles of kK4bTile
+// (walk_tiles) and skips the tiles whose corners give every u > 1, or
+// every u < -1, within max_u (outside_support): there f is 0 and k is +0
+// (1 - u^2 < 0, u^2 finite), so d_out k, d_out u f, w u f and w u f u are
+// +-0 wherever |d_out u| and |w u| are finite, and leave the sums, which
+// start at +0, as they were.  The tiles' bounds (zt over the bins, gt over
+// the grid points, thread_tile_bounds) are spoiled by a non-finite z or
+// grid point, or a w or d_out that is not finite or is above max_u in size
+// (an infinite d_out times 0 is NaN; |w u| <= max_u^2 is finite).  At
+// |u| = 1 f is 1: the test is strict.  A non-finite z or grid point, a
+// NaN h or one that is not positive, prunes nothing.  Every output keeps
+// the bits of the full loops; the Gaussian kernel keeps them (none of its
+// terms is exactly zero).
+template <typename A, int KERNEL, bool PRUNE = KERNEL == 0, typename Block,
+          typename T>
 __device__ __forceinline__ void kde_row_adjoint(
     const Block& blk, const typename Pair<A>::type* zw, int S,
     const typename Pair<A>::type* gd, int G, const T* out, A h, T* d_z,
-    T* d_w, T* d_grid, T* d_h) {
+    T* d_w, T* d_grid, T* d_h, typename Pair<A>::type* zt,
+    typename Pair<A>::type* gt) {
+  static_assert(!PRUNE || KERNEL == 0, "only Epanechnikov terms are pruned");
+  using A2 = typename Pair<A>::type;
   const A inv_h = A(1) / h;
   const A c_w = kernel_norm<A, KERNEL>() * inv_h;
   const A c_s = kernel_slope_norm<A, KERNEL>() * inv_h * inv_h;
+  const bool prune = PRUNE && inv_h > A(0);
+  if constexpr (PRUNE) {
+    thread_tile_bounds<A, kK4bTile>(blk, zw, S, zt);
+    thread_tile_bounds<A, kK4bTile>(blk, gd, G, gt);
+  }
   for (int s = blk.rank(); s < S; s += Block::kSize) {
-    const typename Pair<A>::type p = zw[s];
+    const A2 p = zw[s];
     A a0 = A(0), a1 = A(0);
+    if constexpr (PRUNE) {
+      walk_tiles<kK4bTile>(
+          blk, G, prune,
+          [&](int t) {
+            return outside_support((gt[t].x - p.x) * inv_h,
+                                   (gt[t].y - p.x) * inv_h);
+          },
+          [&](int g0, int g1) {
 #pragma unroll 4
-    for (int g = 0; g < G; ++g) {
-      const typename Pair<A>::type q = gd[g];
-      const A u = (q.x - p.x) * inv_h;
-      A k, f;
-      shape_and_slope<A, KERNEL>(u, k, f);
-      a0 += q.y * k;
-      a1 += q.y * u * f;
+            for (int g = g0; g < g1; ++g) {
+              const A2 q = gd[g];
+              const A u = (q.x - p.x) * inv_h;
+              A k, f;
+              shape_and_slope<A, KERNEL>(u, k, f);
+              a0 += q.y * k;
+              a1 += q.y * u * f;
+            }
+          });
+    } else {
+#pragma unroll 4
+      for (int g = 0; g < G; ++g) {
+        const A2 q = gd[g];
+        const A u = (q.x - p.x) * inv_h;
+        A k, f;
+        shape_and_slope<A, KERNEL>(u, k, f);
+        a0 += q.y * k;
+        a1 += q.y * u * f;
+      }
     }
     d_w[s] = T(c_w * a0);
     d_z[s] = T(c_s * p.y * a1);
   }
   A acc[1] = {A(0)};
   for (int g = blk.rank(); g < G; g += Block::kSize) {
-    const typename Pair<A>::type q = gd[g];
+    const A2 q = gd[g];
     A b0 = A(0), b1 = A(0);
+    if constexpr (PRUNE) {
+      walk_tiles<kK4bTile>(
+          blk, S, prune,
+          [&](int t) {
+            return outside_support((q.x - zt[t].y) * inv_h,
+                                   (q.x - zt[t].x) * inv_h);
+          },
+          [&](int s0, int s1) {
 #pragma unroll 4
-    for (int s = 0; s < S; ++s) {
-      const typename Pair<A>::type p = zw[s];
-      const A u = (q.x - p.x) * inv_h;
-      A k, f;
-      shape_and_slope<A, KERNEL>(u, k, f);
-      const A wuf = p.y * u * f;
-      b0 += wuf;
-      b1 += wuf * u;
+            for (int s = s0; s < s1; ++s) {
+              const A2 p = zw[s];
+              const A u = (q.x - p.x) * inv_h;
+              A k, f;
+              shape_and_slope<A, KERNEL>(u, k, f);
+              const A wuf = p.y * u * f;
+              b0 += wuf;
+              b1 += wuf * u;
+            }
+          });
+    } else {
+#pragma unroll 4
+      for (int s = 0; s < S; ++s) {
+        const A2 p = zw[s];
+        const A u = (q.x - p.x) * inv_h;
+        A k, f;
+        shape_and_slope<A, KERNEL>(u, k, f);
+        const A wuf = p.y * u * f;
+        b0 += wuf;
+        b1 += wuf * u;
+      }
     }
     d_grid[g] = T(-c_s * q.y * b0);
     acc[0] += q.y * (c_s * b1 - inv_h * A(out[g]));

@@ -79,12 +79,14 @@ _PLAIN_BUDGET = 1 << 25
 _ADJOINT_MAX_DEG = 64
 _ADJOINT_STATIC_SMEM = 12288
 # the tile widths of the pruned Epanechnikov pair loops (csrc/kde.cuh
-# kTileS, kTileG; csrc/adjoint.cuh kGridTile): samples a tile and grid
-# points a warp's run in K1a and K2b's pass 1, grid points a tile in K2b's
-# pass 2; each tile's (lo, hi) takes two values of shared memory
+# kTileS, kTileG, kK4bTile; csrc/adjoint.cuh kGridTile): samples a tile and
+# grid points a warp's run in K1a and K2b's pass 1, grid points a tile in
+# K2b's pass 2 and in K3b's phase B, bins or grid points a tile in K4b's two
+# sweeps; each tile's (lo, hi) takes two values of shared memory
 _TILE_S = 32
 _TILE_G = 32
 _GRID_TILE = 32
+_K4B_TILE = 16
 # warps a block of K1c on logical rows, a row's z each in shared memory
 # (csrc/kde.cuh kStatsWarps)
 _STATS_WARPS = 1
@@ -676,8 +678,10 @@ def fused_weights_kde_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
     # its scaled cotangents; the dark-siren modes (c, d) sum the Chebyshev
     # series in float64 as their forward does
     dense = mode in (_EXTERNAL_BOUNDS, _STATS_ONLY)
+    tiles = -(-g // _GRID_TILE) if mode == _EFFECTIVE_GRID and kernel == "epan" \
+        else 0  # K3b's pruned phase B: its tiles' bounds
     smem = smem_bytes(series, 8 if dense else dl.element_size(), params,
-                      4 * s + 2 * g + _RECORD_EXTRA)
+                      4 * s + 2 * g + 2 * tiles + _RECORD_EXTRA)
     if smem > _SMEM_LIMIT - _ADJOINT_STATIC_SMEM:
         raise ValueError(
             f"S = {s} samples need {smem} bytes of shared memory per block "

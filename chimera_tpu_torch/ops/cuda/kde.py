@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from chimera_tpu_torch.ops.cuda import fused
-from chimera_tpu_torch.ops.cuda.fused import _SMEM_LIMIT
+from chimera_tpu_torch.ops.cuda.fused import _K4B_TILE, _SMEM_LIMIT
 from chimera_tpu_torch.ops.kde import KERNELS, kde1d_core
 
 # elements of one (rows, G, S) intermediate in the plain versions
@@ -187,7 +187,8 @@ def kde1d_grid_adjoint(z: torch.Tensor, weights: torch.Tensor,
         "weights": (weights, (b, s)), "grids": (grids, (b, g)),
         "bandwidths": (bandwidths, (b,)), "out": (out, (b, g)),
         "d_out": (d_out, (b, g))})
-    smem = 16 * (s + g)  # (z, w) and (grid, d_out) pairs in double
+    # (z, w) and (grid, d_out) pairs in double, and their tiles' bounds
+    smem = 16 * (s + g + -(-s // _K4B_TILE) + -(-g // _K4B_TILE))
     if smem > _SMEM_LIMIT:
         raise ValueError(f"S + G = {s + g} need {smem} bytes of shared memory "
                          f"per block, over the {_SMEM_LIMIT}-byte limit")

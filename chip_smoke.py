@@ -1475,13 +1475,14 @@ def adjoint_ops(dl, cosmo, mass, pairs: int, in_window: int, terms: int,
     return (float(rest), float(sums)) if dark else (float(sums + rest), 0.0)
 
 
-def k3_bound(args, kw) -> tuple[float, str]:
+def k3_bound(args, kw, pairs: dict | None = None) -> tuple[float, str]:
     """The least time of K3 on these inputs: bytes — the PE rows of the real
     samples, the cotangents, the model rows and the gradients (the d_ext
     bounds too); operations — the pair terms of the KDE adjoint (none in
-    the stats-only mode) and each real sample's Clenshaw and mass-model work
-    (adjoint_ops; the series summed in double in the dark-siren modes, K3c
-    and K3d, priced at the FP64 rate)."""
+    the stats-only mode; where ``pairs`` is given, its 'live' terms, those
+    that are not exactly 0: k3b_pairs) and each real sample's Clenshaw and
+    mass-model work (adjoint_ops; the series summed in double in the
+    dark-siren modes, K3c and K3d, priced at the FP64 rate)."""
     m1, dl, grids, ct_stats, cosmo, mass = (args[0], args[2], args[4], args[8],
                                             args[9], args[10])
     n, b = ct_stats.shape[:2]
@@ -1495,9 +1496,10 @@ def k3_bound(args, kw) -> tuple[float, str]:
         else int(kw["n_grid"])
     term_ops = ADJ_KDE_OPS if grids is not None else ADJ_LIN_KDE_OPS
     dark = bool(kw.get("stats_only")) or kw.get("ext_bounds") is not None
+    terms = n * real * g if pairs is None else pairs["live"]
     ops = adjoint_ops(dl, cosmo, mass, n * real,
                       window_pairs(cosmo, mass, m1, dl, mask),
-                      n * real * term_ops * g, dark)
+                      terms * term_ops, dark)
     q = args[5].shape[1] + 12
     n_bytes = (size * (4 * real + n * b * (g + 8)) + 2 * 8 * n * q
                + (size * b * g if grids is not None else 0)
@@ -1618,6 +1620,115 @@ def k2b_pairs(args) -> dict:
             n_g = torch.full_like(glo, GRID_TILE)
             n_g[:, -1] = g - GRID_TILE * (glo.shape[1] - 1)
             out["pass2"] += int((kept * n_g[:, :, None]).sum())
+    return out
+
+
+def _adjoint_tiles(out_x, in_x, inv_h, width: int, grid_major: bool):
+    """(N, O, T): whether a pruned adjoint loop (K4b's sweeps, K3b's phase
+    B) keeps each tile of ``width`` consecutive entries of in_x (N, I) for
+    each entry of out_x (N, O): not every u of the tile proved > 1, or
+    every u < -1, at its corners (the kernels' test, here in float64).
+    u = (g - z) inv_h, out_x the grid points g where ``grid_major``, else
+    the samples z.  Tile bounds are over every entry."""
+    lo, hi = _tile_bounds(in_x, torch.ones_like(in_x, dtype=torch.bool), width)
+    o, ih = out_x[:, :, None], inv_h[:, None, None]
+    if grid_major:
+        u_min, u_max = (o - hi[:, None]) * ih, (o - lo[:, None]) * ih
+    else:
+        u_min, u_max = (lo[:, None] - o) * ih, (hi[:, None] - o) * ih
+    return ~((u_min > 1.0) | (u_max < -1.0))
+
+
+def _tile_terms(keep, n_in: int, width: int) -> tuple[int, int, int]:
+    """The terms of a pruned loop whose outputs (N, O) take the tiles
+    ``keep`` (N, O, T) of n_in entries, a warp 32 consecutive outputs:
+    (each output's kept entries, 32 x each warp's most — the SIMT cost of
+    lanes that each walk their own kept tiles —, 32 x each warp's union —
+    the cost of a warp that walks in step the tiles any of its lanes
+    keeps)."""
+    t = keep.shape[-1]
+    n_t = torch.full((t,), float(width), dtype=F64, device=keep.device)
+    n_t[-1] = n_in - width * (t - 1)
+    per = (keep * n_t).sum(-1)
+    pad = (-per.shape[1]) % 32
+    per = torch.nn.functional.pad(per, (0, pad)).unflatten(1, (-1, 32))
+    union = torch.nn.functional.pad(keep, (0, 0, 0, pad)).unflatten(
+        1, (-1, 32)).any(2)
+    return (int(per.sum()), int(32 * per.amax(-1).sum()),
+            int(32 * (union * n_t).sum()))
+
+
+def _add_tile_terms(out: dict, keep, n_in: int, width: int) -> None:
+    """Add _tile_terms of ``keep`` to out's kept{width}, warp{width} and
+    union{width}."""
+    for key, v in zip(("kept", "warp", "union"), _tile_terms(keep, n_in, width)):
+        out[f"{key}{width}"] = out.get(f"{key}{width}", 0) + v
+
+
+def k4b_pairs(args, widths=None) -> dict:
+    """K4b's terms on its inputs ``args`` (z, w, grids, h, ...): 'all', the
+    terms of the full loops' two sweeps, 2 (row, grid point, bin); 'live',
+    the (row, grid point, bin) terms with |u| <= 1 (the closed support,
+    where the slope factor is not 0: the adjoint's terms that are not
+    exactly 0, each of which one sweep over the pairs would form once);
+    per tile width w (``widths``, the kernel's _K4B_TILE by default):
+    'kept{w}', 'warp{w}' and 'union{w}' of _tile_terms summed over the two
+    pruned sweeps (a thread per grid point over tiles of bins, a thread per
+    bin over tiles of grid points; a warp walks the union)."""
+    from chimera_tpu_torch.ops.cuda.fused import _K4B_TILE
+
+    z, grids, h = args[0].double(), args[2].double(), args[3].double()
+    (b, s), g = z.shape, grids.shape[1]
+    rows = 4096  # a chunk's rows: (rows, G, tiles) values at a time
+    out = {"all": 2 * b * g * s, "live": 0}
+    with torch.no_grad():
+        for r0 in range(0, b, rows):
+            zz, gg, hh = z[r0:r0 + rows], grids[r0:r0 + rows], h[r0:r0 + rows]
+            out["live"] += _in_support(zz, torch.ones_like(zz, dtype=torch.bool),
+                                       hh, gg, True)
+            for w in widths or (_K4B_TILE,):
+                _add_tile_terms(out, _adjoint_tiles(gg, zz, 1.0 / hh, w, True),
+                                s, w)
+                _add_tile_terms(out, _adjoint_tiles(zz, gg, 1.0 / hh, w, False),
+                                g, w)
+    return out
+
+
+def k3b_pairs(args, kw, widths=None) -> dict:
+    """K3b's pair terms on its inputs (fused_weights_kde_adjoint's, the
+    effective-grid mode): 'all' (λ, row, sample, grid point); 'live', those
+    with |u| <= 1, where the support weight is not 0; per tile width w
+    (``widths``, the kernel's _GRID_TILE by default): 'kept{w}', 'warp{w}'
+    and 'union{w}' of _tile_terms, a warp's 32 consecutive samples of one
+    slot over tiles of the row's linear grid (the kernel walks the union:
+    a ballot of the warp keeps a tile).  The grid, h and z are the plain
+    stats pass's, in float64."""
+    from chimera_tpu_torch.ops.cuda.fused import (_GRID_TILE,
+                                                  fused_row_stats_plain)
+
+    m1, m2, dl, invp, cosmo, mass = (args[0], args[1], args[2], args[3],
+                                     args[9], args[10])
+    g = int(kw["n_grid"])
+    (b, s) = dl.shape
+    rows = 125  # a chunk's rows: (rows, S, tiles) values at a time
+    with torch.no_grad():
+        st = fused_row_stats_plain(m1, m2, dl, invp, cosmo, mass,
+                                   cut_grid=kw["cut_grid"])
+        z, _ = _z_and_w(m1, m2, dl, invp, cosmo, mass)
+        frac = torch.arange(g, dtype=F64, device=dl.device)
+        out = {"all": z.shape[0] * b * s * g, "live": 0}
+        for l in range(z.shape[0]):
+            lo, ub = st["lo"][l].double(), st["ub"][l].double()
+            h = st["bandwidth"][l].double()
+            grid = lo[:, None] + ((ub - lo) / (g - 1))[:, None] * frac
+            for r0 in range(0, b, rows):
+                zz, gg, hh = (z[l, r0:r0 + rows], grid[r0:r0 + rows],
+                              h[r0:r0 + rows])
+                out["live"] += _in_support(
+                    zz, torch.ones_like(zz, dtype=torch.bool), hh, gg, True)
+                for w in widths or (_GRID_TILE,):
+                    _add_tile_terms(out, _adjoint_tiles(zz, gg, 1.0 / hh, w,
+                                                        False), g, w)
     return out
 
 
@@ -1785,7 +1896,8 @@ def dark_gradients(smi: str, full, dark_data, forward_entries: list[dict]
     from chimera_tpu_torch.inference import (sample_hyperposterior,
                                              sample_hyperposterior_chees)
     from chimera_tpu_torch.ops.cuda import launch_counters, launch_counts
-    from chimera_tpu_torch.ops.cuda.fused import (fused_weights_kde_adjoint,
+    from chimera_tpu_torch.ops.cuda.fused import (_GRID_TILE,
+                                                  fused_weights_kde_adjoint,
                                                   fused_weights_kde_adjoint_plain)
     from chimera_tpu_torch.ops.cuda.rows import (fused_rows_contract_adjoint,
                                                  fused_rows_contract_adjoint_plain)
@@ -1925,6 +2037,16 @@ def dark_gradients(smi: str, full, dark_data, forward_entries: list[dict]
                          f"; the pruned passes evaluate "
                          f"{pairs['pass1'] / pairs['all']:.4%} and "
                          f"{pairs['pass2'] / pairs['all']:.4%}")
+            elif kid == "K3b":
+                pairs = k3b_pairs(args, kw)
+                b_ms, b_by = k3_bound(args, kw, pairs)
+                all_ms = k3_bound(args, kw)[0]
+                kept = pairs[f"union{_GRID_TILE}"]
+                extra = (f"; on every pair {all_ms:.4f} ms; live pairs "
+                         f"{pairs['live']} of {pairs['all']} "
+                         f"({pairs['live'] / pairs['all']:.4%}); the pruned "
+                         f"phase B evaluates {kept} ({kept / pairs['all']:.4%}"
+                         f", tiles of {_GRID_TILE} grid points a warp's slot)")
             else:
                 b_ms, b_by = k3_bound(args, kw)
             k_call = statistics.median(kern)
@@ -2099,15 +2221,21 @@ def k1e_bound(args, kw) -> tuple[float, str]:
                  + n * live * g * K1E_GRID_OPS)
 
 
-def k4b_bound(args) -> tuple[float, str]:
+def k4b_bound(args, pairs: dict | None = None) -> tuple[float, str]:
     """The least time of K4b on these inputs: z, w, the grids, h, out and
-    d_out read once, the four cotangents written once, bytes; the
-    (row, grid point, bin) terms, FP32 operations."""
+    d_out read once, the four cotangents written once, bytes; operations,
+    the (row, grid point, bin) terms that are not exactly 0
+    (``pairs['live']`` of k4b_pairs), each formed once for the four sums, at
+    the FP64 rate (the sums need double: kde.cuh, kde_row_adjoint); where
+    ``pairs`` is None, every (row, grid point, bin) term as FP32 operations
+    (the all-pairs count of PRs 6-9)."""
     z, grids = args[0], args[2]
     b, s = z.shape
     g = grids.shape[1]
-    return bound(z.element_size() * (4 * b * s + 4 * b * g + 2 * b),
-                 b * g * s * K4B_TERM_OPS)
+    n_bytes = z.element_size() * (4 * b * s + 4 * b * g + 2 * b)
+    if pairs is None:
+        return bound(n_bytes, b * g * s * K4B_TERM_OPS)
+    return bound(n_bytes, 0.0, pairs["live"] * K4B_TERM_OPS)
 
 
 def contract_path(smi: str, dark_data) -> dict:
@@ -2206,6 +2334,7 @@ def binned_gradients(smi: str, full, dark_data) -> dict:
     from chimera_tpu_torch.inference import (sample_hyperposterior,
                                              sample_hyperposterior_chees)
     from chimera_tpu_torch.ops.cuda import kde, launch_counters, launch_counts
+    from chimera_tpu_torch.ops.cuda.fused import _K4B_TILE
     from chimera_tpu_torch.ops.cuda.kde import (kde1d_grid_adjoint,
                                                 kde1d_grid_adjoint_plain)
 
@@ -2277,7 +2406,10 @@ def binned_gradients(smi: str, full, dark_data) -> dict:
         t_med, t_mad = med_mad([t / n for t in total])
         f_med, f_mad = med_mad([t / n for t in fwd])
         k_med, k_mad = med_mad([t / n for t in kern])
-        b_ms, b_by = k4b_bound(args)
+        pairs = k4b_pairs(args)
+        b_ms, b_by = k4b_bound(args, pairs)
+        all_ms = k4b_bound(args)[0]
+        kept = pairs[f"union{_K4B_TILE}"]
         k_call = statistics.median(kern)
         b, s = args[0].shape
         phase(24, f"timing binned {name}", f"[{smi}] per λ over {reps} calls "
@@ -2287,9 +2419,13 @@ def binned_gradients(smi: str, full, dark_data) -> dict:
               f"{t_med - f_med - k_med:.4f} ms; peak memory of one call "
               f"{peak:.2f} GiB; K4b per call {k_call:.3f} ms at {b} rows x {s} "
               f"bins x {args[2].shape[1]} grid, plain {plain_ms:.3f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / k_call:.1f} % of it); on "
-              f"the path's cotangents max err {rel:.3e} of each row's max "
-              f"({abs_err:.3e} abs)")
+              f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / k_call:.1f} % of it; on "
+              f"every pair {all_ms:.4f} ms); live terms {pairs['live']} of "
+              f"{b * s * args[2].shape[1]} ({2 * pairs['live'] / pairs['all']:.4%}"
+              f"), the pruned sweeps evaluate {kept} of the full sweeps' "
+              f"{pairs['all']} ({kept / pairs['all']:.4%}, tiles of "
+              f"{_K4B_TILE}); on the path's cotangents max err {rel:.3e} of "
+              f"each row's max ({abs_err:.3e} abs)")
         entry = {"name": "kde1d_grid_adjoint (K4b)", "route": "cuda",
                  "source": "chimera_tpu_torch/csrc/kde1d.cu",
                  "replaces": "chimera_tpu/ops/kde.py:94", "launches": 1,
@@ -2349,7 +2485,7 @@ def binned_gradients(smi: str, full, dark_data) -> dict:
 # its work; K3 less either is the pair loop's marginal cost, not its time:
 # other blocks' work hides in it); K3c on the dark flagship's logical pixel
 # rows and on the dark cut_grid path's event rows.  Then the ptxas lines of
-# the float32 Epanechnikov K3 and the float32 K3c instantiations of a tree
+# the float32 Epanechnikov K3 and K3b and the float32 K3c instantiations of a tree
 # that builds them in that process.  It uses only helpers that chip_smoke.py has had
 # since K3c was ported, so it runs in older trees.
 K3_TIMING = r"""
@@ -2391,39 +2527,47 @@ for path, cfg in (("dark", cs.DARK), ("dark_cut", cs.DARK_CUT)):
 log = build.build_info.get("fused_kde_adjoint", {}).get("log", "").splitlines()
 for i, ln in enumerate(log):
     if "entry function" in ln and any(k in ln for k in (
-            "IffLi0ELi0", "IfdLi0ELi3", "stats_rows_kernelIf")):
+            "IffLi0ELi0", "IffLi0ELi1", "IfdLi0ELi3", "stats_rows_kernelIf")):
         print("  ptxas:", " | ".join(
             m.split("ptxas info    :")[-1].strip() for m in log[i:i + 4]
             if "entry function" in m or "spill" in m or "registers" in m))
 """
 
 
-# K1a, K2b, K2 and K1c in the tree it is run from, ms per call: K1a at the
-# spectral headline (16 λ, float32) and on the first 2 of its 500 grid
-# points (phase A and the row stats; the pair loop 1/250 of its work); K2b
-# on the dark flagship path's own cotangents and on 2 grid points of the
-# same rows (phases A and D); K2 at the dark flagship on rows_inputs' rows
-# ((1/h, scale) from the plain stats pass, so they do not depend on K1c);
-# K1c on the flagship's logical pixel rows and on the events (the dark
-# cut_grid path's rows).  End to end, ms per λ at the 16 points of phase
-# 14: the spectral headline's value-and-gradient call and forward batch
-# (phases 14 and 6) and the dark flagship's value-and-gradient call (phase
-# 21).  The outputs of the kernel calls, of the Gaussian kernel's on the
-# same inputs, and of float64 K1a (64 events, L = 4), K2b, K2 and K1c (the
-# same calls' inputs in float64) go to the file argv[1] with a hash of
-# each call's inputs, for --k3-ab to hold bit for bit against this
-# tree's.  Then the live pairs (where the tree's chip_smoke.py counts them)
-# and the ptxas lines of the float32 Epanechnikov K1a, K1c, K2 and K2b of a
-# tree that builds them in that process.  It uses only helpers that
-# chip_smoke.py has had since K2b was ported, so it runs in older trees.
+# K1a, K2b, K2, K1c, K4b and K3b in the tree it is run from, ms per call:
+# K1a at the spectral headline (16 λ, float32) and on the first 2 of its
+# 500 grid points (phase A and the row stats; the pair loop 1/250 of its
+# work); K4b on the binned spectral headline's and the binned dark
+# flagship's own cotangents (the reference's defaults, phase 24); K3b on
+# the spectral cut_grid path's own cotangents (phase 21); K2b on the dark
+# flagship path's own cotangents and on 2 grid points of the same rows
+# (phases A and D); K2 at the dark flagship on rows_inputs' rows ((1/h,
+# scale) from the plain stats pass, so they do not depend on K1c); K1c on
+# the flagship's logical pixel rows and on the events (the dark cut_grid
+# path's rows).  End to end, ms per λ at the 16 points of phase 14: the
+# spectral headline's value-and-gradient call and forward batch (phases 14
+# and 6), the value-and-gradient calls of the binned spectral and dark
+# paths (phase 24), of the spectral cut_grid path and of the dark flagship
+# (phase 21).  The outputs of the kernel calls, of the Gaussian kernel's
+# on the same inputs, and of float64 K1a (64 events, L = 4), K2b, K2, K1c,
+# K4b and K3b (the same calls' inputs in float64; K3b also on
+# mode_inputs' random cotangents) go to the file argv[1] with a hash of
+# each call's inputs, for --k3-ab to hold bit for bit against this tree's.
+# Then the live pairs (where the tree's chip_smoke.py counts them; K4b's
+# and K3b's kept terms at tile widths 8, 16 and 32) and the ptxas lines of
+# the float32 Epanechnikov K1a, K1c, K2, K2b, K3b and K4b of a tree that
+# builds them in that process.  It uses only helpers that chip_smoke.py
+# has had since K4b was ported, so it runs in older trees.
 PAIR_TIMING = r"""
 import hashlib, os, statistics, sys
 sys.path.insert(0, os.getcwd())
 import torch
 import chip_smoke as cs
-from chimera_tpu_torch.ops.cuda import build
+from chimera_tpu_torch.ops.cuda import build, kde
 from chimera_tpu_torch.ops.cuda.fused import fused_weights_kde as k1
+from chimera_tpu_torch.ops.cuda.fused import fused_weights_kde_adjoint as k3
 from chimera_tpu_torch.ops.cuda.fused import fused_row_stats as k1c
+from chimera_tpu_torch.ops.cuda.kde import kde1d_grid_adjoint as k4b
 from chimera_tpu_torch.ops.cuda.rows import fused_rows_contract as k2
 from chimera_tpu_torch.ops.cuda.rows import fused_rows_contract_adjoint as k2b
 
@@ -2451,6 +2595,34 @@ def k2b_two_points(a):
         a[i] = a[i][..., :2].contiguous()
     return a
 
+def k4b_block(name, hl):
+    a, kw = cs.calls_of(kde, "kde1d_grid_adjoint",
+                        lambda: cs.value_and_grad(hl, x))[-1]
+    report(f"{name} value and gradient", lambda: cs.value_and_grad(hl, x), 16)
+    report(f"K4b, {name}", lambda: k4b(*a, **kw))
+    if hasattr(cs, "k4b_pairs"):
+        print(f"  K4b terms, {name}: {cs.k4b_pairs(a, (8, 16, 32))}", flush=True)
+    for dtype, call in (("float32", list(a)), ("float64", cs.in_float64(a, kw)[0])):
+        for kernel in ("epan", "gauss"):
+            c = [*call[:6], kernel]
+            keep(f"K4b {name} {dtype} {kernel}", c, k4b(*c))
+
+def k3b_block(hl):
+    (a, kw), = cs.backward_calls(hl, x)["K3"]
+    report("spectral cut_grid value and gradient",
+           lambda: cs.value_and_grad(hl, x), 16)
+    report("K3b, spectral cut_grid", lambda: k3(*a, **kw))
+    if hasattr(cs, "k3b_pairs"):
+        print(f"  K3b terms: {cs.k3b_pairs(a, kw, (8, 16, 32))}", flush=True)
+    rand = cs.mode_inputs(hl, "auto", cs.batch_of(x), cs.SEED + 21)
+    for src, (args, kws) in (("path", (a, kw)), ("random", rand)):
+        for dtype, (call, ckw) in (("float32", (list(args), kws)),
+                                   ("float64", cs.in_float64(args, kws))):
+            for kernel in ("epan", "gauss"):
+                call = list(call)
+                call[11] = kernel
+                keep(f"K3b {src} {dtype} {kernel}", call, k3(*call, **ckw)[:2])
+
 full = cs.mock(1000, 4096, 2_000_000, 500, 200, cs.SEED)
 hl = cs.likelihood(full, cs.F32)
 args = cs.kernel_inputs(hl, torch.linspace(55.0, 95.0, 16, device=cs.DEV).to(cs.F32))
@@ -2464,7 +2636,10 @@ if hasattr(cs, "k1a_pairs"):
 x = cs.chain_points(16, cs.F32)
 report("spectral value and gradient", lambda: cs.value_and_grad(hl, x), 16)
 report("spectral forward batch", lambda: hl.log_like_batch(cs.batch_of(x)), 16)
-del full, hl, args, short
+del hl, args, short
+k4b_block("binned spectral", cs.likelihood(full, cs.F32, **cs.BINNED))
+k3b_block(cs.likelihood(full, cs.F32, cut_grid=2.0))
+del full
 small = cs.mock(64, 4096, 200_000, 500, 300, cs.SEED + 3)
 args = cs.kernel_inputs(cs.likelihood(small, cs.F64),
                         torch.linspace(60.0, 80.0, 4, device=cs.DEV).double())
@@ -2506,12 +2681,16 @@ report("K1c, dark cut_grid path's event rows", lambda: k1c(*ev))
 for dtype, call in (("float32", stats_args),
                     ("float64", cs.in_float64(stats_args, {})[0])):
     keep(f"K1c {dtype} pixel rows", call, list(k1c(*call).values()))
+del hl, stats_args, pop_b, ev
+k4b_block("binned dark", cs.dark_likelihood(data, cs.F32, **cs.BINNED))
 torch.save(saved, sys.argv[1])
 for name, key in (("fused_kde", "fused_kde_kernelIffLi0ELi0E"),
                   ("fused_kde", "fused_kde_kernelIfdLi0ELi3E"),
                   ("fused_kde", "logical_stats_kernelIf"),
                   ("rows_contract", "rows_contract_kernelIfLi0E"),
-                  ("rows_contract_adjoint", "rows_adjoint_kernelIfLi0E")):
+                  ("rows_contract_adjoint", "rows_adjoint_kernelIfLi0E"),
+                  ("fused_kde_adjoint", "fused_kde_adjoint_kernelIffLi0ELi1E"),
+                  ("kde1d", "kde1d_adjoint_kernelIfLi0E")):
     log = build.build_info.get(name, {}).get("log", "").splitlines()
     for i, ln in enumerate(log):
         if "entry function" in ln and key in ln:
@@ -2532,15 +2711,15 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def k3_ab(others: list[str], variants: list[str]) -> None:
-    """The adjoint kernel (K3_TIMING) and K1a, K2b, K2 and K1c
+    """The adjoint kernel (K3_TIMING) and K1a, K2b, K2, K1c, K4b and K3b
     (PAIR_TIMING) in the trees ``others`` (the parent, unpacked with ``git
     archive``) and ``variants`` (trees that change timing only,
     tools/k3_variants.py) and in this one, in one call on one card, in the
     order others, variants, this, this, variants reversed, others reversed:
     ``python3 chip_smoke.py --k3-ab DIR ... [--variants DIR ...]``.  Fails
-    unless every tree of ``others`` gives K1a, K2b, K2 and K1c outputs of
-    the same bits as this tree on the same inputs; a variant's are
-    reported."""
+    unless every tree of ``others`` gives K1a, K2b, K2, K1c, K4b and K3b
+    outputs of the same bits as this tree on the same inputs; a variant's
+    are reported."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the card only")
     print(subprocess.run(

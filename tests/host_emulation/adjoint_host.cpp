@@ -10,8 +10,10 @@
 // used), without the stream.  Also the host tests' checks of three pieces:
 // the reverse sweep of the mass model against the dual one (host_mass_vjp),
 // the warp's projections emulated lane by lane (host_warp_project) and the
-// kernels' layout of their scratch (host_adjoint_scratch).
-// Built by tests/test_torch_host_emulation.py.
+// kernels' layout of their scratch (host_adjoint_scratch); K3b with phase
+// B's full loop (its pruned loop's oracle), phase B's pair sums alone on
+// given samples and grid (host_slot_pair_sums), and a tally of the tiles
+// the pruned loop skips.  Built by tests/test_torch_host_emulation.py.
 #include <algorithm>
 #include <vector>
 
@@ -19,6 +21,11 @@
 #include "adjoint.cuh"
 
 namespace {
+
+// the tiles that K3b's pruned phase B tested and skipped (host_tile_tally)
+long long g_tally[2] = {0, 0};
+// K3b's oracle: phase B's full loop (host_fused_kde_adjoint_unpruned)
+bool g_unpruned = false;
 
 // acc[k] += a T_k(t) for k < n, serially: the adjoint of a Chebyshev sum in
 // its coefficients (ops/chebyshev.py, _ChebEval.backward), the oracle of
@@ -42,7 +49,7 @@ std::vector<double> record_storage(int cd, int wd) {
   return std::vector<double>(record_bytes<T, S>(cd, wd) / sizeof(double) + 2);
 }
 
-template <typename T, typename S, int KERNEL, int MODE>
+template <typename T, typename S, int KERNEL, int MODE, bool PRUNE = KERNEL == 0>
 void run_mode(const AdjointArgs<T>& a, double* d_series, T* d_params) {
   const int cd = a.cheb_deg, wd = a.window_deg;
   const int Q = cd + 2 + wd, P = Q + kMassScalars;
@@ -51,14 +58,15 @@ void run_mode(const AdjointArgs<T>& a, double* d_series, T* d_params) {
   // the kernels' layouts: z, w, dz, dw of a row in one array (its stash),
   // or z, w and a stash of kStash samples' points
   std::vector<T> zwd(4 * a.S), z(a.S), w(a.S), stash(4 * kStash);
-  std::vector<typename Pair<T>::type> gc(std::max(a.G, 1));
+  std::vector<typename Pair<T>::type> gc(std::max(a.G, 1)),
+      gt((std::max(a.G, 1) + kGridTile - 1) / kGridTile);
   const bool by_warp = MODE == kStatsOnly && warp_rows(a);
   const AdjointSmem<T> sm =
       by_warp ? AdjointSmem<T>{z.data(), w.data(), nullptr, nullptr,
-                               gc.data(), stash.data(), kStash}
+                               gc.data(), stash.data(), kStash, nullptr}
               : AdjointSmem<T>{zwd.data(), zwd.data() + a.S,
                                zwd.data() + 2 * a.S, zwd.data() + 3 * a.S,
-                               gc.data(), zwd.data(), a.S};
+                               gc.data(), zwd.data(), a.S, gt.data()};
   const int n_blocks = by_warp ? (a.B + kWarpRows - 1) / kWarpRows : a.B;
   for (int l = 0; l < a.L; ++l) {
     write_record<T, S>(a.series + (size_t)l * Q,
@@ -75,11 +83,11 @@ void run_mode(const AdjointArgs<T>& a, double* d_series, T* d_params) {
       if (by_warp) {
         for (int b = blk * kWarpRows; b < (blk + 1) * kWarpRows && b < a.B;
              ++b)
-          adjoint_row<T, S, KERNEL, MODE>(HostBlock<T>{}, model, sample, a,
-                                          l, b, sm, g);
+          adjoint_row<T, S, KERNEL, MODE, PRUNE>(HostBlock<T>{g_tally}, model,
+                                                 sample, a, l, b, sm, g);
       } else {
-        adjoint_row<T, S, KERNEL, MODE>(HostBlock<T>{}, model, sample, a, l,
-                                        blk, sm, g);
+        adjoint_row<T, S, KERNEL, MODE, PRUNE>(HostBlock<T>{g_tally}, model,
+                                               sample, a, l, blk, sm, g);
       }
       for (int i = 0; i < P; ++i) total[i] += double(column(g, rec.jac, i, cd, wd));
     }
@@ -92,7 +100,10 @@ void run_mode(const AdjointArgs<T>& a, double* d_series, T* d_params) {
 template <typename T, int KERNEL>
 void run_kernel(const AdjointArgs<T>& a, int mode, double* ds, T* dp) {
   if (mode == kAnalysisGrid) run_mode<T, T, KERNEL, kAnalysisGrid>(a, ds, dp);
-  if (mode == kEffectiveGrid) run_mode<T, T, KERNEL, kEffectiveGrid>(a, ds, dp);
+  if (mode == kEffectiveGrid && g_unpruned)
+    run_mode<T, T, KERNEL, kEffectiveGrid, false>(a, ds, dp);
+  else if (mode == kEffectiveGrid)
+    run_mode<T, T, KERNEL, kEffectiveGrid>(a, ds, dp);
   if (mode == kExternalBounds)
     run_mode<T, double, KERNEL, kExternalBounds>(a, ds, dp);
   if (mode == kStatsOnly) run_mode<T, double, KERNEL, kStatsOnly>(a, ds, dp);
@@ -144,6 +155,82 @@ extern "C" void host_fused_kde_adjoint_f64(
   run<double>(m1, m2, dl, invp, grids, ext, n_real, dl_fill, series, params,
               ct_den, ct_stats, d_series, d_params, d_ext, L, B, S, G, cd, wd,
               logical_s, mode, kernel, bw_mode, bw_value, cut_grid, unit_scale);
+}
+
+// K3 with phase B's full loop (K3b's oracle), the same interface
+#define UNPRUNED(T, NAME)                                                     \
+  extern "C" void NAME(                                                       \
+      const T* m1, const T* m2, const T* dl, const T* invp, const T* grids,   \
+      const T* ext, const long long* n_real, const T* dl_fill,                \
+      const double* series, const T* params, const T* ct_den,                 \
+      const T* ct_stats, double* partials, double* d_series, T* d_params,     \
+      T* d_ext, int L, int B, int S, int G, int cd, int wd, int logical_s,    \
+      int mode, int kernel, int bw_mode, double bw_value, double cut_grid,    \
+      int unit_scale) {                                                       \
+    (void)partials;                                                           \
+    g_unpruned = true;                                                        \
+    run<T>(m1, m2, dl, invp, grids, ext, n_real, dl_fill, series, params,     \
+           ct_den, ct_stats, d_series, d_params, d_ext, L, B, S, G, cd, wd,   \
+           logical_s, mode, kernel, bw_mode, bw_value, cut_grid, unit_scale); \
+    g_unpruned = false;                                                       \
+  }
+UNPRUNED(float, host_fused_kde_adjoint_unpruned_f32)
+UNPRUNED(double, host_fused_kde_adjoint_unpruned_f64)
+
+// K3b's phase B pair sums (slot_pair_sums, a linear grid: frac = i / (G -
+// 1)) of n samples z against the G (grid point, c1) pairs at 1/h, pruned
+// or (prune 0) the full loop, a block of one thread: out (n, 4) a0-a3 of
+// each sample.
+template <typename T>
+void run_slot_pair_sums(const T* z, int n, const T* grid, const T* c1, int G,
+                        T inv_h, int prune, T* out) {
+  std::vector<typename Pair<T>::type> gc(G), gt((G + kGridTile - 1) / kGridTile);
+  for (int i = 0; i < G; ++i) {
+    gc[i].x = grid[i];
+    gc[i].y = c1[i];
+  }
+  const HostBlock<T> blk{g_tally};
+  tile_bounds<T, kGridTile, false>(blk, gc.data(), G, gt.data());
+  const T inv_gm1 = T(1) / T(G - 1);
+  for (int s0 = 0; s0 < n; s0 += kSamplesPerThread) {
+    T zv[kSamplesPerThread], a[4][kSamplesPerThread];
+    for (int j = 0; j < kSamplesPerThread; ++j) {
+      zv[j] = z[s0 + j < n ? s0 + j : n - 1];
+      a[0][j] = a[1][j] = a[2][j] = a[3][j] = T(0);
+    }
+    if (prune)
+      slot_pair_sums<T, 0, true, true>(blk, zv, s0, n, gc.data(), gt.data(), G,
+                                       inv_h, inv_h > T(0), inv_gm1, a[0],
+                                       a[1], a[2], a[3]);
+    else
+      slot_pair_sums<T, 0, true, false>(blk, zv, s0, n, gc.data(), gt.data(),
+                                        G, inv_h, false, inv_gm1, a[0], a[1],
+                                        a[2], a[3]);
+    for (int j = 0; j < kSamplesPerThread && s0 + j < n; ++j)
+      for (int k = 0; k < 4; ++k) out[(size_t)(s0 + j) * 4 + k] = a[k][j];
+  }
+}
+
+extern "C" void host_slot_pair_sums_f32(const float* z, int n,
+                                        const float* grid, const float* c1,
+                                        int G, float inv_h, int prune,
+                                        float* out) {
+  run_slot_pair_sums<float>(z, n, grid, c1, G, inv_h, prune, out);
+}
+
+extern "C" void host_slot_pair_sums_f64(const double* z, int n,
+                                        const double* grid, const double* c1,
+                                        int G, double inv_h, int prune,
+                                        double* out) {
+  run_slot_pair_sums<double>(z, n, grid, c1, G, inv_h, prune, out);
+}
+
+// the tiles that K3b's pruned phase B tested and skipped since the last
+// call: out[0] tested, out[1] skipped
+extern "C" void host_tile_tally(long long* out) {
+  out[0] = g_tally[0];
+  out[1] = g_tally[1];
+  g_tally[0] = g_tally[1] = 0;
 }
 
 // The mass model's reverse sweep (SampleAdjoint::mass_vjp, through the

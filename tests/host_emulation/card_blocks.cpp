@@ -1,0 +1,56 @@
+// The adjoint kernels' device functions instantiated as the kernels
+// instantiate them, with the card's blocks (population.cuh: DeviceBlock of
+// 8 or 4 warps, WarpBlock), for a syntax check by g++
+// (tests/test_torch_host_emulation.py): the host emulations run them with a
+// block of one thread only, whose members every block does not have.  Each
+// mode and KDE kernel of K3 (fused_kde_adjoint.cu, K3c's logical rows a
+// warp a row) and K4b (kde1d.cu), float32 and float64.
+#include "adjoint.cuh"
+
+namespace {
+
+template <typename T, typename S, int KERNEL, int MODE, typename Block>
+void k3_row(const Block& blk, const AdjointArgs<T>& a,
+            const AdjointSmem<T>& sm, const Model<T, S>& model,
+            const SampleAdjoint<T, S>& sample) {
+  GradAcc<T, 32> g;
+  adjoint_row<T, S, KERNEL, MODE>(blk, model, sample, a, 0, 0, sm, g);
+}
+
+template <typename T>
+void card_blocks(const AdjointArgs<T>& a, const AdjointSmem<T>& sm,
+                 const Model<T, T>& mt, const SampleAdjoint<T, T>& st,
+                 const Model<T, double>& md,
+                 const SampleAdjoint<T, double>& sd, T* o) {
+  const DeviceBlock<T, 8> b8{nullptr};
+  const DeviceBlock<T, 4> b4{nullptr};
+  k3_row<T, T, 0, kAnalysisGrid>(b8, a, sm, mt, st);
+  k3_row<T, T, 1, kAnalysisGrid>(b8, a, sm, mt, st);
+  k3_row<T, T, 0, kEffectiveGrid>(b8, a, sm, mt, st);
+  k3_row<T, T, 1, kEffectiveGrid>(b8, a, sm, mt, st);
+  k3_row<T, double, 0, kExternalBounds>(b4, a, sm, md, sd);
+  k3_row<T, double, 1, kExternalBounds>(b4, a, sm, md, sd);
+  k3_row<T, double, 0, kStatsOnly>(b4, a, sm, md, sd);
+  k3_row<T, double, 0, kStatsOnly>(WarpBlock<T>{}, a, sm, md, sd);
+  const DeviceBlock<double> bd{nullptr};
+  const double2* p = nullptr;
+  double2* t = nullptr;
+  kde_row_adjoint<double, 0>(bd, p, 1, p, 1, o, 1.0, o, o, o, o, t, t);
+  kde_row_adjoint<double, 1>(bd, p, 1, p, 1, o, 1.0, o, o, o, o, t, t);
+}
+
+}  // namespace
+
+template void card_blocks<float>(const AdjointArgs<float>&,
+                                 const AdjointSmem<float>&,
+                                 const Model<float, float>&,
+                                 const SampleAdjoint<float, float>&,
+                                 const Model<float, double>&,
+                                 const SampleAdjoint<float, double>&, float*);
+template void card_blocks<double>(const AdjointArgs<double>&,
+                                  const AdjointSmem<double>&,
+                                  const Model<double, double>&,
+                                  const SampleAdjoint<double, double>&,
+                                  const Model<double, double>&,
+                                  const SampleAdjoint<double, double>&,
+                                  double*);

@@ -9,8 +9,8 @@
 // device functions in turn, then the warp's shuffle-down folds emulated
 // lane by lane.
 // Same C interfaces as the kernels', without the stream; besides, K1a
-// with the unpruned loop (its pruned loop's oracle), the pruned loop on
-// given (z, w) and a tally of the tiles it skips, and K1c on logical rows
+// and K4b with the unpruned loops (the pruned loops' oracles), the pruned
+// loop on given (z, w) and a tally of the tiles it skips, and K1c on logical rows
 // in the block-a-row layout that the warp's sums replay, its kThreads
 // ranks and their warps emulated one by one (the replay's oracle).  Built
 // by tests/test_torch_host_emulation.py.
@@ -22,7 +22,7 @@
 
 namespace {
 
-// the tiles that the pruned pair loop tested and skipped (host_tile_tally)
+// the tiles that the pruned pair loops tested and skipped (host_tile_tally)
 long long g_tally[2] = {0, 0};
 // kAnalysisGrid's oracle: the unpruned loop of contract (host_fused_kde_unpruned)
 bool g_unpruned = false;
@@ -267,11 +267,12 @@ void run_kde1d(const T* z, const T* w, const T* grids, const T* h, T* out,
   }
 }
 
-template <typename T, int KERNEL>
+template <typename T, int KERNEL, bool PRUNE = KERNEL == 0>
 void run_kde1d_adjoint(const T* z, const T* w, const T* grids, const T* h,
                        const T* out, const T* d_out, T* d_z, T* d_w,
                        T* d_grid, T* d_h, int B, int S, int G) {
-  std::vector<double2> zw(S), gd(G);
+  std::vector<double2> zw(S), gd(G), zt((S + kK4bTile - 1) / kK4bTile),
+      gt((G + kK4bTile - 1) / kK4bTile);
   for (int b = 0; b < B; ++b) {
     for (int s = 0; s < S; ++s) {
       zw[s].x = z[(size_t)b * S + s];
@@ -281,10 +282,11 @@ void run_kde1d_adjoint(const T* z, const T* w, const T* grids, const T* h,
       gd[g].x = grids[(size_t)b * G + g];
       gd[g].y = d_out[(size_t)b * G + g];
     }
-    kde_row_adjoint<double, KERNEL>(
-        HostBlock<double>{}, zw.data(), S, gd.data(), G, out + (size_t)b * G,
-        double(h[b]), d_z + (size_t)b * S, d_w + (size_t)b * S,
-        d_grid + (size_t)b * G, d_h + b);
+    kde_row_adjoint<double, KERNEL, PRUNE>(
+        HostBlock<double>{g_tally}, zw.data(), S, gd.data(), G,
+        out + (size_t)b * G, double(h[b]), d_z + (size_t)b * S,
+        d_w + (size_t)b * S, d_grid + (size_t)b * G, d_h + b, zt.data(),
+        gt.data());
   }
 }
 
@@ -374,3 +376,14 @@ extern "C" void host_kde1d_f64(const double* z, const double* w,
   }
 KDE1D_ADJOINT(float, host_kde1d_adjoint_f32)
 KDE1D_ADJOINT(double, host_kde1d_adjoint_f64)
+
+// K4b with the full sweeps (Epanechnikov), the pruned sweeps' oracle
+#define KDE1D_ADJOINT_UNPRUNED(T, NAME)                                      \
+  extern "C" void NAME(const T* z, const T* w, const T* grids, const T* h,   \
+                       const T* out, const T* d_out, T* d_z, T* d_w,        \
+                       T* d_grid, T* d_h, int B, int S, int G) {            \
+    run_kde1d_adjoint<T, 0, false>(z, w, grids, h, out, d_out, d_z, d_w,     \
+                                   d_grid, d_h, B, S, G);                    \
+  }
+KDE1D_ADJOINT_UNPRUNED(float, host_kde1d_adjoint_unpruned_f32)
+KDE1D_ADJOINT_UNPRUNED(double, host_kde1d_adjoint_unpruned_f64)

@@ -175,15 +175,17 @@ ROWS_UNPRUNED(double, host_rows_contract_adjoint_unpruned_f64)
 ROWS_Z(float, host_rows_z_f32)
 ROWS_Z(double, host_rows_z_f64)
 
-// the tiles that the pruned passes tested and skipped since the last call:
-// out[0] tested, out[1] skipped
-// the tile widths of the pruned pair loops: kTileS, kTileG, kGridTile
+// the tile widths of the pruned pair loops: kTileS, kTileG, kGridTile,
+// kK4bTile
 extern "C" void host_tile_widths(int* out) {
   out[0] = kTileS;
   out[1] = kTileG;
   out[2] = kGridTile;
+  out[3] = kK4bTile;
 }
 
+// the tiles that the pruned passes tested and skipped since the last call:
+// out[0] tested, out[1] skipped
 extern "C" void host_tile_tally(long long* out) {
   out[0] = g_tally[0];
   out[1] = g_tally[1];

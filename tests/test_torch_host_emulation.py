@@ -53,14 +53,14 @@ LAMBDA = {"H0": [62.0, 70.0, 81.0], "Om0": [0.2, 0.25, 0.33],
 WINDOW_LAMBDA = {"m_low": [4.0, 5.1, 8.0], "delta_m": [3.0, 4.8, 6.0]}
 
 
-def _build_host(tmp_path_factory, name: str) -> ctypes.CDLL:
+def _build_host(tmp_path_factory, name: str, csrc: Path = CSRC) -> ctypes.CDLL:
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the host emulation")
     so = tmp_path_factory.mktemp("host_emulation") / f"lib{name}.so"
     proc = subprocess.run(
         [gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-Wno-unknown-pragmas",
-         f"-I{HERE}", f"-I{CSRC}", "-o", str(so), str(HERE / f"{name}.cpp")],
+         f"-I{HERE}", f"-I{csrc}", "-o", str(so), str(HERE / f"{name}.cpp")],
         capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     return ctypes.CDLL(str(so))
@@ -127,15 +127,15 @@ def _host_adjoint(lib, m1det, m2det, dl, inv_pe_prior, grids, series, params,
                   ct_den, ct_stats, cosmo, mass, kernel="epan", bw_method=None,
                   *, cut_grid=None, n_grid=None, ext_bounds=None, n_real=None,
                   dl_fill=None, logical_s=None, den_scale="norms",
-                  stats_only=False):
-    """``fused_weights_kde_adjoint``'s signature on the host emulation."""
+                  stats_only=False, entry="host_fused_kde_adjoint_"):
+    """``fused_weights_kde_adjoint``'s signature on the host emulation
+    (``entry``: its C entry, less the dtype suffix)."""
     mode = fused._mode_of(grids, ext_bounds, stats_only)
     g = grids.shape[1] if mode == fused._ANALYSIS_GRID else \
         0 if mode == fused._STATS_ONLY else int(n_grid)
     d_series, d_params = torch.zeros_like(series), torch.zeros_like(params)
     d_ext = None if ext_bounds is None else torch.zeros_like(ext_bounds)
-    fn = getattr(lib, "host_fused_kde_adjoint_"
-                 + ("f64" if dl.dtype == F64 else "f32"))
+    fn = getattr(lib, entry + ("f64" if dl.dtype == F64 else "f32"))
     fn.restype = None
     keep = [None if t is None else t.contiguous() for t in (
         m1det, m2det, dl, inv_pe_prior,
@@ -852,13 +852,31 @@ def test_warp_projection_matches_cheb_project(host_lib, deg):
 
 def test_tile_widths_match_the_kernels(rows_host_lib):
     """The wrappers' tile widths of the pruned pair loops (``fused._TILE_S``,
-    ``_TILE_G``, ``_GRID_TILE``: the shared memory of the tile bounds that
-    ``fused.py`` and ``rows.py`` check, and the terms that
-    ``chip_smoke.py`` counts) against the kernels' kTileS, kTileG and
-    kGridTile (csrc/kde.cuh, csrc/adjoint.cuh)."""
-    out = (ctypes.c_int * 3)()
+    ``_TILE_G``, ``_GRID_TILE``, ``_K4B_TILE``: the shared
+    memory of the tile bounds that ``fused.py``, ``rows.py`` and ``kde.py``
+    check, and the terms that ``chip_smoke.py`` counts) against the
+    kernels' kTileS, kTileG, kGridTile and kK4bTile
+    (csrc/kde.cuh, csrc/adjoint.cuh)."""
+    out = (ctypes.c_int * 4)()
     rows_host_lib.host_tile_widths(out)
-    assert list(out) == [fused._TILE_S, fused._TILE_G, fused._GRID_TILE]
+    assert list(out) == [fused._TILE_S, fused._TILE_G, fused._GRID_TILE,
+                         fused._K4B_TILE]
+
+
+def test_device_functions_build_for_the_card_blocks():
+    """K3's adjoint_row in every mode and KDE kernel and K4b's
+    kde_row_adjoint, instantiated with the card's blocks (DeviceBlock of 8
+    and 4 warps, K3c's WarpBlock: tests/host_emulation/card_blocks.cpp),
+    pass g++'s syntax check: the host emulations instantiate them with a
+    block of one thread only, whose members the card's blocks may lack."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the host emulation")
+    proc = subprocess.run(
+        [gxx, "-std=c++17", "-fsyntax-only", "-Wno-unknown-pragmas", f"-I{HERE}",
+         f"-I{CSRC}", str(HERE / "card_blocks.cpp")], capture_output=True,
+        text=True)
+    assert proc.returncode == 0, proc.stderr
 
 
 @pytest.mark.parametrize("dtype,sum_size", [(F32, 4), (F32, 8), (F64, 8)])
@@ -1414,3 +1432,270 @@ def test_logical_stats_warp_replays_the_block(fused_host_lib, data, dtype):
     z9 = z_from_dgw(pop.cosmo, pe[2][None, 9, :n_real[9]])
     assert torch.all(zf[:, 9] < z9.amin(-1))  # row 9's fillers hold the minimum
     assert int(n_real.max()) > 128 and len(n_real) % 4 == 1
+
+
+# ---------------------------------------------------------------------------
+# K4b and K3b: the adjoint loops pruned to the Epanechnikov support keep the
+# bits of the full loops
+# ---------------------------------------------------------------------------
+
+K4B_CASES = ("sorted", "unsorted", "tie", "near_edge", "zero_weight",
+             "non_finite_z", "non_finite_w", "non_finite_grid",
+             "non_finite_d_out", "huge", "nan_h", "zero_h")
+
+
+def _k4b_case(case: str, dtype, b: int = 4, s: int = 200, g: int = 250):
+    """K4b's inputs as the binned path hands them (z, w, grids, h, out,
+    d_out): b rows of s sorted, uniformly spaced bin centres of a histogram
+    of 4096 samples (empty bins in the tails without weight), normalized
+    weights, a g-point linear grid over [min - 2σ, max + 2σ], Scott's h at
+    N_eff = 1000, random cotangents; changed as ``case`` says: the bins and
+    the grid points shuffled ('unsorted'); the bins and grid points on a
+    2^-8 lattice at h = 2^-5, so that tile corners lie at |u| = 1 exactly
+    ('tie') or, the grid shifted by -2^-15, at |u| = 1 - 2^-10
+    ('near_edge'); row 1 without weight; an infinite and a NaN z, w, grid
+    point or d_out in rows 1 and 2; a w and a d_out of 1e307, whose
+    products with u overflow ('huge'); a NaN or zero h."""
+    from chimera_tpu_torch.ops.cuda.kde import kde1d_grid_plain
+
+    rng = np.random.default_rng(8)
+    z, w = np.empty((b, s)), np.empty((b, s))
+    grids, h = np.empty((b, g)), np.empty(b)
+    for r in range(b):
+        x = rng.normal(1.0 + 0.1 * r, 0.1, 4096)
+        edges = np.linspace(x.min(), x.max(), s + 1)
+        z[r] = 0.5 * (edges[:-1] + edges[1:])
+        w[r] = np.histogram(x, edges)[0] / x.size
+        grids[r] = np.linspace(x.min() - 2 * x.std(), x.max() + 2 * x.std(), g)
+        h[r] = 1.06 * x.std() * 1000 ** -0.2
+    d_out = rng.normal(size=(b, g))
+    if case in ("tie", "near_edge"):
+        z[:] = (np.arange(s) + 40)[None] * 2.0 ** -8
+        grids[:] = np.arange(g)[None] * 2.0 ** -8 - (2.0 ** -15 if case == "near_edge"
+                                                     else 0.0)
+        h[:] = 2.0 ** -5
+    elif case == "unsorted":
+        for r in range(b):
+            ps, pg = rng.permutation(s), rng.permutation(g)
+            z[r], w[r], grids[r], d_out[r] = z[r, ps], w[r, ps], grids[r, pg], d_out[r, pg]
+    elif case == "zero_weight":
+        w[1] = 0.0
+    elif case == "non_finite_z":
+        z[1, 30], z[1, 31], z[2, 50] = np.inf, -np.inf, np.nan
+    elif case == "non_finite_w":
+        w[1, 40], w[2, 60] = np.inf, np.nan
+    elif case == "non_finite_grid":
+        grids[1, 100], grids[2, 10] = np.nan, np.inf
+    elif case == "non_finite_d_out":
+        d_out[1, 100], d_out[2, 5] = np.inf, np.nan
+    elif case == "huge":
+        w[1, 70], d_out[2, 120] = 1e307, 1e307
+    elif case == "nan_h":
+        h[1] = np.nan
+    elif case == "zero_h":
+        h[2] = 0.0
+    z, w, grids, h, d_out = (torch.tensor(a, dtype=dtype) for a in (z, w, grids, h, d_out))
+    with np.errstate(all="ignore"):
+        out = kde1d_grid_plain(z, w, grids, h, "epan")
+    return z, w, grids, h, out, d_out
+
+
+def _host_k4b(lib, args, entry="host_kde1d_adjoint_"):
+    """K4b (Epanechnikov) on the host emulation: (d_z, d_w, d_grid, d_h);
+    ``entry`` host_kde1d_adjoint_unpruned_ for the full sweeps."""
+    z, grids = args[0], args[2]
+    (b, s), g = z.shape, grids.shape[1]
+    got = [torch.zeros_like(t) for t in (z, z, grids, args[3])]
+    fn = getattr(lib, entry + ("f64" if z.dtype == F64 else "f32"))
+    fn.restype = None
+    keep = [t.contiguous() for t in args]
+    fn(*[_ptr(t) for t in (*keep, *got)], b, s, g,
+       *(() if "unpruned" in entry else (0,)))
+    return got
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("case", K4B_CASES)
+def test_pruned_kde1d_adjoint_keeps_the_bits(fused_host_lib, case, dtype):
+    """K4b with both sweeps pruned (kde.cuh, kde_row_adjoint: walk_tiles
+    over kK4bTile-entry tiles, outside_support) gives d_z, d_w, d_grid and
+    d_h of the same bits as the full sweeps (host_kde1d_adjoint_unpruned),
+    float64 and float32, on every case of _k4b_case; on the sorted rows
+    more than half of the tiles are skipped, and tiles are skipped at the
+    ties."""
+    args = _k4b_case(case, dtype)
+    _tally(fused_host_lib)  # what earlier emulations left
+    expect = _host_k4b(fused_host_lib, args, "host_kde1d_adjoint_unpruned_")
+    assert _tally(fused_host_lib) == (0, 0)
+    got = _host_k4b(fused_host_lib, args)
+    tested, skipped = _tally(fused_host_lib)
+    for g, e in zip(got, expect):
+        assert _same_bits(g, e)
+    assert tested > 0 and expect[1].abs().nan_to_num().amax() > 0
+    if case in ("sorted", "tie", "near_edge"):
+        assert skipped > tested // 2 and all(torch.isfinite(t).all() for t in got)
+    if case == "tie":  # u = +-1 exactly at some pairs
+        u = (args[2][0, :, None].double() - args[0][0, None].double()) / args[3][0]
+        assert (u == 1).any() and (u == -1).any()
+
+
+K3B_PAIR_CASES = ("sorted", "unsorted", "tie", "near_edge", "non_finite_z",
+                  "non_finite_c1", "non_finite_grid", "huge_u", "nan_h")
+
+
+def _k3b_pair_case(case: str, dtype, n: int = 257, g: int = 250):
+    """Phase B's inputs of one row: n dL-sorted samples z ~ N(1, 0.1), a
+    g-point linear grid over [0.4, 1.6], random cotangents c1, 1/h = 50;
+    changed as ``case`` says: the samples shuffled ('unsorted'); samples and
+    grid on a 2^-8 lattice at 1/h = 2^5, tile corners at |u| = 1 exactly
+    ('tie') or, the grid shifted by -2^-15, at |u| = 1 - 2^-10
+    ('near_edge'); an infinite and a NaN z, c1 or grid point; 1/h so large
+    that u^2 overflows ('huge_u'); a NaN 1/h."""
+    gen = torch.Generator().manual_seed(12)
+    z = torch.sort(1.0 + 0.1 * torch.randn(n, generator=gen, dtype=F64)).values
+    grid = torch.linspace(0.4, 1.6, g, dtype=F64)
+    c1 = torch.randn(g, generator=gen, dtype=F64)
+    inv_h = 50.0
+    if case in ("tie", "near_edge"):
+        z = torch.round(z * 256.0) / 256.0
+        grid = (torch.arange(g, dtype=F64) + 77.0) / 256.0 - (
+            2.0 ** -15 if case == "near_edge" else 0.0)
+        inv_h = 32.0
+    elif case == "unsorted":
+        z = z[torch.randperm(n, generator=gen)]
+    elif case == "non_finite_z":
+        z[5], z[9] = math.inf, math.nan
+    elif case == "non_finite_c1":
+        c1[20], c1[140] = math.inf, math.nan
+    elif case == "non_finite_grid":
+        grid[17] = math.nan
+    elif case == "huge_u":
+        inv_h = 1e30 if dtype == F32 else 1e200
+    elif case == "nan_h":
+        inv_h = math.nan
+    return z.to(dtype), grid.to(dtype), c1.to(dtype), inv_h
+
+
+def _host_slot_sums(lib, z, grid, c1, inv_h, prune):
+    """K3b's phase B pair sums (adjoint.cuh, slot_pair_sums) of the samples
+    z on the (grid, c1) pairs, pruned or not: (n, 4) a0-a3."""
+    out = torch.zeros(z.shape[0], 4, dtype=z.dtype)
+    f64 = z.dtype == F64
+    fn = getattr(lib, "host_slot_pair_sums_" + ("f64" if f64 else "f32"))
+    fn.restype = None
+    keep = [t.contiguous() for t in (z, grid, c1)]
+    fn(_ptr(keep[0]), z.shape[0], _ptr(keep[1]), _ptr(keep[2]), grid.shape[0],
+       (ctypes.c_double if f64 else ctypes.c_float)(inv_h), int(prune),
+       _ptr(out))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("case", K3B_PAIR_CASES)
+def test_pruned_slot_pair_sums_keep_the_bits(host_lib, case, dtype):
+    """K3b's phase B pruned (slot_pair_sums: tiles of kGridTile grid points,
+    outside_support) gives each sample's four sums of the same bits as the
+    full loop, float64 and float32, on every case of _k3b_pair_case (NaN
+    where NaN); on the sorted row more than half of the tiles are
+    skipped."""
+    args = _k3b_pair_case(case, dtype)
+    _tally(host_lib)
+    expect = _host_slot_sums(host_lib, *args, prune=False)
+    assert _tally(host_lib) == (0, 0)
+    got = _host_slot_sums(host_lib, *args, prune=True)
+    tested, skipped = _tally(host_lib)
+    assert _same_bits(got, expect) and tested > 0
+    if case in ("sorted", "tie", "near_edge"):
+        assert skipped > tested // 2 and torch.all(torch.isfinite(got))
+        assert expect.abs().amax() > 0
+    if case == "tie":
+        u = (args[1][:, None].double() - args[0][None].double()) * args[3]
+        assert (u == 1).any() and (u == -1).any()
+    if case in ("huge_u", "nan_h"):
+        assert skipped == 0
+
+
+K3B_CASES = ("sorted", "unsorted", "zero_weight", "non_finite_ct")
+
+
+def _k3b_case(data, dtype, case):
+    """K3b's arguments (_adjoint_case, effective grids, Epanechnikov) on
+    250-point grids: the emulation data sorted by distance ('sorted'), in
+    catalog order ('unsorted'), sorted with an event without weight
+    ('zero_weight', its h NaN) or with an infinite and a NaN density
+    cotangent ('non_finite_ct')."""
+    args, kw = _adjoint_case(data if case == "unsorted" else _sorted_data(data),
+                             dtype, "effective", "epan")
+    args = list(args)
+    kw["n_grid"] = 250
+    gen = torch.Generator().manual_seed(17)
+    args[7] = torch.randn(args[5].shape[0], args[2].shape[0], 250,
+                          generator=gen, dtype=F64).to(dtype)
+    if case == "zero_weight":
+        args[3] = args[3].clone()
+        args[3][2] = 0.0
+    elif case == "non_finite_ct":
+        args[7][0, 3, 100], args[7][1, 5, 7] = math.inf, math.nan
+    return args, kw
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("case", K3B_CASES)
+def test_pruned_k3b_keeps_the_bits(host_lib, data, case, dtype):
+    """K3b (the adjoint kernel on effective grids, Epanechnikov) with phase
+    B pruned gives d_series and d_params of the same bits as phase B's full
+    loop (host_fused_kde_adjoint_unpruned), float64 and float32, on the
+    cases of _k3b_case; on the sorted rows more than half of the tiles are
+    skipped."""
+    args, kw = _k3b_case(data, dtype, case)
+    _tally(host_lib)
+    expect = _host_adjoint(host_lib, *args, **kw,
+                           entry="host_fused_kde_adjoint_unpruned_")
+    assert _tally(host_lib) == (0, 0)
+    got = _host_adjoint(host_lib, *args, **kw)
+    tested, skipped = _tally(host_lib)
+    assert tested > 0
+    for g, e in zip(got[:2], expect[:2]):
+        assert _same_bits(g, e)
+    if case == "sorted":
+        assert skipped > tested // 2
+    if case in ("sorted", "unsorted"):
+        assert all(torch.isfinite(g).all() for g in got[:2])
+
+
+@pytest.fixture(scope="module")
+def strict_corner_libs(tmp_path_factory):
+    """The host emulations of K4b and K3b built against a copy of the
+    kernels' sources whose corner test skips a tile at |u| = 1 too
+    (outside_support with >= and <=): the mutation that the tie cases must
+    catch."""
+    src = tmp_path_factory.mktemp("mutated_csrc")
+    for f in CSRC.iterdir():
+        if f.suffix in (".cuh", ".cu"):
+            shutil.copy2(f, src / f.name)
+    text = (src / "kde.cuh").read_text()
+    old = "return (u_lo > T(1) && u_hi <= max_u<T>())\n         || (u_hi < T(-1)"
+    assert text.count(old) == 1
+    (src / "kde.cuh").write_text(text.replace(old, old.replace(
+        "u_lo > T(1)", "u_lo >= T(1)").replace("u_hi < T(-1)", "u_hi <= T(-1)")))
+    return (_build_host(tmp_path_factory, "fused_host", src),
+            _build_host(tmp_path_factory, "adjoint_host", src))
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("kernel", ["K4b", "K3b"])
+def test_tie_cases_catch_a_loose_corner_test(strict_corner_libs, kernel, dtype):
+    """A corner test that skips tiles at |u| = 1 (>= in place of >) gives
+    other bits than the full loops on the tie case of K4b and of K3b's
+    phase B, where the slope factor (K4b) or the support weight (K3b, 1/2)
+    is not 0: the tie cases of the tests above can fail."""
+    fused_lib, adjoint_lib = strict_corner_libs
+    if kernel == "K4b":
+        args = _k4b_case("tie", dtype)
+        expect = _host_k4b(fused_lib, args, "host_kde1d_adjoint_unpruned_")
+        got = _host_k4b(fused_lib, args)
+        assert not all(_same_bits(g, e) for g, e in zip(got, expect))
+    else:
+        args = _k3b_pair_case("tie", dtype)
+        assert not _same_bits(_host_slot_sums(adjoint_lib, *args, prune=True),
+                              _host_slot_sums(adjoint_lib, *args, prune=False))

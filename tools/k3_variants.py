@@ -1,4 +1,4 @@
-"""Attribution of the kernels' time on the card (K3, K2b and K2):
+"""Attribution of the kernels' time on the card (K3, K2b, K2, K4b and K3b):
 variant trees with one change each, timed against each other by
 ``chip_smoke.py --k3-ab``, and the instruction mix of K3's pair loop
 (phase B) in SASS.
@@ -74,6 +74,27 @@ _K2_A = ("      const T z = model.z_from_dgw(dl[s]);\n"
 _K2_A_NEW = ("      const T z = T(2.3e-4) * dl[s];\n"
              "      const T w = invp[s];")
 
+# K4b (kde.cuh, kde_row_adjoint) without its sample-major sweep (d_w, d_z)
+# or without its grid-major one (d_grid, d_h's pair sums): those outputs
+# written as zeros; and K3b (adjoint_row in kEffectiveGrid) without phase
+# B's pair loop (every sample's sums 0; the per-sample writes, the block
+# sums and phases A, C and D as they were): each sweep's and phase B's
+# marginal cost at the binned and cut_grid paths' shapes
+# (the parent's full loops, and this tree's pruned ones: walk_tiles over no
+# entries, no tile of phase B's pruned loop)
+_K4B_S = "    A a0 = A(0), a1 = A(0);\n#pragma unroll 4\n    for (int g = 0; g < G; ++g) {"
+_K4B_G = "    A b0 = A(0), b1 = A(0);\n#pragma unroll 4\n    for (int s = 0; s < S; ++s) {"
+_K3B_B = "#pragma unroll 2\n      for (int i = 0; i < a.G; ++i) {"
+_K4B_WALK = "      walk_tiles<kK4bTile>(\n          blk, {}, prune,"
+_K3B_WALK = "    for (int t = 0; t * kGridTile < G; ++t) {"
+# K4b's walk in step (the union of the warp's kept tiles), and each lane on
+# its own next kept tile
+_WALK_UNION = ("    if (prune) {\n      const bool skip = outside(t);\n"
+               "      blk.tile(skip);\n      if (skip) continue;\n    }\n")
+_WALK_OWN = ("    if (prune) {\n      while (t * TILE < n && outside(t)) {\n"
+             "        blk.tile(true);\n        ++t;\n      }\n"
+             "      if (t * TILE >= n) break;\n      blk.tile(false);\n    }\n")
+
 
 class Either(tuple):
     """Alternative lists of changes: the first whose every old text occurs
@@ -105,9 +126,24 @@ VARIANTS = {
     "k2_constA": [Either(([(ADJ, _K2_A, _K2_A_NEW)], [(RC, _RC_A, _RC_A_NEW)]))],
     # K1c on logical rows in blocks of 4 warps, a row each
     "k1c_w4": [(KDE, "constexpr int kStatsWarps = 1;", "constexpr int kStatsWarps = 4;")],
+    "k4b_noS": [Either((
+        [(KDE, _K4B_WALK.format("G"), _K4B_WALK.format("0"))],
+        [(KDE, _K4B_S, _K4B_S.replace("g < G;", "g < 0;"))]))],
+    "k4b_noG": [Either((
+        [(KDE, _K4B_WALK.format("S"), _K4B_WALK.format("0"))],
+        [(KDE, _K4B_G, _K4B_G.replace("s < S;", "s < 0;"))]))],
+    "k3b_noB": [Either((
+        [(ADJ, _K3B_WALK, _K3B_WALK.replace("< G;", "< 0;"))],
+        [(ADJ, _K3B_B, _K3B_B.replace(
+            "i < a.G;", "i < (MODE == kEffectiveGrid ? 0 : a.G);"))]))],
+    # K4b's sweeps in tiles of 8, and with each lane walking its own kept
+    # tiles in place of the warp's union in step
+    "k4b_tile8": [(KDE, "constexpr int kK4bTile = 16;", "constexpr int kK4bTile = 8;"),
+                  (FUSED, "_K4B_TILE = 16", "_K4B_TILE = 8")],
+    "k4b_own": [(KDE, _WALK_UNION, _WALK_OWN)],
 }
-VARIANTS["parent_k2_noB"] = VARIANTS["k2_noB"]
-VARIANTS["parent_k2_constA"] = VARIANTS["k2_constA"]
+for _name in ("k2_noB", "k2_constA", "k4b_noS", "k4b_noG", "k3b_noB"):
+    VARIANTS["parent_" + _name] = VARIANTS[_name]
 
 
 def substitute(text: str, changes, path: str) -> str:
