@@ -328,8 +328,16 @@ constexpr int kMaxP = 2 * kMaxDeg + 2 + kMassScalars;
 // store_partials' columns: those and the derived fields' cotangents
 constexpr int kRedCols = kMaxP + kDerived;
 constexpr int kSamplesPerThread = 4;
-// grid points a tile of K3b's pruned phase B and K2b's pruned pass 2
+// grid points a tile of K3b's and K3d's pruned phase B and K2b's pruned
+// pass 2
 constexpr int kGridTile = 32;
+
+// the tiles' bounds that a row's phase B keeps in shared memory: ceil(G /
+// kGridTile) pairs where it is pruned (K3b, K3d; Epanechnikov), none else
+__host__ __device__ constexpr int grid_tiles(int mode, int kernel, int G) {
+  return (mode == kEffectiveGrid || mode == kExternalBounds) && kernel == 0
+             ? (G + kGridTile - 1) / kGridTile : 0;
+}
 
 // One (grid point, sample) term of the KDE adjoint
 // (chimera_tpu/ops/pallas/fused.py:877-892), u = (g - z) / h and c1 the
@@ -381,14 +389,28 @@ __device__ __forceinline__ T kernel_slope() {
   return KERNEL == 0 ? T(1.5) : T(0.39894228040143267794);
 }
 
+// How phase B walks the grid for a thread's samples (slot_pair_sums):
+// every (grid point, slot) pair; K3b's Epanechnikov tiles kept by a warp
+// ballot per tile and slot; or, per slot, the run of tiles from the first
+// to the last that any lane of the warp with a sample keeps (K3d).
+enum PairWalk { kFullLoop, kBallotWalk, kRunWalk };
+
 // Phase B's pair sums of a thread's kSamplesPerThread samples zv (slot j:
 // the row's sample s0 + j kSize + rank, of n) over the G (grid point, c1)
 // pairs gc, in grid order (kde_pair; frac = i inv_gm1 of grid point i).
-// With PRUNE the grid is walked in tiles of kGridTile points (their bounds
-// in gt) and slot j skips a tile where the corners prove, for every lane of
+// kBallotWalk walks the grid in tiles of kGridTile points (their bounds in
+// gt) and slot j skips a tile where the corners prove, for every lane of
 // the warp with a sample, u > 1 or u < -1 (outside_support; a ballot, so
-// the decision is the warp's), when prune.
-template <typename T, int KERNEL, bool FRAC, bool PRUNE, typename Block>
+// the decision is the warp's), when prune.  kRunWalk takes the slots one
+// by one: a lane with a sample finds the first tile from either end of the
+// grid that the corner test does not prove outside (every tile before the
+// first and after the last is proven: no order of the grid is assumed),
+// the warp takes the least first and the largest last (warp_span), and
+// the slot's sums run over that run of tiles, the whole grid where not
+// prune, nothing where no lane holds a sample.  Each sample keeps its
+// grid order either way, so the skipped pairs' exact zeros aside every
+// sum keeps the full loop's bits.
+template <typename T, int KERNEL, bool FRAC, int WALK, typename Block>
 __device__ __forceinline__ void slot_pair_sums(
     const Block& blk, const T (&zv)[kSamplesPerThread], int s0, int n,
     const typename Pair<T>::type* gc, const typename Pair<T>::type* gt, int G,
@@ -396,7 +418,7 @@ __device__ __forceinline__ void slot_pair_sums(
     T (&a1)[kSamplesPerThread], T (&a2)[kSamplesPerThread],
     T (&a3)[kSamplesPerThread]) {
   using T2 = typename Pair<T>::type;
-  if constexpr (!PRUNE) {
+  if constexpr (WALK == kFullLoop) {
 #pragma unroll 2
     for (int i = 0; i < G; ++i) {
       const T2 p = gc[i];
@@ -406,7 +428,7 @@ __device__ __forceinline__ void slot_pair_sums(
         kde_pair<T, KERNEL, FRAC>((p.x - zv[j]) * inv_h, p.y, frac, a0[j],
                                   a1[j], a2[j], a3[j]);
     }
-  } else {
+  } else if constexpr (WALK == kBallotWalk) {
     for (int t = 0; t * kGridTile < G; ++t) {
       const T2 b = gt[t];
       bool keep[kSamplesPerThread], any = false;
@@ -430,6 +452,37 @@ __device__ __forceinline__ void slot_pair_sums(
           if (keep[j])
             kde_pair<T, KERNEL, FRAC>((p.x - zv[j]) * inv_h, p.y, frac,
                                       a0[j], a1[j], a2[j], a3[j]);
+      }
+    }
+  } else {
+    const int n_tiles = (G + kGridTile - 1) / kGridTile;
+#pragma unroll
+    for (int j = 0; j < kSamplesPerThread; ++j) {
+      const int idx = s0 + j * Block::kSize + blk.rank();
+      int first = n_tiles, last = -1;  // the slot's run of tiles
+      if (idx < n) {
+        first = 0;
+        last = n_tiles - 1;
+        const auto outside = [&](int t) {
+          return outside_support((gt[t].x - zv[j]) * inv_h,
+                                 (gt[t].y - zv[j]) * inv_h);
+        };
+        while (prune && first <= last && outside(first)) ++first;
+        while (prune && first < last && outside(last)) --last;
+        if (first > last) {
+          first = n_tiles;
+          last = -1;
+        }
+      }
+      blk.warp_span(first, last);
+      if (idx < n)
+        for (int t = 0; t < n_tiles; ++t) blk.tile(t < first || t > last);
+      const int i1 = (last + 1) * kGridTile < G ? (last + 1) * kGridTile : G;
+#pragma unroll 2
+      for (int i = first * kGridTile; i < i1; ++i) {
+        const T2 p = gc[i];
+        kde_pair<T, KERNEL, FRAC>((p.x - zv[j]) * inv_h, p.y, T(i) * inv_gm1,
+                                  a0[j], a1[j], a2[j], a3[j]);
       }
     }
   }
@@ -989,7 +1042,7 @@ struct AdjointSmem {
   typename Pair<T>::type* gc;
   T* st;
   int cap;
-  typename Pair<T>::type* gt;  // K3b's pruned phase B: (g_lo, g_hi) a tile
+  typename Pair<T>::type* gt;  // pruned phase B: (g_lo, g_hi) a tile
 };
 
 // K3 for the (lambda l, row b) of the forward in MODE (kde.cuh, FusedMode),
@@ -1022,22 +1075,26 @@ struct AdjointSmem {
 //            cotangents onto their coefficients (project), sm.cap samples
 //            at a time.
 //
-// With PRUNE (the default for the Epanechnikov kernel; the host emulation's
-// oracle takes it off), K3b's phase B (kEffectiveGrid; the other modes keep
-// the full loop) walks the row's linear grid in tiles of kGridTile points
-// (bounds in sm.gt over every point, spoiled by a non-finite point or c1)
-// and, for each of a thread's kSamplesPerThread slots, skips a tile where
-// every lane of the warp holds a sample (or none) whose corners give u > 1,
-// or u < -1, at both ends within max_u (outside_support, kde.cuh; a ballot:
-// the warp stays converged).  There the support weight is 0 (|u| > 1
-// strictly: at |u| = 1 it is 1/2), m = c1 * 0 is +-0 and so are m q, m u,
-// m u^2 and m u frac (q, u and frac finite), which leave a0-a3 as they
-// were.  Each sample keeps its thread, its slot and its grid order, so
-// every sum and the block sums of kde[] keep the full loop's bits.  The
-// samples are sorted by dL (likelihood.py), so a warp's 32 samples of a
-// slot lie in a sliver of the row's z range.  Tiles of 16 or 8 points keep
-// fewer terms but cost more tests: they took longer on an H100 (PERF.md).
-template <typename T, typename S, int KERNEL, int MODE, bool PRUNE = KERNEL == 0,
+// With PRUNE (the default; the host emulation's oracle takes it off),
+// the Epanechnikov phase B of K3b (kEffectiveGrid) and K3d
+// (kExternalBounds) walks the row's linear grid in tiles of kGridTile
+// points (bounds in sm.gt over every point, spoiled by a non-finite point
+// or c1) and, for each of a thread's kSamplesPerThread slots, skips a tile
+// where every lane of the warp holds a sample (or none) whose corners give
+// u > 1, or u < -1, at both ends within max_u (outside_support, kde.cuh):
+// K3b by a ballot per tile and slot, K3d by each slot's run of tiles
+// (slot_pair_sums; the warp stays converged either way).  There the
+// support weight is 0 (|u| > 1 strictly: at |u| = 1 it is 1/2), m = c1 * 0
+// is +-0 and so are m q, m u, m u^2 and m u frac (q, u and frac finite),
+// which leave a0-a3 as they were.  K3d, both kernels, also skips a slot
+// that no lane of the warp holds a sample for (a logical row holds ~S_l /
+// npix of its S slots).  Each sample keeps its thread, its slot and its
+// grid order, so every sum and the block sums of kde[] keep the full
+// loop's bits.  The samples are sorted by dL (likelihood.py), so a warp's
+// 32 samples of a slot lie in a sliver of the row's z range.  K3b's tiles
+// of 16 or 8 points kept fewer terms but cost more tests: they took longer
+// on an H100 (PERF.md).  K3 and the Gaussian K3b keep the full loop.
+template <typename T, typename S, int KERNEL, int MODE, bool PRUNE = true,
           typename Block, typename Acc>
 __device__ __forceinline__ void adjoint_row(
     const Block& blk, const Model<T, S>& model,
@@ -1130,7 +1187,9 @@ __device__ __forceinline__ void adjoint_row(
     }
     blk.sync();
     const T inv_gm1 = kLinear ? T(1) / T(a.G - 1) : T(0);
-    constexpr bool kPrune = PRUNE && KERNEL == 0 && MODE == kEffectiveGrid;
+    constexpr bool kPrune = PRUNE && KERNEL == 0 && kLinear;
+    constexpr int kWalk = PRUNE && MODE == kExternalBounds ? kRunWalk
+                          : kPrune ? kBallotWalk : kFullLoop;
     if constexpr (kPrune)
       tile_bounds<T, kGridTile, false>(blk, sm.gc, a.G, sm.gt);
     const bool prune = kPrune && inv_h > T(0);
@@ -1143,9 +1202,9 @@ __device__ __forceinline__ void adjoint_row(
         zv[j] = sm.z[idx < n ? idx : n - 1];
         a0[j] = a1[j] = a2[j] = a3[j] = T(0);
       }
-      slot_pair_sums<T, KERNEL, kLinear, kPrune>(blk, zv, s0, n, sm.gc, sm.gt,
-                                                  a.G, inv_h, prune, inv_gm1,
-                                                  a0, a1, a2, a3);
+      slot_pair_sums<T, KERNEL, kLinear, kWalk>(blk, zv, s0, n, sm.gc, sm.gt,
+                                                 a.G, inv_h, prune, inv_gm1,
+                                                 a0, a1, a2, a3);
 #pragma unroll
       for (int j = 0; j < kSamplesPerThread; ++j) {
         const int idx = s0 + j * Block::kSize + blk.rank();

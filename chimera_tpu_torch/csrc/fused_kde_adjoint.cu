@@ -65,12 +65,20 @@
 // K3b take blocks of 8 warps (their rows of S samples fill them; 16 warps an
 // SM), K3d and K3c's event rows blocks of 4, and K3c's logical rows (~S /
 // npix real samples, unequal) blocks of one warp, so that a warp with a
-// large pixel holds back no other.  K3b's Epanechnikov phase B skips the
-// tiles of kGridTile grid points whose corners prove every term of a warp's
-// 32 samples of a slot exactly zero (adjoint_row: a ballot; the dL-sorted
+// large pixel holds back no other.  K3d's logical rows hold ~200 real
+// samples each at the dark flagship (those with any): a warp a row ran
+// them slower on an H100 (PERF.md).  The Epanechnikov phase B of K3b and
+// K3d skips the tiles of kGridTile grid points whose corners prove every
+// term of a warp's 32 samples of a slot exactly zero (the dL-sorted
 // samples of a slot lie in a sliver of the row, their support ~ +-h of
-// it); its tiles' bounds are ceil(G / kGridTile) pairs more of shared
-// memory.  Later work: the same pruning for K3 on analysis grids and K3d.
+// it; K3d's grid spans the whole event's range, a pixel's samples a part
+// of it): K3b by a ballot per tile and slot, K3d by each slot's run of
+// tiles, whose two ends each lane finds by the corner test from either
+// end of the grid (slot_pair_sums: faster than the ballot for K3d on an
+// H100); K3d, either kernel, also skips the slots of a round that no lane
+// of the warp holds a sample for.  Their tiles' bounds are ceil(G /
+// kGridTile) pairs more of shared memory.  Every output keeps the bits of
+// the full loop.  Later work: the same pruning for K3 on analysis grids.
 
 #include "adjoint.cuh"
 
@@ -99,7 +107,7 @@ fused_kde_adjoint_kernel(const AdjointArgs<T> a,
   sm.gc = reinterpret_cast<T2*>(sm.dw + a.S);  // G (grid point, c1) pairs
   sm.st = sm.z;  // phase D's stash: the row's own slots
   sm.cap = a.S;
-  sm.gt = sm.gc + a.G;  // K3b's tile bounds
+  sm.gt = sm.gc + a.G;  // the pruned phase B's tile bounds
   constexpr int W = row_warps(MODE);
   __shared__ T scratch[4][W];
   __shared__ T red[W + 1][kRedCols];
@@ -183,11 +191,9 @@ int launch_mode(const AdjointArgs<T>& a, double* d_series, T* d_params,
       err = cudaGetLastError();
     }
   } else {
-    const size_t tiles = MODE == kEffectiveGrid && KERNEL == 0
-                             ? (a.G + kGridTile - 1) / kGridTile : 0;
     const size_t smem = rb + ((size_t)4 * a.S
                               + (MODE == kStatsOnly ? 0 : 2 * (size_t)a.G)
-                              + 2 * tiles)
+                              + 2 * (size_t)grid_tiles(MODE, KERNEL, a.G))
                                  * sizeof(T);
     auto kernel = fused_kde_adjoint_kernel<T, S, KERNEL, MODE>;
     err = cudaFuncSetAttribute(

@@ -624,10 +624,11 @@ __device__ __forceinline__ void contract_epilogue_tiles(
 // den_scale 'norms' (1 / (h S_l)) or 'unit' (1 / (h sum w)); in mode (e)
 // the unit-mass KDE contracted in the block, r = (r1, r2) of the row, 0
 // exactly where the row's weight is below sqrt(tiny).  On the analysis
-// grids the Epanechnikov KDE takes the pruned pair loop (contract_pruned,
-// its sample tiles' bounds in `tiles`, ceil(S / kTileS) pairs) unless
-// PRUNE is false (the host emulation's oracle); the other modes keep
-// contract.
+// grids and on the effective grid (K1b: the row's sorted linear grid
+// lo + delta g, computed as contract computes it) the Epanechnikov KDE
+// takes the pruned pair loop (contract_pruned, its sample tiles' bounds in
+// `tiles`, ceil(S / kTileS) pairs) unless PRUNE is false (the host
+// emulation's oracle); the other modes keep contract.
 template <typename T, typename S, int KERNEL, int MODE, bool PRUNE = true,
           typename Block>
 __device__ __forceinline__ void fused_row(const Block& blk,
@@ -681,8 +682,15 @@ __device__ __forceinline__ void fused_row(const Block& blk,
     }
   } else {
     const T lo = st.lo, delta = (st.ub - st.lo) / T(a.G - 1);
-    contract<T, KERNEL>(blk, zw, st.n, a.G, inv_h, scale,
-                        [lo, delta](int g) { return lo + delta * T(g); }, out);
+    const auto grid_at = [lo, delta](int g) { return lo + delta * T(g); };
+    if (MODE == kEffectiveGrid && KERNEL == 0 && PRUNE) {
+      tile_bounds<T, kTileS, true>(blk, zw, st.n, tiles);
+      contract_pruned<T, kTileS, kTileG>(
+          blk, zw, tiles, st.n, a.G, inv_h, grid_at,
+          [out, scale](int g, T sum) { out[g] = sum * scale; });
+    } else {
+      contract<T, KERNEL>(blk, zw, st.n, a.G, inv_h, scale, grid_at, out);
+    }
   }
 }
 

@@ -290,10 +290,10 @@ __device__ __forceinline__ void block_minmax(T& lo, T& hi, T (*scratch)[W]) {
 // A CUDA block of W warps (kThreads threads by default) as the `Block` of
 // the arithmetic written once for a block (kde.cuh, adjoint.cuh): the
 // thread's rank, the stride, its lane in its warp, block-wide sums,
-// min/max, any and a barrier; over the thread's warp a min/max and a
-// ballot.  The host emulation (tests/host_emulation) runs the same
-// functions with a block of one thread, whose `tile` tallies the tiles the
-// pruned pair loops (kde.cuh) test and skip.
+// min/max, any and a barrier; over the thread's warp a min/max, a ballot
+// and the span of two ints.  The host emulation (tests/host_emulation)
+// runs the same functions with a block of one thread, whose `tile` tallies
+// the tiles the pruned pair loops (kde.cuh) test and skip.
 template <typename T, int W = kWarps>
 struct DeviceBlock {
   T (*scratch)[W];
@@ -324,6 +324,11 @@ struct DeviceBlock {
     return __ballot_sync(0xffffffffu, v);
   }
   __device__ __forceinline__ void tile(bool) const {}
+  // the least lo and the largest hi over the thread's warp
+  __device__ __forceinline__ void warp_span(int& lo, int& hi) const {
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+  }
 };
 
 // A warp as a `Block` of its own (K3c on logical rows: a warp a row): its

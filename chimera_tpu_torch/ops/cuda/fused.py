@@ -80,9 +80,10 @@ _ADJOINT_MAX_DEG = 64
 _ADJOINT_STATIC_SMEM = 12288
 # the tile widths of the pruned Epanechnikov pair loops (csrc/kde.cuh
 # kTileS, kTileG, kK4bTile; csrc/adjoint.cuh kGridTile): samples a tile and
-# grid points a warp's run in K1a and K2b's pass 1, grid points a tile in
-# K2b's pass 2 and in K3b's phase B, bins or grid points a tile in K4b's two
-# sweeps; each tile's (lo, hi) takes two values of shared memory
+# grid points a warp's run in K1a, K1b and K2b's pass 1, grid points a tile
+# in K2b's pass 2 and in K3b's and K3d's phase B, bins or grid points a tile
+# in K4b's two sweeps; each tile's (lo, hi) takes two values of shared
+# memory
 _TILE_S = 32
 _TILE_G = 32
 _GRID_TILE = 32
@@ -471,7 +472,7 @@ def fused_weights_kde(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids=None,
         "fused_weights_kde", m1det, m2det, dl, inv_pe_prior, cosmo, mass,
         n_real, dl_fill, logical_s,
         8 if mode in (_EXTERNAL_BOUNDS, _CONTRACT) else dl.element_size(),
-        tiles=mode == _ANALYSIS_GRID and kernel == "epan")
+        tiles=mode in (_ANALYSIS_GRID, _EFFECTIVE_GRID) and kernel == "epan")
     kw = dict(kernel=kernel, bw_method=bw_method,
               n_grid=0 if n_grid is None else int(n_grid), logical_s=logical_s,
               cut_grid=cut_grid, den_scale=den_scale)
@@ -678,8 +679,8 @@ def fused_weights_kde_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
     # its scaled cotangents; the dark-siren modes (c, d) sum the Chebyshev
     # series in float64 as their forward does
     dense = mode in (_EXTERNAL_BOUNDS, _STATS_ONLY)
-    tiles = -(-g // _GRID_TILE) if mode == _EFFECTIVE_GRID and kernel == "epan" \
-        else 0  # K3b's pruned phase B: its tiles' bounds
+    tiles = -(-g // _GRID_TILE) if mode in (_EFFECTIVE_GRID, _EXTERNAL_BOUNDS) \
+        and kernel == "epan" else 0  # K3b's, K3d's pruned phase B: tile bounds
     smem = smem_bytes(series, 8 if dense else dl.element_size(), params,
                       4 * s + 2 * g + 2 * tiles + _RECORD_EXTRA)
     if smem > _SMEM_LIMIT - _ADJOINT_STATIC_SMEM:

@@ -1190,11 +1190,14 @@ def reference_defaults(smi: str, full, dark_data) -> list[dict]:
         q, g = 12 + mass.window_deg, kw["n_grid"]
         cheb = CHEB_OPS * cosmo.cheb_deg
         if kind == "1d":
-            e, s = args[2].shape
             kid, rest = "K1b", ""
-            b_ms, b_by = bound(4 * (4 * e * s + n * q + n * e * (g + 8))
-                               + 8 * n * (cosmo.cheb_deg + 2),
-                               n * e * s * (cheb + KDE_OPS * g))
+            pairs = k1b_pairs(args, kw)
+            b_ms, b_by = k1b_bound(args, kw, pairs)
+            terms = (f"; on every pair {k1b_bound(args, kw)[0]:.4f} ms; live "
+                     f"terms {pairs['live']} of {pairs['all']} "
+                     f"({pairs['live'] / pairs['all']:.4%}), the pruned loop "
+                     f"evaluates {pairs['tiled']} "
+                     f"({pairs['tiled'] / pairs['all']:.4%})")
         else:
             b = args[2].shape[0]
             n_real = int(kw["n_real"].sum())
@@ -1208,6 +1211,7 @@ def reference_defaults(smi: str, full, dark_data) -> list[dict]:
                                     + n * b * (g + 8)) + 8 * b
                                + 8 * n * (cosmo.cheb_deg + 2),
                                n * n_real * (cheb + KDE_OPS * g))
+            terms = ""
         prec = mock(*PRECISION_MOCK) if kind == "1d" else parity_dark_mock(DEV)
         rel, _, _ = f32_vs_f64(make(prec, F64, **cut), make(prec, F32, **cut),
                                torch.linspace(58.0, 100.0, 7, device=DEV))
@@ -1220,8 +1224,8 @@ def reference_defaults(smi: str, full, dark_data) -> list[dict]:
               f"{k_med:.4f} ± {k_mad:.4f} ms; {rest}rest {rest_ms:.4f} ms; "
               f"{kid} per call "
               f"{statistics.median(kern):.3f} ms, plain {plain[0]:.3f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}); den max err {den_rel:.3e} of the row max, "
-              f"stats {stat_rel:.3e}")
+              f"{b_ms:.4f} ms ({b_by}){terms}; den max err {den_rel:.3e} of the "
+              f"row max, stats {stat_rel:.3e}")
         entries[kid] = {
             "name": f"fused_weights_kde ({kid})", "route": "cuda",
             "source": "chimera_tpu_torch/csrc/fused_kde.cu",
@@ -1229,6 +1233,8 @@ def reference_defaults(smi: str, full, dark_data) -> list[dict]:
             "max_abs_err": den_abs, "ms": statistics.median(kern),
             "plain_ms": plain[0], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
+        if kid == "K1b":
+            entries[kid]["redesigned"] = 11
         del hl, args, kw, prec
     for binning, launched in ((True, {"K4": 1}), (False, {"K1b": 1})):
         hl = dark_likelihood(dark_data, F32, kind="approximate", binning=binning,
@@ -1732,6 +1738,124 @@ def k3b_pairs(args, kw, widths=None) -> dict:
     return out
 
 
+def _run_terms(keep, n_in: int, width: int) -> int:
+    """32 x the entries of each warp's run of tiles: outputs (N, O) that
+    take the tiles ``keep`` (N, O, T) of n_in entries, a warp 32
+    consecutive outputs walking every tile from the first that any of its
+    lanes keeps to the last."""
+    t = keep.shape[-1]
+    n_t = torch.full((t,), float(width), dtype=F64, device=keep.device)
+    n_t[-1] = n_in - width * (t - 1)
+    cum = torch.nn.functional.pad(n_t.cumsum(0), (1, 0))
+    pad = (-keep.shape[1]) % 32
+    union = torch.nn.functional.pad(keep, (0, 0, 0, pad)).unflatten(
+        1, (-1, 32)).any(2)
+    any_kept = union.any(-1)
+    first = union.double().argmax(-1)
+    last = t - 1 - union.flip(-1).double().argmax(-1)
+    return int((32 * (cum[last + 1] - cum[first]) * any_kept).sum())
+
+
+def k1b_pairs(args, kw) -> dict:
+    """K1b's pair terms on its inputs (fused_weights_kde's, the
+    effective-grid mode): 'all' (λ, row, grid point, sample); 'live', those
+    with |g - z| < h and w != 0, the terms of the Epanechnikov density that
+    are not exactly 0; 'tiled', those the pruned loop evaluates
+    (_tiled_terms).  The grid, h and z are the plain stats pass's, in
+    float64."""
+    from chimera_tpu_torch.ops.cuda.fused import fused_row_stats_plain
+
+    m1, m2, dl, invp, cosmo, mass = args[:6]
+    g = int(kw["n_grid"])
+    b = dl.shape[0]
+    rows = 250
+    with torch.no_grad():
+        st = fused_row_stats_plain(m1, m2, dl, invp, cosmo, mass,
+                                   cut_grid=kw["cut_grid"])
+        z, w = _z_and_w(m1, m2, dl, invp, cosmo, mass)
+        frac = torch.arange(g, dtype=F64, device=dl.device)
+        out = {"all": z.numel() * g, "live": 0, "tiled": 0}
+        for l in range(z.shape[0]):
+            lo, ub = st["lo"][l].double(), st["ub"][l].double()
+            h = st["bandwidth"][l].double()
+            grid = lo[:, None] + ((ub - lo) / (g - 1))[:, None] * frac
+            for r0 in range(0, b, rows):
+                zz, ww, gg, hh = (z[l, r0:r0 + rows], w[l, r0:r0 + rows],
+                                  grid[r0:r0 + rows], h[r0:r0 + rows])
+                out["live"] += _in_support(zz, ww != 0, hh, gg, False)
+                out["tiled"] += _tiled_terms(zz, ww, hh, gg)
+    return out
+
+
+def k3d_pairs(args, kw, widths=None) -> dict:
+    """K3d's pair terms on its inputs (fused_weights_kde_adjoint's, the
+    mode of given bounds on logical rows): 'all' (λ, row, real sample,
+    grid point), the pairs of K3d's all-pairs bound; 'slots', the
+    (slot, grid point) pairs of the 4-warp block a row (rounds of 512
+    slots, a slot past the row's samples evaluated and dropped); 'live',
+    the real samples' pairs with |u| <= 1, where the support weight is not
+    0; per tile width w (``widths``, the kernel's _GRID_TILE by default):
+    'kept{w}', 'warp{w}' and 'union{w}' of _tile_terms and 'run{w}'
+    (_run_terms), a warp's 32 consecutive samples of one slot over tiles of
+    the row's linear grid on the given (lo, ub).  h and z are the plain
+    stats pass's on the logical rows, in float64."""
+    from chimera_tpu_torch.ops.cuda.fused import (_GRID_TILE,
+                                                  fused_row_stats_plain)
+
+    m1, m2, dl, invp, cosmo, mass = (args[0], args[1], args[2], args[3],
+                                     args[9], args[10])
+    g, ext = int(kw["n_grid"]), kw["ext_bounds"].double()
+    (b, s) = dl.shape
+    n_real = kw["n_real"].to(dl.device).clamp(0, s)
+    real = torch.arange(s, device=dl.device)[None] < n_real[:, None]
+    rows = 500  # a chunk's rows: (rows, S, tiles) values at a time
+    with torch.no_grad():
+        st = fused_row_stats_plain(m1, m2, dl, invp, cosmo, mass,
+                                   n_real=kw["n_real"], dl_fill=kw["dl_fill"],
+                                   logical_s=kw["logical_s"])
+        z, _ = _z_and_w(m1, m2, dl, invp, cosmo, mass)
+        frac = torch.arange(g, dtype=F64, device=dl.device)
+        n = z.shape[0]
+        out = {"all": n * int(real.sum()) * g,
+               "slots": n * int(((n_real + 511) // 512).sum()) * 512 * g,
+               "live": 0}
+        for l in range(n):
+            lo, ub = ext[l, :, 0], ext[l, :, 1]
+            h = st["bandwidth"][l].double()
+            grid = lo[:, None] + ((ub - lo) / (g - 1))[:, None] * frac
+            for r0 in range(0, b, rows):
+                zz, gg, hh, rr = (z[l, r0:r0 + rows], grid[r0:r0 + rows],
+                                  h[r0:r0 + rows], real[r0:r0 + rows])
+                out["live"] += _in_support(zz, rr, hh, gg, True)
+                for w in widths or (_GRID_TILE,):
+                    keep = _adjoint_tiles(zz, gg, 1.0 / hh, w, False) & rr[..., None]
+                    _add_tile_terms(out, keep, g, w)
+                    out[f"run{w}"] = out.get(f"run{w}", 0) + _run_terms(keep, g, w)
+    return out
+
+
+def k1b_bound(args, kw, pairs: dict | None = None) -> tuple[float, str]:
+    """The least time of K1b on these inputs: bytes, the PE rows read and
+    the densities and stats written once; operations, per (λ, sample) the
+    distance series' Clenshaw sum and the mass model's forward (and the
+    window series where the source mass lies in its window), per (λ, row,
+    grid point) the grid point and the density's scale, and the KDE's pair
+    terms: those of ``pairs['live']`` (k1b_pairs: the terms that are not
+    exactly 0), or every pair where ``pairs`` is None (the all-pairs count,
+    which charges the series only)."""
+    m1, dl, cosmo, mass = args[0], args[2], args[4], args[5]
+    n, (e, s), g = max(cosmo.L, mass.L), dl.shape, int(kw["n_grid"])
+    q = 12 + mass.window_deg
+    n_bytes = (dl.element_size() * (4 * e * s + n * q + n * e * (g + 8))
+               + 8 * n * (cosmo.cheb_deg + 2))
+    if pairs is None:
+        return bound(n_bytes, n * e * s * (CHEB_OPS * cosmo.cheb_deg + KDE_OPS * g))
+    ops = (n * e * s * (CHEB_OPS * cosmo.cheb_deg + MASS_FWD_OPS)
+           + CHEB_OPS * mass.window_deg * window_pairs(cosmo, mass, m1, dl)
+           + 2 * n * e * g + KDE_OPS * pairs["live"])
+    return bound(n_bytes, ops)
+
+
 def k1a_bound(args, pairs: dict | None = None) -> tuple[float, str]:
     """The least time of K1a on these inputs: bytes, the PE rows and grids
     read and the densities and stats written once; operations, per
@@ -2047,6 +2171,18 @@ def dark_gradients(smi: str, full, dark_data, forward_entries: list[dict]
                          f"({pairs['live'] / pairs['all']:.4%}); the pruned "
                          f"phase B evaluates {kept} ({kept / pairs['all']:.4%}"
                          f", tiles of {_GRID_TILE} grid points a warp's slot)")
+            elif kid == "K3d":
+                pairs = k3d_pairs(args, kw)
+                b_ms, b_by = k3_bound(args, kw, pairs)
+                all_ms = k3_bound(args, kw)[0]
+                kept = pairs[f"run{_GRID_TILE}"]
+                extra = (f"; on every pair {all_ms:.4f} ms; live pairs "
+                         f"{pairs['live']} of {pairs['all']} real "
+                         f"({pairs['live'] / pairs['all']:.4%}); the 4-warp "
+                         f"block's slots {pairs['slots']}; the pruned phase B "
+                         f"evaluates {kept} ({kept / pairs['all']:.4%}, each "
+                         f"warp's slot over its run of {_GRID_TILE}-point "
+                         f"tiles; their union {pairs[f'union{_GRID_TILE}']})")
             else:
                 b_ms, b_by = k3_bound(args, kw)
             k_call = statistics.median(kern)
@@ -2069,8 +2205,8 @@ def dark_gradients(smi: str, full, dark_data, forward_entries: list[dict]
                     "launches": launched[kid], "max_abs_err": abs_err,
                     "ms": k_call, "plain_ms": plain_ms, "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": None}
-                if kid == "K3c":
-                    entries[kid]["redesigned"] = 7
+                if kid in ("K3c", "K3d"):
+                    entries[kid]["redesigned"] = 7 if kid == "K3c" else 11
         del calls, kernels
         t_med, t_mad = med_mad([t / n for t in total])
         f_med, f_mad = med_mad([t / n for t in fwd])
@@ -2485,7 +2621,7 @@ def binned_gradients(smi: str, full, dark_data) -> dict:
 # its work; K3 less either is the pair loop's marginal cost, not its time:
 # other blocks' work hides in it); K3c on the dark flagship's logical pixel
 # rows and on the dark cut_grid path's event rows.  Then the ptxas lines of
-# the float32 Epanechnikov K3 and K3b and the float32 K3c instantiations of a tree
+# the float32 Epanechnikov K3, K3b and K3d and the float32 K3c instantiations of a tree
 # that builds them in that process.  It uses only helpers that chip_smoke.py has had
 # since K3c was ported, so it runs in older trees.
 K3_TIMING = r"""
@@ -2527,19 +2663,23 @@ for path, cfg in (("dark", cs.DARK), ("dark_cut", cs.DARK_CUT)):
 log = build.build_info.get("fused_kde_adjoint", {}).get("log", "").splitlines()
 for i, ln in enumerate(log):
     if "entry function" in ln and any(k in ln for k in (
-            "IffLi0ELi0", "IffLi0ELi1", "IfdLi0ELi3", "stats_rows_kernelIf")):
+            "IffLi0ELi0", "IffLi0ELi1", "IfdLi0ELi3", "IfdLi0ELi2",
+            "stats_rows_kernelIf")):
         print("  ptxas:", " | ".join(
             m.split("ptxas info    :")[-1].strip() for m in log[i:i + 4]
             if "entry function" in m or "spill" in m or "registers" in m))
 """
 
 
-# K1a, K2b, K2, K1c, K4b and K3b in the tree it is run from, ms per call:
+# K1a, K2b, K2, K1c, K4b, K3b, K1b and K3d in the tree it is run from, ms
+# per call:
 # K1a at the spectral headline (16 λ, float32) and on the first 2 of its
 # 500 grid points (phase A and the row stats; the pair loop 1/250 of its
 # work); K4b on the binned spectral headline's and the binned dark
 # flagship's own cotangents (the reference's defaults, phase 24); K3b on
-# the spectral cut_grid path's own cotangents (phase 21); K2b on the dark
+# the spectral cut_grid path's own cotangents (phase 21); K1b on the
+# spectral cut_grid path's inputs (phase 18) at phase 14's points; K3d on
+# the dark cut_grid path's own cotangents (phase 21); K2b on the dark
 # flagship path's own cotangents and on 2 grid points of the same rows
 # (phases A and D); K2 at the dark flagship on rows_inputs' rows ((1/h,
 # scale) from the plain stats pass, so they do not depend on K1c); K1c on
@@ -2547,17 +2687,22 @@ for i, ln in enumerate(log):
 # path's rows).  End to end, ms per λ at the 16 points of phase 14: the
 # spectral headline's value-and-gradient call and forward batch (phases 14
 # and 6), the value-and-gradient calls of the binned spectral and dark
-# paths (phase 24), of the spectral cut_grid path and of the dark flagship
-# (phase 21).  The outputs of the kernel calls, of the Gaussian kernel's
-# on the same inputs, and of float64 K1a (64 events, L = 4), K2b, K2, K1c,
-# K4b and K3b (the same calls' inputs in float64; K3b also on
-# mode_inputs' random cotangents) go to the file argv[1] with a hash of
-# each call's inputs, for --k3-ab to hold bit for bit against this tree's.
-# Then the live pairs (where the tree's chip_smoke.py counts them; K4b's
-# and K3b's kept terms at tile widths 8, 16 and 32) and the ptxas lines of
-# the float32 Epanechnikov K1a, K1c, K2, K2b, K3b and K4b of a tree that
-# builds them in that process.  It uses only helpers that chip_smoke.py
-# has had since K4b was ported, so it runs in older trees.
+# paths (phase 24), of the spectral and dark cut_grid paths and of the dark
+# flagship (phase 21), and the spectral cut_grid forward batch (phase 18).
+# The outputs of the kernel calls, of the Gaussian kernel's on the same
+# inputs, and of float64 K1a (64 events, L = 4), K2b, K2, K1c, K4b, K3b, K1b
+# and K3d (the same calls' inputs in float64; K3b also on mode_inputs'
+# random cotangents), and those of K3 (the spectral headline's backward),
+# K3c (the dark flagship's and the dark cut_grid path's), K1d and K4 (both
+# binned paths' forward) on their paths' own inputs, go to the file
+# argv[1] with a hash of each call's inputs (an output of more than 2^22
+# entries as a hash of its bytes), for --k3-ab to hold bit for bit against
+# this tree's.  Then the live pairs
+# (where the tree's chip_smoke.py counts them; K4b's and K3b's kept terms
+# at tile widths 8, 16 and 32, K3d's at 16 and 32) and the ptxas lines of
+# the float32 Epanechnikov K1a, K1b, K1c, K2, K2b, K3b, K3d and K4b of a
+# tree that builds them in that process.  It uses only helpers that
+# chip_smoke.py has had since K4b was ported, so it runs in older trees.
 PAIR_TIMING = r"""
 import hashlib, os, statistics, sys
 sys.path.insert(0, os.getcwd())
@@ -2580,14 +2725,32 @@ def report(name, fn, n=1):
           f"max {max(t):.4f} ms per " + ("λ" if n > 1 else "call"), flush=True)
 
 def keep(name, inputs, out):
+    # an output of more than 2^22 entries is kept as a hash of its bytes
     if isinstance(out[-1], dict):
         out = (out[0], *out[-1].values())
-    saved[name] = [t.detach().cpu() for t in out]
+    saved[name] = [t.detach().cpu() if t.numel() <= 1 << 22 else
+                   f"{t.dtype}, {tuple(t.shape)}, sha256 " + hashlib.sha256(
+                       t.detach().cpu().contiguous().view(torch.uint8).numpy()
+                   ).hexdigest() for t in out if t is not None]
     h = hashlib.sha256()
     for t in inputs:
         if torch.is_tensor(t):
             h.update(t.detach().cpu().contiguous().numpy().tobytes())
     saved[name + ", inputs"] = h.hexdigest()
+
+def keep_call(name, fn, call, ckw, slot=None, kernels=("epan", "gauss")):
+    # fn's outputs on the call and on its float64 cast, each KDE kernel (the
+    # positional argument ``slot``, else the keyword)
+    for dtype, (c, k) in (("float32", (list(call), ckw)),
+                          ("float64", cs.in_float64(call, ckw))):
+        for kernel in kernels:
+            c = list(c)
+            if slot is None:
+                k = dict(k, kernel=kernel)
+            else:
+                c[slot] = kernel
+            out = fn(*c, **k)
+            keep(f"{name} {dtype} {kernel}", c, [out] if torch.is_tensor(out) else out)
 
 def k2b_two_points(a):
     a = list(a)
@@ -2598,6 +2761,9 @@ def k2b_two_points(a):
 def k4b_block(name, hl):
     a, kw = cs.calls_of(kde, "kde1d_grid_adjoint",
                         lambda: cs.value_and_grad(hl, x))[-1]
+    k4_args, k4_kw = cs.captured("kde1d_grid",
+                                 lambda: hl.log_like_batch(cs.batch_of(x)))
+    keep_call(f"K4 {name}", kde.kde1d_grid, k4_args, k4_kw)
     report(f"{name} value and gradient", lambda: cs.value_and_grad(hl, x), 16)
     report(f"K4b, {name}", lambda: k4b(*a, **kw))
     if hasattr(cs, "k4b_pairs"):
@@ -2623,6 +2789,39 @@ def k3b_block(hl):
                 call[11] = kernel
                 keep(f"K3b {src} {dtype} {kernel}", call, k3(*call, **ckw)[:2])
 
+def k1b_block(hl):
+    args, kw = cs.captured("fused_weights_kde",
+                           lambda: hl.log_like_batch(cs.batch_of(x)))
+    report("spectral cut_grid forward batch",
+           lambda: hl.log_like_batch(cs.batch_of(x)), 16)
+    report("K1b, spectral cut_grid", lambda: k1(*args, **kw))
+    if hasattr(cs, "k1b_pairs"):
+        print(f"  K1b pair terms: {cs.k1b_pairs(args, kw)}", flush=True)
+    for dtype, (call, ckw) in (("float32", (list(args), kw)),
+                               ("float64", cs.in_float64(args, kw))):
+        for kernel in ("epan", "gauss"):
+            keep(f"K1b {dtype} {kernel}", call, k1(*call, **dict(ckw, kernel=kernel)))
+
+def k3d_block(hl):
+    calls = cs.backward_calls(hl, x)["K3"]
+    (a, kw), = [c for c in calls if c[1].get("ext_bounds") is not None]
+    (ac, kwc), = [c for c in calls if c[1].get("stats_only")]
+    keep_call("K3c event rows", k3, ac, kwc, slot=11, kernels=("epan",))
+    d_args, d_kw = cs.captured("fused_weights_kde",
+                               lambda: hl.log_like_batch(cs.batch_of(x)))
+    keep_call("K1d", k1, d_args, d_kw)
+    report("dark cut_grid value and gradient",
+           lambda: cs.value_and_grad(hl, x), 16)
+    report("K3d, dark cut_grid", lambda: k3(*a, **kw))
+    if hasattr(cs, "k3d_pairs"):
+        print(f"  K3d terms: {cs.k3d_pairs(a, kw, (16, 32))}", flush=True)
+    for dtype, (call, ckw) in (("float32", (list(a), kw)),
+                               ("float64", cs.in_float64(a, kw))):
+        for kernel in ("epan", "gauss"):
+            call = list(call)
+            call[11] = kernel
+            keep(f"K3d {dtype} {kernel}", call, k3(*call, **ckw))
+
 full = cs.mock(1000, 4096, 2_000_000, 500, 200, cs.SEED)
 hl = cs.likelihood(full, cs.F32)
 args = cs.kernel_inputs(hl, torch.linspace(55.0, 95.0, 16, device=cs.DEV).to(cs.F32))
@@ -2636,10 +2835,14 @@ if hasattr(cs, "k1a_pairs"):
 x = cs.chain_points(16, cs.F32)
 report("spectral value and gradient", lambda: cs.value_and_grad(hl, x), 16)
 report("spectral forward batch", lambda: hl.log_like_batch(cs.batch_of(x)), 16)
-del hl, args, short
+(a, kw), = cs.backward_calls(hl, x)["K3"]
+keep_call("K3 spectral headline", k3, a, kw, slot=11)
+del hl, args, short, a, kw
 k4b_block("binned spectral", cs.likelihood(full, cs.F32, **cs.BINNED))
-k3b_block(cs.likelihood(full, cs.F32, cut_grid=2.0))
-del full
+hl = cs.likelihood(full, cs.F32, cut_grid=2.0)
+k3b_block(hl)
+k1b_block(hl)
+del full, hl
 small = cs.mock(64, 4096, 200_000, 500, 300, cs.SEED + 3)
 args = cs.kernel_inputs(cs.likelihood(small, cs.F64),
                         torch.linspace(60.0, 80.0, 4, device=cs.DEV).double())
@@ -2648,7 +2851,11 @@ for kernel in ("epan", "gauss"):
 del small, args
 data, _ = cs.dark_mock(1000, 1024, 15, 500, 500_000, 50_000, cs.SEED + 8)
 hl = cs.dark_likelihood(data, cs.F32)
-(a, kw), = cs.backward_calls(hl, x)["K2b"]
+calls = cs.backward_calls(hl, x)
+(a, kw), = calls["K2b"]
+(a3, kw3), = calls["K3"]
+keep_call("K3c pixel rows", k3, a3, kw3, slot=11, kernels=("epan",))
+del calls, a3, kw3
 report("dark flagship value and gradient", lambda: cs.value_and_grad(hl, x), 16)
 report("K2b, dark flagship", lambda: k2b(*a, **kw))
 report("K2b on 2 grid points of the same rows", lambda: k2b(*k2b_two_points(a), **kw))
@@ -2682,14 +2889,17 @@ for dtype, call in (("float32", stats_args),
                     ("float64", cs.in_float64(stats_args, {})[0])):
     keep(f"K1c {dtype} pixel rows", call, list(k1c(*call).values()))
 del hl, stats_args, pop_b, ev
+k3d_block(cs.dark_likelihood(data, cs.F32, **cs.DARK_CUT))
 k4b_block("binned dark", cs.dark_likelihood(data, cs.F32, **cs.BINNED))
 torch.save(saved, sys.argv[1])
 for name, key in (("fused_kde", "fused_kde_kernelIffLi0ELi0E"),
+                  ("fused_kde", "fused_kde_kernelIffLi0ELi1E"),
                   ("fused_kde", "fused_kde_kernelIfdLi0ELi3E"),
                   ("fused_kde", "logical_stats_kernelIf"),
                   ("rows_contract", "rows_contract_kernelIfLi0E"),
                   ("rows_contract_adjoint", "rows_adjoint_kernelIfLi0E"),
                   ("fused_kde_adjoint", "fused_kde_adjoint_kernelIffLi0ELi1E"),
+                  ("fused_kde_adjoint", "fused_kde_adjoint_kernelIfdLi0ELi2E"),
                   ("kde1d", "kde1d_adjoint_kernelIfLi0E")):
     log = build.build_info.get(name, {}).get("log", "").splitlines()
     for i, ln in enumerate(log):
@@ -2700,8 +2910,11 @@ for name, key in (("fused_kde", "fused_kde_kernelIffLi0ELi0E"),
 """
 
 
-def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Whether two tensors hold the same bits (NaNs and signed zeros too)."""
+def same_bits(a, b) -> bool:
+    """Whether two tensors hold the same bits (NaNs and signed zeros too);
+    a tensor PAIR_TIMING kept as a hash of its bytes, the same hash."""
+    if isinstance(a, str) or isinstance(b, str):
+        return a == b
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
     if not a.is_floating_point():
@@ -2717,9 +2930,9 @@ def k3_ab(others: list[str], variants: list[str]) -> None:
     tools/k3_variants.py) and in this one, in one call on one card, in the
     order others, variants, this, this, variants reversed, others reversed:
     ``python3 chip_smoke.py --k3-ab DIR ... [--variants DIR ...]``.  Fails
-    unless every tree of ``others`` gives K1a, K2b, K2, K1c, K4b and K3b
-    outputs of the same bits as this tree on the same inputs; a variant's
-    are reported."""
+    unless every tree of ``others`` gives K1a, K2b, K2, K1c, K4b, K3b, K1b,
+    K3d, K3, K3c, K1d and K4 outputs of the same bits as this tree on the
+    same inputs; a variant's are reported."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the card only")
     print(subprocess.run(
@@ -2751,6 +2964,7 @@ def k3_ab(others: list[str], variants: list[str]) -> None:
                 ok = all(same_bits(g, e) for g, e in zip(got[key], expect))
                 diff = "" if ok else "max abs diff " + ", ".join(
                     f"{(g.double() - e.double()).abs().max().item():.3e}"
+                    if torch.is_tensor(g) else "(hashed)"
                     for g, e in zip(got[key], expect))
             print(f"  {tree}: {key}: " + ("same bits as this tree" if ok
                                           else "DIFFERS, " + diff), flush=True)

@@ -22,9 +22,10 @@
 
 namespace {
 
-// the tiles that K3b's pruned phase B tested and skipped (host_tile_tally)
+// the tiles that the pruned phase B tested and skipped (host_tile_tally)
 long long g_tally[2] = {0, 0};
-// K3b's oracle: phase B's full loop (host_fused_kde_adjoint_unpruned)
+// K3b's and K3d's oracle: phase B's full loop
+// (host_fused_kde_adjoint_unpruned)
 bool g_unpruned = false;
 
 // acc[k] += a T_k(t) for k < n, serially: the adjoint of a Chebyshev sum in
@@ -49,7 +50,7 @@ std::vector<double> record_storage(int cd, int wd) {
   return std::vector<double>(record_bytes<T, S>(cd, wd) / sizeof(double) + 2);
 }
 
-template <typename T, typename S, int KERNEL, int MODE, bool PRUNE = KERNEL == 0>
+template <typename T, typename S, int KERNEL, int MODE, bool PRUNE = true>
 void run_mode(const AdjointArgs<T>& a, double* d_series, T* d_params) {
   const int cd = a.cheb_deg, wd = a.window_deg;
   const int Q = cd + 2 + wd, P = Q + kMassScalars;
@@ -104,7 +105,9 @@ void run_kernel(const AdjointArgs<T>& a, int mode, double* ds, T* dp) {
     run_mode<T, T, KERNEL, kEffectiveGrid, false>(a, ds, dp);
   else if (mode == kEffectiveGrid)
     run_mode<T, T, KERNEL, kEffectiveGrid>(a, ds, dp);
-  if (mode == kExternalBounds)
+  if (mode == kExternalBounds && g_unpruned)
+    run_mode<T, double, KERNEL, kExternalBounds, false>(a, ds, dp);
+  else if (mode == kExternalBounds)
     run_mode<T, double, KERNEL, kExternalBounds>(a, ds, dp);
   if (mode == kStatsOnly) run_mode<T, double, KERNEL, kStatsOnly>(a, ds, dp);
 }
@@ -157,7 +160,7 @@ extern "C" void host_fused_kde_adjoint_f64(
               logical_s, mode, kernel, bw_mode, bw_value, cut_grid, unit_scale);
 }
 
-// K3 with phase B's full loop (K3b's oracle), the same interface
+// K3 with phase B's full loop (K3b's and K3d's oracle), the same interface
 #define UNPRUNED(T, NAME)                                                     \
   extern "C" void NAME(                                                       \
       const T* m1, const T* m2, const T* dl, const T* invp, const T* grids,   \
@@ -177,13 +180,13 @@ extern "C" void host_fused_kde_adjoint_f64(
 UNPRUNED(float, host_fused_kde_adjoint_unpruned_f32)
 UNPRUNED(double, host_fused_kde_adjoint_unpruned_f64)
 
-// K3b's phase B pair sums (slot_pair_sums, a linear grid: frac = i / (G -
-// 1)) of n samples z against the G (grid point, c1) pairs at 1/h, pruned
-// or (prune 0) the full loop, a block of one thread: out (n, 4) a0-a3 of
-// each sample.
+// Phase B's pair sums (slot_pair_sums, a linear grid: frac = i / (G - 1))
+// of n samples z against the G (grid point, c1) pairs at 1/h, a block of
+// one thread: the full loop (walk 0), K3b's ballot walk (1) or K3d's run
+// walk (2); out (n, 4) a0-a3 of each sample.
 template <typename T>
 void run_slot_pair_sums(const T* z, int n, const T* grid, const T* c1, int G,
-                        T inv_h, int prune, T* out) {
+                        T inv_h, int walk, T* out) {
   std::vector<typename Pair<T>::type> gc(G), gt((G + kGridTile - 1) / kGridTile);
   for (int i = 0; i < G; ++i) {
     gc[i].x = grid[i];
@@ -192,20 +195,25 @@ void run_slot_pair_sums(const T* z, int n, const T* grid, const T* c1, int G,
   const HostBlock<T> blk{g_tally};
   tile_bounds<T, kGridTile, false>(blk, gc.data(), G, gt.data());
   const T inv_gm1 = T(1) / T(G - 1);
+  const bool prune = inv_h > T(0);
   for (int s0 = 0; s0 < n; s0 += kSamplesPerThread) {
     T zv[kSamplesPerThread], a[4][kSamplesPerThread];
     for (int j = 0; j < kSamplesPerThread; ++j) {
       zv[j] = z[s0 + j < n ? s0 + j : n - 1];
       a[0][j] = a[1][j] = a[2][j] = a[3][j] = T(0);
     }
-    if (prune)
-      slot_pair_sums<T, 0, true, true>(blk, zv, s0, n, gc.data(), gt.data(), G,
-                                       inv_h, inv_h > T(0), inv_gm1, a[0],
-                                       a[1], a[2], a[3]);
+    if (walk == 1)
+      slot_pair_sums<T, 0, true, kBallotWalk>(blk, zv, s0, n, gc.data(),
+                                              gt.data(), G, inv_h, prune,
+                                              inv_gm1, a[0], a[1], a[2], a[3]);
+    else if (walk == 2)
+      slot_pair_sums<T, 0, true, kRunWalk>(blk, zv, s0, n, gc.data(),
+                                           gt.data(), G, inv_h, prune,
+                                           inv_gm1, a[0], a[1], a[2], a[3]);
     else
-      slot_pair_sums<T, 0, true, false>(blk, zv, s0, n, gc.data(), gt.data(),
-                                        G, inv_h, false, inv_gm1, a[0], a[1],
-                                        a[2], a[3]);
+      slot_pair_sums<T, 0, true, kFullLoop>(blk, zv, s0, n, gc.data(),
+                                            gt.data(), G, inv_h, false,
+                                            inv_gm1, a[0], a[1], a[2], a[3]);
     for (int j = 0; j < kSamplesPerThread && s0 + j < n; ++j)
       for (int k = 0; k < 4; ++k) out[(size_t)(s0 + j) * 4 + k] = a[k][j];
   }
@@ -213,19 +221,19 @@ void run_slot_pair_sums(const T* z, int n, const T* grid, const T* c1, int G,
 
 extern "C" void host_slot_pair_sums_f32(const float* z, int n,
                                         const float* grid, const float* c1,
-                                        int G, float inv_h, int prune,
+                                        int G, float inv_h, int walk,
                                         float* out) {
-  run_slot_pair_sums<float>(z, n, grid, c1, G, inv_h, prune, out);
+  run_slot_pair_sums<float>(z, n, grid, c1, G, inv_h, walk, out);
 }
 
 extern "C" void host_slot_pair_sums_f64(const double* z, int n,
                                         const double* grid, const double* c1,
-                                        int G, double inv_h, int prune,
+                                        int G, double inv_h, int walk,
                                         double* out) {
-  run_slot_pair_sums<double>(z, n, grid, c1, G, inv_h, prune, out);
+  run_slot_pair_sums<double>(z, n, grid, c1, G, inv_h, walk, out);
 }
 
-// the tiles that K3b's pruned phase B tested and skipped since the last
+// the tiles that the pruned phase B tested and skipped since the last
 // call: out[0] tested, out[1] skipped
 extern "C" void host_tile_tally(long long* out) {
   out[0] = g_tally[0];

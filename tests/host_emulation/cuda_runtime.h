@@ -28,6 +28,8 @@ inline void __syncwarp() {}
 inline int __syncthreads_or(int v) { return v; }
 inline int __any_sync(unsigned, int v) { return v; }
 inline unsigned __ballot_sync(unsigned, int v) { return v ? 1u : 0u; }
+inline int __reduce_min_sync(unsigned, int v) { return v; }
+inline int __reduce_max_sync(unsigned, int v) { return v; }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 // clamps to [0, 1], NaN to 0, as the .sat modifier does
 inline float __saturatef(float x) { return x > 0.0f ? (x < 1.0f ? x : 1.0f) : 0.0f; }

@@ -24,7 +24,8 @@ namespace {
 
 // the tiles that the pruned pair loops tested and skipped (host_tile_tally)
 long long g_tally[2] = {0, 0};
-// kAnalysisGrid's oracle: the unpruned loop of contract (host_fused_kde_unpruned)
+// kAnalysisGrid's and kEffectiveGrid's oracle: the unpruned loop of
+// contract (host_fused_kde_unpruned)
 bool g_unpruned = false;
 
 // K1c on logical rows in the block-a-row layout (host_logical_stats_block)
@@ -203,7 +204,9 @@ void run_kernel(const FusedArgs<T>& a, int mode) {
   if (mode == kAnalysisGrid && g_unpruned)
     run_mode<T, T, KERNEL, kAnalysisGrid, false>(a);
   else if (mode == kAnalysisGrid) run_mode<T, T, KERNEL, kAnalysisGrid>(a);
-  if (mode == kEffectiveGrid) run_mode<T, T, KERNEL, kEffectiveGrid>(a);
+  if (mode == kEffectiveGrid && g_unpruned)
+    run_mode<T, T, KERNEL, kEffectiveGrid, false>(a);
+  else if (mode == kEffectiveGrid) run_mode<T, T, KERNEL, kEffectiveGrid>(a);
   if (mode == kExternalBounds) run_mode<T, double, KERNEL, kExternalBounds>(a);
   if (mode == kStatsOnly && a.n_real != nullptr) run_logical_stats<T>(a);
   else if (mode == kStatsOnly) run_mode<T, double, KERNEL, kStatsOnly>(a);
@@ -308,7 +311,8 @@ void run_kde1d_adjoint(const T* z, const T* w, const T* grids, const T* h,
 extern "C" void host_fused_kde_f32(FUSED_ARGS(float)) { FUSED_CALL; }
 extern "C" void host_fused_kde_f64(FUSED_ARGS(double)) { FUSED_CALL; }
 
-// K1a with the unpruned pair loop (contract), the pruned loop's oracle
+// K1a and K1b with the unpruned pair loop (contract), the pruned loop's
+// oracle
 #define UNPRUNED(T, NAME)                                                    \
   extern "C" void NAME(FUSED_ARGS(T)) {                                      \
     g_unpruned = true;                                                       \

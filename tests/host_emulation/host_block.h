@@ -3,10 +3,11 @@
 // the serial host emulations.  Its block sums, min/max and any are the
 // thread's own values; its barrier is nothing.  It is a warp of one lane,
 // which keeps every coefficient of the adjoint's projections
-// (adjoint.cuh, project), whose min/max is its own and whose ballot is its
-// own bit.  Where `tally` is given, `tile` counts the tiles that the pruned
-// pair loops (kde.cuh, contract_pruned; adjoint.cuh, rows_adjoint_event)
-// test, in tally[0], and skip, in tally[1].
+// (adjoint.cuh, project), whose min/max and span are its own and whose
+// ballot is its own bit.  Where `tally` is given, `tile` counts the tiles
+// that the pruned pair loops (kde.cuh, contract_pruned; adjoint.cuh,
+// rows_adjoint_event, slot_pair_sums) test, in tally[0], and skip, in
+// tally[1].
 #pragma once
 
 template <typename T>
@@ -23,6 +24,7 @@ struct HostBlock {
   void sync() const {}
   void warp_minmax(T&, T&) const {}
   unsigned ballot(bool v) const { return v ? 1u : 0u; }
+  void warp_span(int&, int&) const {}
   void tile(bool skipped) const {
     if (tally != nullptr) {
       ++tally[0];

@@ -545,6 +545,32 @@ def test_dark_forward_repeats_bit_for_bit(cuda, dark_cpu_hl, dtype, kernel):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kernel", ["epan", "gauss"])
+def test_dark_cut_gradient_repeats_bit_for_bit(cuda, dark_inputs, dtype, kernel):
+    """The dark cut_grid path's value and gradient (K1c and K1d forward; K3d,
+    its phase B on the slots that hold samples and pruned, and K3c
+    backward) gives the same bits on a second call with the same inputs:
+    every sum in a fixed order, no atomics."""
+    hl = HyperLikelihood.create(*dark_inputs, kind="marginalized",
+                                binning=False, cut_grid=2.0, kernel=kernel)
+    card = copy.deepcopy(hl).to(cuda, dtype)
+
+    def value_and_grad():
+        x = torch.tensor([LAMBDA[k] for k in LAMBDA], dtype=dtype,
+                         device=cuda).T.contiguous().requires_grad_()
+        ll = card.log_like_batch({k: x[:, i] for i, k in enumerate(LAMBDA)})
+        return ll.detach(), torch.autograd.grad(ll.sum(), x)[0]
+
+    before = launch_counts()
+    (ll1, g1), (ll2, g2) = value_and_grad(), value_and_grad()
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == \
+        {k: 2 * {"K1c": 1, "K1d": 1, "K3c": 1, "K3d": 1}.get(k, 0) for k in after}
+    assert torch.all(torch.isfinite(g1)) and g1.abs().amax() > 0
+    assert torch.equal(_bits(ll1), _bits(ll2)) and torch.equal(_bits(g1), _bits(g2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_logical_stats_over_many_waves(cuda, dark_cpu_hl, dtype):
     """K1c on 200 copies of the dark inputs' logical pixel rows (~20 000
     rows x 3 λ: several waves of blocks of 4 rows on the card) gives the

@@ -901,13 +901,15 @@ def test_scratch_layout_matches_the_kernels(host_lib, dtype, sum_size):
         assert fused.adjoint_scratch(n, rows_, series, sum_size,
                                      params).numel() == doubles
 
-def _logical_rows(data, dtype, n_rows=37, width=200, logical_s=260):
+def _logical_rows(data, dtype, n_rows=37, width=200, logical_s=260,
+                  events=2):
     """``n_rows`` logical rows of ``width`` slots (the kernel takes 4 rows
-    a block; the last block is short) drawn from pairs of the
-    emulation's events: real counts from 0 (an empty row) to ``width`` (a
-    full one, over the 128 samples phase D stashes at a time), the fillers
-    after them at dl_fill with no weight, one row whose fillers sit below
-    every real distance (they hold the minimum z), the rest above."""
+    a block; the last block is short) drawn from ``events`` consecutive
+    events of the emulation's: real counts from 0 (an empty row) to
+    ``width`` (a full one, over the 128 samples phase D stashes at a time),
+    the fillers after them at dl_fill with no weight, one row whose fillers
+    sit below every real distance (they hold the minimum z), the rest
+    above."""
     cat = data[0]
     rng = np.random.default_rng(23)
     n_real = rng.integers(1, width, n_rows)
@@ -918,7 +920,8 @@ def _logical_rows(data, dtype, n_rows=37, width=200, logical_s=260):
     src = [cat.m1det, cat.m2det, cat.dL, 1.0 / cat.pe_prior]
     for b in range(n_rows):
         e, k = b % n_ev, int(n_real[b])
-        pool = [torch.cat([t[e], t[(e + 1) % n_ev]]) for t in src]
+        pool = [torch.cat([t[(e + i) % n_ev] for i in range(events)])
+                for t in src]
         pick = torch.as_tensor(rng.choice(len(pool[0]), k, replace=False))
         for r, p in zip(rows, pool):
             r[b, :k] = p[pick]
@@ -1162,6 +1165,31 @@ def test_pruned_contract_keeps_the_bits(fused_host_lib, case, dtype):
         assert (u == 1).any() and (u == -1).any()
 
 
+def _check_pruned_k1(lib, data, dtype, mode, kw, min_skip: float):
+    """K1 in ``mode`` (Epanechnikov) with the pruned loop against the
+    unpruned mode (contract): densities and stats of the same bits on the
+    emulation data's rows sorted by distance as ``create`` sorts them
+    (skipping more than ``min_skip`` of the tiles) and in the catalog's
+    order."""
+    cat, _, _, _ = data
+    pop = _population(dtype).update_batch({"H0": [62.0, 70.0, 81.0]})
+    hl = _likelihood(data, dtype)
+    rows_sorted = [hl.m1det, hl.m2det, hl.dL, hl.inv_pe_prior]
+    rows_raw = [t.to(dtype) for t in (cat.m1det, cat.m2det, cat.dL,
+                                      1.0 / cat.pe_prior)]
+    for pe in (rows_sorted, rows_raw):
+        _tally(lib)
+        den, st = _host_fused(lib, mode, *pe, pop.cosmo, pop.mass, **kw)
+        tested, skipped = _tally(lib)
+        den_u, st_u = _host_fused(lib, mode, *pe, pop.cosmo, pop.mass, **kw,
+                                  entry="host_fused_kde_unpruned_")
+        assert _tally(lib) == (0, 0)
+        assert tested > 0 and (pe is rows_raw or skipped > tested * min_skip)
+        assert _same_bits(den, den_u) and den.abs().max() > 0
+        for k in fused.STAT_NAMES:
+            assert _same_bits(st[k], st_u[k]), k
+
+
 @pytest.mark.parametrize("dtype", [F64, F32])
 def test_pruned_k1a_keeps_the_bits(fused_host_lib, data, dtype):
     """K1a (the analysis-grid mode, Epanechnikov) with the pruned loop gives
@@ -1169,26 +1197,20 @@ def test_pruned_k1a_keeps_the_bits(fused_host_lib, data, dtype):
     float64 and float32, on the emulation data's rows sorted by distance
     as ``create`` sorts them (some tiles skipped) and in the catalog's
     order."""
-    cat, z_grids, _, _ = data
-    pop = _population(dtype).update_batch({"H0": [62.0, 70.0, 81.0]})
-    hl = _likelihood(data, dtype)
-    rows_sorted = [hl.m1det, hl.m2det, hl.dL, hl.inv_pe_prior]
-    rows_raw = [t.to(dtype) for t in (cat.m1det, cat.m2det, cat.dL,
-                                      1.0 / cat.pe_prior)]
-    for pe in (rows_sorted, rows_raw):
-        kw = {"grids": z_grids.to(dtype)}
-        _tally(fused_host_lib)
-        den, st = _host_fused(fused_host_lib, fused._ANALYSIS_GRID, *pe,
-                              pop.cosmo, pop.mass, **kw)
-        tested, skipped = _tally(fused_host_lib)
-        den_u, st_u = _host_fused(fused_host_lib, fused._ANALYSIS_GRID, *pe,
-                                  pop.cosmo, pop.mass, **kw,
-                                  entry="host_fused_kde_unpruned_")
-        assert _tally(fused_host_lib) == (0, 0)
-        assert tested > 0 and (pe is rows_raw or skipped > 0)
-        assert _same_bits(den, den_u) and den.abs().max() > 0
-        for k in fused.STAT_NAMES:
-            assert _same_bits(st[k], st_u[k]), k
+    _check_pruned_k1(fused_host_lib, data, dtype, fused._ANALYSIS_GRID,
+                     {"grids": data[1].to(dtype)}, min_skip=0.0)
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+def test_pruned_k1b_keeps_the_bits(fused_host_lib, data, dtype):
+    """K1b (the effective-grid mode, Epanechnikov: the row's linear grid
+    over [z_min - 2 sigma, z_max + 2 sigma]) with the pruned loop gives
+    densities and stats of the same bits as the unpruned mode (contract),
+    float64 and float32, on 250-point grids of the emulation data's rows
+    sorted by distance (more than half of the tiles skipped) and in the
+    catalog's order."""
+    _check_pruned_k1(fused_host_lib, data, dtype, fused._EFFECTIVE_GRID,
+                     {"n_grid": 250, "cut_grid": 2.0}, min_skip=0.5)
 
 
 def _sorted_data(data, n_grid: int = 200):
@@ -1577,8 +1599,9 @@ def _k3b_pair_case(case: str, dtype, n: int = 257, g: int = 250):
 
 
 def _host_slot_sums(lib, z, grid, c1, inv_h, prune):
-    """K3b's phase B pair sums (adjoint.cuh, slot_pair_sums) of the samples
-    z on the (grid, c1) pairs, pruned or not: (n, 4) a0-a3."""
+    """Phase B's pair sums (adjoint.cuh, slot_pair_sums) of the samples z on
+    the (grid, c1) pairs: the full loop (``prune`` False or 0), K3b's
+    ballot walk (True or 1) or K3d's run walk (2); (n, 4) a0-a3."""
     out = torch.zeros(z.shape[0], 4, dtype=z.dtype)
     f64 = z.dtype == F64
     fn = getattr(lib, "host_slot_pair_sums_" + ("f64" if f64 else "f32"))
@@ -1611,6 +1634,29 @@ def test_pruned_slot_pair_sums_keep_the_bits(host_lib, case, dtype):
     if case == "tie":
         u = (args[1][:, None].double() - args[0][None].double()) * args[3]
         assert (u == 1).any() and (u == -1).any()
+    if case in ("huge_u", "nan_h"):
+        assert skipped == 0
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("case", K3B_PAIR_CASES)
+def test_run_walk_slot_pair_sums_keep_the_bits(host_lib, case, dtype):
+    """K3d's phase B walk (slot_pair_sums, kRunWalk: each slot's run of
+    kGridTile-point tiles between the first and the last that the corner
+    test does not prove outside, found from both ends of the grid) gives
+    each sample's four sums of the same bits as the full loop, float64 and
+    float32, on every case of _k3b_pair_case (NaN where NaN); on the sorted,
+    the shuffled and the lattice rows more than half of the tiles are
+    skipped, none where u^2 overflows or 1/h is NaN."""
+    args = _k3b_pair_case(case, dtype)
+    expect = _host_slot_sums(host_lib, *args, prune=0)
+    _tally(host_lib)
+    got = _host_slot_sums(host_lib, *args, prune=2)
+    tested, skipped = _tally(host_lib)
+    assert _same_bits(got, expect) and tested > 0
+    if case in ("sorted", "tie", "near_edge", "unsorted"):
+        assert skipped > tested // 2 and torch.all(torch.isfinite(got))
+        assert expect.abs().amax() > 0
     if case in ("huge_u", "nan_h"):
         assert skipped == 0
 
@@ -1663,6 +1709,91 @@ def test_pruned_k3b_keeps_the_bits(host_lib, data, case, dtype):
         assert all(torch.isfinite(g).all() for g in got[:2])
 
 
+K3D_CASES = K3B_CASES + ("near_edge",)
+
+
+def _k3d_case(data, dtype, kernel, case):
+    """K3d's arguments (the adjoint kernel on given bounds, logical rows,
+    unit mass) on 21 logical rows of up to 600 slots (logical_s 700) drawn
+    from 5 events of the emulation data: an empty row, rows of 1, of over
+    128 (phase D's stash) and of 600 samples (over 512: several rounds of
+    the 4-warp block's slots), one whose fillers hold the minimum z, a
+    short last block of 4 rows; each row's real samples sorted by distance
+    as the pixelization keeps them ('sorted'), in random order
+    ('unsorted'), sorted with a row without weight ('zero_weight', its h
+    NaN) or with an infinite and a NaN density cotangent
+    ('non_finite_ct'); 'near_edge': sorted, with row 1's grid placed so that
+    its second 32-point tile starts at u = 1 - 2^-10 of the row's first
+    sample (the grid point is in the support, the tile's corner test must
+    keep it).  250-point grids over each row's z range widened by half of
+    it on either side (the event's range holds a pixel's samples), random
+    cotangents (an empty row's lo, ub and h get none)."""
+    pop = _population(dtype).update_batch(LAMBDA)
+    cosmo, mass = pop.cosmo, pop.mass
+    pe, n_real, dl_fill, logical_s = _logical_rows(data, F64, n_rows=21,
+                                                   width=600, logical_s=700,
+                                                   events=5)
+    if case != "unsorted":
+        for b, k in enumerate(n_real.tolist()):
+            order = torch.argsort(pe[2][b, :k])
+            for t in pe:
+                t[b, :k] = t[b, :k][order]
+    pe = [t.to(dtype) for t in pe]
+    dl_fill = dl_fill.to(dtype)
+    if case == "zero_weight":
+        pe[3][3] = 0.0
+    kw = {"n_real": n_real, "dl_fill": dl_fill, "logical_s": logical_s}
+    st = fused.fused_row_stats_plain(*pe, cosmo, mass, cut_grid=0.0, **kw)
+    lo, ub = st["lo"].double(), st["ub"].double()
+    n, b, g = 3, len(n_real), 250
+    ext = torch.stack([lo - 0.5 * (ub - lo), ub + 0.5 * (ub - lo)], dim=-1)
+    if case == "near_edge":
+        z0 = z_from_dgw(cosmo, pe[2][1, :1][None]).double()[:, 0]
+        h = st["bandwidth"][:, 1].double()
+        delta = (ext[:, 1, 1] - ext[:, 1, 0]) / (g - 1)
+        ext[:, 1, 0] = z0 + h * (1.0 - 2.0 ** -10) - 32 * delta
+        ext[:, 1, 1] = ext[:, 1, 0] + (g - 1) * delta
+    kw.update(n_grid=g, den_scale="unit", ext_bounds=ext.to(dtype))
+    series, params = fused.pack_params(cosmo, mass, n, dtype)
+    gen = torch.Generator().manual_seed(29)
+    ct_den = torch.randn(n, b, g, generator=gen, dtype=F64).to(dtype)
+    ct_stats = torch.randn(n, b, 8, generator=gen, dtype=F64).to(dtype)
+    for slot in (0, 1, 4):
+        ct_stats[:, n_real == 0, slot] = 0.0
+    if case == "non_finite_ct":
+        ct_den[0, 5, 100], ct_den[1, 9, 7] = math.inf, math.nan
+    return (*pe, None, series, params, ct_den, ct_stats, cosmo, mass,
+            kernel), kw
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("kernel", ["epan", "gauss"])
+@pytest.mark.parametrize("case", K3D_CASES)
+def test_pruned_k3d_keeps_the_bits(host_lib, data, case, kernel, dtype):
+    """K3d (the adjoint kernel on given bounds, logical rows, unit mass)
+    with phase B on the slots that hold samples and, Epanechnikov, pruned
+    to each slot's run of tiles gives d_series, d_params and d_ext of the
+    same bits as phase B's full loop over every slot
+    (host_fused_kde_adjoint_unpruned), float64 and float32, both KDE
+    kernels, on the cases of _k3d_case; on the sorted rows more than half
+    of the tiles are skipped."""
+    args, kw = _k3d_case(data, dtype, kernel, case)
+    _tally(host_lib)
+    expect = _host_adjoint(host_lib, *args, **kw,
+                           entry="host_fused_kde_adjoint_unpruned_")
+    assert _tally(host_lib) == (0, 0)
+    got = _host_adjoint(host_lib, *args, **kw)
+    tested, skipped = _tally(host_lib)
+    assert tested > 0 and (kernel == "epan" or skipped == 0)
+    for g, e in zip(got, expect):
+        assert _same_bits(g, e)
+    if kernel == "epan" and case in ("sorted", "near_edge"):
+        assert skipped > tested // 2
+    if case != "non_finite_ct":
+        assert all(torch.isfinite(g).all() for g in got)
+        assert all(g.abs().max() > 0 for g in got)
+
+
 @pytest.fixture(scope="module")
 def strict_corner_libs(tmp_path_factory):
     """The host emulations of K4b and K3b built against a copy of the
@@ -1683,12 +1814,12 @@ def strict_corner_libs(tmp_path_factory):
 
 
 @pytest.mark.parametrize("dtype", [F64, F32])
-@pytest.mark.parametrize("kernel", ["K4b", "K3b"])
+@pytest.mark.parametrize("kernel", ["K4b", "K3b", "K3d"])
 def test_tie_cases_catch_a_loose_corner_test(strict_corner_libs, kernel, dtype):
     """A corner test that skips tiles at |u| = 1 (>= in place of >) gives
-    other bits than the full loops on the tie case of K4b and of K3b's
-    phase B, where the slope factor (K4b) or the support weight (K3b, 1/2)
-    is not 0: the tie cases of the tests above can fail."""
+    other bits than the full loops on the tie case of K4b and of K3b's and
+    K3d's phase B walks, where the slope factor (K4b) or the support weight
+    (K3b, K3d, 1/2) is not 0: the tie cases of the tests above can fail."""
     fused_lib, adjoint_lib = strict_corner_libs
     if kernel == "K4b":
         args = _k4b_case("tie", dtype)
@@ -1697,5 +1828,6 @@ def test_tie_cases_catch_a_loose_corner_test(strict_corner_libs, kernel, dtype):
         assert not all(_same_bits(g, e) for g, e in zip(got, expect))
     else:
         args = _k3b_pair_case("tie", dtype)
-        assert not _same_bits(_host_slot_sums(adjoint_lib, *args, prune=True),
-                              _host_slot_sums(adjoint_lib, *args, prune=False))
+        walk = 1 if kernel == "K3b" else 2
+        assert not _same_bits(_host_slot_sums(adjoint_lib, *args, prune=walk),
+                              _host_slot_sums(adjoint_lib, *args, prune=0))

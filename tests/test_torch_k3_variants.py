@@ -42,3 +42,17 @@ def test_pair_loop_is_the_inner_loop_with_one_shared_load():
     """
     ops = k3_variants.pair_loop(sass)
     assert ops == {"LDS": 1, "FADD": 1, "FFMA": 1, "FMUL": 1, "BRA": 1}
+
+
+def test_sass_diff_names_functions_across_builds():
+    """Functions match across two builds (the anonymous namespace, which
+    names the build, left out); a changed instruction is reported."""
+    a = """
+        Function : _ZN53_GLOBAL__N__b13a1edc_20_fused_kde_adjoint_cu_c0605d2024fused_kde_adjoint_kernelIffLi0ELi1EEEvv
+        /*0000*/                   LDS R1, [R2] ;   /* 0x000 */
+        /*0010*/                   FFMA R3, R1, R1, R3 ;
+    """
+    b = a.replace("b13a1edc", "4c09d1b9")
+    assert k3_variants.sass_diff(a, b) == [
+        "24fused_kde_adjoint_kernelIffLi0ELi1EEEvv: 2 | 2 instructions, the same"]
+    assert k3_variants.sass_diff(a, b.replace("FFMA R3", "FFMA R4"))[0].endswith("DIFFER")

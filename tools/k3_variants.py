@@ -1,4 +1,5 @@
-"""Attribution of the kernels' time on the card (K3, K2b, K2, K4b and K3b):
+"""Attribution of the kernels' time on the card (K3, K2b, K2, K4b, K3b, K3d
+and K1b):
 variant trees with one change each, timed against each other by
 ``chip_smoke.py --k3-ab``, and the instruction mix of K3's pair loop
 (phase B) in SASS.
@@ -8,6 +9,7 @@ variant trees with one change each, timed against each other by
     python3 chip_smoke.py --k3-ab build/parent --variants build/k3/sel ...
     cuobjdump -sass build/kernels/fused_kde_adjoint-*.so > k3.sass   # on the card
     python3 tools/k3_variants.py sass k3.sass
+    python3 tools/k3_variants.py sassdiff parent.sass k3.sass
 
 ``trees`` writes build/k3/<name>, a copy of what ``--k3-ab`` runs of this
 tree (or of the parent's, for the names that start with ``parent_``):
@@ -17,7 +19,9 @@ early returns leave the gradients unfinished.  ``sass`` prints, for the
 float32 Epanechnikov K3 (``fused_kde_adjoint_kernel<float, float, 0, 0>``)
 of each dump, the instructions of its pair loop: the innermost loop with
 one shared-memory load, 2 grid points x kSamplesPerThread = 4 samples, 8
-(grid point, sample) terms an iteration."""
+(grid point, sample) terms an iteration.  ``sassdiff`` prints, for each
+function of two dumps (a parent's and this tree's), its instruction
+counts and whether its instructions are the same."""
 
 import collections
 import re
@@ -96,6 +100,20 @@ _WALK_OWN = ("    if (prune) {\n      while (t * TILE < n && outside(t)) {\n"
              "      if (t * TILE >= n) break;\n      blk.tile(false);\n    }\n")
 
 
+# K3d (adjoint_row in kExternalBounds) without phase B's pair loop and K1b
+# (fused_row in kEffectiveGrid) without its KDE's pair loop (the densities
+# written as zeros): phase B's and the KDE's marginal cost at the dark and
+# spectral cut_grid paths' shapes (the parent's full loops, and this
+# tree's pruned ones)
+_K3D_B = "a.G, inv_h, prune, inv_gm1,"
+_K1B_KDE = ("contract<T, KERNEL>(blk, zw, st.n, a.G, inv_h, scale,\n"
+            "                        [lo, delta]")
+_K1B_PRUNED = "blk, zw, tiles, st.n, a.G, inv_h, grid_at,"
+# K3d's Epanechnikov phase B walking K3b's ballot per tile and slot in
+# place of each slot's run of tiles
+_K3D_WALK = "constexpr int kWalk = PRUNE && MODE == kExternalBounds ? kRunWalk"
+
+
 class Either(tuple):
     """Alternative lists of changes: the first whose every old text occurs
     once in the tree is the one applied (the code of the parent, or of this
@@ -141,8 +159,14 @@ VARIANTS = {
     "k4b_tile8": [(KDE, "constexpr int kK4bTile = 16;", "constexpr int kK4bTile = 8;"),
                   (FUSED, "_K4B_TILE = 16", "_K4B_TILE = 8")],
     "k4b_own": [(KDE, _WALK_UNION, _WALK_OWN)],
+    "k3d_noB": [(ADJ, _K3D_B, "MODE == kExternalBounds ? 0 : " + _K3D_B)],
+    "k1b_noB": [Either((
+        [(KDE, _K1B_KDE, _K1B_KDE.replace("st.n,", "MODE == kEffectiveGrid ? 0 : st.n,"))],
+        [(KDE, _K1B_PRUNED, _K1B_PRUNED.replace("st.n,", "0,"))]))],
+    "k3d_ballot": [(ADJ, _K3D_WALK, _K3D_WALK.replace("kExternalBounds", "kExternalBounds && !kPrune"))],
 }
-for _name in ("k2_noB", "k2_constA", "k4b_noS", "k4b_noG", "k3b_noB"):
+for _name in ("k2_noB", "k2_constA", "k4b_noS", "k4b_noG", "k3b_noB",
+              "k3d_noB", "k1b_noB"):
     VARIANTS["parent_" + _name] = VARIANTS[_name]
 
 
@@ -222,6 +246,32 @@ def pair_loop(sass: str) -> collections.Counter:
     return best[1]
 
 
+def sass_functions(sass: str) -> dict:
+    """The instructions of each function of a ``cuobjdump -sass`` dump, by
+    its mangled name less the anonymous namespace (which names the build):
+    {name: [instruction, ...]}, addresses and encodings left out."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = re.sub(r"_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_\w*?_cu_[0-9a-f]{8}",
+                          "", line.split("Function :")[1].strip())
+            out[name] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if name is not None and m:
+            out[name].append(m.group(1))
+    return out
+
+
+def sass_diff(a: str, b: str) -> list[str]:
+    """Per function of two dumps: its instruction counts and whether the
+    instructions are the same."""
+    fa, fb = sass_functions(a), sass_functions(b)
+    return [f"{n}: {len(fa.get(n, []))} | {len(fb.get(n, []))} instructions, "
+            + ("the same" if fa.get(n) == fb.get(n) else "DIFFER")
+            for n in sorted(set(fa) | set(fb))]
+
+
 def main() -> None:
     if sys.argv[1:2] == ["trees"] and len(sys.argv) == 3:
         for p in trees(Path(sys.argv[2]).resolve()):
@@ -233,6 +283,8 @@ def main() -> None:
                   f"terms: {dict(ops.most_common())}; per term FP32 "
                   f"{(ops['FFMA'] + ops['FMUL'] + ops['FADD']) / 8:g}, "
                   f"compare and select {(ops['FSETP'] + ops['FSEL']) / 8:g}")
+    elif sys.argv[1:2] == ["sassdiff"] and len(sys.argv) == 4:
+        print("\n".join(sass_diff(*(Path(f).read_text() for f in sys.argv[2:]))))
     else:
         raise SystemExit(__doc__)
 

@@ -1,6 +1,6 @@
-"""Which tensors of the float64 dark flagship differ from one build to the
-next on the card, and whether PyTorch's deterministic algorithms make
-them equal.
+"""Which tensors of the float64 dark flagship and of the cut_grid paths'
+kernel inputs differ from one build to the next on the card, and whether
+PyTorch's deterministic algorithms make them equal.
 
     python3 tools/repeat_bits.py [TREE ...]    # on the card; default: this tree
 
@@ -10,7 +10,13 @@ the same seeds: the dark flagship's mock data in float64
 (``chip_smoke.dark_mock(1000, 1024, 15, 500, 500_000, 50_000, SEED + 8)``:
 the PE catalog, z-grids, pixelated galaxy catalog, injections), the float64
 and float32 dark likelihoods on it, and K2b's arguments on the float64 one
-at the 16 points of phase 14 (``chip_smoke.rows_inputs``).  Two processes
+at the 16 points of phase 14 (``chip_smoke.rows_inputs``); then, in
+float32 at those points, the dark cut_grid likelihood and K3d's arguments
+(its path's own cotangents, ``chip_smoke.backward_calls``), the spectral
+headline's mock (``chip_smoke.mock(1000, 4096, 2_000_000, 500, 200,
+SEED)``), its cut_grid likelihood and the arguments of K1b (the forward,
+``chip_smoke.captured``) and K3b: the inputs whose hashes ``chip_smoke.py
+--k3-ab`` holds equal across trees.  Two processes
 run as PyTorch does by default, two under
 ``torch.use_deterministic_algorithms(True, warn_only=True)`` (with
 ``CUBLAS_WORKSPACE_CONFIG=:4096:8``), which swaps the ops that sum by
@@ -87,6 +93,19 @@ with warnings.catch_warnings(record=True) as caught:
         hl, cs.batch_of(cs.chain_points(16, cs.F64)), cs.SEED + 21))
     del hl
     walk("likelihood_f32", cs.dark_likelihood(data, cs.F32))
+    x = cs.chain_points(16, cs.F32)
+    hl = cs.dark_likelihood(data, cs.F32, **cs.DARK_CUT)
+    walk("dark_cut_f32", hl)
+    walk("k3d_args_f32", [c for c in cs.backward_calls(hl, x)["K3"]
+                          if c[1].get("ext_bounds") is not None])
+    del hl, data, cat, z_grids, gal_cat, inj
+    full = cs.mock(1000, 4096, 2_000_000, 500, 200, cs.SEED)
+    walk("spectral_mock", full)
+    hl = cs.likelihood(full, cs.F32, cut_grid=2.0)
+    walk("spectral_cut_f32", hl)
+    walk("k1b_args_f32", cs.captured(
+        "fused_weights_kde", lambda: hl.log_like_batch(cs.batch_of(x))))
+    walk("k3b_args_f32", cs.backward_calls(hl, x)["K3"])
     torch.cuda.synchronize()
 torch.save(tensors, sys.argv[1])
 print(json.dumps(sorted({str(w.message).splitlines()[0] for w in caught})))
