@@ -46,9 +46,9 @@
 // the (L, B, G) densities.  K1a's pair loop evaluates only the tiles of
 // (grid point, sample) pairs that can be non-zero: at the headline 0.81 %
 // of the L*B*G*S = 3.3e10 terms are, and its 32 x 32 tiles keep ~7 % of
-// them; K1b's on the row's own effective grid likewise.  K1d and K1e keep
-// the full loop over the real samples of each row, ~5 FP32 instructions a
-// term; K1c does phase A only: on logical
+// them; K1b's on the row's own effective grid and K1e's on its row's real
+// samples likewise.  K1d keeps the full loop over the real samples of each
+// row, ~5 FP32 instructions a term; K1c does phase A only: on logical
 // rows, ~S_l / npix real samples each (the dark flagship's pixel rows,
 // ~128), a block of kThreads threads a row left most threads idle behind
 // a block's fixed costs, so K1c there gives each row one warp
@@ -71,14 +71,18 @@
 // with the kernel's own arithmetic and walks the kept ones in order: the
 // densities have the bits of the full loop (the argument is in kde.cuh).
 // K1b (kEffectiveGrid) takes the same loop on its row's sorted linear grid
-// lo + delta g.  The Gaussian kernel, whose terms are never exactly zero,
-// and the other modes keep the full loop (contract: two grid points a
-// thread for grids up to 256 points, four above).  The raw row statistics
+// lo + delta g, K1e (kContract) on its event's analysis grid over the
+// row's real samples (the pixel rows keep the events' dL order), folding
+// each density into r1 and r2 as it is stored, in the order of the full
+// loop's fold (kde.cuh, fused_row).  The Gaussian kernel, whose terms are
+// never exactly zero, and K1d keep the full loop (contract: two grid
+// points a thread for grids up to 256 points, four above;
+// contract_epilogue_tiles in kContract).  The raw row statistics
 // of the TPU kernel are kept (a dead row gives NaN, which the caller's
 // N_eff gate and nan_to_num remove).  The two Chebyshev series are summed
 // in T in the spectral modes (a, b) and in double in the dark-siren modes
 // (c, d, e), whose float32 likelihood needs it (population.cuh, Model).
-// Later work: phase A, and the same pruned loop in K1d and K1e.
+// Later work: phase A, and the same pruned loop in K1d.
 
 #include "kde.cuh"
 
@@ -155,8 +159,8 @@ int launch_logical_stats(const FusedArgs<T>& a, cudaStream_t stream) {
 
 template <typename T, typename S, int KERNEL, int MODE>
 int launch_mode(const FusedArgs<T>& a, cudaStream_t stream) {
-  const bool pruned = (MODE == kAnalysisGrid || MODE == kEffectiveGrid)
-                      && KERNEL == 0;
+  const bool pruned = (MODE == kAnalysisGrid || MODE == kEffectiveGrid
+                       || MODE == kContract) && KERNEL == 0;
   const size_t smem = series_bytes<S>(a.cheb_deg, a.window_deg)
                       + (size_t)a.S * sizeof(typename Pair<T>::type)
                       + kMassScalars * sizeof(T)

@@ -421,12 +421,14 @@ __device__ __forceinline__ bool outside_support(T u_lo, T u_hi) {
 }
 
 // (lo, hi) of each tile of TILE entries of x[0, n), the pairs (x, y): the
-// min and max x over every entry; (-largest, largest) for a tile with a
-// non-finite x, or a y that is not finite or is above max_u in size, which
-// no outside_support test passes (K4b: a skipped term y u f is then
-// y u 0 with |y u| finite).  A thread a tile, for tiles narrower than a
-// warp (tile_bounds takes a warp a tile); ends in a barrier.
-template <typename T, int TILE, typename Block>
+// min and max x over every entry (WEIGHTED: over the entries whose y is not
+// 0, (largest, -largest) for a tile with none, as tile_bounds); (-largest,
+// largest) for a tile with a non-finite x, or a y that is not finite or is
+// above max_u in size, which no outside_support test passes (K4b: a
+// skipped term y u f is then y u 0 with |y u| finite).  A thread a tile,
+// for tiles narrower than a warp (tile_bounds takes a warp a tile); ends
+// in a barrier.
+template <typename T, int TILE, bool WEIGHTED = false, typename Block>
 __device__ __forceinline__ void thread_tile_bounds(
     const Block& blk, const typename Pair<T>::type* x, int n,
     typename Pair<T>::type* tiles) {
@@ -440,6 +442,7 @@ __device__ __forceinline__ void thread_tile_bounds(
         hi = largest<T>();
         break;
       }
+      if (WEIGHTED && p.y == T(0)) continue;
       lo = dmin(lo, p.x);
       hi = dmax(hi, p.x);
     }
@@ -624,11 +627,11 @@ __device__ __forceinline__ void contract_epilogue_tiles(
 // den_scale 'norms' (1 / (h S_l)) or 'unit' (1 / (h sum w)); in mode (e)
 // the unit-mass KDE contracted in the block, r = (r1, r2) of the row, 0
 // exactly where the row's weight is below sqrt(tiny).  On the analysis
-// grids and on the effective grid (K1b: the row's sorted linear grid
-// lo + delta g, computed as contract computes it) the Epanechnikov KDE
-// takes the pruned pair loop (contract_pruned, its sample tiles' bounds in
-// `tiles`, ceil(S / kTileS) pairs) unless PRUNE is false (the host
-// emulation's oracle); the other modes keep contract.
+// grids (K1a; K1e's, contracted), and on the effective grid (K1b: the
+// row's sorted linear grid lo + delta g, computed as contract computes it)
+// the Epanechnikov KDE takes the pruned pair loop (contract_pruned, its
+// sample tiles' bounds in `tiles`, ceil(S / kTileS) pairs) unless PRUNE is
+// false (the host emulation's oracle); the other modes keep contract.
 template <typename T, typename S, int KERNEL, int MODE, bool PRUNE = true,
           typename Block>
 __device__ __forceinline__ void fused_row(const Block& blk,
@@ -649,7 +652,26 @@ __device__ __forceinline__ void fused_row(const Block& blk,
       const size_t fr = ((size_t)l * (a.B / a.npix) + b / a.npix) * a.G;
       const T* s1 = a.s1 + (size_t)b * a.G;
       const T* s2 = a.s2 + (size_t)b * a.G;
-      if (a.G <= 2 * Block::kSize)
+      if (KERNEL == 0 && PRUNE) {
+        // contract_pruned hands thread `rank` the grid points rank + kSize
+        // j, j ascending, a run of kTileG a warp, a point a lane (every
+        // point in order in a block of one thread): the sequence that
+        // contract_epilogue_tiles folds into its r, so r1, r2 and their
+        // block sum keep its bits.  Another tile or block width would
+        // change that order.
+        static_assert(Block::kSize == 1
+                      || kTileG * (Block::kSize / Block::kLanes) == Block::kSize,
+                      "a thread's grid points are rank + kSize j");
+        const T* f1 = a.f1 + fr;
+        const T* f2 = a.f2 + fr;
+        tile_bounds<T, kTileS, true>(blk, zw, st.n, tiles);
+        contract_pruned<T, kTileS, kTileG>(
+            blk, zw, tiles, st.n, a.G, inv_h, [grid](int g) { return grid[g]; },
+            [&r, s1, s2, f1, f2](int g, T sum) {
+              r[0] += sum * s1[g] * f1[g];
+              r[1] += sum * s2[g] * f2[g];
+            });
+      } else if (a.G <= 2 * Block::kSize)
         contract_epilogue_tiles<T, KERNEL, 2>(blk, zw, st.n, a.G, inv_h, grid,
                                               s1, s2, a.f1 + fr, a.f2 + fr, r);
       else
@@ -694,16 +716,40 @@ __device__ __forceinline__ void fused_row(const Block& blk,
   }
 }
 
+// bins a tile of K4's pruned pair loop (_K4_TILE in ops/cuda/fused.py
+// sizes their bounds' shared memory); tiles narrower than a warp take a
+// thread a tile for their bounds
+constexpr int kK4Tile = 32;
+
 // K4, one row: out[g] = sum_s w_s K((grid_g - z_s) / h) / h with the
-// row's (z, w) pairs in zw (kde1d_core).
-template <typename T, int KERNEL, typename Block>
+// row's (z, w) pairs in zw (kde1d_core).  With PRUNE (the default for the
+// Epanechnikov kernel; the host emulation's oracle takes it off) the pair
+// loop is contract_pruned over tiles of kK4Tile bins, their bounds over
+// the bins with weight in `tiles` (ceil(S / kK4Tile) pairs): the binned
+// path's bins are a histogram's sorted centres and its grid a sorted
+// linear one, so a run of kTileG grid points meets few tiles, and a row
+// without weight (an empty pixel) none.  Every density keeps the bits of
+// contract's; the Gaussian kernel keeps contract.
+template <typename T, int KERNEL, bool PRUNE = KERNEL == 0, typename Block>
 __device__ __forceinline__ void kde_row(const Block& blk,
                                         const typename Pair<T>::type* zw,
                                         int S, const T* grid, int G, T h,
-                                        T* out) {
+                                        T* out, typename Pair<T>::type* tiles) {
+  static_assert(!PRUNE || KERNEL == 0, "only Epanechnikov terms are pruned");
   const T inv_h = T(1) / h;
-  contract<T, KERNEL>(blk, zw, S, G, inv_h, kernel_norm<T, KERNEL>() * inv_h,
-                      [grid](int g) { return grid[g]; }, out);
+  const T scale = kernel_norm<T, KERNEL>() * inv_h;
+  const auto grid_at = [grid](int g) { return grid[g]; };
+  if constexpr (PRUNE) {
+    if constexpr (kK4Tile % 32 == 0)
+      tile_bounds<T, kK4Tile, true>(blk, zw, S, tiles);
+    else
+      thread_tile_bounds<T, kK4Tile, true>(blk, zw, S, tiles);
+    contract_pruned<T, kK4Tile, kTileG>(
+        blk, zw, tiles, S, G, inv_h, grid_at,
+        [out, scale](int g, T sum) { out[g] = sum * scale; });
+  } else {
+    contract<T, KERNEL>(blk, zw, S, G, inv_h, scale, grid_at, out);
+  }
 }
 
 // The kernel's shape k (as kernel_shape) and the factor f of its slope,

@@ -11,17 +11,29 @@
 // PyTorch twin is chimera_tpu_torch/ops/cuda/kde.py::kde1d_grid_plain.  The
 // arithmetic is kde.cuh's kde_row.
 //
-// What bounds it on an H100: arithmetic.  On the binned path a row is one
-// event (or one (event, pixel)) with S = num_bins = 200 bin centres and a
-// G = 250-point effective grid, so B * G * S terms of ~5 FP32 instructions
-// against 4 (2 S + G) + 4 G bytes per row: 6.4e9 terms and ~0.5 GB at the
-// dark flagship (B = 16 * 8000).
+// What bounds it on an H100: on every pair, arithmetic.  On the binned
+// path a row is one event (or one (event, pixel)) with S = num_bins = 200
+// bin centres and a G = 250-point effective grid, so B * G * S terms of ~5
+// FP32 instructions against 4 (2 S + G) + 4 G bytes per row: 6.4e9 terms
+// and ~0.5 GB at the dark flagship (B = 16 * 8000).  Only the terms within
+// h of their bin are not exactly 0 (chip_smoke.k4_pairs counts them), and
+// on those the bytes bound it.
 //
 // What the design does about it: one block per row.  The row's (z, w)
-// pairs sit in shared memory (1.6 KB at S = 200 in float32), the grid points
-// in registers (two a thread up to 256 points, four above); the kernel
-// constant and 1/h are applied once per output.  The TPU kernel's 8 x 128
-// tiling with the bandwidth folded into the operands is not carried over.
+// pairs sit in shared memory (1.6 KB at S = 200 in float32); the kernel
+// constant and 1/h are applied once per output.  The bins are a
+// histogram's sorted centres and the grid a sorted linear one, h ~ 0.2
+// sigma: a grid point sees ~1/20 of the bins, and an empty pixel's row has
+// no weight at all.  So the Epanechnikov kernel takes K1a's pruned pair
+// loop (kde.cuh, kde_row: contract_pruned): the bounds of the z of each
+// kK4Tile bins with weight, then each warp takes runs of kTileG consecutive
+// grid points, a point a lane, tests the tiles against the run's corners
+// with the kernel's own arithmetic and walks the kept ones in order, every
+// density of the full loop's bits; the bounds take ceil(S / kK4Tile)
+// pairs more of shared memory.  The Gaussian kernel keeps the full loop
+// (contract: the grid points in registers, two a thread up to 256 points,
+// four above).  The TPU kernel's 8 x 128 tiling with the bandwidth folded
+// into the operands is not carried over.
 //
 // K4b, given d_out (B, G) and the forward's out, returns d_z, d_w (B, S),
 // d_grid (B, G) and d_h (B,) (kde.cuh, kde_row_adjoint): one block per row,
@@ -52,6 +64,7 @@ kde1d_kernel(const T* __restrict__ z, const T* __restrict__ w,
   using T2 = typename Pair<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   T2* zw = reinterpret_cast<T2*>(smem);
+  T2* tiles = zw + S;  // the pruned loop's bin tiles' bounds
   const size_t b = blockIdx.x;
   for (int s = threadIdx.x; s < S; s += kThreads) {
     T2 p;
@@ -61,13 +74,14 @@ kde1d_kernel(const T* __restrict__ z, const T* __restrict__ w,
   }
   __syncthreads();
   const DeviceBlock<T> blk{nullptr};
-  kde_row<T, KERNEL>(blk, zw, S, grids + b * G, G, h[b], out + b * G);
+  kde_row<T, KERNEL>(blk, zw, S, grids + b * G, G, h[b], out + b * G, tiles);
 }
 
 template <typename T, int KERNEL>
 int launch_kernel(const T* z, const T* w, const T* grids, const T* h, T* out,
                   int B, int S, int G, cudaStream_t stream) {
-  const size_t smem = (size_t)S * sizeof(typename Pair<T>::type);
+  const size_t smem = (size_t)(S + (KERNEL == 0 ? (S + kK4Tile - 1) / kK4Tile : 0))
+                      * sizeof(typename Pair<T>::type);
   auto kernel = kde1d_kernel<T, KERNEL>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -79,8 +79,9 @@ _PLAIN_BUDGET = 1 << 25
 _ADJOINT_MAX_DEG = 64
 _ADJOINT_STATIC_SMEM = 12288
 # the tile widths of the pruned Epanechnikov pair loops (csrc/kde.cuh
-# kTileS, kTileG, kK4bTile; csrc/adjoint.cuh kGridTile): samples a tile and
-# grid points a warp's run in K1a, K1b and K2b's pass 1, grid points a tile
+# kTileS, kTileG, kK4bTile; csrc/adjoint.cuh kGridTile): samples a tile
+# and grid points a warp's run in K1a, K1b, K1e, K2 and K2b's pass 1 (and
+# K4's runs), grid points a tile
 # in K2b's pass 2 and in K3b's and K3d's phase B, bins or grid points a tile
 # in K4b's two sweeps; each tile's (lo, hi) takes two values of shared
 # memory
@@ -88,6 +89,8 @@ _TILE_S = 32
 _TILE_G = 32
 _GRID_TILE = 32
 _K4B_TILE = 16
+# bins a tile of K4's pruned pair loop (csrc/kde.cuh kK4Tile)
+_K4_TILE = 32
 # warps a block of K1c on logical rows, a row's z each in shared memory
 # (csrc/kde.cuh kStatsWarps)
 _STATS_WARPS = 1
@@ -472,7 +475,8 @@ def fused_weights_kde(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids=None,
         "fused_weights_kde", m1det, m2det, dl, inv_pe_prior, cosmo, mass,
         n_real, dl_fill, logical_s,
         8 if mode in (_EXTERNAL_BOUNDS, _CONTRACT) else dl.element_size(),
-        tiles=mode in (_ANALYSIS_GRID, _EFFECTIVE_GRID) and kernel == "epan")
+        tiles=mode in (_ANALYSIS_GRID, _EFFECTIVE_GRID, _CONTRACT)
+        and kernel == "epan")
     kw = dict(kernel=kernel, bw_method=bw_method,
               n_grid=0 if n_grid is None else int(n_grid), logical_s=logical_s,
               cut_grid=cut_grid, den_scale=den_scale)

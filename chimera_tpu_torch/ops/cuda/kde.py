@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from chimera_tpu_torch.ops.cuda import fused
-from chimera_tpu_torch.ops.cuda.fused import _K4B_TILE, _SMEM_LIMIT
+from chimera_tpu_torch.ops.cuda.fused import _K4_TILE, _K4B_TILE, _SMEM_LIMIT
 from chimera_tpu_torch.ops.kde import KERNELS, kde1d_core
 
 # elements of one (rows, G, S) intermediate in the plain versions
@@ -151,7 +151,9 @@ def kde1d_grid(z: torch.Tensor, weights: torch.Tensor, grids: torch.Tensor,
     _check("kde1d_grid", z, {"weights": (weights, (b, s)),
                              "grids": (grids, (b, g)),
                              "bandwidths": (bandwidths, (b,))})
-    smem = 2 * s * z.element_size()
+    # the (z, w) pairs and, Epanechnikov, the pruned loop's bin tiles' bounds
+    smem = (2 * s + (2 * -(-s // _K4_TILE) if kernel == "epan" else 0)) \
+        * z.element_size()
     if smem > _SMEM_LIMIT:
         raise ValueError(f"S = {s} samples need {smem} bytes of shared memory "
                          f"per block, over the {_SMEM_LIMIT}-byte limit")

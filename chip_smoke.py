@@ -1043,11 +1043,43 @@ def accumulation_ms(dataset, weights, num_bins=200, reps=17):
                 lambda: out.zero_().scatter_add_(0, idx, w), reps)))
 
 
-def k4_bound(args) -> tuple[float, str]:
+def k4_pairs(args, widths=None) -> dict:
+    """K4's pair terms on its inputs ``args`` (z, w, grids, h: the binned
+    path's bin centres and weights): 'all' (row, grid point, bin); 'live',
+    those with |g - z| < h and w != 0, the terms of the Epanechnikov density
+    that are not exactly 0; per bin-tile width t (``widths``, the
+    kernel's _K4_TILE by default): 'tiled{t}', those the pruned loop
+    evaluates in t-bin tiles x _TILE_G-point runs (_tiled_terms: an empty
+    bin bounds nothing, a row without weight runs no tile)."""
+    from chimera_tpu_torch.ops.cuda.fused import _K4_TILE
+
+    z, w, grids, h = (a.double() for a in args[:4])
+    (b, s), g = z.shape, grids.shape[1]
+    rows = 16384  # a chunk's rows
+    out = {"all": b * g * s, "live": 0}
+    with torch.no_grad():
+        for r0 in range(0, b, rows):
+            zz, ww, gg, hh = (t[r0:r0 + rows] for t in (z, w, grids, h))
+            out["live"] += _in_support(zz, ww != 0, hh, gg, False)
+            for t in widths or (_K4_TILE,):
+                out[f"tiled{t}"] = out.get(f"tiled{t}", 0) + _tiled_terms(
+                    zz, ww, hh, gg, t)
+    return out
+
+
+def k4_bound(args, pairs: dict | None = None) -> tuple[float, str]:
+    """The least time of K4 on these inputs: z, w, the grids and h read
+    once, the densities written once, bytes; operations, the density terms
+    that are not exactly 0 (``pairs['live']`` of k4_pairs) and each
+    density's scale, or every (row, grid point, bin) term where ``pairs``
+    is None (the all-pairs count)."""
     z, _, grids, _ = args
     b, s = z.shape
     g = grids.shape[1]
-    return bound(z.element_size() * (2 * b * s + 2 * b * g + b), b * g * s * KDE_OPS)
+    n_bytes = z.element_size() * (2 * b * s + 2 * b * g + b)
+    if pairs is None:
+        return bound(n_bytes, b * g * s * KDE_OPS)
+    return bound(n_bytes, KDE_OPS * pairs["live"] + b * g)
 
 
 def reference_defaults(smi: str, full, dark_data) -> list[dict]:
@@ -1059,7 +1091,7 @@ def reference_defaults(smi: str, full, dark_data) -> list[dict]:
     from chimera_tpu_torch.data.structs import ThetaPEDet
     from chimera_tpu_torch.models import theta_src_and_weights
     from chimera_tpu_torch.ops.binning import binning1d
-    from chimera_tpu_torch.ops.cuda.fused import (fused_row_stats,
+    from chimera_tpu_torch.ops.cuda.fused import (_K4_TILE, fused_row_stats,
                                                   fused_weights_kde,
                                                   fused_weights_kde_plain)
     from chimera_tpu_torch.ops.cuda.kde import kde1d_grid, kde1d_grid_plain
@@ -1140,7 +1172,9 @@ def reference_defaults(smi: str, full, dark_data) -> list[dict]:
         t_med, t_mad = med_mad([t / n for t in total])
         split = {k: med_mad([t / n for t in v]) for k, v in stages.items()}
         rest = t_med - sum(m for m, _ in split.values())
-        b_ms, b_by = k4_bound(args)
+        pairs = k4_pairs(args)
+        b_ms, b_by = k4_bound(args, pairs)
+        tiled = pairs[f"tiled{_K4_TILE}"]
         phase(num, f"reference defaults, {name}", f"{kind}, binning=True, "
               f"num_bins=200, cut_grid=2.0; {hl.n_events} events x "
               f"{hl.n_samples} samples x {hl.z_grids.shape[1]} grid; launches "
@@ -1158,14 +1192,18 @@ def reference_defaults(smi: str, full, dark_data) -> list[dict]:
               f"{acc[1]:.3f} ms (atomic scatter_add_); K4 per call "
               f"{statistics.median(kern):.3f} ms at {args[0].shape[0]} rows x "
               f"{args[0].shape[1]} x {args[2].shape[1]}, plain {plain[0]:.3f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}); max err {k_rel:.3e} of the row max")
+              f"bound {b_ms:.4f} ms ({b_by}; on every pair "
+              f"{k4_bound(args)[0]:.4f} ms); live terms {pairs['live']} of "
+              f"{pairs['all']} ({pairs['live'] / pairs['all']:.4%}), the "
+              f"pruned loop evaluates {tiled} ({tiled / pairs['all']:.4%}); "
+              f"max err {k_rel:.3e} of the row max")
         entries["K4"] = {
             "name": "kde1d_grid (K4)", "route": "cuda",
             "source": "chimera_tpu_torch/csrc/kde1d.cu",
             "replaces": "chimera_tpu/ops/pallas/kde.py:37", "launches": 1,
             "max_abs_err": k_abs, "ms": statistics.median(kern),
             "plain_ms": plain[0], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "library_ms": None, "redesigned": 12}
         del hl, args, prec
 
     # ---- 18. the unbinned effective-grid paths ---------------------------
@@ -1536,23 +1574,28 @@ def _in_support(z, keep, h, grid, closed: bool) -> int:
     return int((c.gather(-1, hi) - c.gather(-1, lo)).sum())
 
 
-def _tiled_terms(z, w, h, grid) -> int:
+def _tiled_terms(z, w, h, grid, tile_s: int | None = None, real=None) -> int:
     """The pair terms that the pruned density loop evaluates: _TILE_G grid
-    points x _TILE_S samples a tile (ops/cuda/fused.py, the kernels' tile
-    widths), less the tiles whose corner proves every |u| >= 1 (the
-    kernels' test, here in float64) over the samples with weight."""
+    points x ``tile_s`` (by default _TILE_S) samples a tile
+    (ops/cuda/fused.py, the kernels' tile widths), less the tiles whose
+    corner proves every |u| >= 1 (the kernels' test, here in float64) over
+    the samples with weight.  ``real`` (N, S): the slots that hold samples
+    (the first n_real of a logical row; a row with none runs no tile),
+    every slot where None."""
     from chimera_tpu_torch.ops.cuda.fused import _TILE_G as TILE_G
-    from chimera_tpu_torch.ops.cuda.fused import _TILE_S as TILE_S
+    from chimera_tpu_torch.ops.cuda.fused import _TILE_S
 
-    zlo, zhi = _tile_bounds(z, w != 0, TILE_S)
+    tile_s = tile_s or _TILE_S
+    real = torch.ones_like(z, dtype=torch.bool) if real is None else real
+    zlo, zhi = _tile_bounds(z, (w != 0) & real, tile_s)
     glo, ghi = _tile_bounds(grid, torch.ones_like(grid, dtype=torch.bool), TILE_G)
     inv_h = (1.0 / h)[:, None, None]
     dead = ((glo[:, :, None] - zhi[:, None]) * inv_h >= 1.0) \
         | ((ghi[:, :, None] - zlo[:, None]) * inv_h <= -1.0)
     n_g = torch.nn.functional.pad(torch.ones_like(grid), (0, (-grid.shape[-1]) % TILE_G)
                                   ).unflatten(-1, (-1, TILE_G)).sum(-1)
-    n_s = torch.nn.functional.pad(torch.ones_like(z), (0, (-z.shape[-1]) % TILE_S)
-                                  ).unflatten(-1, (-1, TILE_S)).sum(-1)
+    n_s = torch.nn.functional.pad(real.to(z.dtype), (0, (-z.shape[-1]) % tile_s)
+                                  ).unflatten(-1, (-1, tile_s)).sum(-1)
     return int((~dead * n_g[:, :, None] * n_s[:, None]).sum())
 
 
@@ -2337,24 +2380,74 @@ def contract_compare(args, kw, r_tol, stat_tol):
     return r_rel, r_abs, stat_rel
 
 
-def k1e_bound(args, kw) -> tuple[float, str]:
+def k1e_pairs(args, kw) -> dict:
+    """K1e's pair terms on its inputs (fused_weights_kde's, the contract
+    mode on logical pixel rows): 'all' (λ, row, grid point, real sample);
+    'live_rows', the (λ, row) pairs whose weight is above sqrt(tiny)
+    float32 (the others get r = 0 with no loop); 'live', those rows' terms
+    with |g - z| < h and w != 0, the terms of the Epanechnikov density that
+    are not exactly 0; 'tiled', those the pruned loop evaluates
+    (_tiled_terms on each row's real samples).  h, z and w are the plain
+    stats pass's on the logical rows, in float64."""
+    from chimera_tpu_torch.ops.cuda.fused import fused_row_stats_plain
+
+    m1, m2, dl, invp, cosmo, mass, grids = args[:7]
+    (b, s), g = dl.shape, grids.shape[1]
+    n_real = kw["n_real"].to(dl.device).clamp(0, s)
+    real = torch.arange(s, device=dl.device)[None] < n_real[:, None]
+    rows = 1000  # a chunk's rows
+    with torch.no_grad():
+        st = fused_row_stats_plain(m1, m2, dl, invp, cosmo, mass,
+                                   n_real=kw["n_real"], dl_fill=kw["dl_fill"],
+                                   logical_s=kw["logical_s"])
+        z, w = _z_and_w(m1, m2, dl, invp, cosmo, mass)
+        grid = grids.double()
+        live_rows = st["sum_w"].double() > 1.0842021724855044e-19
+        out = {"all": z.shape[0] * int(real.sum()) * g,
+               "live_rows": int(live_rows.sum()), "live": 0, "tiled": 0}
+        for l in range(z.shape[0]):
+            h = st["bandwidth"][l].double()
+            for r0 in range(0, b, rows):
+                sl = slice(r0, r0 + rows)
+                rr = real[sl] & live_rows[l, sl, None]
+                zz, ww, gg, hh = z[l, sl], w[l, sl], grid[sl], h[sl]
+                out["live"] += _in_support(zz, (ww != 0) & rr, hh, gg, False)
+                out["tiled"] += _tiled_terms(zz, ww, hh, gg, real=rr)
+    return out
+
+
+def k1e_bound(args, kw, pairs: dict | None = None) -> tuple[float, str]:
     """The least time of K1e on these inputs: the PE rows of the real
     samples, the grids, the factors, the model rows, r and the stats,
-    bytes; each real sample's Clenshaw work and KDE terms and the
-    contraction of each live (λ, row), FP32 operations."""
-    dl, cosmo, grids = args[2], args[4], args[6]
+    bytes; operations, per (λ, real sample) the distance series' Clenshaw
+    sum in double, the mass model's forward and, in the CDF's window, the
+    window series in double, per (λ, logical row) the fillers' distance
+    series, the density terms that are not exactly 0 (``pairs['live']`` of
+    k1e_pairs) and the contraction of each live (λ, row) (K1c's phase A,
+    K1E_GRID_OPS a grid point).  Where ``pairs`` is None, the all-pairs
+    count: each real sample's series and KDE terms on every
+    grid point and the contraction of each row with samples, FP32."""
+    m1, dl, cosmo, mass, grids = args[0], args[2], args[4], args[5], args[6]
     s1, _, f1, _ = kw["contract"]
     n, e_ev, g = f1.shape
-    b = dl.shape[0]
+    b, s = dl.shape
     size = dl.element_size()
     real = int(kw["n_real"].sum())
     live = int((kw["n_real"] > 0).sum())
-    q = 12 + (args[5].window_deg)
+    q = 12 + mass.window_deg
     n_bytes = (size * (4 * real + b + 3 * b * g + 2 * n * e_ev * g + n * q
                        + n * b * (2 + 8)) + 8 * b
-               + 8 * n * (cosmo.cheb_deg + 2 + args[5].window_deg))
-    return bound(n_bytes, n * real * (CHEB_OPS * cosmo.cheb_deg + KDE_OPS * g)
-                 + n * live * g * K1E_GRID_OPS)
+               + 8 * n * (cosmo.cheb_deg + 2 + mass.window_deg))
+    if pairs is None:
+        return bound(n_bytes, n * real * (CHEB_OPS * cosmo.cheb_deg + KDE_OPS * g)
+                     + n * live * g * K1E_GRID_OPS)
+    mask = torch.arange(s, device=dl.device)[None] < kw["n_real"].to(dl.device)[:, None]
+    ops64 = CHEB_OPS * (n * (real + b) * cosmo.cheb_deg
+                        + window_pairs(cosmo, mass, m1, dl, mask) * mass.window_deg)
+    ops = (n * real * MASS_FWD_OPS + KDE_OPS * pairs["live"]
+           + pairs["live_rows"] * g * K1E_GRID_OPS)
+    return bound(n_bytes, 0.0, ops + ops64) if dl.dtype == F64 \
+        else bound(n_bytes, ops, ops64)
 
 
 def k4b_bound(args, pairs: dict | None = None) -> tuple[float, str]:
@@ -2442,20 +2535,25 @@ def contract_path(smi: str, dark_data) -> dict:
     t_med, t_mad = med_mad([t / n for t in total])
     k_med, k_mad = med_mad([t / n for t in kern])
     r_med, r_mad = med_mad([t / n for t in rows_total])
-    b_ms, b_by = k1e_bound(args, kw)
+    pairs = k1e_pairs(args, kw)
+    b_ms, b_by = k1e_bound(args, kw, pairs)
     k_call = statistics.median(kern)
     phase(23, "timing", f"[{smi}] per λ over {reps} batches of {n}: contract "
           f"path {t_med:.4f} ± {t_mad:.4f} ms (median ± MAD), K1e {k_med:.4f} ± "
           f"{k_mad:.4f} ms, rest {t_med - k_med:.4f} ms; rows path (K1c + K2) "
           f"{r_med:.4f} ± {r_mad:.4f} ms; K1e per call {k_call:.3f} ms, plain "
           f"{plain[0]:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
-          f"{100 * b_ms / k_call:.1f} % of it); r max err {r_rel:.3e} of the "
-          f"per-λ max, stats {stat_rel:.3e}")
+          f"{100 * b_ms / k_call:.1f} % of it; on every pair "
+          f"{k1e_bound(args, kw)[0]:.4f} ms); live terms {pairs['live']} of "
+          f"{pairs['all']} ({pairs['live'] / pairs['all']:.4%}), the pruned "
+          f"loop evaluates {pairs['tiled']} ({pairs['tiled'] / pairs['all']:.4%}); "
+          f"r max err {r_rel:.3e} of the per-λ max, stats {stat_rel:.3e}")
     return {"name": "fused_weights_kde contract (K1e)", "route": "cuda",
             "source": "chimera_tpu_torch/csrc/fused_kde.cu",
             "replaces": "chimera_tpu/ops/pallas/fused.py:192", "launches": 1,
             "max_abs_err": r_abs, "ms": k_call, "plain_ms": plain[0],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "redesigned": 12}
 
 
 def binned_gradients(smi: str, full, dark_data) -> dict:
@@ -2671,12 +2769,14 @@ for i, ln in enumerate(log):
 """
 
 
-# K1a, K2b, K2, K1c, K4b, K3b, K1b and K3d in the tree it is run from, ms
-# per call:
+# K1a, K2b, K2, K1c, K4, K4b, K1e, K3b, K1b and K3d in the tree it is run
+# from, ms per call:
 # K1a at the spectral headline (16 λ, float32) and on the first 2 of its
 # 500 grid points (phase A and the row stats; the pair loop 1/250 of its
-# work); K4b on the binned spectral headline's and the binned dark
-# flagship's own cotangents (the reference's defaults, phase 24); K3b on
+# work); K4 on the binned spectral headline's and the binned dark
+# flagship's forward inputs and K4b on their own cotangents (the
+# reference's defaults, phases 16, 17, 24); K1e on the dark contract
+# path's inputs at the flagship width (phase 23); K3b on
 # the spectral cut_grid path's own cotangents (phase 21); K1b on the
 # spectral cut_grid path's inputs (phase 18) at phase 14's points; K3d on
 # the dark cut_grid path's own cotangents (phase 21); K2b on the dark
@@ -2688,21 +2788,23 @@ for i, ln in enumerate(log):
 # spectral headline's value-and-gradient call and forward batch (phases 14
 # and 6), the value-and-gradient calls of the binned spectral and dark
 # paths (phase 24), of the spectral and dark cut_grid paths and of the dark
-# flagship (phase 21), and the spectral cut_grid forward batch (phase 18).
+# flagship (phase 21), the spectral cut_grid forward batch (phase 18) and
+# the contract path's forward batch (phase 23).
 # The outputs of the kernel calls, of the Gaussian kernel's on the same
-# inputs, and of float64 K1a (64 events, L = 4), K2b, K2, K1c, K4b, K3b, K1b
-# and K3d (the same calls' inputs in float64; K3b also on mode_inputs'
-# random cotangents), and those of K3 (the spectral headline's backward),
+# inputs, and of float64 K1a (64 events, L = 4), K2b, K2, K1c, K4b, K1e,
+# K3b, K1b and K3d (the same calls' inputs in float64; K3b also on
+# mode_inputs' random cotangents), and those of K3 (the spectral headline's backward),
 # K3c (the dark flagship's and the dark cut_grid path's), K1d and K4 (both
 # binned paths' forward) on their paths' own inputs, go to the file
 # argv[1] with a hash of each call's inputs (an output of more than 2^22
 # entries as a hash of its bytes), for --k3-ab to hold bit for bit against
 # this tree's.  Then the live pairs
 # (where the tree's chip_smoke.py counts them; K4b's and K3b's kept terms
-# at tile widths 8, 16 and 32, K3d's at 16 and 32) and the ptxas lines of
-# the float32 Epanechnikov K1a, K1b, K1c, K2, K2b, K3b, K3d and K4b of a
-# tree that builds them in that process.  It uses only helpers that
-# chip_smoke.py has had since K4b was ported, so it runs in older trees.
+# at tile widths 8, 16 and 32, K3d's and K4's at 16 and 32) and the ptxas
+# lines of the float32 Epanechnikov K1a, K1b, K1c, K1e, K2, K2b, K3b, K3d,
+# K4 and K4b of a tree that builds them in that process.  It uses only
+# helpers that chip_smoke.py has had since K4b was ported, so it runs in
+# older trees.
 PAIR_TIMING = r"""
 import hashlib, os, statistics, sys
 sys.path.insert(0, os.getcwd())
@@ -2764,6 +2866,9 @@ def k4b_block(name, hl):
     k4_args, k4_kw = cs.captured("kde1d_grid",
                                  lambda: hl.log_like_batch(cs.batch_of(x)))
     keep_call(f"K4 {name}", kde.kde1d_grid, k4_args, k4_kw)
+    report(f"K4, {name}", lambda: kde.kde1d_grid(*k4_args, **k4_kw))
+    if hasattr(cs, "k4_pairs"):
+        print(f"  K4 terms, {name}: {cs.k4_pairs(k4_args, (16, 32))}", flush=True)
     report(f"{name} value and gradient", lambda: cs.value_and_grad(hl, x), 16)
     report(f"K4b, {name}", lambda: k4b(*a, **kw))
     if hasattr(cs, "k4b_pairs"):
@@ -2869,6 +2974,21 @@ del a, kw
 h0s = torch.linspace(55.0, 95.0, 16, device=cs.DEV).to(cs.F32)
 r = cs.rows_inputs(hl, {"H0": h0s}, cs.SEED + 9)
 
+def k1e_block(data):
+    hl = cs.contract_likelihood(data, cs.F32)
+    args, kw = cs.captured("fused_weights_kde",
+                           lambda: hl.log_like_batch(cs.batch_of(x)))
+    report("contract path forward batch",
+           lambda: hl.log_like_batch(cs.batch_of(x)), 16)
+    report("K1e, contract path", lambda: k1(*args, **kw))
+    if hasattr(cs, "k1e_pairs"):
+        print(f"  K1e pair terms: {cs.k1e_pairs(args, kw)}", flush=True)
+    for dtype, (call, ckw) in (("float32", (list(args), kw)),
+                               ("float64", cs.in_float64(args, kw))):
+        ckw = dict(ckw, contract=tuple(t.to(call[2].dtype) for t in kw["contract"]))
+        for kernel in ("epan", "gauss"):
+            keep(f"K1e {dtype} {kernel}", call, k1(*call, **dict(ckw, kernel=kernel)))
+
 def k2_call(r, kernel):
     return (*r[:4], r[13], r[14], r[4], *r[7:12], kernel)
 
@@ -2889,6 +3009,7 @@ for dtype, call in (("float32", stats_args),
                     ("float64", cs.in_float64(stats_args, {})[0])):
     keep(f"K1c {dtype} pixel rows", call, list(k1c(*call).values()))
 del hl, stats_args, pop_b, ev
+k1e_block(data)
 k3d_block(cs.dark_likelihood(data, cs.F32, **cs.DARK_CUT))
 k4b_block("binned dark", cs.dark_likelihood(data, cs.F32, **cs.BINNED))
 torch.save(saved, sys.argv[1])
@@ -2900,6 +3021,8 @@ for name, key in (("fused_kde", "fused_kde_kernelIffLi0ELi0E"),
                   ("rows_contract_adjoint", "rows_adjoint_kernelIfLi0E"),
                   ("fused_kde_adjoint", "fused_kde_adjoint_kernelIffLi0ELi1E"),
                   ("fused_kde_adjoint", "fused_kde_adjoint_kernelIfdLi0ELi2E"),
+                  ("fused_kde", "fused_kde_kernelIfdLi0ELi4E"),
+                  ("kde1d", "kde1d_kernelIfLi0E"),
                   ("kde1d", "kde1d_adjoint_kernelIfLi0E")):
     log = build.build_info.get(name, {}).get("log", "").splitlines()
     for i, ln in enumerate(log):
@@ -2924,14 +3047,14 @@ def same_bits(a, b) -> bool:
 
 
 def k3_ab(others: list[str], variants: list[str]) -> None:
-    """The adjoint kernel (K3_TIMING) and K1a, K2b, K2, K1c, K4b and K3b
-    (PAIR_TIMING) in the trees ``others`` (the parent, unpacked with ``git
+    """The adjoint kernel (K3_TIMING) and K1a, K2b, K2, K1c, K4, K4b, K1e,
+    K3b, K1b and K3d (PAIR_TIMING) in the trees ``others`` (the parent, unpacked with ``git
     archive``) and ``variants`` (trees that change timing only,
     tools/k3_variants.py) and in this one, in one call on one card, in the
     order others, variants, this, this, variants reversed, others reversed:
     ``python3 chip_smoke.py --k3-ab DIR ... [--variants DIR ...]``.  Fails
     unless every tree of ``others`` gives K1a, K2b, K2, K1c, K4b, K3b, K1b,
-    K3d, K3, K3c, K1d and K4 outputs of the same bits as this tree on the
+    K3d, K3, K3c, K1d, K4 and K1e outputs of the same bits as this tree on the
     same inputs; a variant's are reported."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the card only")

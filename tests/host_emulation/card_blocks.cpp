@@ -4,7 +4,8 @@
 // (tests/test_torch_host_emulation.py): the host emulations run them with a
 // block of one thread only, whose members every block does not have.  Each
 // mode and KDE kernel of K3 (fused_kde_adjoint.cu, K3c's logical rows a
-// warp a row) and K4b (kde1d.cu), float32 and float64.
+// warp a row), K4 and K4b (kde1d.cu) and K1e (fused_kde.cu), float32 and
+// float64.
 #include "adjoint.cuh"
 
 namespace {
@@ -37,6 +38,16 @@ void card_blocks(const AdjointArgs<T>& a, const AdjointSmem<T>& sm,
   double2* t = nullptr;
   kde_row_adjoint<double, 0>(bd, p, 1, p, 1, o, 1.0, o, o, o, o, t, t);
   kde_row_adjoint<double, 1>(bd, p, 1, p, 1, o, 1.0, o, o, o, o, t, t);
+  // K4 (kde1d.cu) and K1e (fused_kde.cu, kContract)
+  const DeviceBlock<T> bt{nullptr};
+  using T2 = typename Pair<T>::type;
+  const T2* q = nullptr;
+  T2* u = nullptr;
+  kde_row<T, 0>(bt, q, 1, o, 1, T(1), o, u);
+  kde_row<T, 1>(bt, q, 1, o, 1, T(1), o, u);
+  const FusedArgs<T> f{};
+  fused_row<T, double, 0, kContract>(bt, md, f, 0, 0, u, u);
+  fused_row<T, double, 1, kContract>(bt, md, f, 0, 0, u, u);
 }
 
 }  // namespace

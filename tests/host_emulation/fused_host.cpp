@@ -8,8 +8,9 @@
 // logical_row_stats): each of the 32 lanes' partials from the kernel's own
 // device functions in turn, then the warp's shuffle-down folds emulated
 // lane by lane.
-// Same C interfaces as the kernels', without the stream; besides, K1a
-// and K4b with the unpruned loops (the pruned loops' oracles), the pruned
+// Same C interfaces as the kernels', without the stream; besides, K1a,
+// K1b, K1e, K4 and K4b with the unpruned loops (the pruned loops'
+// oracles), the pruned
 // loop on given (z, w) and a tally of the tiles it skips, and K1c on logical rows
 // in the block-a-row layout that the warp's sums replay, its kThreads
 // ranks and their warps emulated one by one (the replay's oracle).  Built
@@ -24,8 +25,8 @@ namespace {
 
 // the tiles that the pruned pair loops tested and skipped (host_tile_tally)
 long long g_tally[2] = {0, 0};
-// kAnalysisGrid's and kEffectiveGrid's oracle: the unpruned loop of
-// contract (host_fused_kde_unpruned)
+// kAnalysisGrid's, kEffectiveGrid's and kContract's oracle: the unpruned
+// loops of contract and contract_epilogue_tiles (host_fused_kde_unpruned)
 bool g_unpruned = false;
 
 // K1c on logical rows in the block-a-row layout (host_logical_stats_block)
@@ -210,7 +211,9 @@ void run_kernel(const FusedArgs<T>& a, int mode) {
   if (mode == kExternalBounds) run_mode<T, double, KERNEL, kExternalBounds>(a);
   if (mode == kStatsOnly && a.n_real != nullptr) run_logical_stats<T>(a);
   else if (mode == kStatsOnly) run_mode<T, double, KERNEL, kStatsOnly>(a);
-  if (mode == kContract) run_mode<T, double, KERNEL, kContract>(a);
+  if (mode == kContract && g_unpruned)
+    run_mode<T, double, KERNEL, kContract, false>(a);
+  else if (mode == kContract) run_mode<T, double, KERNEL, kContract>(a);
 }
 
 template <typename T>
@@ -256,17 +259,18 @@ void run_contract(const T* z, const T* w, const T* grids, const T* inv_h,
   }
 }
 
-template <typename T, int KERNEL>
+template <typename T, int KERNEL, bool PRUNE = KERNEL == 0>
 void run_kde1d(const T* z, const T* w, const T* grids, const T* h, T* out,
                int B, int S, int G) {
-  std::vector<typename Pair<T>::type> zw(S);
+  std::vector<typename Pair<T>::type> zw(S), tiles((S + kK4Tile - 1) / kK4Tile);
   for (int b = 0; b < B; ++b) {
     for (int s = 0; s < S; ++s) {
       zw[s].x = z[(size_t)b * S + s];
       zw[s].y = w[(size_t)b * S + s];
     }
-    kde_row<T, KERNEL>(HostBlock<T>{}, zw.data(), S, grids + (size_t)b * G, G,
-                       h[b], out + (size_t)b * G);
+    kde_row<T, KERNEL, PRUNE>(HostBlock<T>{g_tally}, zw.data(), S,
+                              grids + (size_t)b * G, G, h[b],
+                              out + (size_t)b * G, tiles.data());
   }
 }
 
@@ -311,8 +315,8 @@ void run_kde1d_adjoint(const T* z, const T* w, const T* grids, const T* h,
 extern "C" void host_fused_kde_f32(FUSED_ARGS(float)) { FUSED_CALL; }
 extern "C" void host_fused_kde_f64(FUSED_ARGS(double)) { FUSED_CALL; }
 
-// K1a and K1b with the unpruned pair loop (contract), the pruned loop's
-// oracle
+// K1a, K1b and K1e with the unpruned pair loops (contract,
+// contract_epilogue_tiles), the pruned loop's oracle
 #define UNPRUNED(T, NAME)                                                    \
   extern "C" void NAME(FUSED_ARGS(T)) {                                      \
     g_unpruned = true;                                                       \
@@ -365,6 +369,19 @@ extern "C" void host_kde1d_f64(const double* z, const double* w,
                                double* out, int B, int S, int G, int kernel) {
   if (kernel == 0) run_kde1d<double, 0>(z, w, grids, h, out, B, S, G);
   else run_kde1d<double, 1>(z, w, grids, h, out, B, S, G);
+}
+
+// K4 with the full loop (Epanechnikov, contract), the pruned loop's oracle
+extern "C" void host_kde1d_unpruned_f32(const float* z, const float* w,
+                                        const float* grids, const float* h,
+                                        float* out, int B, int S, int G) {
+  run_kde1d<float, 0, false>(z, w, grids, h, out, B, S, G);
+}
+
+extern "C" void host_kde1d_unpruned_f64(const double* z, const double* w,
+                                        const double* grids, const double* h,
+                                        double* out, int B, int S, int G) {
+  run_kde1d<double, 0, false>(z, w, grids, h, out, B, S, G);
 }
 
 #define KDE1D_ADJOINT(T, NAME)                                               \

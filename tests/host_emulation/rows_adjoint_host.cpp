@@ -182,6 +182,7 @@ extern "C" void host_tile_widths(int* out) {
   out[1] = kTileG;
   out[2] = kGridTile;
   out[3] = kK4bTile;
+  out[4] = kK4Tile;
 }
 
 // the tiles that the pruned passes tested and skipped since the last call:

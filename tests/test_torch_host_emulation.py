@@ -852,21 +852,22 @@ def test_warp_projection_matches_cheb_project(host_lib, deg):
 
 def test_tile_widths_match_the_kernels(rows_host_lib):
     """The wrappers' tile widths of the pruned pair loops (``fused._TILE_S``,
-    ``_TILE_G``, ``_GRID_TILE``, ``_K4B_TILE``: the shared
+    ``_TILE_G``, ``_GRID_TILE``, ``_K4B_TILE``, ``_K4_TILE``: the shared
     memory of the tile bounds that ``fused.py``, ``rows.py`` and ``kde.py``
     check, and the terms that ``chip_smoke.py`` counts) against the
-    kernels' kTileS, kTileG, kGridTile and kK4bTile
+    kernels' kTileS, kTileG, kGridTile, kK4bTile and kK4Tile
     (csrc/kde.cuh, csrc/adjoint.cuh)."""
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     rows_host_lib.host_tile_widths(out)
     assert list(out) == [fused._TILE_S, fused._TILE_G, fused._GRID_TILE,
-                         fused._K4B_TILE]
+                         fused._K4B_TILE, fused._K4_TILE]
 
 
 def test_device_functions_build_for_the_card_blocks():
-    """K3's adjoint_row in every mode and KDE kernel and K4b's
-    kde_row_adjoint, instantiated with the card's blocks (DeviceBlock of 8
-    and 4 warps, K3c's WarpBlock: tests/host_emulation/card_blocks.cpp),
+    """K3's adjoint_row in every mode and KDE kernel, K4b's
+    kde_row_adjoint, K4's kde_row and K1e's fused_row, instantiated with the
+    card's blocks (DeviceBlock of 8 and 4 warps, K3c's WarpBlock:
+    tests/host_emulation/card_blocks.cpp),
     pass g++'s syntax check: the host emulations instantiate them with a
     block of one thread only, whose members the card's blocks may lack."""
     gxx = shutil.which("g++")
@@ -1211,6 +1212,74 @@ def test_pruned_k1b_keeps_the_bits(fused_host_lib, data, dtype):
     catalog's order."""
     _check_pruned_k1(fused_host_lib, data, dtype, fused._EFFECTIVE_GRID,
                      {"n_grid": 250, "cut_grid": 2.0}, min_skip=0.5)
+
+
+K1E_CASES = ("sorted", "unsorted", "near_edge")
+
+
+def _k1e_case(data, dtype, case):
+    """K1e's arguments (the contract mode on logical rows, unit mass) on 20
+    logical rows of up to 600 slots (logical_s 700) drawn from 5 events of
+    the emulation data, 4 rows an event: an empty row, rows of 1, of over
+    128 and of 600 samples, one whose fillers hold the minimum z, and row 3
+    with its weights scaled below sqrt(tiny) (r = 0 with no loop); each
+    row's real samples sorted by distance as the pixelization keeps them
+    ('sorted'), in random order ('unsorted'), or sorted with row 17's
+    single sample at u = 1 - 2^-10 of the lowest point of its grid's
+    second 32-point run at the first λ ('near_edge': in the support, the
+    corner test must keep the tile).  Each row's grid is its event's
+    analysis grid; random positive factors."""
+    cat, z_grids = data[0], data[1]
+    pop = _population(dtype).update_batch(LAMBDA)
+    cosmo, mass = pop.cosmo, pop.mass
+    pe, n_real, dl_fill, logical_s = _logical_rows(data, F64, n_rows=20,
+                                                   width=600, logical_s=700,
+                                                   events=5)
+    if case != "unsorted":
+        for b, k in enumerate(n_real.tolist()):
+            order = torch.argsort(pe[2][b, :k])
+            for t in pe:
+                t[b, :k] = t[b, :k][order]
+    pe[3][3] *= 1e-30 if dtype == F32 else 1e-160
+    pe = [t.to(dtype) for t in pe]
+    dl_fill = dl_fill.to(dtype)
+    b, g = len(n_real), z_grids.shape[1]
+    grids = z_grids.double()[torch.arange(b) % cat.dL.shape[0]]
+    kw = {"n_real": n_real, "dl_fill": dl_fill, "logical_s": logical_s}
+    if case == "near_edge":
+        st = fused.fused_row_stats_plain(*pe, cosmo, mass, **kw)
+        z0 = z_from_dgw(cosmo, pe[2][17, :1][None]).double()[0, 0]
+        h = st["bandwidth"][0, 17].double()
+        g32 = z0 + h * (1.0 - 2.0 ** -10)
+        grids[17] = g32 + (torch.arange(g, dtype=F64) - 32) * h / 8
+    kw.update(grids=grids.to(dtype), den_scale="unit",
+              contract=_contract_factors(b, 4, 3, g, dtype))
+    return (*pe, cosmo, mass), kw
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("case", K1E_CASES)
+def test_pruned_k1e_keeps_the_bits(fused_host_lib, data, case, dtype):
+    """K1e (the contract mode, Epanechnikov) with the pruned loop, folding
+    each density into r1 and r2 as it is stored, gives r and the stats of
+    the same bits as the full loop (contract_epilogue_tiles,
+    host_fused_kde_unpruned), float64 and float32, on the cases of
+    _k1e_case: more than a quarter of the tiles skipped on the sorted rows
+    (the emulation data's grids are narrow), r exactly 0 on the empty row
+    and on the row below sqrt(tiny)."""
+    args, kw = _k1e_case(data, dtype, case)
+    _tally(fused_host_lib)
+    expect, st_u = _host_fused(fused_host_lib, fused._CONTRACT, *args, **kw,
+                               entry="host_fused_kde_unpruned_")
+    assert _tally(fused_host_lib) == (0, 0)
+    got, st = _host_fused(fused_host_lib, fused._CONTRACT, *args, **kw)
+    tested, skipped = _tally(fused_host_lib)
+    assert _same_bits(got, expect)
+    for k in fused.STAT_NAMES:
+        assert _same_bits(st[k], st_u[k]), k
+    assert tested > 0 and (case == "unsorted" or skipped > tested // 4)
+    assert torch.all(got[:, 0] == 0) and torch.all(got[:, 3] == 0)
+    assert torch.all(st["sum_w"][:, 3] > 0) and got.abs().max() > 0
 
 
 def _sorted_data(data, n_grid: int = 200):
@@ -1561,6 +1630,110 @@ def test_pruned_kde1d_adjoint_keeps_the_bits(fused_host_lib, case, dtype):
         assert (u == 1).any() and (u == -1).any()
 
 
+K4_CASES = ("sorted", "zero_weight", "tie", "near_edge", "unsorted",
+            "non_finite_z", "non_finite_w", "non_finite_grid", "nan_h",
+            "zero_h", "negative_h")
+
+
+def _k4_case(case: str, dtype, g: int):
+    """K4's inputs (z, w, grids, h) as the binned path hands them:
+    _k4b_case's rows (sorted bin centres of a histogram, the empty bins of
+    its tails without weight, a g-point linear grid), changed as ``case``
+    says; 'tie' and 'near_edge' put the bins on a 2^-8 lattice whose first
+    _K4_TILE-bin tile ends 8 steps (h = 2^-5) below the lowest point of the
+    third 32-point run: a tile corner at u = 1 exactly, or at 1 - 2^-10
+    with the grid shifted by -2^-15 (a term in the support, which the
+    corner test must keep); 'negative_h': row 2's h below 0."""
+    z, w, grids, h = _k4b_case({"negative_h": "sorted"}.get(case, case),
+                               dtype, g=g)[:4]
+    if case in ("tie", "near_edge"):
+        off = 2 * fused._TILE_G - fused._K4_TILE + 1 - 8
+        z[:] = ((torch.arange(z.shape[1], dtype=F64) + off) * 2.0 ** -8).to(dtype)
+    if case == "negative_h":
+        h[2] = -h[2]
+    return z, w, grids, h
+
+
+def _host_k4(lib, z, w, grids, h, pruned: bool = True):
+    """K4 (Epanechnikov) on the host emulation, with the pruned loop or the
+    full one (host_kde1d_unpruned)."""
+    (b, s), g = z.shape, grids.shape[1]
+    out = torch.zeros(b, g, dtype=z.dtype)
+    fn = getattr(lib, ("host_kde1d_" if pruned else "host_kde1d_unpruned_")
+                 + ("f64" if z.dtype == F64 else "f32"))
+    fn.restype = None
+    keep = [t.contiguous() for t in (z, w, grids, h)]
+    fn(*[_ptr(t) for t in (*keep, out)], b, s, g, *((0,) if pruned else ()))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("g", [250, 500])
+@pytest.mark.parametrize("case", K4_CASES)
+def test_pruned_k4_keeps_the_bits(fused_host_lib, case, g, dtype):
+    """K4 with the pruned loop (kde.cuh, kde_row: tile_bounds over the bins
+    with weight and contract_pruned, the card's tile widths) gives densities
+    of the same bits as the full loop (contract, host_kde1d_unpruned),
+    float64 and float32, on every case of _k4_case, 200 bins (not a
+    multiple of a tile) on 250- and 500-point grids; on the sorted rows
+    more than half of the tiles are skipped, on a row without weight all
+    of them (its densities +0), at a NaN or negative h none."""
+    z, w, grids, h = _k4_case(case, dtype, g)
+    _tally(fused_host_lib)
+    expect = _host_k4(fused_host_lib, z, w, grids, h, pruned=False)
+    assert _tally(fused_host_lib) == (0, 0)
+    got = _host_k4(fused_host_lib, z, w, grids, h)
+    tested, skipped = _tally(fused_host_lib)
+    assert _same_bits(got, expect) and tested > 0
+    assert expect.abs().nan_to_num().amax() > 0
+    if case in ("sorted", "tie", "near_edge"):
+        assert skipped > tested // 2 and torch.isfinite(got).all()
+    if case == "tie":  # a tile corner at u = 1 exactly
+        u = (grids[0, 2 * fused._TILE_G] - z[0, fused._K4_TILE - 1]) / h[0]
+        assert u == 1
+    one = {"zero_weight": 1, "nan_h": 1, "negative_h": 2}.get(case)
+    if one is not None:  # that row alone
+        got1 = _host_k4(fused_host_lib, *(t[one:one + 1] for t in (z, w, grids, h)))
+        tested, skipped = _tally(fused_host_lib)
+        assert skipped == (tested if case == "zero_weight" else 0)
+        if case == "zero_weight":
+            assert _same_bits(got1, torch.zeros_like(got1))
+
+
+@pytest.fixture(scope="module")
+def k4_tile16_lib(tmp_path_factory):
+    """K4's host emulation built against a copy of the kernels' sources in
+    16-bin tiles (``tools/k3_variants.py`` variant ``k4_tile16``: their
+    bounds a thread a tile, thread_tile_bounds over the bins with
+    weight)."""
+    src = tmp_path_factory.mktemp("k4_tile16_csrc")
+    for f in CSRC.iterdir():
+        if f.suffix in (".cuh", ".cu"):
+            shutil.copy2(f, src / f.name)
+    text = (src / "kde.cuh").read_text()
+    old = "constexpr int kK4Tile = 32;"
+    assert text.count(old) == 1
+    (src / "kde.cuh").write_text(text.replace(old, "constexpr int kK4Tile = 16;"))
+    return _build_host(tmp_path_factory, "fused_host", src)
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("case", ["sorted", "zero_weight", "near_edge",
+                                  "unsorted", "non_finite_w"])
+def test_k4_tile16_variant_keeps_the_bits(k4_tile16_lib, case, dtype):
+    """K4 in 16-bin tiles (the timing variant of the kernel's 32) gives the
+    densities of the full loop too, skipping more than half of its tiles
+    on the sorted rows."""
+    z, w, grids, h = _k4_case(case, dtype, 250)
+    expect = _host_k4(k4_tile16_lib, z, w, grids, h, pruned=False)
+    _tally(k4_tile16_lib)
+    got = _host_k4(k4_tile16_lib, z, w, grids, h)
+    tested, skipped = _tally(k4_tile16_lib)
+    assert _same_bits(got, expect) and tested > 0
+    if case in ("sorted", "near_edge"):
+        assert skipped > tested // 2
+
+
 K3B_PAIR_CASES = ("sorted", "unsorted", "tie", "near_edge", "non_finite_z",
                   "non_finite_c1", "non_finite_grid", "huge_u", "nan_h")
 
@@ -1796,10 +1969,11 @@ def test_pruned_k3d_keeps_the_bits(host_lib, data, case, kernel, dtype):
 
 @pytest.fixture(scope="module")
 def strict_corner_libs(tmp_path_factory):
-    """The host emulations of K4b and K3b built against a copy of the
-    kernels' sources whose corner test skips a tile at |u| = 1 too
-    (outside_support with >= and <=): the mutation that the tie cases must
-    catch."""
+    """The host emulations of K4b, K3b, K4 and K1e built against a copy of
+    the kernels' sources whose corner tests skip a tile too early: the
+    adjoints' at |u| = 1 too (outside_support with >= and <=), the
+    densities' at |u| >= 0.999 (contract_pruned): the mutations that the
+    tie and near-edge cases must catch."""
     src = tmp_path_factory.mktemp("mutated_csrc")
     for f in CSRC.iterdir():
         if f.suffix in (".cuh", ".cu"):
@@ -1807,21 +1981,39 @@ def strict_corner_libs(tmp_path_factory):
     text = (src / "kde.cuh").read_text()
     old = "return (u_lo > T(1) && u_hi <= max_u<T>())\n         || (u_hi < T(-1)"
     assert text.count(old) == 1
+    text = text.replace(old, old.replace(
+        "u_lo > T(1)", "u_lo >= T(1)").replace("u_hi < T(-1)", "u_hi <= T(-1)"))
+    old = "* inv_h >= T(1)\n                           || (hi - b.x) * inv_h <= T(-1)"
+    assert text.count(old) == 1
     (src / "kde.cuh").write_text(text.replace(old, old.replace(
-        "u_lo > T(1)", "u_lo >= T(1)").replace("u_hi < T(-1)", "u_hi <= T(-1)")))
+        "T(1)", "T(0.999)").replace("T(-1)", "T(-0.999)")))
     return (_build_host(tmp_path_factory, "fused_host", src),
             _build_host(tmp_path_factory, "adjoint_host", src))
 
 
 @pytest.mark.parametrize("dtype", [F64, F32])
-@pytest.mark.parametrize("kernel", ["K4b", "K3b", "K3d"])
-def test_tie_cases_catch_a_loose_corner_test(strict_corner_libs, kernel, dtype):
+@pytest.mark.parametrize("kernel", ["K4b", "K3b", "K3d", "K4", "K1e"])
+def test_tie_cases_catch_a_loose_corner_test(strict_corner_libs, data, kernel,
+                                             dtype):
     """A corner test that skips tiles at |u| = 1 (>= in place of >) gives
     other bits than the full loops on the tie case of K4b and of K3b's and
     K3d's phase B walks, where the slope factor (K4b) or the support weight
-    (K3b, K3d, 1/2) is not 0: the tie cases of the tests above can fail."""
+    (K3b, K3d, 1/2) is not 0; a density's corner test of 0.999 in place of
+    1 (a density's term is 0 at |u| = 1, so skipping there is right) gives
+    other bits on the near-edge cases of K4 and K1e: the tie and near-edge
+    cases of the tests above can fail."""
     fused_lib, adjoint_lib = strict_corner_libs
-    if kernel == "K4b":
+    if kernel == "K4":
+        args = _k4_case("near_edge", dtype, 250)
+        assert not _same_bits(_host_k4(fused_lib, *args),
+                              _host_k4(fused_lib, *args, pruned=False))
+    elif kernel == "K1e":
+        args, kw = _k1e_case(data, dtype, "near_edge")
+        got, _ = _host_fused(fused_lib, fused._CONTRACT, *args, **kw)
+        expect, _ = _host_fused(fused_lib, fused._CONTRACT, *args, **kw,
+                                entry="host_fused_kde_unpruned_")
+        assert not _same_bits(got, expect)
+    elif kernel == "K4b":
         args = _k4b_case("tie", dtype)
         expect = _host_k4b(fused_lib, args, "host_kde1d_adjoint_unpruned_")
         got = _host_k4b(fused_lib, args)

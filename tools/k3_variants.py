@@ -1,5 +1,5 @@
-"""Attribution of the kernels' time on the card (K3, K2b, K2, K4b, K3b, K3d
-and K1b):
+"""Attribution of the kernels' time on the card (K3, K2b, K2, K4b, K3b, K3d,
+K1b, K4 and K1e):
 variant trees with one change each, timed against each other by
 ``chip_smoke.py --k3-ab``, and the instruction mix of K3's pair loop
 (phase B) in SASS.
@@ -114,6 +114,20 @@ _K1B_PRUNED = "blk, zw, tiles, st.n, a.G, inv_h, grid_at,"
 _K3D_WALK = "constexpr int kWalk = PRUNE && MODE == kExternalBounds ? kRunWalk"
 
 
+# K4 (kde.cuh, kde_row) with its pair loop skipped after the row's load
+# (every density written as 0) and K1e (fused_row in kContract) with its
+# KDE and the fold into r skipped after phase A and the stats: the pair
+# loops' marginal cost at the binned paths' and the contract path's shapes
+_K4_LOOP = "contract<T, KERNEL>(blk, zw, S, G, inv_h, kernel_norm<T, KERNEL>() * inv_h,"
+_K1E_EPI = "contract_epilogue_tiles<T, KERNEL, {}>(blk, zw, st.n, a.G, inv_h, grid,"
+_K4_PRUNED = "blk, zw, tiles, S, G, inv_h, grid_at,"
+_K4_FULL = "contract<T, KERNEL>(blk, zw, S, G, inv_h, scale, grid_at, out);"
+_K1E_PRUNED = ("            blk, zw, tiles, st.n, a.G, inv_h, [grid](int g) { return grid[g]; },\n"
+               "            [&r,")
+_K1E_NOB = [(KDE, _K1E_EPI.format(k), _K1E_EPI.format(k).replace("a.G,", "0,"))
+            for k in (2, 4)]
+
+
 class Either(tuple):
     """Alternative lists of changes: the first whose every old text occurs
     once in the tree is the one applied (the code of the parent, or of this
@@ -164,9 +178,19 @@ VARIANTS = {
         [(KDE, _K1B_KDE, _K1B_KDE.replace("st.n,", "MODE == kEffectiveGrid ? 0 : st.n,"))],
         [(KDE, _K1B_PRUNED, _K1B_PRUNED.replace("st.n,", "0,"))]))],
     "k3d_ballot": [(ADJ, _K3D_WALK, _K3D_WALK.replace("kExternalBounds", "kExternalBounds && !kPrune"))],
+    # K4's pruned loop in tiles of 16 bins (their bounds a thread a tile)
+    "k4_tile16": [(KDE, "constexpr int kK4Tile = 32;", "constexpr int kK4Tile = 16;"),
+                  (FUSED, "_K4_TILE = 32", "_K4_TILE = 16")],
+    "k4_noloop": [Either((
+        [(KDE, _K4_PRUNED, _K4_PRUNED.replace("S, G,", "0, G,")),
+         (KDE, _K4_FULL, _K4_FULL.replace("zw, S, G,", "zw, 0, G,"))],
+        [(KDE, _K4_LOOP, _K4_LOOP.replace("zw, S, G,", "zw, 0, G,"))]))],
+    "k1e_noB": [Either((
+        [(KDE, _K1E_PRUNED, _K1E_PRUNED.replace("a.G,", "0,"))] + _K1E_NOB,
+        _K1E_NOB))],
 }
 for _name in ("k2_noB", "k2_constA", "k4b_noS", "k4b_noG", "k3b_noB",
-              "k3d_noB", "k1b_noB"):
+              "k3d_noB", "k1b_noB", "k4_noloop", "k1e_noB"):
     VARIANTS["parent_" + _name] = VARIANTS[_name]
 
 

@@ -5,7 +5,8 @@ PyTorch's deterministic algorithms make them equal.
     python3 tools/repeat_bits.py [TREE ...]    # on the card; default: this tree
 
 For each tree (a checkout whose ``chip_smoke.py`` has ``dark_mock``,
-``dark_likelihood`` and ``rows_inputs``), four processes each build, from
+``dark_likelihood``, ``rows_inputs``, ``calls_of`` and
+``contract_likelihood``), four processes each build, from
 the same seeds: the dark flagship's mock data in float64
 (``chip_smoke.dark_mock(1000, 1024, 15, 500, 500_000, 50_000, SEED + 8)``:
 the PE catalog, z-grids, pixelated galaxy catalog, injections), the float64
@@ -15,8 +16,10 @@ float32 at those points, the dark cut_grid likelihood and K3d's arguments
 (its path's own cotangents, ``chip_smoke.backward_calls``), the spectral
 headline's mock (``chip_smoke.mock(1000, 4096, 2_000_000, 500, 200,
 SEED)``), its cut_grid likelihood and the arguments of K1b (the forward,
-``chip_smoke.captured``) and K3b: the inputs whose hashes ``chip_smoke.py
---k3-ab`` holds equal across trees.  Two processes
+``chip_smoke.captured``) and K3b; the arguments of K4 and K4b on the binned
+dark and spectral paths (the forward and ``chip_smoke.calls_of`` of a
+value-and-gradient call) and of K1e on the dark contract path: the inputs
+whose hashes ``chip_smoke.py --k3-ab`` holds equal across trees.  Two processes
 run as PyTorch does by default, two under
 ``torch.use_deterministic_algorithms(True, warn_only=True)`` (with
 ``CUBLAS_WORKSPACE_CONFIG=:4096:8``), which swaps the ops that sum by
@@ -44,6 +47,7 @@ if sys.argv[2] == "deterministic":
     torch.use_deterministic_algorithms(True, warn_only=True)
 warnings.simplefilter("always")
 import chip_smoke as cs
+from chimera_tpu_torch.ops.cuda import kde
 
 tensors, seen = {}, {}
 
@@ -80,6 +84,13 @@ def walk(name, obj, depth=0):
         for k, v in obj.items():
             walk(f"{name}[{k}]", v, depth + 1)
 
+def binned(hl, name):
+    # K4's forward inputs and K4b's, the path's own cotangents among them
+    walk(f"k4_args_binned_{name}", cs.captured(
+        "kde1d_grid", lambda: hl.log_like_batch(cs.batch_of(x))))
+    walk(f"k4b_args_binned_{name}", cs.calls_of(
+        kde, "kde1d_grid_adjoint", lambda: cs.value_and_grad(hl, x))[-1])
+
 with warnings.catch_warnings(record=True) as caught:
     data, _ = cs.dark_mock(1000, 1024, 15, 500, 500_000, 50_000, cs.SEED + 8)
     cat, z_grids, gal_cat, inj, _ = data
@@ -98,6 +109,10 @@ with warnings.catch_warnings(record=True) as caught:
     walk("dark_cut_f32", hl)
     walk("k3d_args_f32", [c for c in cs.backward_calls(hl, x)["K3"]
                           if c[1].get("ext_bounds") is not None])
+    binned(cs.dark_likelihood(data, cs.F32, **cs.BINNED), "dark")
+    hl = cs.contract_likelihood(data, cs.F32)
+    walk("k1e_args_f32", cs.captured(
+        "fused_weights_kde", lambda: hl.log_like_batch(cs.batch_of(x))))
     del hl, data, cat, z_grids, gal_cat, inj
     full = cs.mock(1000, 4096, 2_000_000, 500, 200, cs.SEED)
     walk("spectral_mock", full)
@@ -106,6 +121,7 @@ with warnings.catch_warnings(record=True) as caught:
     walk("k1b_args_f32", cs.captured(
         "fused_weights_kde", lambda: hl.log_like_batch(cs.batch_of(x))))
     walk("k3b_args_f32", cs.backward_calls(hl, x)["K3"])
+    binned(cs.likelihood(full, cs.F32, **cs.BINNED), "spectral")
     torch.cuda.synchronize()
 torch.save(tensors, sys.argv[1])
 print(json.dumps(sorted({str(w.message).splitlines()[0] for w in caught})))
