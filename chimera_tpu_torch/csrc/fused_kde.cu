@@ -46,18 +46,22 @@
 // the (L, B, G) densities.  K1a's pair loop evaluates only the tiles of
 // (grid point, sample) pairs that can be non-zero: at the headline 0.81 %
 // of the L*B*G*S = 3.3e10 terms are, and its 32 x 32 tiles keep ~7 % of
-// them; K1b's on the row's own effective grid and K1e's on its row's real
-// samples likewise.  K1d keeps the full loop over the real samples of each
-// row, ~5 FP32 instructions a term; K1c does phase A only: on logical
-// rows, ~S_l / npix real samples each (the dark flagship's pixel rows,
-// ~128), a block of kThreads threads a row left most threads idle behind
-// a block's fixed costs, so K1c there gives each row one warp
-// (logical_stats_kernel, kde.cuh: logical_row_stats), whose lanes keep the
-// partial sums of the block's ranks and fold them as the block would: the
-// same bits, the series and mass scalars loaded once per kStatsRows rows,
-// shuffles in place of five block barriers.  What bounds it then is phase
-// A's instructions per sample and each row's filler z, folds and tail.  Plain rows (the events of the
-// dark cut_grid path, S real samples each) keep a block a row.
+// them; K1b's on the row's own effective grid, K1d's on its logical row's
+// linear grid over the event's bounds and K1e's on its row's real samples
+// likewise.  K1c does phase A only: on logical rows, ~S_l / npix real
+// samples each (the dark flagship's pixel rows, ~128), a block of kThreads
+// threads a row left most threads idle behind a block's fixed costs, so
+// K1c there gives each row one warp (logical_stats_kernel, kde.cuh:
+// logical_row_stats), whose lanes keep the partial sums of the block's
+// ranks and fold them as the block would: the same bits, the series and
+// mass scalars loaded once per kStatsRows rows, shuffles in place of five
+// block barriers.  What bounds it then is phase A's instructions per sample
+// and each row's filler z, folds and tail.  The Epanechnikov K1d takes the
+// same layout (logical_kde_kernel: 1.61-1.62 ms against 1.95-1.97 for its
+// pruned loop in the 4-warp block at the dark cut_grid path's 8 000 pixel
+// rows, 38.5 % of them empty, ~208 real samples in the others; PERF.md
+// §6).  Plain rows (the events of the dark cut_grid path, S real samples
+// each) keep a block a row.
 //
 // What the design does about it: every intermediate stays on chip.  z and w
 // of the block's row live in shared memory as interleaved (z, w) pairs, so
@@ -74,15 +78,17 @@
 // lo + delta g, K1e (kContract) on its event's analysis grid over the
 // row's real samples (the pixel rows keep the events' dL order), folding
 // each density into r1 and r2 as it is stored, in the order of the full
-// loop's fold (kde.cuh, fused_row).  The Gaussian kernel, whose terms are
-// never exactly zero, and K1d keep the full loop (contract: two grid
-// points a thread for grids up to 256 points, four above;
-// contract_epilogue_tiles in kContract).  The raw row statistics
+// loop's fold (kde.cuh, fused_row), and K1d (kExternalBounds) on its
+// logical row's linear grid over the given (lo, ub), a warp a row
+// (kde.cuh, external_kde).  The Gaussian kernel, whose terms are never
+// exactly zero, keeps the full loop (contract: two grid points a thread for
+// grids up to 256 points, four above; contract_epilogue_tiles in
+// kContract).  The raw row statistics
 // of the TPU kernel are kept (a dead row gives NaN, which the caller's
 // N_eff gate and nan_to_num remove).  The two Chebyshev series are summed
 // in T in the spectral modes (a, b) and in double in the dark-siren modes
 // (c, d, e), whose float32 likelihood needs it (population.cuh, Model).
-// Later work: phase A, and the same pruned loop in K1d.
+// Later work: phase A.
 
 #include "kde.cuh"
 
@@ -143,6 +149,68 @@ logical_stats_kernel(const FusedArgs<T> a) {
     logical_row_stats(model, a, l, b, lane, z + (size_t)warp * a.S);
 }
 
+// K1d on logical rows (n_real given), Epanechnikov: logical_stats_kernel's
+// layout, a warp a row, kStatsRows rows of one lambda a block, the series
+// and mass scalars loaded once a block; each warp's (z, w) pairs of its row
+// and their tiles' bounds in shared memory.  The stats replay the
+// block-a-row kernel's sums (logical_row_stats), the densities take the
+// pruned pair loop on a one-warp block (external_kde): every output has the
+// bits of fused_kde_kernel's, and an empty row costs a warp's stats and
+// stores, not a block's barriers.
+template <typename T>
+__global__ void __launch_bounds__(32 * kStatsWarps)
+logical_kde_kernel(const FusedArgs<T> a) {
+  using T2 = typename Pair<T>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* ser = reinterpret_cast<double*>(smem);
+  T2* zw = reinterpret_cast<T2*>(smem + series_bytes<double>(a.cheb_deg,
+                                                             a.window_deg));
+  const int n_tiles = (a.S + kTileS - 1) / kTileS;
+  T2* tiles = zw + (size_t)kStatsWarps * a.S;       // (kStatsWarps, n_tiles)
+  T* prm = reinterpret_cast<T*>(tiles + (size_t)kStatsWarps * n_tiles);
+
+  const int l = blockIdx.x % a.L;
+  const int blk = blockIdx.x / a.L;
+  const int Q = a.cheb_deg + 2 + a.window_deg;
+  for (int i = threadIdx.x; i < Q; i += 32 * kStatsWarps)
+    ser[i] = a.series[(size_t)l * Q + i];
+  for (int i = threadIdx.x; i < kMassScalars; i += 32 * kStatsWarps)
+    prm[i] = a.params[(size_t)l * kMassScalars + i];
+  __syncthreads();
+  const Model<T, double> model(ser, prm, a.cheb_deg, a.window_deg);
+  const WarpBlock<T> wblk{};
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  T2* row_zw = zw + (size_t)warp * a.S;
+  T2* row_tiles = tiles + (size_t)warp * n_tiles;
+  const int end = (blk + 1) * kStatsRows < a.B ? (blk + 1) * kStatsRows : a.B;
+  for (int b = blk * kStatsRows + warp; b < end; b += kStatsWarps) {
+    const RowStats<T> st = logical_row_stats<T, double, kExternalBounds>(
+        model, a, l, b, lane, row_zw);
+    const T inv_h = T(1) / st.h;
+    const T scale = kernel_norm<T, 0>() * inv_h
+                    / (a.unit_scale ? st.sum_w : st.sl);
+    external_kde(wblk, st, a.G, inv_h, scale, row_zw, row_tiles,
+                 a.den + ((size_t)l * a.B + b) * a.G);
+    wblk.sync();  // every lane has read the row's pairs before the next's
+  }
+}
+
+template <typename T>
+int launch_logical_kde(const FusedArgs<T>& a, cudaStream_t stream) {
+  const size_t smem = series_bytes<double>(a.cheb_deg, a.window_deg)
+                      + (size_t)kStatsWarps * (a.S + (a.S + kTileS - 1) / kTileS)
+                            * sizeof(typename Pair<T>::type)
+                      + kMassScalars * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      logical_kde_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((a.B + kStatsRows - 1) / kStatsRows);
+  logical_kde_kernel<T><<<(unsigned)a.L * blocks, 32 * kStatsWarps, smem,
+                          stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_logical_stats(const FusedArgs<T>& a, cudaStream_t stream) {
   const size_t smem = series_bytes<double>(a.cheb_deg, a.window_deg)
@@ -159,8 +227,7 @@ int launch_logical_stats(const FusedArgs<T>& a, cudaStream_t stream) {
 
 template <typename T, typename S, int KERNEL, int MODE>
 int launch_mode(const FusedArgs<T>& a, cudaStream_t stream) {
-  const bool pruned = (MODE == kAnalysisGrid || MODE == kEffectiveGrid
-                       || MODE == kContract) && KERNEL == 0;
+  const bool pruned = MODE != kStatsOnly && KERNEL == 0;
   const size_t smem = series_bytes<S>(a.cheb_deg, a.window_deg)
                       + (size_t)a.S * sizeof(typename Pair<T>::type)
                       + kMassScalars * sizeof(T)
@@ -217,6 +284,8 @@ int launch(const T* m1, const T* m2, const T* dl, const T* invp,
   if (!dense)
     return n_real != nullptr ? launch_logical_stats<T>(a, s)
                              : launch_mode<T, double, 0, kStatsOnly>(a, s);
+  if (mode == kExternalBounds && kernel == 0 && n_real != nullptr)
+    return launch_logical_kde<T>(a, s);
   if (kernel == 0) return launch_kernel<T, 0>(a, mode, s);
   return launch_kernel<T, 1>(a, mode, s);
 }

@@ -132,7 +132,11 @@ __device__ __forceinline__ RowStats<T> row_stats(
     z_lo = dmin(z_lo, z);
     z_hi = dmax(z_hi, z);
   }
-  blk.template sum<3>(acc);
+  // K1d's empty logical rows in a block (the Gaussian kernel's: 38.5 % of
+  // the dark cut_grid path's rows) skip the block sums, whose totals over
+  // no sample are the +0 they start at
+  const bool sums = MODE != kExternalBounds || st.n > 0;
+  if (sums) blk.template sum<3>(acc);
   if (MODE == kEffectiveGrid || MODE == kStatsOnly) blk.minmax(z_lo, z_hi);
   const T f_log = st.sl - T(st.n);  // logical fillers (0 on a plain row)
   const T z_mean = (acc[2] + f_log * zf) / st.sl;
@@ -141,7 +145,7 @@ __device__ __forceinline__ RowStats<T> row_stats(
     const T d = zw[s].x - z_mean;
     ss[0] += d * d;
   }
-  blk.template sum<1>(ss);
+  if (sums) blk.template sum<1>(ss);
   finish_stats<T, MODE>(st, a, l, b, acc, ss[0], zf, z_mean, f_log, z_lo,
                         z_hi);
   return st;
@@ -165,12 +169,13 @@ __device__ __forceinline__ void write_stats(const RowStats<T>& st,
 }
 
 // ---------------------------------------------------------------------------
-// K1c on logical rows: a warp a row, the block's sums replayed
+// K1c and K1d on logical rows: a warp a row, the block's sums replayed
 // ---------------------------------------------------------------------------
 //
-// logical_stats_kernel (fused_kde.cu) gives each logical row (the dark
-// siren's pixel rows, ~S_l / npix real samples) one warp in place of a
-// block of kThreads threads, and keeps that block's sums.  In row_stats the
+// logical_stats_kernel and logical_kde_kernel (fused_kde.cu) give each
+// logical row (the dark siren's pixel rows, ~S_l / npix real samples, or
+// none) one warp in place of a block of kThreads threads, and keep that
+// block's sums.  In row_stats the
 // block's rank t sums the samples t, t + kThreads, ... in order; its warps
 // fold their ranks' partials with warp_sum's shuffle-down pattern and
 // block_sum adds the warps' totals to T(0) in warp order; block_minmax
@@ -186,8 +191,9 @@ __device__ __forceinline__ void write_stats(const RowStats<T>& st,
 
 // the block's warps that a lane's partials stand for
 constexpr int kReplay = kThreads / 32;
-// logical_stats_kernel's warps a block and rows a block (_STATS_WARPS in
-// ops/cuda/fused.py sizes its shared memory: a row's z for each warp).  One
+// logical_stats_kernel's and logical_kde_kernel's warps a block and rows a
+// block (_STATS_WARPS in ops/cuda/fused.py sizes their shared memory: a
+// row's z, or its (z, w) pairs and tiles' bounds, for each warp).  One
 // warp taking 4 rows in turn: blocks of 4 warps, a row each, took ~25 %
 // longer at the dark flagship on an H100 (PERF.md §6): a block holds its
 // slot until the warp of its largest pixel ends.
@@ -203,14 +209,21 @@ __device__ __forceinline__ void rotate(T (&v)[kReplay]) {
   v[kReplay - 1] = first;
 }
 
+// z of a sample kept as z alone (K1c) or as the pair (z, w) (K1d)
+template <typename T>
+__device__ __forceinline__ T z_of(T z) { return z; }
+__device__ __forceinline__ float z_of(float2 p) { return p.x; }
+__device__ __forceinline__ double z_of(double2 p) { return p.x; }
+
 // Pass 1 of row_stats for lane `lane` of a warp standing for the block:
 // z and w of the row's samples lane + 32 i (i < ceil(n / kThreads)
-// kReplay), z to z[s]; rank lane + 32 k's sums of w, w^2 and z in
-// acc[.][k], its z range in lo[k], hi[k] (which start at the caller's).
-template <typename T, typename S>
+// kReplay), z to z[s] (Z = T) or (z, w) to z[s] (Z a pair); rank lane +
+// 32 k's sums of w, w^2 and z in acc[.][k], its z range in lo[k], hi[k]
+// (which start at the caller's).
+template <typename T, typename S, typename Z>
 __device__ __forceinline__ void rank_partials(
     const Model<T, S>& model, const FusedArgs<T>& a, size_t row, int n,
-    int lane, T* z, T (&acc)[3][kReplay], T (&lo)[kReplay],
+    int lane, Z* z, T (&acc)[3][kReplay], T (&lo)[kReplay],
     T (&hi)[kReplay]) {
   const int steps = (n + kThreads - 1) / kThreads * kReplay;
   for (int i = 0; i < steps; ++i) {
@@ -220,7 +233,12 @@ __device__ __forceinline__ void rank_partials(
       const T inv1pz = T(1) / (T(1) + zs);
       const T w = model.p_m1m2(a.m1[row + s] * inv1pz, a.m2[row + s] * inv1pz)
                   * a.invp[row + s];
-      z[s] = zs;
+      if constexpr (sizeof(Z) == sizeof(T)) {
+        z[s] = zs;
+      } else {
+        z[s].x = zs;
+        z[s].y = w;
+      }
       acc[0][0] += w;
       acc[1][0] += w * w;
       acc[2][0] += zs;
@@ -236,14 +254,14 @@ __device__ __forceinline__ void rank_partials(
 
 // Pass 2 of row_stats for that lane: rank lane + 32 k's sum of
 // (z - z_mean)^2 in ss[k].
-template <typename T>
-__device__ __forceinline__ void rank_squares(const T* z, int n, int lane,
+template <typename T, typename Z>
+__device__ __forceinline__ void rank_squares(const Z* z, int n, int lane,
                                              T z_mean, T (&ss)[kReplay]) {
   const int steps = (n + kThreads - 1) / kThreads * kReplay;
   for (int i = 0; i < steps; ++i) {
     const int s = lane + 32 * i;
     if (s < n) {
-      const T d = z[s] - z_mean;
+      const T d = z_of(z[s]) - z_mean;
       ss[0] += d * d;
     }
     rotate(ss);
@@ -284,14 +302,14 @@ __device__ __forceinline__ void replay_minmax(T (&lo)[kReplay],
   }
 }
 
-// K1c's stats of the logical row (l, b) by one warp (row_stats in
-// kStatsOnly with n_real given, and fused_row's write), z of its real
-// samples in z[0, S).
-template <typename T, typename S>
-__device__ __forceinline__ void logical_row_stats(const Model<T, S>& model,
-                                                  const FusedArgs<T>& a,
-                                                  int l, int b, int lane,
-                                                  T* z) {
+// The stats of the logical row (l, b) by one warp (row_stats with n_real
+// given, and fused_row's write): K1c's in kStatsOnly, z of its real
+// samples in z[0, S); K1d's in kExternalBounds, their (z, w) pairs there
+// (which takes no z range).
+template <typename T, typename S, int MODE = kStatsOnly, typename Z>
+__device__ __forceinline__ RowStats<T> logical_row_stats(
+    const Model<T, S>& model, const FusedArgs<T>& a, int l, int b, int lane,
+    Z* z) {
   RowStats<T> st;
   const long long nr = a.n_real[b];
   st.n = nr < 0 ? 0 : (nr > a.S ? a.S : (int)nr);
@@ -306,14 +324,15 @@ __device__ __forceinline__ void logical_row_stats(const Model<T, S>& model,
   rank_partials(model, a, (size_t)b * a.S, st.n, lane, z, acc, lo, hi);
   const T sums[3] = {replay_sum(acc[0]), replay_sum(acc[1]),
                      replay_sum(acc[2])};
-  T z_lo, z_hi;
-  replay_minmax(lo, hi, z_lo, z_hi);
+  T z_lo = zf, z_hi = zf;
+  if (MODE == kStatsOnly) replay_minmax(lo, hi, z_lo, z_hi);
   const T f_log = st.sl - T(st.n);
   const T z_mean = (sums[2] + f_log * zf) / st.sl;
   rank_squares(z, st.n, lane, z_mean, ss);
-  finish_stats<T, kStatsOnly>(st, a, l, b, sums, replay_sum(ss), zf, z_mean,
-                              f_log, z_lo, z_hi);
+  finish_stats<T, MODE>(st, a, l, b, sums, replay_sum(ss), zf, z_mean, f_log,
+                        z_lo, z_hi);
   if (lane == 0) write_stats(st, a, (size_t)l * a.B + b);
+  return st;
 }
 
 // The kernel's shape without its constant: Epanechnikov max(1 - u^2, 0),
@@ -578,6 +597,31 @@ __device__ __forceinline__ void contract_pruned(
   }
 }
 
+// K1d's Epanechnikov densities of a row with stats st on its linear grid
+// lo + delta g over the given (lo, ub), the expression of contract's
+// grid_at in fused_row: out[g] = scale * contract_pruned's sum, the row's
+// sample tiles' bounds in `tiles`, by a block or (logical_kde_kernel) a
+// warp.  A row without samples has no tile to bound or walk: it stores the
+// full loop's 0 * scale (NaN where its h is NaN, as every empty row's).
+template <typename T, typename Block>
+__device__ __forceinline__ void external_kde(const Block& blk,
+                                             const RowStats<T>& st, int G,
+                                             T inv_h, T scale,
+                                             const typename Pair<T>::type* zw,
+                                             typename Pair<T>::type* tiles,
+                                             T* out) {
+  if (st.n == 0) {
+    for (int g = blk.rank(); g < G; g += Block::kSize) out[g] = T(0) * scale;
+    return;
+  }
+  const T lo = st.lo, delta = (st.ub - st.lo) / T(G - 1);
+  tile_bounds<T, kTileS, true>(blk, zw, st.n, tiles);
+  contract_pruned<T, kTileS, kTileG>(
+      blk, zw, tiles, st.n, G, inv_h,
+      [lo, delta](int g) { return lo + delta * T(g); },
+      [out, scale](int g, T sum) { out[g] = sum * scale; });
+}
+
 // sqrt of the smallest normal T: a row of less total weight has no
 // unit-mass density (fused.py:459-468)
 template <typename T>
@@ -627,11 +671,13 @@ __device__ __forceinline__ void contract_epilogue_tiles(
 // den_scale 'norms' (1 / (h S_l)) or 'unit' (1 / (h sum w)); in mode (e)
 // the unit-mass KDE contracted in the block, r = (r1, r2) of the row, 0
 // exactly where the row's weight is below sqrt(tiny).  On the analysis
-// grids (K1a; K1e's, contracted), and on the effective grid (K1b: the
-// row's sorted linear grid lo + delta g, computed as contract computes it)
-// the Epanechnikov KDE takes the pruned pair loop (contract_pruned, its
-// sample tiles' bounds in `tiles`, ceil(S / kTileS) pairs) unless PRUNE is
-// false (the host emulation's oracle); the other modes keep contract.
+// grids (K1a; K1e's, contracted), on the effective grid (K1b: the row's
+// sorted linear grid lo + delta g, computed as contract computes it) and on
+// the given bounds (K1d, external_kde: the same linear grid; an empty
+// logical row skips its sums and tiles) the Epanechnikov KDE takes the
+// pruned pair loop (contract_pruned, its sample tiles' bounds in `tiles`,
+// ceil(S / kTileS) pairs) unless PRUNE is false (the host emulation's
+// oracle); the Gaussian kernel keeps contract.
 template <typename T, typename S, int KERNEL, int MODE, bool PRUNE = true,
           typename Block>
 __device__ __forceinline__ void fused_row(const Block& blk,
@@ -710,6 +756,8 @@ __device__ __forceinline__ void fused_row(const Block& blk,
       contract_pruned<T, kTileS, kTileG>(
           blk, zw, tiles, st.n, a.G, inv_h, grid_at,
           [out, scale](int g, T sum) { out[g] = sum * scale; });
+    } else if (MODE == kExternalBounds && KERNEL == 0 && PRUNE) {
+      external_kde(blk, st, a.G, inv_h, scale, zw, tiles, out);
     } else {
       contract<T, KERNEL>(blk, zw, st.n, a.G, inv_h, scale, grid_at, out);
     }

@@ -331,9 +331,11 @@ struct DeviceBlock {
   }
 };
 
-// A warp as a `Block` of its own (K3c on logical rows: a warp a row): its
-// sums, min/max and any over its 32 lanes by xor exchanges, whose pairwise
-// sums are commutative so that every lane holds the same bits.
+// A warp as a `Block` of its own (K3c and K1d on logical rows: a warp a
+// row): its sums, min/max and any over its 32 lanes by xor exchanges, whose
+// pairwise sums are commutative so that every lane holds the same bits (in
+// another order than a DeviceBlock's: K1d replays the block's sums,
+// kde.cuh), and the warp's min/max and ballot of the pruned pair loops.
 template <typename T>
 struct WarpBlock {
   static constexpr int kSize = 32;
@@ -357,6 +359,13 @@ struct WarpBlock {
     return __any_sync(0xffffffffu, v) != 0;
   }
   __device__ __forceinline__ void sync() const { __syncwarp(); }
+  __device__ __forceinline__ void warp_minmax(T& lo, T& hi) const {
+    minmax(lo, hi);
+  }
+  __device__ __forceinline__ unsigned ballot(bool v) const {
+    return __ballot_sync(0xffffffffu, v);
+  }
+  __device__ __forceinline__ void tile(bool) const {}
 };
 
 // Scott (0), Silverman (1) or fixed (2) bandwidth factor of a 1-D KDE, in

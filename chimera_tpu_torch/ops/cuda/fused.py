@@ -80,7 +80,7 @@ _ADJOINT_MAX_DEG = 64
 _ADJOINT_STATIC_SMEM = 12288
 # the tile widths of the pruned Epanechnikov pair loops (csrc/kde.cuh
 # kTileS, kTileG, kK4bTile; csrc/adjoint.cuh kGridTile): samples a tile
-# and grid points a warp's run in K1a, K1b, K1e, K2 and K2b's pass 1 (and
+# and grid points a warp's run in K1a, K1b, K1d, K1e, K2 and K2b's pass 1 (and
 # K4's runs), grid points a tile
 # in K2b's pass 2 and in K3b's and K3d's phase B, bins or grid points a tile
 # in K4b's two sweeps; each tile's (lo, hi) takes two values of shared
@@ -91,8 +91,9 @@ _GRID_TILE = 32
 _K4B_TILE = 16
 # bins a tile of K4's pruned pair loop (csrc/kde.cuh kK4Tile)
 _K4_TILE = 32
-# warps a block of K1c on logical rows, a row's z each in shared memory
-# (csrc/kde.cuh kStatsWarps)
+# warps a block of K1c and K1d on logical rows, each with a row's z (K1c)
+# or (z, w) pairs and tiles' bounds (K1d) in shared memory (csrc/kde.cuh
+# kStatsWarps)
 _STATS_WARPS = 1
 # the per-λ record of the adjoint kernels' prologue past the mass scalars:
 # the 4 derived mass fields, the (2, 12) Jacobian of the two that carry a
@@ -362,12 +363,15 @@ def _launch_k1(mode: int, series, params, m1det, m2det, dl, inv_pe_prior,
 
 
 def _checked_rows(name, m1det, m2det, dl, inv_pe_prior, cosmo, mass, n_real,
-                  dl_fill, logical_s, sum_size, tiles=False, stats_only=False):
+                  dl_fill, logical_s, sum_size, tiles=False, stats_only=False,
+                  warp_kde=False):
     """The checks every launch of ``csrc/fused_kde.cu`` shares: returns the
     packed rows and the contiguous PE arrays, logical-row arrays.  ``tiles``:
     the launch takes the pruned pair loop, whose sample tiles' bounds take
-    shared memory too; ``stats_only`` on logical rows: the launch takes the
-    warp-a-row kernel, whose block keeps the z of _STATS_WARPS rows."""
+    shared memory too.  On logical rows ``stats_only`` (K1c) and
+    ``warp_kde`` (K1d, Epanechnikov) launches take the warp-a-row kernels,
+    whose block keeps for each of its _STATS_WARPS rows the z (K1c) or the
+    (z, w) pairs and tiles' bounds (K1d) of the row."""
     check_cuda_call(name, cosmo, mass, dl,
                     {"m1det": m1det, "m2det": m2det, "inv_pe_prior": inv_pe_prior})
     dt, dev = dl.dtype, dl.device
@@ -383,14 +387,16 @@ def _checked_rows(name, m1det, m2det, dl, inv_pe_prior, cosmo, mass, n_real,
         n_real = dl_fill = None
     n = max(cosmo.L, mass.L)
     series, params = (t.to(dev) for t in pack_params(cosmo, mass, n, dt))
-    by_warp = stats_only and n_real is not None
+    by_warp = (stats_only or warp_kde) and n_real is not None
+    row = (s if stats_only and by_warp else 2 * s) \
+        + (2 * -(-s // _TILE_S) if tiles else 0)
     smem = smem_bytes(series, sum_size, params,
-                      _STATS_WARPS * s if by_warp
-                      else 2 * s + (2 * -(-s // _TILE_S) if tiles else 0))
+                      (_STATS_WARPS if by_warp else 1) * row)
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"S = {s} samples need {smem} bytes of shared memory per block "
-            + (f"(z of {_STATS_WARPS} rows" if by_warp else "(z and w")
+            + ("(z" if stats_only and by_warp else "(z and w")
+            + (f" of {_STATS_WARPS} rows" if by_warp else "")
             + f" of every sample), over the {_SMEM_LIMIT}-byte limit")
     pe = [t.contiguous() for t in (m1det, m2det, dl, inv_pe_prior)]
     return series, params, pe, n_real, dl_fill
@@ -475,8 +481,8 @@ def fused_weights_kde(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids=None,
         "fused_weights_kde", m1det, m2det, dl, inv_pe_prior, cosmo, mass,
         n_real, dl_fill, logical_s,
         8 if mode in (_EXTERNAL_BOUNDS, _CONTRACT) else dl.element_size(),
-        tiles=mode in (_ANALYSIS_GRID, _EFFECTIVE_GRID, _CONTRACT)
-        and kernel == "epan")
+        tiles=mode != _STATS_ONLY and kernel == "epan",
+        warp_kde=mode == _EXTERNAL_BOUNDS and kernel == "epan")
     kw = dict(kernel=kernel, bw_method=bw_method,
               n_grid=0 if n_grid is None else int(n_grid), logical_s=logical_s,
               cut_grid=cut_grid, den_scale=den_scale)

@@ -1224,9 +1224,6 @@ def reference_defaults(smi: str, full, dark_data) -> list[dict]:
         t_med, t_mad = med_mad([t / n for t in total])
         k_med, k_mad = med_mad([t / n for t in kern])
         rest_ms = t_med - k_med
-        cosmo, mass = args[4], args[5]
-        q, g = 12 + mass.window_deg, kw["n_grid"]
-        cheb = CHEB_OPS * cosmo.cheb_deg
         if kind == "1d":
             kid, rest = "K1b", ""
             pairs = k1b_pairs(args, kw)
@@ -1238,18 +1235,20 @@ def reference_defaults(smi: str, full, dark_data) -> list[dict]:
                      f"({pairs['tiled'] / pairs['all']:.4%})")
         else:
             b = args[2].shape[0]
-            n_real = int(kw["n_real"].sum())
             kid = "K1d"
             ev = captured("fused_row_stats", lambda: hl.log_like_batch(batch))
             k1c = med_mad([t / n for t in cuda_ms(
                 lambda: fused_row_stats(*ev[0], **ev[1]), reps)])
             rest = f"K1c (on the events) {k1c[0]:.4f} ± {k1c[1]:.4f} ms; "
             rest_ms -= k1c[0]
-            b_ms, b_by = bound(4 * (4 * n_real + b + 2 * n * b + n * q
-                                    + n * b * (g + 8)) + 8 * b
-                               + 8 * n * (cosmo.cheb_deg + 2),
-                               n * n_real * (cheb + KDE_OPS * g))
-            terms = ""
+            pairs = k1d_pairs(args, kw)
+            b_ms, b_by = k1d_bound(args, kw, pairs)
+            terms = (f"; on every pair {k1d_bound(args, kw)[0]:.4f} ms; live "
+                     f"terms {pairs['live']} of {pairs['all']} "
+                     f"({pairs['live'] / pairs['all']:.4%}), the pruned loop "
+                     f"evaluates {pairs['tiled']} "
+                     f"({pairs['tiled'] / pairs['all']:.4%}); (λ, row) pairs "
+                     f"without a sample {pairs['empty_rows']} of {n * b}")
         prec = mock(*PRECISION_MOCK) if kind == "1d" else parity_dark_mock(DEV)
         rel, _, _ = f32_vs_f64(make(prec, F64, **cut), make(prec, F32, **cut),
                                torch.linspace(58.0, 100.0, 7, device=DEV))
@@ -1271,8 +1270,7 @@ def reference_defaults(smi: str, full, dark_data) -> list[dict]:
             "max_abs_err": den_abs, "ms": statistics.median(kern),
             "plain_ms": plain[0], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
-        if kid == "K1b":
-            entries[kid]["redesigned"] = 11
+        entries[kid]["redesigned"] = 11 if kid == "K1b" else 13
         del hl, args, kw, prec
     for binning, launched in ((True, {"K4": 1}), (False, {"K1b": 1})):
         hl = dark_likelihood(dark_data, F32, kind="approximate", binning=binning,
@@ -1828,6 +1826,76 @@ def k1b_pairs(args, kw) -> dict:
                 out["live"] += _in_support(zz, ww != 0, hh, gg, False)
                 out["tiled"] += _tiled_terms(zz, ww, hh, gg)
     return out
+
+
+def k1d_pairs(args, kw) -> dict:
+    """K1d's pair terms on its inputs (fused_weights_kde's, the mode of
+    given bounds on logical pixel rows): 'all' (λ, row, real sample, grid
+    point), the pairs of K1d's all-pairs bound; 'empty_rows', the (λ, row)
+    pairs whose row holds no real sample; 'live', the terms with
+    |g - z| < h and w != 0, those of the Epanechnikov density that are not
+    exactly 0; 'tiled', those the pruned loop evaluates (_tiled_terms on
+    each row's real samples and its linear grid lo + δ g over the given
+    (lo, ub)).  h, z and w are the plain stats pass's on the logical rows,
+    in float64."""
+    from chimera_tpu_torch.ops.cuda.fused import fused_row_stats_plain
+
+    m1, m2, dl, invp, cosmo, mass = args[:6]
+    g, ext = int(kw["n_grid"]), kw["ext_bounds"].double()
+    b, s = dl.shape
+    n_real = kw["n_real"].to(dl.device).clamp(0, s)
+    real = torch.arange(s, device=dl.device)[None] < n_real[:, None]
+    rows = 1000  # a chunk's rows
+    with torch.no_grad():
+        st = fused_row_stats_plain(m1, m2, dl, invp, cosmo, mass,
+                                   n_real=kw["n_real"], dl_fill=kw["dl_fill"],
+                                   logical_s=kw["logical_s"])
+        z, w = _z_and_w(m1, m2, dl, invp, cosmo, mass)
+        frac = torch.arange(g, dtype=F64, device=dl.device)
+        n = z.shape[0]
+        out = {"all": n * int(real.sum()) * g,
+               "empty_rows": n * int((n_real == 0).sum()), "live": 0, "tiled": 0}
+        for l in range(n):
+            lo, ub = ext[l, :, 0], ext[l, :, 1]
+            h = st["bandwidth"][l].double()
+            grid = lo[:, None] + ((ub - lo) / (g - 1))[:, None] * frac
+            for r0 in range(0, b, rows):
+                sl = slice(r0, r0 + rows)
+                zz, ww, gg, hh, rr = z[l, sl], w[l, sl], grid[sl], h[sl], real[sl]
+                out["live"] += _in_support(zz, (ww != 0) & rr, hh, gg, False)
+                out["tiled"] += _tiled_terms(zz, ww, hh, gg, real=rr)
+    return out
+
+
+def k1d_bound(args, kw, pairs: dict | None = None) -> tuple[float, str]:
+    """The least time of K1d on these inputs: bytes, the PE rows of the real
+    samples, the logical-row arrays, the given bounds, the model rows, the
+    densities and the stats once each; operations, per (λ, real sample) the
+    distance series' Clenshaw sum in double, the mass model's forward and,
+    in the CDF's window, the window series in double, per (λ, logical row)
+    the fillers' distance series, per (λ, row, grid point) the grid point
+    and the density's scale, and the density terms that are not exactly 0
+    (``pairs['live']`` of k1d_pairs).  Where ``pairs`` is None, the
+    all-pairs count: each real sample's series and KDE terms on every grid
+    point, FP32."""
+    m1, dl, cosmo, mass = args[0], args[2], args[4], args[5]
+    n, (b, s), g = max(cosmo.L, mass.L), dl.shape, int(kw["n_grid"])
+    size = dl.element_size()
+    n_real = kw["n_real"].to(dl.device).clamp(0, s)
+    real = int(n_real.sum())
+    q = 12 + mass.window_deg
+    if pairs is None:
+        return bound(size * (4 * real + b + 2 * n * b + n * q + n * b * (g + 8))
+                     + 8 * b + 8 * n * (cosmo.cheb_deg + 2),
+                     n * real * (CHEB_OPS * cosmo.cheb_deg + KDE_OPS * g))
+    n_bytes = (size * (4 * real + b + 2 * n * b + n * q + n * b * (g + 8))
+               + 8 * b + 8 * n * (cosmo.cheb_deg + 2 + mass.window_deg))
+    mask = torch.arange(s, device=dl.device)[None] < n_real[:, None]
+    ops64 = CHEB_OPS * (n * (real + b) * cosmo.cheb_deg
+                        + window_pairs(cosmo, mass, m1, dl, mask) * mass.window_deg)
+    ops = n * real * MASS_FWD_OPS + 2 * n * b * g + KDE_OPS * pairs["live"]
+    return bound(n_bytes, 0.0, ops + ops64) if dl.dtype == F64 \
+        else bound(n_bytes, ops, ops64)
 
 
 def k3d_pairs(args, kw, widths=None) -> dict:
@@ -2769,8 +2837,8 @@ for i, ln in enumerate(log):
 """
 
 
-# K1a, K2b, K2, K1c, K4, K4b, K1e, K3b, K1b and K3d in the tree it is run
-# from, ms per call:
+# K1a, K2b, K2, K1c, K4, K4b, K1e, K3b, K1b, K3d and K1d in the tree it is
+# run from, ms per call:
 # K1a at the spectral headline (16 λ, float32) and on the first 2 of its
 # 500 grid points (phase A and the row stats; the pair loop 1/250 of its
 # work); K4 on the binned spectral headline's and the binned dark
@@ -2779,7 +2847,8 @@ for i, ln in enumerate(log):
 # path's inputs at the flagship width (phase 23); K3b on
 # the spectral cut_grid path's own cotangents (phase 21); K1b on the
 # spectral cut_grid path's inputs (phase 18) at phase 14's points; K3d on
-# the dark cut_grid path's own cotangents (phase 21); K2b on the dark
+# the dark cut_grid path's own cotangents (phase 21); K1d on that path's
+# inputs (phase 18) at phase 14's points; K2b on the dark
 # flagship path's own cotangents and on 2 grid points of the same rows
 # (phases A and D); K2 at the dark flagship on rows_inputs' rows ((1/h,
 # scale) from the plain stats pass, so they do not depend on K1c); K1c on
@@ -2788,21 +2857,21 @@ for i, ln in enumerate(log):
 # spectral headline's value-and-gradient call and forward batch (phases 14
 # and 6), the value-and-gradient calls of the binned spectral and dark
 # paths (phase 24), of the spectral and dark cut_grid paths and of the dark
-# flagship (phase 21), the spectral cut_grid forward batch (phase 18) and
-# the contract path's forward batch (phase 23).
+# flagship (phase 21), the spectral and dark cut_grid forward batches
+# (phase 18) and the contract path's forward batch (phase 23).
 # The outputs of the kernel calls, of the Gaussian kernel's on the same
 # inputs, and of float64 K1a (64 events, L = 4), K2b, K2, K1c, K4b, K1e,
-# K3b, K1b and K3d (the same calls' inputs in float64; K3b also on
+# K3b, K1b, K3d and K1d (the same calls' inputs in float64; K3b also on
 # mode_inputs' random cotangents), and those of K3 (the spectral headline's backward),
-# K3c (the dark flagship's and the dark cut_grid path's), K1d and K4 (both
+# K3c (the dark flagship's and the dark cut_grid path's) and K4 (both
 # binned paths' forward) on their paths' own inputs, go to the file
 # argv[1] with a hash of each call's inputs (an output of more than 2^22
 # entries as a hash of its bytes), for --k3-ab to hold bit for bit against
 # this tree's.  Then the live pairs
 # (where the tree's chip_smoke.py counts them; K4b's and K3b's kept terms
 # at tile widths 8, 16 and 32, K3d's and K4's at 16 and 32) and the ptxas
-# lines of the float32 Epanechnikov K1a, K1b, K1c, K1e, K2, K2b, K3b, K3d,
-# K4 and K4b of a tree that builds them in that process.  It uses only
+# lines of the float32 Epanechnikov K1a, K1b, K1c, K1d, K1e, K2, K2b, K3b,
+# K3d, K4 and K4b of a tree that builds them in that process.  It uses only
 # helpers that chip_smoke.py has had since K4b was ported, so it runs in
 # older trees.
 PAIR_TIMING = r"""
@@ -2915,6 +2984,11 @@ def k3d_block(hl):
     d_args, d_kw = cs.captured("fused_weights_kde",
                                lambda: hl.log_like_batch(cs.batch_of(x)))
     keep_call("K1d", k1, d_args, d_kw)
+    report("K1d, dark cut_grid", lambda: k1(*d_args, **d_kw))
+    if hasattr(cs, "k1d_pairs"):
+        print(f"  K1d pair terms: {cs.k1d_pairs(d_args, d_kw)}", flush=True)
+    report("dark cut_grid forward batch",
+           lambda: hl.log_like_batch(cs.batch_of(x)), 16)
     report("dark cut_grid value and gradient",
            lambda: cs.value_and_grad(hl, x), 16)
     report("K3d, dark cut_grid", lambda: k3(*a, **kw))
@@ -3022,6 +3096,8 @@ for name, key in (("fused_kde", "fused_kde_kernelIffLi0ELi0E"),
                   ("fused_kde_adjoint", "fused_kde_adjoint_kernelIffLi0ELi1E"),
                   ("fused_kde_adjoint", "fused_kde_adjoint_kernelIfdLi0ELi2E"),
                   ("fused_kde", "fused_kde_kernelIfdLi0ELi4E"),
+                  ("fused_kde", "fused_kde_kernelIfdLi0ELi2E"),
+                  ("fused_kde", "logical_kde_kernelIf"),
                   ("kde1d", "kde1d_kernelIfLi0E"),
                   ("kde1d", "kde1d_adjoint_kernelIfLi0E")):
     log = build.build_info.get(name, {}).get("log", "").splitlines()

@@ -4,7 +4,8 @@
 // (tests/test_torch_host_emulation.py): the host emulations run them with a
 // block of one thread only, whose members every block does not have.  Each
 // mode and KDE kernel of K3 (fused_kde_adjoint.cu, K3c's logical rows a
-// warp a row), K4 and K4b (kde1d.cu) and K1e (fused_kde.cu), float32 and
+// warp a row), K4 and K4b (kde1d.cu), K1e and K1d (fused_kde.cu, K1d's
+// logical rows a warp a row, logical_kde_kernel, and K1c's), float32 and
 // float64.
 #include "adjoint.cuh"
 
@@ -48,6 +49,12 @@ void card_blocks(const AdjointArgs<T>& a, const AdjointSmem<T>& sm,
   const FusedArgs<T> f{};
   fused_row<T, double, 0, kContract>(bt, md, f, 0, 0, u, u);
   fused_row<T, double, 1, kContract>(bt, md, f, 0, 0, u, u);
+  fused_row<T, double, 0, kExternalBounds>(bt, md, f, 0, 0, u, u);
+  fused_row<T, double, 1, kExternalBounds>(bt, md, f, 0, 0, u, u);
+  const RowStats<T> rs =
+      logical_row_stats<T, double, kExternalBounds>(md, f, 0, 0, 0, u);
+  external_kde(WarpBlock<T>{}, rs, 1, T(1), T(1), q, u, o);
+  logical_row_stats(md, f, 0, 0, 0, o);
 }
 
 }  // namespace

@@ -4,16 +4,18 @@
 // from the same device functions (kde.cuh, population.cuh): per (lambda,
 // row) the kernel's phases with a block of one thread, whose block sums are
 // the identity.
-// K1c on logical rows runs as its kernel does, a warp a row (kde.cuh,
-// logical_row_stats): each of the 32 lanes' partials from the kernel's own
-// device functions in turn, then the warp's shuffle-down folds emulated
-// lane by lane.
+// K1c, and K1d's Epanechnikov kernel, on logical rows run as their
+// kernels do, a warp a row (kde.cuh, logical_row_stats): each of the 32
+// lanes' partials from the kernel's own device functions in turn, then the
+// warp's shuffle-down folds emulated lane by lane; K1d's densities then by
+// external_kde with a block of one thread.
 // Same C interfaces as the kernels', without the stream; besides, K1a,
-// K1b, K1e, K4 and K4b with the unpruned loops (the pruned loops'
+// K1b, K1d, K1e, K4 and K4b with the unpruned loops (the pruned loops'
 // oracles), the pruned
-// loop on given (z, w) and a tally of the tiles it skips, and K1c on logical rows
-// in the block-a-row layout that the warp's sums replay, its kThreads
-// ranks and their warps emulated one by one (the replay's oracle).  Built
+// loop on given (z, w) and a tally of the tiles it skips, and K1c and K1d on
+// logical rows in the block-a-row layout (K1c's: that the warp's sums
+// replay, its kThreads ranks and their warps emulated one by one, the
+// replay's oracle; K1d's: that block's sums, then the pruned loop).  Built
 // by tests/test_torch_host_emulation.py.
 #include <array>
 #include <vector>
@@ -25,11 +27,13 @@ namespace {
 
 // the tiles that the pruned pair loops tested and skipped (host_tile_tally)
 long long g_tally[2] = {0, 0};
-// kAnalysisGrid's, kEffectiveGrid's and kContract's oracle: the unpruned
-// loops of contract and contract_epilogue_tiles (host_fused_kde_unpruned)
+// kAnalysisGrid's, kEffectiveGrid's, kExternalBounds' and kContract's
+// oracle: the unpruned loops of contract and contract_epilogue_tiles
+// (host_fused_kde_unpruned)
 bool g_unpruned = false;
 
-// K1c on logical rows in the block-a-row layout (host_logical_stats_block)
+// K1c and K1d on logical rows in the block-a-row layout
+// (host_logical_stats_block)
 bool g_block_layout = false;
 
 // warp_sum's (or block_minmax's) shuffle-down fold over the 32 lanes' v,
@@ -48,11 +52,12 @@ T fold_down(std::array<T, 32> v, Op op) {
 template <typename T>
 T add(T x, T y) { return x + y; }
 
-// logical_row_stats of row (l, b) lane by lane: rank_partials and
-// rank_squares of each lane, replay_sum's and replay_minmax's folds.
-template <typename T>
-void warp_row(const Model<T, double>& model, const FusedArgs<T>& a, int l,
-              int b, T* z) {
+// logical_row_stats of row (l, b) in MODE lane by lane: rank_partials and
+// rank_squares of each lane (z, or K1d's (z, w) pairs, to z), replay_sum's
+// and replay_minmax's folds.
+template <typename T, int MODE = kStatsOnly, typename Z>
+RowStats<T> warp_row(const Model<T, double>& model, const FusedArgs<T>& a,
+                     int l, int b, Z* z) {
   RowStats<T> st;
   const long long nr = a.n_real[b];
   st.n = nr < 0 ? 0 : (nr > a.S ? a.S : (int)nr);
@@ -100,18 +105,19 @@ void warp_row(const Model<T, double>& model, const FusedArgs<T>& a, int l,
   }
   T ss_sum = T(0);
   for (int k = 0; k < kReplay; ++k) ss_sum += fold_down(lanes(ss, 1, 0, k), add<T>);
-  finish_stats<T, kStatsOnly>(st, a, l, b, sums, ss_sum, zf, z_mean, f_log,
-                              z_lo, z_hi);
+  finish_stats<T, MODE>(st, a, l, b, sums, ss_sum, zf, z_mean, f_log, z_lo,
+                        z_hi);
   write_stats(st, a, (size_t)l * a.B + b);
+  return st;
 }
 
-// row_stats of row (l, b) as the block-a-row kernel runs it (kStatsOnly,
-// logical): rank t's loops over the samples t, t + kThreads, ..., each
-// warp's shuffle-down folds, block_sum's and block_minmax's sums over the
-// warps in order.
-template <typename T>
-void block_row(const Model<T, double>& model, const FusedArgs<T>& a, int l,
-               int b, T* z) {
+// row_stats of row (l, b) as the block-a-row kernel runs it (logical, in
+// MODE): rank t's loops over the samples t, t + kThreads, ..., each warp's
+// shuffle-down folds, block_sum's and block_minmax's sums over the warps in
+// order; z, or K1d's (z, w) pairs, to z.
+template <typename T, int MODE = kStatsOnly, typename Z>
+RowStats<T> block_row(const Model<T, double>& model, const FusedArgs<T>& a,
+                      int l, int b, Z* z) {
   RowStats<T> st;
   const long long nr = a.n_real[b];
   st.n = nr < 0 ? 0 : (nr > a.S ? a.S : (int)nr);
@@ -127,7 +133,12 @@ void block_row(const Model<T, double>& model, const FusedArgs<T>& a, int l,
       const T inv1pz = T(1) / (T(1) + zs);
       const T w = model.p_m1m2(a.m1[row + s] * inv1pz, a.m2[row + s] * inv1pz)
                   * a.invp[row + s];
-      z[s] = zs;
+      if constexpr (sizeof(Z) == sizeof(T)) {
+        z[s] = zs;
+      } else {
+        z[s].x = zs;
+        z[s].y = w;
+      }
       acc[0][t] += w;
       acc[1][t] += w * w;
       acc[2][t] += zs;
@@ -154,14 +165,15 @@ void block_row(const Model<T, double>& model, const FusedArgs<T>& a, int l,
   const T z_mean = (sums[2] + f_log * zf) / st.sl;
   for (int t = 0; t < kThreads; ++t)
     for (int s = t; s < st.n; s += kThreads) {
-      const T d = z[s] - z_mean;
+      const T d = z_of(z[s]) - z_mean;
       ss[t] += d * d;
     }
   T ss_sum = T(0);
   for (int w = 0; w < kWarps; ++w) ss_sum += fold_down(warp(ss, w), add<T>);
-  finish_stats<T, kStatsOnly>(st, a, l, b, sums, ss_sum, zf, z_mean, f_log,
-                              z_lo, z_hi);
+  finish_stats<T, MODE>(st, a, l, b, sums, ss_sum, zf, z_mean, f_log, z_lo,
+                        z_hi);
   write_stats(st, a, (size_t)l * a.B + b);
+  return st;
 }
 
 // K1c on logical rows: per lambda, the kernel's blocks of kStatsRows rows,
@@ -181,6 +193,46 @@ void run_logical_stats(const FusedArgs<T>& a) {
              b < (blk + 1) * kStatsRows && b < a.B; b += kStatsWarps) {
           if (g_block_layout) block_row(model, a, l, b, z.data());
           else warp_row(model, a, l, b, z.data());
+        }
+  }
+}
+
+// K1d on logical rows (Epanechnikov) as logical_kde_kernel runs it: per
+// lambda, blocks of kStatsRows rows, a warp a row; the stats lane by lane
+// (warp_row), the densities by external_kde with a block of one thread.
+// With g_block_layout the stats as fused_kde_kernel's 4-warp block sums
+// them (block_row); with g_unpruned the densities by the full loop
+// (contract), the oracle of both layouts.
+template <typename T>
+void run_logical_kde(const FusedArgs<T>& a) {
+  const int Q = a.cheb_deg + 2 + a.window_deg;
+  std::vector<typename Pair<T>::type> zw(a.S), tiles((a.S + kTileS - 1) / kTileS);
+  for (int l = 0; l < a.L; ++l) {
+    const Model<T, double> model(a.series + (size_t)l * Q,
+                                 a.params + (size_t)l * kMassScalars,
+                                 a.cheb_deg, a.window_deg);
+    for (int blk = 0; blk * kStatsRows < a.B; ++blk)
+      for (int w = 0; w < kStatsWarps; ++w)
+        for (int b = blk * kStatsRows + w;
+             b < (blk + 1) * kStatsRows && b < a.B; b += kStatsWarps) {
+          const RowStats<T> st =
+              g_block_layout
+                  ? block_row<T, kExternalBounds>(model, a, l, b, zw.data())
+                  : warp_row<T, kExternalBounds>(model, a, l, b, zw.data());
+          const T inv_h = T(1) / st.h;
+          const T scale = kernel_norm<T, 0>() * inv_h
+                          / (a.unit_scale ? st.sum_w : st.sl);
+          const HostBlock<T> blk{g_tally};
+          T* out = a.den + ((size_t)l * a.B + b) * a.G;
+          if (g_unpruned) {
+            const T lo = st.lo, delta = (st.ub - st.lo) / T(a.G - 1);
+            contract<T, 0>(blk, zw.data(), st.n, a.G, inv_h, scale,
+                           [lo, delta](int g) { return lo + delta * T(g); },
+                           out);
+          } else {
+            external_kde(blk, st, a.G, inv_h, scale, zw.data(), tiles.data(),
+                         out);
+          }
         }
   }
 }
@@ -208,7 +260,12 @@ void run_kernel(const FusedArgs<T>& a, int mode) {
   if (mode == kEffectiveGrid && g_unpruned)
     run_mode<T, T, KERNEL, kEffectiveGrid, false>(a);
   else if (mode == kEffectiveGrid) run_mode<T, T, KERNEL, kEffectiveGrid>(a);
-  if (mode == kExternalBounds) run_mode<T, double, KERNEL, kExternalBounds>(a);
+  if (mode == kExternalBounds && KERNEL == 0 && a.n_real != nullptr)
+    run_logical_kde<T>(a);
+  else if (mode == kExternalBounds && g_unpruned)
+    run_mode<T, double, KERNEL, kExternalBounds, false>(a);
+  else if (mode == kExternalBounds)
+    run_mode<T, double, KERNEL, kExternalBounds>(a);
   if (mode == kStatsOnly && a.n_real != nullptr) run_logical_stats<T>(a);
   else if (mode == kStatsOnly) run_mode<T, double, KERNEL, kStatsOnly>(a);
   if (mode == kContract && g_unpruned)
@@ -315,7 +372,7 @@ void run_kde1d_adjoint(const T* z, const T* w, const T* grids, const T* h,
 extern "C" void host_fused_kde_f32(FUSED_ARGS(float)) { FUSED_CALL; }
 extern "C" void host_fused_kde_f64(FUSED_ARGS(double)) { FUSED_CALL; }
 
-// K1a, K1b and K1e with the unpruned pair loops (contract,
+// K1a, K1b, K1d and K1e with the unpruned pair loops (contract,
 // contract_epilogue_tiles), the pruned loop's oracle
 #define UNPRUNED(T, NAME)                                                    \
   extern "C" void NAME(FUSED_ARGS(T)) {                                      \
@@ -326,7 +383,8 @@ extern "C" void host_fused_kde_f64(FUSED_ARGS(double)) { FUSED_CALL; }
 UNPRUNED(float, host_fused_kde_unpruned_f32)
 UNPRUNED(double, host_fused_kde_unpruned_f64)
 
-// K1c on logical rows in the block-a-row layout, the warp's oracle
+// K1c and K1d on logical rows in the block-a-row layout: the warp's
+// oracle, and K1d's pruned loop in the 4-warp block (k1d_block)
 #define BLOCK_LAYOUT(T, NAME)                                                \
   extern "C" void NAME(FUSED_ARGS(T)) {                                      \
     g_block_layout = true;                                                   \

@@ -703,6 +703,42 @@ def test_k1d_matches_plain(cuda, dark_inputs, dtype, tol, kernel):
     _check_rows(den, st, den_p, st_p, live, tol)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("kernel", ["epan", "gauss"])
+def test_k1d_empty_rows_match_plain(cuda, dark_inputs, dtype, tol, kernel):
+    """K1d as the dark cut_grid path launches it (250 grid points: eight
+    32-point runs of the pruned loop, a warp a logical row where
+    Epanechnikov) on pixel rows among which some hold no sample: the rows
+    with weight within ``tol`` of the plain version, the empty rows' stats
+    those of no sample (sum_w 0) and their densities NaN (the kernel's raw
+    formulas give them a NaN h), a second launch of the same bits."""
+    hl = HyperLikelihood.create(*dark_inputs, kind="marginalized",
+                                binning=False, cut_grid=2.0)
+    hl = copy.deepcopy(hl).to(device=cuda, dtype=dtype)
+    pop_b = hl.population.update_batch({"H0": H0S})
+    ev = fused_row_stats_plain(hl.m1det, hl.m2det, hl.dL, hl.inv_pe_prior,
+                               pop_b.cosmo, pop_b.mass, cut_grid=2.0)
+    ext = torch.stack([ev["lo"], ev["ub"]], dim=-1).repeat_interleave(
+        hl.n_pixels, dim=1)
+    args = (hl.pix_m1det, hl.pix_m2det, hl.pix_dL, hl.pix_inv_pe_prior,
+            pop_b.cosmo, pop_b.mass)
+    kw = {"kernel": kernel, "ext_bounds": ext, "n_grid": 250,
+          "n_real": hl.pix_n_real, "dl_fill": hl.pix_dl_fill,
+          "logical_s": hl.n_samples, "den_scale": "unit"}
+    den, st = _launched(lambda: fused_weights_kde(*args, **kw), {"K1d": 1})
+    again, st2 = _launched(lambda: fused_weights_kde(*args, **kw), {"K1d": 1})
+    den_p, st_p = fused_weights_kde_plain(*args, **kw)
+    empty = hl.pix_n_real == 0
+    assert 0 < int(empty.sum()) < len(empty)
+    assert torch.isnan(den[:, empty]).all() and torch.all(st["sum_w"][:, empty] == 0)
+    live = st_p["sum_w"] > 0
+    assert not live[:, empty].any()
+    _check_rows(den, st, den_p, st_p, live, tol)
+    assert torch.isfinite(den[live]).all()
+    assert torch.equal(_bits(den), _bits(again))
+    assert all(torch.equal(_bits(st[k]), _bits(st2[k])) for k in st)
+
+
 CONFIGS = [
     ("spectral", {"binning": True, "cut_grid": 2.0}, {"K4": 1}),
     ("spectral", {"binning": True, "cut_grid": None}, {"K4": 1}),

@@ -865,8 +865,9 @@ def test_tile_widths_match_the_kernels(rows_host_lib):
 
 def test_device_functions_build_for_the_card_blocks():
     """K3's adjoint_row in every mode and KDE kernel, K4b's
-    kde_row_adjoint, K4's kde_row and K1e's fused_row, instantiated with the
-    card's blocks (DeviceBlock of 8 and 4 warps, K3c's WarpBlock:
+    kde_row_adjoint, K4's kde_row, K1e's and K1d's fused_row and K1d's
+    warp-a-row logical_row_stats and external_kde, instantiated with the
+    card's blocks (DeviceBlock of 8 and 4 warps, K3c's and K1d's WarpBlock:
     tests/host_emulation/card_blocks.cpp),
     pass g++'s syntax check: the host emulations instantiate them with a
     block of one thread only, whose members the card's blocks may lack."""
@@ -1280,6 +1281,86 @@ def test_pruned_k1e_keeps_the_bits(fused_host_lib, data, case, dtype):
     assert tested > 0 and (case == "unsorted" or skipped > tested // 4)
     assert torch.all(got[:, 0] == 0) and torch.all(got[:, 3] == 0)
     assert torch.all(st["sum_w"][:, 3] > 0) and got.abs().max() > 0
+
+
+K1D_CASES = ("sorted", "unsorted", "near_edge", "empty_rows", "tiny_weight")
+
+
+def _k1d_case(data, dtype, case):
+    """K1d's arguments (given bounds on logical rows, unit mass) on 21
+    logical rows of up to 600 slots (logical_s 700) drawn from 5 events of
+    the emulation data: an empty row, rows of 1, of over 128 and of 600
+    samples, one whose fillers hold the minimum z, a short last block of 4
+    rows; each row's real samples sorted by distance as the pixelization
+    keeps them ('sorted'), in random order ('unsorted'), sorted with row
+    17's single sample at u = 1 - 2^-10 of the lowest point of its grid's
+    second 32-point run at every λ ('near_edge': in the support, the corner
+    test must keep the tile), sorted with every even row emptied
+    ('empty_rows': empty and full rows in turn in each block), or sorted
+    with rows 3 and 6's weights below sqrt(tiny) ('tiny_weight').  250-point
+    grids over each row's z range widened by half of it on either side (the
+    event's range holds a pixel's samples)."""
+    pop = _population(dtype).update_batch(LAMBDA)
+    cosmo, mass = pop.cosmo, pop.mass
+    pe, n_real, dl_fill, logical_s = _logical_rows(data, F64, n_rows=21,
+                                                   width=600, logical_s=700,
+                                                   events=5)
+    if case != "unsorted":
+        for b, k in enumerate(n_real.tolist()):
+            order = torch.argsort(pe[2][b, :k])
+            for t in pe:
+                t[b, :k] = t[b, :k][order]
+    if case == "empty_rows":
+        n_real[::2] = 0
+    if case == "tiny_weight":
+        for b in (3, 6):
+            pe[3][b] *= 1e-30 if dtype == F32 else 1e-160
+    pe = [t.to(dtype) for t in pe]
+    dl_fill = dl_fill.to(dtype)
+    kw = {"n_real": n_real, "dl_fill": dl_fill, "logical_s": logical_s}
+    st = fused.fused_row_stats_plain(*pe, cosmo, mass, cut_grid=0.0, **kw)
+    lo, ub = st["lo"].double(), st["ub"].double()
+    g = 250
+    ext = torch.stack([lo - 0.5 * (ub - lo), ub + 0.5 * (ub - lo)], dim=-1)
+    if case == "near_edge":
+        z0 = z_from_dgw(cosmo, pe[2][17, :1][None]).double()[:, 0]
+        h = st["bandwidth"][:, 17].double()
+        ext[:, 17, 0] = z0 + h * (1.0 - 2.0 ** -10) - 32 * h / 8
+        ext[:, 17, 1] = ext[:, 17, 0] + (g - 1) * h / 8
+    kw.update(n_grid=g, den_scale="unit", ext_bounds=ext.to(dtype))
+    return (*pe, cosmo, mass), kw
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("layout", ["warp", "block"])
+@pytest.mark.parametrize("case", K1D_CASES)
+def test_pruned_k1d_keeps_the_bits(fused_host_lib, data, case, layout, dtype):
+    """K1d (given bounds on logical rows, Epanechnikov) with the pruned loop
+    on its rows' linear grids, a warp a row (logical_kde_kernel: the stats
+    replayed lane by lane) or a block a row (fused_row, the variant
+    k1d_block), gives densities and stats of the same bits as the full loop
+    (contract, host_fused_kde_unpruned), float64 and float32, on the cases
+    of _k1d_case: NaN densities on the empty rows (their h is NaN), finite
+    ones elsewhere, and on the sorted rows more than a quarter of the tiles
+    skipped."""
+    args, kw = _k1d_case(data, dtype, case)
+    _tally(fused_host_lib)
+    expect, st_u = _host_fused(fused_host_lib, fused._EXTERNAL_BOUNDS, *args,
+                               **kw, entry="host_fused_kde_unpruned_")
+    assert _tally(fused_host_lib) == (0, 0)
+    got, st = _host_fused(fused_host_lib, fused._EXTERNAL_BOUNDS, *args, **kw,
+                          entry="host_fused_kde_" if layout == "warp"
+                          else "host_logical_stats_block_")
+    tested, skipped = _tally(fused_host_lib)
+    assert _same_bits(got, expect)
+    for k in fused.STAT_NAMES:
+        assert _same_bits(st[k], st_u[k]), k
+    empty = kw["n_real"] == 0
+    assert torch.isnan(got[:, empty]).all() and int(empty.sum()) > 0
+    if case != "tiny_weight":
+        assert torch.isfinite(got[:, ~empty]).all()
+        assert got[:, ~empty].abs().amax() > 0
+    assert tested > 0 and (case == "unsorted" or skipped > tested // 4)
 
 
 def _sorted_data(data, n_grid: int = 200):
@@ -1992,7 +2073,7 @@ def strict_corner_libs(tmp_path_factory):
 
 
 @pytest.mark.parametrize("dtype", [F64, F32])
-@pytest.mark.parametrize("kernel", ["K4b", "K3b", "K3d", "K4", "K1e"])
+@pytest.mark.parametrize("kernel", ["K4b", "K3b", "K3d", "K4", "K1e", "K1d"])
 def test_tie_cases_catch_a_loose_corner_test(strict_corner_libs, data, kernel,
                                              dtype):
     """A corner test that skips tiles at |u| = 1 (>= in place of >) gives
@@ -2011,6 +2092,12 @@ def test_tie_cases_catch_a_loose_corner_test(strict_corner_libs, data, kernel,
         args, kw = _k1e_case(data, dtype, "near_edge")
         got, _ = _host_fused(fused_lib, fused._CONTRACT, *args, **kw)
         expect, _ = _host_fused(fused_lib, fused._CONTRACT, *args, **kw,
+                                entry="host_fused_kde_unpruned_")
+        assert not _same_bits(got, expect)
+    elif kernel == "K1d":
+        args, kw = _k1d_case(data, dtype, "near_edge")
+        got, _ = _host_fused(fused_lib, fused._EXTERNAL_BOUNDS, *args, **kw)
+        expect, _ = _host_fused(fused_lib, fused._EXTERNAL_BOUNDS, *args, **kw,
                                 entry="host_fused_kde_unpruned_")
         assert not _same_bits(got, expect)
     elif kernel == "K4b":

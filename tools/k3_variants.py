@@ -1,5 +1,5 @@
 """Attribution of the kernels' time on the card (K3, K2b, K2, K4b, K3b, K3d,
-K1b, K4 and K1e):
+K1b, K4, K1e and K1d):
 variant trees with one change each, timed against each other by
 ``chip_smoke.py --k3-ab``, and the instruction mix of K3's pair loop
 (phase B) in SASS.
@@ -128,6 +128,20 @@ _K1E_NOB = [(KDE, _K1E_EPI.format(k), _K1E_EPI.format(k).replace("a.G,", "0,"))
             for k in (2, 4)]
 
 
+# K1d (kExternalBounds) without its KDE's pair loop after phase A and the
+# stats (the densities written as 0 times the scale, as an empty row's):
+# the pair loop's marginal cost at the dark cut_grid path's shape (the
+# parent's full loop, and this tree's pruned one, external_kde, with the
+# Gaussian kernel's full loop); and K1d's pruned loop in the 4-warp block
+# a row (fused_row) in place of a warp a logical row (logical_kde_kernel)
+_K1D_FULL = "contract<T, KERNEL>(blk, zw, st.n, a.G, inv_h, scale, grid_at, out);"
+_K1D_NOB = [(KDE, _K1D_FULL, _K1D_FULL.replace(
+    "st.n,", "MODE == kExternalBounds ? 0 : st.n,"))]
+_K1D_EMPTY = "  if (st.n == 0) {\n    for (int g = blk.rank(); g < G; g += Block::kSize)"
+FKD = "chimera_tpu_torch/csrc/fused_kde.cu"
+_K1D_WARP = "if (mode == kExternalBounds && kernel == 0 && n_real != nullptr)"
+
+
 class Either(tuple):
     """Alternative lists of changes: the first whose every old text occurs
     once in the tree is the one applied (the code of the parent, or of this
@@ -185,12 +199,16 @@ VARIANTS = {
         [(KDE, _K4_PRUNED, _K4_PRUNED.replace("S, G,", "0, G,")),
          (KDE, _K4_FULL, _K4_FULL.replace("zw, S, G,", "zw, 0, G,"))],
         [(KDE, _K4_LOOP, _K4_LOOP.replace("zw, S, G,", "zw, 0, G,"))]))],
+    "k1d_noB": [Either((
+        [(KDE, _K1D_EMPTY, _K1D_EMPTY.replace("st.n == 0", "true"))] + _K1D_NOB,
+        _K1D_NOB))],
+    "k1d_block": [(FKD, _K1D_WARP, "if (false)")],
     "k1e_noB": [Either((
         [(KDE, _K1E_PRUNED, _K1E_PRUNED.replace("a.G,", "0,"))] + _K1E_NOB,
         _K1E_NOB))],
 }
 for _name in ("k2_noB", "k2_constA", "k4b_noS", "k4b_noG", "k3b_noB",
-              "k3d_noB", "k1b_noB", "k4_noloop", "k1e_noB"):
+              "k3d_noB", "k1b_noB", "k4_noloop", "k1e_noB", "k1d_noB"):
     VARIANTS["parent_" + _name] = VARIANTS[_name]
 
 

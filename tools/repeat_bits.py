@@ -12,8 +12,9 @@ the same seeds: the dark flagship's mock data in float64
 the PE catalog, z-grids, pixelated galaxy catalog, injections), the float64
 and float32 dark likelihoods on it, and K2b's arguments on the float64 one
 at the 16 points of phase 14 (``chip_smoke.rows_inputs``); then, in
-float32 at those points, the dark cut_grid likelihood and K3d's arguments
-(its path's own cotangents, ``chip_smoke.backward_calls``), the spectral
+float32 at those points, the dark cut_grid likelihood and the arguments of
+K1d (the forward, ``chip_smoke.captured``) and K3d (its path's own
+cotangents, ``chip_smoke.backward_calls``), the spectral
 headline's mock (``chip_smoke.mock(1000, 4096, 2_000_000, 500, 200,
 SEED)``), its cut_grid likelihood and the arguments of K1b (the forward,
 ``chip_smoke.captured``) and K3b; the arguments of K4 and K4b on the binned
@@ -107,6 +108,8 @@ with warnings.catch_warnings(record=True) as caught:
     x = cs.chain_points(16, cs.F32)
     hl = cs.dark_likelihood(data, cs.F32, **cs.DARK_CUT)
     walk("dark_cut_f32", hl)
+    walk("k1d_args_f32", cs.captured(
+        "fused_weights_kde", lambda: hl.log_like_batch(cs.batch_of(x))))
     walk("k3d_args_f32", [c for c in cs.backward_calls(hl, x)["K3"]
                           if c[1].get("ext_bounds") is not None])
     binned(cs.dark_likelihood(data, cs.F32, **cs.BINNED), "dark")
