@@ -33,7 +33,9 @@ def state_from_reference(obj) -> dict[str, np.ndarray]:
     Each dataclass contributes ``<path>.__class__`` (its class name);
     ``None`` fields and nested containers (the dark-siren sample layouts,
     which the port rebuilds) are skipped, but for ``compact_rows``: whether
-    a ``compact`` layout holds the chunk rows.  A ``HyperLikelihood`` whose
+    a ``compact`` layout holds the chunk rows, and for ``z_block``: the
+    'full' kind's recurrence plan as each event's block length (0 dense).
+    A ``HyperLikelihood`` whose
     ``create`` padded the sample or event axis for its TPU tiling is sliced
     back to the real samples and events — the PE data, the z-grids and the
     event-indexed arrays of a pixelated catalog: the port's kernels tile
@@ -46,6 +48,8 @@ def state_from_reference(obj) -> dict[str, np.ndarray]:
         # the layout itself is rebuilt; whether it has chunk rows selects the
         # port's rows (K1c + K2) or contract (K1e) pass
         state["compact_rows"] = np.asarray("rows" in compact)
+    if getattr(obj, "kind", None) == "full":
+        state["z_block"] = _z_block(obj)
     if hasattr(obj, "theta_gw") and hasattr(obj, "z_grids"):
         n_s = getattr(obj, "n_samples_real", None)
         n_e = getattr(obj, "n_events_input", None)
@@ -58,7 +62,20 @@ def state_from_reference(obj) -> dict[str, np.ndarray]:
             elif key in _CATALOG_EVENT_KEYS:
                 state[key] = val[:n_e]
         state["z_grids"] = state["z_grids"][:n_e]
+        if "z_block" in state:
+            state["z_block"] = state["z_block"][:n_e]
     return state
+
+
+def _z_block(hl) -> np.ndarray:
+    """The block length of each (padded) event under a JAX 'full' object's
+    plan: its per-event tiers ``z_full_buckets`` ((K, global event
+    indices), ...) where it has them, else its batch-global
+    ``z_block_full`` (None: every event dense, 0)."""
+    k = np.full(hl.z_grids.shape[0], hl.z_block_full or 0, dtype=np.int64)
+    for tier, idx in hl.z_full_buckets or ():
+        k[np.asarray(idx, dtype=np.int64)] = tier
+    return k
 
 
 def _flatten(obj, prefix: str, out: dict) -> None:

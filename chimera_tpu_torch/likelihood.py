@@ -1,9 +1,9 @@
 """The hyper-likelihood of the port (counterpart of
 ``chimera_tpu/likelihood.py``) for the kinds '1d' (spectral siren),
-'approximate' and 'marginalized' (dark siren with a pixelated galaxy
-catalog, or an empty one), with or without binning and effective grids —
-the reference's defaults (``binning=True, num_bins=200, cut_grid=2.0``)
-included.  The engine follows the JAX package on the TPU
+'approximate', 'marginalized' and 'full' (dark siren with a pixelated
+galaxy catalog, or an empty one), with or without binning and effective
+grids — the reference's defaults (``binning=True, num_bins=200,
+cut_grid=2.0``) included.  The engine follows the JAX package on the TPU
 (``chimera_tpu/likelihood.py:451-499``):
 
 * ``binning=True``, the stage-by-stage path (``likelihood.py:502-577``):
@@ -27,6 +27,12 @@ included.  The engine follows the JAX package on the TPU
     effective-grid bounds, then the per-pixel KDE on them (K1d) and the
     resampling.  The layouts and the λ-independent contraction factors are
     built once, in ``create``.
+* 'full' (``chimera_tpu/likelihood.py::p_gw_3d_full``, whatever
+  ``binning``): source-frame samples and weights in PyTorch, then one
+  launch of the 3-D Gaussian KDE of (z, ra, dec) on each event's (pixel x
+  z-grid) lattice (K5, ``ops/cuda/kde3d.py``), by the uniform-z
+  block-refresh recurrence with the block length that ``create`` plans per
+  event (``z_recurrence_plan``) or by the dense z sweep.
 
 Each kernel runs as its CUDA kernel on CUDA tensors and as its plain
 PyTorch version on CPU tensors.  ``log_like_batch`` is differentiable in
@@ -35,7 +41,8 @@ whole backward is autograd through the plain versions; on CUDA tensors the
 backward of each kernel launch is its adjoint kernel — K3 in the mode of
 K1a, K1b, K1c or K1d, K2b for K2, K4b for K4 — so every path
 differentiates on the card, the binned one included, but the contract
-pass, which raises (K1e has no adjoint kernel; ROADMAP.md §1 item 15).
+pass and kind 'full', which raise (K1e and K5 have no adjoint kernel;
+ROADMAP.md §1 items 15 and 16).
 The selects around the kernels' outputs (``row_scales``, the N_eff gates,
 ``nan_to_num`` before any product) keep the raw NaN of a dead row out of
 every backward product.  ``HyperLikelihood`` is an ``nn.Module`` whose
@@ -49,20 +56,25 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+import numpy as np
+
 from chimera_tpu_torch.catalog import EmptyCatalog
+from chimera_tpu_torch.config import logger
 from chimera_tpu_torch.data.pixelize import (chunk_rows_from_compact,
                                              compact_samples_by_pixel)
 from chimera_tpu_torch.data.structs import ThetaPEDet
 from chimera_tpu_torch.models import cosmology as cosmo_fns
 from chimera_tpu_torch.models.population import (Population, p_cbc,
+                                                 theta_det_to_src,
                                                  theta_src_and_weights)
 from chimera_tpu_torch.ops.binning import binning1d
 from chimera_tpu_torch.ops.cuda.fused import fused_row_stats, fused_weights_kde
 from chimera_tpu_torch.ops.cuda.kde import kde1d_grid
+from chimera_tpu_torch.ops.cuda.kde3d import lattice_kde3d
 from chimera_tpu_torch.ops.cuda.rows import fused_rows_contract
 from chimera_tpu_torch.ops.integrate import linspace, trapz, trapz_weights
 from chimera_tpu_torch.ops.interp import uniform_interp
-from chimera_tpu_torch.ops.kde import kde1d_params
+from chimera_tpu_torch.ops.kde import bw_factor, kde1d_params
 from chimera_tpu_torch.pytree import tensor_map
 from chimera_tpu_torch.selection import SelectionFunction
 
@@ -74,7 +86,9 @@ _PIXEL_FIELDS = {"opt_nsides": torch.int64, "pixels_opt_nsides": torch.int64,
 _PER_SAMPLE_FIELDS = ("m1det", "m2det", "dL", "phi", "theta", "ra", "dec",
                       "pe_prior", "pixels_pe_opt_nside")
 _LAYOUT_FIELDS = ("m1det", "m2det", "dL", "inv_pe_prior")
-KINDS = ("1d", "approximate", "marginalized")
+KINDS = ("1d", "approximate", "marginalized", "full")
+# the block lengths of the 'full' kind's uniform-z recurrence, longest first
+Z_BLOCK_TIERS = (32, 16, 8)
 
 
 def _validate_shapes(theta_gw: ThetaPEDet, z_grids: torch.Tensor,
@@ -111,6 +125,51 @@ def _sort_samples_by_distance(theta_gw: ThetaPEDet) -> ThetaPEDet:
     return theta_gw.update(**updates)
 
 
+def z_recurrence_plan(z: np.ndarray, ra: np.ndarray, dec: np.ndarray,
+                      z_grids: np.ndarray, bw_method) -> tuple[np.ndarray, str]:
+    """Each event's block length K of the 'full' kind's uniform-z
+    recurrence (``chimera_tpu/likelihood.py::_z_recurrence_plan``), from
+    float64 copies of the samples' z at the fiducial cosmology, their sky
+    positions (E, S) and the z-grids (E, G).
+
+    A flushed block loses at most ``tiny * exp((K h)^2 / 2)`` per (pixel,
+    sample) pair, h the event's whitened grid step, so K h <= 5.5 at the
+    fiducial hyper-parameters (a 2x allowance for the bandwidth's shrinking
+    across the prior).  h = sqrt(inv(cov)_00) / factor x the grid step at
+    unit weights (n_eff = S, the largest factor's denominator: the largest
+    h).  K = min(floor(5.5 / h), 32), rounded down to a tier of
+    ``Z_BLOCK_TIERS``, 0 (the dense sweep) below 8; every event dense
+    where z is not finite or the covariance is singular.  The JAX
+    package's demotion of each tier to a multiple of 8 events and its
+    batch-global K serve its ``lax.map`` blocks on the TPU and have no
+    counterpart.  Returns (K (E,) int64, a line saying the outcome)."""
+    n_ev, n_s = z.shape
+    dense = np.zeros(n_ev, dtype=np.int64)
+    if not np.all(np.isfinite(z)):
+        return dense, "dense: z not finite"
+    factor = float(bw_factor(torch.tensor(float(n_s), dtype=torch.float64), 3,
+                             bw_method))
+    data = np.stack([z, ra, dec], axis=1)                  # (E, 3, S)
+    data = data - data.mean(axis=-1, keepdims=True)
+    cov = np.einsum("eis,ejs->eij", data, data) / max(n_s - 1, 1)
+    try:
+        inv00 = np.linalg.inv(cov)[:, 0, 0]
+    except np.linalg.LinAlgError:
+        return dense, "dense: singular sample covariance"
+    if np.any(inv00 <= 0) or not np.all(np.isfinite(inv00)):
+        return dense, "dense: covariance not positive definite"
+    step = (z_grids[:, -1] - z_grids[:, 0]) / max(z_grids.shape[1] - 1, 1)
+    h = np.sqrt(inv00) / factor * step
+    if not np.all(np.isfinite(h)) or np.any(h <= 0):
+        return dense, "dense: grid step not finite and positive"
+    safe = np.minimum((5.5 / h).astype(np.int64), Z_BLOCK_TIERS[0])
+    k = dense.copy()
+    for tier in Z_BLOCK_TIERS:
+        k[(safe >= tier) & (k == 0)] = tier
+    return k, ", ".join(f"K={t}: {int(np.sum(k == t))}"
+                        for t in (*Z_BLOCK_TIERS, 0)) + " events"
+
+
 def _jacobian(pop: Population, z: torch.Tensor) -> torch.Tensor:
     """|d(dGW)/dz| (1+z)^2 — detector->source measure; ``z`` has a leading
     λ axis."""
@@ -118,8 +177,8 @@ def _jacobian(pop: Population, z: torch.Tensor) -> torch.Tensor:
 
 
 class HyperLikelihood(nn.Module):
-    """Spectral-siren ('1d') or dark-siren ('approximate', 'marginalized')
-    hyper-likelihood over a λ batch.
+    """Spectral-siren ('1d') or dark-siren ('approximate', 'marginalized',
+    'full') hyper-likelihood over a λ batch.
 
     Build it with :meth:`create` (mirrors ``chimera_tpu``'s constructor
     surface) or :meth:`from_state` (from a built JAX object).
@@ -132,7 +191,7 @@ class HyperLikelihood(nn.Module):
                  population: Population, selection: SelectionFunction,
                  kind: str, kernel: str, bw_method, pe_neff: float,
                  cut_grid: float | None, binning: bool, num_bins: int,
-                 chunk_rows: bool = True):
+                 chunk_rows: bool = True, z_block=None):
         super().__init__()
         self.kind = kind
         self.population = population
@@ -151,9 +210,12 @@ class HyperLikelihood(nn.Module):
         self.register_buffer("inv_pe_prior", 1.0 / theta_gw.pe_prior)
         if kind == "1d":
             return
+        self.n_pixels = theta_gw.pixel_mask.shape[1]
+        if kind == "full":
+            self._build_full(theta_gw, z_block)
+            return
         loc = torch.where(theta_gw.pixel_mask, theta_gw.gw_loc2d_pdf, 0.0)
         self.register_buffer("loc", loc.to(self.z_grids.dtype))  # (E, P)
-        self.n_pixels = theta_gw.pixel_mask.shape[1]
         if kind != "marginalized":
             return
         if binning:
@@ -162,6 +224,30 @@ class HyperLikelihood(nn.Module):
                                  == theta_gw.pixels_opt_nsides[:, :, None])
         else:
             self._build_marginalized(theta_gw, z_grids)
+
+    def _build_full(self, theta_gw: ThetaPEDet, z_block) -> None:
+        """The buffers of kind 'full': the samples' sky positions ``ra``,
+        ``dec`` (E, S), in the dL order of the other per-sample fields; the
+        pixel mask and the pixel centres ``full_ra_pix``, ``full_dec_pix``
+        (E, P), 0 at the fake pixels (finite arithmetic there, as in the
+        JAX package); each event's recurrence block length ``z_block`` (E,),
+        the JAX object's where given, else ``z_recurrence_plan`` at the
+        fiducial cosmology."""
+        dt, mask = self.z_grids.dtype, theta_gw.pixel_mask
+        self.register_buffer("ra", theta_gw.ra.to(dt))
+        self.register_buffer("dec", theta_gw.dec.to(dt))
+        self.register_buffer("pixel_mask", mask)
+        self.register_buffer("full_ra_pix", torch.where(mask, theta_gw.ra_pix, 0.0).to(dt))
+        self.register_buffer("full_dec_pix", torch.where(mask, theta_gw.dec_pix, 0.0).to(dt))
+        if z_block is None:
+            z = theta_det_to_src(self.population.cosmo, theta_gw).z[0]
+            host = lambda t: t.detach().to("cpu", torch.float64).numpy()  # noqa: E731
+            z_block, outcome = z_recurrence_plan(
+                host(z), host(theta_gw.ra), host(theta_gw.dec),
+                host(self.z_grids), self.bw_method)
+            logger.info("kind='full', uniform-z recurrence plan: %s", outcome)
+        self.register_buffer("z_block", torch.as_tensor(
+            z_block, dtype=torch.int32).to(self.z_grids.device))
 
     def _build_marginalized(self, theta_gw: ThetaPEDet, z_grids: torch.Tensor
                             ) -> None:
@@ -227,8 +313,10 @@ class HyperLikelihood(nn.Module):
                pe_neff=2.0) -> "HyperLikelihood":
         """PE data, z-grids and injections are moved to the population's
         device and dtype; samples are sorted by distance.  Pixelated data
-        takes ``kind`` in ('1d', 'approximate', 'marginalized'); other data
-        is spectral ('1d')."""
+        takes ``kind`` in ('1d', 'approximate', 'marginalized', 'full');
+        other data is spectral ('1d').  'full' takes the Gaussian kernel
+        whatever ``kernel`` says, ignores ``binning`` and ``num_bins``, and
+        needs the samples' ra and dec."""
         return cls._create(theta_gw, z_grids, population, selection, kind,
                            kernel, bw_method, cut_grid, binning, num_bins,
                            pe_neff)
@@ -236,13 +324,12 @@ class HyperLikelihood(nn.Module):
     @classmethod
     def _create(cls, theta_gw: ThetaPEDet, z_grids, population: Population,
                 selection: SelectionFunction, kind, kernel, bw_method,
-                cut_grid, binning, num_bins, pe_neff, chunk_rows=True
-                ) -> "HyperLikelihood":
-        """``create`` with the layout's ``chunk_rows`` as well (what
+                cut_grid, binning, num_bins, pe_neff, chunk_rows=True,
+                z_block=None) -> "HyperLikelihood":
+        """``create`` with the layout's ``chunk_rows`` and, for 'full', the
+        events' recurrence block lengths ``z_block`` as well (what
         ``from_state`` reads off the JAX object)."""
         theta_gw = theta_gw.with_derived()
-        if kind == "full":
-            raise NotImplementedError("kind='full' is ROADMAP.md §1 item 11")
         if theta_gw.pixelated:
             if kind not in KINDS:
                 raise ValueError("pixelated data requires kind in "
@@ -254,9 +341,16 @@ class HyperLikelihood(nn.Module):
             kind = "1d"
         if selection is None:
             raise ValueError("a SelectionFunction is required")
+        fields = _PE_FIELDS
+        if kind == "full":
+            # only Gaussian kernels in 3-D (chimera_tpu/likelihood.py:250-251)
+            kernel = "gauss"
+            if theta_gw.ra is None or theta_gw.dec is None:
+                raise ValueError("kind='full' needs the samples' ra and dec")
+            fields = fields + ("ra", "dec")
         ref = population.cosmo.H0
         updates = {f: torch.as_tensor(getattr(theta_gw, f), dtype=ref.dtype,
-                                      device=ref.device) for f in _PE_FIELDS}
+                                      device=ref.device) for f in fields}
         if kind != "1d":
             updates.update({
                 f: torch.as_tensor(getattr(theta_gw, f), device=ref.device)
@@ -266,7 +360,7 @@ class HyperLikelihood(nn.Module):
         _validate_shapes(theta_gw, z_grids, population, kind)
         hl = cls(_sort_samples_by_distance(theta_gw), z_grids, population,
                  selection, kind, kernel, bw_method, pe_neff, cut_grid,
-                 binning, num_bins, chunk_rows)
+                 binning, num_bins, chunk_rows, z_block)
         hl.selection.to(device=ref.device, dtype=ref.dtype)
         return hl
 
@@ -278,7 +372,9 @@ class HyperLikelihood(nn.Module):
         JAX object's ``kde_engine`` and ``grad_engine`` have no counterpart
         here (the kernels and the backward follow the tensors' device) and
         are not read; whether its ``compact`` has chunk rows
-        (``compact_rows``) selects the rows or the contract pass."""
+        (``compact_rows``) selects the rows or the contract pass; kind
+        'full' takes the samples' ra and dec and the JAX object's
+        recurrence plan as each event's block length (``z_block``)."""
         pop = Population.from_state(state, "population.", device, dtype)
         ref = pop.cosmo.H0
 
@@ -290,7 +386,9 @@ class HyperLikelihood(nn.Module):
         theta = ThetaPEDet(**{f: arr(f"theta_gw.{f}") for f in _PE_FIELDS})
         pixels = {f: arr(f"theta_gw.{f}", dt or torch.float64)
                   for f, dt in _PIXEL_FIELDS.items() if f"theta_gw.{f}" in state}
-        theta = theta.update(**pixels)
+        theta = theta.update(**pixels, **{
+            f: arr(f"theta_gw.{f}") for f in ("ra", "dec")
+            if f"theta_gw.{f}" in state})
         sel = SelectionFunction.from_state(state, "selection.", ref.device,
                                            ref.dtype)
         bw = state.get("bw_method")
@@ -302,7 +400,8 @@ class HyperLikelihood(nn.Module):
                            binning=bool(state["binning"]),
                            num_bins=int(state["num_bins"]),
                            pe_neff=float(state["pe_neff"]),
-                           chunk_rows=bool(state.get("compact_rows", True)))
+                           chunk_rows=bool(state.get("compact_rows", True)),
+                           z_block=state.get("z_block"))
 
     def _apply(self, fn, *args, **kwargs):
         # .to()/.cuda()/.double() also move the population's tensors
@@ -323,6 +422,8 @@ class HyperLikelihood(nn.Module):
 
     def batch_numerators(self, pop_b: Population) -> torch.Tensor:
         """Per-event numerator integrals for a λ batch — (L, Nev)."""
+        if self.kind == "full":
+            return self._numerators_full(pop_b)
         if self.binning:
             return self._numerators_binned(pop_b)
         if self.kind == "marginalized":
@@ -561,6 +662,35 @@ class HyperLikelihood(nn.Module):
         den = uniform_interp(zg, stats["lo"], stats["ub"], torch.nan_to_num(den))
         p = den.reshape(n, n_ev, n_pix, -1) * self.loc[None, :, :, None]
         p = p * norms[..., None, None]
+        p = torch.where(gate[..., None, None], torch.nan_to_num(p), 0.0)
+        return self._integrate_pixels(pop_b, p)
+
+    def _numerators_full(self, pop_b: Population) -> torch.Tensor:
+        """Kind 'full' (``chimera_tpu/likelihood.py:580-675``): per-event
+        norms and N_eff gates from the weights, one K5 launch for the 3-D
+        KDE of every (λ, event) on its pixels x z-grid, times the norm, the
+        ``cut_grid`` z-mask (the z-grid within [min - c σ, max + c σ] of
+        the (λ, event)'s unweighted source-frame z, σ with ddof 0; none
+        without ``cut_grid``) and the pixel mask, gated, then integrated
+        over z and summed over pixels."""
+        theta = ThetaPEDet(m1det=self.m1det, m2det=self.m2det, dL=self.dL,
+                           pe_prior=self.pe_prior)
+        th_src, w = theta_src_and_weights(pop_b, theta)             # (L, E, S)
+        z = th_src.z
+        norms = torch.mean(w, dim=-1)
+        sum_w, sum_w2 = torch.sum(w, dim=-1), torch.sum(w * w, dim=-1)
+        gate = sum_w * sum_w / sum_w2 >= self.pe_neff    # NaN compares False
+        p = lattice_kde3d(z, w, self.ra, self.dec, self.full_ra_pix,
+                          self.full_dec_pix, self.pixel_mask, self.z_grids,
+                          self.z_block, bw_method=self.bw_method)   # (L, E, P, G)
+        p = p * norms[..., None, None]
+        if self.cut_grid is not None:
+            c, zg = self.cut_grid, self.z_grids[None]
+            sig = torch.std(z, dim=-1, correction=0, keepdim=True)
+            z_mask = (zg <= torch.amax(z, dim=-1, keepdim=True) + c * sig) & (
+                zg >= torch.amin(z, dim=-1, keepdim=True) - c * sig)
+            p = p * z_mask[:, :, None, :]
+        p = p * self.pixel_mask[None, :, :, None]
         p = torch.where(gate[..., None, None], torch.nan_to_num(p), 0.0)
         return self._integrate_pixels(pop_b, p)
 

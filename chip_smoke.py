@@ -32,7 +32,13 @@ paths end to end through the entry points a user calls:
   cut_grid=2.0) for '1d' and 'marginalized': K4's adjoint K4b against its
   plain version, the card's gradient against the CPU's, one K4 and one K4b
   a gradient call, value-and-gradient timing and peak memory at full
-  width; HMC / ChEES on the binned spectral headline.
+  width; HMC / ChEES on the binned spectral headline;
+* phases 26-27, kind 'full' (cut_grid=2.0) on the dark flagship's data:
+  the 3-D lattice KDE K5 against its plain version at 128 events, one K5
+  launch a batch at full width, float32 vs float64, timing split into K5
+  and the glue, K5's bound, a gradient call that must raise;
+* phase 28, the ensemble sampler (32 walkers in H0, Om0, two half-steps of
+  16 a step) on the spectral headline (K1a) and on 'full' (K5).
 
 Each likelihood path checks float32 against float64, elementwise against the
 repo's 1e-6 bar or, binned, against BINNED_F32_BAR (the precision mocks:
@@ -70,6 +76,11 @@ F32, F64 = torch.float32, torch.float64
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_FP64 = 34e12
+# the MUFU pipe (exp2, rcp, ...): 16 results per clock per SM at compute
+# capability 9.0 (the CUDA C++ Programming Guide's table of arithmetic
+# instruction throughput) x 132 SMs x the 1.98 GHz boost clock of the H100
+# SXM (NVIDIA's H100 data sheet)
+PEAK_MUFU = 16 * 132 * 1.98e9
 # FP32 operations of one KDE term: (g - z), * 1/h, u*u, 1 - u^2, max, fma;
 # of one Clenshaw coefficient: fma and subtract
 KDE_OPS, CHEB_OPS = 7, 3
@@ -103,25 +114,32 @@ K2_GRID_OPS = 4
 # `PYTHONPATH=. python tests/test_torch_f32_parity.py --reference-gap`).
 # Binning moves a sample to the neighbouring bin where its float32 z lies
 # within rounding of a bin edge.
+# Kind 'full' (cut_grid=2.0, binning ignored) on the dark mock: 6.6e-7,
+# held to the repo's 1e-6 where 2 x its gap is wider.
 REFERENCE_F32_GAP = {"1d": 1.2995178314968518e-07,
-                     "marginalized": 3.932049027578433e-05}
-BINNED_F32_BAR = {k: max(1e-6, 2.0 * v) for k, v in REFERENCE_F32_GAP.items()}
+                     "marginalized": 3.932049027578433e-05,
+                     "full": 6.617836419533271e-07}
+BINNED_F32_BAR = {k: max(1e-6, 2.0 * REFERENCE_F32_GAP[k])
+                  for k in ("1d", "marginalized")}
+FULL_F32_BAR = min(1e-6, 2.0 * REFERENCE_F32_GAP["full"])
 # the spectral float32 precision mock (``mock``'s arguments): the shape of
 # tests/test_f32_parity.py::test_f32_loglike_parity, 64 events x 1024
 # samples x 300-point grids, 200 000 generated injections
 PRECISION_MOCK = (64, 1024, 200_000, 300, 300, SEED + 5)
 
 
-def bound(n_bytes: float, n_ops: float, n_ops64: float = 0.0
-          ) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float, n_ops64: float = 0.0,
+          n_mufu: float = 0.0) -> tuple[float, str]:
     """The least time (ms) for moving n_bytes and doing n_ops FP32 and
-    n_ops64 FP64 operations on the card, and which of the two bounds it.
-    An FP64 operation takes a dispatch slot as an FP32 one does (FP32 at its
-    peak fills every slot) and the FP64 pipes run at half the FP32 rate:
-    the operations take max((n_ops + n_ops64) / PEAK_FP32,
-    n_ops64 / PEAK_FP64)."""
+    n_ops64 FP64 operations and n_mufu MUFU results (exps) on the card, and
+    which of the two bounds it.  An FP64 operation takes a dispatch slot as
+    an FP32 one does (FP32 at its peak fills every slot) and the FP64 pipes
+    run at half the FP32 rate; the MUFU pipe runs beside them: the
+    operations take max((n_ops + n_ops64) / PEAK_FP32, n_ops64 / PEAK_FP64,
+    n_mufu / PEAK_MUFU)."""
     t_b = n_bytes / PEAK_BYTES
-    t_o = max((n_ops + n_ops64) / PEAK_FP32, n_ops64 / PEAK_FP64)
+    t_o = max((n_ops + n_ops64) / PEAK_FP32, n_ops64 / PEAK_FP64,
+              n_mufu / PEAK_MUFU)
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
@@ -2779,6 +2797,265 @@ def binned_gradients(smi: str, full, dark_data) -> dict:
     return entry
 
 
+# ---------------------------------------------------------------------------
+# kind 'full' (the 3-D lattice KDE, K5) and the ensemble sampler
+# ---------------------------------------------------------------------------
+
+FULL = {"kind": "full", "cut_grid": 2.0}
+# K5's least work: a term of the dense z sweep (u = zl + t, -0.5 u u, the
+# exp's scaling, the fma into the sum, an FMA counted 2) and of the
+# recurrence (the add into the sum, v *= r, r *= rho); a refresh per
+# (sample, K-point block): u0, -0.5 u0 u0, e times the exp, the r argument
+# (an fma), the two exps' scalings, the flush's compare
+K5_DENSE_OPS, K5_REC_OPS, K5_REFRESH_OPS = 6, 3, 9
+
+
+def k5_terms(args) -> dict:
+    """K5's (λ, event, real pixel, grid point, sample) terms on a call's
+    inputs: on every sample and on the samples with weight (the others'
+    sky factor is exactly 0), split by the event's path (dense sweep,
+    recurrence) and the recurrence's refreshes (per sample and K-point
+    block of the padded grid); the plan's event counts per K."""
+    _, w, _, _, _, _, mask, grids, z_block = args[:9]
+    n, _, s = w.shape
+    g = grids.shape[1]
+    pix = mask.sum(dim=1).double()                                # (E,)
+    live = (w > 0).sum(dim=-1).double()                           # (L, E)
+    k = torch.clamp(z_block.long(), max=g)
+    blocks = torch.where(k > 0, -(-g // torch.clamp(k, min=1)), 0).double()
+    dense = (k == 0).double()
+    out = {"all": float(n * s * g * pix.sum()),
+           "live": float((live * pix).sum() * g),
+           "dense": float((live * pix * dense).sum() * g),
+           "refresh": float((live * pix * blocks).sum())}
+    out["recurrence"] = out["live"] - out["dense"]
+    out["plan"] = {int(t): int((z_block == t).sum()) for t in (32, 16, 8, 0)}
+    return out
+
+
+def k5_bound(args, terms: dict) -> tuple[float, str]:
+    """K5's least time on the card (float32): its inputs read once and its
+    output written once, against the FP32 operations of its weighted terms
+    and the exps of the dense terms and of the refreshes at the MUFU rate."""
+    z, w, ra, dec, ra_pix, dec_pix, mask, grids, z_block = args[:9]
+    size = z.element_size()
+    n, e, _ = z.shape
+    n_bytes = size * (z.numel() + w.numel() + ra.numel() + dec.numel()
+                      + ra_pix.numel() + dec_pix.numel() + grids.numel()
+                      + n * e * ra_pix.shape[1] * grids.shape[1]) \
+        + mask.numel() + 4 * z_block.numel()
+    ops = (K5_DENSE_OPS * terms["dense"] + K5_REC_OPS * terms["recurrence"]
+           + K5_REFRESH_OPS * terms["refresh"])
+    return bound(n_bytes, ops, n_mufu=terms["dense"] + 2 * terms["refresh"])
+
+
+def k5_compare(args, kw, tol: float):
+    """K5 against its plain version on the same inputs, per (λ, event,
+    pixel) row relative to the row's max, on the real pixels; a float32
+    call against the plain version in float64 on the same (float32) inputs
+    (the float32 plain version whitens raw coordinates, as the JAX package
+    does, and cancels digits of L11 ra ~ 1e2, which the kernel's centred
+    coordinates keep), rows below 1e-20 of their (λ, event)'s largest
+    value held at that floor (float32 sky factors underflow there).  A
+    (λ, event) whose whitening does not exist (a singular covariance, as
+    of two samples with weight) is NaN in both, on the same real rows,
+    and nowhere else is either not finite.  Returns (max rel, max abs, rows
+    under the floor, NaN rows)."""
+    from chimera_tpu_torch.ops.cuda.kde3d import lattice_kde3d, lattice_kde3d_plain
+
+    got = lattice_kde3d(*args, **kw).double()
+    wide = [a.double() if a.is_floating_point() else a for a in args]
+    expect = lattice_kde3d_plain(*wide, **kw)
+    torch.cuda.synchronize(DEV)
+    real = args[6][None].expand(expect.shape[:3])
+    if not torch.all(got[~real] == 0):
+        raise AssertionError("a fake pixel's row is not 0")
+    nan = torch.isnan(expect).all(dim=-1) & real
+    if not (torch.equal(torch.isnan(got).all(dim=-1) & real, nan)
+            and torch.isfinite(got[real & ~nan]).all()
+            and torch.isfinite(expect[real & ~nan]).all()):
+        raise AssertionError("K5 vs plain: their non-finite values differ")
+    got, expect = (t.masked_fill(nan[..., None], 0.0) for t in (got, expect))
+    row = expect.abs().amax(dim=-1, keepdim=True)
+    floor = 0.0 if args[0].dtype == F64 else 1e-20
+    event = row.amax(dim=2, keepdim=True)
+    scale = torch.maximum(row, floor * event).clamp_min(1e-300)
+    rel = ((got - expect).abs() / scale)[real]
+    if not torch.all(torch.isfinite(rel)) or rel.max().item() > tol:
+        raise AssertionError(f"K5 vs plain: {rel.max().item():.3e} of the row "
+                             f"max > {tol:.0e}")
+    under = int(((row < floor * event) & real[..., None]).sum())
+    return (rel.max().item(), (got - expect).abs()[real].max().item(), under,
+            int(nan.sum()))
+
+
+def full_path(smi: str, dark_data) -> tuple[dict, object]:
+    """Phases 26-27: K5 against its plain version on the 'full' path's
+    inputs at 128 events of the dark width with a mixed plan, and kind
+    'full' end to end at the dark width (cut_grid=2.0, L = 16): one K5
+    launch a batch, K5 against the float64 plain version on the batch's
+    own inputs, float32 vs float64 on the dark precision mock, timing split
+    into K5 and the glue, the bound, the plan; a call that requires grad
+    raises.  Returns
+    K5's entry of the kernels line (its launches filled in by phase 28)
+    and the float32 likelihood."""
+    from chimera_tpu_torch.ops.cuda.kde3d import lattice_kde3d, lattice_kde3d_plain
+
+    h0s = torch.linspace(55.0, 95.0, 16, device=DEV)
+    batch = {"H0": h0s.to(F32)}
+    n, reps = len(h0s), 17
+
+    # ---- 26. K5 vs plain at 128 events of the dark width, L = 16 ---------
+    small, _ = dark_mock(128, 1024, 15, 500, 100_000, 10_000, SEED + 26)
+    for dtype, tol in ((F64, 1e-10), (F32, 1e-4)):
+        hl = dark_likelihood(small, dtype, **FULL)
+        if not bool((hl.z_block == 0).any()):
+            # a mixed plan: the dense sweep is safe for every event
+            hl.z_block[::4] = 0
+        args, kw = captured("lattice_kde3d",
+                            lambda: hl.log_like_batch({"H0": h0s.to(dtype)}))
+        rel, _, under, _ = k5_compare(args, kw, tol)
+        terms = k5_terms(args)
+        if not (terms["plan"][0] > 0 and sum(terms["plan"].values()) > terms["plan"][0]):
+            raise AssertionError(f"not a mixed plan: {terms['plan']}")
+        k_ms = statistics.median(cuda_ms(lambda: lattice_kde3d(*args, **kw), 5))
+        p_ms = cuda_ms(lambda: lattice_kde3d_plain(*args, **kw), 1, 0)[0]
+        phase(26, f"K5 vs plain {dtype}", f"{hl.n_events} events x "
+              f"{hl.n_samples} samples x {hl.n_pixels} pixel slots "
+              f"({int(hl.pixel_mask.sum())} real) x {hl.z_grids.shape[1]} grid, "
+              f"L = {n}; plan (events per K) {terms['plan']}: max err "
+              f"{rel:.3e} of the row max (tol {tol:.0e}"
+              + ("" if dtype == F64 else " against float64 plain")
+              + f"; rows under 1e-20 of their event's max {under}); kernel "
+              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms per call [{smi}]")
+        del hl, args
+    del small
+
+    # ---- 27. kind 'full' end to end at the dark width, float32 -----------
+    t0 = time.perf_counter()
+    hl = dark_likelihood(dark_data, F32, **FULL)
+    torch.cuda.synchronize(DEV)
+    setup_s = time.perf_counter() - t0
+    ll, _ = counted(lambda: hl.log_like_batch(batch), {"K5": 1})
+    check_log_like(ll, h0s, {"lattice_kde3d": 1})
+    # (λ, event) pairs whose float32 numerator is 0 (log L = -FLT_MAX, as
+    # the JAX package's nan_to_num gives it), against float64
+    zero = hl.batch_numerators(hl.population.update_batch(batch)) == 0
+    hl64 = dark_likelihood(dark_data, F64, **FULL)
+    num64 = hl64.batch_numerators(hl64.population.update_batch({"H0": h0s.double()}))
+    zeros = (f"{int(zero.sum())} (λ, event) numerators 0 in float32, at H0 "
+             f"{sorted({round(v, 2) for v in h0s[zero.any(dim=1)].tolist()})}; "
+             f"float64 gives {int((num64[zero] == 0).sum())} of them 0, the "
+             f"largest {num64[zero].max().item() if zero.any() else 0.0:.3e} "
+             f"(events' float64 numerators: median "
+             f"{num64[num64 > 0].median().item():.3e})")
+    del hl64, num64, zero
+    try:
+        hl.log_like_batch({"H0": h0s.to(F32).clone().requires_grad_()})
+    except NotImplementedError as err:
+        refused = str(err)
+    else:
+        raise AssertionError("a 'full' batch that requires grad did not raise")
+    par = parity_dark_mock(DEV)
+    prec64, prec32 = (dark_likelihood(par, dt, **FULL) for dt in (F64, F32))
+    rel, diff, n_fin = f32_vs_f64(prec64, prec32,
+                                  torch.linspace(58.0, 100.0, 7, device=DEV),
+                                  FULL_F32_BAR)
+    prec_plan = k5_terms(captured("lattice_kde3d", lambda: prec32.log_like_batch(
+        {"H0": h0s[:1].to(F32)}))[0])["plan"]
+    del par, prec64, prec32
+    total = cuda_ms(lambda: hl.log_like_batch(batch), reps)
+    args, kw = captured("lattice_kde3d", lambda: hl.log_like_batch(batch))
+    kern = cuda_ms(lambda: lattice_kde3d(*args, **kw), reps)
+    k_call = statistics.median(kern)
+    # K5 on the path's own full-width inputs against the float64 plain
+    # version, then the float32 plain version's time on the same inputs
+    k_rel, k_abs, k_under, k_nan = k5_compare(args, kw, 1e-4)
+    plain = cuda_ms(lambda: lattice_kde3d_plain(*args, **kw), 1, 0)[0]
+    terms = k5_terms(args)
+    b_ms, b_by = k5_bound(args, terms)
+    t_med, t_mad = med_mad([t / n for t in total])
+    k_med, k_mad = med_mad([t / n for t in kern])
+    phase(27, "kind 'full' end to end", f"{hl.n_events} events x "
+          f"{hl.n_samples} samples x {hl.n_pixels} pixel slots "
+          f"({int(hl.pixel_mask.sum())} real) x {hl.z_grids.shape[1]} grid, "
+          f"cut_grid=2.0, setup {setup_s:.2f} s; launches K5 1, others 0; "
+          f"plan (events per K) {terms['plan']}; H0 argmax "
+          f"{h0s[int(torch.argmax(ll))].item():.2f}; log L = "
+          f"{[round(v, 4) for v in ll.tolist()]}; {zeros}; requires_grad "
+          f"raises: {refused} [{smi}]")
+    phase(27, "K5 vs plain", f"the path's own inputs (L = {n}): max err "
+          f"{k_rel:.3e} of the row max against float64 plain (tol 1e-4; rows "
+          f"under 1e-20 of their event's max {k_under}), max abs {k_abs:.3e}; "
+          f"{k_nan} real pixel rows NaN in both (a (λ, event) without a "
+          f"whitening) [{smi}]")
+    phase(27, "precision", f"float32 vs float64 log L on {PARITY_DARK.name} "
+          f"(plan {prec_plan}): max rel err {rel:.3e} (bar {FULL_F32_BAR:.3e}), "
+          f"max abs {diff:.3e}, over {n_fin} of 7 H0 values [{smi}]")
+    phase(27, "timing", f"[{smi}] per λ over {reps} batches of {n}: total "
+          f"{t_med:.4f} ± {t_mad:.4f} ms (median ± MAD); K5 {k_med:.4f} ± "
+          f"{k_mad:.4f} ms; glue {t_med - k_med:.4f} ms; K5 per call "
+          f"{k_call:.3f} ms, plain {plain:.1f} ms, bound {b_ms:.3f} ms "
+          f"({b_by}, {100 * b_ms / k_call:.1f} % of it); terms (λ x real pixel x grid point x sample) {terms['all']:.4e}"
+          f", {terms['live']:.4e} on samples with weight ({terms['dense']:.4e} "
+          f"dense, {terms['recurrence']:.4e} in the recurrence with "
+          f"{terms['refresh']:.4e} refreshes)")
+    entry = {"name": "lattice_kde3d (K5)", "route": "cuda",
+             "source": "chimera_tpu_torch/csrc/kde3d.cu",
+             "replaces": "chimera_tpu/ops/kde.py:307", "launches": 1,
+             "max_abs_err": k_abs, "ms": k_call, "plain_ms": plain,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    del args
+    return entry, hl
+
+
+def ensemble(smi: str, full, hl_full, k5: dict) -> dict:
+    """Phase 28: the ensemble sampler, 32 walkers in (H0, Om0), 5 steps of
+    two half-steps of 16 (L = 16 a batch), on the spectral headline (K1a)
+    and on phase 27's 'full' likelihood (K5): one launch a half-step (and
+    one of all 32 walkers at the start), every walker finite and in bounds,
+    equal bits on a second run from the same generator seed.  Returns K5's
+    entry with its launches on the 'full' run."""
+    from chimera_tpu_torch.inference import (init_state, initialize_walkers,
+                                             make_vector_log_prob, run)
+
+    names, n_walkers, n_steps = ["H0", "Om0"], 32, 5
+    bounds = {p: BOUNDS[p] for p in names}
+    for name, hl, kid in (("spectral headline", likelihood(full, F32), "K1a"),
+                          ("kind 'full'", hl_full, "K5")):
+        f = make_vector_log_prob(hl, names, bounds)
+        runs = []
+        for _ in range(2):
+            def go():
+                gen = torch.Generator(device=DEV).manual_seed(SEED + 28)
+                x0 = initialize_walkers(gen, INIT, n_walkers, names,
+                                        bounds=bounds, dtype=F32)
+                return run(gen, init_state(x0, f), f, n_steps)
+            t0 = time.perf_counter()
+            (state, hist), launched = counted(go, {kid: 1 + 2 * n_steps})
+            seconds = time.perf_counter() - t0
+            runs.append(hist)
+            if not torch.all(torch.isfinite(hist["log_prob"])):
+                raise AssertionError(f"{name}: non-finite walker log densities")
+            for i, p in enumerate(names):
+                x = hist["coords"][..., i]
+                if not torch.all((x >= bounds[p][0]) & (x <= bounds[p][1])):
+                    raise AssertionError(f"{name}: {p} walkers outside {bounds[p]}")
+        if not all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0]):
+            raise AssertionError(f"{name}: a second run under the same "
+                                 "generator seed gave other walkers")
+        acc = float(state.n_accepted.double().mean()) / state.iteration
+        if kid == "K5":
+            k5 = {**k5, "launches": launched[kid]}
+        phase(28, f"ensemble, {name}", f"{n_walkers} walkers in {names} x "
+              f"{n_steps} steps (half-steps of {n_walkers // 2}): {kid} "
+              f"launches {launched[kid]} (1 + 2 a step), {seconds:.2f} s; "
+              f"walkers finite and inside the bounds, equal bits on a second "
+              f"run; acceptance {acc:.3f}; H0 mean "
+              f"{float(hist['coords'][-1, :, 0].mean()):.2f} [{smi}]")
+    return k5
+
+
 # The adjoint kernel in the tree it is run from, on the main paths' own
 # cotangents, ms per call: K3 on analysis grids at the spectral headline
 # (the samplers' backward); the stats-only mode on the same rows (phases A,
@@ -3190,7 +3467,7 @@ def main() -> None:
     # ---- 2. kernel builds, one nvcc per source, in parallel --------------
     t0 = time.perf_counter()
     names = ["fused_kde", "rows_contract", "fused_kde_adjoint",
-             "rows_contract_adjoint", "kde1d"]
+             "rows_contract_adjoint", "kde1d", "kde3d"]
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(build.load, names))
     for name in names:
@@ -3210,6 +3487,8 @@ def main() -> None:
                *dark_gradients(smi, full, dark_data, dark_entries),
                contract_path(smi, dark_data),
                binned_gradients(smi, full, dark_data)]
+    k5, hl_full = full_path(smi, dark_data)
+    kernels.append(ensemble(smi, full, hl_full, k5))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

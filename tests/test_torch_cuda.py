@@ -5,7 +5,8 @@ effective-grid modes K1b and K1d and the batched KDE K4 (the reference's
 binned defaults), K3 in the modes of K1b, K1c and K1d and the
 rows-contraction adjoint K2b (the dark-siren and effective-grid
 gradients), the contract pass K1e and K4's adjoint K4b (the binned
-gradient).
+gradient), the 3-D lattice KDE K5 of kind 'full' and the ensemble sampler
+on it.
 
 Every test here needs a CUDA card and nvcc (marker ``cuda``) and skips
 without one.  The file imports no JAX, so it runs on a machine without it:
@@ -957,3 +958,126 @@ def test_binned_hmc_repeats_bit_for_bit(cuda):
     for k, lo_hi in bounds.items():
         assert torch.all((first[k] > lo_hi[0]) & (first[k] < lo_hi[1]))
         assert torch.equal(first[k], second[k])
+
+
+# ---------------------------------------------------------------------------
+# K5 (the 3-D lattice KDE of kind 'full') and the ensemble sampler
+# ---------------------------------------------------------------------------
+
+# every path of K5: the dense sweep, the 8-, 16- and 32-register
+# recurrences, K = 13 (no tier: a padded last block of 64 points)
+_K5_BLOCKS = [0, 8, 13, 16, 32]
+
+
+@pytest.fixture(scope="module")
+def full_cpu_hl(dark_inputs):
+    """Kind 'full' (cut_grid=2.0) on the dark inputs' PE data, an empty
+    catalog and 800-point grids, where the plan takes K = 32 for most
+    events (16 for the rest); each event's block length then cycles through
+    ``_K5_BLOCKS``, capped at the plan's (a longer block than the plan's
+    can rise from below the flush to inf)."""
+    cat, _, pop, sel = dark_inputs
+    z_grids = compute_z_grids(pop.cosmo, cat, cosmo_prior={"H0": [40.0, 120.0]},
+                              z_int_res=800)
+    hl = HyperLikelihood.create(cat, z_grids, Population.create(
+        pop.cosmo, pop.mass, pop.rate), sel, kind="full", cut_grid=2.0)
+    cycle = torch.tensor(_K5_BLOCKS * 4, dtype=hl.z_block.dtype)[:hl.n_events]
+    assert torch.all(hl.z_block >= 16)
+    hl.z_block.copy_(torch.minimum(cycle, hl.z_block))
+    return hl
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+def test_k5_matches_plain(cuda, full_cpu_hl, dtype, tol):
+    """K5 on the inputs the 'full' path hands it, 3 λ: float64 within 1e-10
+    of each (λ, event, pixel) row's max of the plain version, float32 within
+    1e-4 of the float64 plain version on the same inputs; fake pixels 0;
+    one launch; a dead pixel's samples (event 3) carry no weight."""
+    from chip_smoke import captured, k5_compare
+
+    card = copy.deepcopy(full_cpu_hl).to(cuda, dtype)
+    args, kw = captured("lattice_kde3d", lambda: card.log_like_batch(
+        {"H0": torch.tensor(H0S, dtype=dtype, device=cuda)}))
+    rel, _, _, _ = _launched(lambda: k5_compare(args, kw, tol), {"K5": 1})
+    assert rel <= tol
+
+
+def test_full_log_like_batch_matches_cpu(cuda, full_cpu_hl):
+    """Kind 'full' on the card, float64: one K5 launch a batch and nothing
+    else, log L within 1e-10 of the CPU's; float32 within 1e-6 of it."""
+    card = copy.deepcopy(full_cpu_hl).to(cuda)
+    got = _launched(lambda: card.log_like_batch({"H0": H0S}), {"K5": 1}).cpu()
+    expect = full_cpu_hl.log_like_batch({"H0": H0S})
+    assert torch.all(torch.isfinite(expect))
+    torch.testing.assert_close(got, expect, rtol=1e-10, atol=0)
+    card32 = copy.deepcopy(full_cpu_hl).to(cuda, torch.float32)
+    got32 = card32.log_like_batch({"H0": H0S}).cpu().double()
+    assert ((got32 - expect).abs() / expect.abs()).max() <= 1e-6
+
+
+def test_k5_repeats_bit_for_bit(cuda, full_cpu_hl):
+    """Fixed-order sums, no atomics: two calls give the same bits."""
+    from chip_smoke import captured
+    from chimera_tpu_torch.ops.cuda.kde3d import lattice_kde3d
+
+    card = copy.deepcopy(full_cpu_hl).to(cuda, torch.float32)
+    args, kw = captured("lattice_kde3d", lambda: card.log_like_batch({"H0": H0S}))
+    first, second = lattice_kde3d(*args, **kw), lattice_kde3d(*args, **kw)
+    assert torch.equal(_bits(first), _bits(second))
+
+
+def test_full_gradient_raises_on_the_card(cuda, full_cpu_hl):
+    """K5 has no adjoint kernel: a 'full' batch that requires grad raises on
+    CUDA tensors (ROADMAP.md §1 item 16) and differentiates on CPU
+    tensors."""
+    card = copy.deepcopy(full_cpu_hl).to(cuda)
+    h0 = torch.tensor(H0S, dtype=torch.float64, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        card.log_like_batch({"H0": h0})
+    assert torch.all(torch.isfinite(_grad(full_cpu_hl, "cpu")))
+
+
+def test_k5_rejects_what_the_kernel_does_not_take(cuda, full_cpu_hl):
+    from chip_smoke import captured
+    from chimera_tpu_torch.ops.cuda.kde3d import lattice_kde3d
+
+    card = copy.deepcopy(full_cpu_hl).to(cuda)
+    args, kw = captured("lattice_kde3d", lambda: card.log_like_batch({"H0": H0S}))
+    bad = list(args)
+    bad[2] = args[2].float()
+    with pytest.raises(ValueError, match="ra must be"):
+        lattice_kde3d(*bad, **kw)
+    bad = list(args)
+    bad[8] = args[8].double()
+    with pytest.raises(ValueError, match="z_block"):
+        lattice_kde3d(*bad, **kw)
+    with pytest.raises(TypeError):
+        lattice_kde3d(*(a.half() if a.is_floating_point() else a for a in args), **kw)
+
+
+def test_ensemble_repeats_bit_for_bit(cuda, full_cpu_hl):
+    """8 walkers in (H0, Om0) on kind 'full', float32, 2 steps: one K5 launch
+    a half-step (and one at the start), every walker finite and in bounds,
+    equal bits on a second run from the same generator seed."""
+    from chimera_tpu_torch.inference import (init_state, initialize_walkers,
+                                             make_vector_log_prob, run)
+
+    card = copy.deepcopy(full_cpu_hl).to(cuda, torch.float32)
+    bounds = {"H0": (40.0, 120.0), "Om0": (0.05, 0.6)}
+    f = make_vector_log_prob(card, ["H0", "Om0"], bounds)
+
+    def go():
+        gen = torch.Generator(device=cuda).manual_seed(9)
+        x0 = initialize_walkers(gen, {"H0": 70.0, "Om0": 0.25}, 8,
+                                ["H0", "Om0"], bounds=bounds, dtype=torch.float32)
+        return run(gen, init_state(x0, f), f, n_steps=2)
+
+    _, first = _launched(go, {"K5": 5})
+    _, second = go()
+    assert torch.all(torch.isfinite(first["log_prob"]))
+    for i, (lo, hi) in enumerate(bounds.values()):
+        x = first["coords"][..., i]
+        assert torch.all((x >= lo) & (x <= hi))
+    assert torch.equal(first["coords"], second["coords"])
+    assert torch.equal(first["log_prob"], second["log_prob"])

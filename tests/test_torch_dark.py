@@ -330,15 +330,20 @@ def test_padded_events_are_trimmed(dark_siren_setup):
 
 
 def test_unported_dark_configurations_raise(state):
-    """Kind 'full' raises, whatever the binning and effective-grid settings;
+    """Kind 'full' raises without the samples' sky positions, whatever the
+    binning and effective-grid settings, and runs with them;
     'approximate' and 'marginalized' run with the reference's defaults."""
     hl = HyperLikelihood.from_state(state, "cpu", F64)
     theta = ThetaPEDet(**{f: _t(state[f"theta_gw.{f}"], None) for f in
                           ("m1det", "m2det", "dL", *PIXEL_FIELDS, "gw_loc2d_pdf")})
     for kw in ({}, {"binning": False}, {"cut_grid": None}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 11"):
+        with pytest.raises(ValueError, match="needs the samples' ra and dec"):
             HyperLikelihood.create(theta, hl.z_grids, hl.population, hl.selection,
                                    kind="full", **kw)
+    sky = theta.update(ra=_t(state["theta_gw.ra"]), dec=_t(state["theta_gw.dec"]))
+    runs = HyperLikelihood.create(sky, hl.z_grids, hl.population, hl.selection,
+                                  kind="full")
+    assert torch.all(torch.isfinite(runs.log_like_batch({"H0": H0S})))
     for kind in ("approximate", "marginalized"):
         runs = HyperLikelihood.create(theta, hl.z_grids, hl.population,
                                       hl.selection, kind=kind)

@@ -15,13 +15,14 @@ The reference-default configuration (``binning=True, cut_grid=2.0``) has a
 float32 bar of its own: binning moves a sample into the neighbouring bin
 when its float32 z lies within rounding of a bin edge.  The JAX package's
 own float32-vs-float64 gap on the repo's two precision mocks (this dark one
-and the 64 x 1024 x 300 spectral one of ``test_f32_loglike_parity``) is
-measured by
+and the 64 x 1024 x 300 spectral one of ``test_f32_loglike_parity``), and
+that of kind 'full' (cut_grid=2.0) on this dark one, is measured by
 
     PYTHONPATH=. python tests/test_torch_f32_parity.py --reference-gap
 
 and the port's float32 is held to max(1e-6, 2 x that gap)
-(``chip_smoke.BINNED_F32_BAR``), here and on the card.
+(``chip_smoke.BINNED_F32_BAR``) here and on the card; 'full''s gap is below
+1e-6, and its bar stays the repo's (``chip_smoke.FULL_F32_BAR``).
 """
 
 import json
@@ -127,6 +128,21 @@ def test_float32_meets_the_repo_bar(port_data, fiducial_population):
     assert rel.max() <= 1e-6, rel
 
 
+def test_full_float32_meets_its_bar(port_data):
+    """Kind 'full' (cut_grid=2.0) on the mock: the port's float32 (K5's
+    plain version) within ``chip_smoke.FULL_F32_BAR`` of its float64,
+    elementwise, as phase 27 holds the card to it."""
+    h0 = torch.as_tensor(H0S)
+    ll64 = chip_smoke.dark_likelihood(port_data, torch.float64,
+                                      **chip_smoke.FULL).log_like_batch({"H0": h0})
+    ll32 = chip_smoke.dark_likelihood(port_data, torch.float32,
+                                      **chip_smoke.FULL).log_like_batch(
+        {"H0": h0.float()})
+    assert torch.all(torch.isfinite(ll64))
+    rel = (ll32.double() - ll64).abs() / ll64.abs()
+    assert rel.max() <= chip_smoke.FULL_F32_BAR, rel
+
+
 # the JAX package in float32 (x64 off, in its own process) on the arrays of
 # a reference mock, binning=True and cut_grid=2.0; prints log L at H0S
 _EVAL_BINNED32 = r"""
@@ -166,7 +182,8 @@ def reference_spectral_mock(pop) -> dict:
 def reference_likelihood(d: dict, kind: str):
     """The JAX likelihood of a mock's arrays in JAX's working dtype, with
     the reference's defaults (binning, cut_grid=2.0): kind '1d' on the
-    spectral arrays, 'marginalized' on the dark ones."""
+    spectral arrays, 'marginalized' or 'full' (which ignores binning) on
+    the dark ones."""
     from chimera_tpu import HyperLikelihood as JHL
     from chimera_tpu import SelectionFunction
     from chimera_tpu.catalog import DVdzCompleteness, EmptyCatalog
@@ -180,7 +197,7 @@ def reference_likelihood(d: dict, kind: str):
     theta = ThetaPEDet(m1det=arr("m1"), m2det=arr("m2"), dL=arr("dl"),
                        pe_prior=arr("prior"))
     gal_cat = EmptyCatalog()
-    if kind == "marginalized":
+    if kind in ("marginalized", "full"):
         theta = theta.update(
             ra=arr("ra"), dec=arr("dec"), opt_nsides=jnp.asarray(d["opt_nsides"]),
             pixels_opt_nsides=jnp.asarray(d["pixels"]), ra_pix=arr("ra_pix"),
@@ -232,7 +249,7 @@ if __name__ == "__main__" and "--reference-gap" in sys.argv:
                                  gal_cat=EmptyCatalog())
     with tempfile.TemporaryDirectory() as tmp, np.load(MOCK) as dark:
         for kind, arrays in (("1d", reference_spectral_mock(fiducial)),
-                             ("marginalized", dict(dark))):
+                             ("marginalized", dict(dark)), ("full", dict(dark))):
             gap, ll64 = reference_gap(arrays, kind, Path(tmp))
             print(json.dumps({"kind": kind, "binning": True, "cut_grid": 2.0,
                               "float32_vs_float64_max_rel": gap,

@@ -136,13 +136,13 @@ def test_state_carries_the_grad_engine(jax_hl, reference):
 
 @pytest.mark.parametrize("kw", [{"binning": True}, {"cut_grid": 2.0}, {}])
 def test_unported_configurations_raise(state, kw):
-    """Kind 'full' is the one kind not ported, whatever the binning and
+    """Kind 'full' needs pixelated PE data, whatever the binning and
     effective-grid settings; the reference's defaults run."""
     from chimera_tpu_torch.data.structs import ThetaPEDet
 
     hl = HyperLikelihood.from_state(state, "cpu", torch.float64)
     theta = ThetaPEDet(m1det=hl.m1det, m2det=hl.m2det, dL=hl.dL)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 11"):
+    with pytest.raises(ValueError, match="needs pixelated PE data"):
         HyperLikelihood.create(theta, hl.z_grids, hl.population, hl.selection,
                                kind="full", **kw)
     runs = HyperLikelihood.create(theta, hl.z_grids, hl.population,
