@@ -19,27 +19,44 @@
 // chimera_tpu_torch/ops/kde.py::gaussian_kde_3d_lattice, called by
 // ops/cuda/kde3d.py::lattice_kde3d_plain.  The arithmetic is kde3d.cuh's.
 //
-// What bounds it on an H100: arithmetic on every (lambda, event, pixel,
-// grid point, sample) term.  At the dark width (16 x 1000 events x ~5 real
-// pixels x 500 grid points x 1024 samples, ~4e10 terms) the recurrence
-// costs 3 FP32 operations a term and 2 exps per (sample, K-point block),
-// the dense sweep one exp (the MUFU pipe, an eighth of the FP32 rate in
-// results a clock) and ~6 FP32 operations a term; the output is ~0.26 GB.
+// What bounds it on an H100: arithmetic on the (lambda, event, pixel, grid
+// point, sample) terms that are not exactly 0.  At the dark width (16 x
+// 1000 events x ~5 real pixels x 500 grid points x 1024 samples, ~4e10
+// terms) the recurrence costs 3 FP32 operations a term and 2 exps per
+// (sample, K-point block), the dense sweep one exp (the MUFU pipe, an
+// eighth of the FP32 rate in results a clock) and ~6 FP32 operations a
+// term; the output is ~0.26 GB.  But the flush zeroes ~83 % of the
+// refreshes there: a sample is live only within ~13 bandwidths (float32;
+// ~37.6 in float64) of a block's start, and the grids span ~90.
 //
-// What the design does about it: two kernels in one call.  The prologue,
-// a block per (lambda, event), sums the weights, the weighted mean and the
-// second moments in double in a fixed order and writes the whitening
-// record (kde3d.cuh, finish_record).  The main kernel takes a block per
-// (lambda, event, pixel): the sky factor e and the z offset t of each
-// sample, formed in double from coordinates centred on the event's mean,
-// sit in shared memory; then every term lives in registers.  The dense
-// sweep gives each thread kDensePoints grid points at a time; the
-// recurrence gives each thread one K-point block (K accumulators in
-// registers, K <= kMaxBlock = 32) over a slice of the samples, and a
-// second pass adds the slices in order, so that the short grids of the
-// K = 32 tier (16 blocks of 500 points) still fill the block's 128
-// threads.  No atomics: equal bits every run.  Zero-weight samples are not
-// skipped, and the FP32 pipe against the MUFU is the lever of a later PR.
+// What the design does about it: the prologue, a block per (lambda,
+// event), sums the weights, the weighted mean and the second moments in
+// double in a fixed order and writes the whitening record (kde3d.cuh,
+// finish_record).  Then a main kernel a tier of K (8, 16, 32 accumulators:
+// each built for its own registers), a block per (lambda, event, pixel)
+// (tier 32: per (lambda, event), walking its pixels; see tier_blocks):
+// the sky factor e and the z offset t of each sample, formed
+// in double from coordinates centred on the event's mean, sit side by side
+// in shared memory; then every term lives in registers.  The dense sweep
+// gives each thread kDensePoints grid points at a time.  The recurrence's
+// chains (one K-point block over a slice of the samples, K accumulators in
+// registers; a second pass adds the slices in order, so that short grids
+// still fill the block's 128 threads) walk only the (sample, block) pairs
+// whose refresh the flush may keep: a skip radius per sample (kde3d.cuh,
+// skip_radius: every skipped refresh provably flushes, and a flushed
+// refresh adds exactly +0), the band of blocks some sample reaches, a bit
+// per pair in shared memory within it, each chain's set bits in sample
+// order two at a time, and the chains ranked by their set bits so that a
+// warp holds chains of like length: the unpruned walk's bits, at ~17 % of
+// its refreshes at the dark width.  A (lambda, event, pixel) whose masks
+// exceed kMaskWords walks every sample (same bits).  No atomics in any
+// sum: equal bits every run.
+//
+// What still bounds it: a block's chains are fixed by the sums' order
+// (Q = 128 / J slices a block, each added in sample order), so the
+// longest, whose every sample is live, set a warp's pace; the walk issues
+// ~90 instructions a live sample (two exps, 3 K chain operations, its
+// loads), and each (pixel, sample) still takes its double sky factor.
 
 #include "kde3d.cuh"
 
@@ -82,36 +99,95 @@ kde3d_prologue(const T* __restrict__ z, const T* __restrict__ w,
   }
 }
 
+// The recurrence of one (lambda, event, pixel): the pruned walk where its
+// masks fit (the band of blocks some sample reaches, live_masks within it;
+// the chains ranked by their set bits where the threads split into
+// chains), else every sample; the chains' sums stored after a barrier
+// (part overlays the samples' arrays) and folded.
 template <typename T, int KMAX>
-__device__ void recurrence(const double* rec, const T* es, const T* ts, int S,
-                           double zg0, int G, int K, T* part, T* out) {
-  recurrence_sweep<T, KMAX>(rec, es, ts, S, zg0, G, K, part, out, threadIdx.x,
-                            kThreads);
+__device__ void recurrence(const double* rec, const ET<T>* et, const T* radii,
+                           unsigned* masks, int* keys, int S, double zg0,
+                           int G, int K, T* part, T* out) {
+  const int J = (G + K - 1) / K;
+  const bool pruned = (long long)J * ((S + 31) / 32) <= kMaskWords;
+  int* order = keys + kThreads;
+  if (pruned) {
+    T* red = reinterpret_cast<T*>(masks);  // sample_extent's rows
+    extent_fold(red, keys, J, threadIdx.x, kThreads);
+    __syncthreads();
+    live_band(rec, red, zg0, K, J, keys, threadIdx.x, kThreads);
+    __syncthreads();
+    live_masks<T>(rec, et, radii, S, zg0, K, J, keys, masks, threadIdx.x,
+                  kThreads);
+    __syncthreads();
+    if (J < kThreads) {
+      chain_keys(masks, S, J, keys, threadIdx.x, kThreads);
+      __syncthreads();
+      chain_order(keys, J, order, threadIdx.x, kThreads);
+      __syncthreads();
+    }
+  }
+  T acc[KMAX];
+  const int c = recurrence_sweep<T, KMAX>(rec, et, pruned ? masks : nullptr,
+                                          order, S, zg0, G, K, out, acc,
+                                          threadIdx.x, kThreads);
+  __syncthreads();
+  if (c >= 0) {
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) part[c * KMAX + k] = acc[k];
+  }
   __syncthreads();
   recurrence_fold<T, KMAX>(rec, part, G, K, out, threadIdx.x, kThreads);
 }
 
+// Shared memory of the main kernels: the samples' (e, t) slots and skip
+// radii (padded to whole 32-sample words), the masks (first the samples'
+// extent), the band, then the chains' keys and order; the recurrence's
+// part overlays them once the walk is done.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-kde3d_kernel(const T* __restrict__ z, const T* __restrict__ w,
-             const T* __restrict__ ra, const T* __restrict__ dec,
-             const T* __restrict__ ra_pix, const T* __restrict__ dec_pix,
-             const unsigned char* __restrict__ mask,
-             const T* __restrict__ grids, const int* __restrict__ z_block,
-             const double* __restrict__ records, T* __restrict__ out, int E,
-             int S, int P, int G) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* es = reinterpret_cast<T*>(smem);
-  T* ts = es + S;
-  T* part = ts + S;  // kThreads x kMaxBlock slice sums of the recurrence
-  const size_t blk = blockIdx.x;
-  const int p = int(blk % P);
-  const size_t le = blk / P;
-  const int e = int(le % E);
-  T* o = out + blk * G;
-  const double* rec = records + le * kRecord;
-  const int k_req = z_block[e];
-  const bool valid = rec[kOk] != 0.0 && k_req >= 0 && k_req <= kMaxBlock;
+size_t main_smem(int S) {
+  const size_t samples = (size_t)slots(S) * sizeof(ET<T>) +
+                         (size_t)(32 * ((S + 31) / 32)) * sizeof(T) +
+                         (size_t)kMaskWords * 4 + 2 * kThreads * 4;
+  const size_t part = (size_t)kThreads * kMaxBlock * sizeof(T);
+  return samples > part ? samples : part;
+}
+
+// The main kernel of the (lambda, event)s whose block length K lies in
+// TIER's range (TIER 8: the dense sweep and K <= 8, with the rows without
+// a whitening or with a K the kernel does not take; 16: 8 < K <= 16; 32:
+// 16 < K <= 32), its K accumulators TIER registers: one kernel a tier, so
+// that the K = 8 and K = 16 tiers are not held to the registers of the
+// K = 32 one.  A block a (lambda, event, pixel) in tiers 8 and 16; in
+// tier 32 a block a (lambda, event) walking its pixels.  That layout was
+// timed against a block a (lambda, event, pixel) (tools/k3_variants.py,
+// k5_tier32_pixel; float32, 16 lambda, 1024 samples, on an H100 80GB HBM3
+// at 700 W) and is faster both where the plan gives tier 32 no event (1000
+// events on 500-point grids: 5.09-5.10 ms a call against 5.20-5.22; its
+// empty launch 0.016 ms against 0.125) and where it gives it most (500
+// events on 800-point grids, 340 at K = 32: 4.10-4.20 ms against
+// 4.45-4.51).  Tiers 8 and 16 in that layout were slower.  Blocks an SM
+// each float32 tier is built for (the registers it may take: 64K /
+// (blocks x 128)); float64 takes what it needs.
+template <typename T>
+__host__ __device__ constexpr int tier_blocks(int tier) {
+  return sizeof(T) > 4 ? 1 : tier == 8 ? 10 : tier == 16 ? 9 : 6;
+}
+
+// One (lambda, event, pixel) of a tier's kernel.
+template <typename T, int TIER>
+__device__ __forceinline__ void pixel_row(
+    const T* z, const T* w, const T* ra, const T* dec, const T* ra_pix,
+    const T* dec_pix, const unsigned char* mask, const T* grid,
+    const double* rec, bool valid, int K, T* out, size_t le, int e, int p,
+    int S, int P, int G, unsigned char* smem) {
+  const int S32 = 32 * ((S + 31) / 32);
+  ET<T>* et = reinterpret_cast<ET<T>*>(smem);
+  T* radii = reinterpret_cast<T*>(et + slots(S));
+  unsigned* masks = reinterpret_cast<unsigned*>(radii + S32);
+  int* keys = reinterpret_cast<int*>(masks + kMaskWords);
+  T* part = reinterpret_cast<T*>(smem);  // kThreads x kMaxBlock slice sums, after the walk
+  T* o = out + (le * P + p) * G;
   if (!mask[size_t(e) * P + p] || !valid) {
     // a fake pixel is 0; no whitening, or a block length the kernel does
     // not take, NaN
@@ -121,18 +197,65 @@ kde3d_kernel(const T* __restrict__ z, const T* __restrict__ w,
   }
   sample_factors(rec, z + le * S, w + le * S, ra + size_t(e) * S,
                  dec + size_t(e) * S, S, ra_pix[size_t(e) * P + p],
-                 dec_pix[size_t(e) * P + p], es, ts, threadIdx.x, kThreads);
+                 dec_pix[size_t(e) * P + p], et, threadIdx.x, kThreads);
+  skip_radii(et, radii, S, threadIdx.x, kThreads);
+  sample_extent(et, radii, S, reinterpret_cast<T*>(masks), threadIdx.x,
+                kThreads);
   __syncthreads();
-  const T* grid = grids + size_t(e) * G;
-  const int K = k_req < G ? k_req : G;
   if (K == 0)
-    dense_sweep(rec, es, ts, S, grid, G, o, threadIdx.x, kThreads);
-  else if (K <= 8)
-    recurrence<T, 8>(rec, es, ts, S, double(grid[0]), G, K, part, o);
-  else if (K <= 16)
-    recurrence<T, 16>(rec, es, ts, S, double(grid[0]), G, K, part, o);
+    dense_sweep(rec, et, S, grid, G, o, threadIdx.x, kThreads);
   else
-    recurrence<T, kMaxBlock>(rec, es, ts, S, double(grid[0]), G, K, part, o);
+    recurrence<T, TIER>(rec, et, radii, masks, keys, S, double(grid[0]), G, K,
+                        part, o);
+}
+
+template <typename T, int TIER>
+__global__ void __launch_bounds__(kThreads, tier_blocks<T>(TIER))
+kde3d_kernel(const T* __restrict__ z, const T* __restrict__ w,
+             const T* __restrict__ ra, const T* __restrict__ dec,
+             const T* __restrict__ ra_pix, const T* __restrict__ dec_pix,
+             const unsigned char* __restrict__ mask,
+             const T* __restrict__ grids, const int* __restrict__ z_block,
+             const double* __restrict__ records, T* __restrict__ out, int E,
+             int S, int P, int G) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kPixelLoop = TIER == kMaxBlock;
+  const size_t le = kPixelLoop ? blockIdx.x : blockIdx.x / P;
+  const int e = int(le % E);
+  const double* rec = records + le * kRecord;
+  const int k_req = z_block[e];
+  const bool valid = rec[kOk] != 0.0 && k_req >= 0 && k_req <= kMaxBlock;
+  const int K = k_req < G ? k_req : G;
+  if ((!valid || K <= 8 ? 8 : K <= 16 ? 16 : kMaxBlock) != TIER) return;
+  const T* grid = grids + size_t(e) * G;
+  if constexpr (kPixelLoop) {
+    for (int p = 0; p < P; ++p) {
+      pixel_row<T, TIER>(z, w, ra, dec, ra_pix, dec_pix, mask, grid, rec,
+                         valid, K, out, le, e, p, S, P, G, smem);
+      __syncthreads();  // the next pixel's sample factors overwrite part
+    }
+  } else {
+    pixel_row<T, TIER>(z, w, ra, dec, ra_pix, dec_pix, mask, grid, rec, valid,
+                       K, out, le, e, int(blockIdx.x % P), S, P, G, smem);
+  }
+}
+
+template <typename T, int TIER>
+cudaError_t launch_tier(const T* z, const T* w, const T* ra, const T* dec,
+                        const T* ra_pix, const T* dec_pix,
+                        const unsigned char* mask, const T* grids,
+                        const int* z_block, const double* records, T* out,
+                        int L, int E, int S, int P, int G, cudaStream_t s) {
+  const size_t smem = main_smem<T>(S);
+  cudaError_t err = cudaFuncSetAttribute(
+      kde3d_kernel<T, TIER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const size_t blocks = (size_t)L * E * (TIER == kMaxBlock ? 1 : P);
+  kde3d_kernel<T, TIER><<<(unsigned)blocks, kThreads, smem, s>>>(
+      z, w, ra, dec, ra_pix, dec_pix, mask, grids, z_block, records, out, E,
+      S, P, G);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -148,15 +271,16 @@ int launch(const T* z, const T* w, const T* ra, const T* dec,
       z, w, ra, dec, grids, E, S, G, bw_mode, bw_value, records);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)(2 * S + kThreads * kMaxBlock) * sizeof(T);
-  err = cudaFuncSetAttribute(kde3d_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kde3d_kernel<T><<<(unsigned)((size_t)L * E * P), kThreads, smem, s>>>(
-      z, w, ra, dec, ra_pix, dec_pix, mask, grids, z_block, records, out, E,
-      S, P, G);
-  return (int)cudaGetLastError();
+  err = launch_tier<T, 8>(z, w, ra, dec, ra_pix, dec_pix, mask, grids,
+                          z_block, records, out, L, E, S, P, G, s);
+  if (err == cudaSuccess)
+    err = launch_tier<T, 16>(z, w, ra, dec, ra_pix, dec_pix, mask, grids,
+                             z_block, records, out, L, E, S, P, G, s);
+  if (err == cudaSuccess)
+    err = launch_tier<T, kMaxBlock>(z, w, ra, dec, ra_pix, dec_pix, mask,
+                                    grids, z_block, records, out, L, E, S, P,
+                                    G, s);
+  return (int)err;
 }
 
 }  // namespace

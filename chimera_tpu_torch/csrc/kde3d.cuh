@@ -43,6 +43,29 @@ __device__ __forceinline__ double smallest_normal<double>() { return DBL_MIN; }
 __device__ __forceinline__ float exp_t(float x) { return expf(x); }
 __device__ __forceinline__ double exp_t(double x) { return exp(x); }
 
+// A sample's sky factor e and z offset t side by side (x, y: one 8- or
+// 16-byte load) at slot(s) = s + s / 256: the slices of 256 and 512
+// samples that a warp's chains walk then start on different banks of
+// shared memory.
+template <typename T>
+struct SamplePair;
+template <>
+struct SamplePair<float> {
+  using type = float2;
+};
+template <>
+struct SamplePair<double> {
+  using type = double2;
+};
+template <typename T>
+using ET = typename SamplePair<T>::type;
+
+__host__ __device__ constexpr int slot(int s) { return s + (s >> 8); }
+// the slots of S samples padded to whole 32-sample words, an even count
+__host__ __device__ constexpr int slots(int S) {
+  return (slot(32 * ((S + 31) / 32) - 1) + 2) & ~1;
+}
+
 // _safe_norm_weights: w / sum_w, or 1 / S where the weights do not sum to
 // a positive number (a dead (lambda, event), NaN included)
 template <typename T>
@@ -158,7 +181,7 @@ __device__ __forceinline__ void finish_record(double sum_w, double s2,
 template <typename T>
 __device__ void sample_factors(const double* rec, const T* z, const T* w,
                                const T* ra, const T* dec, int S, T ra_pix,
-                               T dec_pix, T* es, T* ts, int rank, int size) {
+                               T dec_pix, ET<T>* et, int rank, int size) {
   const double l00 = rec[kL00], l10 = rec[kL10], l20 = rec[kL20];
   const double l11 = rec[kL11], l21 = rec[kL21], l22 = rec[kL22];
   const double rp = double(ra_pix) - rec[kMeanRa];
@@ -172,15 +195,17 @@ __device__ void sample_factors(const double* rec, const T* z, const T* w,
     const double dd = double(dec[i]) - rec[kMeanDec];
     const double q1 = c1 - (l11 * dr + l21 * dd);
     const double q2 = c2 - l22 * dd;
-    es[i] = T(unit_weight(w[i], rec[kSumW], S) * exp(-0.5 * (q1 * q1 + q2 * q2)));
-    ts[i] = T(c0 - (l00 * dz + l10 * dr + l20 * dd));
+    ET<T> p;
+    p.x = T(unit_weight(w[i], rec[kSumW], S) * exp(-0.5 * (q1 * q1 + q2 * q2)));
+    p.y = T(c0 - (l00 * dz + l10 * dr + l20 * dd));
+    et[slot(i)] = p;
   }
 }
 
 // The dense z sweep, one exp a term: each thread takes kDensePoints grid
 // points at a time, the samples in order.
 template <typename T>
-__device__ void dense_sweep(const double* rec, const T* es, const T* ts,
+__device__ void dense_sweep(const double* rec, const ET<T>* et,
                            int S, const T* grid, int G, T* out, int rank,
                            int size) {
   const T norm = T(rec[kNorm]);
@@ -193,7 +218,8 @@ __device__ void dense_sweep(const double* rec, const T* es, const T* ts,
       acc[i] = T(0);
     }
     for (int s = 0; s < S; ++s) {
-      const T e = es[s], t = ts[s];
+      const ET<T> p = et[slot(s)];
+      const T e = p.x, t = p.y;
 #pragma unroll
       for (int i = 0; i < kDensePoints; ++i) {
         const T u = zl[i] + t;
@@ -208,70 +234,411 @@ __device__ void dense_sweep(const double* rec, const T* es, const T* ts,
   }
 }
 
-// One K-point block's sums over the samples [s0, s1): per sample an exact
-// refresh v = e exp(-u0^2 / 2), r = exp(-h u0 - h^2 / 2) (two exps), flushed
-// to 0 below the smallest normal (a NaN too), then K multiply-adds.
+// Rounded arithmetic that the compiler may not contract: the recurrence's
+// operations are spelled out (no product fused into a sum but the
+// refresh's -h u0 - h^2 / 2, one fma), so that its bits do not depend on
+// how nvcc contracts the code around them.
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
+
+// The start of K-point block j in whitened units, zl0 = L00 (z_g - mean_z)
+// at g = j K: L00 (z_0 - mean_z) rounded, then j K times the step added in
+// one fma, rounded to the working type.
+template <typename T>
+__device__ __forceinline__ T block_start(const double* rec, double zg0, int j,
+                                         int K) {
+  const double zl_start = __dmul_rn(rec[kL00], zg0 - rec[kMeanZ]);
+  return T(fma(double(j * K), rec[kStepH], zl_start));
+}
+
+// One sample's refresh at a block start: v = e exp(-u0^2 / 2), r =
+// exp(-h u0 - h^2 / 2) (two exps), both flushed to 0 where v is below the
+// smallest normal (a NaN too).  A flushed refresh adds exactly +0 to every
+// sum (the sums are >= +0), which is what lets the pruned walk skip it.
+template <typename T>
+__device__ __forceinline__ void refresh(T e, T t, T zl0, T h, T half_h2, T& v,
+                                        T& r) {
+  const T u0 = add_rn(zl0, t);
+  v = mul_rn(e, exp_t(mul_rn(mul_rn(T(-0.5), u0), u0)));
+  r = exp_t(fma_t(-h, u0, -half_h2));
+  if (!(v >= smallest_normal<T>())) {
+    v = T(0);
+    r = T(0);
+  }
+}
+
+// One sample's refresh and its multiply-adds into the block's sums: all
+// KMAX of them, though only the first K are read (recurrence_sweep's
+// stores, recurrence_fold): a sum k < K is the same with or without the
+// ones past it, and the loop needs no test of k.
 template <typename T, int KMAX>
-__device__ __forceinline__ void block_sums(const T* es, const T* ts, int s0,
+__device__ __forceinline__ void refresh_terms(T e, T t, T zl0, T h, T half_h2,
+                                              T rho, T (&acc)[KMAX]) {
+  T v, r;
+  refresh(e, t, zl0, h, half_h2, v, r);
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    acc[k] = add_rn(acc[k], v);
+    v = mul_rn(v, r);
+    r = mul_rn(r, rho);
+  }
+}
+
+// The refreshes of N samples s[0] < ... < s[N - 1].
+template <typename T, int N>
+__device__ __forceinline__ void refresh_n(const ET<T>* et, const int (&s)[N],
+                                          T zl0, T h, T half_h2, T (&v)[N],
+                                          T (&r)[N]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const ET<T> p = et[slot(s[n])];
+    refresh(p.x, p.y, zl0, h, half_h2, v[n], r[n]);
+  }
+}
+
+// Their multiply-adds (refresh_terms'): each sum takes their terms in
+// sample order (the order of N calls of refresh_terms), with N
+// independent chains in flight.
+template <typename T, int KMAX, int N>
+__device__ __forceinline__ void terms_n(T (&v)[N], T (&r)[N], T rho,
+                                        T (&acc)[KMAX]) {
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    T a = acc[k];
+#pragma unroll
+    for (int n = 0; n < N; ++n) a = add_rn(a, v[n]);
+    acc[k] = a;
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      v[n] = mul_rn(v[n], r[n]);
+      r[n] = mul_rn(r[n], rho);
+    }
+  }
+}
+
+// One K-point block's sums over the samples [s0, s1), every sample in order
+// (the unpruned walk).
+template <typename T, int KMAX>
+__device__ __forceinline__ void block_sums(const ET<T>* et, int s0,
                                            int s1, T zl0, T h, T half_h2,
-                                           T rho, int K, T (&acc)[KMAX]) {
+                                           T rho, T (&acc)[KMAX]) {
 #pragma unroll
   for (int k = 0; k < KMAX; ++k) acc[k] = T(0);
   for (int s = s0; s < s1; ++s) {
-    const T u0 = zl0 + ts[s];
-    T v = es[s] * exp_t(T(-0.5) * u0 * u0);
-    T r = exp_t(-h * u0 - half_h2);
-    if (!(v >= smallest_normal<T>())) {
-      v = T(0);
-      r = T(0);
-    }
+    const ET<T> p = et[slot(s)];
+    refresh_terms<T, KMAX>(p.x, p.y, zl0, h, half_h2, rho, acc);
+  }
+}
+
+// ---- the pruned walk -------------------------------------------------------
+// A (sample, block) refresh whose start |u0| exceeds the sample's skip
+// radius R is provably flushed, and the walk skips it.  The masks keep a
+// bit per (block j, sample s) that is set unless |u0| > R:
+// masks[(s / 32) * J + j], J x ceil(S / 32) <= kMaskWords words; a block
+// (lambda, event, pixel) whose masks do not fit walks every sample.  Each
+// chain (block j, slice of samples) adds its set bits' samples in index
+// order, so every sum is the unpruned walk's, bit for bit.
+constexpr int kMaskWords = 2048;
+
+__device__ __forceinline__ int lowest_bit(unsigned m) { return __ffs(int(m)) - 1; }
+__device__ __forceinline__ int bit_count(unsigned m) { return __popc(m); }
+
+__device__ __forceinline__ float log_t(float x) { return logf(x); }
+__device__ __forceinline__ double log_t(double x) { return log(x); }
+__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
+
+template <typename T>
+__device__ __forceinline__ T ln_smallest_normal();
+template <>
+__device__ __forceinline__ float ln_smallest_normal<float>() { return -87.33654475f; }
+template <>
+__device__ __forceinline__ double ln_smallest_normal<double>() {
+  return -708.39641853226410622;
+}
+
+// The skip radius of a sample of sky factor e: every refresh with |u0| > R
+// is flushed.  With x = ln e - ln m + 1.5 (m the smallest normal) formed
+// in T and R = sqrt(2 x): x is within 2e-5 of its exact value (log 1 ulp,
+// two roundings), so |u0| > R gives u0^2 / 2 > ln(e / m) + 1.5 - 4e-5 and
+// the refresh's exponent a = (-0.5 u0) u0, one rounding, a < ln(m / e) -
+// 1.4999; then e exp(a) < 0.224 m, and exp's error (float: 2 ulp, at most
+// 2^-148 absolute on a subnormal result, times e <= 2^20: 0.25 m; double:
+// 1 ulp) leaves v = e exp(a) below m: the kernel flushes it.  x <= 0 (e <
+// m e^-1.5): v <= e (1 + 2^-22) < m for every a <= 0, skip all (R = -1).
+// e <= 0 or NaN: v = e exp(a) is <= 0 or NaN, flushed, skip all.  e >
+// 2^20, +inf: no skip (R = +inf).  A NaN u0 is never skipped: the walk's
+// flush takes it.
+template <typename T>
+__device__ __forceinline__ T skip_radius(T e) {
+  if (!(e > T(0))) return T(-1);
+  if (!(e <= T(1048576))) return T(INFINITY);
+  const T x = log_t(e) - ln_smallest_normal<T>() + T(1.5);
+  return x > T(0) ? sqrt_t(T(2) * x) : T(-1);
+}
+
+// The skip radii of the samples sample_factors gave this rank (the same
+// indices: no barrier between), and for the padding to whole 32-sample
+// words radius -1 and e, t 0 (their bits are 0).
+template <typename T>
+__device__ void skip_radii(ET<T>* et, T* radii, int S, int rank, int size) {
+  for (int i = rank; i < S; i += size) radii[i] = skip_radius(et[slot(i)].x);
+  for (int i = S + rank; i < 32 * ((S + 31) / 32); i += size) {
+    ET<T> zero;
+    zero.x = zero.y = T(0);
+    et[slot(i)] = zero;
+    radii[i] = T(-1);
+  }
+}
+
+// four consecutive values of a 16-byte-aligned array
+template <typename T>
+struct alignas(16) Quad {
+  T v[4];
+};
+
+// The samples' extent, for the band of blocks the masks test: per rank,
+// the least and greatest t (NaNs left out: their refreshes flush) and the
+// greatest skip radius of the samples sample_factors gave it, at red[rank],
+// red[size + rank], red[2 size + rank].
+template <typename T>
+__device__ void sample_extent(const ET<T>* et, const T* radii, int S, T* red,
+                              int rank, int size) {
+  T lo = T(INFINITY), hi = T(-INFINITY), r = T(-INFINITY);
+  for (int i = rank; i < S; i += size) {
+    const T t = et[slot(i)].y;
+    lo = fmin(lo, t);
+    hi = fmax(hi, t);
+    r = fmax(r, radii[i]);
+  }
+  red[rank] = lo;
+  red[size + rank] = hi;
+  red[2 * size + rank] = r;
+}
+
+// Ranks 0, 1, 2 fold sample_extent's rows into red[3 size + 0, 1, 2] (t
+// min, t max, R max); rank 3 opens the band (band[0] = J, band[1] = -1).
+template <typename T>
+__device__ void extent_fold(T* red, int* band, int J, int rank, int size) {
+  if (rank < 3) {
+    const T* row = red + rank * size;
+    T x = row[0];
+    for (int i = 1; i < size; ++i) x = rank == 0 ? fmin(x, row[i]) : fmax(x, row[i]);
+    red[3 * size + rank] = x;
+  } else if (rank == 3) {
+    band[0] = J;
+    band[1] = -1;
+  }
+}
+
+// The band [band[0], band[1]] of the blocks j that some sample may reach:
+// outside it, fl(zl0 + t_max) < -R_max or fl(zl0 + t_min) > R_max, so every
+// sample's u0 = fl(zl0 + t) lies beyond its own radius on that side
+// (rounding is monotone), and every refresh of the block is skipped.
+template <typename T>
+__device__ void live_band(const double* rec, const T* red, double zg0, int K,
+                          int J, int* band, int rank, int size) {
+  const T t_min = red[3 * size], t_max = red[3 * size + 1];
+  const T r_max = red[3 * size + 2];
+  for (int j = rank; j < J; j += size) {
+    const T zl0 = block_start<T>(rec, zg0, j, K);
+    if (add_rn(zl0, t_max) < -r_max || add_rn(zl0, t_min) > r_max) continue;
+    atomicMin(band, j);
+    atomicMax(band + 1, j);
+  }
+}
+
+// The masks, a word (j, w) a thread: bit b is set unless |zl0(j) + t_s| >
+// R_s for s = 32 w + b (the padding's bits are 0); the words of the blocks
+// outside the band are 0 untested.
+template <typename T>
+__device__ void live_masks(const double* rec, const ET<T>* et, const T* radii,
+                           int S, double zg0, int K, int J, const int* band,
+                           unsigned* masks, int rank, int size) {
+  const int W = (S + 31) / 32, lo = band[0], hi = band[1];
+  for (int m = rank; m < J * W; m += size) {
+    const int j = m % J;
+    if (j < lo || j > hi) masks[m] = 0u;
+  }
+  const int Jb = hi - lo + 1;
+  for (int m = rank; m < Jb * W; m += size) {
+    const int j = lo + m % Jb, w = m / Jb;
+    const T zl0 = block_start<T>(rec, zg0, j, K);
+    // the word's samples sit at slots slot(32 w) + b (no gap inside)
+    const ET<T>* tw = et + slot(32 * w);
+    const Quad<T>* rq = reinterpret_cast<const Quad<T>*>(radii + 32 * w);
+    // the bits shift in from the top, sample 32 w + 31 last
+    unsigned bits = 0u;
+#pragma unroll 2
+    for (int i = 0; i < 8; ++i) {
+      const Quad<T> r = rq[i];
 #pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      if (k < K) {
-        acc[k] += v;
-        v *= r;
-        r *= rho;
+      for (int b = 0; b < 4; ++b)
+        bits = (bits >> 1) |
+               (fabs(zl0 + tw[4 * i + b].y) > r.v[b] ? 0u : 0x80000000u);
+    }
+    masks[w * J + j] = bits;
+  }
+}
+
+// The chains of J < size blocks: Q = size / J slices of the samples a
+// block, chain c = q J + j summing slice q of block j.
+__device__ __forceinline__ int chain_start(int q, int Q, int S) {
+  return int((long long)q * S / Q);
+}
+
+// Per chain c < J Q (J < size): its set bits n, as the key n size + (size -
+// 1 - c) (unique, larger first); -1 for the ranks past the chains.
+__device__ __forceinline__ void chain_keys(const unsigned* masks, int S,
+                                           int J, int* keys, int rank,
+                                           int size) {
+  const int Q = size / J;
+  if (rank >= J * Q) {
+    keys[rank] = -1;
+    return;
+  }
+  const int j = rank % J, q = rank / J;
+  const int s0 = chain_start(q, Q, S), s1 = chain_start(q + 1, Q, S);
+  int n = 0;
+  if (s0 < s1) {
+    const int w0 = s0 >> 5, w1 = (s1 - 1) >> 5;
+    for (int w = w0; w <= w1; ++w) {
+      unsigned m = masks[w * J + j];
+      if (w == w0) m &= ~0u << (s0 & 31);
+      if (w == w1) m &= ~0u >> (31 - ((s1 - 1) & 31));
+      n += bit_count(m);
+    }
+  }
+  keys[rank] = n * size + (size - 1 - rank);
+}
+
+// The chains by their keys (size of them, 16-byte aligned), most set bits
+// first: order[p] is the chain of rank p, so that a warp holds chains of
+// like length.
+__device__ __forceinline__ void chain_order(const int* keys, int J, int* order,
+                                            int rank, int size) {
+  if (rank >= J * (size / J)) return;
+  const int key = keys[rank];
+  const int4* k4 = reinterpret_cast<const int4*>(keys);
+  int p = 0;
+  for (int i = 0; i < size / 4; ++i) {
+    const int4 k = k4[i];
+    p += (k.x > key) + (k.y > key) + (k.z > key) + (k.w > key);
+  }
+  order[p] = rank;
+}
+
+// The pruned walk's samples a lane refreshes at once: two chains in
+// flight.
+constexpr int kWalkGroup = 2;
+
+// The next N set bits of mask word w (m holds at least N), in order.
+template <int N>
+__device__ __forceinline__ void take_bits(unsigned& m, int w, int (&s)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    s[i] = 32 * w + lowest_bit(m);
+    m &= m - 1u;
+  }
+}
+
+// A chain's sums over the samples [s0, s1) whose bits are set in block j's
+// masks, in index order: a mask word at a time (a chain's words are as
+// many as its lanes' neighbours', since the slices are of one size), its
+// set bits kWalkGroup at a time, the last one by one.  Each group's
+// refreshes are formed before the previous group's terms are added (no
+// sum sees them earlier), so that their loads and exps overlap that
+// group's chains of multiplies.  A warp runs as many refreshes in a word
+// as its fullest lane there.
+template <typename T, int KMAX>
+__device__ __forceinline__ void pruned_block_sums(
+    const ET<T>* et, const unsigned* masks, int J, int j, int s0,
+    int s1, T zl0, T h, T half_h2, T rho, T (&acc)[KMAX]) {
+  constexpr int N = kWalkGroup;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) acc[k] = T(0);
+  if (s0 >= s1) return;
+  const int w0 = s0 >> 5, w1 = (s1 - 1) >> 5;
+  for (int w = w0; w <= w1; ++w) {
+    unsigned m = masks[w * J + j];
+    if (w == w0) m &= ~0u << (s0 & 31);
+    if (w == w1) m &= ~0u >> (31 - ((s1 - 1) & 31));
+    int n = bit_count(m);
+    if (n >= N) {
+      int s[N];
+      T v[N], r[N];
+      take_bits(m, w, s);
+      refresh_n(et, s, zl0, h, half_h2, v, r);
+      for (n -= N; n >= N; n -= N) {
+        int s2[N];
+        T v2[N], r2[N];
+        take_bits(m, w, s2);
+        refresh_n(et, s2, zl0, h, half_h2, v2, r2);
+        terms_n<T, KMAX, N>(v, r, rho, acc);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          v[i] = v2[i];
+          r[i] = r2[i];
+        }
       }
+      terms_n<T, KMAX, N>(v, r, rho, acc);
+    }
+    for (; m != 0u; m &= m - 1u) {
+      const ET<T> p = et[slot(32 * w + lowest_bit(m))];
+      refresh_terms<T, KMAX>(p.x, p.y, zl0, h, half_h2, rho, acc);
     }
   }
 }
 
 // The uniform-z recurrence in blocks of K <= KMAX points over the grid
 // padded to J = ceil(G / K) whole blocks (the padding continues the
-// uniform spacing).  With J >= size a thread takes whole blocks over every
-// sample and writes them; else the block's threads split into J blocks x
-// Q = size / J slices of the samples, and each stores its K sums in
-// part[rank * KMAX + k] for recurrence_fold.
+// uniform spacing), over the masks' set bits (masks, else every sample).
+// With J >= size a thread takes whole blocks over every sample and writes
+// them, and -1 is returned.  Else the block's threads split into the J Q
+// chains (chain_start); rank p takes chain order[p] (the chains by their
+// set bits; without masks, chain p), and the chain's index c = q J + j is
+// returned with its K sums in acc (the caller stores them at part[c * KMAX
+// + k] for recurrence_fold; -1: no chain).
 template <typename T, int KMAX>
-__device__ void recurrence_sweep(const double* rec, const T* es, const T* ts,
-                                 int S, double zg0, int G, int K, T* part,
-                                 T* out, int rank, int size) {
+__device__ int recurrence_sweep(const double* rec, const ET<T>* et,
+                                const unsigned* masks, const int* order,
+                                int S, double zg0, int G, int K, T* out,
+                                T (&acc)[KMAX], int rank, int size) {
   const int J = (G + K - 1) / K;
   const T h = T(rec[kStepH]);
   const T half_h2 = T(0.5) * h * h;
   const T rho = exp_t(-h * h);
-  const double zl_start = rec[kL00] * (zg0 - rec[kMeanZ]);
-  T acc[KMAX];
   if (J >= size) {
     const T norm = T(rec[kNorm]);
     for (int j = rank; j < J; j += size) {
-      block_sums<T, KMAX>(es, ts, 0, S, T(zl_start + double(j * K) * rec[kStepH]),
-                          h, half_h2, rho, K, acc);
+      const T zl0 = block_start<T>(rec, zg0, j, K);
+      if (masks)
+        pruned_block_sums<T, KMAX>(et, masks, J, j, 0, S, zl0, h,
+                                          half_h2, rho, acc);
+      else
+        block_sums<T, KMAX>(et, 0, S, zl0, h, half_h2, rho, acc);
 #pragma unroll
       for (int k = 0; k < KMAX; ++k)
         if (k < K && j * K + k < G) out[j * K + k] = norm * acc[k];
     }
-    return;
+    return -1;
   }
   const int Q = size / J;
-  if (rank >= J * Q) return;
-  const int j = rank % J, q = rank / J;
-  block_sums<T, KMAX>(es, ts, int((long long)q * S / Q),
-                      int((long long)(q + 1) * S / Q),
-                      T(zl_start + double(j * K) * rec[kStepH]), h, half_h2,
-                      rho, K, acc);
-#pragma unroll
-  for (int k = 0; k < KMAX; ++k) part[rank * KMAX + k] = acc[k];
+  if (rank >= J * Q) return -1;
+  const int c = masks ? order[rank] : rank;
+  const int j = c % J, q = c / J;
+  const int s0 = chain_start(q, Q, S), s1 = chain_start(q + 1, Q, S);
+  const T zl0 = block_start<T>(rec, zg0, j, K);
+  if (masks)
+    pruned_block_sums<T, KMAX>(et, masks, J, j, s0, s1, zl0, h,
+                                      half_h2, rho, acc);
+  else
+    block_sums<T, KMAX>(et, s0, s1, zl0, h, half_h2, rho, acc);
+  return c;
 }
 
 // recurrence_sweep's slices added in slice order, a grid point a thread

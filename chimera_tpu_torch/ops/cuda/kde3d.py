@@ -25,8 +25,8 @@ from chimera_tpu_torch.ops.cuda.fused import _SMEM_LIMIT
 from chimera_tpu_torch.ops.kde import gaussian_kde_3d_lattice
 
 # csrc/kde3d.cuh: the kernel's threads a block, its longest recurrence
-# block, the doubles of a (λ, event)'s record
-_THREADS, _MAX_BLOCK, _RECORD = 128, 32, 16
+# block, the doubles of a (λ, event)'s record, the pruned walk's mask words
+_THREADS, _MAX_BLOCK, _RECORD, _MASK_WORDS = 128, 32, 16, 2048
 
 
 def lattice_kde3d_plain(z, w, ra, dec, ra_pix, dec_pix, pixel_mask, grids,
@@ -80,7 +80,12 @@ def lattice_kde3d(z: torch.Tensor, w: torch.Tensor, ra: torch.Tensor,
     if tuple(z_block.shape) != (e,) or z_block.dtype.is_floating_point \
             or z_block.device != dev:
         raise ValueError(f"z_block must be ({e},) integers on {dev}")
-    smem = (2 * s + _THREADS * _MAX_BLOCK) * z.element_size()
+    # csrc/kde3d.cu::main_smem: the (e, t) slots (a gap after every 256
+    # samples, an even count) and radii of the samples padded to 32s
+    size, s32 = z.element_size(), 32 * (-(-s // 32))
+    slots = (s32 - 1 + ((s32 - 1) >> 8) + 2) & ~1
+    smem = max(2 * slots * size + s32 * size + 4 * _MASK_WORDS + 8 * _THREADS,
+               _THREADS * _MAX_BLOCK * size)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"S = {s} samples need {smem} bytes of shared memory "
                          f"per block, over the {_SMEM_LIMIT}-byte limit")

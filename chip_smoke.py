@@ -36,7 +36,9 @@ paths end to end through the entry points a user calls:
 * phases 26-27, kind 'full' (cut_grid=2.0) on the dark flagship's data:
   the 3-D lattice KDE K5 against its plain version at 128 events, one K5
   launch a batch at full width, float32 vs float64, timing split into K5
-  and the glue, K5's bound, a gradient call that must raise;
+  and the glue and into the stages of the batch, K5's bound on the
+  refreshes its flush keeps (beside the bound on every weighted sample's),
+  a gradient call that must raise;
 * phase 28, the ensemble sampler (32 walkers in H0, Om0, two half-steps of
   16 a step) on the spectral headline (K1a) and on 'full' (K5).
 
@@ -2810,33 +2812,107 @@ FULL = {"kind": "full", "cut_grid": 2.0}
 K5_DENSE_OPS, K5_REC_OPS, K5_REFRESH_OPS = 6, 3, 9
 
 
-def k5_terms(args) -> dict:
+def k5_terms(args, live: bool = False) -> dict:
     """K5's (λ, event, real pixel, grid point, sample) terms on a call's
     inputs: on every sample and on the samples with weight (the others'
     sky factor is exactly 0), split by the event's path (dense sweep,
     recurrence) and the recurrence's refreshes (per sample and K-point
-    block of the padded grid); the plan's event counts per K."""
+    block of the padded grid); the plan's event counts per K; the (λ,
+    real pixel) rows of the recurrence whose masks exceed the pruned walk's
+    capacity (they run the unpruned walk, K5_MASK_WORDS).  With ``live``,
+    also the refreshes that the kernel's flush keeps and the recurrence
+    terms they carry (``k5_live``)."""
     _, w, _, _, _, _, mask, grids, z_block = args[:9]
     n, _, s = w.shape
     g = grids.shape[1]
     pix = mask.sum(dim=1).double()                                # (E,)
-    live = (w > 0).sum(dim=-1).double()                           # (L, E)
+    live_s = (w > 0).sum(dim=-1).double()                         # (L, E)
     k = torch.clamp(z_block.long(), max=g)
     blocks = torch.where(k > 0, -(-g // torch.clamp(k, min=1)), 0).double()
     dense = (k == 0).double()
     out = {"all": float(n * s * g * pix.sum()),
-           "live": float((live * pix).sum() * g),
-           "dense": float((live * pix * dense).sum() * g),
-           "refresh": float((live * pix * blocks).sum())}
+           "live": float((live_s * pix).sum() * g),
+           "dense": float((live_s * pix * dense).sum() * g),
+           "refresh": float((live_s * pix * blocks).sum())}
     out["recurrence"] = out["live"] - out["dense"]
     out["plan"] = {int(t): int((z_block == t).sum()) for t in (32, 16, 8, 0)}
+    over = (k > 0) & (blocks * -(-s // 32) > K5_MASK_WORDS)
+    out["unpruned_rows"] = int(n * pix[over].sum())
+    if live:
+        out.update(k5_live(args))
     return out
 
 
-def k5_bound(args, terms: dict) -> tuple[float, str]:
+# K5's pruned walk keeps its masks (a bit per (K-point block, sample)) in
+# kde3d.cuh::kMaskWords 32-bit words
+K5_MASK_WORDS = 2048
+
+
+def k5_live(args, chunk: int = 8) -> dict:
+    """About the refreshes of K5's recurrence (per λ, event, real pixel,
+    K-point block, sample) that the kernel's flush keeps, v = e exp(-u0^2 /
+    2) >= the working dtype's smallest normal: a PyTorch recount of that
+    test on the card in the working dtype, ``chunk`` events at a time, with
+    e, t and the block starts formed in double from coordinates centred on
+    the weighted mean and then rounded, as ``kde3d.cuh`` forms them, but on
+    the plain version's whitening (``ops/kde.py::_whitening``) and without
+    the kernel's own order of roundings (``block_start``), so that it may
+    count a refresh at the flush's edge that the kernel flushes, or the
+    reverse; and the recurrence terms (grid points) of those refreshes: K a
+    block, fewer in the padded last.  A (λ, event) without a whitening has
+    none.  The bound's count, not the kernel's."""
+    from chimera_tpu_torch.ops.kde import _whitening
+
+    z, w, ra, dec, ra_pix, dec_pix, mask, grids, z_block = args[:9]
+    dt, n = z.dtype, z.shape[0]
+    tiny = torch.finfo(dt).tiny
+    g = grids.shape[1]
+    kk = torch.clamp(z_block.long(), max=g)
+    refresh = terms = 0
+    for k in sorted(set(kk.tolist()) - {0}):
+        j_n = -(-g // k)
+        starts = torch.arange(j_n, device=z.device, dtype=F64) * k
+        width = torch.clamp(g - starts, max=k)                        # (J,)
+        idx = torch.nonzero(kk == k).reshape(-1)
+        for i in range(0, idx.numel(), chunk):
+            sel = idx[i:i + chunk]
+            zz = z[:, sel].double()                                   # (L, c, S)
+            rr = ra[sel].double()[None].expand_as(zz)
+            dd = dec[sel].double()[None].expand_as(zz)
+            wn, wh, _ = _whitening(torch.stack([zz, rr, dd], dim=-2),
+                                   w[:, sel].double(), None)
+            mean = [torch.sum(wn * x, dim=-1, keepdim=True) for x in (zz, rr, dd)]
+            l00, l10, l20 = wh[..., 0, 0, None], wh[..., 1, 0, None], wh[..., 2, 0, None]
+            l11, l21, l22 = wh[..., 1, 1, None], wh[..., 2, 1, None], wh[..., 2, 2, None]
+            rp = ra_pix[sel].double()[None] - mean[1]                 # (L, c, P)
+            dp = dec_pix[sel].double()[None] - mean[2]
+            c0, c1, c2 = l10 * rp + l20 * dp, l11 * rp + l21 * dp, l22 * dp
+            dz, dr, dd = zz - mean[0], rr - mean[1], dd - mean[2]     # (L, c, S)
+            q1 = c1[..., None] - (l11 * dr + l21 * dd)[:, :, None]    # (L, c, P, S)
+            q2 = c2[..., None] - (l22 * dd)[:, :, None]
+            e = (wn[:, :, None] * torch.exp(-0.5 * (q1 * q1 + q2 * q2))).to(dt)
+            t = (c0[..., None] - (l00 * dz + l10 * dr + l20 * dd)[:, :, None]).to(dt)
+            del q1, q2
+            step = (grids[sel, -1].double() - grids[sel, 0].double()) / max(g - 1, 1)
+            zl_start = l00 * (grids[sel, 0].double()[None, :, None] - mean[0])
+            zl0 = (zl_start + starts * (l00 * step[None, :, None])).to(dt)  # (L, c, J)
+            u0 = zl0[:, :, None, :, None] + t[:, :, :, None, :]       # (L, c, P, J, S)
+            v = e[:, :, :, None, :] * torch.exp(torch.tensor(-0.5, dtype=dt) * u0 * u0)
+            keep = (v >= tiny) & mask[sel][None, :, :, None, None]
+            del u0, v
+            per_block = keep.sum(dim=(0, 1, 2, 4)).double()           # (J,)
+            refresh += int(per_block.sum())
+            terms += int((per_block * width).sum())
+    return {"refresh_live": float(refresh), "recurrence_live": float(terms)}
+
+
+def k5_bound(args, terms: dict, live: bool = True) -> tuple[float, str]:
     """K5's least time on the card (float32): its inputs read once and its
-    output written once, against the FP32 operations of its weighted terms
-    and the exps of the dense terms and of the refreshes at the MUFU rate."""
+    output written once, against the FP32 operations of its terms and the
+    exps of the dense terms and of the refreshes at the MUFU rate.  With
+    ``live`` (``terms`` from ``k5_terms(..., live=True)``) the recurrence
+    counts only the refreshes its flush keeps and their terms (a flushed
+    refresh adds exactly +0 to every sum), else every weighted sample's."""
     z, w, ra, dec, ra_pix, dec_pix, mask, grids, z_block = args[:9]
     size = z.element_size()
     n, e, _ = z.shape
@@ -2844,9 +2920,11 @@ def k5_bound(args, terms: dict) -> tuple[float, str]:
                       + ra_pix.numel() + dec_pix.numel() + grids.numel()
                       + n * e * ra_pix.shape[1] * grids.shape[1]) \
         + mask.numel() + 4 * z_block.numel()
-    ops = (K5_DENSE_OPS * terms["dense"] + K5_REC_OPS * terms["recurrence"]
-           + K5_REFRESH_OPS * terms["refresh"])
-    return bound(n_bytes, ops, n_mufu=terms["dense"] + 2 * terms["refresh"])
+    rec, ref = ((terms["recurrence_live"], terms["refresh_live"]) if live
+                else (terms["recurrence"], terms["refresh"]))
+    ops = (K5_DENSE_OPS * terms["dense"] + K5_REC_OPS * rec
+           + K5_REFRESH_OPS * ref)
+    return bound(n_bytes, ops, n_mufu=terms["dense"] + 2 * ref)
 
 
 def k5_compare(args, kw, tol: float):
@@ -2887,6 +2965,73 @@ def k5_compare(args, kw, tol: float):
     under = int(((row < floor * event) & real[..., None]).sum())
     return (rel.max().item(), (got - expect).abs()[real].max().item(), under,
             int(nan.sum()))
+
+
+FULL_STAGES = ("update_batch", "theta_src_and_weights", "norms and gate",
+               "K5", "norm, z and pixel masks, gate with nan_to_num",
+               "_integrate_pixels", "n_exp", "log and finish")
+
+
+def full_stages(hl, batch: dict, reps: int = 17) -> dict:
+    """A 'full' batch split into the stages of ``log_like_batch`` and
+    ``_numerators_full`` (FULL_STAGES), a CUDA event after each: the
+    median ms per λ of each stage over ``reps`` batches after a warm-up.
+    The staged log L must be log_like_batch's bits."""
+    from chimera_tpu_torch import likelihood as lk
+
+    def staged(marks: list):
+        def mark():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+
+        mark()
+        pop_b = hl.population.update_batch(batch)
+        mark()
+        theta = lk.ThetaPEDet(m1det=hl.m1det, m2det=hl.m2det, dL=hl.dL,
+                              pe_prior=hl.pe_prior)
+        th_src, w = lk.theta_src_and_weights(pop_b, theta)
+        mark()
+        z = th_src.z
+        norms = torch.mean(w, dim=-1)
+        sum_w, sum_w2 = torch.sum(w, dim=-1), torch.sum(w * w, dim=-1)
+        gate = sum_w * sum_w / sum_w2 >= hl.pe_neff
+        mark()
+        p = lk.lattice_kde3d(z, w, hl.ra, hl.dec, hl.full_ra_pix,
+                             hl.full_dec_pix, hl.pixel_mask, hl.z_grids,
+                             hl.z_block, bw_method=hl.bw_method)
+        mark()
+        p = p * norms[..., None, None]
+        c, zg = hl.cut_grid, hl.z_grids[None]
+        sig = torch.std(z, dim=-1, correction=0, keepdim=True)
+        z_mask = (zg <= torch.amax(z, dim=-1, keepdim=True) + c * sig) & (
+            zg >= torch.amin(z, dim=-1, keepdim=True) - c * sig)
+        p = p * z_mask[:, :, None, :]
+        p = p * hl.pixel_mask[None, :, :, None]
+        p = torch.where(gate[..., None, None], torch.nan_to_num(p), 0.0)
+        mark()
+        num = hl._integrate_pixels(pop_b, p)
+        mark()
+        n_exp = hl.selection.n_exp(pop_b)
+        mark()
+        log_evs = torch.nan_to_num(torch.log(num), nan=-torch.inf)
+        out = hl._finish(pop_b, torch.sum(log_evs, dim=-1), n_exp)
+        mark()
+        return out
+
+    ll = staged([])
+    torch.cuda.synchronize(DEV)
+    if not same_bits(ll, hl.log_like_batch(batch)):
+        raise AssertionError("the staged 'full' batch is not log_like_batch's")
+    n = len(next(iter(batch.values())))
+    times = {name: [] for name in FULL_STAGES}
+    for _ in range(reps):
+        marks = []
+        staged(marks)
+        torch.cuda.synchronize(DEV)
+        for name, a, b in zip(FULL_STAGES, marks, marks[1:]):
+            times[name].append(a.elapsed_time(b) / n)
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def full_path(smi: str, dark_data) -> tuple[dict, object]:
@@ -2972,10 +3117,12 @@ def full_path(smi: str, dark_data) -> tuple[dict, object]:
     # version, then the float32 plain version's time on the same inputs
     k_rel, k_abs, k_under, k_nan = k5_compare(args, kw, 1e-4)
     plain = cuda_ms(lambda: lattice_kde3d_plain(*args, **kw), 1, 0)[0]
-    terms = k5_terms(args)
+    terms = k5_terms(args, live=True)
     b_ms, b_by = k5_bound(args, terms)
+    b_all, _ = k5_bound(args, terms, live=False)
     t_med, t_mad = med_mad([t / n for t in total])
     k_med, k_mad = med_mad([t / n for t in kern])
+    stages = full_stages(hl, batch, reps)
     phase(27, "kind 'full' end to end", f"{hl.n_events} events x "
           f"{hl.n_samples} samples x {hl.n_pixels} pixel slots "
           f"({int(hl.pixel_mask.sum())} real) x {hl.z_grids.shape[1]} grid, "
@@ -2996,10 +3143,20 @@ def full_path(smi: str, dark_data) -> tuple[dict, object]:
           f"{t_med:.4f} ± {t_mad:.4f} ms (median ± MAD); K5 {k_med:.4f} ± "
           f"{k_mad:.4f} ms; glue {t_med - k_med:.4f} ms; K5 per call "
           f"{k_call:.3f} ms, plain {plain:.1f} ms, bound {b_ms:.3f} ms "
-          f"({b_by}, {100 * b_ms / k_call:.1f} % of it); terms (λ x real pixel x grid point x sample) {terms['all']:.4e}"
-          f", {terms['live']:.4e} on samples with weight ({terms['dense']:.4e} "
-          f"dense, {terms['recurrence']:.4e} in the recurrence with "
-          f"{terms['refresh']:.4e} refreshes)")
+          f"({b_by}, {100 * b_ms / k_call:.1f} % of it; every weighted "
+          f"sample's terms {b_all:.3f} ms); terms (λ x real pixel x grid "
+          f"point x sample) {terms['all']:.4e}, {terms['live']:.4e} on "
+          f"samples with weight ({terms['dense']:.4e} dense, "
+          f"{terms['recurrence']:.4e} in the recurrence with "
+          f"{terms['refresh']:.4e} refreshes), of which the flush keeps "
+          f"{terms['refresh_live']:.4e} refreshes "
+          f"({100 * terms['refresh_live'] / terms['refresh']:.2f} %) carrying "
+          f"{terms['recurrence_live']:.4e} terms; (λ, real pixel) rows on "
+          f"the unpruned walk {terms['unpruned_rows']}")
+    phase(27, "stages", f"[{smi}] ms per λ, medians over {reps} batches of "
+          f"{n} (CUDA events between the stages of log_like_batch): "
+          + "; ".join(f"{k} {v:.4f}" for k, v in stages.items())
+          + f"; sum {sum(stages.values()):.4f}")
     entry = {"name": "lattice_kde3d (K5)", "route": "cuda",
              "source": "chimera_tpu_torch/csrc/kde3d.cu",
              "replaces": "chimera_tpu/ops/kde.py:307", "launches": 1,
@@ -3114,8 +3271,8 @@ for i, ln in enumerate(log):
 """
 
 
-# K1a, K2b, K2, K1c, K4, K4b, K1e, K3b, K1b, K3d and K1d in the tree it is
-# run from, ms per call:
+# K1a, K2b, K2, K1c, K4, K4b, K1e, K3b, K1b, K3d, K1d and K5 in the tree it
+# is run from, ms per call (with a second argument ``k5``, K5 alone):
 # K1a at the spectral headline (16 λ, float32) and on the first 2 of its
 # 500 grid points (phase A and the row stats; the pair loop 1/250 of its
 # work); K4 on the binned spectral headline's and the binned dark
@@ -3130,15 +3287,19 @@ for i, ln in enumerate(log):
 # (phases A and D); K2 at the dark flagship on rows_inputs' rows ((1/h,
 # scale) from the plain stats pass, so they do not depend on K1c); K1c on
 # the flagship's logical pixel rows and on the events (the dark cut_grid
-# path's rows).  End to end, ms per λ at the 16 points of phase 14: the
+# path's rows); K5 on kind 'full''s batch at the dark flagship's width
+# (phase 27), its prologue and main kernels by the profiler, with the
+# refreshes its flush keeps.  End to end, ms per λ at the 16 points of
+# phase 14: the
 # spectral headline's value-and-gradient call and forward batch (phases 14
 # and 6), the value-and-gradient calls of the binned spectral and dark
 # paths (phase 24), of the spectral and dark cut_grid paths and of the dark
 # flagship (phase 21), the spectral and dark cut_grid forward batches
-# (phase 18) and the contract path's forward batch (phase 23).
+# (phase 18), the contract path's forward batch (phase 23) and the 'full'
+# forward batch (phase 27).
 # The outputs of the kernel calls, of the Gaussian kernel's on the same
 # inputs, and of float64 K1a (64 events, L = 4), K2b, K2, K1c, K4b, K1e,
-# K3b, K1b, K3d and K1d (the same calls' inputs in float64; K3b also on
+# K3b, K1b, K3d, K1d and K5 (the same calls' inputs in float64; K3b also on
 # mode_inputs' random cotangents), and those of K3 (the spectral headline's backward),
 # K3c (the dark flagship's and the dark cut_grid path's) and K4 (both
 # binned paths' forward) on their paths' own inputs, go to the file
@@ -3199,6 +3360,70 @@ def keep_call(name, fn, call, ckw, slot=None, kernels=("epan", "gauss")):
                 c[slot] = kernel
             out = fn(*c, **k)
             keep(f"{name} {dtype} {kernel}", c, [out] if torch.is_tensor(out) else out)
+
+def k5_block(data):
+    # K5 on phase 27's inputs (kind 'full' at the dark flagship's width,
+    # 16 λ) and on their float64 cast, and the 'full' forward batch
+    from chimera_tpu_torch.ops.cuda.kde3d import lattice_kde3d as k5
+    hl = cs.dark_likelihood(data, cs.F32, **cs.FULL)
+    batch = {"H0": torch.linspace(55.0, 95.0, 16, device=cs.DEV).to(cs.F32)}
+    args, kw = cs.captured("lattice_kde3d", lambda: hl.log_like_batch(batch))
+    report("kind 'full' forward batch", lambda: hl.log_like_batch(batch), 16)
+    report("K5, kind 'full'", lambda: k5(*args, **kw))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            k5(*args, **kw)
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if "kde3d" in ev.key:
+            t = getattr(ev, "device_time_total", None) or ev.cuda_time_total
+            name = "prologue" if "kde3d_prologue" in ev.key else "main kernel"
+            print(f"  K5's {name}: {t / 5e3:.4f} ms per call (profiler, 5 "
+                  "calls)", flush=True)
+    if hasattr(cs, "k5_live"):
+        print(f"  K5 terms: {cs.k5_terms(args, live=True)}", flush=True)
+    for dtype in (cs.F32, cs.F64):
+        call = [a.to(dtype) if torch.is_tensor(a) and a.is_floating_point()
+                else a for a in args]
+        keep(f"K5 {dtype}", call, [k5(*call, **kw)])
+    # 500 events on 800-point grids, where the plan takes K = 32 for most:
+    # timed and kept on that plan, and kept on a plan whose block lengths
+    # cycle through 0, 5, 8, 13, 16, 32, capped at the plan's (the dense
+    # sweep, J >= 128, tiers 8 and 16, a K of no tier, tier 32)
+    long = cs.dark_mock(500, 1024, 15, 800, 250_000, 25_000, cs.SEED + 15)[0]
+    hl = cs.dark_likelihood(long, cs.F32, **cs.FULL)
+    args, kw = cs.captured("lattice_kde3d", lambda: hl.log_like_batch(batch))
+    del hl, long
+    z_block = args[8]
+    print("  800-point grids, events per K: "
+          f"{dict(zip(*[t.tolist() for t in z_block.unique(return_counts=True)]))}",
+          flush=True)
+    report("K5, 800-point grids", lambda: k5(*args, **kw))
+    keep("K5 800-point grids torch.float32", args, [k5(*args, **kw)])
+    cycle = torch.tensor([0, 5, 8, 13, 16, 32], dtype=z_block.dtype,
+                         device=z_block.device).repeat(len(z_block) // 6 + 1)
+    args = list(args)
+    args[8] = torch.minimum(cycle[:len(z_block)], z_block)
+    for dtype in (cs.F32, cs.F64):
+        call = [a.to(dtype) if torch.is_tensor(a) and a.is_floating_point()
+                else a for a in args]
+        keep(f"K5 800-point grids, cycled K {dtype}", call, [k5(*call, **kw)])
+
+def ptxas(keys):
+    for name, key in keys:
+        log = build.build_info.get(name, {}).get("log", "").splitlines()
+        for i, ln in enumerate(log):
+            if "entry function" in ln and key in ln:
+                print("  ptxas:", " | ".join(
+                    m.split("ptxas info    :")[-1].strip() for m in log[i:i + 4]
+                    if "entry function" in m or "spill" in m or "registers" in m))
+
+if sys.argv[2:3] == ["k5"]:
+    k5_block(cs.dark_mock(1000, 1024, 15, 500, 500_000, 50_000, cs.SEED + 8)[0])
+    torch.save(saved, sys.argv[1])
+    ptxas([("kde3d", "kde3d_kernelIf")])
+    sys.exit(0)
 
 def k2b_two_points(a):
     a = list(a)
@@ -3363,26 +3588,22 @@ del hl, stats_args, pop_b, ev
 k1e_block(data)
 k3d_block(cs.dark_likelihood(data, cs.F32, **cs.DARK_CUT))
 k4b_block("binned dark", cs.dark_likelihood(data, cs.F32, **cs.BINNED))
+k5_block(data)
 torch.save(saved, sys.argv[1])
-for name, key in (("fused_kde", "fused_kde_kernelIffLi0ELi0E"),
-                  ("fused_kde", "fused_kde_kernelIffLi0ELi1E"),
-                  ("fused_kde", "fused_kde_kernelIfdLi0ELi3E"),
-                  ("fused_kde", "logical_stats_kernelIf"),
-                  ("rows_contract", "rows_contract_kernelIfLi0E"),
-                  ("rows_contract_adjoint", "rows_adjoint_kernelIfLi0E"),
-                  ("fused_kde_adjoint", "fused_kde_adjoint_kernelIffLi0ELi1E"),
-                  ("fused_kde_adjoint", "fused_kde_adjoint_kernelIfdLi0ELi2E"),
-                  ("fused_kde", "fused_kde_kernelIfdLi0ELi4E"),
-                  ("fused_kde", "fused_kde_kernelIfdLi0ELi2E"),
-                  ("fused_kde", "logical_kde_kernelIf"),
-                  ("kde1d", "kde1d_kernelIfLi0E"),
-                  ("kde1d", "kde1d_adjoint_kernelIfLi0E")):
-    log = build.build_info.get(name, {}).get("log", "").splitlines()
-    for i, ln in enumerate(log):
-        if "entry function" in ln and key in ln:
-            print("  ptxas:", " | ".join(
-                m.split("ptxas info    :")[-1].strip() for m in log[i:i + 4]
-                if "entry function" in m or "spill" in m or "registers" in m))
+ptxas([("fused_kde", "fused_kde_kernelIffLi0ELi0E"),
+       ("fused_kde", "fused_kde_kernelIffLi0ELi1E"),
+       ("fused_kde", "fused_kde_kernelIfdLi0ELi3E"),
+       ("fused_kde", "logical_stats_kernelIf"),
+       ("rows_contract", "rows_contract_kernelIfLi0E"),
+       ("rows_contract_adjoint", "rows_adjoint_kernelIfLi0E"),
+       ("fused_kde_adjoint", "fused_kde_adjoint_kernelIffLi0ELi1E"),
+       ("fused_kde_adjoint", "fused_kde_adjoint_kernelIfdLi0ELi2E"),
+       ("fused_kde", "fused_kde_kernelIfdLi0ELi4E"),
+       ("fused_kde", "fused_kde_kernelIfdLi0ELi2E"),
+       ("fused_kde", "logical_kde_kernelIf"),
+       ("kde1d", "kde1d_kernelIfLi0E"),
+       ("kde1d", "kde1d_adjoint_kernelIfLi0E"),
+       ("kde3d", "kde3d_kernelIf")])
 """
 
 
@@ -3399,16 +3620,19 @@ def same_bits(a, b) -> bool:
     return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
 
 
-def k3_ab(others: list[str], variants: list[str]) -> None:
+def k3_ab(others: list[str], variants: list[str], only_k5: bool = False) -> None:
     """The adjoint kernel (K3_TIMING) and K1a, K2b, K2, K1c, K4, K4b, K1e,
-    K3b, K1b and K3d (PAIR_TIMING) in the trees ``others`` (the parent, unpacked with ``git
+    K3b, K1b, K3d, K1d and K5 (PAIR_TIMING) in the trees ``others`` (the parent, unpacked with ``git
     archive``) and ``variants`` (trees that change timing only,
     tools/k3_variants.py) and in this one, in one call on one card, in the
     order others, variants, this, this, variants reversed, others reversed:
-    ``python3 chip_smoke.py --k3-ab DIR ... [--variants DIR ...]``.  Fails
+    ``python3 chip_smoke.py --k3-ab DIR ... [--only-k5] [--variants DIR
+    ...]``.  Fails
     unless every tree of ``others`` gives K1a, K2b, K2, K1c, K4b, K3b, K1b,
-    K3d, K3, K3c, K1d, K4 and K1e outputs of the same bits as this tree on the
-    same inputs; a variant's are reported."""
+    K3d, K3, K3c, K1d, K4, K1e and K5 outputs of the same bits as this tree
+    on the same inputs; a variant's are reported.  With ``only_k5``
+    (``--only-k5``) each run times and keeps K5 alone (PAIR_TIMING's
+    ``k5`` mode, no K3_TIMING)."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the card only")
     print(subprocess.run(
@@ -3420,8 +3644,8 @@ def k3_ab(others: list[str], variants: list[str]) -> None:
     trees = (*others, *variants)
     runs = []
     for i, tree in enumerate((*trees, here, here, *trees[::-1])):
-        for script, extra in ((K3_TIMING, []),
-                              (PAIR_TIMING, [str(out_dir / f"run{i}.pt")])):
+        pair = (PAIR_TIMING, [str(out_dir / f"run{i}.pt")] + ["k5"] * only_k5)
+        for script, extra in ([pair] if only_k5 else [(K3_TIMING, []), pair]):
             out = subprocess.run([sys.executable, "-c", script, *extra], cwd=tree,
                                  capture_output=True, text=True)
             print(out.stdout.strip(), flush=True)
@@ -3497,8 +3721,8 @@ def main() -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--k3-ab"]:
-        dirs = sys.argv[2:]
+        dirs = [d for d in sys.argv[2:] if d != "--only-k5"]
         cut = dirs.index("--variants") if "--variants" in dirs else len(dirs)
-        k3_ab(dirs[:cut], dirs[cut + 1:])
+        k3_ab(dirs[:cut], dirs[cut + 1:], "--only-k5" in sys.argv)
     else:
         main()

@@ -6,8 +6,11 @@
 // mode and KDE kernel of K3 (fused_kde_adjoint.cu, K3c's logical rows a
 // warp a row), K4 and K4b (kde1d.cu), K1e and K1d (fused_kde.cu, K1d's
 // logical rows a warp a row, logical_kde_kernel, and K1c's), float32 and
-// float64.
+// float64; and K5's recurrence (kde3d.cuh: the skip radii, masks, chain
+// keys and order, the samples' extent and band, the pruned and unpruned
+// walks of every tier, and the fold) as kde3d.cu instantiates it.
 #include "adjoint.cuh"
+#include "kde3d.cuh"
 
 namespace {
 
@@ -72,3 +75,38 @@ template void card_blocks<double>(const AdjointArgs<double>&,
                                   const Model<double, double>&,
                                   const SampleAdjoint<double, double>&,
                                   double*);
+
+namespace {
+
+template <typename T, int KMAX>
+void k5_recurrence(const double* rec, kde3d::ET<T>* et, T* radii,
+                   unsigned* masks, int* keys, T* part, T* out) {
+  using namespace kde3d;
+  const int rank = threadIdx.x;
+  T* red = reinterpret_cast<T*>(masks);
+  skip_radii(et, radii, 1, rank, kThreads);
+  sample_extent(et, radii, 1, red, rank, kThreads);
+  extent_fold(red, keys, 1, rank, kThreads);
+  live_band(rec, red, 0.0, KMAX, 1, keys, rank, kThreads);
+  live_masks<T>(rec, et, radii, 1, 0.0, KMAX, 1, keys, masks, rank, kThreads);
+  chain_keys(masks, 1, 1, keys, rank, kThreads);
+  chain_order(keys, 1, keys + kThreads, rank, kThreads);
+  T acc[KMAX];
+  const int c = recurrence_sweep<T, KMAX>(rec, et, masks, keys + kThreads, 1,
+                                          0.0, 1, KMAX, out, acc, rank,
+                                          kThreads);
+  if (c >= 0) part[c] = acc[0];
+  recurrence_fold<T, KMAX>(rec, part, 1, KMAX, out, rank, kThreads);
+}
+
+}  // namespace
+
+template <typename T>
+void k5_tiers(kde3d::ET<T>* et, T* p, unsigned* m, int* k) {
+  k5_recurrence<T, 8>(nullptr, et, p, m, k, p, p);
+  k5_recurrence<T, 16>(nullptr, et, p, m, k, p, p);
+  k5_recurrence<T, 32>(nullptr, et, p, m, k, p, p);
+}
+
+template void k5_tiers<float>(float2*, float*, unsigned*, int*);
+template void k5_tiers<double>(double2*, double*, unsigned*, int*);

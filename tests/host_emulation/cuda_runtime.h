@@ -31,6 +31,14 @@ inline unsigned __ballot_sync(unsigned, int v) { return v ? 1u : 0u; }
 inline int __reduce_min_sync(unsigned, int v) { return v; }
 inline int __reduce_max_sync(unsigned, int v) { return v; }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int atomicMin(int* p, int v) { const int o = *p; if (v < o) *p = v; return o; }
+inline int atomicMax(int* p, int v) { const int o = *p; if (v > o) *p = v; return o; }
+// rounded arithmetic (the host compiler contracts nothing here)
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
 // clamps to [0, 1], NaN to 0, as the .sat modifier does
 inline float __saturatef(float x) { return x > 0.0f ? (x < 1.0f ? x : 1.0f) : 0.0f; }
 

@@ -3,8 +3,11 @@
 // (kde3d.cuh): the prologue per (lambda, event) and the main kernel per
 // (lambda, event, pixel), each phase run for every one of the kernel's
 // kThreads ranks in turn, with the kernel's barriers between phases.  Same
-// C interface as the kernel's, without the stream.  Built by
+// C interface as the kernel's, without the stream; the host_kde3d_unpruned_
+// entries walk every sample (the oracle of the pruned walk), and
+// host_kde3d_tally reads what the last call's pruned walk did.  Built by
 // tests/test_torch_full.py.
+#include <cstring>
 #include <vector>
 
 #include "kde3d.cuh"
@@ -12,6 +15,18 @@
 namespace {
 
 using namespace kde3d;
+
+// what the last call did: (lambda, real pixel) rows of the recurrence on
+// the pruned walk and on the unpruned one; of the pruned rows' (sample,
+// block) pairs, those skipped, those walked whose refresh the flush keeps
+// and those it zeroes, and those skipped whose refresh the flush would
+// have kept (the skip's proof says none); chains, and chains with no set
+// bit; blocks outside the band (their masks 0 untested)
+enum Tally {
+  kPrunedRows, kUnprunedRows, kSkipped, kWalkedKept, kWalkedFlushed,
+  kSkippedKept, kChains, kEmptyChains, kBandSkipped, kTally
+};
+long long tally[kTally];
 
 template <typename T>
 void prologue(const T* z, const T* w, const T* ra, const T* dec,
@@ -41,24 +56,89 @@ void prologue(const T* z, const T* w, const T* ra, const T* dec,
                 records + le * kRecord);
 }
 
+// the pruned walk's pairs, against the flush they stand for
+template <typename T>
+void count_pairs(const double* rec, const ET<T>* et, const unsigned* masks,
+                 int S, double zg0, int K, int J) {
+  for (int j = 0; j < J; ++j) {
+    const T zl0 = block_start<T>(rec, zg0, j, K);
+    for (int s = 0; s < S; ++s) {
+      const ET<T> p = et[slot(s)];
+      const T u0 = zl0 + p.y;
+      const bool kept = p.x * exp_t(T(-0.5) * u0 * u0) >= smallest_normal<T>();
+      if (masks[(s / 32) * J + j] >> (s % 32) & 1u)
+        ++tally[kept ? kWalkedKept : kWalkedFlushed];
+      else
+        ++tally[kept ? kSkippedKept : kSkipped];
+    }
+  }
+}
+
 template <typename T, int KMAX>
-void recurrence(const double* rec, const T* es, const T* ts, int S, double zg0,
-                int G, int K, T* part, T* out) {
+void recurrence(const double* rec, const ET<T>* et, const T* radii, int S,
+                double zg0, int G, int K, bool prune, T* out) {
+  const int J = (G + K - 1) / K;
+  const bool pruned = prune && (long long)J * ((S + 31) / 32) <= kMaskWords;
+  std::vector<unsigned> masks(kMaskWords);
+  std::vector<int> keys(2 * kThreads);
+  int* order = keys.data() + kThreads;
+  ++tally[pruned ? kPrunedRows : kUnprunedRows];
+  if (pruned) {
+    T* red = reinterpret_cast<T*>(masks.data());
+    for (int r = 0; r < kThreads; ++r) sample_extent(et, radii, S, red, r, kThreads);
+    for (int r = 0; r < kThreads; ++r) extent_fold(red, keys.data(), J, r, kThreads);
+    for (int r = 0; r < kThreads; ++r)
+      live_band(rec, red, zg0, K, J, keys.data(), r, kThreads);
+    tally[kBandSkipped] += J - (keys[1] - keys[0] + 1);
+    for (int r = 0; r < kThreads; ++r)
+      live_masks<T>(rec, et, radii, S, zg0, K, J, keys.data(), masks.data(), r,
+                    kThreads);
+    count_pairs<T>(rec, et, masks.data(), S, zg0, K, J);
+    if (J < kThreads) {
+      for (int r = 0; r < kThreads; ++r)
+        chain_keys(masks.data(), S, J, keys.data(), r, kThreads);
+      for (int r = 0; r < kThreads; ++r) chain_order(keys.data(), J, order, r, kThreads);
+    }
+  }
+  std::vector<T> part(kThreads * kMaxBlock);
+  std::vector<T> accs(kThreads * KMAX);
+  std::vector<int> chain(kThreads);
+  for (int r = 0; r < kThreads; ++r) {
+    T acc[KMAX];
+    chain[r] = recurrence_sweep<T, KMAX>(
+        rec, et, pruned ? masks.data() : nullptr, order, S, zg0, G, K, out,
+        acc, r, kThreads);
+    std::memcpy(&accs[r * KMAX], acc, sizeof(acc));
+  }
+  const int Q = J < kThreads ? kThreads / J : 1;
+  for (int r = 0; r < kThreads; ++r) {
+    if (chain[r] < 0) continue;
+    std::memcpy(&part[chain[r] * KMAX], &accs[r * KMAX], KMAX * sizeof(T));
+    if (pruned) {
+      const int c = chain[r], j = c % J, q = c / J;
+      const int s0 = chain_start(q, Q, S), s1 = chain_start(q + 1, Q, S);
+      int n = 0;
+      for (int s = s0; s < s1; ++s) n += masks[(s / 32) * J + j] >> (s % 32) & 1u;
+      ++tally[kChains];
+      tally[kEmptyChains] += n == 0;
+    }
+  }
   for (int r = 0; r < kThreads; ++r)
-    recurrence_sweep<T, KMAX>(rec, es, ts, S, zg0, G, K, part, out, r, kThreads);
-  for (int r = 0; r < kThreads; ++r)
-    recurrence_fold<T, KMAX>(rec, part, G, K, out, r, kThreads);
+    recurrence_fold<T, KMAX>(rec, part.data(), G, K, out, r, kThreads);
 }
 
 template <typename T>
 int run(const T* z, const T* w, const T* ra, const T* dec, const T* ra_pix,
         const T* dec_pix, const unsigned char* mask, const T* grids,
         const int* z_block, double* records, T* out, int L, int E, int S,
-        int P, int G, int bw_mode, double bw_value) {
+        int P, int G, int bw_mode, double bw_value, bool prune) {
   if (L <= 0 || E <= 0 || S <= 0 || P <= 0 || G <= 0) return 1;
+  std::memset(tally, 0, sizeof(tally));
   for (size_t le = 0; le < size_t(L) * E; ++le)
     prologue(z, w, ra, dec, grids, E, S, G, bw_mode, bw_value, records, le);
-  std::vector<T> es(S), ts(S), part(kThreads * kMaxBlock);
+  const int S32 = 32 * ((S + 31) / 32);
+  std::vector<ET<T>> et(slots(S));
+  std::vector<T> radii(S32);
   for (size_t blk = 0; blk < size_t(L) * E * P; ++blk) {
     const int p = int(blk % P);
     const size_t le = blk / P;
@@ -72,48 +152,48 @@ int run(const T* z, const T* w, const T* ra, const T* dec, const T* ra_pix,
       for (int g = 0; g < G; ++g) o[g] = fill;
       continue;
     }
-    for (int r = 0; r < kThreads; ++r)
+    for (int r = 0; r < kThreads; ++r) {
       sample_factors(rec, z + le * S, w + le * S, ra + size_t(e) * S,
                      dec + size_t(e) * S, S, ra_pix[size_t(e) * P + p],
-                     dec_pix[size_t(e) * P + p], es.data(), ts.data(), r,
-                     kThreads);
+                     dec_pix[size_t(e) * P + p], et.data(), r, kThreads);
+      skip_radii(et.data(), radii.data(), S, r, kThreads);
+    }
     const T* grid = grids + size_t(e) * G;
     const int K = k_req < G ? k_req : G;
+    const double zg0 = double(grid[0]);
+    const ET<T>* et_ = et.data();
+    const T* r_ = radii.data();
     if (K == 0)
       for (int r = 0; r < kThreads; ++r)
-        dense_sweep(rec, es.data(), ts.data(), S, grid, G, o, r, kThreads);
+        dense_sweep(rec, et_, S, grid, G, o, r, kThreads);
     else if (K <= 8)
-      recurrence<T, 8>(rec, es.data(), ts.data(), S, double(grid[0]), G, K,
-                       part.data(), o);
+      recurrence<T, 8>(rec, et_, r_, S, zg0, G, K, prune, o);
     else if (K <= 16)
-      recurrence<T, 16>(rec, es.data(), ts.data(), S, double(grid[0]), G, K,
-                        part.data(), o);
+      recurrence<T, 16>(rec, et_, r_, S, zg0, G, K, prune, o);
     else
-      recurrence<T, kMaxBlock>(rec, es.data(), ts.data(), S, double(grid[0]),
-                               G, K, part.data(), o);
+      recurrence<T, kMaxBlock>(rec, et_, r_, S, zg0, G, K, prune, o);
   }
   return 0;
 }
 
 }  // namespace
 
-extern "C" int host_kde3d_f32(const float* z, const float* w, const float* ra,
-                              const float* dec, const float* ra_pix,
-                              const float* dec_pix, const unsigned char* mask,
-                              const float* grids, const int* z_block,
-                              double* records, float* out, int L, int E, int S,
-                              int P, int G, int bw_mode, double bw_value) {
-  return run<float>(z, w, ra, dec, ra_pix, dec_pix, mask, grids, z_block,
-                    records, out, L, E, S, P, G, bw_mode, bw_value);
-}
+#define KDE3D_ENTRY(NAME, T, PRUNE)                                           \
+  extern "C" int NAME(const T* z, const T* w, const T* ra, const T* dec,     \
+                      const T* ra_pix, const T* dec_pix,                     \
+                      const unsigned char* mask, const T* grids,             \
+                      const int* z_block, double* records, T* out, int L,    \
+                      int E, int S, int P, int G, int bw_mode,               \
+                      double bw_value) {                                     \
+    return run<T>(z, w, ra, dec, ra_pix, dec_pix, mask, grids, z_block,      \
+                  records, out, L, E, S, P, G, bw_mode, bw_value, PRUNE);    \
+  }
 
-extern "C" int host_kde3d_f64(const double* z, const double* w,
-                              const double* ra, const double* dec,
-                              const double* ra_pix, const double* dec_pix,
-                              const unsigned char* mask, const double* grids,
-                              const int* z_block, double* records, double* out,
-                              int L, int E, int S, int P, int G, int bw_mode,
-                              double bw_value) {
-  return run<double>(z, w, ra, dec, ra_pix, dec_pix, mask, grids, z_block,
-                     records, out, L, E, S, P, G, bw_mode, bw_value);
+KDE3D_ENTRY(host_kde3d_f32, float, true)
+KDE3D_ENTRY(host_kde3d_f64, double, true)
+KDE3D_ENTRY(host_kde3d_unpruned_f32, float, false)
+KDE3D_ENTRY(host_kde3d_unpruned_f64, double, false)
+
+extern "C" void host_kde3d_tally(long long* out) {
+  std::memcpy(out, tally, sizeof(tally));
 }

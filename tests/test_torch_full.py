@@ -217,6 +217,160 @@ def test_k5_refuses_a_block_length_it_does_not_take(k5_host, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# K5's pruned walk against the unpruned walk (host emulation)
+# ---------------------------------------------------------------------------
+
+# host_kde3d_tally: what the last call's walk did (kde3d_host.cpp, Tally)
+_TALLY = ("pruned_rows", "unpruned_rows", "skipped", "walked_kept",
+          "walked_flushed", "skipped_kept", "chains", "empty_chains",
+          "band_skipped")
+
+
+def _host_k5(lib, args, pruned=True):
+    """K5's host emulation called directly (``pruned=False``: every sample
+    walked, the oracle): the (L, E, P, G) output and the walk's tally."""
+    z, w, ra, dec, ra_pix, dec_pix, mask, grids, z_block = args
+    n, e, s = z.shape
+    p, g = ra_pix.shape[1], grids.shape[1]
+    out = torch.empty((n, e, p, g), dtype=z.dtype)
+    records = torch.empty((n, e, 16), dtype=F64)
+    fn = getattr(lib, "host_kde3d_" + ("" if pruned else "unpruned_")
+                 + ("f32" if z.dtype == F32 else "f64"))
+    fn.restype = ctypes.c_int
+    tensors = [t.contiguous() for t in (z, w, ra, dec, ra_pix, dec_pix, mask,
+                                        grids)] + [z_block.to(torch.int32), records, out]
+    assert fn(*[ctypes.c_void_p(t.data_ptr()) for t in tensors], n, e, s, p, g,
+              0, ctypes.c_double(0.0)) == 0
+    tally = (ctypes.c_longlong * len(_TALLY))()
+    lib.host_kde3d_tally(tally)
+    return out, dict(zip(_TALLY, tally))
+
+
+def _same_bits(a, b):
+    view = torch.int64 if a.element_size() == 8 else torch.int32
+    return a.shape == b.shape and torch.equal(a.contiguous().view(view),
+                                              b.contiguous().view(view))
+
+
+# (samples, pixels, grid points, K per event): "wide" K = 16, 13 (not a
+# tier) and the dense sweep; "short" K = 32 on a short grid (15 blocks, 8
+# slices); "blocks" K = 4 on 150 blocks (a thread a whole block); "overflow"
+# K = 8 on 75 blocks x 32 mask words (over kMaskWords: the unpruned walk)
+# beside K = 16 on 38 (pruned)
+_PRUNED_CASES = {"wide": (500, 6, 400, [16, 13, 0]),
+                 "short": (500, 4, 480, [32]),
+                 "blocks": (256, 3, 600, [4]),
+                 "overflow": (1024, 3, 600, [8, 16])}
+
+
+def _pruned_case(name, dtype):
+    """Two λ of the events of ``_lattice_data`` on z-grids over [-0.4, 1.4]
+    (>= 80 bandwidths, so that most (sample, block) refreshes are flushed),
+    pixels near the sky mean and 0.1 and 0.2 rad off it (sky factors from
+    ~1e-3 down to below the smallest normal); sample 0 without weight and
+    sample 1's weight below the smallest normal times the sum (e < the
+    smallest normal); in "wide", the second λ's event 0 with two samples of
+    weight (no whitening: NaN rows) and event 1's last pixel fake."""
+    s, p, g, ks = _PRUNED_CASES[name]
+    rng = np.random.default_rng(15)
+    data, w, ra_pix, dec_pix, _ = _lattice_data(rng, n_ev=len(ks), s=s, p=p, g=g)
+    ra_pix[:, 1] += 0.1
+    dec_pix[:, 2] -= 0.2
+    grid = np.tile(np.linspace(-0.4, 1.4, g), (len(ks), 1))
+    z = np.stack([data[:, 0], data[:, 0] + 0.002 * rng.normal(size=data[:, 0].shape)])
+    w2 = np.stack([w, w * rng.uniform(0.5, 1.5, size=w.shape)])
+    w2[..., 0] = 0.0
+    w2[..., 1] = 1e-3 * float(torch.finfo(dtype).tiny)
+    mask = np.ones((len(ks), p), dtype=bool)
+    if name == "wide":
+        w2[1, 0, 4:] = 0.0
+        mask[1, -1] = False
+    return (_t(z, dtype), _t(w2, dtype), _t(data[:, 1], dtype), _t(data[:, 2], dtype),
+            _t(ra_pix, dtype), _t(dec_pix, dtype), torch.as_tensor(mask),
+            _t(grid, dtype), torch.tensor(ks))
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("case", list(_PRUNED_CASES))
+def test_k5_pruned_walk_keeps_the_bits(k5_host, case, dtype):
+    """K5's pruned walk (skip radii, the band of blocks some sample
+    reaches, masks, chains ranked by their set bits, each chain's set bits
+    in order) gives the unpruned walk's bits, NaN rows and fake pixels
+    included, and skips no refresh that the flush keeps; the wide grids
+    span >= 80 bandwidths, the band leaves blocks out, and pairs fall on
+    both sides of the flush inside the skip radius."""
+    args = _pruned_case(case, dtype)
+    got, tally = _host_k5(k5_host, args)
+    expect, _ = _host_k5(k5_host, args, pruned=False)
+    assert _same_bits(got, expect)
+    assert tally["skipped_kept"] == 0 and tally["skipped"] > 0
+    assert tally["walked_kept"] > 0 and tally["walked_flushed"] > 0
+    assert tally["band_skipped"] > 0
+    zz, ww, ra, dec = (a.double() for a in args[:4])
+    _, wh, _ = tkde._whitening(torch.stack([zz, ra.expand_as(zz), dec.expand_as(zz)],
+                                           dim=-2), ww, None)
+    span = wh[..., 0, 0] * 1.8
+    assert torch.all((span >= 80) | torch.isnan(span))
+    if case == "wide":
+        nan_rows = torch.isnan(got).all(dim=-1)
+        assert nan_rows[1, 0].all() and nan_rows.sum() == args[4].shape[1]
+        assert torch.all(got[:, 1, -1] == 0)
+        assert tally["empty_chains"] > 0 and tally["unpruned_rows"] == 0
+    elif case == "blocks":
+        assert tally["pruned_rows"] > 0 and tally["chains"] == 0
+    elif case == "overflow":
+        assert tally["pruned_rows"] == tally["unpruned_rows"] == 2 * 3
+    else:
+        assert tally["empty_chains"] > 0 and tally["unpruned_rows"] == 0
+
+
+# kde3d.cuh's skip tests loosened: a radius short of the flush by a factor
+# e^3 in v (ln(e / m) - 1.5 in place of + 1.5), and a band 3 bandwidths
+# narrower on each side
+_K5_MUTATIONS = {
+    "radius": ("- ln_smallest_normal<T>() + T(1.5);", "+ T(1.5)", "- T(1.5)"),
+    "band": ("if (add_rn(zl0, t_max) < -r_max || add_rn(zl0, t_min) > r_max) continue;",
+             "-r_max ||", "-r_max + T(3) ||")}
+
+
+@pytest.fixture(scope="module", params=list(_K5_MUTATIONS))
+def k5_loose_host(request, tmp_path_factory):
+    """K5's host emulation built against a copy of kde3d.cuh with one skip
+    test loosened (_K5_MUTATIONS): it skips refreshes that the flush
+    keeps."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the host emulation")
+    src = tmp_path_factory.mktemp("mutated_kde3d")
+    csrc = Path(fused.__file__).parents[2] / "csrc"
+    text = (csrc / "kde3d.cuh").read_text()
+    old, a, b = _K5_MUTATIONS[request.param]
+    assert text.count(old) == 1
+    (src / "kde3d.cuh").write_text(text.replace(old, old.replace(a, b)))
+    so = src / "libkde3d_loose.so"
+    proc = subprocess.run(
+        [gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-Wno-unknown-pragmas",
+         f"-I{HERE / 'host_emulation'}", f"-I{src}", "-o", str(so),
+         str(HERE / "host_emulation" / "kde3d_host.cpp")],
+        capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    return ctypes.CDLL(str(so))
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+def test_k5_wide_case_catches_a_loose_skip(k5_loose_host, dtype):
+    """A skip radius short of the flush, or a band narrower than the
+    samples' reach, skips refreshes that the flush keeps, and the wide
+    case's outputs then differ from the unpruned walk's: the test above
+    can fail."""
+    args = _pruned_case("wide", dtype)
+    got, tally = _host_k5(k5_loose_host, args)
+    expect, _ = _host_k5(k5_loose_host, args, pruned=False)
+    assert tally["skipped_kept"] > 0
+    assert not _same_bits(got, expect)
+
+
+# ---------------------------------------------------------------------------
 # the recurrence plan
 # ---------------------------------------------------------------------------
 

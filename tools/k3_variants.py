@@ -148,6 +148,30 @@ class Either(tuple):
     tree)."""
 
 
+# K5 (kde3d.cuh, kde3d.cu).  Attribution, the outputs wrong: its walk over
+# no sample (`k5_noB`, every block's sums 0; the prologue, the sky factors,
+# the skip radii, band, masks and chain order, and the fold as they were;
+# `parent_k5_noB`: the parent's full loop), and with it left out also the
+# masks' tests, the sky factors' loop (e and t stale) or the samples'
+# extent and its fold (the band every block).  A layout, the same bits:
+# tier 32 a block a (lambda, event, pixel), as tiers 8 and 16
+# (`k5_tier32_pixel`).
+K3D = "chimera_tpu_torch/csrc/kde3d.cuh"
+K3DU = "chimera_tpu_torch/csrc/kde3d.cu"
+_K5_SWEEP = "  for (int s = s0; s < s1; ++s) {\n    const T u0 = zl0 + ts[s];"
+_K5_FULL = "  for (int s = s0; s < s1; ++s) {\n    const ET<T> p = et[slot(s)];"
+_K5_PRUNED = "  if (s0 >= s1) return;\n  const int w0"
+_K5_NOB = Either(([(K3D, _K5_FULL, _K5_FULL.replace("s < s1", "s < s0")),
+                   (K3D, _K5_PRUNED, _K5_PRUNED.replace("s0 >= s1", "true"))],
+                  [(K3D, _K5_SWEEP, _K5_SWEEP.replace("s < s1", "s < s0"))]))
+_K5_MASKS = "  for (int m = rank; m < Jb * W; m += size) {"
+_K5_SF = ("  for (int i = rank; i < S; i += size) {\n"
+          "    const double dz = double(z[i]) - rec[kMeanZ];")
+_K5_FOLD = "    extent_fold(red, keys, J, threadIdx.x, kThreads);"
+_K5_LOOP = "constexpr bool kPixelLoop = TIER == kMaxBlock;"
+_K5_GRID = "const size_t blocks = (size_t)L * E * (TIER == kMaxBlock ? 1 : P);"
+
+
 VARIANTS = {
     "sel": [(ADJ, _WEIGHT, "const T m = q > T(0) ? c1 : T(0);")],
     "sel2": [(ADJ, _WEIGHT, "const T m = q > T(0) ? c1 "
@@ -207,8 +231,17 @@ VARIANTS = {
         [(KDE, _K1E_PRUNED, _K1E_PRUNED.replace("a.G,", "0,"))] + _K1E_NOB,
         _K1E_NOB))],
 }
+VARIANTS.update({
+    "k5_noB": [_K5_NOB],
+    "k5_noB_nomask": [_K5_NOB, (K3D, _K5_MASKS, _K5_MASKS.replace("m < Jb * W", "m < 0"))],
+    "k5_noB_nosf": [_K5_NOB, (K3D, _K5_SF, _K5_SF.replace("i < S;", "i < 0;"))],
+    "k5_noB_noext": [_K5_NOB, (K3DU, _K5_FOLD, "    if (threadIdx.x == 0) "
+                                               "{ keys[0] = 0; keys[1] = J - 1; }")],
+    "k5_tier32_pixel": [(K3DU, _K5_LOOP, "constexpr bool kPixelLoop = false;"),
+                        (K3DU, _K5_GRID, "const size_t blocks = (size_t)L * E * P;")],
+})
 for _name in ("k2_noB", "k2_constA", "k4b_noS", "k4b_noG", "k3b_noB",
-              "k3d_noB", "k1b_noB", "k4_noloop", "k1e_noB", "k1d_noB"):
+              "k3d_noB", "k1b_noB", "k4_noloop", "k1e_noB", "k1d_noB", "k5_noB"):
     VARIANTS["parent_" + _name] = VARIANTS[_name]
 
 
