@@ -97,7 +97,10 @@ def class_name(state: dict, prefix: str) -> str:
 def model_from_state(cls, state: dict, prefix: str, device=None, dtype=None):
     """Build a port model of type ``cls`` from the hyper-parameters and
     tables under ``prefix``; an unbatched reference model gets a λ axis of
-    length 1."""
+    length 1.  Every engine carries its own tables: the Chebyshev series
+    or the dense tables of 'table', a ``TruncatedPowerLaw``'s none (no
+    window series), a ``PowerLawSpline``'s coefficients as (L, num_knots)
+    rows."""
     device = resolve_device(device)
     dtype = dtype or default_dtype(device)
     first = next(iter(cls.hyper_defaults))
@@ -114,9 +117,4 @@ def model_from_state(cls, state: dict, prefix: str, device=None, dtype=None):
                 else dtype
             t = torch.as_tensor(np.asarray(state[key]), dtype=dt, device=device)
             kwargs[f.name] = t if batched else t[None]
-    if kwargs.get("interp_method", "chebyshev") != "chebyshev" or \
-            kwargs.get("cdf_engine", "analytic") != "analytic":
-        raise NotImplementedError(
-            "only the chebyshev cosmology and analytic mass-CDF engines are "
-            "ported; the table engines are ROADMAP.md §1 item 3")
     return cls(**kwargs)

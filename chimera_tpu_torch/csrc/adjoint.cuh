@@ -6,10 +6,10 @@
 // rows_contract.cu), which shares K2b's layout and pruned pair loop:
 //
 //   prologue_kernel     per lambda, once a launch: the two Chebyshev series
-//                       in the summation type, the mass model's 16 fields
-//                       and the Jacobian of its derived pl_norm and
-//                       log_sigma in the 12 scalars (a record, copied by
-//                       every block).
+//                       in the summation type, the mass model's scalars and
+//                       derived fields and the Jacobian of the derived
+//                       fields that carry a cotangent in the scalars (a
+//                       record, copied by every block).
 //   Dual<T, N>          forward-mode dual number with N directions: the
 //                       prologue's engine for that Jacobian (MassModel<N>
 //                       of population.cuh on it), and the host tests' oracle
@@ -48,9 +48,10 @@
 
 namespace {
 
-constexpr int kDirs = 14;     // 12 mass scalars, z, the window series' value
-constexpr int kZDir = 12;
-constexpr int kCdfDir = 13;
+// the dual numbers' directions: the mass scalars, z, the window series' value
+constexpr int kDirs = kMassScalars + 2;
+constexpr int kZDir = kMassScalars;
+constexpr int kCdfDir = kMassScalars + 1;
 // largest Chebyshev degree of either series (_ADJOINT_MAX_DEG in
 // ops/cuda/fused.py): two chunks of 32 projected coefficients
 constexpr int kMaxDeg = 64;
@@ -154,20 +155,19 @@ DUAL_TN bool operator==(const Dual<T, N>& a, const Dual<T, N>& b) { return a.v =
 #undef DUAL_TN
 
 
-// The cotangents of the mass model's fields that carry one: the 12 scalars
-// (MASS_SCALARS in ops/cuda/fused.py), then pl_norm and log_sigma, which
-// derive() fills; the other two derived fields, peak_hi and m1_floor, enter
-// comparisons only.
+// The cotangents of the mass model's fields that carry one: its scalars
+// (MODEL_SCALARS of its class in ops/cuda/fused.py), then the derived fields
+// of MassModel::carried(), which derive() fills; the other derived fields
+// enter comparisons only.  MassConsts: per-lambda constants of the reverse
+// sweep (SampleAdjoint::mass_vjp), written by the prologue after the
+// fields: reciprocals of the fields it divides by, and the closed form's
+// power at m_join (m_low without a window), padded so that a record is a
+// multiple of 16 bytes.
+#if CHIMERA_MASS_KIND == 0  // PowerLawPeak
 enum MassGrad {
   kMLow, kMHigh, kAlpha, kBeta, kDeltaM, kLambdaPeak, kMuG, kSigmaG,
   kPeakNorm, kNormPM1, kMJoin, kCdfAtJoin, kPlNorm, kLogSigma, kMassGrads
 };
-constexpr int kDerived = kMassGrads - kMassScalars;  // carried and chained
-constexpr int kMassFields = kMassScalars + 4;         // the derived 4 too
-
-// Per-lambda constants of the mass model's reverse sweep (SampleAdjoint::
-// mass_vjp), written by the prologue after the fields: reciprocals of the
-// fields it divides by, and the closed form's power at m_join.
 template <typename T>
 struct MassConsts {
   T inv_pl_norm, inv_peak_norm, inv_norm_p_m1;
@@ -177,16 +177,77 @@ struct MassConsts {
   T inv_m_join, log_m_join, pow_join;  // m_join^(1 + beta)
   T pad[2];         // to 16 bytes in float and double
 };
+#elif CHIMERA_MASS_KIND == 1  // TruncatedPowerLaw
+enum MassGrad { kMLow, kMHigh, kAlpha, kBeta, kNormPM1, kMassGrads };
+template <typename T>
+struct MassConsts {
+  T inv_norm_p_m1;
+  T ap, inv_ap;     // 1 + beta and its reciprocal
+  T inv_m_low, log_m_low, pow_low;  // m_low^(1 + beta)
+};
+#elif CHIMERA_MASS_KIND == 2  // BrokenPowerLaw
+enum MassGrad {
+  kMLow, kMHigh, kAlpha1, kAlpha2, kBeta, kDeltaM, kBreakFraction, kNormPM1,
+  kMJoin, kCdfAtJoin, kPl1AtBreak, kPl2AtBreak, kMassGrads
+};
+template <typename T>
+struct MassConsts {
+  T inv_pl2_at_break, inv_norm_p_m1, inv_window, ap, inv_ap;
+  T inv_m_join, log_m_join, pow_join;
+  T pad[2];
+};
+#elif CHIMERA_MASS_KIND == 3  // PowerLawTwoPeaks
+enum MassGrad {
+  kMLow, kMHigh, kAlpha, kBeta, kDeltaM, kLambdaPeak, kLambda1, kMu1G,
+  kSigma1G, kMu2G, kSigma2G, kPeak1Norm, kPeak2Norm, kNormPM1, kMJoin,
+  kCdfAtJoin, kPlNorm, kLogSigma1, kLogSigma2, kMassGrads
+};
+template <typename T>
+struct MassConsts {
+  T inv_pl_norm, inv_peak1_norm, inv_peak2_norm, inv_den2_1, inv_den2_2;
+  T inv_norm_p_m1, inv_window, ap, inv_ap, inv_m_join, log_m_join, pow_join;
+  T pad[2];
+};
+#else  // PowerLawSpline: forward only, its adjoint is not built
+enum MassGrad {
+  kMLow, kMHigh, kAlpha, kBeta, kDeltaM, kNormPM1, kMJoin, kCdfAtJoin,
+  kMassGrads = kMassScalars
+};
+template <typename T>
+struct MassConsts {
+  T pad[1];
+};
+#endif
+static_assert(kMassGrads == kMassScalars + kCarried, "a cotangent a field");
+constexpr int kDerived = kMassGrads - kMassScalars;  // carried and chained
+constexpr int kMassFields = kMassScalars + kDerivedFields;
 constexpr int kConsts = sizeof(MassConsts<float>) / sizeof(float);
-static_assert(kConsts == 12, "the record's constants take 12 values");
 
 template <typename T>
 __device__ __forceinline__ void write_consts(const MassModel<T>& m,
                                              MassConsts<T>& k) {
+#if CHIMERA_MASS_KIND == 1
+  k.inv_norm_p_m1 = T(1) / m.norm_p_m1;
+  k.ap = T(1) + m.beta;
+  k.inv_ap = T(1) / k.ap;
+  k.inv_m_low = T(1) / m.m_low;
+  k.log_m_low = dlog(m.m_low);
+  k.pow_low = dexp(k.ap * k.log_m_low);
+#elif CHIMERA_MASS_KIND != 4
+#if CHIMERA_MASS_KIND == 0
   k.inv_pl_norm = T(1) / m.pl_norm;
   k.inv_peak_norm = T(1) / m.peak_norm;
-  k.inv_norm_p_m1 = T(1) / m.norm_p_m1;
   k.inv_den2 = T(1) / (T(2) * (m.sigma_g * m.sigma_g));
+#elif CHIMERA_MASS_KIND == 2
+  k.inv_pl2_at_break = T(1) / m.pl2_at_break;
+#else
+  k.inv_pl_norm = T(1) / m.pl_norm;
+  k.inv_peak1_norm = T(1) / m.peak1_norm;
+  k.inv_peak2_norm = T(1) / m.peak2_norm;
+  k.inv_den2_1 = T(1) / (T(2) * (m.sigma1_g * m.sigma1_g));
+  k.inv_den2_2 = T(1) / (T(2) * (m.sigma2_g * m.sigma2_g));
+#endif
+  k.inv_norm_p_m1 = T(1) / m.norm_p_m1;
   k.inv_window = T(1) / (m.m_join - m.m_low);
   k.ap = T(1) + m.beta;
   k.inv_ap = T(1) / k.ap;
@@ -194,24 +255,18 @@ __device__ __forceinline__ void write_consts(const MassModel<T>& m,
   k.log_m_join = dlog(m.m_join);
   k.pow_join = dexp(k.ap * k.log_m_join);
   k.pad[0] = k.pad[1] = T(0);
+#endif
 }
 
-// the dual mass model of a lambda's 12 scalars, direction i for scalar i
+// the dual mass model of a lambda's scalars, direction i for scalar i
 template <typename T>
 __device__ __forceinline__ void seed_mass(MassModel<Dual<T, kDirs>>& mm,
                                           const T* s) {
-  mm.m_low = seed<T, kDirs>(s[0], 0);
-  mm.m_high = seed<T, kDirs>(s[1], 1);
-  mm.alpha = seed<T, kDirs>(s[2], 2);
-  mm.beta = seed<T, kDirs>(s[3], 3);
-  mm.delta_m = seed<T, kDirs>(s[4], 4);
-  mm.lambda_peak = seed<T, kDirs>(s[5], 5);
-  mm.mu_g = seed<T, kDirs>(s[6], 6);
-  mm.sigma_g = seed<T, kDirs>(s[7], 7);
-  mm.peak_norm = seed<T, kDirs>(s[8], 8);
-  mm.norm_p_m1 = seed<T, kDirs>(s[9], 9);
-  mm.m_join = seed<T, kDirs>(s[10], 10);
-  mm.cdf_at_join = seed<T, kDirs>(s[11], 11);
+  int i = 0;
+  mm.scalars([&](Dual<T, kDirs>& x) {
+    x = seed<T, kDirs>(s[i], i);
+    ++i;
+  });
   mm.derive();
 }
 
@@ -220,11 +275,13 @@ __device__ __forceinline__ void seed_mass(MassModel<Dual<T, kDirs>>& mm,
 // ---------------------------------------------------------------------------
 
 // A lambda's record: the series row (cheb_logh, dgw_lo, dgw_max, window) in
-// S, padded to 16 bytes (series_bytes), then in T the 16 mass fields (the
-// 12 scalars, pl_norm, peak_hi, log_sigma, m1_floor), the Jacobian
-// (kDerived, 12) of pl_norm and log_sigma in the scalars and the reverse
-// sweep's MassConsts: 52 values, a multiple of 16 bytes.
+// S, padded to 16 bytes (series_bytes), then in T the mass fields (the
+// scalars and MassModel::derived()), the Jacobian (kDerived, kMassScalars)
+// of the carried fields in the scalars and the reverse sweep's MassConsts:
+// PowerLawPeak's 12 + 4 + 24 + 12 = 52 values, a multiple of 16 bytes in
+// every model.
 constexpr int kRecordValues = kMassFields + kDerived * kMassScalars + kConsts;
+static_assert(kRecordValues % 4 == 0, "a record is a multiple of 16 bytes");
 template <typename T, typename S>
 __host__ __device__ constexpr size_t record_bytes(int cd, int wd) {
   return series_bytes<S>(cd, wd) + kRecordValues * sizeof(T);
@@ -259,19 +316,15 @@ __device__ __forceinline__ void write_record(const double* series,
   MassModel<Dual<T, kDirs>> mm;
   seed_mass(mm, params);
   for (int i = 0; i < kMassScalars; ++i) f[i] = params[i];
-  f[kMassScalars] = mm.pl_norm.v;
-  f[kMassScalars + 1] = mm.peak_hi.v;
-  f[kMassScalars + 2] = mm.log_sigma.v;
-  f[kMassScalars + 3] = mm.m1_floor.v;
-  for (int i = 0; i < kMassScalars; ++i) {
-    f[kMassFields + i] = mm.pl_norm.d[i];
-    f[kMassFields + kMassScalars + i] = mm.log_sigma.d[i];
-  }
+  int j = kMassScalars;
+  mm.derived([&](const Dual<T, kDirs>& x) { f[j++] = x.v; });
+  j = kMassFields;
+  mm.carried([&](const Dual<T, kDirs>& x) {
+    for (int i = 0; i < kMassScalars; ++i) f[j + i] = x.d[i];
+    j += kMassScalars;
+  });
   MassModel<T> m;
-  m.m_low = params[0]; m.m_high = params[1]; m.alpha = params[2];
-  m.beta = params[3]; m.delta_m = params[4]; m.lambda_peak = params[5];
-  m.mu_g = params[6]; m.sigma_g = params[7]; m.peak_norm = params[8];
-  m.norm_p_m1 = params[9]; m.m_join = params[10]; m.cdf_at_join = params[11];
+  m.load(params);
   m.derive();
   write_consts(m, *reinterpret_cast<MassConsts<T>*>(
       f + kMassFields + kDerived * kMassScalars));
@@ -743,10 +796,47 @@ struct Smoothing {
   }
 };
 
-// primary(m) = ((1 - lambda_peak) pl + lambda_peak peak) smoothing(m) and
-// its cotangents (into gm and the fields' g)
-// (the divisions by the fields as products with the per-lambda reciprocals
-// of MassConsts: the gradient moves by rounding only)
+// A truncated Gaussian peak of the primary and its cotangents: pu the
+// unnormalized exponential, value = pu inv_norm on [m_low, hi], 0 off it.
+template <typename T>
+struct PeakTerm {
+  bool on;
+  T dx, q, pu, value;
+  __device__ __forceinline__ PeakTerm(T m, T m_low, T hi, T mu, T log_sigma,
+                                      T inv_den2, T inv_norm) {
+    on = m_low <= m && m <= hi;
+    dx = q = pu = value = T(0);
+    if (on) {
+      dx = m - mu;
+      q = dx * dx * inv_den2;
+      pu = dexp(T(-0.91893853320467274178) - log_sigma - q);
+      value = pu * inv_norm;
+    }
+  }
+  // given gv, the value's cotangent, adds those of m, mu, sigma, the norm
+  // and log sigma
+  __device__ __forceinline__ void vjp(T gv, T inv_den2, T inv_norm, T sigma,
+                                      T& gm, T& gmu, T& gsig, T& gnorm,
+                                      T& glog) const {
+    if (!on) return;
+    const T gpeak = gv * inv_norm;
+    gnorm -= gpeak * value;
+    const T garg = gpeak * pu;  // the exponent's
+    glog -= garg;
+    const T gq = garg * inv_den2;
+    const T gdx = -gq * T(2) * dx;
+    gsig += gq * q * T(4) * sigma;
+    gm += gdx;
+    gmu -= gdx;
+  }
+};
+
+// primary(m) of the build's mass model (MassModel::primary) and its
+// cotangents (into gm and the fields' g), the divisions by the fields as
+// products with the per-lambda reciprocals of MassConsts: the gradient
+// moves by rounding only.
+#if CHIMERA_MASS_KIND == 0
+// ((1 - lambda_peak) pl + lambda_peak peak) smoothing(m)
 template <typename T>
 struct Primary {
   TplUnnorm<T> pl_t;
@@ -793,6 +883,102 @@ struct Primary {
     }
   }
 };
+#elif CHIMERA_MASS_KIND == 1
+// m^-alpha on [m_low, m_high]
+template <typename T>
+struct Primary {
+  TplUnnorm<T> pl_t;
+  T y;
+  __device__ __forceinline__ Primary(const MassModel<T>& mm,
+                                     const MassConsts<T>&, T m)
+      : pl_t(m, -mm.alpha, mm.m_low, mm.m_high) {
+    y = pl_t.y;
+  }
+  __device__ __forceinline__ void vjp(const MassModel<T>& mm,
+                                      const MassConsts<T>&, T m, T gy, T& gm,
+                                      T* g) const {
+    T ga = T(0);
+    pl_t.vjp(m, -mm.alpha, gy, gm, ga);
+    g[kAlpha] -= ga;
+  }
+};
+#elif CHIMERA_MASS_KIND == 2
+// (pl1 + pl2 pl1_at_break / pl2_at_break) smoothing(m)
+template <typename T>
+struct Primary {
+  TplUnnorm<T> t1, t2;
+  Smoothing<T> sm;
+  T q, pdf, y;
+  __device__ __forceinline__ Primary(const MassModel<T>& mm,
+                                     const MassConsts<T>& k, T m)
+      : t1(m, -mm.alpha_1, mm.m_low, mm.m_break),
+        t2(m, -mm.alpha_2, mm.m_break, mm.m_high),
+        sm(m, mm.delta_m, mm.m_low) {
+    q = t2.y * mm.pl1_at_break * k.inv_pl2_at_break;
+    pdf = t1.y + q;
+    y = pdf * sm.y;
+  }
+  __device__ __forceinline__ void vjp(const MassModel<T>& mm,
+                                      const MassConsts<T>& k, T m, T gy,
+                                      T& gm, T* g) const {
+    const T gpdf = gy * sm.y;
+    sm.vjp(m, mm.delta_m, mm.m_low, gy * pdf, gm, g[kDeltaM], g[kMLow]);
+    T ga = T(0);
+    t1.vjp(m, -mm.alpha_1, gpdf, gm, ga);
+    g[kAlpha1] -= ga;
+    const T gr = gpdf * k.inv_pl2_at_break;  // of t2.y pl1_at_break
+    g[kPl2AtBreak] -= gpdf * q * k.inv_pl2_at_break;
+    g[kPl1AtBreak] += gr * t2.y;
+    ga = T(0);
+    t2.vjp(m, -mm.alpha_2, gr * mm.pl1_at_break, gm, ga);
+    g[kAlpha2] -= ga;
+  }
+};
+#elif CHIMERA_MASS_KIND == 3
+// ((1 - lp) pl + lp l1 g1 + lp (1 - l1) g2) smoothing(m)
+template <typename T>
+struct Primary {
+  TplUnnorm<T> pl_t;
+  Smoothing<T> sm;
+  PeakTerm<T> p1, p2;
+  T pl, pdf, y;
+  __device__ __forceinline__ Primary(const MassModel<T>& mm,
+                                     const MassConsts<T>& k, T m)
+      : pl_t(m, -mm.alpha, mm.m_low, mm.m_high),
+        sm(m, mm.delta_m, mm.m_low),
+        p1(m, mm.m_low, mm.peak1_hi, mm.mu1_g, mm.log_sigma1, k.inv_den2_1,
+           k.inv_peak1_norm),
+        p2(m, mm.m_low, mm.peak2_hi, mm.mu2_g, mm.log_sigma2, k.inv_den2_2,
+           k.inv_peak2_norm) {
+    pl = pl_t.y * k.inv_pl_norm;
+    pdf = (T(1) - mm.lambda_peak) * pl + mm.lambda_peak * mm.lambda1 * p1.value
+          + mm.lambda_peak * (T(1) - mm.lambda1) * p2.value;
+    y = pdf * sm.y;
+  }
+  __device__ __forceinline__ void vjp(const MassModel<T>& mm,
+                                      const MassConsts<T>& k, T m, T gy,
+                                      T& gm, T* g) const {
+    const T gpdf = gy * sm.y;
+    const T lp = mm.lambda_peak, l1 = mm.lambda1;
+    sm.vjp(m, mm.delta_m, mm.m_low, gy * pdf, gm, g[kDeltaM], g[kMLow]);
+    g[kLambdaPeak] += gpdf * (l1 * p1.value + (T(1) - l1) * p2.value - pl);
+    g[kLambda1] += gpdf * lp * (p1.value - p2.value);
+    const T gpl = gpdf * (T(1) - lp) * k.inv_pl_norm;
+    g[kPlNorm] -= gpl * pl;
+    T ga = T(0);
+    pl_t.vjp(m, -mm.alpha, gpl, gm, ga);
+    g[kAlpha] -= ga;
+    p1.vjp(gpdf * lp * l1, k.inv_den2_1, k.inv_peak1_norm, mm.sigma1_g, gm,
+           g[kMu1G], g[kSigma1G], g[kPeak1Norm], g[kLogSigma1]);
+    p2.vjp(gpdf * lp * (T(1) - l1), k.inv_den2_2, k.inv_peak2_norm,
+           mm.sigma2_g, gm, g[kMu2G], g[kSigma2G], g[kPeak2Norm],
+           g[kLogSigma2]);
+  }
+};
+#else
+template <typename T>
+struct Primary;  // PowerLawSpline: no reverse sweep
+#endif
 
 // p_m1m2 of one sample in the dual mass model (the reverse sweep's oracle
 // in the host tests): p and its derivatives in the 12 scalars, in z and in
@@ -809,7 +995,9 @@ __device__ __forceinline__ Dual<T, kDirs> joint_dual(
   const N m2 = N(m2det) * inv1pz;
   const N m1c = clip(m1, mm.m_low, mm.m_high);
   N cdf;
-  if (m1c <= mm.m_join) {
+  if constexpr (!kWindowCdf) {
+    cdf = mm.cdf_closed(m1c);
+  } else if (m1c <= mm.m_join) {
     const N x = clip(m1c, mm.m_low, mm.m_join);
     const N tw = (N(2) * x - (mm.m_low + mm.m_join)) / (mm.m_join - mm.m_low);
     cdf = chain(tw, cdf_val, cdf_slope);
@@ -887,7 +1075,9 @@ struct SampleAdjoint {
   // The reverse sweep of p_m1m2 at (m1det, m2det) / (1 + z) (population.cuh,
   // MassModel::joint with Model::conditional_cdf), each branch and clip
   // taking the slope the dual takes: ties of clip go to the bound, and a
-  // p21 zeroed by the m1_floor test or the finite guard carries none.
+  // p21 zeroed by the m1_floor test or the finite guard carries none.  A
+  // model without a window series (TruncatedPowerLaw) takes the closed
+  // form at every m1c, from m_low, and no window on m2.
   // Given gw, the cotangent of p, it adds the mass fields' cotangents to gm
   // and returns z's; the window's point (t_win, its value's cotangent b)
   // goes to tw, b (b = 0 outside the window).
@@ -899,12 +1089,26 @@ struct SampleAdjoint {
     const T m1 = m1det * ip, m2 = m2det * ip;
     const T s1 = dmax(m1, mm.m_low);
     const T m1c = dmin(s1, mm.m_high);
+#if CHIMERA_MASS_KIND != 1
     const bool in_window = m1c <= mm.m_join;
+#endif
     T cdf, dsw = T(0), tws = T(0);
     bool x_join = false, x_m1c = false;
     // above the join: tpl_cdf(beta, m_join, m1c) = (m1c^ap - m_join^ap) / ap
     T mp = T(0), la = T(0), pa = T(0), c = T(0);
     tw = b = T(0);
+#if CHIMERA_MASS_KIND == 1
+    // tpl_cdf(beta, m_low, m1c) = (m1c^ap - m_low^ap) / ap
+    mp = dmax(m1c, T(1e-30));
+    la = dlog(mp);
+    if (mm.beta == T(-1)) {
+      c = k.log_m_low - la;
+    } else {
+      pa = dexp(k.ap * la);
+      c = (pa - k.pow_low) * k.inv_ap;
+    }
+    cdf = c;
+#else
     if (in_window) {
       const T s2 = dmax(m1c, mm.m_low);
       const T x = dmin(s2, mm.m_join);
@@ -929,10 +1133,15 @@ struct SampleAdjoint {
       }
       cdf = mm.cdf_at_join + c;
     }
+#endif
     // joint: p1 p21, p21 = secondary / cdf
     const TplUnnorm<T> tu(m2, mm.beta, mm.m_low, m1);
+#if CHIMERA_MASS_KIND == 1
+    const T sec = tu.y;
+#else
     const Smoothing<T> sm2(m2, mm.delta_m, mm.m_low);
     const T sec = tu.y * sm2.y;
+#endif
     const bool ok = cdf > T(0);
     const T inv_cdf = T(1) / (ok ? cdf : T(1));
     const T p21 = sec * inv_cdf;
@@ -944,6 +1153,26 @@ struct SampleAdjoint {
     gm[kNormPM1] -= gp1 * p1;
     T gm1 = T(0), gm2 = T(0), gm1c = T(0);
     prim.vjp(mm, k, m1, gp1, gm1, gm);
+#if CHIMERA_MASS_KIND == 1
+    tu.vjp(m2, mm.beta, gsec, gm2, gm[kBeta]);
+    {
+      T gmp;
+      if (mm.beta == T(-1)) {
+        gm[kMLow] += gcdf * k.inv_m_low;
+        gmp = -gcdf / mp;
+      } else {
+        const T ga = gcdf * k.inv_ap;  // the cotangent of pa; pow_low's -ga
+        gm[kBeta] += ga * (pa * la - k.pow_low * k.log_m_low) - ga * c;
+        gmp = ga * pa * k.ap / mp;
+        gm[kMLow] -= ga * k.pow_low * k.ap * k.inv_m_low;
+      }
+      if (m1c > T(1e-30)) gm1c += gmp;
+    }
+    (void)x_join;
+    (void)x_m1c;
+    (void)dsw;
+    (void)tws;
+#else
     tu.vjp(m2, mm.beta, gsec * sm2.y, gm2, gm[kBeta]);
     sm2.vjp(m2, mm.delta_m, mm.m_low, gsec * tu.y, gm2, gm[kDeltaM],
             gm[kMLow]);
@@ -971,6 +1200,7 @@ struct SampleAdjoint {
       }
       if (m1c > T(1e-30)) gm1c += gmp;
     }
+#endif
     if (!(s1 < mm.m_high)) gm[kMHigh] += gm1c;
     else if (m1 > mm.m_low) gm1 += gm1c;
     else gm[kMLow] += gm1c;

@@ -103,7 +103,7 @@ fused_kde_kernel(const FusedArgs<T> a) {
   T2* zw = reinterpret_cast<T2*>(smem + series_bytes<S>(a.cheb_deg,
                                                         a.window_deg));
   T* prm = reinterpret_cast<T*>(zw + a.S);  // this lambda's mass scalars
-  T2* tiles = reinterpret_cast<T2*>(prm + kMassScalars);  // pruned loop's
+  T2* tiles = reinterpret_cast<T2*>(prm + kMassSlots);  // pruned loop's
   __shared__ T scratch[3][kWarps];
 
   const int l = blockIdx.x % a.L;
@@ -230,7 +230,7 @@ int launch_mode(const FusedArgs<T>& a, cudaStream_t stream) {
   const bool pruned = MODE != kStatsOnly && KERNEL == 0;
   const size_t smem = series_bytes<S>(a.cheb_deg, a.window_deg)
                       + (size_t)a.S * sizeof(typename Pair<T>::type)
-                      + kMassScalars * sizeof(T)
+                      + kMassSlots * sizeof(T)
                       + (pruned ? (size_t)(a.S + kTileS - 1) / kTileS
                                       * sizeof(typename Pair<T>::type)
                                 : 0);

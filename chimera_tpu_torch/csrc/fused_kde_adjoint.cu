@@ -237,7 +237,9 @@ int launch(const T* m1, const T* m2, const T* dl, const T* invp,
            int bw_mode, double bw_value, double cut_grid, int unit_scale,
            void* stream) {
   const bool dense = mode != kStatsOnly;
-  if (L <= 0 || B <= 0 || S <= 0 || cheb_deg < 1 || window_deg < 1
+  // a window series exactly where the model has one
+  if (L <= 0 || B <= 0 || S <= 0 || cheb_deg < 1
+      || (window_deg < 1) == kWindowCdf
       || cheb_deg > kMaxDeg || window_deg > kMaxDeg
       || (dense && G <= 0) || (dense && mode != kAnalysisGrid && G < 2)
       || (n_real != nullptr && logical_s <= 0)

@@ -1,18 +1,24 @@
 // Device model of one lambda's population, shared by the hand-written
 // kernels of chimera_tpu_torch (fused_kde.cu, rows_contract.cu,
-// fused_kde_adjoint.cu):
+// fused_kde_adjoint.cu, rows_contract_adjoint.cu):
 //
-//   Model<T, S>  FLRW with the Chebyshev inverse distance map (z from dL) and
-//                PowerLawPeak with the analytic conditional CDF (p_m1m2), read
-//                from the packed per-lambda rows (ops/cuda/fused.py,
+//   Model<T, S>  FLRW or MGFLRW with the Chebyshev inverse distance map (z
+//                from dGW: the same series either way) and the build's mass
+//                model with the analytic conditional CDF (p_m1m2), read from
+//                the packed per-lambda rows (ops/cuda/fused.py,
 //                pack_params): the two Chebyshev series summed in S, the
 //                rest in T.  The device functions mirror the Python
 //                expressions operation by operation: exp(a log x) powers, the
 //                1e-99 window eps (0 in float), the divisor guard of p_m1m2.
-//   MassModel<N> PowerLawPeak in the number type N: T in the forward
+//   MassModel<N> the mass model in the number type N: T in the forward
 //                kernels, a forward-mode dual number (adjoint.cuh) in the
 //                adjoint kernels' prologue (the derived fields' Jacobian)
 //                and as their reverse sweep's oracle in the host tests.
+//                One model a build: CHIMERA_MASS_KIND (MassKind, 0 =
+//                PowerLawPeak by default) selects it at compile time, so
+//                each kernel source builds into one library a mass model
+//                (ops/cuda/build.py) and PowerLawPeak's code is that of a
+//                build without the macro.
 //   block_sum    deterministic block-wide sums of per-thread partials;
 //   DeviceBlock  a CUDA block as the `Block` of kde.cuh and adjoint.cuh;
 //   WarpBlock    a warp as a `Block` of its own.
@@ -32,7 +38,19 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGridPerThread = 4;
-constexpr int kMassScalars = 12;  // see MASS_SCALARS in ops/cuda/fused.py
+
+#ifndef CHIMERA_MASS_KIND
+#define CHIMERA_MASS_KIND 0
+#endif
+// the mass models, in the order of MASS_KINDS in ops/cuda/fused.py
+enum MassKind {
+  kPowerLawPeak, kTruncatedPowerLaw, kBrokenPowerLaw, kPowerLawTwoPeaks,
+  kPowerLawSpline
+};
+constexpr int kMassKind = CHIMERA_MASS_KIND;
+// the conditional CDF below m_join is a Chebyshev window series (every model
+// but TruncatedPowerLaw, whose CDF is closed form and has no window series)
+constexpr bool kWindowCdf = kMassKind != kTruncatedPowerLaw;
 
 template <typename T> struct Pair;
 template <> struct Pair<float> { using type = float2; };
@@ -124,13 +142,73 @@ __host__ __device__ constexpr size_t series_bytes(int cd, int wd) {
   return ((size_t)(cd + 2 + wd) * sizeof(S) + 15) / 16 * 16;
 }
 
-// PowerLawPeak pdfs of one lambda in the number type N (models/mass.py).
-// The 12 scalars are set by the owner, then derive() fills the rest.
+// The mass models of one lambda in the number type N (models/mass.py),
+// one per build.  Each holds its kMassScalars scalars (MODEL_SCALARS of its
+// class in ops/cuda/fused.py, in that order; load() reads them), and the
+// derived fields that derive() fills, or that load_derived() reads in the
+// record's order (the adjoints' prologue derives them once a lambda);
+// kCarried of them carry a cotangent, the others enter comparisons only.
+// scalars(), derived() and carried() visit the fields in those orders.
+// primary(m) and secondary(m2, m1) are the unnormalized pdfs; joint() is
+// p_m1m2 given the conditional CDF at m1.
+
+// p(m1) p(m2 | m1) given the conditional CDF at m1 (models/mass.py::p_m1m2)
+template <typename M, typename N>
+__device__ __forceinline__ N joint_of(const M& mm, N m1, N m2, N cdf) {
+  const N p1 = mm.primary(m1) / mm.norm_p_m1;
+  N p21 = mm.secondary(m2, m1);
+  const bool ok = cdf > N(0);
+  p21 = p21 / (ok ? cdf : N(1));
+  if (!(ok && m1 > mm.m1_floor)) p21 = N(0);
+  if (!finite(p21)) p21 = N(0);
+  return p1 * p21;
+}
+
+// the truncated Gaussian peak of mass.py::truncated_gaussian on [m_low, hi]
+template <typename N>
+__device__ __forceinline__ N gauss_peak(N m, N m_low, N hi, N mu, N sigma,
+                                        N log_sigma, N norm) {
+  if (!(m_low <= m && m <= hi)) return N(0);
+  const N dx = m - mu;
+  // -0.5 log(2 pi) - log(sigma) - (x - mu)^2 / (2 sigma^2)
+  return dexp(N(-0.91893853320467274178) - log_sigma
+              - dx * dx / (N(2) * (sigma * sigma))) / norm;
+}
+
+#if CHIMERA_MASS_KIND == 0  // PowerLawPeak
+constexpr int kMassScalars = 12;
+constexpr int kDerivedFields = 4;
+constexpr int kCarried = 2;
+
 template <typename N>
 struct MassModel {
   N m_low, m_high, alpha, beta, delta_m, lambda_peak, mu_g, sigma_g;
   N peak_norm, norm_p_m1, m_join, cdf_at_join;
   N pl_norm, peak_hi, log_sigma, m1_floor;
+
+  template <typename U>
+  __device__ __forceinline__ void load(const U* s) {
+    m_low = s[0]; m_high = s[1]; alpha = s[2];
+    beta = s[3]; delta_m = s[4]; lambda_peak = s[5];
+    mu_g = s[6]; sigma_g = s[7]; peak_norm = s[8];
+    norm_p_m1 = s[9]; m_join = s[10]; cdf_at_join = s[11];
+  }
+  __device__ __forceinline__ void load_derived(const N* d) {
+    pl_norm = d[0]; peak_hi = d[1];
+    log_sigma = d[2]; m1_floor = d[3];
+  }
+  template <typename F>
+  __device__ __forceinline__ void scalars(F&& f) {
+    f(m_low); f(m_high); f(alpha); f(beta); f(delta_m); f(lambda_peak);
+    f(mu_g); f(sigma_g); f(peak_norm); f(norm_p_m1); f(m_join);
+    f(cdf_at_join);
+  }
+  template <typename F>
+  __device__ __forceinline__ void derived(F&& f) {
+    f(pl_norm); f(peak_hi); f(log_sigma); f(m1_floor);
+  }
+  template <typename F>
+  __device__ __forceinline__ void carried(F&& f) { f(pl_norm); f(log_sigma); }
 
   __device__ __forceinline__ void derive() {
     pl_norm = tpl_cdf(-alpha, m_low, m_high);
@@ -161,7 +239,6 @@ struct MassModel {
     return cdf_at_join + tpl_cdf(beta, m_join, m1c);
   }
 
-  // p(m1) p(m2 | m1) given the conditional CDF at m1 (models/mass.py::p_m1m2)
   __device__ __forceinline__ N joint(N m1, N m2, N cdf) const {
     const N p1 = primary(m1) / norm_p_m1;
     N p21 = secondary(m2, m1);
@@ -172,6 +249,261 @@ struct MassModel {
     return p1 * p21;
   }
 };
+
+#elif CHIMERA_MASS_KIND == 1  // TruncatedPowerLaw: no window, closed-form CDF
+constexpr int kMassScalars = 5;
+constexpr int kDerivedFields = 1;
+constexpr int kCarried = 0;
+
+template <typename N>
+struct MassModel {
+  N m_low, m_high, alpha, beta, norm_p_m1;
+  N m1_floor;
+
+  template <typename U>
+  __device__ __forceinline__ void load(const U* s) {
+    int i = 0;
+    scalars([&](N& x) { x = N(s[i++]); });
+  }
+  __device__ __forceinline__ void load_derived(const N* d) { m1_floor = d[0]; }
+  template <typename F>
+  __device__ __forceinline__ void scalars(F&& f) {
+    f(m_low); f(m_high); f(alpha); f(beta); f(norm_p_m1);
+  }
+  template <typename F>
+  __device__ __forceinline__ void derived(F&& f) { f(m1_floor); }
+  template <typename F>
+  __device__ __forceinline__ void carried(F&&) {}
+
+  __device__ __forceinline__ void derive() { m1_floor = m_low * N(1.0 + 1e-9); }
+
+  __device__ __forceinline__ N primary(N m) const {
+    return tpl_unnorm(m, -alpha, m_low, m_high);
+  }
+  __device__ __forceinline__ N secondary(N m2, N m1) const {
+    return tpl_unnorm(m2, beta, m_low, m1);
+  }
+  // the conditional CDF at m1c in [m_low, m_high], in closed form
+  __device__ __forceinline__ N cdf_closed(N m1c) const {
+    return tpl_cdf(beta, m_low, m1c);
+  }
+  __device__ __forceinline__ N joint(N m1, N m2, N cdf) const {
+    return joint_of(*this, m1, m2, cdf);
+  }
+};
+
+#elif CHIMERA_MASS_KIND == 2  // BrokenPowerLaw
+constexpr int kMassScalars = 10;
+constexpr int kDerivedFields = 4;
+constexpr int kCarried = 2;
+
+template <typename N>
+struct MassModel {
+  N m_low, m_high, alpha_1, alpha_2, beta, delta_m, break_fraction;
+  N norm_p_m1, m_join, cdf_at_join;
+  N pl1_at_break, pl2_at_break, m_break, m1_floor;
+
+  template <typename U>
+  __device__ __forceinline__ void load(const U* s) {
+    int i = 0;
+    scalars([&](N& x) { x = N(s[i++]); });
+  }
+  __device__ __forceinline__ void load_derived(const N* d) {
+    int i = 0;
+    derived([&](N& x) { x = d[i++]; });
+  }
+  template <typename F>
+  __device__ __forceinline__ void scalars(F&& f) {
+    f(m_low); f(m_high); f(alpha_1); f(alpha_2); f(beta); f(delta_m);
+    f(break_fraction); f(norm_p_m1); f(m_join); f(cdf_at_join);
+  }
+  template <typename F>
+  __device__ __forceinline__ void derived(F&& f) {
+    f(pl1_at_break); f(pl2_at_break); f(m_break); f(m1_floor);
+  }
+  template <typename F>
+  __device__ __forceinline__ void carried(F&& f) {
+    f(pl1_at_break); f(pl2_at_break);
+  }
+
+  __device__ __forceinline__ void derive() {
+    m_break = m_low + break_fraction * (m_high - m_low);
+    pl1_at_break = tpl_unnorm(m_break, -alpha_1, m_low, m_break);
+    pl2_at_break = tpl_unnorm(m_break, -alpha_2, m_break, m_high);
+    m1_floor = m_low * N(1.0 + 1e-9);
+  }
+
+  __device__ __forceinline__ N primary(N m) const {
+    N pdf = tpl_unnorm(m, -alpha_1, m_low, m_break);
+    pdf = pdf + tpl_unnorm(m, -alpha_2, m_break, m_high) * pl1_at_break
+                    / pl2_at_break;
+    return pdf * smoothing(m, delta_m, m_low);
+  }
+  __device__ __forceinline__ N secondary(N m2, N m1) const {
+    return tpl_unnorm(m2, beta, m_low, m1) * smoothing(m2, delta_m, m_low);
+  }
+  __device__ __forceinline__ N cdf_above_join(N m1c) const {
+    return cdf_at_join + tpl_cdf(beta, m_join, m1c);
+  }
+  __device__ __forceinline__ N joint(N m1, N m2, N cdf) const {
+    return joint_of(*this, m1, m2, cdf);
+  }
+};
+
+#elif CHIMERA_MASS_KIND == 3  // PowerLawTwoPeaks
+constexpr int kMassScalars = 16;
+constexpr int kDerivedFields = 6;
+constexpr int kCarried = 3;
+
+template <typename N>
+struct MassModel {
+  N m_low, m_high, alpha, beta, delta_m, lambda_peak, lambda1;
+  N mu1_g, sigma1_g, mu2_g, sigma2_g, peak1_norm, peak2_norm;
+  N norm_p_m1, m_join, cdf_at_join;
+  N pl_norm, log_sigma1, log_sigma2, peak1_hi, peak2_hi, m1_floor;
+
+  template <typename U>
+  __device__ __forceinline__ void load(const U* s) {
+    int i = 0;
+    scalars([&](N& x) { x = N(s[i++]); });
+  }
+  __device__ __forceinline__ void load_derived(const N* d) {
+    int i = 0;
+    derived([&](N& x) { x = d[i++]; });
+  }
+  template <typename F>
+  __device__ __forceinline__ void scalars(F&& f) {
+    f(m_low); f(m_high); f(alpha); f(beta); f(delta_m); f(lambda_peak);
+    f(lambda1); f(mu1_g); f(sigma1_g); f(mu2_g); f(sigma2_g); f(peak1_norm);
+    f(peak2_norm); f(norm_p_m1); f(m_join); f(cdf_at_join);
+  }
+  template <typename F>
+  __device__ __forceinline__ void derived(F&& f) {
+    f(pl_norm); f(log_sigma1); f(log_sigma2); f(peak1_hi); f(peak2_hi);
+    f(m1_floor);
+  }
+  template <typename F>
+  __device__ __forceinline__ void carried(F&& f) {
+    f(pl_norm); f(log_sigma1); f(log_sigma2);
+  }
+
+  __device__ __forceinline__ void derive() {
+    pl_norm = tpl_cdf(-alpha, m_low, m_high);
+    log_sigma1 = dlog(sigma1_g);
+    log_sigma2 = dlog(sigma2_g);
+    peak1_hi = mu1_g + N(5) * sigma1_g;
+    peak2_hi = mu2_g + N(5) * sigma2_g;
+    m1_floor = m_low * N(1.0 + 1e-9);
+  }
+
+  __device__ __forceinline__ N primary(N m) const {
+    const N pl = tpl_unnorm(m, -alpha, m_low, m_high) / pl_norm;
+    const N g1 = gauss_peak(m, m_low, peak1_hi, mu1_g, sigma1_g, log_sigma1,
+                            peak1_norm);
+    const N g2 = gauss_peak(m, m_low, peak2_hi, mu2_g, sigma2_g, log_sigma2,
+                            peak2_norm);
+    const N pdf = (N(1) - lambda_peak) * pl + lambda_peak * lambda1 * g1
+                  + lambda_peak * (N(1) - lambda1) * g2;
+    return pdf * smoothing(m, delta_m, m_low);
+  }
+  __device__ __forceinline__ N secondary(N m2, N m1) const {
+    return tpl_unnorm(m2, beta, m_low, m1) * smoothing(m2, delta_m, m_low);
+  }
+  __device__ __forceinline__ N cdf_above_join(N m1c) const {
+    return cdf_at_join + tpl_cdf(beta, m_join, m1c);
+  }
+  __device__ __forceinline__ N joint(N m1, N m2, N cdf) const {
+    return joint_of(*this, m1, m2, cdf);
+  }
+};
+
+#elif CHIMERA_MASS_KIND == 4  // PowerLawSpline (forward only)
+// the spline's coefficients follow its 8 scalars and their count in the
+// packed row, up to kMaxKnots of them (ops/cuda/fused.py, pack_params)
+constexpr int kMaxKnots = 23;
+constexpr int kMassScalars = 9 + kMaxKnots;
+constexpr int kDerivedFields = 3;
+constexpr int kCarried = 0;
+
+template <typename N>
+struct MassModel {
+  N m_low, m_high, alpha, beta, delta_m, norm_p_m1, m_join, cdf_at_join;
+  const N* coef;  // the num_knots coefficients, in the packed row
+  int num_knots;
+  N log_lo, log_hi, m1_floor;
+
+  __device__ __forceinline__ void load(const N* s) {
+    m_low = s[0]; m_high = s[1]; alpha = s[2]; beta = s[3]; delta_m = s[4];
+    norm_p_m1 = s[5]; m_join = s[6]; cdf_at_join = s[7];
+    num_knots = (int)s[8];
+    coef = s + 9;
+  }
+  __device__ __forceinline__ void load_derived(const N* d) {
+    log_lo = d[0]; log_hi = d[1]; m1_floor = d[2];
+  }
+  template <typename F>
+  __device__ __forceinline__ void derived(F&& f) {
+    f(log_lo); f(log_hi); f(m1_floor);
+  }
+  template <typename F>
+  __device__ __forceinline__ void carried(F&&) {}
+  __device__ __forceinline__ void derive() {
+    log_lo = dlog(m_low);
+    log_hi = dlog(m_high);
+    m1_floor = m_low * N(1.0 + 1e-9);
+  }
+
+  // knot j of linspace(log m_low, log m_high, num_knots + 2) in the
+  // arithmetic of jnp.linspace (ops/integrate.py::linspace)
+  __device__ __forceinline__ N knot(int j, int div) const {
+    if (j >= div) return log_hi;
+    const N step = N(j) / N(div);
+    return log_lo * (N(1) - step) + log_hi * step;
+  }
+  // the knots' values, the edge ones pinned at 0
+  __device__ __forceinline__ N knot_value(int j) const {
+    return j >= 1 && j <= num_knots ? coef[j - 1] : N(0);
+  }
+  // jnp.interp(log max(m, 1e-30), knots, [0, coef, 0]): the interval from
+  // the uniform knots' index arithmetic, moved by at most one knot each way
+  // to where searchsorted (side 'right') puts x; the value is held at the
+  // edge knots' 0 outside [log m_low, log m_high]
+  __device__ __forceinline__ N perturbation(N m) const {
+    const N x = dlog(dmax(m, N(1e-30)));
+    const int div = num_knots + 1;
+    if (x < log_lo || x > log_hi) return N(0);
+    int i = (int)((x - log_lo) / (log_hi - log_lo) * N(div)) + 1;
+    i = i < 1 ? 1 : (i > div ? div : i);
+    if (i < div && knot(i, div) <= x) ++i;
+    if (i > 1 && knot(i - 1, div) > x) --i;
+    const N lo = knot(i - 1, div), hi = knot(i, div);
+    const N f0 = knot_value(i - 1);
+    return f0 + ((x - lo) / (hi - lo)) * (knot_value(i) - f0);
+  }
+
+  __device__ __forceinline__ N primary(N m) const {
+    N pdf = tpl_unnorm(m, -alpha, m_low, m_high);
+    pdf = pdf * smoothing(m, delta_m, m_low);
+    return pdf * dexp(perturbation(m));
+  }
+  __device__ __forceinline__ N secondary(N m2, N m1) const {
+    return tpl_unnorm(m2, beta, m_low, m1) * smoothing(m2, delta_m, m_low);
+  }
+  __device__ __forceinline__ N cdf_above_join(N m1c) const {
+    return cdf_at_join + tpl_cdf(beta, m_join, m1c);
+  }
+  __device__ __forceinline__ N joint(N m1, N m2, N cdf) const {
+    return joint_of(*this, m1, m2, cdf);
+  }
+};
+
+#else
+#error "CHIMERA_MASS_KIND names no mass model"
+#endif
+// the mass scalars' slots where a kernel keeps them in shared memory before
+// other arrays: a multiple of 16 bytes, so that pairs after them stay
+// aligned (PowerLawPeak's 12 as they are)
+constexpr int kMassSlots = (kMassScalars + 3) / 4 * 4;
 
 // One lambda's model state.  The two Chebyshev series (the inverse distance
 // map and the conditional-CDF window) are summed in S: double in the
@@ -187,10 +519,11 @@ struct Model {
   S dgw_lo, dgw_max, log_lo, log_hi;
   MassModel<T> mass;
 
-  // series: cheb_logh[cd], dgw_lo, dgw_max, cheb_cdf_window[wd]; s: the
-  // MASS_SCALARS (ops/cuda/fused.py, pack_params); derived: pl_norm,
-  // peak_hi, log_sigma, m1_floor as MassModel::derive() gives them (the
-  // adjoint kernels' per-lambda prologue), or null to derive them here
+  // series: cheb_logh[cd], dgw_lo, dgw_max, cheb_cdf_window[wd] (wd = 0
+  // without a window series); s: the MODEL_SCALARS of the build's model
+  // (ops/cuda/fused.py, pack_params); derived: its derived fields as
+  // MassModel::derive() gives them (the adjoint kernels' per-lambda
+  // prologue), or null to derive them here
   __device__ Model(const S* series, const T* s, int cd, int wd,
                    const T* derived = nullptr) {
     cheb_logh = series;
@@ -199,15 +532,11 @@ struct Model {
     dgw_lo = series[cd];
     dgw_max = series[cd + 1];
     window = series + cd + 2;
-    mass.m_low = s[0]; mass.m_high = s[1]; mass.alpha = s[2];
-    mass.beta = s[3]; mass.delta_m = s[4]; mass.lambda_peak = s[5];
-    mass.mu_g = s[6]; mass.sigma_g = s[7]; mass.peak_norm = s[8];
-    mass.norm_p_m1 = s[9]; mass.m_join = s[10]; mass.cdf_at_join = s[11];
+    mass.load(s);
     if (derived == nullptr) {
       mass.derive();
     } else {
-      mass.pl_norm = derived[0]; mass.peak_hi = derived[1];
-      mass.log_sigma = derived[2]; mass.m1_floor = derived[3];
+      mass.load_derived(derived);
     }
     log_lo = dlog(dgw_lo);
     log_hi = dlog(dgw_max);
@@ -222,16 +551,21 @@ struct Model {
   }
 
   // the window segment's t and Clenshaw sum in S (models/mass.py::
-  // conditional_cdf_at with S = float64)
+  // conditional_cdf_at with S = float64), or the closed form of a model
+  // without a window
   __device__ __forceinline__ T conditional_cdf(T m1) const {
     const T m1c = clip(m1, mass.m_low, mass.m_high);
-    if (m1c <= mass.m_join) {
-      const S lo = S(mass.m_low), hi = S(mass.m_join);
-      const S x = clip(S(m1c), lo, hi);
-      const S t = (S(2) * x - (lo + hi)) / (hi - lo);
-      return T(clenshaw(window, window_deg, t));
+    if constexpr (!kWindowCdf) {
+      return mass.cdf_closed(m1c);
+    } else {
+      if (m1c <= mass.m_join) {
+        const S lo = S(mass.m_low), hi = S(mass.m_join);
+        const S x = clip(S(m1c), lo, hi);
+        const S t = (S(2) * x - (lo + hi)) / (hi - lo);
+        return T(clenshaw(window, window_deg, t));
+      }
+      return mass.cdf_above_join(m1c);
     }
-    return mass.cdf_above_join(m1c);
   }
 
   __device__ __forceinline__ T p_m1m2(T m1, T m2) const {

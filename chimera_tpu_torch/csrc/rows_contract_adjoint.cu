@@ -121,8 +121,10 @@ int launch(const T* m1, const T* m2, const T* dl, const T* invp,
            const T* ct, double* partials, double* d_series, T* d_params,
            T* d_hs, T* d_f1, T* d_f2, int L, int E, int C, int chunk, int G,
            int cheb_deg, int window_deg, int kernel, void* stream) {
+  // a window series exactly where the model has one
   if (L <= 0 || E <= 0 || C <= 0 || chunk <= 0 || G <= 0 || cheb_deg < 1
-      || window_deg < 1 || cheb_deg > kMaxDeg || window_deg > kMaxDeg)
+      || (window_deg < 1) == kWindowCdf || cheb_deg > kMaxDeg
+      || window_deg > kMaxDeg)
     return (int)cudaErrorInvalidValue;
   const RowsAdjointArgs<T> a{m1, m2, dl, invp, grids, series, params, hs, s1,
                              s2, f1, f2, ct, partials, d_hs, d_f1, d_f2, L,

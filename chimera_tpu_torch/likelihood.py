@@ -14,6 +14,10 @@ cut_grid=2.0``) included.  The engine follows the JAX package on the TPU
   ``ops/cuda/kde.py``) on the effective grids (``Nz // 2`` points over
   [z_min - c σ, z_max + c σ] per event) or on the analysis grids, and with
   ``cut_grid`` a resampling onto the analysis grids (``uniform_interp``).
+  A population with a 'table' engine (``interp_method='table'`` or
+  ``cdf_engine='table'``) takes this path without binning too, as the JAX
+  package sends it to its vmap path (``likelihood.py:451-479``): the KDE
+  (K4) then runs on the raw, distance-sorted samples.
 * ``binning=False``, the fused kernels (``ops/cuda/fused.py``):
   - '1d' and 'approximate': the fused weights+KDE pass per event, on the
     analysis grids (K1a, ``cut_grid=None``) or on its own effective grid
@@ -170,6 +174,12 @@ def z_recurrence_plan(z: np.ndarray, ra: np.ndarray, dec: np.ndarray,
                         for t in (*Z_BLOCK_TIERS, 0)) + " events"
 
 
+def staged_engines(pop: Population) -> bool:
+    """Whether a model engine of ``pop`` is one the fused kernels do not
+    evaluate: a 'table' distance map or mass CDF."""
+    return pop.cosmo.interp_method != "chebyshev" or pop.mass.cdf_engine != "analytic"
+
+
 def _jacobian(pop: Population, z: torch.Tensor) -> torch.Tensor:
     """|d(dGW)/dz| (1+z)^2 — detector->source measure; ``z`` has a leading
     λ axis."""
@@ -201,6 +211,9 @@ class HyperLikelihood(nn.Module):
         self.pe_neff = float(pe_neff)
         self.cut_grid = None if cut_grid is None else float(cut_grid)
         self.binning = bool(binning)
+        # the stage-by-stage path: binned, or a model engine the fused
+        # kernels do not evaluate (chimera_tpu/likelihood.py::_fused_eligible)
+        self.staged = self.binning or staged_engines(population)
         self.num_bins = int(num_bins)
         self.chunk_rows = bool(chunk_rows)
         self.register_buffer("z_grids", z_grids.to(theta_gw.dL.dtype))
@@ -218,7 +231,7 @@ class HyperLikelihood(nn.Module):
         self.register_buffer("loc", loc.to(self.z_grids.dtype))  # (E, P)
         if kind != "marginalized":
             return
-        if binning:
+        if self.staged:
             # each sample's pixel: the masked-dense layout (E, P, S)
             self.register_buffer("in_pix", theta_gw.pixels_pe_opt_nside[:, None, :]
                                  == theta_gw.pixels_opt_nsides[:, :, None])
@@ -424,7 +437,7 @@ class HyperLikelihood(nn.Module):
         """Per-event numerator integrals for a λ batch — (L, Nev)."""
         if self.kind == "full":
             return self._numerators_full(pop_b)
-        if self.binning:
+        if self.staged:
             return self._numerators_binned(pop_b)
         if self.kind == "marginalized":
             if self.cut_grid is not None:
@@ -503,10 +516,11 @@ class HyperLikelihood(nn.Module):
     def _kde_to_grid(self, zs: torch.Tensor, ws: torch.Tensor,
                      eff_grids: torch.Tensor) -> torch.Tensor:
         """(..., S) samples and weights -> (..., Nz) densities on the
-        analysis grids: binning, the KDE parameters, one K4 launch over all
-        rows on ``eff_grids`` (broadcast to (..., G)), and with ``cut_grid``
-        the resampling (``likelihood.py:502-527``)."""
-        zs, ws = binning1d(zs, ws, self.num_bins)
+        analysis grids: binning (``binning=True``), the KDE parameters, one
+        K4 launch over all rows on ``eff_grids`` (broadcast to (..., G)), and
+        with ``cut_grid`` the resampling (``likelihood.py:502-527``)."""
+        if self.binning:
+            zs, ws = binning1d(zs, ws, self.num_bins)
         wn, h = kde1d_params(zs, ws, self.bw_method)
         lead, s = zs.shape[:-1], zs.shape[-1]
         eff_grids = eff_grids.expand(*lead, eff_grids.shape[-1])
@@ -520,7 +534,7 @@ class HyperLikelihood(nn.Module):
                               eff_grids[..., -1], dens)
 
     def _numerators_binned(self, pop_b: Population) -> torch.Tensor:
-        """Every kind with ``binning=True`` (``likelihood.py:530-577``):
+        """Every kind on the stage-by-stage path (``likelihood.py:530-577``):
         per-event norms and N_eff gates from the unbinned weights, then the
         KDE per event ('1d', 'approximate') or per (event, pixel) of the
         masked-dense layout ('marginalized': samples outside the pixel at

@@ -1,5 +1,7 @@
-"""FLRW cosmology with the gather-free Chebyshev distance engine
-(counterpart of ``chimera_tpu/models/cosmology.py``).
+"""FLRW cosmology and its modified-propagation form MGFLRW, each with the
+gather-free Chebyshev distance engine or the dense table of the reference
+(``interp_method='table'``) (counterpart of
+``chimera_tpu/models/cosmology.py``).
 
 Every hyper-parameter and table carries a leading λ axis (see
 ``chimera_tpu_torch.pytree``); ``create`` builds the tables for the whole
@@ -32,8 +34,10 @@ class FLRW:
     """w0waCDM FLRW cosmology.  Hyper-parameters H0, Om0, Ok0, Or0, w0, wa
     (each (L,)); Chebyshev state ``cheb_g`` (L, deg) for the comoving
     integral and ``cheb_logh`` (L, deg) on [dgw_lo, dgw_max] for the inverse
-    distance map.  The inverse map's state is float64 in every dtype (see
-    ``z_from_dgw``)."""
+    distance map, float64 in every dtype (see ``z_from_dgw``); or, with
+    ``interp_method='table'``, the table ``int_invE`` (L, Z) of the
+    cumulative 1/E integral on the nodes ``z_grid`` (L, Z) = [0] +
+    logspace(-10, log10 z_max), which both maps interpolate."""
 
     H0: torch.Tensor
     Om0: torch.Tensor
@@ -45,6 +49,8 @@ class FLRW:
     cheb_logh: torch.Tensor | None = None
     dgw_lo: torch.Tensor | None = None
     dgw_max: torch.Tensor | None = None
+    z_grid: torch.Tensor | None = None
+    int_invE: torch.Tensor | None = None
     z_max: float = 10.0
     z_grid_res: int = 1500
     interp_method: str = "chebyshev"
@@ -56,32 +62,38 @@ class FLRW:
     float64_fields: ClassVar[tuple[str, ...]] = ("cheb_logh", "dgw_lo", "dgw_max")
     config_keys: ClassVar[tuple[str, ...]] = (
         "z_max", "z_grid_res", "interp_method", "cheb_deg")
+    # d_GW = Xi(z) d_L with Xi != 1 (MGFLRW)
+    modified_gw: ClassVar[bool] = False
 
     # -- construction -------------------------------------------------------
 
     @classmethod
     def create(cls, *, device=None, dtype=None, **kwargs) -> "FLRW":
-        """Build the model and its Chebyshev tables for every λ at once
+        """Build the model and its distance tables for every λ at once
         (fitted in float64, stored in the model's dtype).  Hyper-parameters
         are scalars or 1-D sequences/tensors (the λ axis)."""
         hyper, config = resolve_params(cls, kwargs, device, dtype)
-        if config["interp_method"] != "chebyshev":
-            raise NotImplementedError(
-                "only interp_method='chebyshev' is ported; the 'table' engine "
-                "is ROADMAP.md §1 item 3")
-        return fit_in_float64(cls(**hyper, **config), FLRW._with_chebyshev_tables)
+        if config["interp_method"] not in ("chebyshev", "table"):
+            raise ValueError(f"unknown interp_method {config['interp_method']!r}")
+        return fit_in_float64(cls(**hyper, **config), FLRW._with_tables)
 
-    def _with_chebyshev_tables(self) -> "FLRW":
-        """Forward fit of G(z) = (1/z) int_0^z dz'/E from Gauss–Legendre
+    def _with_tables(self) -> "FLRW":
+        """The cumulative 1/E table on [0] + logspace(-10, log10 z_max)
+        (cosmology.py:89-94); the 'table' engine keeps it, the Chebyshev
+        engine takes its Newton starting points from it:
+
+        forward fit of G(z) = (1/z) int_0^z dz'/E from Gauss–Legendre
         quadrature, then the inverse fit of log(z/dgw) vs log dgw from three
-        Newton refinements of a table guess (cosmology.py:93-139)."""
+        Newton refinements of a table guess (cosmology.py:95-139)."""
         dtype, device = self.H0.dtype, self.H0.device
-        # table grid: [0] + logspace, only for the Newton starting point
         ends = torch.full((2,), -10.0, dtype=dtype, device=device)
         ends[1] = math.log10(self.z_max)
         zg = torch.cat([torch.zeros(1, dtype=dtype, device=device),
                         logspace(ends[0], ends[1], self.z_grid_res - 1)])
         table = cumtrapz(1.0 / e_at_z(self, zg[None]), zg)        # (L, Z)
+        if self.interp_method == "table":
+            return dataclasses.replace(self, z_grid=zg.expand_as(table),
+                                       int_invE=table)
 
         gl_x, gl_w = gauss_legendre_unit(48, dtype, device)
         z_nodes = cheb_nodes(self.cheb_deg, 0.0, self.z_max, dtype=dtype,
@@ -90,8 +102,7 @@ class FLRW:
             gl_w / e_at_z(self, (z_nodes[:, None] * gl_x)[None]), dim=-1)
         obj = dataclasses.replace(self, cheb_g=chebfit_from_values(g_vals))
 
-        dgw_table = _curvature_transverse(obj, lam(obj.dH, table) * table) \
-            * (1.0 + zg)                                          # (L, Z)
+        dgw_table = _dl_from_table(obj, zg, table)                # (L, Z)
         dgw_max = dgw_table[:, -1]
         dgw_lo = interp(torch.full((), _Z_LO, dtype=dtype, device=device),
                         zg, dgw_table)
@@ -133,6 +144,27 @@ class FLRW:
         return C_LIGHT_KM_S * 1e-3 / self.H0
 
 
+@dataclasses.dataclass(frozen=True)
+class MGFLRW(FLRW):
+    """FLRW with modified GW propagation d_GW = Xi(z) d_L,
+    Xi(z) = Xi0 + (1 - Xi0) (1+z)^-n (cosmology.py:180-195)."""
+
+    Xi0: torch.Tensor = None
+    n: torch.Tensor = None
+
+    name: ClassVar[str] = "mg_flrw"
+    hyper_defaults: ClassVar[dict] = dict(FLRW.hyper_defaults, Xi0=1.0, n=0.0)
+    modified_gw: ClassVar[bool] = True
+
+    def gw_distance_factor(self, z: torch.Tensor) -> torch.Tensor:
+        xi0 = lam(self.Xi0, z)
+        return xi0 + (1.0 - xi0) * torch.pow(1.0 + z, -lam(self.n, z))
+
+    def gw_distance_factor_derivative(self, z: torch.Tensor) -> torch.Tensor:
+        n = lam(self.n, z)
+        return n * (lam(self.Xi0, z) - 1.0) * torch.pow(1.0 + z, -(n + 1.0))
+
+
 # ---------------------------------------------------------------------------
 # Cosmological functions; ``z`` has a leading λ axis of length 1 or L
 # ---------------------------------------------------------------------------
@@ -159,8 +191,21 @@ def _curvature_transverse(cosmo: FLRW, dcr: torch.Tensor) -> torch.Tensor:
                                    (dh / sqrt_ok) * torch.sin(x)))
 
 
+def _dl_from_table(cosmo: FLRW, zg: torch.Tensor, table: torch.Tensor
+                   ) -> torch.Tensor:
+    """GW distance on the table's own nodes ``zg`` (Z,) or (L, Z), from its
+    cumulative 1/E integral ``table`` (L, Z): no lookup."""
+    dgw = _curvature_transverse(cosmo, lam(cosmo.dH, table) * table) * (1.0 + zg)
+    if cosmo.modified_gw:
+        dgw = dgw * cosmo.gw_distance_factor(zg.expand_as(table))
+    return dgw
+
+
 def int_inv_e_at_z(cosmo: FLRW, z: torch.Tensor) -> torch.Tensor:
-    """int_0^z dz'/E = z G(z), G from the Chebyshev fit."""
+    """int_0^z dz'/E: z G(z), G from the Chebyshev fit, or the table
+    interpolated (``interp_method='table'``)."""
+    if cosmo.interp_method == "table":
+        return interp(z, cosmo.z_grid, cosmo.int_invE)
     zc = torch.clamp(z, 0.0, cosmo.z_max)
     return zc * chebeval(cosmo.cheb_g, zc, 0.0, cosmo.z_max)
 
@@ -174,11 +219,18 @@ def transverse_comoving_distance(cosmo: FLRW, z: torch.Tensor) -> torch.Tensor:
 
 
 def _dct(cosmo: FLRW, z: torch.Tensor, distances) -> torch.Tensor:
-    """Transverse comoving distance at z, or from measured GW distances
-    (GR propagation: d_M = d_GW / (1+z))."""
+    """Transverse comoving distance at z, or from measured GW distances,
+    de-modified by Xi(z) first: d_M = d_GW / Xi(z) / (1+z)."""
     if distances is None:
         return transverse_comoving_distance(cosmo, z)
+    if cosmo.modified_gw:
+        distances = distances / cosmo.gw_distance_factor(z)
     return distances / (1.0 + z)
+
+
+def angular_distance(cosmo: FLRW, z: torch.Tensor, distances=None) -> torch.Tensor:
+    """Angular-diameter distance d_M / (1+z) in Gpc."""
+    return _dct(cosmo, z, distances) / (1.0 + z)
 
 
 def comoving_volume(cosmo: FLRW, z: torch.Tensor, distances=None) -> torch.Tensor:
@@ -207,14 +259,21 @@ def differential_comoving_volume(cosmo: FLRW, z: torch.Tensor,
 
 
 def dl_at_z(cosmo: FLRW, z: torch.Tensor) -> torch.Tensor:
-    """GW luminosity distance (1+z) d_M(z)."""
-    return transverse_comoving_distance(cosmo, z) * (1.0 + z)
+    """GW luminosity distance Xi(z) (1+z) d_M(z)."""
+    dgw = transverse_comoving_distance(cosmo, z) * (1.0 + z)
+    if cosmo.modified_gw:
+        dgw = dgw * cosmo.gw_distance_factor(z)
+    return dgw
 
 
 def ddl_dz_at_z(cosmo: FLRW, z: torch.Tensor, distances=None) -> torch.Tensor:
     """d(d_GW)/dz — the Jacobian of the distance-redshift map."""
     dct = _dct(cosmo, z, distances)
-    return dct + (lam(cosmo.dH, z) / e_at_z(cosmo, z)) * (1.0 + z)
+    ddl = dct + (lam(cosmo.dH, z) / e_at_z(cosmo, z)) * (1.0 + z)
+    if cosmo.modified_gw:
+        ddl = (ddl * cosmo.gw_distance_factor(z)
+               + dct * (1.0 + z) * cosmo.gw_distance_factor_derivative(z))
+    return ddl
 
 
 def z_from_dgw(cosmo: FLRW, dgw: torch.Tensor) -> torch.Tensor:
@@ -228,7 +287,13 @@ def z_from_dgw(cosmo: FLRW, dgw: torch.Tensor) -> torch.Tensor:
     dark-siren numerator integrates narrow per-pixel KDEs on coarse z-grids
     and amplifies such a shift some 20 times (a 5e-8 shift of z moved the
     sum of 16 log numerators by 1.8e-5 on a CPU run).  The spectral kernel
-    sums in its working dtype: its likelihood does not feel the shift."""
+    sums in its working dtype: its likelihood does not feel the shift.
+
+    The 'table' engine interpolates the distance table, clamping to its
+    ends like ``jnp.interp``."""
+    if cosmo.interp_method == "table":
+        return interp(dgw, _dl_from_table(cosmo, cosmo.z_grid, cosmo.int_invE),
+                      cosmo.z_grid)
     dt, f64 = dgw.dtype, torch.float64
     lo, hi = cosmo.dgw_lo.to(f64), cosmo.dgw_max.to(f64)
     d = torch.minimum(torch.maximum(dgw, lam(lo.to(dt), dgw)), lam(hi.to(dt), dgw))

@@ -16,11 +16,22 @@ import torch
 from chimera_tpu_torch.catalog import EmptyCatalog, PixelatedCatalog
 from chimera_tpu_torch.data.structs import ThetaInjDet, ThetaPEDet, ThetaSrc
 from chimera_tpu_torch.models import cosmology as cosmo_fns
-from chimera_tpu_torch.models.cosmology import FLRW
-from chimera_tpu_torch.models.mass import BaseMassModel, PowerLawPeak, p_m1m2
-from chimera_tpu_torch.models.rate import MadauDickinsonRate
-from chimera_tpu_torch.ops.integrate import linspace
-from chimera_tpu_torch.pytree import as_batch, batch_size, lam, tensor_map
+from chimera_tpu_torch.models import rate as rate_models
+from chimera_tpu_torch.models.cosmology import FLRW, MGFLRW
+from chimera_tpu_torch.models.mass import MASS_MODELS, BaseMassModel, p_m1m2
+from chimera_tpu_torch.models.rate import BaseRateModel
+from chimera_tpu_torch.ops.integrate import linspace, trapz
+from chimera_tpu_torch.pytree import (as_batch, as_rows, batch_size, expand_lam,
+                                      lam, tensor_map)
+
+# every model of the package by class name, for ``Population.from_state``
+MODELS = {
+    "cosmo": {m.__name__: m for m in (FLRW, MGFLRW)},
+    "mass": MASS_MODELS,
+    "rate": {m.__name__: m for m in (
+        rate_models.PowerLawRate, rate_models.TruncatedPowerLawRate,
+        rate_models.MadauDickinsonRate, rate_models.TruncatedMadauDickinsonRate)},
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,7 +42,7 @@ class Population:
 
     cosmo: FLRW
     mass: BaseMassModel
-    rate: MadauDickinsonRate
+    rate: BaseRateModel
     R0: torch.Tensor
     gal_cat: EmptyCatalog | PixelatedCatalog = dataclasses.field(
         default_factory=EmptyCatalog)
@@ -57,15 +68,13 @@ class Population:
         """Load a population from a ``convert.state_from_reference`` dict."""
         from chimera_tpu_torch.convert import class_name
 
-        models = {m.__name__: m for m in (FLRW, PowerLawPeak, MadauDickinsonRate)}
         parts = {}
-        for part in ("cosmo", "mass", "rate"):
+        for part, models in MODELS.items():
             kind = class_name(state, f"{prefix}{part}.")
-            model = models.get(kind)
-            if model is None:
-                raise NotImplementedError(
-                    f"{part} model {kind} is not ported (ROADMAP.md §1 item 3)")
-            parts[part] = model.from_state(state, f"{prefix}{part}.", device, dtype)
+            if kind not in models:
+                raise ValueError(f"unknown {part} model {kind}")
+            parts[part] = models[kind].from_state(state, f"{prefix}{part}.",
+                                                  device, dtype)
         ref = parts["cosmo"].H0
         cat = class_name(state, f"{prefix}gal_cat.")
         if cat == "PixelatedCatalog":
@@ -90,20 +99,21 @@ class Population:
     def update_batch(self, hyper_batch: dict) -> "Population":
         """λ batch from a dict of equal-length 1-D hyper-parameter arrays."""
         ref = self.cosmo.H0
-        batch = {k: as_batch(v, ref.device, ref.dtype)
-                 for k, v in hyper_batch.items()}
         owned = {"R0", *self.cosmo.hyper_defaults, *self.mass.hyper_defaults,
                  *self.rate.hyper_defaults}
-        unknown = set(batch) - owned
+        unknown = set(hyper_batch) - owned
         if unknown:
             raise ValueError(f"no population model owns {sorted(unknown)}")
+        vector = getattr(self.mass, "vector_hypers", ())
+        batch = {k: (as_rows if k in vector else as_batch)(v, ref.device, ref.dtype)
+                 for k, v in hyper_batch.items()}
         n = batch_size(*batch.values())
         return dataclasses.replace(
             self,
             cosmo=self.cosmo.update_batch(batch, n),
             mass=self.mass.update_batch(batch, n),
             rate=self.rate.update_batch(batch, n),
-            R0=batch["R0"].expand(n) if "R0" in batch else self.R0.expand(n))
+            R0=expand_lam(batch.get("R0", self.R0), n))
 
     def update(self, **hyper) -> "Population":
         """One hyper-parameter sample: a λ batch of 1."""
@@ -164,6 +174,17 @@ def pop_rate_det(pop: Population, theta) -> torch.Tensor:
     return dn / jac
 
 
+def n_cbc_1yr(pop: Population) -> torch.Tensor:
+    """Expected number of CBCs a year per λ, (L,): the trapezoid integral of
+    R0 psi(z) / (1+z) p_bkg(z) over 10 000 points on [0.001, z_max]."""
+    ref = pop.cosmo.H0
+    ends = torch.tensor([0.001, pop.cosmo.z_max], dtype=ref.dtype,
+                        device=ref.device)
+    z = linspace(ends[:1], ends[1:], 10_000)                       # (1, N)
+    dn_dz = pop.rate.rate(z) / (1.0 + z) * pop.gal_cat.p_bkg(pop.cosmo, z)
+    return trapz(lam(pop.R0, dn_dz) * dn_dz, z)
+
+
 # ---------------------------------------------------------------------------
 # Per-event z-grid construction
 # ---------------------------------------------------------------------------
@@ -194,6 +215,12 @@ def compute_z_grids(cosmo: FLRW, theta_det: ThetaPEDet,
              for k in cosmo.hyper_defaults}
     if cosmo_prior is not None:
         prior.update({k: tuple(v) for k, v in cosmo_prior.items()})
+    if cosmo.modified_gw:
+        # a larger Xi0 makes dGW larger at fixed z: the corner that minimizes
+        # z takes the high Xi0, the other the low one; both the high n
+        # (chimera_tpu/models/population.py:171-175)
+        (xi_lo, xi_hi), n_hi = prior["Xi0"], prior["n"][1]
+        prior.update(Xi0=(xi_hi, xi_lo), n=(n_hi, n_hi))
     corners = type(cosmo).create(
         **{k: torch.cat([as_batch(lo, d_l.device, d_l.dtype),
                          as_batch(hi, d_l.device, d_l.dtype)])

@@ -16,6 +16,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from chimera_tpu_torch.ops.interp import interp
 from chimera_tpu_torch.pytree import lam
 
 
@@ -63,6 +64,19 @@ def chebfit_from_values(vals: torch.Tensor) -> torch.Tensor:
     basis_t = _dct_basis_t(n, vals.dtype, vals.device)
     coeffs = (2.0 / n) * torch.matmul(vals.flip(-1), basis_t)
     return torch.cat([0.5 * coeffs[..., :1], coeffs[..., 1:]], dim=-1)
+
+
+def chebfit_from_table(x_table: torch.Tensor, y_table: torch.Tensor, a, b,
+                       n: int) -> torch.Tensor:
+    """Coefficients of a series fitted to a dense, x-ascending table
+    sampled at the n nodes on [a, b] (``chimera_tpu/ops/chebyshev.py::
+    chebfit_from_table``).  The table is 1-D or (L, M) rows; ``a``/``b``
+    floats or (L,) tensors.  Returns (n,) for a 1-D table and float bounds,
+    else (L, n)."""
+    nodes = cheb_nodes(n, a, b, dtype=y_table.dtype, device=y_table.device)
+    if nodes.dim() == 1 and y_table.dim() + x_table.dim() > 2:
+        nodes = nodes[None]
+    return chebfit_from_values(interp(nodes, x_table, y_table))
 
 
 def _clenshaw(coeffs: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

@@ -39,13 +39,21 @@ kernel or raise.  ``fused_weights_kde.launches`` counts K1a launches,
 counts K3 by the forward's mode the same way (``.launches`` on analysis
 grids, ``.launches_b``, ``.launches_c`` stats only, ``.launches_d``).
 
+Models.  The kernels evaluate FLRW and MGFLRW with the Chebyshev engine (the
+same inverse series) and the mass models of ``MASS_KINDS`` with the analytic
+CDF, one library a mass model (``csrc/population.cuh``, CHIMERA_MASS_KIND);
+each model's scalars form its own packed row (``MODEL_SCALARS``,
+``pack_params``).  Anything else raises by name on CUDA tensors.
+
 Gradients.  On CPU tensors every mode is its plain version and autograd
 differentiates it.  On CUDA tensors each K1 launch whose model rows (or
 ``ext_bounds``) require grad sits in a ``torch.autograd.Function`` whose
 backward launches K3 in the same mode and returns gradients for the packed
 rows and ``ext_bounds`` only (the PE data and grids get none: samplers
 differentiate hyper-parameters).  K1e has no adjoint kernel: on CUDA
-tensors that require grad it raises (ROADMAP.md §1 item 15).
+tensors that require grad it raises (ROADMAP.md §1 item 15); nor has
+PowerLawSpline's reverse sweep, whose gradient raises on CUDA tensors in
+every mode (ROADMAP.md §1 item 17).
 """
 
 from __future__ import annotations
@@ -56,18 +64,38 @@ import math
 
 import torch
 
-from chimera_tpu_torch.models.cosmology import FLRW, z_from_dgw
-from chimera_tpu_torch.models.mass import PowerLawPeak, p_m1m2
+from chimera_tpu_torch.models.cosmology import FLRW, MGFLRW, z_from_dgw
+from chimera_tpu_torch.models.mass import BaseMassModel, PowerLawSpline, p_m1m2
 from chimera_tpu_torch.ops.cuda import build
 from chimera_tpu_torch.ops.kde import (MAX_FORM_KERNELS, bw_factor, clip,
                                        var_floor)
 
 STAT_NAMES = ("lo", "ub", "norms", "neff", "bandwidth", "sum_w", "sum_w2")
-# per-λ PowerLawPeak scalars, the kernels' mass row, in the order of the
-# Model constructor (csrc/population.cuh)
+# the mass models the kernels evaluate, by class name: CHIMERA_MASS_KIND of
+# their build (csrc/population.cuh, MassKind)
+MASS_KINDS = {"PowerLawPeak": 0, "TruncatedPowerLaw": 1, "BrokenPowerLaw": 2,
+              "PowerLawTwoPeaks": 3, "PowerLawSpline": 4}
+# per-λ PowerLawPeak scalars, the kernels' mass row, in the order of its
+# MassModel (csrc/population.cuh)
 MASS_SCALARS = ("m_low", "m_high", "alpha", "beta", "delta_m", "lambda_peak",
                 "mu_g", "sigma_g", "peak_norm", "norm_p_m1", "m_join",
                 "cdf_at_join")
+# every model's scalars; PowerLawSpline's row continues with num_knots and
+# its coefficients, padded to _MAX_KNOTS (csrc/population.cuh, kMaxKnots)
+MODEL_SCALARS = {
+    "PowerLawPeak": MASS_SCALARS,
+    "TruncatedPowerLaw": ("m_low", "m_high", "alpha", "beta", "norm_p_m1"),
+    "BrokenPowerLaw": ("m_low", "m_high", "alpha_1", "alpha_2", "beta",
+                       "delta_m", "break_fraction", "norm_p_m1", "m_join",
+                       "cdf_at_join"),
+    "PowerLawTwoPeaks": ("m_low", "m_high", "alpha", "beta", "delta_m",
+                         "lambda_peak", "lambda1", "mu1_g", "sigma1_g", "mu2_g",
+                         "sigma2_g", "peak1_norm", "peak2_norm", "norm_p_m1",
+                         "m_join", "cdf_at_join"),
+    "PowerLawSpline": ("m_low", "m_high", "alpha", "beta", "delta_m",
+                       "norm_p_m1", "m_join", "cdf_at_join"),
+}
+_MAX_KNOTS = 23
 # largest dynamic shared memory a block may opt into on Hopper (227 KB),
 # less room for the kernel's static reduction scratch
 _SMEM_LIMIT = 232448 - 1024
@@ -95,10 +123,14 @@ _K4_TILE = 32
 # or (z, w) pairs and tiles' bounds (K1d) in shared memory (csrc/kde.cuh
 # kStatsWarps)
 _STATS_WARPS = 1
-# the per-λ record of the adjoint kernels' prologue past the mass scalars:
-# the 4 derived mass fields, the (2, 12) Jacobian of the two that carry a
-# cotangent and the reverse sweep's 12 constants (csrc/adjoint.cuh)
-_RECORD_EXTRA = 4 + 2 * 12 + 12
+# the per-λ record of the adjoint kernels' prologue past the mass scalars,
+# by model: its derived fields, their Jacobian in the scalars where they
+# carry a cotangent and the reverse sweep's constants (csrc/adjoint.cuh,
+# kRecordValues): PowerLawPeak's 4 derived fields, (2, 12) Jacobian, 12
+# constants
+_RECORD_EXTRA = {"PowerLawPeak": 4 + 2 * 12 + 12, "TruncatedPowerLaw": 1 + 6,
+                 "BrokenPowerLaw": 4 + 2 * 10 + 10,
+                 "PowerLawTwoPeaks": 6 + 3 * 16 + 14}
 
 
 def plain_budget(t: torch.Tensor) -> int:
@@ -236,20 +268,39 @@ def fused_weights_kde_plain(m1det, m2det, dl, inv_pe_prior, cosmo, mass,
     return den, _stats_dict(torch.cat(stats, dim=1))
 
 
-def pack_params(cosmo: FLRW, mass: PowerLawPeak, n: int, dtype
+def mass_kind(mass: BaseMassModel) -> int:
+    """The mass model's library (CHIMERA_MASS_KIND)."""
+    return MASS_KINDS[type(mass).__name__]
+
+
+def window_degree(mass: BaseMassModel) -> int:
+    """Terms of the window series in the packed row: 0 for a model without
+    one (TruncatedPowerLaw)."""
+    return 0 if mass.cheb_cdf_window is None else mass.window_deg
+
+
+def pack_params(cosmo: FLRW, mass: BaseMassModel, n: int, dtype
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-λ model state as two contiguous rows at the kernels' offsets
     (csrc/population.cuh, Model): the two Chebyshev series in float64,
     (n, cheb_deg + 2 + window_deg) = cheb_logh, dgw_lo, dgw_max,
-    cheb_cdf_window; and the mass scalars in ``dtype``, (n, 12) = the
-    MASS_SCALARS."""
+    cheb_cdf_window (none without a window series); and the mass scalars in
+    ``dtype``, (n, P) = the model's MODEL_SCALARS, for PowerLawSpline then
+    num_knots and the coefficients, zero-padded to _MAX_KNOTS."""
     f64 = torch.float64
-    series = torch.cat([cosmo.cheb_logh.to(f64).expand(n, -1),
-                        cosmo.dgw_lo.to(f64).expand(n)[:, None],
-                        cosmo.dgw_max.to(f64).expand(n)[:, None],
-                        mass.cheb_cdf_window.to(f64).expand(n, -1)], dim=1)
-    cols = [getattr(mass, k).expand(n)[:, None] for k in MASS_SCALARS]
-    return series.contiguous(), torch.cat(cols, dim=1).to(dtype).contiguous()
+    parts = [cosmo.cheb_logh.to(f64).expand(n, -1),
+             cosmo.dgw_lo.to(f64).expand(n)[:, None],
+             cosmo.dgw_max.to(f64).expand(n)[:, None]]
+    if window_degree(mass):
+        parts.append(mass.cheb_cdf_window.to(f64).expand(n, -1))
+    cols = [getattr(mass, k).expand(n)[:, None]
+            for k in MODEL_SCALARS[type(mass).__name__]]
+    if isinstance(mass, PowerLawSpline):
+        c = mass.spline_coeffs.expand(n, -1)
+        cols += [torch.full_like(c[:, :1], float(mass.num_knots)), c,
+                 torch.zeros_like(c[:, :1]).expand(n, _MAX_KNOTS - c.shape[1])]
+    return (torch.cat(parts, dim=1).contiguous(),
+            torch.cat(cols, dim=1).to(dtype).contiguous())
 
 
 def smem_bytes(series: torch.Tensor, sum_size: int, params: torch.Tensor,
@@ -263,7 +314,7 @@ def smem_bytes(series: torch.Tensor, sum_size: int, params: torch.Tensor,
 
 
 def adjoint_scratch(n: int, rows: int, series: torch.Tensor, sum_size: int,
-                    params: torch.Tensor) -> torch.Tensor:
+                    params: torch.Tensor, mass: BaseMassModel) -> torch.Tensor:
     """The adjoint kernels' ``partials`` scratch (K3, K2b): a row of the
     packed rows' gradients per (λ, row), then, on a 16-byte boundary, each
     λ's record of their prologue: the series in the summation type of
@@ -271,7 +322,8 @@ def adjoint_scratch(n: int, rows: int, series: torch.Tensor, sum_size: int,
     (csrc/adjoint.cuh, records_offset and record_bytes)."""
     p = series.shape[1] + params.shape[1]
     record = ((series.shape[1] * sum_size + 15) // 16 * 16
-              + (params.shape[1] + _RECORD_EXTRA) * params.element_size())
+              + (params.shape[1] + _RECORD_EXTRA[type(mass).__name__])
+              * params.element_size())
     return torch.empty((n * rows * p + 1) // 2 * 2 + n * record // 8,
                        dtype=torch.float64, device=params.device)
 
@@ -284,16 +336,26 @@ def on_card(t: torch.Tensor) -> bool:
 
 def check_cuda_call(name: str, cosmo, mass, dl, others: dict) -> None:
     """What every kernel wrapper checks before a launch: CUDA tensors of
-    float32 or float64, FLRW-chebyshev and PowerLawPeak-analytic models, and
-    ``others`` ({name: tensor}) of ``dl``'s shape, dtype and device."""
+    float32 or float64, a cosmology and a mass model the kernels evaluate
+    (FLRW or MGFLRW with the chebyshev engine, a model of MASS_KINDS with
+    the analytic CDF), and ``others`` ({name: tensor}) of ``dl``'s shape,
+    dtype and device."""
     if dl.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dl.device}")
-    if type(cosmo) is not FLRW or cosmo.interp_method != "chebyshev":
+    if type(cosmo) not in (FLRW, MGFLRW) or cosmo.interp_method != "chebyshev":
         raise NotImplementedError(
-            f"{name}: the CUDA kernels cover FLRW with the chebyshev engine")
-    if type(mass) is not PowerLawPeak or mass.cdf_engine != "analytic":
+            f"{name}: the CUDA kernels cover FLRW and MGFLRW with the chebyshev "
+            f"engine, not {type(cosmo).__name__} with "
+            f"interp_method={cosmo.interp_method!r}")
+    kind = type(mass).__name__
+    if kind not in MASS_KINDS or mass.cdf_engine != "analytic":
         raise NotImplementedError(
-            f"{name}: the CUDA kernels cover PowerLawPeak with the analytic CDF")
+            f"{name}: the CUDA kernels cover {', '.join(MASS_KINDS)} with the "
+            f"analytic CDF, not {kind} with cdf_engine={mass.cdf_engine!r}")
+    if isinstance(mass, PowerLawSpline) and mass.num_knots > _MAX_KNOTS:
+        raise NotImplementedError(
+            f"{name}: the CUDA kernels take PowerLawSpline with up to "
+            f"{_MAX_KNOTS} knots, not {mass.num_knots}")
     dt = dl.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"{name} takes float32 or float64, not {dt}")
@@ -311,11 +373,22 @@ def refuse_grad(name: str, why: str, *tensors: torch.Tensor) -> None:
             f"{name} has no backward on CUDA tensors: {why}")
 
 
-def launch(lib_name: str, symbol: str, dtype, device, args) -> None:
-    """Call ``<symbol>_f32`` or ``<symbol>_f64`` of ``csrc/<lib_name>.cu`` on
-    the current stream; each arg is a tensor (its pointer), None (a null
-    pointer), an int or a float.  Raises on a refused launch."""
-    lib = build.load(lib_name)  # nvcc at first use
+def refuse_spline_grad(name: str, mass) -> None:
+    """PowerLawSpline has no reverse sweep on the card: the adjoint wrappers
+    raise, and the forward ones where autograd would record a launch."""
+    if isinstance(mass, PowerLawSpline):
+        raise NotImplementedError(
+            f"{name} has no backward on CUDA tensors: PowerLawSpline's "
+            "gradient on the card is ROADMAP.md §1 item 17")
+
+
+def launch(lib_name: str, symbol: str, dtype, device, args,
+           mass_kind: int = 0) -> None:
+    """Call ``<symbol>_f32`` or ``<symbol>_f64`` of ``csrc/<lib_name>.cu``,
+    built for the mass model ``mass_kind`` (MASS_KINDS), on the current
+    stream; each arg is a tensor (its pointer), None (a null pointer), an
+    int or a float.  Raises on a refused launch."""
+    lib = build.load(lib_name, mass_kind)  # nvcc at first use
     fn = getattr(lib, f"{symbol}_{'f32' if dtype == torch.float32 else 'f64'}")
     fn.argtypes = [ctypes.c_void_p if a is None or isinstance(a, torch.Tensor)
                    else ctypes.c_double if isinstance(a, float) else ctypes.c_int
@@ -354,11 +427,11 @@ def _launch_k1(mode: int, series, params, m1det, m2det, dl, inv_pe_prior,
     launch("fused_kde", "chimera_fused_kde", dt, dl.device,
            [m1det, m2det, dl, inv_pe_prior, grids, ext_bounds, n_real, dl_fill,
             series, params, s1, s2, f1, f2, den, stats, n, b, s, g,
-            cosmo.cheb_deg, mass.window_deg,
+            cosmo.cheb_deg, window_degree(mass),
             0 if logical_s is None else int(logical_s), mode,
             0 if kernel == "epan" else 1, bw_mode, float(bw_value),
             float(cut_grid or 0.0), int(den_scale == "unit"),
-            0 if f1 is None else b // f1.shape[1]])
+            0 if f1 is None else b // f1.shape[1]], mass_kind(mass))
     return den, stats
 
 
@@ -388,8 +461,9 @@ def _checked_rows(name, m1det, m2det, dl, inv_pe_prior, cosmo, mass, n_real,
     n = max(cosmo.L, mass.L)
     series, params = (t.to(dev) for t in pack_params(cosmo, mass, n, dt))
     by_warp = (stats_only or warp_kde) and n_real is not None
+    # the kernels pad the mass scalars to 16 bytes before the tiles' bounds
     row = (s if stats_only and by_warp else 2 * s) \
-        + (2 * -(-s // _TILE_S) if tiles else 0)
+        + (2 * -(-s // _TILE_S) + (-params.shape[1]) % 4 if tiles else 0)
     smem = smem_bytes(series, sum_size, params,
                       (_STATS_WARPS if by_warp else 1) * row)
     if smem > _SMEM_LIMIT:
@@ -410,8 +484,8 @@ def fused_weights_kde(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids=None,
 
     Args:
       m1det, m2det, dl, inv_pe_prior: (B, S) detector-frame PE rows.
-      cosmo, mass: λ-batched ``FLRW`` (chebyshev engine) and
-        ``PowerLawPeak`` (analytic CDF engine).
+      cosmo, mass: λ-batched ``FLRW`` or ``MGFLRW`` (chebyshev engine) and
+        a mass model of ``MASS_KINDS`` (analytic CDF engine).
       grids: (B, G) analysis grids the densities are evaluated on (K1a); or
       cut_grid, n_grid: ``n_grid`` points over [z_min - c σ, z_max + c σ]
         of each (λ, row), lo floored at 1e-8 (K1b); or
@@ -524,8 +598,8 @@ def _checked_contract(contract, n: int, b: int, g: int, dt, dev):
     return tuple(t.contiguous() for t in contract)
 
 
-def unpack_params(cosmo: FLRW, mass: PowerLawPeak, series: torch.Tensor,
-                  params: torch.Tensor) -> tuple[FLRW, PowerLawPeak]:
+def unpack_params(cosmo: FLRW, mass: BaseMassModel, series: torch.Tensor,
+                  params: torch.Tensor) -> tuple[FLRW, BaseMassModel]:
     """The inverse of ``pack_params``: ``cosmo`` and ``mass`` with the
     packed fields replaced by the rows' columns (the other fields, which
     the fused pass does not read, stay)."""
@@ -533,10 +607,14 @@ def unpack_params(cosmo: FLRW, mass: PowerLawPeak, series: torch.Tensor,
     cosmo = dataclasses.replace(
         cosmo, cheb_logh=series[:, :cd], dgw_lo=series[:, cd],
         dgw_max=series[:, cd + 1])
-    mass = dataclasses.replace(
-        mass, cheb_cdf_window=series[:, cd + 2:],
-        **{k: params[:, i] for i, k in enumerate(MASS_SCALARS)})
-    return cosmo, mass
+    names = MODEL_SCALARS[type(mass).__name__]
+    fields = {k: params[:, i] for i, k in enumerate(names)}
+    if window_degree(mass):
+        fields["cheb_cdf_window"] = series[:, cd + 2:]
+    if isinstance(mass, PowerLawSpline):
+        p = len(names) + 1
+        fields["spline_coeffs"] = params[:, p:p + mass.num_knots]
+    return cosmo, dataclasses.replace(mass, **fields)
 
 
 def _mode_of(grids, ext_bounds, stats_only: bool) -> int:
@@ -624,7 +702,7 @@ def fused_weights_kde_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
         ``fused_row_stats`` take it.
 
     Returns d_series (L, cheb_deg + 2 + window_deg) float64 and d_params
-    (L, 12), summed over rows in a fixed order (equal inputs give equal
+    (L, P), P the model's scalars, summed over rows in a fixed order (equal inputs give equal
     bits), and d_ext (L, E, 2), whose slots take the cotangents of the lo,
     ub stats they pass through (None without ``ext_bounds``).  The row
     statistics are differentiated in their safe-math form (variance floored,
@@ -641,6 +719,7 @@ def fused_weights_kde_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
             ct_stats, cosmo, mass, kernel, bw_method, **mode_kw)
     check_cuda_call("fused_weights_kde_adjoint", cosmo, mass, dl,
                     {"m1det": m1det, "m2det": m2det, "inv_pe_prior": inv_pe_prior})
+    refuse_spline_grad("fused_weights_kde_adjoint", mass)
     if kernel not in ("epan", "gauss"):
         raise ValueError(f"unknown KDE kernel {kernel!r}")
     if den_scale not in ("norms", "unit"):
@@ -658,12 +737,13 @@ def fused_weights_kde_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
         raise ValueError("an effective grid takes n_grid >= 2 points")
     else:
         g = int(n_grid)
-    if cosmo.cheb_deg > _ADJOINT_MAX_DEG or mass.window_deg > _ADJOINT_MAX_DEG:
+    wd = window_degree(mass)
+    if cosmo.cheb_deg > _ADJOINT_MAX_DEG or wd > _ADJOINT_MAX_DEG:
         raise ValueError(
             f"the adjoint kernel takes Chebyshev degrees up to {_ADJOINT_MAX_DEG}")
-    expect = {"series": (series, (n, cosmo.cheb_deg + 2 + mass.window_deg),
-                         torch.float64),
-              "params": (params, (n, len(MASS_SCALARS)), dt),
+    n_params = len(MODEL_SCALARS[type(mass).__name__])
+    expect = {"series": (series, (n, cosmo.cheb_deg + 2 + wd), torch.float64),
+              "params": (params, (n, n_params), dt),
               "ct_stats": (ct_stats, (n, e, 8), dt)}
     if mode == _ANALYSIS_GRID:
         expect["grids"] = (grids, (e, g), dt)
@@ -692,7 +772,7 @@ def fused_weights_kde_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
     tiles = -(-g // _GRID_TILE) if mode in (_EFFECTIVE_GRID, _EXTERNAL_BOUNDS) \
         and kernel == "epan" else 0  # K3b's, K3d's pruned phase B: tile bounds
     smem = smem_bytes(series, 8 if dense else dl.element_size(), params,
-                      4 * s + 2 * g + 2 * tiles + _RECORD_EXTRA)
+                      4 * s + 2 * g + 2 * tiles + _RECORD_EXTRA[type(mass).__name__])
     if smem > _SMEM_LIMIT - _ADJOINT_STATIC_SMEM:
         raise ValueError(
             f"S = {s} samples need {smem} bytes of shared memory per block "
@@ -703,17 +783,16 @@ def fused_weights_kde_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
         ext_bounds, n_real, dl_fill, series, params,
         None if mode == _STATS_ONLY else ct_den, ct_stats)]
     partials = adjoint_scratch(n, e, series, 8 if dense else dl.element_size(),
-                               params)
+                               params, mass)
     d_series = torch.empty((n, q), dtype=torch.float64, device=dev)
-    d_params = torch.empty((n, len(MASS_SCALARS)), dtype=dt, device=dev)
+    d_params = torch.empty((n, n_params), dtype=dt, device=dev)
     d_ext = None if ext_bounds is None else torch.empty((n, e, 2), dtype=dt,
                                                         device=dev)
     launch("fused_kde_adjoint", "chimera_fused_kde_adjoint", dt, dev,
            [*inputs, partials, d_series, d_params, d_ext, n, e, s, g,
-            cosmo.cheb_deg, mass.window_deg,
-            0 if logical_s is None else int(logical_s), mode,
-            0 if kernel == "epan" else 1, bw_mode, float(bw_value),
-            float(cut_grid or 0.0), int(den_scale == "unit")])
+            cosmo.cheb_deg, wd, 0 if logical_s is None else int(logical_s),
+            mode, 0 if kernel == "epan" else 1, bw_mode, float(bw_value),
+            float(cut_grid or 0.0), int(den_scale == "unit")], mass_kind(mass))
     counter = {_ANALYSIS_GRID: "launches", _EFFECTIVE_GRID: "launches_b",
                _STATS_ONLY: "launches_c", _EXTERNAL_BOUNDS: "launches_d"}[mode]
     setattr(fused_weights_kde_adjoint, counter,
@@ -769,6 +848,7 @@ def _run_k1(mode, series, params, ext_bounds, cosmo, mass, pe, grids, n_real,
     if torch.is_grad_enabled() and (
             series.requires_grad or params.requires_grad
             or (ext_bounds is not None and ext_bounds.requires_grad)):
+        refuse_spline_grad("fused_weights_kde", mass)
         return _FusedKDE.apply(series, params, ext_bounds, mode, cosmo, mass,
                                kw, *pe, grids, n_real, dl_fill)
     return _launch_k1(mode, series, params, *pe, grids, cosmo, mass,

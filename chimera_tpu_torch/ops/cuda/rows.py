@@ -31,10 +31,11 @@ from chimera_tpu_torch.ops.cuda.fused import (_ADJOINT_MAX_DEG,
                                               _ADJOINT_STATIC_SMEM,
                                               _GRID_TILE, _RECORD_EXTRA,
                                               _SMEM_LIMIT, _TILE_S,
-                                              MASS_SCALARS, check_cuda_call,
-                                              launch, on_card, pack_params,
-                                              plain_budget, smem_bytes,
-                                              unpack_params)
+                                              MODEL_SCALARS, check_cuda_call,
+                                              launch, mass_kind, on_card,
+                                              pack_params, plain_budget,
+                                              refuse_spline_grad, smem_bytes,
+                                              unpack_params, window_degree)
 from chimera_tpu_torch.ops.kde import MAX_FORM_KERNELS
 
 def _rows_per_event(dl, grids) -> int:
@@ -113,7 +114,8 @@ def _launch_k2(series, params, m1det, m2det, dl, inv_pe_prior, grids, hs, s1,
     out = torch.empty((n, e_ev * c, 2), dtype=dt, device=dev)
     launch("rows_contract", "chimera_rows_contract", dt, dev,
            [*inputs, series, params, *rest, out, n, e_ev, c, chunk, g,
-            cosmo.cheb_deg, mass.window_deg, 0 if kernel == "epan" else 1])
+            cosmo.cheb_deg, window_degree(mass), 0 if kernel == "epan" else 1],
+           mass_kind(mass))
     return out
 
 
@@ -148,8 +150,8 @@ def fused_rows_contract(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids,
     Args:
       m1det, m2det, dl, inv_pe_prior: (R, chunk) rows, event-major, R = E * C
         (``data.pixelize.chunk_rows_from_compact``).
-      cosmo, mass: λ-batched ``FLRW`` (chebyshev) and ``PowerLawPeak``
-        (analytic CDF).
+      cosmo, mass: λ-batched ``FLRW`` or ``MGFLRW`` (chebyshev) and a mass
+        model of ``fused.MASS_KINDS`` (analytic CDF).
       grids: (E, G) analysis grids.
       hs: (L, R, 2) per (λ, row) [1/bandwidth, scale]; scale = 0 makes a row
         exactly 0.
@@ -170,6 +172,7 @@ def fused_rows_contract(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids,
     data = (m1det, m2det, dl, inv_pe_prior, grids)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (series, params, hs, f1, f2)):
+        refuse_spline_grad("fused_rows_contract", mass)
         out = _RowsContract.apply(series, params, hs, f1, f2, cosmo, mass,
                                   kernel, dims, *data, s1, s2)
     else:
@@ -228,7 +231,7 @@ def fused_rows_contract_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
       cosmo, mass: the models the rows were packed from.
 
     Returns d_series (L, cheb_deg + 2 + window_deg) float64 and d_params
-    (L, 12), summed over the events in a fixed order (equal inputs give
+    (L, P), P the model's scalars, summed over the events in a fixed order (equal inputs give
     equal bits); d_hs (L, R, 2), the cotangents of 1/h and of the scale;
     d_f1, d_f2 (L, E, G).  The PE data, grids, s1 and s2 get none.  A row
     that r has as an exact zero (scale 0, or no weight) gets zero
@@ -242,20 +245,24 @@ def fused_rows_contract_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
     e_ev, c, chunk, g, n = _check_rows_call(
         "fused_rows_contract_adjoint", m1det, m2det, dl, inv_pe_prior, cosmo,
         mass, grids, hs, s1, s2, f1, f2, kernel)
+    refuse_spline_grad("fused_rows_contract_adjoint", mass)
     dt, dev = dl.dtype, dl.device
-    q = cosmo.cheb_deg + 2 + mass.window_deg
-    if cosmo.cheb_deg > _ADJOINT_MAX_DEG or mass.window_deg > _ADJOINT_MAX_DEG:
+    wd = window_degree(mass)
+    q = cosmo.cheb_deg + 2 + wd
+    if cosmo.cheb_deg > _ADJOINT_MAX_DEG or wd > _ADJOINT_MAX_DEG:
         raise ValueError(
             f"the adjoint kernel takes Chebyshev degrees up to {_ADJOINT_MAX_DEG}")
+    n_params = len(MODEL_SCALARS[type(mass).__name__])
     for key, t, shape, dtype in (
             ("series", series, (n, q), torch.float64),
-            ("params", params, (n, len(MASS_SCALARS)), dt),
+            ("params", params, (n, n_params), dt),
             ("ct_r", ct_r, (n, e_ev * c, 2), dt)):
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev:
             raise ValueError(f"{key} must be {shape} {dtype} on {dev}")
     # the λ's record, (z, w) and (dz, dw) of the row's samples, the grid
     # with its c_g, f1, f2 and their cotangents, the pruned passes' tiles
-    smem = smem_bytes(series, 8, params, 4 * chunk + 7 * g + _RECORD_EXTRA
+    smem = smem_bytes(series, 8, params, 4 * chunk + 7 * g
+                      + _RECORD_EXTRA[type(mass).__name__]
                       + 2 * (-(-chunk // _TILE_S) - (-g // _GRID_TILE)))
     if smem > _SMEM_LIMIT - _ADJOINT_STATIC_SMEM:
         raise ValueError(
@@ -263,16 +270,16 @@ def fused_rows_contract_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
             f"per block, over the {_SMEM_LIMIT - _ADJOINT_STATIC_SMEM}-byte limit")
     inputs = [t.contiguous() for t in (m1det, m2det, dl, inv_pe_prior, grids,
                                        series, params, hs, s1, s2, f1, f2, ct_r)]
-    partials = adjoint_scratch(n, e_ev, series, 8, params)
+    partials = adjoint_scratch(n, e_ev, series, 8, params, mass)
     d_series = torch.empty((n, q), dtype=torch.float64, device=dev)
-    d_params = torch.empty((n, len(MASS_SCALARS)), dtype=dt, device=dev)
+    d_params = torch.empty((n, n_params), dtype=dt, device=dev)
     d_hs = torch.empty((n, e_ev * c, 2), dtype=dt, device=dev)
     d_f1 = torch.empty((n, e_ev, g), dtype=dt, device=dev)
     d_f2 = torch.empty((n, e_ev, g), dtype=dt, device=dev)
     launch("rows_contract_adjoint", "chimera_rows_contract_adjoint", dt, dev,
            [*inputs, partials, d_series, d_params, d_hs, d_f1, d_f2, n, e_ev, c,
-            chunk, g, cosmo.cheb_deg, mass.window_deg,
-            0 if kernel == "epan" else 1])
+            chunk, g, cosmo.cheb_deg, wd, 0 if kernel == "epan" else 1],
+           mass_kind(mass))
     fused_rows_contract_adjoint.launches += 1
     return d_series, d_params, d_hs, d_f1, d_f2
 

@@ -26,11 +26,16 @@ def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
 
 
 def _interp_rows(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
-    """x (R, K), xp/fp (R, M) with each xp row ascending."""
+    """x (R, K), xp/fp (R, M) with each xp row ascending.  The table is read
+    by indexing, whose backward accumulates by a sorted ``index_put_`` (as
+    ``uniform_interp``'s): many points of one interval give the same
+    gradient bits in every run on CUDA too, where ``gather``'s backward
+    adds by atomics."""
     m = xp.shape[-1]
     i = torch.searchsorted(xp, x, right=True).clamp(1, m - 1)
-    xp_lo, xp_hi = xp.gather(1, i - 1), xp.gather(1, i)
-    fp_lo, fp_hi = fp.gather(1, i - 1), fp.gather(1, i)
+    r = torch.arange(x.shape[0], device=x.device)[:, None]
+    xp_lo, xp_hi = xp[r, i - 1], xp[r, i]
+    fp_lo, fp_hi = fp[r, i - 1], fp[r, i]
     dx = xp_hi - xp_lo
     eps = float(np.spacing(np.finfo(
         np.float64 if xp.dtype == torch.float64 else np.float32).eps))

@@ -57,7 +57,7 @@ def tensor_map(obj: Any, fn: Callable[[torch.Tensor], torch.Tensor]) -> Any:
 
 def expand_batch(obj: Any, n: int) -> Any:
     """Broadcast an L = 1 model to a λ batch of n (views, no copies)."""
-    return tensor_map(obj, lambda t: t.expand((n,) + tuple(t.shape[1:])))
+    return tensor_map(obj, lambda t: expand_lam(t, n))
 
 
 def fit_in_float64(model: Any, build: Callable[[Any], Any]) -> Any:
@@ -84,12 +84,25 @@ def resolve_params(cls, kwargs: dict, device, dtype) -> tuple[dict, dict]:
         raise TypeError(f"unknown {cls.name} parameters: {sorted(unknown)}")
     device = resolve_device(device)
     dtype = dtype or default_dtype(device)
-    hyper = {k: as_batch(kwargs.get(k, d), device, dtype)
+    vector = getattr(cls, "vector_hypers", ())
+    hyper = {k: as_batch(kwargs.get(k, d), device, dtype) if k not in vector
+             else as_rows(kwargs[k], device, dtype)
              for k, d in cls.hyper_defaults.items()}
     n = batch_size(*hyper.values())
     defaults = {f.name: f.default for f in dataclasses.fields(cls)}
-    return ({k: v.expand(n) for k, v in hyper.items()},
+    return ({k: expand_lam(v, n) for k, v in hyper.items()},
             {k: kwargs.get(k, defaults[k]) for k in cls.config_keys})
+
+
+def as_rows(value: Any, device, dtype) -> torch.Tensor:
+    """A vector hyper-parameter (a sequence, or rows of them) -> (L, K)."""
+    t = torch.as_tensor(value, dtype=dtype, device=device)
+    return t[None] if t.dim() == 1 else t
+
+
+def expand_lam(t: torch.Tensor, n: int) -> torch.Tensor:
+    """Broadcast a field's λ axis (of length 1 or n) to n, as a view."""
+    return t.expand((n,) + tuple(t.shape[1:]))
 
 
 def update_batch(model, batch: dict, n: int):
@@ -98,7 +111,7 @@ def update_batch(model, batch: dict, n: int):
     relevant = {k: v for k, v in batch.items() if k in model.hyper_defaults}
     if not relevant:
         return expand_batch(model, n) if model.L != n else model
-    params = {k: getattr(model, k).expand(n) for k in model.hyper_defaults}
+    params = {k: expand_lam(getattr(model, k), n) for k in model.hyper_defaults}
     params.update(relevant)
     ref = next(iter(params.values()))
     return type(model).create(

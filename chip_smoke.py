@@ -40,7 +40,20 @@ paths end to end through the entry points a user calls:
   refreshes its flush keeps (beside the bound on every weighted sample's),
   a gradient call that must raise;
 * phase 28, the ensemble sampler (32 walkers in H0, Om0, two half-steps of
-  16 a step) on the spectral headline (K1a) and on 'full' (K5).
+  16 a step) on the spectral headline (K1a) and on 'full' (K5);
+* phase 29, every kernel in every mode with each mass model beside
+  PowerLawPeak (TruncatedPowerLaw, BrokenPowerLaw, PowerLawTwoPeaks,
+  PowerLawSpline: each a library of its own, CHIMERA_MASS_KIND) at 64
+  events against its plain version, float32 gradients against float64,
+  PowerLawSpline's gradient refused;
+* phases 30-32, the other population models and engines at full width:
+  MGFLRW + BrokenPowerLaw + PowerLawRate on the spectral headline (K1a,
+  K3), PowerLawTwoPeaks + TruncatedMadauDickinsonRate on the dark flagship
+  (K1c + K2, K3c + K2b), both 'table' engines unbinned on the spectral
+  headline (K4 on the raw rows, K4b, each against its plain version and
+  timed; HMC twice for equal bits) and on the dark flagship's per-pixel
+  rows, each timed forward and value-and-gradient, float32 log L and
+  d log L / dλ against float64.
 
 Each likelihood path checks float32 against float64, elementwise against the
 repo's 1e-6 bar or, binned, against BINNED_F32_BAR (the precision mocks:
@@ -60,6 +73,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -71,6 +85,7 @@ import torch
 
 SEED = 20261016
 PARITY_DARK = Path(__file__).resolve().parent / "tests" / "data" / "f32_parity_dark.npz"
+GRAD_SPECTRAL = Path(__file__).resolve().parent / "tests" / "data" / "f32_grad_spectral.npz"
 DEV = torch.device("cuda", 0)
 F32, F64 = torch.float32, torch.float64
 # published peaks of one H100 SXM at 700 W (NVIDIA's H100 data sheet): HBM
@@ -124,6 +139,30 @@ REFERENCE_F32_GAP = {"1d": 1.2995178314968518e-07,
 BINNED_F32_BAR = {k: max(1e-6, 2.0 * REFERENCE_F32_GAP[k])
                   for k in ("1d", "marginalized")}
 FULL_F32_BAR = min(1e-6, 2.0 * REFERENCE_F32_GAP["full"])
+# The float32 gradient bar of the spectral configurations on
+# tests/data/f32_grad_spectral.npz (``grad_cases``: phase 29's spectral
+# paths of each mass model with a card gradient, phases 30 and 32's
+# models): d log L / dλ held to max(1e-2, 2 x the JAX package's own
+# float32-vs-float64 gap of its jax.grad on the same data and points, as
+# measured by
+# `PYTHONPATH=. python tests/test_torch_f32_parity.py --reference-grad-gap`).
+# An event's log numerator is piecewise smooth in λ (the Epanechnikov
+# kernel's support edges, the resampling's nodes): where a kink lies within
+# float32 rounding of a point, float32 and float64 take different one-sided
+# slopes.
+REFERENCE_F32_GRAD_GAP = {
+    "TruncatedPowerLaw spectral": 0.005744014319988896,
+    "TruncatedPowerLaw spectral_cut": 0.0015705056511772398,
+    "BrokenPowerLaw spectral": 0.0036521558130975396,
+    "BrokenPowerLaw spectral_cut": 0.001082054846655325,
+    "PowerLawTwoPeaks spectral": 0.001341921672713701,
+    "PowerLawTwoPeaks spectral_cut": 0.00033370365994347663,
+    "MGFLRW + BrokenPowerLaw": 0.006859269493858738,
+    # the JAX package's float32 jax.grad is NaN at points 2 and 3 (and at
+    # H0 = 68, 70, 72 with Om0 = 0.25 alone): the port's own float32 path
+    # with K4 and K4b replaced by their plain versions sets the bar
+    # (``grad_case_f32``)
+    "table engines": float("nan")}
 # the spectral float32 precision mock (``mock``'s arguments): the shape of
 # tests/test_f32_parity.py::test_f32_loglike_parity, 64 events x 1024
 # samples x 300-point grids, 200 000 generated injections
@@ -171,25 +210,32 @@ def med_mad(xs: list[float]) -> tuple[float, float]:
     return med, statistics.median(abs(x - med) for x in xs)
 
 
-def population(dtype, gal_cat=None, device=None):
-    from chimera_tpu_torch.models import (FLRW, MadauDickinsonRate, Population,
-                                          PowerLawPeak)
+def population(dtype, gal_cat=None, device=None, cfg=None):
+    """FLRW (H0 = 70, Om0 = 0.25), PowerLawPeak and Madau-Dickinson, or the
+    models ``cfg`` names: {"cosmo" | "mass" | "rate": (class name, create's
+    keywords)}."""
+    from chimera_tpu_torch import models
+    from chimera_tpu_torch.models import Population
 
     device = DEV if device is None else device
-    return Population.create(
-        FLRW.create(H0=70.0, Om0=0.25, device=device, dtype=dtype),
-        PowerLawPeak.create(device=device, dtype=dtype),
-        MadauDickinsonRate.create(device=device, dtype=dtype), gal_cat=gal_cat)
+    cfg = {"cosmo": ("FLRW", {}), "mass": ("PowerLawPeak", {}),
+           "rate": ("MadauDickinsonRate", {}), **(cfg or {})}
+    made = {part: getattr(models, name).create(
+        **({"H0": 70.0, "Om0": 0.25} if part == "cosmo" else {}), **kw,
+        device=device, dtype=dtype) for part, (name, kw) in cfg.items()}
+    return Population.create(made["cosmo"], made["mass"], made["rate"],
+                             gal_cat=gal_cat)
 
 
-def mock(n_events, n_samples, n_inj, z_res, oversample, seed, device=None):
+def mock(n_events, n_samples, n_inj, z_res, oversample, seed, device=None,
+         cfg=None):
     """Port-generated float64 mock catalog, injections and z-grids, drawn on
-    the card (or ``device``) at H0 = 70."""
+    the card (or ``device``) at H0 = 70 from ``population(cfg=cfg)``."""
     from chimera_tpu_torch.data.mock import make_mock_catalog, make_mock_injections
     from chimera_tpu_torch.models import compute_z_grids
 
     device = DEV if device is None else device
-    pop = population(F64, device=device)
+    pop = population(F64, device=device, cfg=cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     cat = make_mock_catalog(gen, pop, n_events=n_events, n_samples=n_samples,
                             snr_threshold=12.0, oversample=oversample)
@@ -200,15 +246,16 @@ def mock(n_events, n_samples, n_inj, z_res, oversample, seed, device=None):
     return cat, inj, n_gen, z_grids
 
 
-def likelihood(data, dtype, kernel="epan", **config):
-    """The spectral likelihood of a mock; unbinned on the analysis grids
-    unless ``config`` says otherwise."""
+def likelihood(data, dtype, kernel="epan", cfg=None, **config):
+    """The spectral likelihood of a mock (``population(cfg=cfg)``'s models);
+    unbinned on the analysis grids unless ``config`` says otherwise."""
     from chimera_tpu_torch import HyperLikelihood, SelectionFunction
 
     cat, inj, n_gen, z_grids = data
     config = {"binning": False, "cut_grid": None, **config}
     return HyperLikelihood.create(cat, z_grids,
-                                  population(dtype, device=z_grids.device),
+                                  population(dtype, device=z_grids.device,
+                                             cfg=cfg),
                                   SelectionFunction.create(inj, n_gen),
                                   kernel=kernel, **config)
 
@@ -457,26 +504,30 @@ def parity_dark_mock(device):
     return cat, arr("zg"), gal_cat, inj, float(d["n_gen"])
 
 
-def dark_likelihood(data, dtype, **config):
-    """The dark-siren likelihood of a mock; 'marginalized', unbinned on the
-    analysis grids unless ``config`` says otherwise."""
+def dark_likelihood(data, dtype, cfg=None, **config):
+    """The dark-siren likelihood of a mock (``population(cfg=cfg)``'s
+    models); 'marginalized', unbinned on the analysis grids unless
+    ``config`` says otherwise."""
     from chimera_tpu_torch import HyperLikelihood, SelectionFunction
 
     cat, z_grids, gal_cat, inj, n_gen = data
     config = {"kind": "marginalized", "binning": False, "cut_grid": None,
               **config}
     return HyperLikelihood.create(cat, z_grids,
-                                  population(dtype, gal_cat, z_grids.device),
+                                  population(dtype, gal_cat, z_grids.device,
+                                             cfg),
                                   SelectionFunction.create(inj, n_gen), **config)
 
 
 def dark_kernel_inputs(hl, h0s):
-    """The two kernels' inputs on the main path for an H0 batch: the stats
-    pass's arguments, and the rows pass's with (1/h, scale) from the plain
-    stats (both kernels are compared on the same inputs)."""
+    """The two kernels' inputs on the main path for an H0 batch (or a batch
+    {name: values}): the stats pass's arguments, and the rows pass's with
+    (1/h, scale) from the plain stats (both kernels are compared on the
+    same inputs)."""
     from chimera_tpu_torch.ops.cuda.fused import fused_row_stats_plain
 
-    pop_b = hl.population.update_batch({"H0": h0s})
+    pop_b = hl.population.update_batch(h0s if isinstance(h0s, dict)
+                                       else {"H0": h0s})
     stats_args = (hl.pix_m1det, hl.pix_m2det, hl.pix_dL, hl.pix_inv_pe_prior,
                   pop_b.cosmo, pop_b.mass, hl.pix_n_real, hl.pix_dl_fill,
                   hl.n_samples, 2.0)
@@ -1422,8 +1473,8 @@ def mode_inputs(hl, mode: str, lam: dict, seed: int, kernel=None,
     likelihood's data at the batch ``lam``, on the data's device, with
     random cotangents: the stats pass of the logical pixel rows
     ('stats_logical') or of the events ('stats', lo and ub cotangents
-    included), the events' effective grids ('auto'), the pixel rows on the
-    events' bounds ('ext', unit mass); ``n_grid`` points (the likelihood's
+    included), the events' analysis grids ('input'), their effective grids
+    ('auto'), the pixel rows on the events' bounds ('ext', unit mass); ``n_grid`` points (the likelihood's
     by default) and ``kernel`` (the likelihood's by default).  A dead pixel
     row's bandwidth and bounds are rounding noise: they get no cotangent."""
     from chimera_tpu_torch.ops.cuda.fused import fused_row_stats_plain, pack_params
@@ -1438,7 +1489,10 @@ def mode_inputs(hl, mode: str, lam: dict, seed: int, kernel=None,
               "logical_s": hl.n_samples}
     else:
         data, kw = ev, {}
-    if mode in ("stats_logical", "stats"):
+    if mode == "input":  # the analysis grids (K3)
+        n_grid = hl.z_grids.shape[1]
+        kw["n_grid"] = n_grid
+    elif mode in ("stats_logical", "stats"):
         kw.update(cut_grid=2.0, stats_only=True)
     elif mode == "auto":
         kw.update(cut_grid=2.0, n_grid=n_grid)
@@ -1455,7 +1509,11 @@ def mode_inputs(hl, mode: str, lam: dict, seed: int, kernel=None,
     if "n_real" in kw:
         for slot in (0, 1, 4):
             ct_stats[:, kw["n_real"] == 0, slot] = 0.0
-    return (*data, None, series, params, ct_den, ct_stats, pop_b.cosmo,
+    grids = None
+    if mode == "input":
+        grids = hl.z_grids
+        del kw["n_grid"]
+    return (*data, grids, series, params, ct_den, ct_stats, pop_b.cosmo,
             pop_b.mass, kernel or hl.kernel), kw
 
 
@@ -2409,7 +2467,7 @@ K4B_TERM_OPS = ADJ_KDE_OPS + 2
 K1E_GRID_OPS = 4
 
 
-def contract_likelihood(data, dtype):
+def contract_likelihood(data, dtype, cfg=None):
     """The dark-siren likelihood of a mock on the contract path:
     'marginalized', unbinned, cut_grid=None, on a per-pixel layout without
     chunk rows (``chunk_rows=False``, as a JAX object whose ``compact`` has
@@ -2418,7 +2476,7 @@ def contract_likelihood(data, dtype):
 
     cat, z_grids, gal_cat, inj, n_gen = data
     return HyperLikelihood._create(
-        cat, z_grids, population(dtype, gal_cat, z_grids.device),
+        cat, z_grids, population(dtype, gal_cat, z_grids.device, cfg),
         SelectionFunction.create(inj, n_gen), kind="marginalized",
         kernel="epan", bw_method=None, cut_grid=None, binning=False,
         num_bins=200, pe_neff=2.0, chunk_rows=False)
@@ -3213,6 +3271,550 @@ def ensemble(smi: str, full, hl_full, k5: dict) -> dict:
     return k5
 
 
+# ---------------------------------------------------------------------------
+# every population model and engine (phases 29-32)
+# ---------------------------------------------------------------------------
+
+# each mass model beside PowerLawPeak: create's keywords, the
+# hyper-parameter a phase-29 batch varies beside H0, and its 4 values
+MASS_MODELS = {
+    "TruncatedPowerLaw": ({}, "alpha", (2.2, 2.5, 2.8, 3.1)),
+    "BrokenPowerLaw": ({}, "alpha_1", (1.3, 1.6, 1.9, 2.2)),
+    "PowerLawTwoPeaks": ({}, "mu2_g", (60.0, 66.0, 70.0, 74.0)),
+    "PowerLawSpline": ({"num_knots": 10, "spline_coeffs": [
+        0.3, -0.2, 0.5, 0.1, -0.4, 0.2, 0.0, 0.3, -0.1, 0.2]},
+        "alpha", (3.0, 3.3, 3.6, 3.9)),
+}
+MODEL_H0S = (62.0, 68.0, 72.0, 78.0)
+# the three full-width configurations of phases 30-32
+MG_HEADLINE = {"cosmo": ("MGFLRW", {"Xi0": 1.5, "n": 2.0}),
+               "mass": ("BrokenPowerLaw", {}), "rate": ("PowerLawRate", {})}
+# the truncation at z = 4 lies beyond the dark mock's events (z <= 2.5)
+TWO_PEAKS_DARK = {"mass": ("PowerLawTwoPeaks", {}),
+                  "rate": ("TruncatedMadauDickinsonRate", {"zmax": 4.0})}
+TABLES = {"cosmo": ("FLRW", {"interp_method": "table"}),
+          "mass": ("PowerLawPeak", {"cdf_engine": "table"})}
+
+
+# the points of phases 30 and 32's float32 gradient holds on the committed
+# spectral mock
+MG_POINTS = {"H0": (70.0, 72.0, 74.0, 76.0), "Xi0": (1.5, 1.45, 1.55, 1.5),
+             "alpha_1": (1.55, 1.6, 1.65, 1.7)}
+TABLE_POINTS = {"H0": (64.0, 68.0, 72.0, 76.0), "Om0": (0.22, 0.25, 0.27, 0.3)}
+
+
+def grad_cases() -> dict:
+    """The spectral configurations whose float32 d log L / dλ is held on
+    tests/data/f32_grad_spectral.npz against REFERENCE_F32_GRAD_GAP: {name:
+    (``population``'s cfg, cut_grid, {parameter: 4 points})}, phase 29's
+    (each mass model with a card gradient, analysis grids and cut_grid=2.0)
+    and phases 30 and 32's (MG_HEADLINE, TABLES)."""
+    cases = {}
+    for model in ("TruncatedPowerLaw", "BrokenPowerLaw", "PowerLawTwoPeaks"):
+        kw, key, values = MASS_MODELS[model]
+        for path, cut in (("spectral", None), ("spectral_cut", 2.0)):
+            cases[f"{model} {path}"] = ({"mass": (model, kw)}, cut,
+                                        {"H0": MODEL_H0S, key: values})
+    cases["MGFLRW + BrokenPowerLaw"] = (MG_HEADLINE, None, MG_POINTS)
+    cases["table engines"] = (TABLES, 2.0, TABLE_POINTS)
+    return cases
+
+
+def grad_bar(case: str) -> float:
+    """The float32 gradient bar of a ``grad_cases`` case with a JAX gap."""
+    return max(1e-2, 2.0 * REFERENCE_F32_GRAD_GAP[case])
+
+
+def model_batch(model: str, dtype) -> dict:
+    """Phase 29's batch of 4: H0 and the model's own hyper-parameter."""
+    _, key, values = MASS_MODELS[model]
+    return {"H0": torch.tensor(MODEL_H0S, device=DEV, dtype=dtype),
+            key: torch.tensor(values, device=DEV, dtype=dtype)}
+
+
+def grad_spectral_mock(device):
+    """Phase 29's spectral data, tests/data/f32_grad_spectral.npz (the
+    port's mock of 64 events x 1024 samples, 100 000 generated injections,
+    500-point grids, drawn on the CPU from SEED + 29, as
+    tests/test_torch_f32_parity.py writes it): ``mock``'s tuple on
+    ``device`` in float64."""
+    import numpy as np
+
+    from chimera_tpu_torch.data.structs import ThetaInjDet, ThetaPEDet
+
+    d = np.load(GRAD_SPECTRAL)
+
+    def arr(key):
+        return torch.as_tensor(d[key], device=device, dtype=F64)
+
+    return (ThetaPEDet(m1det=arr("m1"), m2det=arr("m2"), dL=arr("dl"),
+                       pe_prior=arr("prior")),
+            ThetaInjDet(m1det=arr("im1"), m2det=arr("im2"), dL=arr("idl"),
+                        p_draw=arr("ipd")),
+            float(d["n_gen"]), arr("zg"))
+
+
+def points(centre: dict, scale: dict, n: int, dtype, seed: int) -> torch.Tensor:
+    """(n, k) points of the hyper-parameters ``centre`` names, scattered by
+    ``scale`` from a fixed seed."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    noise = torch.randn((n, len(centre)), generator=gen, device=DEV, dtype=F64)
+    c = torch.tensor(list(centre.values()), device=DEV, dtype=F64)
+    s = torch.tensor([scale[k] for k in centre], device=DEV, dtype=F64)
+    return (c + s * noise).to(dtype)
+
+
+def named_value_and_grad(hl, names, x: torch.Tensor):
+    """log L (n,) and d log L / dλ (n, k) at the points ``x`` of ``names``."""
+    x = x.detach().requires_grad_()
+    ll = hl.log_like_batch({p: x[:, i] for i, p in enumerate(names)})
+    return ll.detach(), torch.autograd.grad(ll.sum(), x)[0]
+
+
+def float32_hold(name: str, fn, plain, args, kw) -> str:
+    """A float32 backward kernel and its float32 plain version on the same
+    inputs, each against the float64 plain version: each output's largest
+    error relative to its row's largest float64 entry, the kernel's held to
+    max(1e-3, 2 x the float32 plain version's own), the bar of K3d's d_ext
+    in ``grad_compare``: where a sum cancels (the distance bounds'
+    cotangents, a sum over every sample), no float32 evaluation of it meets
+    1e-3."""
+    got, own = fn(*args, **kw), plain(*args, **kw)
+    args64, kw64 = in_float64(args, kw)
+    exact = plain(*args64, **kw64)
+    torch.cuda.synchronize(DEV)
+    tiny = torch.finfo(F32).tiny
+    k_max = p_max = 0.0
+    for i, (g, p, x) in enumerate(zip(got, own, exact)):
+        if g is None:
+            continue
+        k_err, p_err = row_rel(g, x, tiny), row_rel(p, x, tiny)
+        bar = max(1e-3, 2.0 * p_err)
+        if not (torch.all(torch.isfinite(g)) and k_err <= bar):
+            raise AssertionError(f"{name} float32 output {i}: {k_err:.3e} of "
+                                 f"the row max from float64 (bar {bar:.3e}; "
+                                 f"the float32 plain version {p_err:.3e})")
+        k_max, p_max = max(k_max, k_err), max(p_max, p_err)
+    return f"{name} {k_max:.2e} (plain {p_max:.2e})"
+
+
+def paths(hl, hl_b, hl_d, hl_dc):
+    """Phase 29's four unbinned paths by name."""
+    return (("spectral", hl), ("spectral_cut", hl_b), ("dark", hl_d),
+            ("dark_cut", hl_dc))
+
+
+def x_of(lam: dict) -> torch.Tensor:
+    """The (n, k) points of a batch {name: (n,)}."""
+    return torch.stack(list(lam.values()), dim=1)
+
+
+def model_backward_calls(hl, lam: dict, k3, k2b) -> list:
+    """The backward kernels' calls of one value-and-gradient call of ``hl``
+    at the batch ``lam`` (every entry differentiated): [(kernel id, (fn,
+    plain, (args, kw)))] with K3 named by its mode."""
+    from chimera_tpu_torch.ops.cuda import fused, rows
+
+    out = []
+
+    def run():
+        x = {k: v.detach().clone().requires_grad_() for k, v in lam.items()}
+        ll = hl.log_like_batch(x)
+        torch.autograd.grad(ll.sum(), list(x.values()))
+
+    def k2b_calls():
+        out.extend(("K2b", (*k2b, c)) for c in
+                   calls_of(rows, "fused_rows_contract_adjoint", run))
+
+    out.extend((k3_id(c[1]), (*k3, c)) for c in
+               calls_of(fused, "fused_weights_kde_adjoint", k2b_calls))
+    return out
+
+
+def model_modes(smi: str) -> None:
+    """Phase 29: each mass model beside PowerLawPeak (its own library of
+    every kernel) at 64 events (the spectral paths on
+    tests/data/f32_grad_spectral.npz), L = 4 in H0 and one of its own
+    hyper-parameters: K1a, K1b, K1c, K1d, K1e and K2 on the inputs each
+    path hands them, K3 in the modes of K1a, K1b, K1c (logical and event
+    rows) and K1d and K2b on random cotangents, against their plain
+    versions on the bars of PERF.md §2, the backward kernels in float64;
+    in float32 d log L / dλ of each path against float64 (1e-2, or 2 x
+    the JAX package's own gap, REFERENCE_F32_GRAD_GAP) and each backward
+    kernel on its path's cotangents (``float32_hold``); PowerLawSpline's
+    gradient raises on the card (ROADMAP.md §1 item 17)."""
+    from chimera_tpu_torch.ops.cuda.fused import (fused_weights_kde_adjoint,
+                                                  fused_weights_kde_adjoint_plain)
+    from chimera_tpu_torch.ops.cuda.rows import (fused_rows_contract_adjoint,
+                                                 fused_rows_contract_adjoint_plain)
+
+    k3 = (fused_weights_kde_adjoint, fused_weights_kde_adjoint_plain)
+    k2b = (fused_rows_contract_adjoint, fused_rows_contract_adjoint_plain)
+    t0 = time.perf_counter()
+    spec64 = grad_spectral_mock(DEV)
+    dark64, _ = dark_mock(64, 1024, 15, 500, 100_000, 10_000, SEED + 7)
+    for model, (kw, _, _) in MASS_MODELS.items():
+        cfg = {"mass": (model, kw)}
+        g64 = {}  # each path's float64 d log L / dλ
+        for dtype, tol, stat_tol, gtol in ((F64, 1e-10, 1e-10, 1e-9),
+                                           (F32, 1e-4, 1e-5, 1e-3)):
+            lam = model_batch(model, dtype)
+            err = {}
+            hl = likelihood(spec64, dtype, cfg=cfg)
+            args, kwa = captured("fused_weights_kde", lambda: hl.log_like_batch(lam))
+            err["K1a"] = compare(args, tol, stat_tol, **kwa)[0]
+            hl_b = likelihood(spec64, dtype, cfg=cfg, cut_grid=2.0)
+            args, kwa = captured("fused_weights_kde",
+                                 lambda: hl_b.log_like_batch(lam))
+            err["K1b"] = compare(args, tol, tol, **kwa)[0]
+            hl_d = dark_likelihood(dark64, dtype, cfg)
+            stats_args, rows_args = dark_kernel_inputs(hl_d, lam)
+            err["K1c"], _, err["K2"], _ = dark_compare(
+                stats_args, rows_args, stat_tol, tol)
+            hl_dc = dark_likelihood(dark64, dtype, cfg, cut_grid=2.0)
+            args, kwa = captured("fused_weights_kde",
+                                 lambda: hl_dc.log_like_batch(lam))
+            err["K1d"] = compare(args, tol, tol, min_live=0.3, **kwa)[0]
+            args, kwa = contract_inputs(contract_likelihood(dark64, dtype, cfg), lam)
+            err["K1e"] = contract_compare(args, kwa, tol, tol)[0]
+            if model == "PowerLawSpline":
+                x = {k: v.clone().requires_grad_() for k, v in lam.items()}
+                try:
+                    hl.log_like_batch(x)
+                except NotImplementedError as e:
+                    if "item 17" not in str(e):
+                        raise
+                    grads = "gradient refused on the card (ROADMAP.md §1 item 17)"
+                else:
+                    raise AssertionError("PowerLawSpline: a gradient call did "
+                                         "not raise on the card")
+            elif dtype == F64:
+                for kid, (a, k) in (
+                        ("K3", mode_inputs(hl, "input", lam, SEED + 29)),
+                        ("K3b", mode_inputs(hl_b, "auto", lam, SEED + 29)),
+                        ("K3c", mode_inputs(hl_d, "stats_logical", lam, SEED + 29)),
+                        ("K3c", mode_inputs(hl_d, "stats", lam, SEED + 29)),
+                        ("K3d", mode_inputs(hl_dc, "ext", lam, SEED + 29)),
+                        ("K2b", (rows_inputs(hl_d, lam, SEED + 29), {}))):
+                    fn, plain = k2b if kid == "K2b" else k3
+                    rel, _ = grad_compare(kid, fn, plain, a, k, gtol)
+                    err[kid] = max(err.get(kid, 0.0), rel)
+                for name, path in paths(hl, hl_b, hl_d, hl_dc):
+                    g64[name] = named_value_and_grad(path, list(lam), x_of(lam))[1]
+                grads = f"gradients (tol {gtol:.0e} of each row's max)"
+            else:
+                # float32 gradients against float64: d log L / dλ of each
+                # path (of each parameter's largest slope), held to 1e-2
+                # (§2's Epanechnikov bar) or, on the spectral paths, to
+                # 2 x the JAX package's own gap on the same data where
+                # wider (REFERENCE_F32_GRAD_GAP); each backward kernel on
+                # the cotangents its path's backward hands it (float32_hold)
+                held = []
+                for name, path in paths(hl, hl_b, hl_d, hl_dc):
+                    g32 = named_value_and_grad(path, list(lam), x_of(lam))[1]
+                    rel = column_rel(g32, g64[name])
+                    case = f"{model} {name}"
+                    bar = grad_bar(case) if case in REFERENCE_F32_GRAD_GAP else 1e-2
+                    if not (torch.all(torch.isfinite(g32)) and rel <= bar):
+                        raise AssertionError(
+                            f"{model} {name}: float32 d log L/dλ {rel:.3e} "
+                            f"from float64 (bar {bar:.3e})")
+                    held.append(f"{name} d log L/dλ {rel:.2e} (bar {bar:.2e})")
+                    for kid, (fn, plain, call) in model_backward_calls(
+                            path, lam, k3, k2b):
+                        held.append(f"{name} {float32_hold(kid, fn, plain, *call)}")
+                grads = ("float32 gradients against float64, held (of each "
+                         "parameter's or row's largest; kernels to max(1e-3, "
+                         "2 x the float32 plain version's)): " + ", ".join(held))
+            phase(29, f"{model} {dtype}", "kernel vs plain, max err: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+                  + f"; forward tol {tol:.0e}, {grads} [{smi}]")
+    phase(29, "seconds", f"{time.perf_counter() - t0:.1f} s [{smi}]")
+
+
+def grad_f32_vs_f64(make, data, names, x: torch.Tensor, bar: float = 1e-2
+                    ) -> float:
+    """Phases 30-32: d log L / dλ at the points ``x`` of ``names`` of the
+    likelihood ``make(data, dtype)`` on 64 events, float32 against float64,
+    held to ``bar`` of each parameter's largest slope (phase 12's check,
+    §2's Epanechnikov bar 1e-2 or ``grad_bar``)."""
+    _, g32 = named_value_and_grad(make(data, F32), names, x.float())
+    _, g64 = named_value_and_grad(make(data, F64), names, x.double())
+    rel = column_rel(g32, g64)
+    if not rel <= bar:
+        raise AssertionError(f"float32 d log L/d{names} {rel:.3e} from float64 "
+                             f"(bar {bar:.3e})")
+    return rel
+
+
+def grad_case_f32(case: str) -> tuple[float, float]:
+    """A ``grad_cases`` case on tests/data/f32_grad_spectral.npz, float32
+    against float64, held to its ``grad_bar``, or where the JAX package's
+    float32 gradient is NaN (the 'table' engines) to max(1e-2, 2 x the gap
+    of the same path with K4 and K4b replaced by their plain versions, the
+    path's only kernels): (rel, bar)."""
+    from chimera_tpu_torch import likelihood as module
+    from chimera_tpu_torch.ops.cuda.kde import kde1d_grid_plain
+
+    cfg, cut, batch = grad_cases()[case]
+    x = torch.tensor(list(batch.values()), device=DEV, dtype=F64).T
+    data = grad_spectral_mock(DEV)
+
+    def make(d, dt):
+        return likelihood(d, dt, cfg=cfg, cut_grid=cut)
+
+    if math.isnan(REFERENCE_F32_GRAD_GAP[case]):
+        real = module.kde1d_grid
+        module.kde1d_grid = kde1d_grid_plain
+        try:
+            _, g32 = named_value_and_grad(make(data, F32), list(batch), x.float())
+            _, g64 = named_value_and_grad(make(data, F64), list(batch), x)
+        finally:
+            module.kde1d_grid = real
+        bar = max(1e-2, 2.0 * column_rel(g32, g64))
+    else:
+        bar = grad_bar(case)
+    return grad_f32_vs_f64(make, data, list(batch), x, bar), bar
+
+
+def table_kernels(smi: str, name: str, hl, names, x: torch.Tensor,
+                  timed: bool = False) -> None:
+    """Phase 32: K4 on the raw rows of the 'table' engines (no binning) and
+    K4b on the cotangents of a value-and-gradient call at the points ``x``
+    of ``names``, each against its plain version on the same inputs (§2's
+    bars: float64 1e-10 and 1e-9, float32 1e-4 and 1e-3), with their
+    shared memory a block; ``timed``, their ms per call, plain ms and bound
+    at this shape."""
+    from chimera_tpu_torch.ops.cuda import kde
+    from chimera_tpu_torch.ops.cuda.fused import _K4_TILE, _K4B_TILE
+    from chimera_tpu_torch.ops.cuda.kde import (kde1d_grid, kde1d_grid_adjoint,
+                                                kde1d_grid_adjoint_plain,
+                                                kde1d_grid_plain)
+
+    f64 = x.dtype == F64
+    tol, gtol = (1e-10, 1e-9) if f64 else (1e-4, 1e-3)
+    batch = {p: x[:, i] for i, p in enumerate(names)}
+    args, kw = captured("kde1d_grid", lambda: hl.log_like_batch(batch))
+    k_rel, k_abs = kde_compare(args, kw, tol)
+    a_args, a_kw = calls_of(kde, "kde1d_grid_adjoint",
+                            lambda: named_value_and_grad(hl, names, x))[-1]
+    b_rel, b_abs = grad_compare("K4b", kde1d_grid_adjoint,
+                                kde1d_grid_adjoint_plain, a_args, a_kw, gtol)
+    (b, s), g = args[0].shape, args[2].shape[1]
+    smem = (2 * s + 2 * -(-s // _K4_TILE)) * args[0].element_size()
+    smem_b = 16 * (s + g + -(-s // _K4B_TILE) + -(-g // _K4B_TILE))
+    msg = (f"{b} rows x {s} samples x {g} grid, {x.dtype}: K4 vs plain "
+           f"{k_rel:.3e} of the row max (tol {tol:.0e}, {k_abs:.3e} abs), "
+           f"{smem} B of shared memory a block; K4b vs plain on the path's "
+           f"cotangents {b_rel:.3e} of each row's max (tol {gtol:.0e}, "
+           f"{b_abs:.3e} abs), {smem_b} B")
+    if timed:
+        reps = 17
+        k4_ms = statistics.median(cuda_ms(lambda: kde1d_grid(*args, **kw), reps))
+        k4_plain = cuda_ms(lambda: kde1d_grid_plain(*args, **kw), 1)[0]
+        pairs = k4_pairs(args)
+        k4_bound_ms, k4_by = k4_bound(args, pairs)
+        k4b_ms = statistics.median(cuda_ms(
+            lambda: kde1d_grid_adjoint(*a_args, **a_kw), reps))
+        k4b_plain = cuda_ms(lambda: kde1d_grid_adjoint_plain(*a_args, **a_kw),
+                            1)[0]
+        pairs_b = k4b_pairs(a_args)
+        k4b_bound_ms, k4b_by = k4b_bound(a_args, pairs_b)
+        msg += (f"; per call (median of {reps}): K4 {k4_ms:.4f} ms, plain "
+                f"{k4_plain:.3f} ms, bound {k4_bound_ms:.4f} ms ({k4_by}; "
+                f"live terms {pairs['live']} of {pairs['all']}, the pruned "
+                f"loop evaluates {pairs[f'tiled{_K4_TILE}']}); K4b "
+                f"{k4b_ms:.4f} ms, plain {k4b_plain:.3f} ms, bound "
+                f"{k4b_bound_ms:.4f} ms ({k4b_by}; the pruned sweeps evaluate "
+                f"{pairs_b[f'union{_K4B_TILE}']} of {pairs_b['all']})")
+    phase(32, f"table engines, {name}: K4 and K4b on raw rows", f"{msg} [{smi}]")
+
+
+def population_models(smi: str, full, dark_data) -> None:
+    """Phases 30-32: the three full-width configurations of the other
+    population models and engines, float32, L = 16:
+
+    * 30: the spectral headline (1000 x 4096 x 500) drawn from MGFLRW (Xi0
+      = 1.5, n = 2) + BrokenPowerLaw + PowerLawRate: the forward batch (one
+      K1a), a value-and-gradient call in (H0, Xi0, alpha_1) (one K1a, one
+      K3), each timed; float32 vs float64 log L on the precision mock of the
+      same population; the float64 gradient in (H0, Xi0, n, alpha_1) on the
+      card against the CPU's on 8 of its events;
+    * 31: the dark flagship's data with PowerLawTwoPeaks +
+      TruncatedMadauDickinsonRate: the forward batch (K1c + K2), a
+      value-and-gradient call in (H0, lambda1, mu2_g) (K3c + K2b), timed;
+      float32 vs float64 on the dark precision mock;
+    * 32: both 'table' engines, unbinned with cut_grid=2.0, on the spectral
+      headline's data: the forward batch (one K4 on the raw rows of 4 096
+      samples), a value-and-gradient call (one K4, one K4b) repeated for
+      equal bits, timed; K4 and K4b against their plain versions on those
+      calls' inputs in float32 and float64, timed with their bounds; HMC,
+      16 chains in (H0, Om0), 4 + 4 steps, twice for equal bits; float32
+      vs float64 on the spectral precision mock; then the dark flagship's
+      data ('marginalized', the per-pixel rows of the masked-dense layout):
+      timed, K4 and K4b against their plain versions in float32, float32
+      vs float64 on the dark precision mock.
+
+    Phases 30 and 32 hold their models' float32 d log L / dλ to float64's
+    on tests/data/f32_grad_spectral.npz (``grad_case_f32``), phase 31 on 64
+    events of the dark flagship's shape at 1e-2 (``grad_f32_vs_f64``)."""
+    from chimera_tpu_torch.inference import sample_hyperposterior
+
+    t_all = time.perf_counter()
+    reps, n = 17, 16
+
+    def timing(num, name, hl, names, x, launches, grad_launches):
+        batch = {p: x[:, i] for i, p in enumerate(names)}
+        counted(lambda: hl.log_like_batch(batch), launches)
+        (ll, g), _ = counted(lambda: named_value_and_grad(hl, names, x),
+                             grad_launches)
+        if not (torch.all(torch.isfinite(ll)) and torch.all(torch.isfinite(g))):
+            raise AssertionError(f"{name}: non-finite log L or gradient: "
+                                 f"{ll.tolist()}, {g.tolist()}")
+        fwd = cuda_ms(lambda: hl.log_like_batch(batch), reps)
+        vg = cuda_ms(lambda: named_value_and_grad(hl, names, x), reps)
+        f_med, f_mad = med_mad([t / n for t in fwd])
+        g_med, g_mad = med_mad([t / n for t in vg])
+        phase(num, f"timing {name}", f"[{smi}] per λ over {reps} batches of "
+              f"{n}: forward {f_med:.4f} ± {f_mad:.4f} ms (launches "
+              f"{launches}), value and gradient in {names} {g_med:.4f} ± "
+              f"{g_mad:.4f} ms (launches {grad_launches}) (median ± MAD)")
+        return g
+
+    # ---- 30. MGFLRW + BrokenPowerLaw + PowerLawRate, spectral headline ---
+    t0 = time.perf_counter()
+    mg = mock(1000, 4096, 2_000_000, 500, 200, SEED + 30, cfg=MG_HEADLINE)
+    hl = likelihood(mg, F32, cfg=MG_HEADLINE)
+    setup = time.perf_counter() - t0
+    names = ["H0", "Xi0", "alpha_1"]
+    x = points({"H0": 70.0, "Xi0": 1.5, "alpha_1": 1.6},
+               {"H0": 3.0, "Xi0": 0.05, "alpha_1": 0.05}, n, F32, SEED + 30)
+    timing(30, "MGFLRW + BrokenPowerLaw", hl, names, x, {"K1a": 1},
+           {"K1a": 1, "K3": 1})
+    del hl
+    del mg
+    g32_rel, g32_bar = grad_case_f32("MGFLRW + BrokenPowerLaw")
+    prec = mock(*PRECISION_MOCK[:5], SEED + 31, cfg=MG_HEADLINE)
+    h0s7 = torch.linspace(58.0, 100.0, 7, device=DEV)
+    hl64 = likelihood(prec, F64, cfg=MG_HEADLINE)
+    rel, diff, n_fin = f32_vs_f64(hl64, likelihood(prec, F32, cfg=MG_HEADLINE), h0s7)
+    names4 = ["H0", "Xi0", "n", "alpha_1"]
+    x4 = points({"H0": 70.0, "Xi0": 1.5, "n": 2.0, "alpha_1": 1.6},
+                {"H0": 3.0, "Xi0": 0.05, "n": 0.1, "alpha_1": 0.05}, 2, F64,
+                SEED + 32)
+    cut = likelihood(cut_events(prec, 8), F64, cfg=MG_HEADLINE)
+    (_, g_card), _ = counted(lambda: named_value_and_grad(cut, names4, x4),
+                             {"K1a": 1, "K3": 1})
+    _, g_cpu = named_value_and_grad(copy.deepcopy(cut).to("cpu"), names4, x4.cpu())
+    g_rel = column_rel(g_card.cpu(), g_cpu)
+    if not g_rel <= 1e-9:
+        raise AssertionError(f"MGFLRW gradient: card vs CPU {g_rel:.3e} (tol 1e-9)")
+    phase(30, "MGFLRW + BrokenPowerLaw", f"1000 x 4096 x 500 drawn from the "
+          f"model (Xi0 = 1.5, n = 2), setup {setup:.1f} s; float32 vs float64 "
+          f"log L on the precision mock: max rel err {rel:.3e} (bar 1e-6), max "
+          f"abs {diff:.3e} over {n_fin} of 7 H0 values; d log L/d{names} on "
+          f"{GRAD_SPECTRAL.name} at {MG_POINTS}, float32 vs float64 "
+          f"{g32_rel:.3e} of each parameter's largest slope (bar "
+          f"{g32_bar:.3e}); d log L/d(H0, Xi0, n, "
+          f"alpha_1) on 8 events, float64, card (K1a + K3) vs CPU autograd "
+          f"{g_rel:.3e} of each parameter's largest slope (tol 1e-9) [{smi}]")
+    del prec, hl64, cut
+
+    # ---- 31. PowerLawTwoPeaks + TruncatedMadauDickinson, dark flagship ---
+    hl = dark_likelihood(dark_data, F32, TWO_PEAKS_DARK)
+    names = ["H0", "lambda1", "mu2_g"]
+    x = points({"H0": 70.0, "lambda1": 0.5, "mu2_g": 68.0},
+               {"H0": 3.0, "lambda1": 0.05, "mu2_g": 1.0}, n, F32, SEED + 33)
+    timing(31, "PowerLawTwoPeaks + TruncatedMadauDickinson", hl, names, x,
+           {"K1c": 1, "K2": 1}, {"K1c": 1, "K2": 1, "K3c": 1, "K2b": 1})
+    del hl
+    dark64, _ = dark_mock(64, 1024, 15, 500, 100_000, 10_000, SEED + 7)
+    g32_rel = grad_f32_vs_f64(lambda d, dt: dark_likelihood(d, dt, TWO_PEAKS_DARK),
+                              dark64, names, x)
+    del dark64
+    par = parity_dark_mock(DEV)
+    rel, diff, n_fin = f32_vs_f64(dark_likelihood(par, F64, TWO_PEAKS_DARK),
+                                  dark_likelihood(par, F32, TWO_PEAKS_DARK), h0s7)
+    phase(31, "PowerLawTwoPeaks + TruncatedMadauDickinson", f"dark flagship "
+          f"data; float32 vs float64 log L on {PARITY_DARK.name}: max rel err "
+          f"{rel:.3e} (bar 1e-6), max abs {diff:.3e} over {n_fin} of 7 H0 "
+          f"values; d log L/d{names} on 64 events of the dark flagship's "
+          f"shape, float32 vs float64 {g32_rel:.3e} of each parameter's "
+          f"largest slope (tol 1e-2) [{smi}]")
+    del par
+
+    # ---- 32. the 'table' engines on the spectral headline ----------------
+    hl = likelihood(full, F32, cfg=TABLES, cut_grid=2.0)
+    names = ["H0", "Om0"]
+    x = points({"H0": 70.0, "Om0": 0.25}, {"H0": 3.0, "Om0": 0.02}, n, F32,
+               SEED + 34)
+    g = timing(32, "table engines", hl, names, x, {"K4": 1},
+               {"K4": 1, "K4b": 1})
+    _, again = named_value_and_grad(hl, names, x)
+    if not torch.equal(g, again):
+        raise AssertionError("table engines: a second gradient call gave "
+                             "other bits")
+    table_kernels(smi, "spectral", hl, names, x, timed=True)
+    bounds = {"H0": BOUNDS["H0"], "Om0": BOUNDS["Om0"]}
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        samples, stats = sample_hyperposterior(
+            torch.Generator(device=DEV).manual_seed(SEED + 35), hl, names,
+            bounds, {"H0": 70.0, "Om0": 0.25}, n_chains=n, n_warmup=4,
+            n_samples=4, n_leapfrog=2, init_step_size=0.03)
+        torch.cuda.synchronize(DEV)
+        seconds = time.perf_counter() - t0
+        for p in names:
+            if not torch.all(torch.isfinite(samples[p])):
+                raise AssertionError(f"table engines HMC: {p} not finite")
+        runs.append(samples)
+    if not all(torch.equal(runs[0][p], runs[1][p]) for p in names):
+        raise AssertionError("table engines HMC: a second run under the same "
+                             "generator seed gave other samples")
+    del hl
+    hl64 = likelihood(full, F64, cfg=TABLES, cut_grid=2.0)
+    table_kernels(smi, "spectral", hl64, names, x.double())
+    del hl64
+    g_rel, g_bar = grad_case_f32("table engines")
+    prec = mock(*PRECISION_MOCK)
+    rel, diff, n_fin = f32_vs_f64(likelihood(prec, F64, cfg=TABLES, cut_grid=2.0),
+                                  likelihood(prec, F32, cfg=TABLES, cut_grid=2.0),
+                                  h0s7)
+    del prec
+    phase(32, "table engines", f"interp_method='table', cdf_engine='table', "
+          f"binning=False, cut_grid=2.0 on the spectral headline's data: "
+          f"float32 vs float64 log L on the precision mock: max rel err "
+          f"{rel:.3e} (bar 1e-6), max abs {diff:.3e} over {n_fin} of 7 H0 "
+          f"values; d log L/d{names} on {GRAD_SPECTRAL.name} at "
+          f"{TABLE_POINTS}, float32 vs float64 {g_rel:.3e} of each "
+          f"parameter's largest slope (bar {g_bar:.3e}); "
+          f"gradient equal bits on a "
+          f"second call; HMC {n} chains x (4 warm-up + 4 sampling steps, 2 "
+          f"leapfrog steps) in {names}, {seconds:.2f} s a run, equal bits on "
+          f"a second run, accept {float(stats['accept'].mean()):.2f}, H0 mean "
+          f"{float(samples['H0'].mean()):.2f} [{smi}]")
+
+    # ---- 32. the per-pixel layout of 'marginalized' with the tables ------
+    hl = dark_likelihood(dark_data, F32, TABLES, cut_grid=2.0)
+    timing(32, "table engines, marginalized", hl, names, x, {"K4": 1},
+           {"K4": 1, "K4b": 1})
+    table_kernels(smi, "marginalized", hl, names, x, timed=True)
+    del hl
+    par = parity_dark_mock(DEV)
+    rel, diff, n_fin = f32_vs_f64(
+        dark_likelihood(par, F64, TABLES, cut_grid=2.0),
+        dark_likelihood(par, F32, TABLES, cut_grid=2.0), h0s7)
+    del par
+    phase(32, "table engines, marginalized", f"the dark flagship's data, "
+          f"unbinned cut_grid=2.0, the (event, pixel) rows of the masked-dense "
+          f"layout: float32 vs float64 log L on {PARITY_DARK.name}: max rel "
+          f"err {rel:.3e} (bar 1e-6), max abs {diff:.3e} over {n_fin} of 7 H0 "
+          f"values [{smi}]")
+    phase(32, "seconds", f"phases 30-32 {time.perf_counter() - t_all:.1f} s "
+          f"[{smi}]")
+
+
 # The adjoint kernel in the tree it is run from, on the main paths' own
 # cotangents, ms per call: K3 on analysis grids at the spectral headline
 # (the samplers' backward); the stats-only mode on the same rows (phases A,
@@ -3688,13 +4290,19 @@ def main() -> None:
 
     from chimera_tpu_torch.ops.cuda import build
 
-    # ---- 2. kernel builds, one nvcc per source, in parallel --------------
+    # ---- 2. kernel builds, one nvcc per source and mass model, in parallel
+    from chimera_tpu_torch.ops.cuda.fused import MASS_KINDS
+
     t0 = time.perf_counter()
-    names = ["fused_kde", "rows_contract", "fused_kde_adjoint",
-             "rows_contract_adjoint", "kde1d", "kde3d"]
-    with ThreadPoolExecutor(len(names)) as pool:
-        list(pool.map(build.load, names))
-    for name in names:
+    libs = [(name, kind) for name in ("fused_kde", "rows_contract",
+                                      "fused_kde_adjoint",
+                                      "rows_contract_adjoint")
+            for model, kind in MASS_KINDS.items()
+            if "adjoint" not in name or model != "PowerLawSpline"]
+    libs += [("kde1d", 0), ("kde3d", 0)]
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: build.load(*lib), libs))
+    for name in (build.lib_name(*lib) for lib in libs):
         info = build.build_info.get(name, {})
         ptxas = [ln.split("ptxas info    :")[-1].strip()
                  for ln in info.get("log", "").splitlines()
@@ -3713,6 +4321,9 @@ def main() -> None:
                binned_gradients(smi, full, dark_data)]
     k5, hl_full = full_path(smi, dark_data)
     kernels.append(ensemble(smi, full, hl_full, k5))
+    del hl_full
+    model_modes(smi)
+    population_models(smi, full, dark_data)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

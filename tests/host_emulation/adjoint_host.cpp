@@ -13,7 +13,7 @@
 // kernels' layout of their scratch (host_adjoint_scratch); K3b with phase
 // B's full loop (its pruned loop's oracle), phase B's pair sums alone on
 // given samples and grid (host_slot_pair_sums), and a tally of the tiles
-// the pruned loop skips.  Built by tests/test_torch_host_emulation.py.
+// the pruned loop skips.  Built by the host-emulation tests (tests/host_harness.py).
 #include <algorithm>
 #include <vector>
 

@@ -1,7 +1,7 @@
 // The adjoint kernels' device functions instantiated as the kernels
 // instantiate them, with the card's blocks (population.cuh: DeviceBlock of
 // 8 or 4 warps, WarpBlock), for a syntax check by g++
-// (tests/test_torch_host_emulation.py): the host emulations run them with a
+// (tests/test_torch_host_card.py): the host emulations run them with a
 // block of one thread only, whose members every block does not have.  Each
 // mode and KDE kernel of K3 (fused_kde_adjoint.cu, K3c's logical rows a
 // warp a row), K4 and K4b (kde1d.cu), K1e and K1d (fused_kde.cu, K1d's

@@ -16,7 +16,7 @@
 // logical rows in the block-a-row layout (K1c's: that the warp's sums
 // replay, its kThreads ranks and their warps emulated one by one, the
 // replay's oracle; K1d's: that block's sums, then the pruned loop).  Built
-// by tests/test_torch_host_emulation.py.
+// by the host-emulation tests (tests/host_harness.py).
 #include <array>
 #include <vector>
 

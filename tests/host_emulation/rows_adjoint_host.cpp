@@ -7,8 +7,9 @@
 // first and the events' gradients summed in event order in double.  Same
 // C interfaces as the kernels', without the scratch buffer and the stream;
 // besides, K2 and K2b with the full loops (the pruned loops' oracle), the
-// kernels' z(dL) and a tally of the tiles the loops skip.
-// Built by tests/test_torch_host_emulation.py.
+// kernels' z(dL) and a tally of the tiles the loops skip.  Built once a
+// mass model (CHIMERA_MASS_KIND, population.cuh) by the host-emulation
+// tests; PowerLawSpline's build (4) has K2 only, as its kernels.
 #include <vector>
 
 #include "host_block.h"
@@ -19,6 +20,7 @@ namespace {
 // the tiles that the pruned passes tested and skipped (host_tile_tally)
 long long g_tally[2] = {0, 0};
 
+#if CHIMERA_MASS_KIND != 4  // K2b: every model but PowerLawSpline
 template <typename T, int KERNEL, bool PRUNE>
 void run_kernel(const RowsAdjointArgs<T>& a, double* d_series, T* d_params) {
   using T2 = typename Pair<T>::type;
@@ -54,6 +56,7 @@ void run_kernel(const RowsAdjointArgs<T>& a, double* d_series, T* d_params) {
       d_params[(size_t)l * kMassScalars + i] = T(total[Q + i]);
   }
 }
+#endif
 
 // K2: per (lambda, event) the kernel's sweep of the event's rows
 // (rows_contract_event) with a block of one thread; PRUNE false: the full
@@ -89,6 +92,7 @@ void contract(const T* m1, const T* m2, const T* dl, const T* invp,
   else run_contract<T, 1, false>(a);
 }
 
+#if CHIMERA_MASS_KIND != 4
 // prune = false: the full loops, the pruned passes' oracle
 template <typename T>
 void run(const T* m1, const T* m2, const T* dl, const T* invp, const T* grids,
@@ -103,8 +107,11 @@ void run(const T* m1, const T* m2, const T* dl, const T* invp, const T* grids,
   else if (kernel == 0) run_kernel<T, 0, false>(a, d_series, d_params);
   else run_kernel<T, 1, false>(a, d_series, d_params);
 }
+#endif
 
 }  // namespace
+
+#if CHIMERA_MASS_KIND != 4
 
 extern "C" void host_rows_contract_adjoint_f32(
     const float* m1, const float* m2, const float* dl, const float* invp,
@@ -131,6 +138,7 @@ extern "C" void host_rows_contract_adjoint_f64(
               d_series, d_params, d_hs, d_f1, d_f2, L, E, C, chunk, G, cd, wd,
               kernel);
 }
+#endif
 
 // K2 (rows_contract.cu's C interface, without the stream), and K2 with the
 // full loop, the pruned loop's oracle
@@ -148,6 +156,7 @@ ROWS_CONTRACT(double, host_rows_contract_f64, true)
 ROWS_CONTRACT(float, host_rows_contract_unpruned_f32, false)
 ROWS_CONTRACT(double, host_rows_contract_unpruned_f64, false)
 
+#if CHIMERA_MASS_KIND != 4
 // K2b with the full loops of both passes, the pruned passes' oracle
 #define ROWS_UNPRUNED(T, NAME)                                               \
   extern "C" void NAME(                                                      \
@@ -163,6 +172,7 @@ ROWS_CONTRACT(double, host_rows_contract_unpruned_f64, false)
   }
 ROWS_UNPRUNED(float, host_rows_contract_adjoint_unpruned_f32)
 ROWS_UNPRUNED(double, host_rows_contract_adjoint_unpruned_f64)
+#endif
 
 // z(dL) of n distances as K2b computes them (Model<T, double>::z_from_dgw),
 // from one lambda's packed rows

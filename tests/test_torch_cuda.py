@@ -6,7 +6,8 @@ binned defaults), K3 in the modes of K1b, K1c and K1d and the
 rows-contraction adjoint K2b (the dark-siren and effective-grid
 gradients), the contract pass K1e and K4's adjoint K4b (the binned
 gradient), the 3-D lattice KDE K5 of kind 'full' and the ensemble sampler
-on it.
+on it; the other population models through their own builds of the
+kernels and the 'table' engines (K4 on raw rows, K4b).
 
 Every test here needs a CUDA card and nvcc (marker ``cuda``) and skips
 without one.  The file imports no JAX, so it runs on a machine without it:
@@ -1081,3 +1082,128 @@ def test_ensemble_repeats_bit_for_bit(cuda, full_cpu_hl):
         assert torch.all((x >= lo) & (x <= hi))
     assert torch.equal(first["coords"], second["coords"])
     assert torch.equal(first["log_prob"], second["log_prob"])
+
+
+# ---------------------------------------------------------------------------
+# the other population models and engines
+# ---------------------------------------------------------------------------
+
+# each mass model beside PowerLawPeak: the hyper-parameter a batch varies
+# beside H0, and its values
+OTHER_MASS = {"TruncatedPowerLaw": ("alpha", [2.2, 2.5, 2.9]),
+              "BrokenPowerLaw": ("alpha_1", [1.3, 1.6, 2.0]),
+              "PowerLawTwoPeaks": ("mu2_g", [60.0, 68.0, 72.0]),
+              "PowerLawSpline": ("alpha", [3.0, 3.4, 3.8])}
+
+
+def _with_models(inputs, mass=None, cosmo=None):
+    """The inputs with the population's mass model (and cosmology) swapped
+    for ``mass`` / ``cosmo``, built on the CPU."""
+    cat, z_grids, pop, sel = inputs
+    new = Population.create(cosmo or pop.cosmo, mass or pop.mass, pop.rate,
+                            gal_cat=pop.gal_cat)
+    return cat, z_grids, new, sel
+
+
+@pytest.mark.parametrize("kind", ["1d", "marginalized"])
+@pytest.mark.parametrize("model", list(OTHER_MASS))
+def test_mass_models_match_cpu(cuda, dark_inputs, model, kind):
+    """Each mass model beside PowerLawPeak through its own build of the
+    kernels ('1d': K1a, K3; 'marginalized': K1c + K2, K3c + K2b) with
+    MGFLRW (Xi0 = 1.2, n = 1.5): log L within 1e-10 and d log L / d(H0,
+    Xi0, the model's own) within 1e-9 of the CPU's plain versions, float64,
+    a launch of each kernel a call; PowerLawSpline's gradient raises on the
+    card by name."""
+    from chimera_tpu_torch import models
+
+    key, values = OTHER_MASS[model]
+    kw = {"num_knots": 6, "spline_coeffs": [0.3, -0.2, 0.5, 0.1, -0.4, 0.2]} \
+        if model == "PowerLawSpline" else {}
+    cat, z_grids, pop, sel = _with_models(
+        dark_inputs, getattr(models, model).create(**kw, device="cpu"),
+        models.MGFLRW.create(Xi0=1.2, n=1.5, device="cpu"))
+    if kind == "1d":  # the spectral siren: no catalog
+        pop = Population.create(pop.cosmo, pop.mass, pop.rate)
+    hl = HyperLikelihood.create(cat, z_grids, pop, sel, kind=kind,
+                                binning=False, cut_grid=None)
+    card = copy.deepcopy(hl).to(cuda)
+    lam = {"H0": [66.0, 70.0, 75.0], "Xi0": [1.1, 1.2, 1.3], key: values}
+
+    def grad(h, device):
+        x = {k: torch.tensor(v, dtype=torch.float64, device=device,
+                             requires_grad=True) for k, v in lam.items()}
+        ll = h.log_like_batch(x)
+        return ll.detach().cpu(), [g.cpu() for g in
+                                   torch.autograd.grad(ll.sum(), list(x.values()))]
+
+    before = launch_counts()
+    ll_card = card.log_like_batch(lam).cpu()
+    after = launch_counts()
+    launched = {"1d": {"K1a": 1}, "marginalized": {"K1c": 1, "K2": 1}}[kind]
+    assert {k: after[k] - before[k] for k in after} == \
+        {k: launched.get(k, 0) for k in after}
+    ll_cpu, g_cpu = grad(hl, "cpu")
+    assert torch.all(torch.isfinite(ll_cpu))
+    torch.testing.assert_close(ll_card, ll_cpu, rtol=1e-10, atol=0)
+    if model == "PowerLawSpline":
+        with pytest.raises(NotImplementedError, match="item 17"):
+            grad(card, cuda)
+        return
+    _, g_card = grad(card, cuda)
+    for g, e in zip(g_card, g_cpu):
+        assert torch.all(torch.isfinite(e))
+        assert ((g - e).abs() / e.abs().max()).max() <= 1e-9
+
+
+def test_table_engines_on_the_card(cuda):
+    """Both 'table' engines, unbinned (the stage-by-stage path without
+    binning: one K4 launch a batch on the raw rows, K4b behind it): log L
+    within 1e-10 and d log L / d(H0, Om0) within 1e-9 of the CPU's, float64;
+    two gradient calls give equal bits (the table interpolation's backward
+    adds in a fixed order)."""
+    cat, z_grids, _, sel = _spectral_inputs(dead_event=False)
+    pop = Population.create(FLRW.create(interp_method="table", device="cpu"),
+                            PowerLawPeak.create(cdf_engine="table", device="cpu"),
+                            MadauDickinsonRate.create(device="cpu"))
+    hl = HyperLikelihood.create(cat, z_grids, pop, sel, binning=False,
+                                cut_grid=2.0)
+    assert hl.staged and not hl.binning
+    card = copy.deepcopy(hl).to(cuda)
+    lam = {"H0": [66.0, 70.0, 75.0], "Om0": [0.22, 0.25, 0.31]}
+
+    def grad(h, device):
+        x = {k: torch.tensor(v, dtype=torch.float64, device=device,
+                             requires_grad=True) for k, v in lam.items()}
+        ll = h.log_like_batch(x)
+        return ll.detach().cpu(), torch.stack(torch.autograd.grad(
+            ll.sum(), list(x.values()))).cpu()
+
+    before = launch_counts()
+    ll_card, g_card = grad(card, cuda)
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == \
+        {k: int(k in ("K4", "K4b")) for k in after}
+    _, again = grad(card, cuda)
+    assert torch.equal(g_card, again)
+    ll_cpu, g_cpu = grad(hl, "cpu")
+    torch.testing.assert_close(ll_card, ll_cpu, rtol=1e-10, atol=0)
+    assert ((g_card - g_cpu).abs() / g_cpu.abs().amax(dim=1, keepdim=True)
+            ).max() <= 1e-9
+
+
+def test_models_outside_the_kernels_raise(cuda, cpu_hl):
+    """On CUDA tensors a model or engine the kernels do not evaluate raises
+    by name (no quiet route to the plain version): a 'table' engine, a
+    spline of more knots than the kernels' row holds."""
+    from chimera_tpu_torch.models import PowerLawSpline
+
+    args = list(_kernel_args(copy.deepcopy(cpu_hl).to(cuda)))
+    table = FLRW.create(interp_method="table", device=cuda)
+    with pytest.raises(NotImplementedError, match="interp_method='table'"):
+        fused_weights_kde(*args[:4], table, args[5], args[6])
+    mass = PowerLawPeak.create(cdf_engine="table", device=cuda)
+    with pytest.raises(NotImplementedError, match="cdf_engine='table'"):
+        fused_weights_kde(*args[:5], mass, args[6])
+    spline = PowerLawSpline.create(num_knots=30, device=cuda)
+    with pytest.raises(NotImplementedError, match="30"):
+        fused_weights_kde(*args[:5], spline, args[6])

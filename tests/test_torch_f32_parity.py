@@ -23,6 +23,25 @@ that of kind 'full' (cut_grid=2.0) on this dark one, is measured by
 and the port's float32 is held to max(1e-6, 2 x that gap)
 (``chip_smoke.BINNED_F32_BAR``) here and on the card; 'full''s gap is below
 1e-6, and its bar stays the repo's (``chip_smoke.FULL_F32_BAR``).
+
+The float32 gradient of the spectral configurations of
+``chip_smoke.grad_cases`` (64 events x 1024 samples x 500: phase 29's
+paths of each mass model with a gradient on the card, phases 30 and 32's
+models) is held likewise to max(1e-2, 2 x the JAX package's own
+float32-vs-float64 gap of d log L / dλ on the same data and points),
+``chip_smoke.REFERENCE_F32_GRAD_GAP``.  The data, the port's
+mock drawn on the CPU, is kept in ``tests/data/f32_grad_spectral.npz``,
+written with
+
+    PYTHONPATH=. python tests/test_torch_f32_parity.py --write-grad-mock
+
+and the JAX package's gap on it is measured by
+
+    PYTHONPATH=. python tests/test_torch_f32_parity.py --reference-grad-gap \
+        [mock.npz [case ...]]
+
+(another mock of the same arrays in place of the committed one, and some
+of the cases, where given).
 """
 
 import json
@@ -40,6 +59,7 @@ import torch
 import chip_smoke
 
 MOCK = Path(__file__).resolve().parent / "data" / "f32_parity_dark.npz"
+GRAD_MOCK = chip_smoke.GRAD_SPECTRAL
 H0S = np.linspace(58.0, 100.0, 7)
 
 
@@ -86,6 +106,27 @@ def port_data():
 def test_committed_mock_is_the_reference_mock(fiducial_population):
     expect = reference_dark_mock(fiducial_population)
     with np.load(MOCK) as got:
+        assert set(got.files) == set(expect)
+        for key, value in expect.items():
+            np.testing.assert_array_equal(got[key], value, err_msg=key)
+
+
+def grad_mock_arrays() -> dict:
+    """The data of phase 29's spectral paths: the port's mock of 64 events x
+    1024 samples, 100 000 generated injections, 500-point z-grids, drawn on
+    the CPU from ``chip_smoke.SEED + 29``."""
+    cat, inj, n_gen, zg = chip_smoke.mock(64, 1024, 100_000, 500, 300,
+                                          chip_smoke.SEED + 29,
+                                          device=torch.device("cpu"))
+    arrays = dict(m1=cat.m1det, m2=cat.m2det, dl=cat.dL, prior=cat.pe_prior,
+                  im1=inj.m1det, im2=inj.m2det, idl=inj.dL, ipd=inj.p_draw,
+                  zg=zg, n_gen=torch.tensor(float(n_gen)))
+    return {k: v.numpy() for k, v in arrays.items()}
+
+
+def test_committed_grad_mock_is_the_port_mock():
+    expect = grad_mock_arrays()
+    with np.load(GRAD_MOCK) as got:
         assert set(got.files) == set(expect)
         for key, value in expect.items():
             np.testing.assert_array_equal(got[key], value, err_msg=key)
@@ -233,6 +274,97 @@ def reference_gap(arrays: dict, kind: str, tmp: Path) -> tuple[float, list]:
                          capture_output=True, text=True, timeout=900)
     ll32 = np.asarray(json.loads(out.stdout.strip().splitlines()[-1]))
     return float(np.max(np.abs(ll32 - ll64) / np.abs(ll64))), ll64.tolist()
+
+
+# the JAX package in float32 (x64 off, in its own process): d log L / dλ of
+# a case of ``chip_smoke.grad_cases`` at its points, printed as a (4, k) list
+_EVAL_GRAD32 = r"""
+import json, sys
+sys.path.insert(0, sys.argv[3])
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", False)
+import numpy as np
+sys.path.insert(0, sys.argv[4])
+from test_torch_f32_parity import reference_grad
+print(json.dumps(reference_grad(dict(np.load(sys.argv[1])), sys.argv[2]).tolist()))
+"""
+
+
+def reference_grad(d: dict, case: str) -> np.ndarray:
+    """jax.grad of the JAX package's '1d' log L (unbinned, the vmap/XLA
+    engine) on a mock's arrays in JAX's working dtype, for a case of
+    ``chip_smoke.grad_cases`` (its models, as ``chip_smoke.population``
+    builds them, and cut_grid) at its 4 points: (4, k) d log L / dλ."""
+    from chimera_tpu import HyperLikelihood as JHL
+    from chimera_tpu import SelectionFunction, models
+    from chimera_tpu.catalog import EmptyCatalog
+    from chimera_tpu.data.structs import ThetaInjDet, ThetaPEDet
+
+    f = jnp.asarray(0.0).dtype
+    arr = lambda k: jnp.asarray(d[k], f)  # noqa: E731
+    cfg, cut_grid, batch = chip_smoke.grad_cases()[case]
+    cfg = {"cosmo": ("FLRW", {}), "mass": ("PowerLawPeak", {}),
+           "rate": ("MadauDickinsonRate", {}), **cfg}
+    made = {part: getattr(models, name).create(
+        **({"H0": 70.0, "Om0": 0.25} if part == "cosmo" else {}), **kw)
+        for part, (name, kw) in cfg.items()}
+    pop = models.Population.create(made["cosmo"], made["mass"], made["rate"],
+                                   gal_cat=EmptyCatalog())
+    jhl = JHL.create(
+        ThetaPEDet(m1det=arr("m1"), m2det=arr("m2"), dL=arr("dl"),
+                   pe_prior=arr("prior")), arr("zg"), pop,
+        SelectionFunction.create(ThetaInjDet(m1det=arr("im1"), m2det=arr("im2"),
+                                             dL=arr("idl"), p_draw=arr("ipd")),
+                                 float(d["n_gen"])),
+        kind="1d", binning=False, cut_grid=cut_grid, kde_engine="xla")
+    g = jax.grad(lambda b: jnp.sum(jhl.log_like_batch(b)))(
+        {k: jnp.asarray(v, f) for k, v in batch.items()})
+    return np.stack([np.asarray(g[k], np.float64) for k in batch], axis=1)
+
+
+def reference_grad_gap(arrays: dict, case: str, tmp: Path) -> float:
+    """The JAX package's float32 d log L / dλ against its float64 on
+    ``arrays`` for a case of ``chip_smoke.grad_cases``: the largest error
+    relative to each parameter's largest float64 slope
+    (``chip_smoke.column_rel``)."""
+    g64 = reference_grad(arrays, case)
+    data, script = tmp / "grad.npz", tmp / "eval_grad32.py"
+    np.savez(data, **arrays)
+    script.write_text(_EVAL_GRAD32)
+    env = {k: v for k, v in os.environ.items() if k != "JAX_ENABLE_X64"}
+    here = Path(__file__).resolve().parent
+    out = subprocess.run([sys.executable, str(script), str(data), case,
+                          str(here.parent), str(here)], check=True, env=env,
+                         capture_output=True, text=True, timeout=1800)
+    g32 = np.asarray(json.loads(out.stdout.strip().splitlines()[-1]))
+    return chip_smoke.column_rel(torch.as_tensor(g32), torch.as_tensor(g64))
+
+
+if __name__ == "__main__" and "--write-grad-mock" in sys.argv:
+    GRAD_MOCK.parent.mkdir(exist_ok=True)
+    np.savez_compressed(GRAD_MOCK, **grad_mock_arrays())
+    print(f"wrote {GRAD_MOCK} ({GRAD_MOCK.stat().st_size} bytes)")
+    sys.exit(0)
+
+
+if __name__ == "__main__" and "--reference-grad-gap" in sys.argv:
+    import tempfile
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    # the committed mock, or the arrays of another mock of its layout
+    where = sys.argv[sys.argv.index("--reference-grad-gap") + 1:][:1]
+    with tempfile.TemporaryDirectory() as tmp, \
+            np.load(where[0] if where else GRAD_MOCK) as mock:
+        arrays = dict(mock)
+        cases = sys.argv[sys.argv.index("--reference-grad-gap") + 2:] \
+            or list(chip_smoke.grad_cases())
+        for case in cases:
+            gap = reference_grad_gap(arrays, case, Path(tmp))
+            print(json.dumps({"case": case, "float32_vs_float64_grad": gap}),
+                  flush=True)
+    sys.exit(0)
 
 
 if __name__ == "__main__" and "--reference-gap" in sys.argv:
