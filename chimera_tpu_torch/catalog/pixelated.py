@@ -50,6 +50,14 @@ class PixelatedCatalog:
                    completeness=DVdzCompleteness.from_state(
                        state, prefix + "completeness.", device, dtype))
 
+    def take_events(self, idx: torch.Tensor) -> "PixelatedCatalog":
+        """The catalog of the events ``idx`` (an index may repeat): its
+        event-indexed fields cut by name, never by shape (the completeness
+        model's tables may be as long as the event axis)."""
+        return dataclasses.replace(self, **{
+            f: getattr(self, f).index_select(0, idx.to(self.p_cat.device))
+            for f in ("p_cat", "P_compl", "pixel_mask", "n_gal")})
+
     def p_gal(self, cosmo, z: torch.Tensor) -> torch.Tensor:
         """z (1 or L, Nev, Nz) -> (L, Nev, P, Nz)."""
         fr = self.completeness.fR(cosmo)[:, None, None, None]

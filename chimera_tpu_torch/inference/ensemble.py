@@ -20,7 +20,7 @@ JAX package's as distributions, not number for number.
 ``log_like_batch`` (the λ axis of the kernels), so a step is two batches.
 Like the port's HMC it counts every non-finite log density as -inf: the
 +inf of a λ whose injection N_eff falls below its gate
-(``likelihood.py::_finish``) included, where the JAX sampler maps only NaN
+(``likelihood.py::finish``) included, where the JAX sampler maps only NaN
 to -inf and a walker that reaches such a λ stays there.
 """
 

@@ -24,7 +24,7 @@ itself stays the reference's:
 
 - every non-finite log density counts as -inf.  A λ whose injection N_eff
   falls below its gate has N_exp = 0 and log L = +inf in both packages
-  (``selection.py``, ``likelihood.py::_finish``); the JAX samplers map only
+  (``selection.py``, ``likelihood.py::finish``); the JAX samplers map only
   NaN to -inf, so a proposal there is accepted and the chain sticks;
 - a proposal whose gradient is not finite is a divergent trajectory and is
   rejected.  A gated event gives d log L / d(H0, Om0) = 0 / 0 = NaN in both

@@ -47,6 +47,12 @@ K1a, K1b, K1c or K1d, K2b for K2, K4b for K4 — so every path
 differentiates on the card, the binned one included, but the contract
 pass and kind 'full', which raise (K1e and K5 have no adjoint kernel;
 ROADMAP.md §1 items 15 and 16).
+An optional ``event_mask`` marks padding events (``parallel.pad_events``,
+``shard_hyperlikelihood``): they stay in every kernel's batch as copies of
+a real event and leave the sum of log numerators and the event count.
+``log_like_batch`` is a local part (``sum_log_evs``) and a finish
+(``finish``, given the real-event count), so a shard's partial sums can
+be all-reduced between them (``chimera_tpu_torch/parallel``).
 The selects around the kernels' outputs (``row_scales``, the N_eff gates,
 ``nan_to_num`` before any product) keep the raw NaN of a dead row out of
 every backward product.  ``HyperLikelihood`` is an ``nn.Module`` whose
@@ -57,12 +63,15 @@ together.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+
 import torch
 from torch import nn
 
 import numpy as np
 
-from chimera_tpu_torch.catalog import EmptyCatalog
+from chimera_tpu_torch.catalog import EmptyCatalog, PixelatedCatalog
 from chimera_tpu_torch.config import logger
 from chimera_tpu_torch.data.pixelize import (chunk_rows_from_compact,
                                              compact_samples_by_pixel)
@@ -79,7 +88,7 @@ from chimera_tpu_torch.ops.cuda.rows import fused_rows_contract
 from chimera_tpu_torch.ops.integrate import linspace, trapz, trapz_weights
 from chimera_tpu_torch.ops.interp import uniform_interp
 from chimera_tpu_torch.ops.kde import bw_factor, kde1d_params
-from chimera_tpu_torch.pytree import tensor_map
+from chimera_tpu_torch.pytree import batch_sum, tensor_map
 from chimera_tpu_torch.selection import SelectionFunction
 
 _PE_FIELDS = ("m1det", "m2det", "dL", "pe_prior")
@@ -195,7 +204,8 @@ class HyperLikelihood(nn.Module):
     ``chunk_rows`` says whether the unbinned 'marginalized' layout without
     effective grids has the 128-sample chunk rows (K1c + K2, what ``create``
     builds in both packages) or not (the contract pass K1e, as a JAX object
-    whose ``compact`` has no 'rows')."""
+    whose ``compact`` has no 'rows').  ``event_mask`` (E,) bool, None
+    unless padded, marks the real events; ``n_events_real`` counts them."""
 
     def __init__(self, theta_gw: ThetaPEDet, z_grids: torch.Tensor,
                  population: Population, selection: SelectionFunction,
@@ -217,6 +227,8 @@ class HyperLikelihood(nn.Module):
         self.num_bins = int(num_bins)
         self.chunk_rows = bool(chunk_rows)
         self.register_buffer("z_grids", z_grids.to(theta_gw.dL.dtype))
+        self.register_buffer("event_mask", None)
+        self.n_events_real = self.n_events
         self.n_samples = theta_gw.dL.shape[1]
         for name in _PE_FIELDS:
             self.register_buffer(name, getattr(theta_gw, name))
@@ -432,6 +444,72 @@ class HyperLikelihood(nn.Module):
     def n_grid(self) -> int:
         """Points of an effective grid: half the analysis grid's."""
         return self.z_grids.shape[1] // 2
+
+    def event_buffers(self) -> dict[str, int]:
+        """The buffers indexed by event, each with its rows an event: 1 for
+        an (E, ...) buffer, the pixel slots P for the per-pixel rectangle
+        (E*P, ...), the chunk rows C for the chunk rows (E*C, ...).  Listed
+        by kind and layout, never found by shape (E*P or the injection
+        count can equal E); every buffer but ``event_mask`` is one of them
+        (``take_events`` checks)."""
+        rows = dict.fromkeys(("z_grids", *_PE_FIELDS, "inv_pe_prior"), 1)
+        if self.kind == "1d":
+            return rows
+        if self.kind == "full":
+            return {**rows, **dict.fromkeys(
+                ("ra", "dec", "pixel_mask", "full_ra_pix", "full_dec_pix",
+                 "z_block"), 1)}
+        rows["loc"] = 1
+        if self.kind != "marginalized":
+            return rows
+        if self.staged:
+            return {**rows, "in_pix": 1}
+        pix = ["pix_" + n for n in _LAYOUT_FIELDS] + ["pix_n_real", "pix_dl_fill"]
+        if self.cut_grid is None and not self.chunk_rows:
+            pix += ["pix_s1", "pix_s2"]
+        rows.update(dict.fromkeys(pix, self.n_pixels))
+        if self.cut_grid is None and self.chunk_rows:
+            rows.update(dict.fromkeys(
+                ["row_" + n for n in _LAYOUT_FIELDS] + ["row_pixel", "row_s1",
+                                                        "row_s2"],
+                self.rows_per_event))
+        return rows
+
+    def take_events(self, idx: torch.Tensor, mask: torch.Tensor
+                    ) -> "HyperLikelihood":
+        """A copy holding the events ``idx`` (E',) in that order, an index
+        repeated for a padding event, with ``mask`` (E',) bool as its event
+        mask (False: padding, out of the sum and the count).  Every buffer
+        of ``event_buffers`` is gathered at its rows an event, the chunk
+        rows' ``row_pixel`` rebased onto the copy's pixel rows, and the
+        population's pixelated catalog cut alike; the injections, the
+        population's models and the configuration are shared."""
+        rows = self.event_buffers()
+        own = {name for name, _ in self.named_buffers(recurse=False)}
+        own.discard("event_mask")
+        if own != set(rows):
+            raise RuntimeError(
+                f"buffers of no listed event axis: {sorted(own ^ set(rows))}")
+        idx = idx.to(self.z_grids.device)
+        out = copy.copy(self)
+        out._buffers = dict(self._buffers)
+        out._modules = dict(self._modules)
+        for name, k in rows.items():
+            sel = idx if k == 1 else (idx[:, None] * k + torch.arange(
+                k, device=idx.device)).reshape(-1)
+            out._buffers[name] = self._buffers[name].index_select(0, sel)
+        if "row_pixel" in rows:
+            # row_pixel = event * P + the row's pixel slot (< P)
+            c, p = self.rows_per_event, self.n_pixels
+            local = torch.arange(len(idx) * c, device=idx.device) // c
+            out._buffers["row_pixel"] = local * p + out._buffers["row_pixel"] % p
+        out._buffers["event_mask"] = mask.to(device=idx.device, dtype=torch.bool)
+        out.n_events_real = int(mask.sum())
+        gc = self.population.gal_cat
+        if isinstance(gc, PixelatedCatalog):
+            out.population = dataclasses.replace(self.population,
+                                                 gal_cat=gc.take_events(idx))
+        return out
 
     def batch_numerators(self, pop_b: Population) -> torch.Tensor:
         """Per-event numerator integrals for a λ batch — (L, Nev)."""
@@ -708,37 +786,54 @@ class HyperLikelihood(nn.Module):
         p = torch.where(gate[..., None, None], torch.nan_to_num(p), 0.0)
         return self._integrate_pixels(pop_b, p)
 
-    def _finish(self, pop_b: Population, log_evs_sum: torch.Tensor,
-                n_exp: torch.Tensor) -> torch.Tensor:
-        """Combine summed log numerators with N_exp."""
+    def _log_evs(self, num: torch.Tensor) -> torch.Tensor:
+        """Per-event numerators (L, E) -> log numerators, NaN to -inf,
+        padding events 0."""
+        log_evs = torch.nan_to_num(torch.log(num), nan=-torch.inf)
+        if self.event_mask is not None:
+            log_evs = torch.where(self.event_mask, log_evs, 0.0)
+        return log_evs
+
+    def sum_log_evs(self, num: torch.Tensor,
+                    place: tuple[int, int] | None = None) -> torch.Tensor:
+        """The local part of a batch: per-event numerators (L, E) -> the
+        summed log numerators (L,) of the real events
+        (``chimera_tpu/likelihood.py:751`` ``_sum_log_evs``); ``place``: the
+        λ rows' place in a larger batch (``pytree.batch_sum``)."""
+        return batch_sum(self._log_evs(num), place)
+
+    def finish(self, pop_b: Population, log_evs_sum: torch.Tensor,
+               n_exp: torch.Tensor, n_events_real: int) -> torch.Tensor:
+        """Combine summed log numerators with N_exp, given the number of
+        real events (a shard's: the whole catalog's)
+        (``chimera_tpu/likelihood.py:760`` ``_finish_batch``)."""
         if not pop_b.scale_free:
-            log_evs_sum = log_evs_sum + self.n_events * torch.log(
+            log_evs_sum = log_evs_sum + n_events_real * torch.log(
                 pop_b.R0 * pop_b.Tobs)
             return log_evs_sum - n_exp
-        return log_evs_sum - self.n_events * torch.log(n_exp)
+        return log_evs_sum - n_events_real * torch.log(n_exp)
 
     def log_like_batch(self, hyper_batch: dict) -> torch.Tensor:
         """Log hyper-likelihood for a batch of λ (dict of equal-length 1-D
         arrays) — (L,).  Tensors that require grad stay in the graph."""
         pop_b = self.population.update_batch(hyper_batch)
-        log_evs = torch.nan_to_num(torch.log(self.batch_numerators(pop_b)),
-                                   nan=-torch.inf)
-        return self._finish(pop_b, torch.sum(log_evs, dim=-1),
-                            self.selection.n_exp(pop_b))
+        return self.finish(pop_b, self.sum_log_evs(self.batch_numerators(pop_b)),
+                           self.selection.n_exp(pop_b), self.n_events_real)
 
     def log_like(self, **hyper) -> torch.Tensor:
         """One hyper-parameter sample (a batch of 1)."""
         return self.log_like_batch({k: [v] for k, v in hyper.items()})[0]
 
     def compute_all(self, **hyper):
-        """Debug decomposition at one λ: per-event log numerators, the log
-        numerator, log N_exp and the log hyper-likelihood."""
+        """Debug decomposition at one λ: the real events' log numerators,
+        the log numerator, log N_exp and the log hyper-likelihood."""
         pop = self.population.update(**hyper)
-        log_evs = torch.nan_to_num(torch.log(self.batch_numerators(pop)),
-                                   nan=-torch.inf)[0]
+        log_evs = self._log_evs(self.batch_numerators(pop))[0]
         n_exp = self.selection.n_exp(pop)
         log_num = torch.sum(log_evs)
-        log_hyper = self._finish(pop, log_num[None], n_exp)[0]
+        log_hyper = self.finish(pop, log_num[None], n_exp, self.n_events_real)[0]
         if not pop.scale_free:
-            log_num = log_num + self.n_events * torch.log(pop.R0 * pop.Tobs)[0]
+            log_num = log_num + self.n_events_real * torch.log(pop.R0 * pop.Tobs)[0]
+        if self.event_mask is not None:
+            log_evs = log_evs[self.event_mask]
         return log_evs, log_num, torch.log(n_exp)[0], log_hyper

@@ -117,3 +117,21 @@ def update_batch(model, batch: dict, n: int):
     return type(model).create(
         **params, **{k: getattr(model, k) for k in model.config_keys},
         device=ref.device, dtype=ref.dtype)
+
+
+def batch_sum(x: torch.Tensor, place: tuple[int, int] | None = None
+              ) -> torch.Tensor:
+    """``torch.sum(x, dim=-1)`` of the rows of a λ batch.  With ``place`` =
+    (n, start) the l rows of ``x`` are rows start .. start + l of an n-row
+    batch, and are summed at that place in a zero-filled (n, ...) tensor.
+    On the card PyTorch's reduction picks its threads' layout, and so the
+    order in which it adds, from the number of rows, so a row summed among
+    l rows can differ in its last bits from the same row among n: summed
+    in place, each row keeps the bits it has in the whole batch."""
+    if place is None or place[0] == x.shape[0]:
+        return torch.sum(x, dim=-1)
+    n, start = place
+    rows = slice(start, start + x.shape[0])
+    whole = x.new_zeros((n,) + tuple(x.shape[1:]))
+    whole[rows] = x
+    return torch.sum(whole, dim=-1)[rows]

@@ -8,6 +8,7 @@ from torch import nn
 
 from chimera_tpu_torch.data.structs import ThetaInjDet
 from chimera_tpu_torch.models.population import Population, pop_rate_det
+from chimera_tpu_torch.pytree import batch_sum
 
 
 class SelectionFunction(nn.Module):
@@ -49,12 +50,29 @@ class SelectionFunction(nn.Module):
         return ThetaInjDet(m1det=self.m1det, m2det=self.m2det, dL=self.dL,
                            p_draw=self.p_draw)
 
-    def partial_sums(self, pop: Population) -> tuple[torch.Tensor, torch.Tensor]:
+    def take_injections(self, start: int, stop: int) -> "SelectionFunction":
+        """The selection over the detected injections [start, stop), the
+        generated count unchanged: a shard's.  Rows past the last injection
+        are padding at m1det = m2det = 0.01, dL = p_draw = 1, below every
+        mass model's support, so their rate is exactly 0
+        (``chimera_tpu/parallel/mesh.py::pad_injections``)."""
+        n = self.dL.shape[0]
+        fill = {"m1det": 0.01, "m2det": 0.01, "dL": 1.0, "p_draw": 1.0}
+        cut = {}
+        for name, value in fill.items():
+            t = getattr(self, name)[min(start, n):min(stop, n)]
+            pad = t.new_full((stop - start - t.shape[0],), value)
+            cut[name] = torch.cat([t, pad])
+        return SelectionFunction(ThetaInjDet(**cut), self.n_inj, self.n_eff_min)
+
+    def partial_sums(self, pop: Population, place: tuple[int, int] | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
         """(sum dN/pdraw, sum (dN/pdraw)^2) per λ over the injections — the
-        two sums a shard contributes to the global estimate."""
+        two sums a shard contributes to the global estimate; ``place``: the
+        λ rows' place in a larger batch (``pytree.batch_sum``)."""
         dn = pop_rate_det(pop, self.theta_inj) / self.p_draw
         dn = torch.nan_to_num(dn)  # the reference's nansum
-        return torch.sum(dn, dim=-1), torch.sum(dn * dn, dim=-1)
+        return batch_sum(dn, place), batch_sum(dn * dn, place)
 
     def n_exp_from_sums(self, pop: Population, s1: torch.Tensor,
                         s2: torch.Tensor) -> torch.Tensor:

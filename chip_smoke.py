@@ -53,7 +53,21 @@ paths end to end through the entry points a user calls:
   headline (K4 on the raw rows, K4b, each against its plain version and
   timed; HMC twice for equal bits) and on the dark flagship's per-pixel
   rows, each timed forward and value-and-gradient, float32 log L and
-  d log L / dλ against float64.
+  d log L / dλ against float64;
+* phase 33, distribution over ranks (``chimera_tpu_torch/parallel``): a
+  1 x 1 mesh under NCCL in this process gives log_like_batch's bits on the
+  spectral headline; 2 and 4 gloo ranks sharing the card (one process
+  each, the data saved once by this process) shard the spectral headline
+  (K1a), the dark flagship (K1c + K2) and the binned defaults (K4) on
+  1 x 2 and 2 x 1 meshes, those and kind 'full' (K5) on 2 x 2: float32
+  against this process's float32 batch (the same bits on 2 x 1, where the
+  λ batch alone is split, else 1e-6) and float64 batch (the float32 bar),
+  float64 at 63 events and all injections but the last, which pads a
+  shard of a data = 2 mesh (the same bits on 2 x 1, else 1e-12), every
+  rank the same bits, a repeat the same bits,
+  each kernel of the path once a batch on every rank, ms per λ beside the
+  single process's (ranks sharing one card: not a scaling figure); then
+  ``dryrun_multichip(4)`` on the card.
 
 Each likelihood path checks float32 against float64, elementwise against the
 repo's 1e-6 bar or, binned, against BINNED_F32_BAR (the precision mocks:
@@ -785,6 +799,18 @@ def cut_events(data, n: int):
     per_event = {f.name: getattr(cat, f.name)[:n] for f in dataclasses.fields(cat)
                  if isinstance(getattr(cat, f.name), torch.Tensor)}
     return cat.update(**per_event), inj, n_gen, z_grids[:n]
+
+
+def cut_dark_events(data, n: int):
+    """The first ``n`` events of a dark-siren mock: its PE data, z-grids and
+    the catalog's event fields."""
+    import dataclasses
+
+    cat, z_grids, gal_cat, inj, n_gen = data
+    per_event = {f.name: getattr(cat, f.name)[:n] for f in dataclasses.fields(cat)
+                 if isinstance(getattr(cat, f.name), torch.Tensor)}
+    return (cat.update(**per_event), z_grids[:n],
+            gal_cat.take_events(torch.arange(n, device=z_grids.device)), inj, n_gen)
 
 
 def counting_prior(counter: list):
@@ -3072,8 +3098,7 @@ def full_stages(hl, batch: dict, reps: int = 17) -> dict:
         mark()
         n_exp = hl.selection.n_exp(pop_b)
         mark()
-        log_evs = torch.nan_to_num(torch.log(num), nan=-torch.inf)
-        out = hl._finish(pop_b, torch.sum(log_evs, dim=-1), n_exp)
+        out = hl.finish(pop_b, hl.sum_log_evs(num), n_exp, hl.n_events_real)
         mark()
         return out
 
@@ -4276,6 +4301,221 @@ def k3_ab(others: list[str], variants: list[str], only_k5: bool = False) -> None
         raise AssertionError(f"outputs differ from this tree's: {failed}")
 
 
+# ---------------------------------------------------------------------------
+# distribution (phase 33)
+# ---------------------------------------------------------------------------
+
+# phase 33's configurations: the data, the likelihood's keywords, the
+# kernels of its path (each launched once a batch on every rank) and the
+# float32 bar against float64
+DIST_CONFIGS = {
+    "spectral headline": ("spectral", {}, {"K1a": 1}, 1e-6),
+    "dark flagship": ("dark", DARK, {"K1c": 1, "K2": 1}, 1e-6),
+    "binned defaults": ("spectral", BINNED, {"K4": 1}, BINNED_F32_BAR["1d"]),
+    "kind 'full'": ("dark", FULL, {"K5": 1}, FULL_F32_BAR),
+}
+# per world size of gloo ranks sharing the card: the (params, data) meshes
+# and the configurations run on them
+DIST_RUNS = {2: ([(1, 2), (2, 1)], ["spectral headline", "dark flagship",
+                                    "binned defaults"]),
+             4: ([(2, 2)], list(DIST_CONFIGS))}
+DIST_RANK = "chip_smoke:distribution_rank"
+DIST_REPS = 5
+# the float64 cut: an event count and an injection count (all but the last)
+# that a data size of 2 does not divide, so that a padding event and a
+# padding injection run through every kernel of the path
+DIST_F64_EVENTS = 63
+
+
+def dist_likelihood(data: dict, name: str, dtype, n_events: int | None = None):
+    """Phase 33's likelihood ``name`` on ``data`` ({"spectral": headline
+    mock, "dark": flagship mock}); given ``n_events``, on its first
+    ``n_events`` and on every injection but the last."""
+    import dataclasses
+
+    which, config, _, _ = DIST_CONFIGS[name]
+    d = data[which]
+    if n_events is not None:
+        d = (cut_events if which == "spectral" else cut_dark_events)(d, n_events)
+        i = 1 if which == "spectral" else 3
+        d = (*d[:i], dataclasses.replace(d[i], **{
+            f.name: getattr(d[i], f.name)[:-1] for f in dataclasses.fields(d[i])}),
+            *d[i + 1:])
+    if which == "spectral":
+        return likelihood(d, dtype, **config)
+    return dark_likelihood(d, dtype, **config)
+
+
+def dist_batch(dtype) -> dict:
+    return {"H0": torch.linspace(60.0, 80.0, 16, device=DEV).to(dtype)}
+
+
+def distribution_rank(data_dir: str, meshes: list, names: list) -> dict:
+    """One rank of phase 33, in a process of its own (gloo, the card shared
+    with the other ranks): the data the parent saved, each configuration's
+    float32 likelihood at full width and float64 at ``DIST_F64_EVENTS``
+    events, sharded over each (params, data) mesh.  Per (configuration, mesh): the float32 batch
+    with its launches counted (each kernel of the path once), a repeat,
+    ms per λ, the float64 batch."""
+    from chimera_tpu_torch.parallel import (log_like_batch_sharded, make_mesh,
+                                            shard_hyperlikelihood)
+
+    data = {k: torch.load(Path(data_dir, f"{k}.pt"), map_location=DEV,
+                          weights_only=False) for k in ("spectral", "dark")}
+    out = {}
+    for name in names:
+        hl32, hl64 = dist_likelihood(data, name, F32), dist_likelihood(
+            data, name, F64, n_events=DIST_F64_EVENTS)
+        for params, n_data in meshes:
+            mesh = make_mesh(params=params, data=n_data, devices=DEV)
+            s32 = shard_hyperlikelihood(hl32, mesh)
+            b32 = dist_batch(F32)
+
+            def batch():
+                return log_like_batch_sharded(s32, b32, mesh)
+
+            ll, launched = counted(batch, DIST_CONFIGS[name][2])
+            again = batch()
+            ms = cuda_ms(batch, DIST_REPS)
+            ll64 = log_like_batch_sharded(shard_hyperlikelihood(hl64, mesh),
+                                          dist_batch(F64), mesh)
+            out[f"{name} {params}x{n_data}"] = {
+                "ll": ll.cpu(), "repeat_same": same_bits(ll, again),
+                "launches": launched, "ms_per_lam": statistics.median(ms) / 16,
+                "ll64": ll64.cpu(), "events": s32.local.n_events,
+                "data": n_data}
+        del hl32, hl64
+    return out
+
+
+def rel_hold(got, expect, bar: float, what: str) -> float:
+    """Elementwise relative difference, finite where ``expect`` is, held
+    to ``bar``."""
+    got, expect = got.double().cpu(), expect.double().cpu()
+    fin = torch.isfinite(expect)
+    if not fin.any() or not torch.equal(fin, torch.isfinite(got)):
+        raise AssertionError(f"{what}: non-finite log L: {got.tolist()} "
+                             f"against {expect.tolist()}")
+    rel = ((got - expect).abs()[fin] / expect.abs()[fin]).max().item()
+    if rel > bar:
+        raise AssertionError(f"{what}: {rel:.3e} > {bar:.0e}")
+    return rel
+
+
+def distribution(smi: str, full, dark_data) -> None:
+    """Phase 33: the distribution layer (``chimera_tpu_torch/parallel``).
+    A 1 x 1 mesh under NCCL in this process gives log_like_batch's bits on
+    the spectral headline; then 2 and 4 gloo ranks sharing the card (NCCL
+    refuses two ranks on one card) shard the spectral headline, the dark
+    flagship and the binned defaults on 1 x 2 and 2 x 1 meshes, those and
+    kind 'full' on 2 x 2: float32 against the single process's float32
+    (the same bits where data = 1, else 1e-6) and float64 (the float32
+    bar), float64 at 63 events and all injections but the last (a padding
+    event and injection on each data = 2 mesh) against the single
+    process's (the same bits where data = 1, else 1e-12), every rank the
+    same bits, a repeat the same bits, each kernel of the path once a batch
+    on every rank; then dryrun_multichip(4) on the card.  A rank that fails
+    or outlasts its timeout fails the phase."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from chimera_tpu_torch.entry import dryrun_multichip
+    from chimera_tpu_torch.parallel import (init_distributed,
+                                            log_like_batch_sharded, make_mesh,
+                                            shard_hyperlikelihood)
+    from chimera_tpu_torch.parallel.spawn import run_ranks
+
+    t_phase = time.perf_counter()
+    data = {"spectral": full, "dark": dark_data}
+    b32, b64 = dist_batch(F32), dist_batch(F64)
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(require=True, backend="nccl",
+                         init_method=f"file://{tmp}/store", rank=0,
+                         world_size=1, timeout=120)
+        try:
+            mesh = make_mesh(params=1, data=1, devices=DEV)
+            hl = dist_likelihood(data, "spectral headline", F32)
+            shard = shard_hyperlikelihood(hl, mesh)
+            got, launched = counted(
+                lambda: log_like_batch_sharded(shard, b32, mesh), {"K1a": 1})
+            if not same_bits(got, hl.log_like_batch(b32)):
+                raise AssertionError("1 x 1 mesh: not log_like_batch's bits")
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+        del hl, shard
+    phase(33, "1 x 1 mesh", f"spectral headline, {backend} world size 1: "
+          f"log_like_batch's bits, launches "
+          f"{ {k: v for k, v in launched.items() if v} } [{smi}]")
+
+    refs = {}
+    for name in DIST_CONFIGS:
+        hl32 = dist_likelihood(data, name, F32)
+        refs[name] = {"ll": hl32.log_like_batch(b32),
+                      "ms": statistics.median(cuda_ms(
+                          lambda: hl32.log_like_batch(b32), DIST_REPS)) / 16}
+        del hl32
+        refs[name]["ll64_full"] = dist_likelihood(data, name, F64).log_like_batch(b64)
+        refs[name]["ll64"] = dist_likelihood(
+            data, name, F64, n_events=DIST_F64_EVENTS).log_like_batch(b64)
+        rel_hold(refs[name]["ll"], refs[name]["ll64_full"], DIST_CONFIGS[name][3],
+                 f"{name}, one process: float32 vs float64")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(full, Path(tmp, "spectral.pt"))
+        torch.save(dark_data, Path(tmp, "dark.pt"))
+        for world, (meshes, names) in DIST_RUNS.items():
+            t0 = time.perf_counter()
+            ranks = run_ranks(DIST_RANK, world, {"data_dir": tmp, "meshes": meshes,
+                                                 "names": names}, timeout=240.0)
+            seconds = time.perf_counter() - t0
+            for key, res in ranks[0].items():
+                name = key.rsplit(" ", 1)[0]
+                ref, bar = refs[name], DIST_CONFIGS[name][3]
+                for r, other in enumerate(ranks[1:], 1):
+                    if not (same_bits(other[key]["ll"], res["ll"])
+                            and same_bits(other[key]["ll64"], res["ll64"])):
+                        raise AssertionError(f"{key}: rank {r}'s log L is not rank 0's")
+                if not all(o[key]["repeat_same"] for o in ranks):
+                    raise AssertionError(f"{key}: a repeat gave other bits")
+                if res["data"] == 1:
+                    # the λ batch split alone: the single process's bits
+                    for got, want, what in ((res["ll"], ref["ll"], "float32"),
+                                            (res["ll64"], ref["ll64"], "float64")):
+                        if not same_bits(got, want.cpu()):
+                            raise AssertionError(f"{key}: {what} is not the one "
+                                                 "process's bits")
+                    held = "the same bits", "the same bits"
+                else:
+                    held = (f"{rel_hold(res['ll'], ref['ll'], 1e-6, key):.3e} "
+                            "(bar 1e-6)",
+                            f"{rel_hold(res['ll64'], ref['ll64'], 1e-12, key):.3e} "
+                            "(bar 1e-12)")
+                rel64 = rel_hold(res["ll"], ref["ll64_full"], bar,
+                                 f"{key}: float32 vs one process's float64")
+                ms = [o[key]["ms_per_lam"] for o in ranks]
+                phase(33, f"{key} mesh", f"{world} gloo ranks sharing one card, "
+                      f"{res['events']} events a rank: float32 vs one process: "
+                      f"{held[0]}, vs its float64 {rel64:.3e} (bar {bar:.0e}); "
+                      f"float64 at {DIST_F64_EVENTS} events vs one process: "
+                      f"{held[1]}; every rank the same bits, a repeat the same bits; "
+                      f"launches a batch on each rank "
+                      f"{ {k: v for k, v in res['launches'].items() if v} }; ms per λ "
+                      f"(ranks sharing one card) {min(ms):.4f}-{max(ms):.4f}, one "
+                      f"process {ref['ms']:.4f} [{smi}]")
+            phase(33, f"{world} ranks", f"{seconds:.1f} s with the ranks' start "
+                  f"and builds [{smi}]")
+
+    t0 = time.perf_counter()
+    states = dryrun_multichip(4)
+    phase(33, "dryrun_multichip(4)", f"4 gloo ranks sharing the card, 2 x 2: "
+          f"every rank the same finite walkers and log-probs after one step "
+          f"(spectral: {len(states[0]['spectral']['log_prob'])} walkers, dark "
+          f"'marginalized'), {time.perf_counter() - t0:.1f} s; phase 33 "
+          f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+
+
 def main() -> None:
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -4324,6 +4564,7 @@ def main() -> None:
     del hl_full
     model_modes(smi)
     population_models(smi, full, dark_data)
+    distribution(smi, full, dark_data)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,8 @@ rows-contraction adjoint K2b (the dark-siren and effective-grid
 gradients), the contract pass K1e and K4's adjoint K4b (the binned
 gradient), the 3-D lattice KDE K5 of kind 'full' and the ensemble sampler
 on it; the other population models through their own builds of the
-kernels and the 'table' engines (K4 on raw rows, K4b).
+kernels and the 'table' engines (K4 on raw rows, K4b); a shard of the
+distribution layer on the card and the dry run of two ranks sharing it.
 
 Every test here needs a CUDA card and nvcc (marker ``cuda``) and skips
 without one.  The file imports no JAX, so it runs on a machine without it:
@@ -1207,3 +1208,46 @@ def test_models_outside_the_kernels_raise(cuda, cpu_hl):
     spline = PowerLawSpline.create(num_knots=30, device=cuda)
     with pytest.raises(NotImplementedError, match="30"):
         fused_weights_kde(*args[:5], spline, args[6])
+
+
+# ---------------------------------------------------------------------------
+# distribution over ranks
+# ---------------------------------------------------------------------------
+
+def test_sharded_batch_on_the_card(cuda):
+    """A float32 likelihood built on the CPU, cut into the three shards of
+    a data = 3 mesh in this process: each shard lies on the card alone,
+    its partial sums launch K1a once, and their sum finishes to the
+    unsharded batch on the card (1e-6 relative); then dryrun_multichip(2),
+    two gloo ranks sharing the card, ends with equal states."""
+    from chimera_tpu_torch.entry import dryrun_multichip
+    from chimera_tpu_torch.parallel import Mesh, shard_hyperlikelihood
+
+    host = _spectral_hl(dead_event=False).to(torch.float32)
+    batch = {"H0": torch.tensor(H0S, dtype=torch.float32, device=cuda)}
+    expect = copy.deepcopy(host).to(cuda).log_like_batch(batch).double()
+    shards = [shard_hyperlikelihood(host, Mesh(1, 3, d, cuda)) for d in range(3)]
+    assert all(b.device == cuda for s in shards for b in s.local.buffers())
+    assert host.z_grids.device.type == "cpu"
+    pops = [s.population.update_batch(batch) for s in shards]
+    sums = sum(_launched(lambda: s.partial_sums(p), {"K1a": 1})
+               for s, p in zip(shards, pops))
+    got = shards[0].finish(pops[0], sums).double()
+    assert torch.all(torch.isfinite(expect))
+    assert ((got - expect).abs() / expect.abs()).max().item() <= 1e-6
+    dryrun_multichip(2)
+
+
+def test_batch_sum_keeps_the_whole_batch_bits(cuda):
+    """The float32 sums over 2 000 000 injections and over 1000 events of
+    rows 8 .. 16 of a 16-row batch, taken at their place
+    (``pytree.batch_sum``), are the whole batch's bits; taken over the 8
+    rows alone, PyTorch's reduction lays out its threads for 8 rows and
+    the last bits may differ (the reason for the place)."""
+    from chimera_tpu_torch.pytree import batch_sum
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for width in (2_000_000, 1000):
+        x = torch.rand((16, width), generator=gen, device=cuda)
+        assert torch.equal(batch_sum(x[8:], (16, 8)), torch.sum(x, -1)[8:])
+        assert torch.equal(batch_sum(x[:8], (16, 0)), torch.sum(x, -1)[:8])

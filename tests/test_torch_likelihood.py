@@ -186,7 +186,8 @@ for m in pkgutil.walk_packages(chimera_tpu_torch.__path__, "chimera_tpu_torch.")
 for name in ("ops.healpix", "ops.kde", "ops.binning", "ops.interp",
              "ops.cuda.fused", "ops.cuda.rows", "ops.cuda.kde",
              "data.pixelize", "data.mock", "catalog.completeness",
-             "catalog.pixelated", "catalog.build", "likelihood", "convert"):
+             "catalog.pixelated", "catalog.build", "likelihood", "convert",
+             "parallel.mesh", "parallel.spawn", "entry"):
     assert "chimera_tpu_torch." + name in sys.modules, name
 assert "jax" not in sys.modules, sorted(k for k in sys.modules if "jax" in k)
 print("ok")
