@@ -15,19 +15,25 @@ from typing import ClassVar
 
 import torch
 
-from chimera_tpu_torch.catalog.completeness import DVdzCompleteness
+from chimera_tpu_torch.catalog.completeness import (DVdzCompleteness,
+                                                    HomogeneousCompleteness)
+
+# the completeness models by class name, for ``from_state``
+COMPLETENESS = {c.__name__: c for c in (DVdzCompleteness,
+                                        HomogeneousCompleteness)}
 
 
 @dataclasses.dataclass(frozen=True)
 class PixelatedCatalog:
     """p_cat (Nev, P, Nz), P_compl (Nev, 1, Nz), pixel_mask (Nev, P) bool,
-    n_gal (Nev,) int, and the completeness model."""
+    n_gal (Nev,) int, and the completeness model (either of
+    ``COMPLETENESS``)."""
 
     p_cat: torch.Tensor
     P_compl: torch.Tensor
     pixel_mask: torch.Tensor
     n_gal: torch.Tensor
-    completeness: DVdzCompleteness
+    completeness: DVdzCompleteness | HomogeneousCompleteness
 
     name: ClassVar[str] = "pixelated_catalog"
 
@@ -37,9 +43,8 @@ class PixelatedCatalog:
         from chimera_tpu_torch.convert import class_name
 
         kind = class_name(state, prefix + "completeness.")
-        if kind != "DVdzCompleteness":
-            raise NotImplementedError(
-                f"completeness model {kind} is not ported (ROADMAP.md §1 item 7)")
+        if kind not in COMPLETENESS:
+            raise ValueError(f"unknown completeness model {kind}")
 
         def arr(key, dt):
             return torch.as_tensor(state[prefix + key], device=device).to(dt)
@@ -47,13 +52,14 @@ class PixelatedCatalog:
         return cls(p_cat=arr("p_cat", dtype), P_compl=arr("P_compl", dtype),
                    pixel_mask=arr("pixel_mask", torch.bool),
                    n_gal=arr("n_gal", torch.int64),
-                   completeness=DVdzCompleteness.from_state(
+                   completeness=COMPLETENESS[kind].from_state(
                        state, prefix + "completeness.", device, dtype))
 
     def take_events(self, idx: torch.Tensor) -> "PixelatedCatalog":
         """The catalog of the events ``idx`` (an index may repeat): its
         event-indexed fields cut by name, never by shape (the completeness
-        model's tables may be as long as the event axis)."""
+        model's tables may be as long as the event axis).  The completeness
+        stays whole: its tables are global in λ and z, not per event."""
         return dataclasses.replace(self, **{
             f: getattr(self, f).index_select(0, idx.to(self.p_cat.device))
             for f in ("p_cat", "P_compl", "pixel_mask", "n_gal")})

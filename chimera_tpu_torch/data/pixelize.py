@@ -41,9 +41,10 @@ def confidence_pixels(pix_samples: np.ndarray, sky_conf: float) -> np.ndarray:
 
 
 def pixelize_gw_catalog(theta_gw: ThetaPEDet, nside_list: list[int],
-                        mean_npixels_event: int, sky_conf: float = 0.9
-                        ) -> ThetaPEDet:
-    """Attach the RING pixelation to a PE catalog.
+                        mean_npixels_event: int, sky_conf: float = 0.9,
+                        nest: bool = False) -> ThetaPEDet:
+    """Attach the pixelation to a PE catalog, in the RING scheme or, with
+    ``nest``, the NESTED one.
 
     Per event: the nside whose confidence region has closest to
     ``mean_npixels_event`` pixels, its pixel set (padded to a multiple of 8
@@ -55,7 +56,8 @@ def pixelize_gw_catalog(theta_gw: ThetaPEDet, nside_list: list[int],
     ra, dec = _np(ra_t), _np(dec_t)
     n_events = ra.shape[0]
 
-    pix_all = {ns: _np(hpx.find_pix_ra_dec(ra_t, dec_t, ns)) for ns in nside_list}
+    pix_all = {ns: _np(hpx.find_pix_ra_dec(ra_t, dec_t, ns, nest=nest))
+               for ns in nside_list}
     counts = np.array([[confidence_pixels(pix_all[ns][e], sky_conf).size
                         for ns in nside_list] for e in range(n_events)])
     best = np.argmin(np.abs(counts - mean_npixels_event), axis=1)
@@ -79,7 +81,7 @@ def pixelize_gw_catalog(theta_gw: ThetaPEDet, nside_list: list[int],
     for ns in np.unique(opt_nsides):
         sel = opt_nsides == ns
         r_c, d_c = hpx.find_ra_dec(torch.as_tensor(pix_clamped[sel], device=device),
-                                   int(ns))
+                                   int(ns), nest=nest)
         ra_pix[sel], dec_pix[sel] = _np(r_c), _np(d_c)
     ra_c = np.where(mask, ra_pix, 0.0)
     dec_c = np.where(mask, dec_pix, 0.0)

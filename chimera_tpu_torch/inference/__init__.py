@@ -1,8 +1,14 @@
 """Samplers of the hyper-posterior (counterpart of
 ``chimera_tpu/inference``): HMC and ChEES-HMC on the batched log
 hyper-likelihood and its gradient, the affine-invariant ensemble sampler
-(no gradient), and chain diagnostics."""
+(no gradient), chain diagnostics, and HDF5 checkpoints of chains and HMC
+runs (h5py imported at first use)."""
 
+from chimera_tpu_torch.inference.checkpoint import (latest_chain_file,
+                                                    load_chain, load_hmc,
+                                                    load_state,
+                                                    next_chain_file,
+                                                    save_chain, save_hmc)
 from chimera_tpu_torch.inference.chees import (run_chees,
                                                sample_hyperposterior_chees)
 from chimera_tpu_torch.inference.diagnostics import effective_sample_size, rhat
@@ -22,4 +28,6 @@ __all__ = [
     "make_transformed_log_prob", "make_transformed_log_prob_batch",
     "make_vector_log_prob", "rhat", "run", "run_chees", "run_hmc",
     "sample_hyperposterior", "sample_hyperposterior_chees", "step",
+    "latest_chain_file", "load_chain", "load_hmc", "load_state",
+    "next_chain_file", "save_chain", "save_hmc",
 ]

@@ -758,13 +758,18 @@ class HyperLikelihood(nn.Module):
         return self._integrate_pixels(pop_b, p)
 
     def _numerators_full(self, pop_b: Population) -> torch.Tensor:
-        """Kind 'full' (``chimera_tpu/likelihood.py:580-675``): per-event
-        norms and N_eff gates from the weights, one K5 launch for the 3-D
-        KDE of every (λ, event) on its pixels x z-grid, times the norm, the
-        ``cut_grid`` z-mask (the z-grid within [min - c σ, max + c σ] of
-        the (λ, event)'s unweighted source-frame z, σ with ddof 0; none
-        without ``cut_grid``) and the pixel mask, gated, then integrated
-        over z and summed over pixels."""
+        """Kind 'full': the densities of ``p_gw_full`` integrated over z
+        and summed over pixels."""
+        return self._integrate_pixels(pop_b, self.p_gw_full(pop_b))
+
+    def p_gw_full(self, pop_b: Population) -> torch.Tensor:
+        """Kind 'full''s p_gw (L, E, P, G) (``chimera_tpu/likelihood.py::
+        p_gw_3d_full``): per-event norms and N_eff gates from the weights,
+        one K5 launch for the 3-D KDE of every (λ, event) on its pixels x
+        z-grid, times the norm, the ``cut_grid`` z-mask (the z-grid within
+        [min - c σ, max + c σ] of the (λ, event)'s unweighted source-frame
+        z, σ with ddof 0; none without ``cut_grid``) and the pixel mask,
+        gated."""
         theta = ThetaPEDet(m1det=self.m1det, m2det=self.m2det, dL=self.dL,
                            pe_prior=self.pe_prior)
         th_src, w = theta_src_and_weights(pop_b, theta)             # (L, E, S)
@@ -783,8 +788,7 @@ class HyperLikelihood(nn.Module):
                 zg >= torch.amin(z, dim=-1, keepdim=True) - c * sig)
             p = p * z_mask[:, :, None, :]
         p = p * self.pixel_mask[None, :, :, None]
-        p = torch.where(gate[..., None, None], torch.nan_to_num(p), 0.0)
-        return self._integrate_pixels(pop_b, p)
+        return torch.where(gate[..., None, None], torch.nan_to_num(p), 0.0)
 
     def _log_evs(self, num: torch.Tensor) -> torch.Tensor:
         """Per-event numerators (L, E) -> log numerators, NaN to -inf,
@@ -837,3 +841,21 @@ class HyperLikelihood(nn.Module):
         if self.event_mask is not None:
             log_evs = log_evs[self.event_mask]
         return log_evs, log_num, torch.log(n_exp)[0], log_hyper
+
+
+def log_hyperlikelihood(hl: HyperLikelihood, hyper: dict) -> torch.Tensor:
+    """One hyper-parameter sample (``HyperLikelihood.log_like``)."""
+    return hl.log_like(**hyper)
+
+
+def log_hyperlikelihood_batch(hl: HyperLikelihood, hyper_batch: dict
+                              ) -> torch.Tensor:
+    """A batch of λ, dict of equal-length 1-D arrays -> (L,)
+    (``HyperLikelihood.log_like_batch``)."""
+    return hl.log_like_batch(hyper_batch)
+
+
+def compute_all(hl: HyperLikelihood, hyper: dict):
+    """Debug decomposition at one λ (``HyperLikelihood.compute_all``)."""
+    return hl.compute_all(**hyper)
+

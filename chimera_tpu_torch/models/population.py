@@ -83,8 +83,7 @@ class Population:
         elif cat == "EmptyCatalog":
             gal_cat = EmptyCatalog()
         else:
-            raise NotImplementedError(
-                f"galaxy catalog {cat} is not ported (ROADMAP.md §1 item 7)")
+            raise ValueError(f"unknown galaxy catalog {cat}")
         return cls(**parts,
                    R0=torch.as_tensor(state[f"{prefix}R0"], dtype=ref.dtype,
                                       device=ref.device).reshape(-1),

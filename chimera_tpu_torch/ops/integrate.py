@@ -1,4 +1,5 @@
-"""Trapezoid rules (counterpart of ``chimera_tpu/ops/integrate.py``)."""
+"""Trapezoid rules and compensated reductions (counterpart of
+``chimera_tpu/ops/integrate.py``)."""
 
 from __future__ import annotations
 
@@ -26,6 +27,36 @@ def trapz_weights(x: torch.Tensor) -> torch.Tensor:
     dx = torch.diff(x, dim=-1)
     zeros = torch.zeros_like(x[..., :1])
     return 0.5 * (torch.cat([zeros, dx], dim=-1) + torch.cat([dx, zeros], dim=-1))
+
+
+def masked_trapz(y: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
+                 dim: int = -1) -> torch.Tensor:
+    """Trapezoid over the entries where ``mask`` holds: the others count as
+    zero integrand, the node spacing is untouched."""
+    return trapz(torch.where(mask, y, 0.0), x, dim=dim)
+
+
+def neumaier_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Compensated (Neumaier) sum along ``dim``: a loop over that axis in
+    order, vectorized over the others (the JAX package's ``lax.scan``).  A
+    loop of tensor ops per element: for long reductions where float32
+    rounding matters, not for hot paths."""
+    x = torch.movedim(x, dim, 0)
+    s = torch.zeros_like(x[0])
+    c = torch.zeros_like(x[0])
+    for xi in x:
+        t = s + xi
+        c = c + torch.where(torch.abs(s) >= torch.abs(xi), (s - t) + xi,
+                            (xi - t) + s)
+        s = t
+    return s + c
+
+
+def sum_and_sumsq(x: torch.Tensor, dim: int = -1
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum(x), sum(x^2)) along ``dim``, the pair of the Kish effective
+    sample size."""
+    return torch.sum(x, dim=dim), torch.sum(torch.square(x), dim=dim)
 
 
 def cumtrapz(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,19 @@ def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
     return _interp_rows(x2, xp2, fp2).reshape(out_shape)
 
 
+def interp_batch(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor,
+                 left=None, right=None) -> torch.Tensor:
+    """Row-wise ``jnp.interp``: x (B, N), xp and fp (B, M) -> (B, N), with
+    ``left`` / ``right`` (default: the edge values) outside each row's
+    [xp[0], xp[-1]]."""
+    out = _interp_rows(x, xp, fp)
+    if left is not None:
+        out = torch.where(x < xp[:, :1], left, out)
+    if right is not None:
+        out = torch.where(x > xp[:, -1:], right, out)
+    return out
+
+
 def _interp_rows(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
     """x (R, K), xp/fp (R, M) with each xp row ascending.  The table is read
     by indexing, whose backward accumulates by a sorted ``index_put_`` (as

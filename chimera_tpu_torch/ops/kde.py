@@ -104,6 +104,38 @@ def kde1d_core(dataset: torch.Tensor, grid: torch.Tensor,
                      dim=-1) / bandwidth[..., None]
 
 
+def kde1d(dataset: torch.Tensor, grid: torch.Tensor,
+          weights: torch.Tensor | None = None, kernel: str = "epan",
+          bw_method=None) -> torch.Tensor:
+    """Weighted 1-D KDE of ``dataset`` (S,) on ``grid`` (G,) -> (G,), the
+    reference's bandwidth conventions (``kde1d_params``)."""
+    return kde1d_batch(dataset[None], grid[None],
+                       None if weights is None else weights[None],
+                       kernel, bw_method)[0]
+
+
+def kde1d_batch(dataset: torch.Tensor, grid: torch.Tensor,
+                weights: torch.Tensor | None = None, kernel: str = "epan",
+                bw_method=None) -> torch.Tensor:
+    """:func:`kde1d` over leading axes: dataset and weights (..., S), each
+    row's grid (..., G) -> (..., G).  The rows' normalized weights and
+    bandwidths come from ``kde1d_params``; their densities from
+    ``ops.cuda.kde.kde1d_grid``: on CUDA tensors ONE launch of the
+    hand-written kernel K4 over all rows (its adjoint K4b under autograd),
+    on CPU tensors its plain version.  A row longer than K4's shared memory
+    holds raises there."""
+    from chimera_tpu_torch.ops.cuda.kde import kde1d_grid
+
+    lead = dataset.shape[:-1]
+    s, g = dataset.shape[-1], grid.shape[-1]
+    z = dataset.reshape(-1, s)
+    w = None if weights is None else weights.reshape(-1, s)
+    wn, h = kde1d_params(z, w, bw_method)
+    out = kde1d_grid(z, wn.to(z.dtype), grid.expand(*lead, g).reshape(-1, g),
+                     h.to(z.dtype), kernel)
+    return out.reshape(*lead, g)
+
+
 def _safe_norm_weights(weights, shape, dtype, device) -> torch.Tensor:
     """Unit-mass weights over the last axis; an all-zero row falls back to
     uniform weights so every value downstream stays finite."""

@@ -3058,7 +3058,7 @@ FULL_STAGES = ("update_batch", "theta_src_and_weights", "norms and gate",
 
 def full_stages(hl, batch: dict, reps: int = 17) -> dict:
     """A 'full' batch split into the stages of ``log_like_batch`` and
-    ``_numerators_full`` (FULL_STAGES), a CUDA event after each: the
+    ``p_gw_full`` (FULL_STAGES), a CUDA event after each: the
     median ms per λ of each stage over ``reps`` batches after a warm-up.
     The staged log L must be log_like_batch's bits."""
     from chimera_tpu_torch import likelihood as lk
@@ -4516,6 +4516,458 @@ def distribution(smi: str, full, dark_data) -> None:
           f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 34: data, precompute and the run surface
+# ---------------------------------------------------------------------------
+
+# galaxies of the flagship (bench.py::build_dark) and the scale the catalog
+# build's docstring names (chimera_tpu/catalog/build.py:155-158)
+SURFACE_GALAXIES = (50_000, 1_600_000)
+# K-band absolute magnitudes of the mock galaxies and the survey's
+# apparent-magnitude limit
+SURFACE_MAGS = (-20.5, 1.0, 23.0)
+# HEALPix on the card: every power-of-2 nside to 2^13, random points each
+HPX_NSIDES = tuple(2 ** k for k in range(14))
+HPX_POINTS = 200_000
+
+
+def surface_galaxies(gen, pop, cat, n_gal: int) -> dict:
+    """n_gal mock galaxies on the card: a host at each event's first PE
+    sample (z from that sample's distance) and an isotropic background with
+    p(z) ∝ dV_C/dz to z = 1.5, each with a K-band absolute magnitude
+    (luminosity weight) and its apparent magnitude."""
+    from chimera_tpu_torch.data.mock import make_mock_galaxies
+    from chimera_tpu_torch.models.cosmology import dl_at_z, z_from_dgw
+    from chimera_tpu_torch.utils import apparent_magnitude
+
+    truths = {"z": z_from_dgw(pop.cosmo, cat.dL[None, :, 0])[0],
+              "ra": cat.ra[:, 0], "dec": cat.dec[:, 0]}
+    gal = make_mock_galaxies(gen, pop, truths, n_background=n_gal - cat.ra.shape[0])
+    mu, sig, _ = SURFACE_MAGS
+    gal["M"] = mu + sig * torch.randn(gal["z"].shape, generator=gen,
+                                      dtype=gal["z"].dtype, device=DEV)
+    gal["m"] = apparent_magnitude(gal["M"], dl_at_z(pop.cosmo, gal["z"][None])[0])
+    return gal
+
+
+def surface_completeness(gal, pop, n_background: int):
+    """The homogeneous completeness of the galaxies brighter than the
+    apparent-magnitude limit against a constant theoretical density (twice
+    the background's over its comoving volume to z = 1.5, full sky: the
+    catalog at most half complete, so that an event whose host the limit
+    removed keeps p_gal = (1 - P_compl) p_bkg > 0), on a table to z = 3
+    (tests/test_likelihood_pixelated.py::test_homogeneous_completeness)."""
+    from chimera_tpu_torch.catalog import HomogeneousCompleteness
+    from chimera_tpu_torch.models.cosmology import comoving_volume
+
+    v_mpc3 = 1e9 * comoving_volume(pop.cosmo, torch.full((1, 1), 1.5, dtype=F64,
+                                                         device=DEV)).item()
+    density = 2.0 * n_background / v_mpc3
+    seen = gal["m"] < SURFACE_MAGS[2]
+    return HomogeneousCompleteness.create(
+        gal["z"][seen], lambda z: torch.full_like(z, density), pop.cosmo,
+        sky_area_deg2=41252.96, z_range=(0.001, 3.0), n_bins=60)
+
+
+def nest_vs_ring(cat_r, gal_r, cat_n, gal_n) -> tuple[float, int]:
+    """Each physical pixel's p_cat row of a NESTED build against the RING
+    build's (pixels matched through nest2ring), relative to the row's
+    largest value; the events' n_gal equal.  Returns (max rel err, rows)."""
+    from chimera_tpu_torch.ops import healpix as hpx
+
+    if not torch.equal(gal_r.n_gal, gal_n.n_gal):
+        raise AssertionError("NEST and RING builds count different galaxies")
+    if not torch.equal(cat_r.opt_nsides, cat_n.opt_nsides) or not torch.equal(
+            cat_r.pixel_mask.sum(1), cat_n.pixel_mask.sum(1)):
+        raise AssertionError("NEST and RING pixelizations differ")
+    ring_of_nest = cat_n.pixels_opt_nsides.clone()
+    for ns in cat_n.opt_nsides.unique().tolist():
+        sel = cat_n.opt_nsides == ns
+        ring_of_nest[sel] = hpx.nest2ring(int(ns), cat_n.pixels_opt_nsides[sel]
+                                          .clamp_min(0))
+    big = torch.iinfo(torch.int64).max
+    key_n = torch.where(cat_n.pixel_mask, ring_of_nest, big)
+    key_r = torch.where(cat_r.pixel_mask, cat_r.pixels_opt_nsides, big)
+    key_n, order_n = torch.sort(key_n, dim=1)
+    key_r, order_r = torch.sort(key_r, dim=1)
+    if not torch.equal(key_n, key_r):
+        raise AssertionError("NEST and RING pixel sets differ")
+    rows = torch.sort(cat_r.pixel_mask.long(), dim=1, descending=True)[0].bool()
+    p_n = torch.take_along_dim(gal_n.p_cat, order_n[..., None], dim=1)[rows]
+    p_r = torch.take_along_dim(gal_r.p_cat, order_r[..., None], dim=1)[rows]
+    row_max = p_r.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+    return ((p_n - p_r).abs() / row_max).max().item(), int(rows.sum())
+
+
+def surface_kde(hl, dtype, n_grad_events: int = 64) -> dict:
+    """``kde1d_batch`` on the dark rows' source-frame redshifts and weights
+    at H0 = 70 on each row's event grid (500 points): ONE K4 launch for all
+    rows, held to its plain version (float32 within 1e-4, float64 within
+    1e-10 of each live row's largest value); under autograd on the first
+    ``n_grad_events`` events' rows one K4 and one K4b, their d/dz and d/dw
+    held the same way (float32 against the float64 plain version on the
+    same inputs)."""
+    from chimera_tpu_torch.ops import kde
+    from chimera_tpu_torch.ops.cuda.kde import kde1d_grid_plain
+
+    pop = hl.population
+    z, w = _z_and_w(hl.row_m1det, hl.row_m2det, hl.row_dL, hl.row_inv_pe_prior,
+                    pop.cosmo, pop.mass)
+    n_rows = hl.rows_per_event
+    z, w = z[0].to(dtype), w[0].to(dtype)
+    grids = hl.z_grids.repeat_interleave(n_rows, dim=0).to(dtype)
+    live = w.sum(-1) > 0
+    tol = 1e-4 if dtype == F32 else 1e-10
+
+    def plain(z, grids, w):
+        wn, h = kde.kde1d_params(z, w, None)
+        return kde1d_grid_plain(z, wn, grids, h)
+
+    def row_err(got, expect, rows):
+        got, expect = got.double()[rows], expect.double()[rows]
+        scale = expect.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+        return ((got - expect).abs() / scale).max().item()
+
+    out, launched = counted(lambda: kde.kde1d_batch(z, grids, w), {"K4": 1})
+    fwd = row_err(out, plain(z, grids, w), live)
+    ms = statistics.median(cuda_ms(lambda: kde.kde1d_batch(z, grids, w), 5))
+    p_ms = statistics.median(cuda_ms(lambda: plain(z, grids, w), 2))
+
+    cut = n_grad_events * n_rows
+    zs, ws, gs = z[:cut].clone(), w[:cut].clone(), grids[:cut]
+    ct = torch.randn(gs.shape, generator=torch.Generator(device=DEV).manual_seed(
+        SEED + 34), dtype=dtype, device=DEV)
+
+    def grads(fn, zs, ws):
+        zs, ws = zs.requires_grad_(), ws.requires_grad_()
+        return torch.autograd.grad((fn(zs, gs.to(zs.dtype), ws)
+                                    * ct.to(zs.dtype)).sum(), (zs, ws))
+
+    card, _ = counted(lambda: grads(kde.kde1d_batch, zs, ws), {"K4": 1, "K4b": 1})
+    ref = grads(plain, zs.detach().double(), ws.detach().double())
+    rows = live[:cut]
+    bwd = max(row_err(a, b, rows) for a, b in zip(card, ref))
+    if not (fwd <= tol and bwd <= tol):
+        raise AssertionError(f"kde1d_batch {dtype}: K4 {fwd:.3e}, K4b {bwd:.3e} "
+                             f"(tol {tol:.0e}) of the row max")
+    return {"rows": int(live.sum()), "of": live.numel(), "fwd": fwd, "bwd": bwd,
+            "ms": ms, "plain_ms": p_ms, "launches": launched["K4"]}
+
+
+def surface_healpix() -> dict:
+    """HEALPix on the card against the port's C++ oracle: for every nside
+    to 2^13, random points, the poles, phi = 0 and 2 pi, the caps' edges
+    and random pixels' corners pulled 1e-6 of the way to their centres;
+    ang2pix and pix2ang in both schemes, ring2nest / nest2ring and
+    convert_pixelization (the oracle's through the pixel centres),
+    boundaries; indices equal, angles within 1e-15."""
+    import numpy as np
+
+    from chimera_tpu_torch import native
+    from chimera_tpu_torch.ops import healpix as hpx
+
+    rng = np.random.default_rng(SEED + 34)
+    worst, n_idx = 0.0, 0
+    for nside in HPX_NSIDES:
+        npix = 12 * nside * nside
+        theta = np.concatenate([np.arccos(rng.uniform(-1.0, 1.0, HPX_POINTS)),
+                                [0.0, np.pi, 0.5 * np.pi, 0.5 * np.pi,
+                                 np.arccos(2 / 3), np.arccos(-2 / 3)]])
+        phi = np.concatenate([rng.uniform(0.0, 2.0 * np.pi, HPX_POINTS),
+                              [0.0, 2.0 * np.pi, 0.0, 2.0 * np.pi, 1.0, 2.0]])
+        pix = np.unique(np.concatenate([rng.integers(0, npix, 2000), [0, npix - 1]]))
+        for nest in (False, True):
+            bt, bp = native.boundaries(nside, pix, 2, nest)
+            ct, cp = native.pix2ang(nside, pix, nest)
+            dphi = np.remainder(bp - cp[:, None] + np.pi, 2 * np.pi) - np.pi
+            th_in = bt + (ct[:, None] - bt) * 1e-6
+            ph_in = np.remainder(cp[:, None] + dphi * (1 - 1e-6), 2 * np.pi)
+            th_all = np.concatenate([theta, th_in.ravel()])
+            ph_all = np.concatenate([phi, ph_in.ravel()])
+            got = hpx.ang2pix(nside, torch.tensor(th_all, device=DEV),
+                              torch.tensor(ph_all, device=DEV), nest).cpu().numpy()
+            expect = native.ang2pix(nside, th_all, ph_all, nest)
+            corners = expect[theta.size:].reshape(th_in.shape)
+            if not (np.array_equal(got, expect)
+                    and np.array_equal(corners, np.broadcast_to(pix[:, None],
+                                                                corners.shape))):
+                raise AssertionError(f"ang2pix nside {nside} nest={nest}")
+            n_idx += got.size
+            pix_t = torch.tensor(expect, device=DEV)
+            for a, b in zip(hpx.pix2ang(nside, pix_t, nest),
+                            native.pix2ang(nside, expect, nest)):
+                worst = max(worst, np.abs(a.cpu().numpy() - b).max())
+            for a, b in zip(hpx.boundaries(nside, torch.tensor(pix, device=DEV), 3,
+                                           nest),
+                            native.boundaries(nside, pix, 3, nest)):
+                worst = max(worst, np.abs(a.cpu().numpy() - b).max())
+            other = hpx.ring2nest if not nest else hpx.nest2ring
+            expect_other = native.ang2pix(nside, *native.pix2ang(nside, expect, nest),
+                                          not nest)
+            if not np.array_equal(other(nside, pix_t).cpu().numpy(), expect_other):
+                raise AssertionError(f"{other.__name__} nside {nside}")
+            out = max(1, nside // 2)
+            conv = hpx.convert_pixelization(pix_t, nside, out, nest, not nest)
+            if not np.array_equal(conv.cpu().numpy(), native.ang2pix(
+                    out, *native.pix2ang(nside, expect, nest), not nest)):
+                raise AssertionError(f"convert_pixelization nside {nside}")
+    if worst > 1e-15:
+        raise AssertionError(f"HEALPix angles on the card {worst:.3e} from the "
+                             "C++ oracle (tol 1e-15)")
+    return {"indices": n_idx, "angle_err": worst}
+
+
+SURFACE_TOML = """[cosmology]
+model = "flrw"
+H0 = 70.0
+Om0 = 0.25
+
+[mass]
+model = "plp"
+
+[rate]
+model = "madau_dickinson"
+
+[likelihood]
+kind = "marginalized"
+binning = false
+
+[catalog]
+completeness = "dvdz"
+z_range = [0.0, 3.0]
+kind = "step"
+z_err = 0.01
+
+[pixelization]
+nside_list = [8, 16, 32]
+mean_npixels_event = 8
+sky_conf = 0.9
+
+[prior.H0]
+range = [40.0, 120.0]
+
+[data]
+events = 1000
+samples = 1024
+galaxies = 50000
+injections = 500000
+z_int_res = 500
+seed = 1
+"""
+
+
+def surface(smi: str, dark_data) -> None:
+    """Phase 34: the data, precompute and run surface on the dark
+    flagship's events (1000 x 1024, 500-point grids, 500 000 generated
+    injections): the pixelization in RING and NEST, the homogeneous
+    completeness and the catalog build with luminosity weights, an
+    apparent-magnitude mask, sumgauss='pbkg' and the z reshuffle at 50 000
+    and 1 600 000 galaxies (setup seconds per stage, peak device memory),
+    NEST held to RING; kind 'marginalized' on that catalog (K1c and K2
+    once a batch, float32 vs float64, timing beside the step
+    completeness' catalog); ``kde1d_batch`` through K4 and K4b; HEALPix
+    against the C++ oracle; a TOML run through ``runconfig`` with the
+    ensemble sampler; localization on the card against the CPU; the HDF5
+    round trips where h5py imports."""
+    import importlib.util
+    import tempfile
+
+    from chimera_tpu_torch import HyperLikelihood, SelectionFunction, runconfig
+    from chimera_tpu_torch.catalog.build import build_pixelated_catalog
+    from chimera_tpu_torch.data.localization import (localization_areas,
+                                                     localization_volumes)
+    from chimera_tpu_torch.data.pixelize import pixelize_gw_catalog
+    from chimera_tpu_torch.inference import (init_state, initialize_walkers,
+                                             make_vector_log_prob, run)
+    from chimera_tpu_torch.models import FLRW
+    from chimera_tpu_torch.utils import StageTimer, mag2lum
+
+    t_phase = time.perf_counter()
+    cat0, z_grids, _, inj, n_gen = dark_data
+    timer = StageTimer()
+    pop = population(F64)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 34)
+
+    # ---- precompute in both schemes at both galaxy counts ----------------
+    cats = {}
+    for nest in (False, True):
+        cats[nest] = timer.time_fn(
+            f"pixelize {'NEST' if nest else 'RING'}", pixelize_gw_catalog, cat0,
+            nside_list=[8, 16], mean_npixels_event=15, sky_conf=0.9, nest=nest)
+    built = {}
+    for n_gal in SURFACE_GALAXIES:
+        torch.cuda.reset_peak_memory_stats(DEV)
+        gal = timer.time_fn(f"galaxies {n_gal}", surface_galaxies, gen, pop, cat0,
+                            n_gal)
+        compl = timer.time_fn(f"completeness {n_gal}", surface_completeness, gal,
+                              pop, n_gal - cat0.ra.shape[0])
+        weights = mag2lum(gal["M"], "K")
+        mask = gal["m"] < SURFACE_MAGS[2]
+        for nest in (False, True):
+            name = f"catalog {n_gal} {'NEST' if nest else 'RING'}"
+            built[n_gal, nest] = timer.time_fn(
+                name, build_pixelated_catalog, gal, cats[nest], z_grids, pop.cosmo,
+                compl, z_err=0.01, weights=weights, mask=mask, sumgauss="pbkg",
+                nest=nest, z_reshuffle_seed=SEED + 34)
+        peak = torch.cuda.max_memory_allocated(DEV) / 2 ** 30
+        rel, rows = nest_vs_ring(cats[False], built[n_gal, False], cats[True],
+                                 built[n_gal, True])
+        if rel > 1e-12:
+            raise AssertionError(f"NEST vs RING p_cat {rel:.3e} of the row max")
+        seconds = {k: v for k, v in timer.times.items() if str(n_gal) in k}
+        phase(34, f"precompute {n_gal} galaxies", f"{int(mask.sum())} brighter "
+              f"than m = {SURFACE_MAGS[2]}; setup "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items())
+              + f"; peak device memory {peak:.2f} GiB; NEST vs RING p_cat max "
+              f"{rel:.3e} of the row max over {rows} pixel rows (tol 1e-12), "
+              f"n_gal equal ({int(built[n_gal, False].n_gal.sum())} voxel "
+              f"galaxies) [{smi}]")
+        del gal
+    cat, gal_cat = cats[False], built[SURFACE_GALAXIES[0], False]
+    del built
+
+    # ---- the likelihood on the homogeneous completeness -------------------
+    # (above H0 = 60: phase 8's batch gates its two lowest H0 values to the
+    # dtype's lowest number, which a float32-vs-float64 ratio cannot hold)
+    h0s = torch.linspace(62.0, 92.0, 16, device=DEV)
+    hls = {dtype: timer.time_fn(
+        f"create {dtype}", lambda dtype=dtype: HyperLikelihood.create(
+            cat, z_grids, population(dtype, gal_cat),
+            SelectionFunction.create(inj, n_gen), kind="marginalized",
+            binning=False, cut_grid=None)) for dtype in (F64, F32)}
+    for dtype, hl in hls.items():
+        ll, _ = counted(lambda hl=hl, dtype=dtype: hl.log_like_batch(
+            {"H0": h0s.to(dtype)}), {"K1c": 1, "K2": 1})
+        check_log_like(ll.double(), h0s, {"K1c": 1, "K2": 1})
+    rel, diff, n_fin = f32_vs_f64(hls[F64], hls[F32], h0s)
+    reps, n = 17, len(h0s)
+    per_l = {}
+    dvdz = dark_likelihood(dark_data, F32)
+    for name, hl, dtype in (("homogeneous f64", hls[F64], F64),
+                            ("homogeneous f32", hls[F32], F32),
+                            ("step completeness f32", dvdz, F32)):
+        batch = {"H0": h0s.to(dtype)}
+        per_l[name] = med_mad([t / n for t in cuda_ms(
+            lambda hl=hl, batch=batch: hl.log_like_batch(batch), reps)])
+    del dvdz
+    phase(34, "homogeneous completeness", f"'marginalized' on the "
+          f"{SURFACE_GALAXIES[0]}-galaxy catalog (luminosity weights, the "
+          f"magnitude mask, sumgauss='pbkg'): "
+          f"K1c and K2 once a batch; float32 vs float64 log L max rel err "
+          f"{rel:.3e} (bar 1e-6), max abs {diff:.3e} over {n_fin} of {n} H0 "
+          f"values; per λ over {reps} batches of {n} (median ± MAD): "
+          + ", ".join(f"{k} {m:.4f} ± {d:.4f} ms" for k, (m, d) in per_l.items())
+          + f" (the step completeness' catalog on the same events: a note, not "
+          f"a claim) [{smi}]")
+
+    # ---- kde1d_batch through K4 and K4b -----------------------------------
+    for dtype, hl in hls.items():
+        r = surface_kde(hl, dtype)
+        phase(34, f"kde1d_batch {dtype}", f"{r['rows']} live of {r['of']} dark "
+              f"rows x 128 samples x 500 grid points: one K4 launch, max err "
+              f"{r['fwd']:.3e} of the row max; under autograd one K4 + one K4b, "
+              f"d/dz and d/dw max err {r['bwd']:.3e}; kernel {r['ms']:.3f} ms, "
+              f"plain {r['plain_ms']:.3f} ms per call [{smi}]")
+    del hls
+
+    # ---- HEALPix against the C++ oracle -----------------------------------
+    r = timer.time_fn("healpix vs oracle", surface_healpix)
+    phase(34, "HEALPix", f"nside 1 to {HPX_NSIDES[-1]}, {HPX_POINTS} random "
+          f"points each plus the poles, phi = 0 and 2 pi, the caps' edges and "
+          f"pixel corners: {r['indices']} ang2pix indices, ring2nest, "
+          f"nest2ring, convert_pixelization equal to the C++ oracle; pix2ang "
+          f"and boundaries max {r['angle_err']:.3e} rad (tol 1e-15) [{smi}]")
+
+    # ---- the run surface: TOML -> runconfig -> ensemble -------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp, "dark_siren.toml")
+        path.write_text(SURFACE_TOML)
+        cfg = runconfig.RunConfig.load(str(path))
+    d = cfg.data
+    if (d["events"], d["samples"], d["z_int_res"]) != (
+            cat0.dL.shape[0], cat0.dL.shape[1], z_grids.shape[1]):
+        raise AssertionError("the TOML's [data] is not the flagship's width")
+    cat_cfg = timer.time_fn("runconfig pixelize", pixelize_gw_catalog, cat0,
+                            **runconfig.pixelization_kwargs(cfg))
+    gal = surface_galaxies(gen, pop, cat0, d["galaxies"])
+    cfg_cat = timer.time_fn(
+        "runconfig catalog", build_pixelated_catalog, gal, cat_cfg, z_grids,
+        pop.cosmo, runconfig.build_completeness(cfg, device=DEV, dtype=F64),
+        z_err=cfg.catalog["z_err"])
+    hl = timer.time_fn("runconfig likelihood", runconfig.build_likelihood, cfg,
+                       cat_cfg, z_grids,
+                       runconfig.build_population(cfg, cfg_cat, device=DEV,
+                                                  dtype=F32),
+                       SelectionFunction.create(inj, n_gen))
+    bounds = runconfig.prior_bounds(cfg)
+    names = list(bounds)
+    log_prob = make_vector_log_prob(hl, names, bounds)
+    chains = []
+    for _ in range(2):
+        g = torch.Generator(device=DEV).manual_seed(SEED + 341)
+        x0 = initialize_walkers(g, {"H0": 70.0}, 32, names, bounds=bounds,
+                                dtype=F32)
+        state, hist = timer.time_fn("ensemble 5 steps x 32 walkers", run, g,
+                                    init_state(x0, log_prob), log_prob, 5)
+        chains.append((hist["coords"], hist["log_prob"]))
+    x, lp = chains[0]
+    lo, hi = bounds["H0"]
+    if not (same_bits(x, chains[1][0]) and same_bits(lp, chains[1][1])
+            and torch.all(torch.isfinite(x)) and torch.all(torch.isfinite(lp))
+            and torch.all((x > lo) & (x < hi))):
+        raise AssertionError("the TOML run's ensemble: not finite, out of bounds "
+                             "or not the same bits on a repeat")
+    phase(34, "run surface", f"TOML ({len(SURFACE_TOML.splitlines())} lines, "
+          f"dark_siren.toml's sections, [data] at the flagship's width) -> "
+          f"runconfig: nside {cfg.pixelization['nside_list']}, P = "
+          f"{hl.n_pixels}, kind {hl.kind}, cut_grid {hl.cut_grid}; ensemble "
+          f"{x.shape[1]} walkers x {x.shape[0]} steps, acceptance "
+          f"{state.n_accepted.float().mean().item() / x.shape[0]:.2f}, H0 "
+          f"{x[-1].mean().item():.2f} ± {x[-1].std().item():.2f}, the same bits "
+          f"on a repeat [{smi}]")
+    del hl, cfg_cat, gal
+
+    # ---- localization on the card against the CPU --------------------------
+    theta, phi, dl = 0.5 * math.pi - cat0.dec, cat0.ra, cat0.dL
+    lo_c, hi_c = (FLRW.create(H0=h, device=DEV, dtype=F64) for h in (120.0, 40.0))
+    lo_p, hi_p = (FLRW.create(H0=h, device="cpu", dtype=F64) for h in (120.0, 40.0))
+    errs = []
+    for card, cpu in (
+            (localization_areas(theta, phi), localization_areas(theta.cpu(), phi.cpu())),
+            (localization_volumes(theta, phi, dl, lo_c, hi_c),
+             localization_volumes(theta.cpu(), phi.cpu(), dl.cpu(), lo_p, hi_p))):
+        errs.append(((card.cpu() - cpu).abs() / cpu.abs()).max().item())
+    if max(errs) > 1e-12:
+        raise AssertionError(f"localization on the card vs the CPU: {errs}")
+    phase(34, "localization", f"{theta.shape[0]} events: areas max rel err "
+          f"{errs[0]:.3e}, volumes {errs[1]:.3e} (tol 1e-12) [{smi}]")
+
+    # ---- HDF5 ---------------------------------------------------------------
+    if importlib.util.find_spec("h5py") is None:
+        phase(34, "HDF5", "h5py is not installed here: the HDF5 round trips "
+              "(catalogs, PE samples, injections, galaxies, chains, HMC "
+              "checkpoints) are held on the CPU by tests/test_torch_io.py")
+    else:
+        from chimera_tpu_torch.catalog.build import (load_pixelated_catalog,
+                                                     save_pixelated_catalog)
+        from chimera_tpu_torch.data import io
+
+        with tempfile.TemporaryDirectory() as tmp:
+            save_pixelated_catalog(f"{tmp}/cat.h5", gal_cat)
+            back = load_pixelated_catalog(f"{tmp}/cat.h5", gal_cat.completeness,
+                                          device=DEV, dtype=F64)
+            io.save_pixelated_gw_catalog(cat, f"{tmp}/pix.h5")
+            pix = io.load_pixelated_gw_catalog(f"{tmp}/pix.h5", device=DEV)
+        if not (same_bits(back.p_cat, gal_cat.p_cat)
+                and torch.equal(pix.pixels_opt_nsides[cat.pixel_mask],
+                                cat.pixels_opt_nsides[cat.pixel_mask])):
+            raise AssertionError("HDF5 round trip on the card")
+        phase(34, "HDF5", f"catalog and pixelization round trips equal [{smi}]")
+    phase(34, "stages", timer.report() + f"; phase 34 in "
+          f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+
+
+
 def main() -> None:
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -4565,6 +5017,7 @@ def main() -> None:
     model_modes(smi)
     population_models(smi, full, dark_data)
     distribution(smi, full, dark_data)
+    surface(smi, dark_data)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1251,3 +1251,131 @@ def test_batch_sum_keeps_the_whole_batch_bits(cuda):
         x = torch.rand((16, width), generator=gen, device=cuda)
         assert torch.equal(batch_sum(x[8:], (16, 8)), torch.sum(x, -1)[8:])
         assert torch.equal(batch_sum(x[:8], (16, 0)), torch.sum(x, -1)[:8])
+
+
+# ---------------------------------------------------------------------------
+# data and precompute: kde1d_batch through K4, the catalog build's schemes
+# and dtypes on the card
+# ---------------------------------------------------------------------------
+
+def test_kde1d_batch_routes_through_k4(cuda):
+    """``ops.kde.kde1d_batch`` on CUDA tensors: one K4 launch for all rows
+    (leading axes flattened), within 1e-10 of the CPU's plain version; under
+    autograd one K4 and one K4b, d/dz and d/dw within 1e-10 of CPU
+    autograd (of each row's largest value)."""
+    from chimera_tpu_torch.ops import kde
+
+    gen = torch.Generator().manual_seed(5)
+    z = 0.3 + 0.05 * torch.randn((3, 7, 200), generator=gen, dtype=torch.float64)
+    w = torch.rand((3, 7, 200), generator=gen, dtype=torch.float64)
+    w[1, 2] = 0.0
+    grid = torch.linspace(0.1, 0.5, 300, dtype=torch.float64).expand(3, 7, 300)
+    ct = torch.randn((3, 7, 300), generator=gen, dtype=torch.float64)
+
+    def run(dev):
+        zs = z.to(dev).requires_grad_()
+        ws = w.to(dev).requires_grad_()
+        out = kde.kde1d_batch(zs, grid.to(dev), ws)
+        return (out, *torch.autograd.grad((out * ct.to(dev)).sum(), (zs, ws)))
+
+    got = _launched(lambda: run(cuda), {"K4": 1, "K4b": 1})
+    for a, b in zip(got, run("cpu")):
+        scale = b.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+        assert ((a.cpu() - b).abs() / scale).max().item() <= 1e-10
+    with torch.no_grad():
+        _launched(lambda: kde.kde1d_batch(z.to(cuda), grid.to(cuda), w.to(cuda)),
+                  {"K4": 1})
+
+
+def _edge_galaxies(cat, z_grids, seed=7):
+    """Galaxies within a float32 ulp of the edges of each event's pixels."""
+    from chimera_tpu_torch.ops import healpix as hpx
+
+    gen = torch.Generator().manual_seed(seed)
+    ras, decs, zs = [], [], []
+    for e in range(cat.opt_nsides.shape[0]):
+        ns = int(cat.opt_nsides[e])
+        b_t, b_p = (b.reshape(-1).cpu() for b in hpx.boundaries(
+            ns, cat.pixels_opt_nsides[e][cat.pixel_mask[e]], step=6))
+        n = b_t.numel()
+
+        def nudge():
+            sign = torch.where(torch.rand(n, generator=gen) < 0.5, -1.0, 1.0)
+            return sign * (1e-8 + 3e-8 * torch.rand(n, generator=gen,
+                                                    dtype=torch.float64))
+
+        ras.append(torch.remainder(b_p + nudge(), 2 * torch.pi))
+        decs.append(0.5 * torch.pi - b_t + nudge())
+        g = z_grids[e]
+        zs.append(g[0] + (g[-1] - g[0]) * (0.1 + 0.8 * torch.rand(
+            n, generator=gen, dtype=torch.float64)))
+    return {"ra": torch.cat(ras), "dec": torch.cat(decs), "z": torch.cat(zs)}
+
+
+def test_catalog_builds_on_the_card(cuda, dark_inputs):
+    """On the card: the NESTED pixelization's build equals the RING one's
+    (each physical pixel's p_cat row within 1e-12 of its largest value,
+    n_gal equal) with luminosity weights, a mask, sumgauss='pbkg' on the
+    homogeneous completeness and the z reshuffle; the card's build is the
+    CPU's within 1e-12; a float32 build of galaxies on the pixels' edges
+    keeps the float64 build's n_gal and p_cat within 1e-5 of the row max;
+    the float32 log L on the homogeneous catalog within 1e-6 of float64."""
+    from chip_smoke import f32_vs_f64, nest_vs_ring, population
+
+    from chimera_tpu_torch.catalog import HomogeneousCompleteness
+    from chimera_tpu_torch.catalog.build import build_pixelated_catalog
+    from chimera_tpu_torch.data.pixelize import pixelize_gw_catalog
+    from chimera_tpu_torch.pytree import tensor_map
+
+    cat, z_grids, pop, sel = dark_inputs
+    gen = torch.Generator().manual_seed(13)
+    n = 4000
+    gal = {"ra": 2 * torch.pi * torch.rand(n, generator=gen, dtype=torch.float64),
+           "dec": torch.asin(2 * torch.rand(n, generator=gen, dtype=torch.float64) - 1),
+           "z": 1.2 * torch.rand(n, generator=gen, dtype=torch.float64)}
+    weights = torch.rand(n, generator=gen, dtype=torch.float64) + 0.1
+    mask = torch.rand(n, generator=gen) > 0.2
+
+    def move(obj, dev):
+        return tensor_map(obj, lambda t: t.to(dev))
+
+    def builds(dev, dtype=torch.float64):
+        cosmo = FLRW.create(device=dev, dtype=dtype)
+        compl = HomogeneousCompleteness.create(
+            gal["z"].to(dev), lambda z: torch.full_like(z, 1e-7), cosmo,
+            sky_area_deg2=41252.96, z_range=(0.001, 3.0), n_bins=30)
+        out = {}
+        for nest in (False, True):
+            c = pixelize_gw_catalog(move(cat, dev), [8, 16], 6, nest=nest)
+            out[nest] = c, build_pixelated_catalog(
+                {k: v.to(dev) for k, v in gal.items()}, c, z_grids.to(dev, dtype),
+                cosmo, compl, weights=weights, mask=mask,
+                sumgauss="pbkg", nest=nest, z_reshuffle_seed=3)
+        return out
+
+    card, host = builds(cuda), builds("cpu")
+    rel, rows = nest_vs_ring(*card[False], *card[True])
+    assert rel <= 1e-12 and rows > 50
+    for nest in (False, True):
+        got, expect = card[nest][1], host[nest][1]
+        assert torch.equal(got.n_gal.cpu(), expect.n_gal)
+        scale = expect.p_cat.abs().amax(-1, keepdim=True).clamp_min(1e-300)
+        assert ((got.p_cat.cpu() - expect.p_cat).abs() / scale).max() <= 1e-12
+
+    ring = card[False][0]
+    edge = _edge_galaxies(ring, z_grids)
+    compl = move(pop.gal_cat.completeness, cuda)
+    b64, b32 = (build_pixelated_catalog(edge, ring, z_grids.to(cuda, dt),
+                                        FLRW.create(device=cuda, dtype=dt),
+                                        move(compl, dt))
+                for dt in (torch.float64, torch.float32))
+    assert torch.equal(b64.n_gal, b32.n_gal) and int(b64.n_gal.sum()) > 100
+    scale = b64.p_cat.abs().amax(-1, keepdim=True).clamp_min(1e-300)
+    assert ((b32.p_cat.double() - b64.p_cat).abs() / scale).max() <= 1e-5
+
+    gal_cat = card[False][1]
+    hls = [HyperLikelihood.create(
+        ring, z_grids.to(cuda), population(dt, gal_cat, cuda), copy.deepcopy(sel),
+        kind="marginalized", binning=False, cut_grid=None)
+        for dt in (torch.float64, torch.float32)]
+    f32_vs_f64(*hls, torch.tensor(H0S, dtype=torch.float64, device=cuda))
