@@ -6,8 +6,9 @@ what the JAX package does: the hyper-likelihood batch of every kind ('1d',
 'approximate', 'marginalized', 'full'), binned or not, on effective or
 analysis grids, with every population model and engine, the galaxy-catalog
 prior (both completeness models) and the injection selection function;
-gradients of the unbinned and binned paths with the HMC / ChEES samplers
-and the gradient-free ensemble sampler; distribution over ranks
+gradients of every kind, binned or not, with every mass model on the
+card as on the CPU (the contract pass's and a sharded batch's excepted),
+with the HMC / ChEES samplers and the gradient-free ensemble sampler; distribution over ranks
 (``parallel``); and the precompute and run surface: HDF5 I/O of the
 reference's files (``data.io``), the pixelization (RING or NESTED) and the
 catalog build, chain checkpoints (``inference.checkpoint``), TOML run

@@ -146,6 +146,7 @@ DUAL_TN Dual<T, N> dabs(const Dual<T, N>& a) {
   return chain(a, dabs(a.v), a.v > T(0) ? T(1) : (a.v < T(0) ? T(-1) : T(0)));
 }
 DUAL_TN bool finite(const Dual<T, N>& a) { return finite(a.v); }
+DUAL_TN T scalar_of(const Dual<T, N>& a) { return a.v; }
 DUAL_TN bool operator<(const Dual<T, N>& a, const Dual<T, N>& b) { return a.v < b.v; }
 DUAL_TN bool operator<=(const Dual<T, N>& a, const Dual<T, N>& b) { return a.v <= b.v; }
 DUAL_TN bool operator>(const Dual<T, N>& a, const Dual<T, N>& b) { return a.v > b.v; }
@@ -208,18 +209,27 @@ struct MassConsts {
   T inv_norm_p_m1, inv_window, ap, inv_ap, inv_m_join, log_m_join, pow_join;
   T pad[2];
 };
-#else  // PowerLawSpline: forward only, its adjoint is not built
+#else  // PowerLawSpline: the 8 scalars before num_knots, the knots' logs
 enum MassGrad {
   kMLow, kMHigh, kAlpha, kBeta, kDeltaM, kNormPM1, kMJoin, kCdfAtJoin,
-  kMassGrads = kMassScalars
+  kLogLo, kLogHi, kMassGrads
 };
 template <typename T>
 struct MassConsts {
-  T pad[1];
+  T inv_norm_p_m1, inv_window, ap, inv_ap, inv_m_join, log_m_join, pow_join;
+  T pad[2];
 };
 #endif
-static_assert(kMassGrads == kMassScalars + kCarried, "a cotangent a field");
-constexpr int kDerived = kMassGrads - kMassScalars;  // carried and chained
+#if CHIMERA_MASS_KIND == 4
+// the scalars with a cotangent slot of their own: num_knots has none, and
+// the coefficients' cotangents are the knots' points (project_knots), a
+// warp's reduce-scatter of each sample's two weights, not a register each
+constexpr int kGradScalars = kCdfAtJoin + 1;
+#else
+constexpr int kGradScalars = kMassScalars;
+#endif
+static_assert(kMassGrads == kGradScalars + kCarried, "a cotangent a field");
+constexpr int kDerived = kMassGrads - kGradScalars;  // carried and chained
 constexpr int kMassFields = kMassScalars + kDerivedFields;
 constexpr int kConsts = sizeof(MassConsts<float>) / sizeof(float);
 
@@ -233,14 +243,14 @@ __device__ __forceinline__ void write_consts(const MassModel<T>& m,
   k.inv_m_low = T(1) / m.m_low;
   k.log_m_low = dlog(m.m_low);
   k.pow_low = dexp(k.ap * k.log_m_low);
-#elif CHIMERA_MASS_KIND != 4
+#else
 #if CHIMERA_MASS_KIND == 0
   k.inv_pl_norm = T(1) / m.pl_norm;
   k.inv_peak_norm = T(1) / m.peak_norm;
   k.inv_den2 = T(1) / (T(2) * (m.sigma_g * m.sigma_g));
 #elif CHIMERA_MASS_KIND == 2
   k.inv_pl2_at_break = T(1) / m.pl2_at_break;
-#else
+#elif CHIMERA_MASS_KIND == 3
   k.inv_pl_norm = T(1) / m.pl_norm;
   k.inv_peak1_norm = T(1) / m.peak1_norm;
   k.inv_peak2_norm = T(1) / m.peak2_norm;
@@ -624,6 +634,9 @@ struct GradAcc {
   T cheb[kPer], win[kPer];
   T lo, hi;
   T mass[kMassGrads];
+#if CHIMERA_MASS_KIND == 4
+  T knot[kChunk / kLanes];  // the knots' values k = lane + kLanes i
+#endif
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
@@ -631,6 +644,10 @@ struct GradAcc {
 #pragma unroll
     for (int i = 0; i < kMassGrads; ++i) mass[i] = T(0);
     lo = hi = T(0);
+#if CHIMERA_MASS_KIND == 4
+#pragma unroll
+    for (int i = 0; i < kChunk / kLanes; ++i) knot[i] = T(0);
+#endif
   }
 };
 
@@ -646,9 +663,15 @@ __device__ __forceinline__ T column(const GradAcc<T, 1>& g, const T* jac,
   if (i == cd + 1) return g.hi;
   if (i < cd + 2 + wd) return g.win[i - cd - 2];
   const int s = i - cd - 2 - wd;
+#if CHIMERA_MASS_KIND == 4
+  // num_knots has no cotangent; coefficient j is knot j + 1
+  T t = s < kGradScalars ? g.mass[s]
+        : s == kGradScalars ? T(0) : g.knot[s - kGradScalars];
+#else
   T t = g.mass[s];
+#endif
   for (int d = 0; d < kDerived; ++d)
-    t += g.mass[kMassScalars + d] * jac[d * kMassScalars + s];
+    t += g.mass[kGradScalars + d] * jac[d * kMassScalars + s];
   return t;
 }
 
@@ -735,6 +758,43 @@ __device__ __forceinline__ void project(const Block& blk, const Points& pts,
     for (int j = 0; j < kOut; ++j) coef[kOut + j] += acc[1][j];
   }
 }
+
+#if CHIMERA_MASS_KIND == 4
+// acc[k] += g max(0, 1 - |x - k|) for the knots k in [1, n] (the
+// coefficients; the edge knots 0 and n + 1 are pinned): a sample's point x
+// = i - 1 + t in knot units gives (1 - t) g to knot i - 1 and t g to knot
+// i, the adjoint of the interpolation in the knots' values.
+template <typename T>
+__device__ __forceinline__ void knot_accumulate(T (&acc)[kChunk], int n, T x,
+                                                T g) {
+#pragma unroll
+  for (int k = 1; k < kChunk; ++k) {
+    const T h = T(1) - dabs(x - T(k));
+    if (k <= n && h > T(0)) acc[k] += g * h;
+  }
+}
+
+// project()'s twin for the knots' points (x, g) of this thread's slots:
+// summed in registers in slot order, then the warp's reduce-scatter of the
+// one chunk of 32 knots; lane j keeps knot j (GradAcc::knot).
+template <typename T, typename Block, typename Points, int kOut>
+__device__ __forceinline__ void project_knots(const Block& blk,
+                                              const Points& pts, int cnt,
+                                              int n, T (&coef)[kOut]) {
+  T acc[kChunk];
+#pragma unroll
+  for (int i = 0; i < kChunk; ++i) acc[i] = T(0);
+  for (int s = blk.rank(); s < cnt; s += Block::kSize) {
+    T x, g;
+    pts(s, x, g);
+    if (g != T(0)) knot_accumulate(acc, n, x, g);
+  }
+  static_assert(kOut == kChunk / Block::kLanes, "a knot a lane");
+  warp_scatter<Block::kLanes>(acc, blk.lane());
+#pragma unroll
+  for (int j = 0; j < kOut; ++j) coef[j] += acc[j];
+}
+#endif
 
 // ---------------------------------------------------------------------------
 // The mass model's reverse sweep
@@ -976,8 +1036,56 @@ struct Primary {
   }
 };
 #else
+// tpl_unnorm(m, -alpha) smoothing(m) exp(f(log m)), f the knots' linear
+// interpolation (MassModel::perturbation); its vjp also gives the
+// coefficients' point (kx = i - 1 + t in knot units, kg the cotangent of f)
 template <typename T>
-struct Primary;  // PowerLawSpline: no reverse sweep
+struct Primary {
+  TplUnnorm<T> pl_t;
+  Smoothing<T> sm;
+  int i;  // the knots' interval, 0 outside them
+  T x, ef, y;
+  __device__ __forceinline__ Primary(const MassModel<T>& mm,
+                                     const MassConsts<T>&, T m)
+      : pl_t(m, -mm.alpha, mm.m_low, mm.m_high),
+        sm(m, mm.delta_m, mm.m_low) {
+    x = dlog(dmax(m, T(1e-30)));
+    i = mm.interval(x);
+    ef = dexp(mm.perturbation(m));
+    y = pl_t.y * sm.y * ef;
+  }
+  __device__ __forceinline__ void vjp(const MassModel<T>& mm,
+                                      const MassConsts<T>&, T m, T gy,
+                                      T& gm, T* g, T& kx, T& kg) const {
+    const T gpdf = gy * ef;
+    sm.vjp(m, mm.delta_m, mm.m_low, gpdf * pl_t.y, gm, g[kDeltaM], g[kMLow]);
+    T ga = T(0);
+    pl_t.vjp(m, -mm.alpha, gpdf * sm.y, gm, ga);
+    g[kAlpha] -= ga;
+    if (i == 0) return;  // f = 0 off the knots
+    const int div = mm.num_knots + 1;
+    const T lo = mm.knot(i - 1, div), hi = mm.knot(i, div);
+    const T span = hi - lo, t = (x - lo) / span;
+    const T gf = gy * y;
+    kx = T(i - 1) + t;
+    kg = gf;
+    // f = f0 + t (f1 - f0): its slope in x, and in the interval's ends
+    const T gs = gf * (mm.knot_value(i) - mm.knot_value(i - 1)) / span;
+    const T glo = gs * (t - T(1)), ghi = -gs * t;
+    // knot j = log_lo (1 - j / div) + log_hi j / div, the last log_hi
+    const T s0 = T(i - 1) / T(div);
+    g[kLogLo] += glo * (T(1) - s0);
+    g[kLogHi] += glo * s0;
+    if (i < div) {
+      const T s1 = T(i) / T(div);
+      g[kLogLo] += ghi * (T(1) - s1);
+      g[kLogHi] += ghi * s1;
+    } else {
+      g[kLogHi] += ghi;
+    }
+    if (m > T(1e-30)) gm += gs / m;
+  }
+};
 #endif
 
 // p_m1m2 of one sample in the dual mass model (the reverse sweep's oracle
@@ -1013,7 +1121,18 @@ __device__ __forceinline__ Dual<T, kDirs> joint_dual(
 template <typename T>
 struct SamplePoints {
   T t, a, tw, b;
+#if CHIMERA_MASS_KIND == 4
+  T kx, kg;  // the knots' point (Primary::vjp); kg = 0: none
+#endif
 };
+
+// the rows of phase D's stash a sample: (t, a), (tw, b), and the knots'
+// (kx, kg) of PowerLawSpline
+#if CHIMERA_MASS_KIND == 4
+constexpr int kStashRows = 6;
+#else
+constexpr int kStashRows = 4;
+#endif
 
 // One sample's chain from (dz, dw) to the packed rows, the two Chebyshev
 // series summed in S as the forward's Model<T, S> sums them.
@@ -1080,10 +1199,15 @@ struct SampleAdjoint {
   // form at every m1c, from m_low, and no window on m2.
   // Given gw, the cotangent of p, it adds the mass fields' cotangents to gm
   // and returns z's; the window's point (t_win, its value's cotangent b)
-  // goes to tw, b (b = 0 outside the window).
+  // goes to tw, b (b = 0 outside the window), and PowerLawSpline's knots'
+  // point to kx, kg (kg = 0: none).
   __device__ __forceinline__ T mass_vjp(const MassModel<T>& mm, T m1det,
                                         T m2det, T z, T gw, T* gm, T& tw,
-                                        T& b) const {
+                                        T& b
+#if CHIMERA_MASS_KIND == 4
+                                        , T& kx, T& kg
+#endif
+                                        ) const {
     const MassConsts<T>& k = *consts;
     const T ip = T(1) / (T(1) + z);
     const T m1 = m1det * ip, m2 = m2det * ip;
@@ -1097,6 +1221,9 @@ struct SampleAdjoint {
     // above the join: tpl_cdf(beta, m_join, m1c) = (m1c^ap - m_join^ap) / ap
     T mp = T(0), la = T(0), pa = T(0), c = T(0);
     tw = b = T(0);
+#if CHIMERA_MASS_KIND == 4
+    kx = kg = T(0);
+#endif
 #if CHIMERA_MASS_KIND == 1
     // tpl_cdf(beta, m_low, m1c) = (m1c^ap - m_low^ap) / ap
     mp = dmax(m1c, T(1e-30));
@@ -1152,7 +1279,11 @@ struct SampleAdjoint {
     const T gsec = gp21 * inv_cdf, gcdf = -gsec * p21;
     gm[kNormPM1] -= gp1 * p1;
     T gm1 = T(0), gm2 = T(0), gm1c = T(0);
+#if CHIMERA_MASS_KIND == 4
+    prim.vjp(mm, k, m1, gp1, gm1, gm, kx, kg);
+#else
     prim.vjp(mm, k, m1, gp1, gm1, gm);
+#endif
 #if CHIMERA_MASS_KIND == 1
     tu.vjp(m2, mm.beta, gsec, gm2, gm[kBeta]);
     {
@@ -1216,7 +1347,11 @@ struct SampleAdjoint {
     const ZPoint zp = z_at(dl);
     SamplePoints<T> p;
     const T gz = mass_vjp(mm, m1det, m2det, zp.z, dw * inv_prior, g.mass,
-                          p.tw, p.b);
+                          p.tw, p.b
+#if CHIMERA_MASS_KIND == 4
+                          , p.kx, p.kg
+#endif
+                          );
     p.t = zp.t;
     p.a = chain_z(zp, dl, dz + gz, g.lo, g.hi);
     return p;
@@ -1230,6 +1365,9 @@ struct SampleAdjoint {
     p.t = zp.t;
     p.a = chain_z(zp, dl, dz, g.lo, g.hi);
     p.tw = p.b = T(0);
+#if CHIMERA_MASS_KIND == 4
+    p.kx = p.kg = T(0);
+#endif
     return p;
   }
 };
@@ -1517,6 +1655,10 @@ __device__ __forceinline__ void adjoint_row(
       sm.st[sm.cap + j] = p.a;
       sm.st[2 * sm.cap + j] = p.tw;
       sm.st[3 * sm.cap + j] = p.b;
+#if CHIMERA_MASS_KIND == 4
+      sm.st[4 * sm.cap + j] = p.kx;
+      sm.st[5 * sm.cap + j] = p.kg;
+#endif
     }
     SamplePoints<T> fill{T(0), T(0), T(0), T(0)};
     bool has_fill = false;
@@ -1535,6 +1677,12 @@ __device__ __forceinline__ void adjoint_row(
               t = sm.st[2 * sm.cap + j];
               c = sm.st[3 * sm.cap + j];
             }, cnt, false, T(0), T(0), model.window_deg, g.win);
+#if CHIMERA_MASS_KIND == 4
+    project_knots(blk, [&](int j, T& x, T& c) {
+                    x = sm.st[4 * sm.cap + j];
+                    c = sm.st[5 * sm.cap + j];
+                  }, cnt, model.mass.num_knots, g.knot);
+#endif
     t0 += sm.cap;
   } while (t0 < n);
   blk.sync();  // the slots are the next row's
@@ -1545,13 +1693,13 @@ __device__ __forceinline__ void adjoint_row(
 constexpr int kWarpRows = 4;
 
 // K3c on logical rows: z and w of S samples and a stash of kStash samples'
-// 4 points
+// kStashRows values
 constexpr int kStash = 128;
 template <typename T, typename S>
 __host__ __device__ __forceinline__ size_t warp_rows_smem(int cd, int wd,
                                                           int n_samples) {
   return record_bytes<T, S>(cd, wd)
-         + (2 * (size_t)n_samples + 4 * kStash) * sizeof(T);
+         + (2 * (size_t)n_samples + kStashRows * kStash) * sizeof(T);
 }
 
 // Whether K3c takes the warp-a-row kernel: logical rows do (warp_rows_smem
@@ -1752,6 +1900,10 @@ struct RowsSmem {
   T* df2;
   T* dz;                       // the row's samples' cotangents
   T* dw;
+#if CHIMERA_MASS_KIND == 4
+  T* kx;                       // the knots' points of the row's samples
+  T* kg;
+#endif
 };
 
 // K2b for (lambda l, event e): the vector-Jacobian product of
@@ -1932,11 +2084,19 @@ __device__ __forceinline__ void rows_adjoint_event(
       sm.dw[s] = p.a;
       sm.zw[s].x = p.tw;
       sm.zw[s].y = p.b;
+#if CHIMERA_MASS_KIND == 4
+      sm.kx[s] = p.kx;
+      sm.kg[s] = p.kg;
+#endif
     }
     project(blk, [&](int s, T& t, T& c) { t = sm.dz[s]; c = sm.dw[s]; },
             a.chunk, false, T(0), T(0), model.cheb_deg, g.cheb);
     project(blk, [&](int s, T& t, T& c) { t = sm.zw[s].x; c = sm.zw[s].y; },
             a.chunk, false, T(0), T(0), model.window_deg, g.win);
+#if CHIMERA_MASS_KIND == 4
+    project_knots(blk, [&](int s, T& x, T& c) { x = sm.kx[s]; c = sm.kg[s]; },
+                  a.chunk, model.mass.num_knots, g.knot);
+#endif
     blk.sync();  // zw and gc are rewritten by the next row
   }
   for (int i = blk.rank(); i < G; i += Block::kSize) {
@@ -1969,11 +2129,24 @@ __device__ __forceinline__ void store_partials(const GradAcc<T, 32>& g,
   if (lane == 0) red[warp][cd] = v;
   v = warp_sum(g.hi);
   if (lane == 0) red[warp][cd + 1] = v;
+#if CHIMERA_MASS_KIND == 4
+#pragma unroll
+  for (int f = 0; f < kMassGrads; ++f) {
+    v = warp_sum(g.mass[f]);
+    if (lane == 0)
+      red[warp][f < kGradScalars ? cd + 2 + wd + f : P + f - kGradScalars] = v;
+  }
+  // num_knots' column 0; coefficient j, knot j + 1, from its lane
+  if (lane == 0) red[warp][cd + 2 + wd + kGradScalars] = T(0);
+  if (lane >= 1 && lane <= kMaxKnots)
+    red[warp][cd + 2 + wd + kGradScalars + lane] = g.knot[0];
+#else
 #pragma unroll
   for (int f = 0; f < kMassGrads; ++f) {
     v = warp_sum(g.mass[f]);
     if (lane == 0) red[warp][cd + 2 + wd + f] = v;
   }
+#endif
   __syncthreads();
   for (int i = threadIdx.x; i < P + kDerived; i += 32 * W) {
     T t = T(0);

@@ -104,7 +104,12 @@ fused_kde_adjoint_kernel(const AdjointArgs<T> a,
   sm.w = sm.z + a.S;
   sm.dz = sm.w + a.S;
   sm.dw = sm.dz + a.S;
+#if CHIMERA_MASS_KIND == 4
+  // phase D's stash: the row's own slots, then two rows of the knots' points
+  sm.gc = reinterpret_cast<T2*>(sm.z + kStashRows * a.S);
+#else
   sm.gc = reinterpret_cast<T2*>(sm.dw + a.S);  // G (grid point, c1) pairs
+#endif
   sm.st = sm.z;  // phase D's stash: the row's own slots
   sm.cap = a.S;
   sm.gt = sm.gc + a.G;  // the pruned phase B's tile bounds
@@ -191,7 +196,7 @@ int launch_mode(const AdjointArgs<T>& a, double* d_series, T* d_params,
       err = cudaGetLastError();
     }
   } else {
-    const size_t smem = rb + ((size_t)4 * a.S
+    const size_t smem = rb + ((size_t)kStashRows * a.S
                               + (MODE == kStatsOnly ? 0 : 2 * (size_t)a.G)
                               + 2 * (size_t)grid_tiles(MODE, KERNEL, a.G))
                                  * sizeof(T);

@@ -283,11 +283,130 @@ int launch(const T* z, const T* w, const T* ra, const T* dec,
   return (int)err;
 }
 
+// ---- K5b, the adjoint -------------------------------------------------------
+// The JAX package differentiates the lattice KDE with jax.grad through XLA
+// (chimera_tpu/ops/kde.py:307-457); K5b replaces no TPU kernel.  Given
+// d_out (L, E, P, G), the cotangent of K5's output, it writes per (lambda,
+// event) the cotangents of the record's quantities that K5's terms read
+// (kde3d.cuh, K5b): per sample (unit weight, whitened centred a, b, c), per
+// pixel (c0, c1, c2), and the event's three sums; ops/cuda/kde3d.py chains
+// them to z and w through a float64 rebuild of the record.  The plain
+// version is autograd of lattice_kde3d_plain (lattice_kde3d_adjoint_plain).
+//
+// What bounds it on an H100: the exps of its terms (one a (pixel, sample,
+// grid point) of the dense sweep's events, every sample; one a grid point
+// of each block whose refresh the forward keeps, else), at the MUFU rate,
+// and ~9 FP32 operations a term.  d_out is read once and the outputs
+// (~0.5 GB of sample cotangents in double at the dark width) written
+// once.  This first kernel also tests every weighted sample's refresh of
+// every block (an exp each); a walk that found the kept ones as K5's skip
+// radii do would test only those.
+//
+// What the design does about it (a simple, correct first kernel): it reads
+// the record that K5's prologue wrote in the forward (the same bits, so its
+// refresh tests are the forward's); a block per (lambda, event), a thread
+// per sample, walks the event's real pixels in order: the pixel's d_out
+// row and the grid (whitened, and about the mean) in shared memory, each
+// sample's three sums in registers over the kept blocks, its cotangents
+// summed over the pixels in its own row of d_samp (only its thread reads
+// or writes it), the pixel's and the event's sums in rank order: no
+// atomics.  The sample sums run over every grid point of a kept block (no
+// radius or band prunes a kept one), so its cost is the forward's unpruned
+// walk's terms.
+
+// shared memory of the adjoint kernel: the pixel and event part rows
+// (double), the grid twice and a cotangent row
+size_t adjoint_smem(int G, size_t t_size) {
+  return (size_t)(kPixelGrads + 2) * kThreads * 8 + 3 * (size_t)G * t_size;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+kde3d_adjoint_kernel(const T* __restrict__ z, const T* __restrict__ w,
+                     const T* __restrict__ ra, const T* __restrict__ dec,
+                     const T* __restrict__ ra_pix,
+                     const T* __restrict__ dec_pix,
+                     const unsigned char* __restrict__ mask,
+                     const T* __restrict__ grids,
+                     const int* __restrict__ z_block,
+                     const double* __restrict__ records,
+                     const T* __restrict__ d_out, double* __restrict__ d_samp,
+                     double* __restrict__ d_pix, double* __restrict__ d_event,
+                     int E, int S, int P, int G) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* part = reinterpret_cast<double*>(smem);
+  double* l00_part = part + kPixelGrads * kThreads;
+  T* zl = reinterpret_cast<T*>(l00_part + 2 * kThreads);
+  T* zeta = zl + G;
+  T* dg = zeta + G;
+  const size_t le = blockIdx.x;
+  const int e = int(le % E), rank = threadIdx.x;
+  const double* rec = records + le * kRecord;
+  double* ds = d_samp + le * S * kSampleGrads;
+  double* dp = d_pix + le * P * kPixelGrads;
+  double* dv = d_event + le * kEventGrads;
+  const int k_req = z_block[e];
+  if (rec[kOk] == 0.0 || k_req < 0 || k_req > kMaxBlock) {
+    adjoint_dead(ds, dp, dv, S, P, rank, kThreads);
+    return;
+  }
+  const int K = k_req < G ? k_req : G;
+  const T* grid = grids + size_t(e) * G;
+  adjoint_start(rec, grid, G, zl, zeta, ds, l00_part, S, rank, kThreads);
+  for (int p = 0; p < P; ++p) {
+    double* dpp = dp + p * kPixelGrads;
+    if (!mask[size_t(e) * P + p]) {  // a fake pixel: no cotangent
+      if (rank < kPixelGrads) dpp[rank] = 0.0;
+      continue;
+    }
+    __syncthreads();  // the last pixel's dg and part are read
+    stage_cotangent(d_out + (le * P + p) * G, G, dg, part, rank, kThreads);
+    __syncthreads();
+    const bool live = any_part(part, kThreads);
+    __syncthreads();
+    if (!live) {
+      if (rank < kPixelGrads) dpp[rank] = 0.0;
+      continue;
+    }
+    adjoint_pixel(rec, z + le * S, w + le * S, ra + size_t(e) * S,
+                  dec + size_t(e) * S, S, ra_pix[size_t(e) * P + p],
+                  dec_pix[size_t(e) * P + p], zl, zeta, dg, double(grid[0]),
+                  G, K, ds, part, l00_part, rank, kThreads);
+    __syncthreads();
+    if (rank < kPixelGrads) dpp[rank] = ordered_sum(part + rank * kThreads, kThreads);
+  }
+  __syncthreads();
+  adjoint_event(l00_part, dp, dv, P, rank, kThreads);
+}
+
+template <typename T>
+int launch_adjoint(const T* z, const T* w, const T* ra, const T* dec,
+                   const T* ra_pix, const T* dec_pix,
+                   const unsigned char* mask, const T* grids,
+                   const int* z_block, const double* records, const T* d_out,
+                   double* d_samp, double* d_pix, double* d_event, int L,
+                   int E, int S, int P, int G, void* stream) {
+  if (L <= 0 || E <= 0 || S <= 0 || P <= 0 || G <= 0)
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const size_t smem = adjoint_smem(G, sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(
+      kde3d_adjoint_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kde3d_adjoint_kernel<T><<<(unsigned)(L * E), kThreads, smem, s>>>(
+      z, w, ra, dec, ra_pix, dec_pix, mask, grids, z_block, records, d_out,
+      d_samp, d_pix, d_event, E, S, P, G);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface (loaded with ctypes by chimera_tpu_torch/ops/cuda/kde3d.py).
 // records: (L, E, kRecord) double scratch; mask: (E, P) bool; z_block:
-// (E,) int32.
+// (E,) int32.  The adjoint reads the records K5 wrote for the same inputs
+// and writes d_samp (L, E, S, 4), d_pix (L, E, P, 3), d_event (L, E, 3),
+// double (kde3d.cuh: SampleGrad, PixelGrad, EventGrad).
 
 extern "C" int chimera_kde3d_f32(const float* z, const float* w,
                                  const float* ra, const float* dec,
@@ -312,4 +431,26 @@ extern "C" int chimera_kde3d_f64(const double* z, const double* w,
   return launch<double>(z, w, ra, dec, ra_pix, dec_pix, mask, grids, z_block,
                         records, out, L, E, S, P, G, bw_mode, bw_value,
                         stream);
+}
+
+extern "C" int chimera_kde3d_adjoint_f32(
+    const float* z, const float* w, const float* ra, const float* dec,
+    const float* ra_pix, const float* dec_pix, const unsigned char* mask,
+    const float* grids, const int* z_block, const double* records,
+    const float* d_out, double* d_samp, double* d_pix, double* d_event, int L,
+    int E, int S, int P, int G, void* stream) {
+  return launch_adjoint<float>(z, w, ra, dec, ra_pix, dec_pix, mask, grids,
+                               z_block, records, d_out, d_samp, d_pix,
+                               d_event, L, E, S, P, G, stream);
+}
+
+extern "C" int chimera_kde3d_adjoint_f64(
+    const double* z, const double* w, const double* ra, const double* dec,
+    const double* ra_pix, const double* dec_pix, const unsigned char* mask,
+    const double* grids, const int* z_block, const double* records,
+    const double* d_out, double* d_samp, double* d_pix, double* d_event, int L,
+    int E, int S, int P, int G, void* stream) {
+  return launch_adjoint<double>(z, w, ra, dec, ra_pix, dec_pix, mask, grids,
+                                z_block, records, d_out, d_samp, d_pix,
+                                d_event, L, E, S, P, G, stream);
 }

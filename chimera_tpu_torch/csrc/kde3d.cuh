@@ -657,4 +657,184 @@ __device__ void recurrence_fold(const double* rec, const T* part, int G,
   }
 }
 
+// ---- K5b: the adjoint ------------------------------------------------------
+// Given d_out (the cotangent of K5's output) of a (lambda, event), with
+// k = exp(-u^2 / 2), u = zl_g + t, zl_g = L00 (z_g - mean_z), t = c0 - a,
+// q1 = c1 - b, q2 = c2 - c (a, b, c a sample's whitened coordinates centred
+// on the mean, c0, c1, c2 a pixel's), sky = exp(-(q1^2 + q2^2) / 2), E =
+// wn sky and N = exp(log_norm), per (pixel, sample):
+//
+//   Gs = N sum_g d_out k,  Hs = N sum_g d_out u k,  Zs = N sum_g d_out u k zeta_g
+//   (zeta_g = z_g - mean_z), then
+//   d wn += Gs sky,  dq1 = -q1 E Gs,  dq2 = -q2 E Gs,  dt = -E Hs,
+//   d a -= dt, d b -= dq1, d c -= dq2 (the sample's, summed over its pixels),
+//   d c0 += dt, d c1 += dq1, d c2 += dq2 (the pixel's, over its samples),
+//   and per (lambda, event) d L00 = -sum E Zs (through zl_g), d log_norm =
+//   sum E Gs (= sum d_out out), and A = sum dt, the cotangent of a shift
+//   of every zl_g (mean_z's there is -L00 A).
+//
+// The sums over g are dense: every grid point a term, in T, as the dense
+// sweep's; on the recurrence's path (K > 0) only the K-point blocks whose
+// refresh the forward keeps (v = e exp(-u0^2 / 2) >= the smallest normal,
+// the forward's own test and rounding): a flushed block adds +0 to K5's
+// output whatever its inputs, so its terms carry no cotangent, and a sample
+// whose e is below the smallest normal carries none on that path.  No
+// radius or band prunes a kept block.  Every per-sample value is a
+// thread's own (no sum across threads), summed over the pixels in order in
+// its own row of the output; the pixel and event sums go through
+// part rows and ordered_sum: equal bits every run.
+enum SampleGrad { kGradW, kGradA, kGradB, kGradC, kSampleGrads };
+enum PixelGrad { kGradC0, kGradC1, kGradC2, kPixelGrads };
+enum EventGrad { kGradShift, kGradL00, kGradLogNorm, kEventGrads };
+
+// Whether the forward keeps the refresh of block start zl0 for a sample of
+// sky factor e and offset t (refresh()'s v and flush, r left out).
+template <typename T>
+__device__ __forceinline__ bool kept(T e, T t, T zl0) {
+  const T u0 = add_rn(zl0, t);
+  return mul_rn(e, exp_t(mul_rn(mul_rn(T(-0.5), u0), u0))) >= smallest_normal<T>();
+}
+
+// A (lambda, event)'s z grid in whitened units and about the mean (zl and
+// zeta), this rank's samples' cotangents (d_samp rows s = rank, rank +
+// size, ...: no other rank touches them) and its sums of d L00 and d
+// log_norm zeroed.
+template <typename T>
+__device__ void adjoint_start(const double* rec, const T* grid, int G, T* zl,
+                              T* zeta, double* d_samp, double* l00_part, int S,
+                              int rank, int size) {
+  for (int g = rank; g < G; g += size) {
+    const double dz = double(grid[g]) - rec[kMeanZ];
+    zl[g] = T(rec[kL00] * dz);
+    zeta[g] = T(dz);
+  }
+  for (int s = rank; s < S; s += size)
+    for (int k = 0; k < kSampleGrads; ++k) d_samp[s * kSampleGrads + k] = 0.0;
+  l00_part[rank] = 0.0;
+  l00_part[size + rank] = 0.0;
+}
+
+// A pixel's cotangent row into dg; part[rank]: whether this rank's points
+// hold a nonzero one (a pixel whose row is all 0 is skipped).
+template <typename T>
+__device__ void stage_cotangent(const T* d_out, int G, T* dg, double* part,
+                                int rank, int size) {
+  bool live = false;
+  for (int g = rank; g < G; g += size) {
+    dg[g] = d_out[g];
+    live = live || d_out[g] != T(0);
+  }
+  part[rank] = live ? 1.0 : 0.0;
+}
+
+__device__ __forceinline__ bool any_part(const double* part, int size) {
+  for (int i = 0; i < size; ++i)
+    if (part[i] != 0.0) return true;
+  return false;
+}
+
+// the terms of grid points [g0, g1) into (sg, su, sz)
+template <typename T>
+__device__ __forceinline__ void adjoint_terms(T t, const T* zl, const T* zeta,
+                                              const T* dg, int g0, int g1,
+                                              T& sg, T& su, T& sz) {
+  for (int g = g0; g < g1; ++g) {
+    const T u = zl[g] + t;
+    const T d = dg[g] * exp_t(T(-0.5) * u * u);
+    const T du = d * u;
+    sg += d;
+    su += du;
+    sz += du * zeta[g];
+  }
+}
+
+// One real pixel of a (lambda, event): each sample of this rank (s = rank,
+// rank + size, ...) adds its cotangents to its own row of d_samp (d_samp[s
+// kSampleGrads + k], k: SampleGrad) and the pixel's to part[k size + rank]
+// (k: PixelGrad), d L00's and d log_norm's
+// to l00_part[rank] and l00_part[size + rank].  e and t are formed as
+// sample_factors forms them; K = 0 takes the dense sweep's grid.
+template <typename T>
+__device__ void adjoint_pixel(const double* rec, const T* z, const T* w,
+                              const T* ra, const T* dec, int S, T ra_pix,
+                              T dec_pix, const T* zl, const T* zeta,
+                              const T* dg, double zg0, int G, int K,
+                              double* d_samp, double* part, double* l00_part,
+                              int rank, int size) {
+  const double l00 = rec[kL00], l10 = rec[kL10], l20 = rec[kL20];
+  const double l11 = rec[kL11], l21 = rec[kL21], l22 = rec[kL22];
+  const double norm = rec[kNorm];
+  const double rp = double(ra_pix) - rec[kMeanRa];
+  const double dp = double(dec_pix) - rec[kMeanDec];
+  const double c0 = l10 * rp + l20 * dp;
+  const double c1 = l11 * rp + l21 * dp;
+  const double c2 = l22 * dp;
+  const int J = K > 0 ? (G + K - 1) / K : 0;
+  double p0 = 0.0, p1 = 0.0, p2 = 0.0, pl = 0.0, pn = 0.0;
+  for (int s = rank; s < S; s += size) {
+    const double dz = double(z[s]) - rec[kMeanZ];
+    const double dr = double(ra[s]) - rec[kMeanRa];
+    const double dd = double(dec[s]) - rec[kMeanDec];
+    const double q1 = c1 - (l11 * dr + l21 * dd);
+    const double q2 = c2 - l22 * dd;
+    const double wn = unit_weight(w[s], rec[kSumW], S);
+    const double sky = exp(-0.5 * (q1 * q1 + q2 * q2));
+    const T e = T(wn * sky);
+    const T t = T(c0 - (l00 * dz + l10 * dr + l20 * dd));
+    T sg = T(0), su = T(0), sz = T(0);
+    if (K == 0) {
+      adjoint_terms(t, zl, zeta, dg, 0, G, sg, su, sz);
+    } else if (e >= smallest_normal<T>()) {
+      for (int j = 0; j < J; ++j) {
+        if (!kept(e, t, block_start<T>(rec, zg0, j, K))) continue;
+        const int g1 = (j + 1) * K < G ? (j + 1) * K : G;
+        adjoint_terms(t, zl, zeta, dg, j * K, g1, sg, su, sz);
+      }
+    }
+    const double gs = norm * double(sg), big_e = wn * sky;
+    const double dq1 = -q1 * big_e * gs, dq2 = -q2 * big_e * gs;
+    const double dt = -big_e * norm * double(su);
+    double* ds = d_samp + s * kSampleGrads;
+    ds[kGradW] += gs * sky;
+    ds[kGradA] -= dt;
+    ds[kGradB] -= dq1;
+    ds[kGradC] -= dq2;
+    p0 += dt;
+    p1 += dq1;
+    p2 += dq2;
+    pl -= big_e * norm * double(sz);
+    pn += big_e * gs;
+  }
+  part[kGradC0 * size + rank] = p0;
+  part[kGradC1 * size + rank] = p1;
+  part[kGradC2 * size + rank] = p2;
+  l00_part[rank] += pl;
+  l00_part[size + rank] += pn;
+}
+
+// A dead (lambda, event) (no whitening, or a block length K5 does not
+// take: K5's NaN rows): every cotangent NaN, as autograd of the plain
+// version gives it there.
+__device__ __forceinline__ void adjoint_dead(double* d_samp, double* d_pix,
+                                             double* d_event, int S, int P,
+                                             int rank, int size) {
+  const double q = nan("");
+  for (int i = rank; i < kSampleGrads * S; i += size) d_samp[i] = q;
+  for (int i = rank; i < kPixelGrads * P; i += size) d_pix[i] = q;
+  for (int i = rank; i < kEventGrads; i += size) d_event[i] = q;
+}
+
+// Rank 0's event sums (its own d_pix stores of kGradC0, pixels in order).
+__device__ __forceinline__ void adjoint_event(const double* l00_part,
+                                              const double* d_pix,
+                                              double* d_event, int P, int rank,
+                                              int size) {
+  if (rank != 0) return;
+  double a = 0.0;
+  for (int p = 0; p < P; ++p) a += d_pix[p * kPixelGrads + kGradC0];
+  d_event[kGradShift] = a;
+  d_event[kGradL00] = ordered_sum(l00_part, size);
+  d_event[kGradLogNorm] = ordered_sum(l00_part + size, size);
+}
+
 }  // namespace kde3d

@@ -417,13 +417,18 @@ struct MassModel {
   }
 };
 
-#elif CHIMERA_MASS_KIND == 4  // PowerLawSpline (forward only)
+#elif CHIMERA_MASS_KIND == 4  // PowerLawSpline
 // the spline's coefficients follow its 8 scalars and their count in the
 // packed row, up to kMaxKnots of them (ops/cuda/fused.py, pack_params)
 constexpr int kMaxKnots = 23;
 constexpr int kMassScalars = 9 + kMaxKnots;
 constexpr int kDerivedFields = 3;
-constexpr int kCarried = 0;
+constexpr int kCarried = 2;
+
+// a number's value as a double, for the knots' index arithmetic (the
+// adjoints' dual numbers add their own overload)
+__device__ __forceinline__ float scalar_of(float x) { return x; }
+__device__ __forceinline__ double scalar_of(double x) { return x; }
 
 template <typename N>
 struct MassModel {
@@ -441,12 +446,21 @@ struct MassModel {
   __device__ __forceinline__ void load_derived(const N* d) {
     log_lo = d[0]; log_hi = d[1]; m1_floor = d[2];
   }
+  // the scalars with a cotangent of their own (the adjoints' dual seeds):
+  // the 8 before num_knots; the coefficients' cotangents are the knots'
+  // points (adjoint.cuh, project_knots)
+  template <typename F>
+  __device__ __forceinline__ void scalars(F&& f) {
+    f(m_low); f(m_high); f(alpha); f(beta); f(delta_m); f(norm_p_m1);
+    f(m_join); f(cdf_at_join);
+  }
   template <typename F>
   __device__ __forceinline__ void derived(F&& f) {
     f(log_lo); f(log_hi); f(m1_floor);
   }
+  // the knots move with m_low and m_high through their logs
   template <typename F>
-  __device__ __forceinline__ void carried(F&&) {}
+  __device__ __forceinline__ void carried(F&& f) { f(log_lo); f(log_hi); }
   __device__ __forceinline__ void derive() {
     log_lo = dlog(m_low);
     log_hi = dlog(m_high);
@@ -464,18 +478,26 @@ struct MassModel {
   __device__ __forceinline__ N knot_value(int j) const {
     return j >= 1 && j <= num_knots ? coef[j - 1] : N(0);
   }
-  // jnp.interp(log max(m, 1e-30), knots, [0, coef, 0]): the interval from
-  // the uniform knots' index arithmetic, moved by at most one knot each way
-  // to where searchsorted (side 'right') puts x; the value is held at the
-  // edge knots' 0 outside [log m_low, log m_high]
-  __device__ __forceinline__ N perturbation(N m) const {
-    const N x = dlog(dmax(m, N(1e-30)));
+  // jnp.interp's interval [knot(i - 1), knot(i)] of x in [log m_low,
+  // log m_high], 0 outside it: i from the uniform knots' index arithmetic,
+  // moved by at most one knot each way to where searchsorted (side
+  // 'right') puts x
+  __device__ __forceinline__ int interval(N x) const {
     const int div = num_knots + 1;
-    if (x < log_lo || x > log_hi) return N(0);
-    int i = (int)((x - log_lo) / (log_hi - log_lo) * N(div)) + 1;
+    if (x < log_lo || x > log_hi) return 0;
+    int i = (int)scalar_of((x - log_lo) / (log_hi - log_lo) * N(div)) + 1;
     i = i < 1 ? 1 : (i > div ? div : i);
     if (i < div && knot(i, div) <= x) ++i;
     if (i > 1 && knot(i - 1, div) > x) --i;
+    return i;
+  }
+  // jnp.interp(log max(m, 1e-30), knots, [0, coef, 0]), held at the edge
+  // knots' 0 outside [log m_low, log m_high]
+  __device__ __forceinline__ N perturbation(N m) const {
+    const N x = dlog(dmax(m, N(1e-30)));
+    const int i = interval(x);
+    if (i == 0) return N(0);
+    const int div = num_knots + 1;
     const N lo = knot(i - 1, div), hi = knot(i, div);
     const N f0 = knot_value(i - 1);
     return f0 + ((x - lo) / (hi - lo)) * (knot_value(i) - f0);

@@ -65,6 +65,10 @@ rows_adjoint_kernel(const RowsAdjointArgs<T> a,
   sm.df2 = sm.df1 + a.G;
   sm.dz = sm.df2 + a.G;
   sm.dw = sm.dz + a.chunk;
+#if CHIMERA_MASS_KIND == 4
+  sm.kx = sm.dw + a.chunk;
+  sm.kg = sm.kx + a.chunk;
+#endif
   __shared__ T scratch[2][kWarps];
   __shared__ T red[kWarps + 1][kRedCols];
 
@@ -99,7 +103,8 @@ int launch_kernel(const RowsAdjointArgs<T>& a, double* d_series, T* d_params,
                       + ((size_t)a.chunk + a.G + (a.chunk + kTileS - 1) / kTileS
                          + (a.G + kGridTile - 1) / kGridTile)
                             * sizeof(typename Pair<T>::type)
-                      + (5 * (size_t)a.G + 2 * (size_t)a.chunk) * sizeof(T);
+                      + (5 * (size_t)a.G
+                         + (kStashRows - 2) * (size_t)a.chunk) * sizeof(T);
   err = cudaFuncSetAttribute(rows_adjoint_kernel<T, KERNEL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);

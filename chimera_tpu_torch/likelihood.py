@@ -43,10 +43,11 @@ PyTorch version on CPU tensors.  ``log_like_batch`` is differentiable in
 the hyper-parameters: pass tensors that require grad.  On CPU tensors the
 whole backward is autograd through the plain versions; on CUDA tensors the
 backward of each kernel launch is its adjoint kernel — K3 in the mode of
-K1a, K1b, K1c or K1d, K2b for K2, K4b for K4 — so every path
-differentiates on the card, the binned one included, but the contract
-pass and kind 'full', which raise (K1e and K5 have no adjoint kernel;
-ROADMAP.md §1 items 15 and 16).
+K1a, K1b, K1c or K1d, K2b for K2, K4b for K4, K5b for K5 (chained to the
+samples' z and w through a float64 rebuild of K5's whitening) — so every
+path differentiates on the card with every mass model, the binned one and
+kind 'full' included, but the contract pass, which raises (K1e has no
+adjoint kernel; ROADMAP.md §1 item 15).
 An optional ``event_mask`` marks padding events (``parallel.pad_events``,
 ``shard_hyperlikelihood``): they stay in every kernel's batch as copies of
 a real event and leave the sum of log numerators and the event count.
@@ -55,7 +56,9 @@ a real event and leave the sum of log numerators and the event count.
 be all-reduced between them (``chimera_tpu_torch/parallel``).
 The selects around the kernels' outputs (``row_scales``, the N_eff gates,
 ``nan_to_num`` before any product) keep the raw NaN of a dead row out of
-every backward product.  ``HyperLikelihood`` is an ``nn.Module`` whose
+every backward product; 'full''s dead (λ, event) (no whitening, as at
+an event its N_eff gate closes) has a NaN gradient on the card exactly
+where autograd of the plain version gives one.  ``HyperLikelihood`` is an ``nn.Module`` whose
 buffers hold the PE data, layouts, z-grids and (in its ``selection``) the
 injections; ``.to(device, dtype)`` moves them and the population's tensors
 together.

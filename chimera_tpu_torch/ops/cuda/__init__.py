@@ -22,7 +22,8 @@ def launch_counters() -> dict:
             "K3c": (adjoint, "launches_c"), "K3d": (adjoint, "launches_d"),
             "K4": (kde.kde1d_grid, "launches"),
             "K4b": (kde.kde1d_grid_adjoint, "launches"),
-            "K5": (kde3d.lattice_kde3d, "launches")}
+            "K5": (kde3d.lattice_kde3d, "launches"),
+            "K5b": (kde3d.lattice_kde3d_adjoint, "launches")}
 
 
 def launch_counts() -> dict:

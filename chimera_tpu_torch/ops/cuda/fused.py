@@ -50,10 +50,9 @@ differentiates it.  On CUDA tensors each K1 launch whose model rows (or
 ``ext_bounds``) require grad sits in a ``torch.autograd.Function`` whose
 backward launches K3 in the same mode and returns gradients for the packed
 rows and ``ext_bounds`` only (the PE data and grids get none: samplers
-differentiate hyper-parameters).  K1e has no adjoint kernel: on CUDA
-tensors that require grad it raises (ROADMAP.md §1 item 15); nor has
-PowerLawSpline's reverse sweep, whose gradient raises on CUDA tensors in
-every mode (ROADMAP.md §1 item 17).
+differentiate hyper-parameters), PowerLawSpline's coefficients included
+(their columns of the packed row).  K1e has no adjoint kernel: on CUDA
+tensors that require grad it raises (ROADMAP.md §1 item 15).
 """
 
 from __future__ import annotations
@@ -130,7 +129,23 @@ _STATS_WARPS = 1
 # constants
 _RECORD_EXTRA = {"PowerLawPeak": 4 + 2 * 12 + 12, "TruncatedPowerLaw": 1 + 6,
                  "BrokenPowerLaw": 4 + 2 * 10 + 10,
-                 "PowerLawTwoPeaks": 6 + 3 * 16 + 14}
+                 "PowerLawTwoPeaks": 6 + 3 * 16 + 14,
+                 "PowerLawSpline": 3 + 2 * (9 + _MAX_KNOTS) + 9}
+
+
+def packed_width(mass: BaseMassModel) -> int:
+    """Columns of the mass model's packed row (``pack_params``): its
+    MODEL_SCALARS, for PowerLawSpline then num_knots and _MAX_KNOTS
+    coefficients."""
+    n = len(MODEL_SCALARS[type(mass).__name__])
+    return n + 1 + _MAX_KNOTS if isinstance(mass, PowerLawSpline) else n
+
+
+def stash_rows(mass: BaseMassModel) -> int:
+    """Values a sample of the adjoint kernels' phase-D stash
+    (csrc/adjoint.cuh, kStashRows): the two series' points, and
+    PowerLawSpline's knots' point."""
+    return 6 if isinstance(mass, PowerLawSpline) else 4
 
 
 def plain_budget(t: torch.Tensor) -> int:
@@ -371,15 +386,6 @@ def refuse_grad(name: str, why: str, *tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             f"{name} has no backward on CUDA tensors: {why}")
-
-
-def refuse_spline_grad(name: str, mass) -> None:
-    """PowerLawSpline has no reverse sweep on the card: the adjoint wrappers
-    raise, and the forward ones where autograd would record a launch."""
-    if isinstance(mass, PowerLawSpline):
-        raise NotImplementedError(
-            f"{name} has no backward on CUDA tensors: PowerLawSpline's "
-            "gradient on the card is ROADMAP.md §1 item 17")
 
 
 def launch(lib_name: str, symbol: str, dtype, device, args,
@@ -702,7 +708,8 @@ def fused_weights_kde_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
         ``fused_row_stats`` take it.
 
     Returns d_series (L, cheb_deg + 2 + window_deg) float64 and d_params
-    (L, P), P the model's scalars, summed over rows in a fixed order (equal inputs give equal
+    (L, P), P the packed row's columns (``packed_width``: PowerLawSpline's
+    num_knots column 0, its coefficients' cotangents after it), summed over rows in a fixed order (equal inputs give equal
     bits), and d_ext (L, E, 2), whose slots take the cotangents of the lo,
     ub stats they pass through (None without ``ext_bounds``).  The row
     statistics are differentiated in their safe-math form (variance floored,
@@ -719,7 +726,6 @@ def fused_weights_kde_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
             ct_stats, cosmo, mass, kernel, bw_method, **mode_kw)
     check_cuda_call("fused_weights_kde_adjoint", cosmo, mass, dl,
                     {"m1det": m1det, "m2det": m2det, "inv_pe_prior": inv_pe_prior})
-    refuse_spline_grad("fused_weights_kde_adjoint", mass)
     if kernel not in ("epan", "gauss"):
         raise ValueError(f"unknown KDE kernel {kernel!r}")
     if den_scale not in ("norms", "unit"):
@@ -741,7 +747,7 @@ def fused_weights_kde_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
     if cosmo.cheb_deg > _ADJOINT_MAX_DEG or wd > _ADJOINT_MAX_DEG:
         raise ValueError(
             f"the adjoint kernel takes Chebyshev degrees up to {_ADJOINT_MAX_DEG}")
-    n_params = len(MODEL_SCALARS[type(mass).__name__])
+    n_params = packed_width(mass)
     expect = {"series": (series, (n, cosmo.cheb_deg + 2 + wd), torch.float64),
               "params": (params, (n, n_params), dt),
               "ct_stats": (ct_stats, (n, e, 8), dt)}
@@ -772,11 +778,12 @@ def fused_weights_kde_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
     tiles = -(-g // _GRID_TILE) if mode in (_EFFECTIVE_GRID, _EXTERNAL_BOUNDS) \
         and kernel == "epan" else 0  # K3b's, K3d's pruned phase B: tile bounds
     smem = smem_bytes(series, 8 if dense else dl.element_size(), params,
-                      4 * s + 2 * g + 2 * tiles + _RECORD_EXTRA[type(mass).__name__])
+                      stash_rows(mass) * s + 2 * g + 2 * tiles
+                      + _RECORD_EXTRA[type(mass).__name__])
     if smem > _SMEM_LIMIT - _ADJOINT_STATIC_SMEM:
         raise ValueError(
             f"S = {s} samples need {smem} bytes of shared memory per block "
-            f"(z, w, dz and dw of every sample), over the "
+            f"(z, w, dz and dw of every sample and their stash), over the "
             f"{_SMEM_LIMIT - _ADJOINT_STATIC_SMEM}-byte limit")
     inputs = [None if t is None else t.contiguous() for t in (
         m1det, m2det, dl, inv_pe_prior, grids if mode == _ANALYSIS_GRID else None,
@@ -848,7 +855,6 @@ def _run_k1(mode, series, params, ext_bounds, cosmo, mass, pe, grids, n_real,
     if torch.is_grad_enabled() and (
             series.requires_grad or params.requires_grad
             or (ext_bounds is not None and ext_bounds.requires_grad)):
-        refuse_spline_grad("fused_weights_kde", mass)
         return _FusedKDE.apply(series, params, ext_bounds, mode, cosmo, mass,
                                kw, *pe, grids, n_real, dl_fill)
     return _launch_k1(mode, series, params, *pe, grids, cosmo, mass,

@@ -31,11 +31,12 @@ from chimera_tpu_torch.ops.cuda.fused import (_ADJOINT_MAX_DEG,
                                               _ADJOINT_STATIC_SMEM,
                                               _GRID_TILE, _RECORD_EXTRA,
                                               _SMEM_LIMIT, _TILE_S,
-                                              MODEL_SCALARS, check_cuda_call,
-                                              launch, mass_kind, on_card,
-                                              pack_params, plain_budget,
-                                              refuse_spline_grad, smem_bytes,
-                                              unpack_params, window_degree)
+                                              check_cuda_call, launch,
+                                              mass_kind, on_card,
+                                              pack_params, packed_width,
+                                              plain_budget, smem_bytes,
+                                              stash_rows, unpack_params,
+                                              window_degree)
 from chimera_tpu_torch.ops.kde import MAX_FORM_KERNELS
 
 def _rows_per_event(dl, grids) -> int:
@@ -172,7 +173,6 @@ def fused_rows_contract(m1det, m2det, dl, inv_pe_prior, cosmo, mass, grids,
     data = (m1det, m2det, dl, inv_pe_prior, grids)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (series, params, hs, f1, f2)):
-        refuse_spline_grad("fused_rows_contract", mass)
         out = _RowsContract.apply(series, params, hs, f1, f2, cosmo, mass,
                                   kernel, dims, *data, s1, s2)
     else:
@@ -245,23 +245,23 @@ def fused_rows_contract_adjoint(m1det, m2det, dl, inv_pe_prior, grids, series,
     e_ev, c, chunk, g, n = _check_rows_call(
         "fused_rows_contract_adjoint", m1det, m2det, dl, inv_pe_prior, cosmo,
         mass, grids, hs, s1, s2, f1, f2, kernel)
-    refuse_spline_grad("fused_rows_contract_adjoint", mass)
     dt, dev = dl.dtype, dl.device
     wd = window_degree(mass)
     q = cosmo.cheb_deg + 2 + wd
     if cosmo.cheb_deg > _ADJOINT_MAX_DEG or wd > _ADJOINT_MAX_DEG:
         raise ValueError(
             f"the adjoint kernel takes Chebyshev degrees up to {_ADJOINT_MAX_DEG}")
-    n_params = len(MODEL_SCALARS[type(mass).__name__])
+    n_params = packed_width(mass)
     for key, t, shape, dtype in (
             ("series", series, (n, q), torch.float64),
             ("params", params, (n, n_params), dt),
             ("ct_r", ct_r, (n, e_ev * c, 2), dt)):
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev:
             raise ValueError(f"{key} must be {shape} {dtype} on {dev}")
-    # the λ's record, (z, w) and (dz, dw) of the row's samples, the grid
-    # with its c_g, f1, f2 and their cotangents, the pruned passes' tiles
-    smem = smem_bytes(series, 8, params, 4 * chunk + 7 * g
+    # the λ's record, (z, w) and (dz, dw) of the row's samples (and
+    # PowerLawSpline's knots' points), the grid with its c_g, f1, f2 and
+    # their cotangents, the pruned passes' tiles
+    smem = smem_bytes(series, 8, params, stash_rows(mass) * chunk + 7 * g
                       + _RECORD_EXTRA[type(mass).__name__]
                       + 2 * (-(-chunk // _TILE_S) - (-g // _GRID_TILE)))
     if smem > _SMEM_LIMIT - _ADJOINT_STATIC_SMEM:

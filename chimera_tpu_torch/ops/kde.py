@@ -177,6 +177,35 @@ def _whitening(dataset: torch.Tensor, weights, bw_method
     return w, whitening, log_norm
 
 
+def lattice_record(z: torch.Tensor, w: torch.Tensor, ra: torch.Tensor,
+                   dec: torch.Tensor, ra_pix: torch.Tensor,
+                   dec_pix: torch.Tensor, bw_method=None) -> dict:
+    """The quantities of a (λ, event) that K5's terms read
+    (``csrc/kde3d.cuh``: the record, ``sample_factors``), differentiable in
+    every input: z, w (..., S) with ra, dec broadcast to them, ra_pix,
+    dec_pix (..., P).  The unit weights ``wn``, the whitening's ``l00`` and
+    ``log_norm`` (``_whitening``), the weighted mean ``mean_z``, each
+    sample's whitened coordinates centred on the weighted mean ``a``, ``b``,
+    ``c`` (L (x - mean), rows 0, 1, 2) and each pixel's ``c0``, ``c1``,
+    ``c2`` (its centred sky position whitened): K5's u = l00 (z_g - mean_z)
+    + c0 - a, q1 = c1 - b, q2 = c2 - c.  The backward of ``lattice_kde3d``
+    on the card (``ops/cuda/kde3d.py``) chains K5b's cotangents of these to
+    its inputs through this graph, in float64."""
+    zz, rr, dd = torch.broadcast_tensors(z, ra, dec)
+    wn, wh, log_norm = _whitening(torch.stack([zz, rr, dd], dim=-2), w,
+                                  bw_method)
+    mean = [torch.sum(wn * x, dim=-1, keepdim=True) for x in (zz, rr, dd)]
+    ll = [[wh[..., i, j, None] for j in range(3)] for i in range(3)]
+    dz, dr, ddc = zz - mean[0], rr - mean[1], dd - mean[2]
+    rp, dp = ra_pix - mean[1], dec_pix - mean[2]
+    return {"wn": wn, "l00": wh[..., 0, 0], "log_norm": log_norm,
+            "mean_z": mean[0][..., 0],
+            "a": ll[0][0] * dz + ll[1][0] * dr + ll[2][0] * ddc,
+            "b": ll[1][1] * dr + ll[2][1] * ddc, "c": ll[2][2] * ddc,
+            "c0": ll[1][0] * rp + ll[2][0] * dp,
+            "c1": ll[1][1] * rp + ll[2][1] * dp, "c2": ll[2][2] * dp}
+
+
 def _chi2_diff(pts_w: torch.Tensor, data_w: torch.Tensor) -> torch.Tensor:
     """||data_w[s] - pts_w[p]||^2 of (..., P, d) and (..., S, d) whitened
     points as an unrolled sum of squared differences — (..., P, S).  The

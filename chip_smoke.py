@@ -34,18 +34,21 @@ paths end to end through the entry points a user calls:
   a gradient call, value-and-gradient timing and peak memory at full
   width; HMC / ChEES on the binned spectral headline;
 * phases 26-27, kind 'full' (cut_grid=2.0) on the dark flagship's data:
-  the 3-D lattice KDE K5 against its plain version at 128 events, one K5
-  launch a batch at full width, float32 vs float64, timing split into K5
-  and the glue and into the stages of the batch, K5's bound on the
-  refreshes its flush keeps (beside the bound on every weighted sample's),
-  a gradient call that must raise;
+  the 3-D lattice KDE K5 and its adjoint K5b against their plain versions
+  at 128 events, one K5 launch a batch at full width, float32 vs float64,
+  timing split into K5 and the glue and into the stages of the batch, K5's
+  bound on the refreshes its flush keeps (beside the bound on every
+  weighted sample's); a value-and-gradient call in (H0, Om0) with one K5
+  and one K5b launch, the card's float64 gradient against the CPU's, the
+  float32 gradient against float64, ms per λ split into K5, K5b and the
+  rest, peak memory, K5b's bound;
 * phase 28, the ensemble sampler (32 walkers in H0, Om0, two half-steps of
   16 a step) on the spectral headline (K1a) and on 'full' (K5);
 * phase 29, every kernel in every mode with each mass model beside
   PowerLawPeak (TruncatedPowerLaw, BrokenPowerLaw, PowerLawTwoPeaks,
   PowerLawSpline: each a library of its own, CHIMERA_MASS_KIND) at 64
-  events against its plain version, float32 gradients against float64,
-  PowerLawSpline's gradient refused;
+  events against its plain version, float32 gradients against float64
+  (PowerLawSpline's backward kernels with its coefficients' columns);
 * phases 30-32, the other population models and engines at full width:
   MGFLRW + BrokenPowerLaw + PowerLawRate on the spectral headline (K1a,
   K3), PowerLawTwoPeaks + TruncatedMadauDickinsonRate on the dark flagship
@@ -67,7 +70,15 @@ paths end to end through the entry points a user calls:
   rank the same bits, a repeat the same bits,
   each kernel of the path once a batch on every rank, ms per λ beside the
   single process's (ranks sharing one card: not a scaling figure); then
-  ``dryrun_multichip(4)`` on the card.
+  ``dryrun_multichip(4)`` on the card;
+* phase 34, data, precompute and the run surface (``surface``), with K4's
+  ``kde1d_batch`` call beside its bound;
+* phase 35, HMC and ChEES on kind 'full' at the dark width (16 chains in
+  H0, Om0): every gradient evaluation one K5 and one K5b launch, equal
+  bits on a repeat, seconds a step;
+* phase 36, PowerLawSpline at full width on the spectral headline and the
+  dark flagship: forward and value-and-gradient timed, its float32
+  gradient (the coefficients' too) held to float64's.
 
 Each likelihood path checks float32 against float64, elementwise against the
 repo's 1e-6 bar or, binned, against BINNED_F32_BAR (the precision mocks:
@@ -171,7 +182,13 @@ REFERENCE_F32_GRAD_GAP = {
     "BrokenPowerLaw spectral_cut": 0.001082054846655325,
     "PowerLawTwoPeaks spectral": 0.001341921672713701,
     "PowerLawTwoPeaks spectral_cut": 0.00033370365994347663,
+    "PowerLawSpline spectral": 0.01068747678915851,
+    "PowerLawSpline spectral_cut": 0.0017744177204345177,
     "MGFLRW + BrokenPowerLaw": 0.006859269493858738,
+    # kind 'full' on the dark precision mock (PARITY_DARK) at
+    # FULL_GRAD_POINTS, phase 27: `... --reference-grad-gap
+    # tests/data/f32_parity_dark.npz full`
+    "full": 2.4956162339680924e-06,
     # the JAX package's float32 jax.grad is NaN at points 2 and 3 (and at
     # H0 = 68, 70, 72 with Om0 = 0.25 alone): the port's own float32 path
     # with K4 and K4b replaced by their plain versions sets the bar
@@ -2894,6 +2911,11 @@ FULL = {"kind": "full", "cut_grid": 2.0}
 # (sample, K-point block): u0, -0.5 u0 u0, e times the exp, the r argument
 # (an fma), the two exps' scalings, the flush's compare
 K5_DENSE_OPS, K5_REC_OPS, K5_REFRESH_OPS = 6, 3, 9
+# K5b's least work: a term (u = zl + t, -0.5 u u, the exp's scaling, d =
+# d_out k, the three sums d, d u and d u zeta, an FMA counted 2) and a
+# refresh test per (sample, K-point block) of the recurrence's events (u0,
+# -0.5 u0 u0, the exp's scaling, e times it, the compare), each one exp
+K5B_TERM_OPS, K5B_TEST_OPS = 10, 5
 
 
 def k5_terms(args, live: bool = False) -> dict:
@@ -2939,13 +2961,13 @@ def k5_live(args, chunk: int = 8) -> dict:
     test on the card in the working dtype, ``chunk`` events at a time, with
     e, t and the block starts formed in double from coordinates centred on
     the weighted mean and then rounded, as ``kde3d.cuh`` forms them, but on
-    the plain version's whitening (``ops/kde.py::_whitening``) and without
-    the kernel's own order of roundings (``block_start``), so that it may
-    count a refresh at the flush's edge that the kernel flushes, or the
-    reverse; and the recurrence terms (grid points) of those refreshes: K a
+    the plain version's whitening (``ops/kde.py::lattice_record``) and
+    without the kernel's own order of roundings (``block_start``), so that
+    it may count a refresh at the flush's edge that the kernel flushes, or
+    the reverse; and the recurrence terms (grid points) of those refreshes: K a
     block, fewer in the padded last.  A (λ, event) without a whitening has
     none.  The bound's count, not the kernel's."""
-    from chimera_tpu_torch.ops.kde import _whitening
+    from chimera_tpu_torch.ops.kde import lattice_record
 
     z, w, ra, dec, ra_pix, dec_pix, mask, grids, z_block = args[:9]
     dt, n = z.dtype, z.shape[0]
@@ -2960,25 +2982,19 @@ def k5_live(args, chunk: int = 8) -> dict:
         idx = torch.nonzero(kk == k).reshape(-1)
         for i in range(0, idx.numel(), chunk):
             sel = idx[i:i + chunk]
-            zz = z[:, sel].double()                                   # (L, c, S)
-            rr = ra[sel].double()[None].expand_as(zz)
-            dd = dec[sel].double()[None].expand_as(zz)
-            wn, wh, _ = _whitening(torch.stack([zz, rr, dd], dim=-2),
-                                   w[:, sel].double(), None)
-            mean = [torch.sum(wn * x, dim=-1, keepdim=True) for x in (zz, rr, dd)]
-            l00, l10, l20 = wh[..., 0, 0, None], wh[..., 1, 0, None], wh[..., 2, 0, None]
-            l11, l21, l22 = wh[..., 1, 1, None], wh[..., 2, 1, None], wh[..., 2, 2, None]
-            rp = ra_pix[sel].double()[None] - mean[1]                 # (L, c, P)
-            dp = dec_pix[sel].double()[None] - mean[2]
-            c0, c1, c2 = l10 * rp + l20 * dp, l11 * rp + l21 * dp, l22 * dp
-            dz, dr, dd = zz - mean[0], rr - mean[1], dd - mean[2]     # (L, c, S)
-            q1 = c1[..., None] - (l11 * dr + l21 * dd)[:, :, None]    # (L, c, P, S)
-            q2 = c2[..., None] - (l22 * dd)[:, :, None]
-            e = (wn[:, :, None] * torch.exp(-0.5 * (q1 * q1 + q2 * q2))).to(dt)
-            t = (c0[..., None] - (l00 * dz + l10 * dr + l20 * dd)[:, :, None]).to(dt)
+            rec = lattice_record(z[:, sel].double(), w[:, sel].double(),
+                                 *(x[sel].double()[None]
+                                   for x in (ra, dec, ra_pix, dec_pix)))
+            # (L, c, P, S)
+            q1 = rec["c1"][..., None] - rec["b"][:, :, None]
+            q2 = rec["c2"][..., None] - rec["c"][:, :, None]
+            e = (rec["wn"][:, :, None]
+                 * torch.exp(-0.5 * (q1 * q1 + q2 * q2))).to(dt)
+            t = (rec["c0"][..., None] - rec["a"][:, :, None]).to(dt)
             del q1, q2
             step = (grids[sel, -1].double() - grids[sel, 0].double()) / max(g - 1, 1)
-            zl_start = l00 * (grids[sel, 0].double()[None, :, None] - mean[0])
+            l00 = rec["l00"][..., None]                               # (L, c, 1)
+            zl_start = l00 * (grids[sel, 0].double()[None] - rec["mean_z"])[..., None]
             zl0 = (zl_start + starts * (l00 * step[None, :, None])).to(dt)  # (L, c, J)
             u0 = zl0[:, :, None, :, None] + t[:, :, :, None, :]       # (L, c, P, J, S)
             v = e[:, :, :, None, :] * torch.exp(torch.tensor(-0.5, dtype=dt) * u0 * u0)
@@ -3051,6 +3067,96 @@ def k5_compare(args, kw, tol: float):
             int(nan.sum()))
 
 
+def k5b_terms(args, terms: dict) -> dict:
+    """K5b's terms on a call's inputs (``terms`` from ``k5_terms(...,
+    live=True)``): every sample's terms on the dense sweep's events (a
+    sample without weight still has its weight's cotangent there), the
+    kept refreshes' terms on the recurrence's, and a refresh test per kept
+    refresh there, as K5's bound counts them: the kept set is found with a
+    log per (pixel, sample), as K5's skip radii find it, not with an exp
+    per block, although this first K5b tests every weighted sample's
+    block (``k5_terms``' ``refresh``)."""
+    mask, grids, z_block = args[6:9]
+    n, _, s = args[0].shape
+    dense = (torch.clamp(z_block.long(), max=grids.shape[1]) == 0)
+    pix = mask.sum(dim=1)
+    return {"dense_all": float(n * s * grids.shape[1] * int(pix[dense].sum())),
+            "recurrence_live": terms["recurrence_live"],
+            "tests": terms["refresh_live"]}
+
+
+def k5b_bound(args, d_out, terms: dict) -> tuple[float, str]:
+    """K5b's least time on the card: its inputs and d_out read once, its
+    float64 cotangents (per sample 4, per pixel 3, per (λ, event) 3)
+    written once, against the FP32 operations and exps of ``k5b_terms``."""
+    z, w, ra, dec, ra_pix, dec_pix, mask, grids, z_block = args[:9]
+    n, e, s = z.shape
+    p = ra_pix.shape[1]
+    n_bytes = z.element_size() * (z.numel() + w.numel() + ra.numel()
+                                  + dec.numel() + ra_pix.numel()
+                                  + dec_pix.numel() + grids.numel()
+                                  + d_out.numel()) \
+        + mask.numel() + 4 * z_block.numel() + 8 * n * e * (4 * s + 3 * p + 3)
+    n_terms = terms["dense_all"] + terms["recurrence_live"]
+    return bound(n_bytes, K5B_TERM_OPS * n_terms + K5B_TEST_OPS * terms["tests"],
+                 n_mufu=n_terms + terms["tests"])
+
+
+def k5b_compare(args, kw, d_out) -> dict:
+    """K5b (``lattice_kde3d_adjoint``: its launch and the chain) against
+    autograd of the plain version on the same inputs and cotangent, each
+    gradient row relative to its largest entry, NaN in the same places, the
+    same bits on a second launch; a float32 call against the float64 plain
+    version, held to max(1e-3, 2 x the float32 plain version's own error),
+    a float64 one to 1e-9.  Returns the errors, the bar, the NaN count and
+    (float32) the float32 plain version's time, ms."""
+    from chimera_tpu_torch.ops.cuda.kde3d import (lattice_kde3d_adjoint,
+                                                  lattice_kde3d_adjoint_plain)
+
+    got = lattice_kde3d_adjoint(*args[:9], d_out, **kw)
+    again = lattice_kde3d_adjoint(*args[:9], d_out, **kw)
+    wide = [a.double() if a.is_floating_point() else a for a in (*args[:9], d_out)]
+    exact = lattice_kde3d_adjoint_plain(*wide, **kw)
+    own, plain_ms = [], None
+    if d_out.dtype == F32:
+        plain_ms = cuda_ms(lambda: own.extend(
+            lattice_kde3d_adjoint_plain(*args[:9], d_out, **kw)), 1, 0)[0]
+    torch.cuda.synchronize(DEV)
+
+    def rel(g, x):
+        nan = torch.isnan(x)
+        if not (torch.equal(torch.isnan(g), nan) and torch.isfinite(x[~nan]).all()):
+            raise AssertionError("K5b vs plain: their non-finite values differ")
+        g, x = g.double().masked_fill(nan, 0.0), x.masked_fill(nan, 0.0)
+        scale = x.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+        return ((g - x).abs() / scale).max().item(), (g - x).abs().max().item()
+
+    out = {"rel": 0.0, "abs": 0.0, "own": 0.0, "nan": 0, "plain_ms": plain_ms}
+    for i, (g, x, r) in enumerate(zip(got, exact, again)):
+        if not same_bits(g, r):
+            raise AssertionError(f"K5b: a second launch gave other bits ({i})")
+        e_rel, e_abs = rel(g, x)
+        out["rel"], out["abs"] = max(out["rel"], e_rel), max(out["abs"], e_abs)
+        out["nan"] += int(torch.isnan(x).sum())
+        if own:
+            out["own"] = max(out["own"], rel(own[i], x)[0])
+    out["bar"] = 1e-9 if d_out.dtype == F64 else max(1e-3, 2.0 * out["own"])
+    if not out["rel"] <= out["bar"]:
+        raise AssertionError(f"K5b vs plain {d_out.dtype}: {out['rel']:.3e} of "
+                             f"the row max > {out['bar']:.3e}")
+    return out
+
+
+def k5b_cotangent(args, seed: int) -> torch.Tensor:
+    """A random cotangent of K5's output (L, E, P, G), 0 at the fake
+    pixels, in the inputs' dtype."""
+    z, mask, grids = args[0], args[6], args[7]
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    d = torch.randn((*z.shape[:2], mask.shape[1], grids.shape[1]),
+                    generator=gen, device=DEV, dtype=F64)
+    return (d * mask[None, :, :, None]).to(z.dtype)
+
+
 FULL_STAGES = ("update_batch", "theta_src_and_weights", "norms and gate",
                "K5", "norm, z and pixel masks, gate with nan_to_num",
                "_integrate_pixels", "n_exp", "log and finish")
@@ -3117,16 +3223,16 @@ def full_stages(hl, batch: dict, reps: int = 17) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def full_path(smi: str, dark_data) -> tuple[dict, object]:
-    """Phases 26-27: K5 against its plain version on the 'full' path's
-    inputs at 128 events of the dark width with a mixed plan, and kind
-    'full' end to end at the dark width (cut_grid=2.0, L = 16): one K5
+def full_path(smi: str, dark_data) -> tuple[dict, dict, object]:
+    """Phases 26-27: K5 and K5b against their plain versions on the 'full'
+    path's inputs at 128 events of the dark width with a mixed plan, and
+    kind 'full' end to end at the dark width (cut_grid=2.0, L = 16): one K5
     launch a batch, K5 against the float64 plain version on the batch's
-    own inputs, float32 vs float64 on the dark precision mock, timing split
-    into K5 and the glue, the bound, the plan; a call that requires grad
-    raises.  Returns
-    K5's entry of the kernels line (its launches filled in by phase 28)
-    and the float32 likelihood."""
+    own inputs, float32 vs float64 log L and d log L / dλ on the dark
+    precision mock, timing split into K5 and the glue, the bound, the plan;
+    then its gradient (``full_gradient``).  Returns K5's and K5b's entries
+    of the kernels line (their launches filled in by phases 28 and 35) and
+    the float32 likelihood."""
     from chimera_tpu_torch.ops.cuda.kde3d import lattice_kde3d, lattice_kde3d_plain
 
     h0s = torch.linspace(55.0, 95.0, 16, device=DEV)
@@ -3148,6 +3254,15 @@ def full_path(smi: str, dark_data) -> tuple[dict, object]:
             raise AssertionError(f"not a mixed plan: {terms['plan']}")
         k_ms = statistics.median(cuda_ms(lambda: lattice_kde3d(*args, **kw), 5))
         p_ms = cuda_ms(lambda: lattice_kde3d_plain(*args, **kw), 1, 0)[0]
+        d_out = k5b_cotangent(args, SEED + 261)
+        b = k5b_compare(args, kw, d_out)
+        phase(26, f"K5b vs plain {dtype}", f"the same inputs, a random "
+              f"cotangent: d/d(z, w, ra, dec, ra_pix, dec_pix) max err "
+              f"{b['rel']:.3e} of each gradient row's max (bar {b['bar']:.1e}"
+              + ("" if dtype == F64 else f", the float32 plain version "
+                 f"{b['own']:.3e}, both against float64 plain")
+              + f"), max abs {b['abs']:.3e}, NaN in the same {b['nan']} "
+              f"places, equal bits on a second launch [{smi}]")
         phase(26, f"K5 vs plain {dtype}", f"{hl.n_events} events x "
               f"{hl.n_samples} samples x {hl.n_pixels} pixel slots "
               f"({int(hl.pixel_mask.sum())} real) x {hl.z_grids.shape[1]} grid, "
@@ -3178,12 +3293,6 @@ def full_path(smi: str, dark_data) -> tuple[dict, object]:
              f"(events' float64 numerators: median "
              f"{num64[num64 > 0].median().item():.3e})")
     del hl64, num64, zero
-    try:
-        hl.log_like_batch({"H0": h0s.to(F32).clone().requires_grad_()})
-    except NotImplementedError as err:
-        refused = str(err)
-    else:
-        raise AssertionError("a 'full' batch that requires grad did not raise")
     par = parity_dark_mock(DEV)
     prec64, prec32 = (dark_likelihood(par, dt, **FULL) for dt in (F64, F32))
     rel, diff, n_fin = f32_vs_f64(prec64, prec32,
@@ -3191,6 +3300,15 @@ def full_path(smi: str, dark_data) -> tuple[dict, object]:
                                   FULL_F32_BAR)
     prec_plan = k5_terms(captured("lattice_kde3d", lambda: prec32.log_like_batch(
         {"H0": h0s[:1].to(F32)}))[0])["plan"]
+    # the float32 gradient on the precision mock against float64
+    names = list(FULL_GRAD_POINTS)
+    xp = torch.tensor(list(FULL_GRAD_POINTS.values()), device=DEV, dtype=F64).T
+    g_prec = {dt: named_value_and_grad(h, names, xp.to(dt))[1]
+              for dt, h in ((F64, prec64), (F32, prec32))}
+    g32_rel, g32_bar = column_rel(g_prec[F32], g_prec[F64]), grad_bar("full")
+    if not (torch.all(torch.isfinite(g_prec[F32])) and g32_rel <= g32_bar):
+        raise AssertionError(f"'full' float32 d log L/d{names}: {g32_rel:.3e} "
+                             f"from float64 (bar {g32_bar:.3e})")
     del par, prec64, prec32
     total = cuda_ms(lambda: hl.log_like_batch(batch), reps)
     args, kw = captured("lattice_kde3d", lambda: hl.log_like_batch(batch))
@@ -3212,8 +3330,7 @@ def full_path(smi: str, dark_data) -> tuple[dict, object]:
           f"cut_grid=2.0, setup {setup_s:.2f} s; launches K5 1, others 0; "
           f"plan (events per K) {terms['plan']}; H0 argmax "
           f"{h0s[int(torch.argmax(ll))].item():.2f}; log L = "
-          f"{[round(v, 4) for v in ll.tolist()]}; {zeros}; requires_grad "
-          f"raises: {refused} [{smi}]")
+          f"{[round(v, 4) for v in ll.tolist()]}; {zeros} [{smi}]")
     phase(27, "K5 vs plain", f"the path's own inputs (L = {n}): max err "
           f"{k_rel:.3e} of the row max against float64 plain (tol 1e-4; rows "
           f"under 1e-20 of their event's max {k_under}), max abs {k_abs:.3e}; "
@@ -3240,13 +3357,173 @@ def full_path(smi: str, dark_data) -> tuple[dict, object]:
           f"{n} (CUDA events between the stages of log_like_batch): "
           + "; ".join(f"{k} {v:.4f}" for k, v in stages.items())
           + f"; sum {sum(stages.values()):.4f}")
+    phase(27, "precision, gradient", f"float32 vs float64 d log L/d{names} on "
+          f"{PARITY_DARK.name} at {FULL_GRAD_POINTS}: {g32_rel:.3e} of each "
+          f"parameter's largest slope (bar {g32_bar:.3e}) [{smi}]")
     entry = {"name": "lattice_kde3d (K5)", "route": "cuda",
              "source": "chimera_tpu_torch/csrc/kde3d.cu",
              "replaces": "chimera_tpu/ops/kde.py:307", "launches": 1,
              "max_abs_err": k_abs, "ms": k_call, "plain_ms": plain,
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     del args
-    return entry, hl
+    return entry, full_gradient(smi, dark_data, hl, terms), hl
+
+
+def full_gradient(smi: str, dark_data, hl, terms: dict) -> dict:
+    """Phase 27's gradient of kind 'full' at the dark width (L = 16 in H0
+    and Om0): one K5 and one K5b a value-and-gradient call, the card's
+    float64 gradient against the CPU's plain autograd on 8 events (2 λ),
+    ms per λ split into K5, K5b (its launch; the chain through the float64
+    record) and the rest, peak memory, K5b against its plain version on the
+    call's own cotangent and its bound.  Returns K5b's entry of the kernels
+    line (its launches filled in by phase 35)."""
+    from chimera_tpu_torch.ops.cuda import kde3d
+
+    n, reps = 16, 17
+    names = ["H0", "Om0"]
+    x = points({"H0": 70.0, "Om0": 0.25}, {"H0": 3.0, "Om0": 0.02}, n, F32,
+               SEED + 27)
+    (ll, g), _ = counted(lambda: named_value_and_grad(hl, names, x),
+                         {"K5": 1, "K5b": 1})
+    if not (torch.all(torch.isfinite(ll)) and torch.all(torch.isfinite(g))):
+        raise AssertionError(f"'full' value and gradient not finite: {g.tolist()}")
+    again = named_value_and_grad(hl, names, x)[1]
+    if not same_bits(g, again):
+        raise AssertionError("'full': a second gradient call gave other bits")
+    # float64, card against the CPU's plain autograd on 8 events, 2 λ
+    cut = dark_likelihood(cut_dark_events(dark_data, 8), F64, **FULL)
+    x64 = x[:2].double()
+    (_, g_card), _ = counted(lambda: named_value_and_grad(cut, names, x64),
+                             {"K5": 1, "K5b": 1})
+    t0 = time.perf_counter()
+    _, g_cpu = named_value_and_grad(copy.deepcopy(cut).to("cpu"), names, x64.cpu())
+    cpu_s = time.perf_counter() - t0
+    g_rel = column_rel(g_card.cpu(), g_cpu)
+    if not (torch.all(torch.isfinite(g_cpu)) and g_rel <= 1e-9):
+        raise AssertionError(f"'full' gradient: card vs CPU {g_rel:.3e} (tol 1e-9)")
+    del cut
+    # timing: the call, K5 and K5b (its launch, and its chain) on their own
+    torch.cuda.reset_peak_memory_stats(DEV)
+    named_value_and_grad(hl, names, x)
+    torch.cuda.synchronize(DEV)
+    peak = torch.cuda.max_memory_allocated(DEV) / 2 ** 30
+    total = cuda_ms(lambda: named_value_and_grad(hl, names, x), reps)
+    args, kw = captured("lattice_kde3d", lambda: named_value_and_grad(hl, names, x))
+    b_args, b_kw = calls_of(kde3d, "lattice_kde3d_adjoint",
+                            lambda: named_value_and_grad(hl, names, x))[-1]
+    d_out, records = b_args[9], b_kw["records"]
+    k5 = cuda_ms(lambda: kde3d.lattice_kde3d(*args, **kw), reps)
+    k5b = cuda_ms(lambda: kde3d.launch_k5b(*b_args[:9], records, d_out), reps)
+    cot = kde3d.launch_k5b(*b_args[:9], records, d_out)
+    chain = cuda_ms(lambda: kde3d.chain_k5b(*b_args[:6], *cot, b_kw.get("bw_method"),
+                                            b_kw.get("wrt", (True,) * 6)), reps)
+    b = k5b_compare(b_args[:9], {"bw_method": b_kw.get("bw_method")}, d_out)
+    plain = b["plain_ms"]
+    bt = k5b_terms(b_args, terms)
+    b_ms, b_by = k5b_bound(b_args, d_out, bt)
+    t_med, t_mad = med_mad([t / n for t in total])
+    f_med, b_med, c_med = (statistics.median(t) / n for t in (k5, k5b, chain))
+    k5b_call = statistics.median(k5b)
+    phase(27, "gradient", f"value and gradient in {names} at the dark width, "
+          f"L = {n}, float32: launches K5 1, K5b 1, others 0; finite, equal "
+          f"bits on a second call; float64 on 8 events, card vs CPU autograd "
+          f"(2 λ, {cpu_s:.1f} s) {g_rel:.3e} of each parameter's largest "
+          f"slope (tol 1e-9) [{smi}]")
+    phase(27, "K5b vs plain", f"the call's own inputs and cotangent: max err "
+          f"{b['rel']:.3e} of each gradient row's max against float64 plain "
+          f"(bar {b['bar']:.3e}; the float32 plain version {b['own']:.3e}), "
+          f"max abs {b['abs']:.3e}, NaN in the same {b['nan']} places, "
+          f"equal bits on a second launch [{smi}]")
+    phase(27, "gradient timing", f"[{smi}] per λ over {reps} calls of {n}: "
+          f"value and gradient {t_med:.4f} ± {t_mad:.4f} ms (median ± MAD); "
+          f"K5 {f_med:.4f} ms, K5b {b_med:.4f} ms (its launch), the chain "
+          f"through the float64 record {c_med:.4f} ms, the rest "
+          f"{t_med - f_med - b_med:.4f} ms (the chain in it); peak memory "
+          f"{peak:.2f} GiB; K5b per call {k5b_call:.3f} ms, plain (autograd "
+          f"of the plain version) {plain:.1f} ms, bound {b_ms:.3f} ms "
+          f"({b_by}, {100 * b_ms / k5b_call:.1f} % of it): "
+          f"{bt['dense_all']:.4e} dense terms (every sample), "
+          f"{bt['recurrence_live']:.4e} kept recurrence terms, "
+          f"{bt['tests']:.4e} kept refresh tests (the kernel runs "
+          f"{terms['refresh']:.4e})")
+    return {"name": "lattice_kde3d_adjoint (K5b)", "route": "cuda",
+            "source": "chimera_tpu_torch/csrc/kde3d.cu",
+            "replaces": "no TPU kernel; jax.grad of chimera_tpu/ops/kde.py:307 (XLA)",
+            "launches": 1, "max_abs_err": b["abs"], "ms": k5b_call,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+def full_samplers(smi: str, hl, k5b: dict) -> dict:
+    """Phase 35: HMC and ChEES on kind 'full' at the dark width, float32,
+    16 chains in (H0, Om0), 2 warm-up + 2 sampling steps (2 leapfrog steps,
+    ChEES at most 2): every gradient evaluation one K5 and one K5b launch
+    (the counts set to 0 before each run), every sample finite and inside
+    the bounds, equal bits on a second run from the same generator seed,
+    seconds per step.  Returns K5b's entry with its launches on the HMC
+    run."""
+    from chimera_tpu_torch.inference import (sample_hyperposterior,
+                                             sample_hyperposterior_chees)
+    from chimera_tpu_torch.ops.cuda import launch_counters, launch_counts
+
+    names, n, steps = ["H0", "Om0"], 16, 2
+    bounds = {p: BOUNDS[p] for p in names}
+    init = {p: INIT[p] for p in names}
+
+    def prior(counter):
+        def f(lam):
+            counter[0] += 1
+            return torch.zeros_like(lam["H0"])
+        return f
+
+    for name, run in (
+            ("hmc", lambda gen, pr: sample_hyperposterior(
+                gen, hl, names, bounds, init, n_chains=n, n_warmup=steps,
+                n_samples=steps, n_leapfrog=2, init_step_size=0.02,
+                extra_log_prior=pr)),
+            ("chees", lambda gen, pr: sample_hyperposterior_chees(
+                gen, hl, names, bounds, init, n_chains=n, n_warmup=steps,
+                n_samples=steps, max_steps=2, init_step_size=0.02,
+                extra_log_prior=pr))):
+        runs = []
+        for _ in range(2):
+            evals = [0]
+            for wrapper, attr in launch_counters().values():
+                setattr(wrapper, attr, 0)
+            t0 = time.perf_counter()
+            samples, stats = run(torch.Generator(device=DEV).manual_seed(SEED + 35),
+                                 prior(evals))
+            torch.cuda.synchronize(DEV)
+            seconds = time.perf_counter() - t0
+            launched = launch_counts()
+            if launched != {k: evals[0] if k in ("K5", "K5b") else 0
+                            for k in launched} or evals[0] < 2 * steps:
+                raise AssertionError(f"'full' {name}: {evals[0]} gradient "
+                                     f"evaluations, launches {launched}")
+            for p in names:
+                lo, hi = bounds[p]
+                x = samples[p]
+                if x.shape != (steps, n) or not torch.all(torch.isfinite(x)) \
+                        or not torch.all((x > lo) & (x < hi)):
+                    raise AssertionError(f"'full' {name}: {p} samples not "
+                                         f"finite or outside ({lo}, {hi})")
+            runs.append(samples)
+        if not all(torch.equal(runs[0][p], runs[1][p]) for p in names):
+            raise AssertionError(f"'full' {name}: a second run under the same "
+                                 "generator seed gave other samples")
+        if name == "hmc":
+            k5b = {**k5b, "launches": launched["K5b"]}
+        phase(35, f"{name} on kind 'full'", f"{n} chains x ({steps} warm-up + "
+              f"{steps} sampling steps) in {names} at the dark width, float32: "
+              f"{evals[0]} gradient evaluations = K5 launches {launched['K5']} "
+              f"= K5b launches {launched['K5b']}; {seconds:.2f} s a run, "
+              f"{seconds / (2 * steps):.2f} s a step; samples finite and "
+              f"inside the bounds, equal bits on a second run; accept "
+              f"{float(stats['accept'].mean()):.2f}, step size "
+              f"{float(stats['step_size']):.4f}, H0 mean "
+              f"{float(samples['H0'].mean()):.2f} [{smi}]")
+    return k5b
+
 
 
 def ensemble(smi: str, full, hl_full, k5: dict) -> dict:
@@ -3326,6 +3603,10 @@ TABLES = {"cosmo": ("FLRW", {"interp_method": "table"}),
 MG_POINTS = {"H0": (70.0, 72.0, 74.0, 76.0), "Xi0": (1.5, 1.45, 1.55, 1.5),
              "alpha_1": (1.55, 1.6, 1.65, 1.7)}
 TABLE_POINTS = {"H0": (64.0, 68.0, 72.0, 76.0), "Om0": (0.22, 0.25, 0.27, 0.3)}
+# the points of phase 27's float32 gradient hold of kind 'full' on the dark
+# precision mock (PARITY_DARK)
+FULL_GRAD_POINTS = {"H0": (64.0, 68.0, 72.0, 76.0),
+                    "Om0": (0.22, 0.25, 0.27, 0.3)}
 
 
 def grad_cases() -> dict:
@@ -3335,7 +3616,8 @@ def grad_cases() -> dict:
     (each mass model with a card gradient, analysis grids and cut_grid=2.0)
     and phases 30 and 32's (MG_HEADLINE, TABLES)."""
     cases = {}
-    for model in ("TruncatedPowerLaw", "BrokenPowerLaw", "PowerLawTwoPeaks"):
+    for model in ("TruncatedPowerLaw", "BrokenPowerLaw", "PowerLawTwoPeaks",
+                  "PowerLawSpline"):
         kw, key, values = MASS_MODELS[model]
         for path, cut in (("spectral", None), ("spectral_cut", 2.0)):
             cases[f"{model} {path}"] = ({"mass": (model, kw)}, cut,
@@ -3466,8 +3748,9 @@ def model_modes(smi: str) -> None:
     versions on the bars of PERF.md §2, the backward kernels in float64;
     in float32 d log L / dλ of each path against float64 (1e-2, or 2 x
     the JAX package's own gap, REFERENCE_F32_GRAD_GAP) and each backward
-    kernel on its path's cotangents (``float32_hold``); PowerLawSpline's
-    gradient raises on the card (ROADMAP.md §1 item 17)."""
+    kernel on its path's cotangents (``float32_hold``).  The backward
+    kernels' outputs are the packed rows' gradients: PowerLawSpline's
+    include its coefficients' columns."""
     from chimera_tpu_torch.ops.cuda.fused import (fused_weights_kde_adjoint,
                                                   fused_weights_kde_adjoint_plain)
     from chimera_tpu_torch.ops.cuda.rows import (fused_rows_contract_adjoint,
@@ -3502,18 +3785,7 @@ def model_modes(smi: str) -> None:
             err["K1d"] = compare(args, tol, tol, min_live=0.3, **kwa)[0]
             args, kwa = contract_inputs(contract_likelihood(dark64, dtype, cfg), lam)
             err["K1e"] = contract_compare(args, kwa, tol, tol)[0]
-            if model == "PowerLawSpline":
-                x = {k: v.clone().requires_grad_() for k, v in lam.items()}
-                try:
-                    hl.log_like_batch(x)
-                except NotImplementedError as e:
-                    if "item 17" not in str(e):
-                        raise
-                    grads = "gradient refused on the card (ROADMAP.md §1 item 17)"
-                else:
-                    raise AssertionError("PowerLawSpline: a gradient call did "
-                                         "not raise on the card")
-            elif dtype == F64:
+            if dtype == F64:
                 for kid, (a, k) in (
                         ("K3", mode_inputs(hl, "input", lam, SEED + 29)),
                         ("K3b", mode_inputs(hl_b, "auto", lam, SEED + 29)),
@@ -3838,6 +4110,70 @@ def population_models(smi: str, full, dark_data) -> None:
           f"values [{smi}]")
     phase(32, "seconds", f"phases 30-32 {time.perf_counter() - t_all:.1f} s "
           f"[{smi}]")
+
+
+def spline_full_width(smi: str, full, dark_data) -> None:
+    """Phase 36: PowerLawSpline (MASS_MODELS' knots and coefficients) at
+    full width, float32, L = 16: on the spectral headline's data (K1a, K3)
+    and on the dark flagship's ('marginalized': K1c + K2, K3c + K2b), the
+    forward batch and a value-and-gradient call in (H0, alpha), each timed,
+    the gradient in the coefficients too, and the float32 d log L / dλ held
+    to the float64's at the same points: the spectral one to its JAX gap's
+    bar (``grad_bar``), the dark one to 1e-2 (§2's Epanechnikov bar)."""
+    kw, _, _ = MASS_MODELS["PowerLawSpline"]
+    cfg = {"mass": ("PowerLawSpline", kw)}
+    reps, n = 17, 16
+    names = ["H0", "alpha"]
+    x = points({"H0": 70.0, "alpha": 3.4}, {"H0": 3.0, "alpha": 0.05}, n, F32,
+               SEED + 36)
+    coeffs = torch.tensor(kw["spline_coeffs"], device=DEV, dtype=F64)
+    for name, make, fwd_k, grad_k, bar in (
+            ("spectral headline", lambda dt: likelihood(full, dt, cfg=cfg),
+             {"K1a": 1}, {"K1a": 1, "K3": 1},
+             grad_bar("PowerLawSpline spectral")),
+            ("dark flagship", lambda dt: dark_likelihood(dark_data, dt, cfg),
+             {"K1c": 1, "K2": 1}, {"K1c": 1, "K2": 1, "K3c": 1, "K2b": 1},
+             1e-2)):
+        grads = {}
+        for dtype in (F32, F64):
+            hl = make(dtype)
+            xd = x.to(dtype)
+            batch = {p: xd[:, i] for i, p in enumerate(names)}
+            counted(lambda: hl.log_like_batch(batch), fwd_k)
+            (ll, g), _ = counted(lambda: named_value_and_grad(hl, names, xd),
+                                 grad_k)
+            c = (coeffs[None] * (1.0 + 0.1 * xd[:, :1].double().sub(70.0) / 3.0)
+                 ).to(dtype).requires_grad_()
+            g_c = torch.autograd.grad(hl.log_like_batch(
+                {**batch, "spline_coeffs": c}).sum(), c)[0]
+            if not (torch.all(torch.isfinite(ll)) and torch.all(torch.isfinite(g))
+                    and torch.all(torch.isfinite(g_c)) and g_c.abs().max() > 0):
+                raise AssertionError(f"PowerLawSpline {name}: a non-finite "
+                                     "value or gradient")
+            grads[dtype] = (g, g_c)
+            if dtype == F32:
+                fwd = cuda_ms(lambda: hl.log_like_batch(batch), reps)
+                vg = cuda_ms(lambda: named_value_and_grad(hl, names, xd), reps)
+                f_med, f_mad = med_mad([t / n for t in fwd])
+                g_med, g_mad = med_mad([t / n for t in vg])
+            del hl
+        rel = column_rel(grads[F32][0], grads[F64][0])
+        # the coefficients as one vector: of their largest slope (a knot
+        # whose interval holds few samples has a slope of rounding size)
+        g32_c, g64_c = grads[F32][1].double(), grads[F64][1].double()
+        rel_c = ((g32_c - g64_c).abs().max() / g64_c.abs().max()).item()
+        if not (rel <= bar and rel_c <= bar):
+            raise AssertionError(f"PowerLawSpline {name}: float32 d log L/d"
+                                 f"{names} {rel:.3e}, d/d spline_coeffs "
+                                 f"{rel_c:.3e} from float64 (bar {bar:.3e})")
+        phase(36, f"PowerLawSpline, {name}", f"[{smi}] per λ over {reps} "
+              f"batches of {n}, float32: forward {f_med:.4f} ± {f_mad:.4f} ms "
+              f"(launches {fwd_k}), value and gradient in {names} {g_med:.4f} "
+              f"± {g_mad:.4f} ms (launches {grad_k}) (median ± MAD); float32 "
+              f"vs float64 d log L/d{names} {rel:.3e} of each parameter's "
+              f"largest slope, d/d spline_coeffs ({len(kw['spline_coeffs'])}) "
+              f"{rel_c:.3e} of the coefficients' largest (bar {bar:.3e}) "
+              f"[{smi}]")
 
 
 # The adjoint kernel in the tree it is run from, on the main paths' own
@@ -4606,9 +4942,11 @@ def surface_kde(hl, dtype, n_grad_events: int = 64) -> dict:
     1e-10 of each live row's largest value); under autograd on the first
     ``n_grad_events`` events' rows one K4 and one K4b, their d/dz and d/dw
     held the same way (float32 against the float64 plain version on the
-    same inputs)."""
+    same inputs).  K4's bound on the call's own inputs (``k4_bound`` on
+    ``k4_pairs``' live terms: the rows' normalized weights and bandwidths
+    as kde1d_batch hands them to K4)."""
     from chimera_tpu_torch.ops import kde
-    from chimera_tpu_torch.ops.cuda.kde import kde1d_grid_plain
+    from chimera_tpu_torch.ops.cuda.kde import kde1d_grid, kde1d_grid_plain
 
     pop = hl.population
     z, w = _z_and_w(hl.row_m1det, hl.row_m2det, hl.row_dL, hl.row_inv_pe_prior,
@@ -4632,6 +4970,11 @@ def surface_kde(hl, dtype, n_grad_events: int = 64) -> dict:
     fwd = row_err(out, plain(z, grids, w), live)
     ms = statistics.median(cuda_ms(lambda: kde.kde1d_batch(z, grids, w), 5))
     p_ms = statistics.median(cuda_ms(lambda: plain(z, grids, w), 2))
+    wn, h = kde.kde1d_params(z, w, None)
+    k4_args = (z, wn.to(dtype), grids, h.to(dtype))
+    pairs = k4_pairs(k4_args)
+    b_ms, b_by = k4_bound(k4_args, pairs)
+    k4_ms = statistics.median(cuda_ms(lambda: kde1d_grid(*k4_args), 5))
 
     cut = n_grad_events * n_rows
     zs, ws, gs = z[:cut].clone(), w[:cut].clone(), grids[:cut]
@@ -4651,7 +4994,8 @@ def surface_kde(hl, dtype, n_grad_events: int = 64) -> dict:
         raise AssertionError(f"kde1d_batch {dtype}: K4 {fwd:.3e}, K4b {bwd:.3e} "
                              f"(tol {tol:.0e}) of the row max")
     return {"rows": int(live.sum()), "of": live.numel(), "fwd": fwd, "bwd": bwd,
-            "ms": ms, "plain_ms": p_ms, "launches": launched["K4"]}
+            "ms": ms, "plain_ms": p_ms, "launches": launched["K4"],
+            "k4_ms": k4_ms, "bound_ms": b_ms, "bound_by": b_by, "pairs": pairs}
 
 
 def surface_healpix() -> dict:
@@ -4866,8 +5210,13 @@ def surface(smi: str, dark_data) -> None:
         phase(34, f"kde1d_batch {dtype}", f"{r['rows']} live of {r['of']} dark "
               f"rows x 128 samples x 500 grid points: one K4 launch, max err "
               f"{r['fwd']:.3e} of the row max; under autograd one K4 + one K4b, "
-              f"d/dz and d/dw max err {r['bwd']:.3e}; kernel {r['ms']:.3f} ms, "
-              f"plain {r['plain_ms']:.3f} ms per call [{smi}]")
+              f"d/dz and d/dw max err {r['bwd']:.3e}; kernel {r['ms']:.3f} ms "
+              f"(kde1d_params and K4), plain {r['plain_ms']:.3f} ms per call; "
+              f"K4 alone {r['k4_ms']:.4f} ms, its bound {r['bound_ms']:.4f} ms "
+              f"({100 * r['bound_ms'] / r['k4_ms']:.1f} %, {r['bound_by']}; "
+              f"{r['pairs']['live']:.4e} live of {r['pairs']['all']:.4e} "
+              f"(row, grid point, sample) terms, {r['pairs']['tiled32']:.4e} "
+              f"in its tiles) [{smi}]")
     del hls
 
     # ---- HEALPix against the C++ oracle -----------------------------------
@@ -4969,6 +5318,7 @@ def surface(smi: str, dark_data) -> None:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the card only")
@@ -4989,8 +5339,7 @@ def main() -> None:
     libs = [(name, kind) for name in ("fused_kde", "rows_contract",
                                       "fused_kde_adjoint",
                                       "rows_contract_adjoint")
-            for model, kind in MASS_KINDS.items()
-            if "adjoint" not in name or model != "PowerLawSpline"]
+            for kind in MASS_KINDS.values()]
     libs += [("kde1d", 0), ("kde3d", 0)]
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: build.load(*lib), libs))
@@ -5004,20 +5353,45 @@ def main() -> None:
               + " | ".join(ptxas) + f" [{smi}]")
     phase(2, "kernel builds", f"{time.perf_counter() - t0:.2f} s in all [{smi}]")
 
+    seconds, t_last = {}, t_start
+
+    def lap(name):
+        nonlocal t_last
+        now = time.perf_counter()
+        seconds[name] = now - t_last
+        t_last = now
+
+    lap("1-2")
     k1a, full = spectral(smi)
     dark_entries, dark_data = dark(smi)
-    kernels = [k1a, *dark_entries, sampler(smi, full),
-               *reference_defaults(smi, full, dark_data),
-               *dark_gradients(smi, full, dark_data, dark_entries),
-               contract_path(smi, dark_data),
-               binned_gradients(smi, full, dark_data)]
-    k5, hl_full = full_path(smi, dark_data)
+    lap("3-10")
+    kernels = [k1a, *dark_entries, sampler(smi, full)]
+    lap("11-14")
+    kernels += reference_defaults(smi, full, dark_data)
+    lap("15-18")
+    kernels += dark_gradients(smi, full, dark_data, dark_entries)
+    lap("19-22")
+    kernels += [contract_path(smi, dark_data), binned_gradients(smi, full, dark_data)]
+    lap("23-25")
+    k5, k5b, hl_full = full_path(smi, dark_data)
+    lap("26-27")
     kernels.append(ensemble(smi, full, hl_full, k5))
+    lap("28")
+    kernels.append(full_samplers(smi, hl_full, k5b))
     del hl_full
+    lap("35")
     model_modes(smi)
+    lap("29")
     population_models(smi, full, dark_data)
+    lap("30-32")
+    spline_full_width(smi, full, dark_data)
+    lap("36")
     distribution(smi, full, dark_data)
+    lap("33")
     surface(smi, dark_data)
+    lap("34")
+    phase(36, "seconds by phase", ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; {sum(seconds.values()):.1f} s in all [{smi}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

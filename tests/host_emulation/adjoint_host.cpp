@@ -58,7 +58,8 @@ void run_mode(const AdjointArgs<T>& a, double* d_series, T* d_params) {
   unsigned char* rec_bytes = reinterpret_cast<unsigned char*>(store.data());
   // the kernels' layouts: z, w, dz, dw of a row in one array (its stash),
   // or z, w and a stash of kStash samples' points
-  std::vector<T> zwd(4 * a.S), z(a.S), w(a.S), stash(4 * kStash);
+  std::vector<T> zwd(kStashRows * a.S), z(a.S), w(a.S),
+      stash(kStashRows * kStash);
   std::vector<typename Pair<T>::type> gc(std::max(a.G, 1)),
       gt((std::max(a.G, 1) + kGridTile - 1) / kGridTile);
   const bool by_warp = MODE == kStatsOnly && warp_rows(a);
@@ -270,8 +271,16 @@ extern "C" void host_mass_vjp(const double* scalars, const double* m1det,
     GradAcc<double, 1> g;
     g.zero();
     double tw, b;
+#if CHIMERA_MASS_KIND == 4
+    // the knots' point projected as the kernels project it (one sample)
+    double kx, kg;
+    const double gz = sample.mass_vjp(model.mass, m1det[i], m2det[i], z[i],
+                                      gw[i], g.mass, tw, b, kx, kg);
+    if (kg != 0.0) knot_accumulate(g.knot, model.mass.num_knots, kx, kg);
+#else
     const double gz = sample.mass_vjp(model.mass, m1det[i], m2det[i], z[i],
                                       gw[i], g.mass, tw, b);
+#endif
     double* r = out_rev + (size_t)i * kDirs;
     for (int k = 0; k < kMassScalars; ++k)
       r[k] = column(g, rec.jac, cd + 2 + wd + k, cd, wd);
@@ -280,6 +289,13 @@ extern "C" void host_mass_vjp(const double* scalars, const double* m1det,
     // the dual: the window's value and slope where the reverse sweep took them
     MassModel<Dual<double, kDirs>> mm;
     seed_mass(mm, s);
+#if CHIMERA_MASS_KIND == 4
+    // the coefficients, direction 9 + j for coefficient j
+    Dual<double, kDirs> coefs[kMaxKnots];
+    for (int j = 0; j < kMaxKnots; ++j) coefs[j] = seed<double, kDirs>(s[9 + j], 9 + j);
+    mm.coef = coefs;
+    mm.num_knots = (int)s[8];
+#endif
     double val = 0.0, slope = 0.0;
     if (b != 0.0 || tw != 0.0) val = clenshaw_d(ser.data() + cd + 2, wd, tw, slope);
     const Dual<double, kDirs> p = joint_dual(mm, m1det[i], m2det[i], z[i], val,

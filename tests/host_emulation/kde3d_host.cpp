@@ -5,8 +5,9 @@
 // kThreads ranks in turn, with the kernel's barriers between phases.  Same
 // C interface as the kernel's, without the stream; the host_kde3d_unpruned_
 // entries walk every sample (the oracle of the pruned walk), and
-// host_kde3d_tally reads what the last call's pruned walk did.  Built by
-// tests/test_torch_full.py.
+// host_kde3d_tally reads what the last call's pruned walk did;
+// host_kde3d_adjoint_ is K5b (kde3d_adjoint_kernel) with the same C
+// interface as its kernel's.  Built by tests/test_torch_full.py.
 #include <cstring>
 #include <vector>
 
@@ -176,7 +177,79 @@ int run(const T* z, const T* w, const T* ra, const T* dec, const T* ra_pix,
   return 0;
 }
 
+// K5b (kde3d.cu, kde3d_adjoint_kernel) per (lambda, event), each phase
+// for every rank in turn, on the records K5 wrote: the real pixels in
+// order (a pixel whose cotangent row is all 0 skipped), then the event's
+// sums.
+template <typename T>
+int run_adjoint(const T* z, const T* w, const T* ra, const T* dec,
+                const T* ra_pix, const T* dec_pix, const unsigned char* mask,
+                const T* grids, const int* z_block, const double* records,
+                const T* d_out, double* d_samp, double* d_pix,
+                double* d_event, int L, int E, int S, int P, int G) {
+  if (L <= 0 || E <= 0 || S <= 0 || P <= 0 || G <= 0) return 1;
+  std::vector<double> part(kPixelGrads * kThreads), l00_part(2 * kThreads);
+  std::vector<T> zl(G), zeta(G), dg(G);
+  for (size_t le = 0; le < size_t(L) * E; ++le) {
+    const int e = int(le % E);
+    const double* rec = records + le * kRecord;
+    double* ds = d_samp + le * S * kSampleGrads;
+    double* dp = d_pix + le * P * kPixelGrads;
+    double* dv = d_event + le * kEventGrads;
+    const int k_req = z_block[e];
+    if (rec[kOk] == 0.0 || k_req < 0 || k_req > kMaxBlock) {
+      for (int r = 0; r < kThreads; ++r) adjoint_dead(ds, dp, dv, S, P, r, kThreads);
+      continue;
+    }
+    const int K = k_req < G ? k_req : G;
+    const T* grid = grids + size_t(e) * G;
+    for (int r = 0; r < kThreads; ++r)
+      adjoint_start(rec, grid, G, zl.data(), zeta.data(), ds, l00_part.data(),
+                    S, r, kThreads);
+    for (int p = 0; p < P; ++p) {
+      double* dpp = dp + p * kPixelGrads;
+      if (!mask[size_t(e) * P + p]) {
+        for (int k = 0; k < kPixelGrads; ++k) dpp[k] = 0.0;
+        continue;
+      }
+      for (int r = 0; r < kThreads; ++r)
+        stage_cotangent(d_out + (le * P + p) * G, G, dg.data(), part.data(), r,
+                        kThreads);
+      if (!any_part(part.data(), kThreads)) {
+        for (int k = 0; k < kPixelGrads; ++k) dpp[k] = 0.0;
+        continue;
+      }
+      for (int r = 0; r < kThreads; ++r)
+        adjoint_pixel(rec, z + le * S, w + le * S, ra + size_t(e) * S,
+                      dec + size_t(e) * S, S, ra_pix[size_t(e) * P + p],
+                      dec_pix[size_t(e) * P + p], zl.data(), zeta.data(),
+                      dg.data(), double(grid[0]), G, K, ds, part.data(),
+                      l00_part.data(), r, kThreads);
+      for (int k = 0; k < kPixelGrads; ++k)
+        dpp[k] = ordered_sum(part.data() + k * kThreads, kThreads);
+    }
+    for (int r = 0; r < kThreads; ++r)
+      adjoint_event(l00_part.data(), dp, dv, P, r, kThreads);
+  }
+  return 0;
+}
+
 }  // namespace
+
+#define KDE3D_ADJOINT_ENTRY(NAME, T)                                          \
+  extern "C" int NAME(const T* z, const T* w, const T* ra, const T* dec,     \
+                      const T* ra_pix, const T* dec_pix,                     \
+                      const unsigned char* mask, const T* grids,             \
+                      const int* z_block, const double* records,             \
+                      const T* d_out, double* d_samp, double* d_pix,         \
+                      double* d_event, int L, int E, int S, int P, int G) {  \
+    return run_adjoint<T>(z, w, ra, dec, ra_pix, dec_pix, mask, grids,       \
+                          z_block, records, d_out, d_samp, d_pix, d_event,  \
+                          L, E, S, P, G);                                    \
+  }
+
+KDE3D_ADJOINT_ENTRY(host_kde3d_adjoint_f32, float)
+KDE3D_ADJOINT_ENTRY(host_kde3d_adjoint_f64, double)
 
 #define KDE3D_ENTRY(NAME, T, PRUNE)                                           \
   extern "C" int NAME(const T* z, const T* w, const T* ra, const T* dec,     \

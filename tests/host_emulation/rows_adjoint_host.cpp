@@ -9,7 +9,7 @@
 // besides, K2 and K2b with the full loops (the pruned loops' oracle), the
 // kernels' z(dL) and a tally of the tiles the loops skip.  Built once a
 // mass model (CHIMERA_MASS_KIND, population.cuh) by the host-emulation
-// tests; PowerLawSpline's build (4) has K2 only, as its kernels.
+// tests.
 #include <vector>
 
 #include "host_block.h"
@@ -20,7 +20,6 @@ namespace {
 // the tiles that the pruned passes tested and skipped (host_tile_tally)
 long long g_tally[2] = {0, 0};
 
-#if CHIMERA_MASS_KIND != 4  // K2b: every model but PowerLawSpline
 template <typename T, int KERNEL, bool PRUNE>
 void run_kernel(const RowsAdjointArgs<T>& a, double* d_series, T* d_params) {
   using T2 = typename Pair<T>::type;
@@ -31,10 +30,14 @@ void run_kernel(const RowsAdjointArgs<T>& a, double* d_series, T* d_params) {
   std::vector<T2> zw(a.chunk), gc(a.G), zt((a.chunk + kTileS - 1) / kTileS),
       gt((a.G + kGridTile - 1) / kGridTile);
   std::vector<T> grid(a.G), f1(a.G), f2(a.G), df1(a.G), df2(a.G),
-      dz(a.chunk), dw(a.chunk);
+      dz(a.chunk), dw(a.chunk), kx(a.chunk), kg(a.chunk);
   const RowsSmem<T> sm{zw.data(), gc.data(), zt.data(), gt.data(),
                        grid.data(), f1.data(), f2.data(), df1.data(),
-                       df2.data(), dz.data(), dw.data()};
+                       df2.data(), dz.data(), dw.data()
+#if CHIMERA_MASS_KIND == 4
+                       , kx.data(), kg.data()
+#endif
+  };
   for (int l = 0; l < a.L; ++l) {
     write_record<T, double>(a.series + (size_t)l * Q,
                             a.params + (size_t)l * kMassScalars, cd, wd,
@@ -56,7 +59,6 @@ void run_kernel(const RowsAdjointArgs<T>& a, double* d_series, T* d_params) {
       d_params[(size_t)l * kMassScalars + i] = T(total[Q + i]);
   }
 }
-#endif
 
 // K2: per (lambda, event) the kernel's sweep of the event's rows
 // (rows_contract_event) with a block of one thread; PRUNE false: the full
@@ -92,7 +94,6 @@ void contract(const T* m1, const T* m2, const T* dl, const T* invp,
   else run_contract<T, 1, false>(a);
 }
 
-#if CHIMERA_MASS_KIND != 4
 // prune = false: the full loops, the pruned passes' oracle
 template <typename T>
 void run(const T* m1, const T* m2, const T* dl, const T* invp, const T* grids,
@@ -107,11 +108,8 @@ void run(const T* m1, const T* m2, const T* dl, const T* invp, const T* grids,
   else if (kernel == 0) run_kernel<T, 0, false>(a, d_series, d_params);
   else run_kernel<T, 1, false>(a, d_series, d_params);
 }
-#endif
 
 }  // namespace
-
-#if CHIMERA_MASS_KIND != 4
 
 extern "C" void host_rows_contract_adjoint_f32(
     const float* m1, const float* m2, const float* dl, const float* invp,
@@ -138,7 +136,6 @@ extern "C" void host_rows_contract_adjoint_f64(
               d_series, d_params, d_hs, d_f1, d_f2, L, E, C, chunk, G, cd, wd,
               kernel);
 }
-#endif
 
 // K2 (rows_contract.cu's C interface, without the stream), and K2 with the
 // full loop, the pruned loop's oracle
@@ -156,7 +153,6 @@ ROWS_CONTRACT(double, host_rows_contract_f64, true)
 ROWS_CONTRACT(float, host_rows_contract_unpruned_f32, false)
 ROWS_CONTRACT(double, host_rows_contract_unpruned_f64, false)
 
-#if CHIMERA_MASS_KIND != 4
 // K2b with the full loops of both passes, the pruned passes' oracle
 #define ROWS_UNPRUNED(T, NAME)                                               \
   extern "C" void NAME(                                                      \
@@ -172,7 +168,6 @@ ROWS_CONTRACT(double, host_rows_contract_unpruned_f64, false)
   }
 ROWS_UNPRUNED(float, host_rows_contract_adjoint_unpruned_f32)
 ROWS_UNPRUNED(double, host_rows_contract_adjoint_unpruned_f64)
-#endif
 
 // z(dL) of n distances as K2b computes them (Model<T, double>::z_from_dgw),
 // from one lambda's packed rows

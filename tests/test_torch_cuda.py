@@ -1029,15 +1029,49 @@ def test_k5_repeats_bit_for_bit(cuda, full_cpu_hl):
     assert torch.equal(_bits(first), _bits(second))
 
 
-def test_full_gradient_raises_on_the_card(cuda, full_cpu_hl):
-    """K5 has no adjoint kernel: a 'full' batch that requires grad raises on
-    CUDA tensors (ROADMAP.md §1 item 16) and differentiates on CPU
-    tensors."""
+def test_full_gradient_matches_cpu(cuda, full_cpu_hl):
+    """A 'full' value-and-gradient call on the card: one K5 and one K5b
+    launch, d log L / d(H0, Om0, mu_g) within 1e-9 of autograd through the
+    plain version on the CPU (float64), the same bits on a repeat."""
     card = copy.deepcopy(full_cpu_hl).to(cuda)
-    h0 = torch.tensor(H0S, dtype=torch.float64, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        card.log_like_batch({"H0": h0})
-    assert torch.all(torch.isfinite(_grad(full_cpu_hl, "cpu")))
+    got = _launched(lambda: _grad(card, cuda), {"K5": 1, "K5b": 1})
+    expect = _grad(full_cpu_hl, "cpu")
+    assert torch.all(torch.isfinite(expect))
+    assert ((got - expect).abs() / expect.abs().amax(dim=0)).max() <= 1e-9
+    assert torch.equal(_bits(got), _bits(_grad(card, cuda)))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_k5b_matches_plain(cuda, full_cpu_hl, dtype, tol):
+    """K5b (on the record of one K5 launch, and the chain through the
+    float64 record) against autograd of the plain version on the path's
+    inputs and a random cotangent: each
+    gradient row within ``tol`` of its largest entry (float32 against the
+    float64 plain version), NaN in the same places, the same bits on a
+    second launch."""
+    from chip_smoke import captured
+    from chimera_tpu_torch.ops.cuda.kde3d import (lattice_kde3d_adjoint,
+                                                  lattice_kde3d_adjoint_plain)
+
+    card = copy.deepcopy(full_cpu_hl).to(cuda, dtype)
+    args, kw = captured("lattice_kde3d", lambda: card.log_like_batch({"H0": H0S}))
+    n, e, _ = args[0].shape
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    d_out = torch.randn((n, e, args[4].shape[1], args[7].shape[1]),
+                        generator=gen, device=cuda, dtype=torch.float64)
+    d_out = (d_out * args[6][None, :, :, None]).to(dtype)
+    got = _launched(lambda: lattice_kde3d_adjoint(*args, d_out, **kw),
+                    {"K5": 1, "K5b": 1})
+    again = lattice_kde3d_adjoint(*args, d_out, **kw)
+    wide = [a.double() if a.is_floating_point() else a for a in (*args, d_out)]
+    expect = lattice_kde3d_adjoint_plain(*wide, **kw)
+    for g, x, r in zip(got, expect, again):
+        nan = torch.isnan(x)
+        assert torch.equal(torch.isnan(g), nan) and torch.equal(_bits(g), _bits(r))
+        g, x = g.double().masked_fill(nan, 0.0), x.masked_fill(nan, 0.0)
+        scale = x.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+        assert ((g - x).abs() / scale).max() <= tol
 
 
 def test_k5_rejects_what_the_kernel_does_not_take(cuda, full_cpu_hl):
@@ -1112,9 +1146,8 @@ def test_mass_models_match_cpu(cuda, dark_inputs, model, kind):
     """Each mass model beside PowerLawPeak through its own build of the
     kernels ('1d': K1a, K3; 'marginalized': K1c + K2, K3c + K2b) with
     MGFLRW (Xi0 = 1.2, n = 1.5): log L within 1e-10 and d log L / d(H0,
-    Xi0, the model's own) within 1e-9 of the CPU's plain versions, float64,
-    a launch of each kernel a call; PowerLawSpline's gradient raises on the
-    card by name."""
+    Xi0, the model's own; PowerLawSpline's coefficients too) within 1e-9 of
+    the CPU's plain versions, float64, a launch of each kernel a call."""
     from chimera_tpu_torch import models
 
     key, values = OTHER_MASS[model]
@@ -1129,6 +1162,9 @@ def test_mass_models_match_cpu(cuda, dark_inputs, model, kind):
                                 binning=False, cut_grid=None)
     card = copy.deepcopy(hl).to(cuda)
     lam = {"H0": [66.0, 70.0, 75.0], "Xi0": [1.1, 1.2, 1.3], key: values}
+    if model == "PowerLawSpline":
+        lam["spline_coeffs"] = [[c * f for c in kw["spline_coeffs"]]
+                                for f in (1.0, 0.5, -0.8)]
 
     def grad(h, device):
         x = {k: torch.tensor(v, dtype=torch.float64, device=device,
@@ -1146,10 +1182,6 @@ def test_mass_models_match_cpu(cuda, dark_inputs, model, kind):
     ll_cpu, g_cpu = grad(hl, "cpu")
     assert torch.all(torch.isfinite(ll_cpu))
     torch.testing.assert_close(ll_card, ll_cpu, rtol=1e-10, atol=0)
-    if model == "PowerLawSpline":
-        with pytest.raises(NotImplementedError, match="item 17"):
-            grad(card, cuda)
-        return
     _, g_card = grad(card, cuda)
     for g, e in zip(g_card, g_cpu):
         assert torch.all(torch.isfinite(e))

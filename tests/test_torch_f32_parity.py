@@ -41,7 +41,12 @@ and the JAX package's gap on it is measured by
         [mock.npz [case ...]]
 
 (another mock of the same arrays in place of the committed one, and some
-of the cases, where given).
+of the cases, where given).  Kind 'full''s float32 gradient (phase 27, on
+the dark mock above, at ``chip_smoke.FULL_GRAD_POINTS``) is held the same
+way, its JAX gap measured by
+
+    PYTHONPATH=. python tests/test_torch_f32_parity.py --reference-grad-gap \
+        tests/data/f32_parity_dark.npz full
 """
 
 import json
@@ -184,6 +189,26 @@ def test_full_float32_meets_its_bar(port_data):
     assert rel.max() <= chip_smoke.FULL_F32_BAR, rel
 
 
+def test_full_float32_gradient_meets_its_bar(port_data):
+    """Kind 'full''s float32 d log L / d(H0, Om0) (K5's plain version) on
+    the mock at ``chip_smoke.FULL_GRAD_POINTS`` within the bar phase 27
+    holds the card to (``chip_smoke.grad_bar("full")``: max(1e-2, 2 x the
+    JAX package's own float32 gap there)) of the float64's, relative to
+    each parameter's largest slope."""
+    names = list(chip_smoke.FULL_GRAD_POINTS)
+    x = torch.tensor(list(chip_smoke.FULL_GRAD_POINTS.values()),
+                     dtype=torch.float64).T
+    grads = {}
+    for dtype in (torch.float64, torch.float32):
+        hl = chip_smoke.dark_likelihood(port_data, dtype, **chip_smoke.FULL)
+        xd = x.to(dtype).requires_grad_()
+        ll = hl.log_like_batch({p: xd[:, i] for i, p in enumerate(names)})
+        grads[dtype] = torch.autograd.grad(ll.sum(), xd)[0]
+    assert torch.all(torch.isfinite(grads[torch.float64]))
+    rel = chip_smoke.column_rel(grads[torch.float32], grads[torch.float64])
+    assert rel <= chip_smoke.grad_bar("full"), rel
+
+
 # the JAX package in float32 (x64 off, in its own process) on the arrays of
 # a reference mock, binning=True and cut_grid=2.0; prints log L at H0S
 _EVAL_BINNED32 = r"""
@@ -295,7 +320,17 @@ def reference_grad(d: dict, case: str) -> np.ndarray:
     """jax.grad of the JAX package's '1d' log L (unbinned, the vmap/XLA
     engine) on a mock's arrays in JAX's working dtype, for a case of
     ``chip_smoke.grad_cases`` (its models, as ``chip_smoke.population``
-    builds them, and cut_grid) at its 4 points: (4, k) d log L / dλ."""
+    builds them, and cut_grid) at its 4 points: (4, k) d log L / dλ.  Case
+    "full": kind 'full' on the dark precision mock's arrays
+    (``reference_likelihood``, cut_grid=2.0) at
+    ``chip_smoke.FULL_GRAD_POINTS``."""
+    if case == "full":
+        batch = chip_smoke.FULL_GRAD_POINTS
+        f = jnp.asarray(0.0).dtype
+        g = jax.grad(lambda b: jnp.sum(reference_likelihood(d, "full")
+                                       .log_like_batch(b)))(
+            {k: jnp.asarray(v, f) for k, v in batch.items()})
+        return np.stack([np.asarray(g[k], np.float64) for k in batch], axis=1)
     from chimera_tpu import HyperLikelihood as JHL
     from chimera_tpu import SelectionFunction, models
     from chimera_tpu.catalog import EmptyCatalog

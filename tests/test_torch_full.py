@@ -4,10 +4,11 @@ its pixels x z-grid lattice) against the JAX package, float64 on the CPU:
 * ``ops/kde.py``: ``gaussian_kde_3d_lattice`` (the dense z sweep and the
   uniform-z recurrence at K = 8, 16, 32), ``gaussian_kde_nd_stream`` with
   and without ``in_log``, a dead (zero-weight) row;
-* K5 (``csrc/kde3d.cu``) through its host emulation
-  (``tests/host_emulation/kde3d_host.cpp``, the kernel's own device
-  functions in ``csrc/kde3d.cuh``) against the plain version, and as the
-  launch of the wrapper's CUDA branch on CPU tensors;
+* K5 (``csrc/kde3d.cu``) and its adjoint K5b through their host
+  emulations (``tests/host_emulation/kde3d_host.cpp``, the kernels' own
+  device functions in ``csrc/kde3d.cuh``) against the plain version and
+  autograd of it, and as the launches of the wrappers' CUDA branches on
+  CPU tensors;
 * ``likelihood.z_recurrence_plan`` against a numpy recomputation, on the
   narrow-outlier recipe of ``tests/test_ops.py::
   test_full_kind_buckets_match_dense`` at 256-point grids;
@@ -16,7 +17,8 @@ its pixels x z-grid lattice) against the JAX package, float64 on the CPU:
   dark-siren precision mock (``tests/data/f32_parity_dark.npz``: 16 events
   x 512 samples, <= 8 pixels, 200-point z-grids) with its pixelated
   catalog and with an empty one, and d log L / d(H0, Om0) against
-  ``jax.grad``.
+  ``jax.grad``, with K5 and its adjoint K5b emulated as the card's
+  launches too.
 
 The JAX side is its XLA path: 'full' has no Pallas kernel to interpret.
 """
@@ -147,15 +149,18 @@ def k5_host(tmp_path_factory):
 
 
 def _emulate_k5(monkeypatch, lib):
-    """``lattice_kde3d`` takes its CUDA branch on CPU tensors, its launch
-    the host emulation of the same C interface; the launch counter is
-    restored with the patch."""
-    monkeypatch.setattr(kde3d.lattice_kde3d, "launches",
-                        kde3d.lattice_kde3d.launches)
+    """``lattice_kde3d`` and ``lattice_kde3d_adjoint`` take their CUDA
+    branches on CPU tensors, their launches (K5, K5b) the host emulations of
+    the same C interfaces; the launch counters are restored with the
+    patch."""
+    for fn in (kde3d.lattice_kde3d, kde3d.lattice_kde3d_adjoint):
+        monkeypatch.setattr(fn, "launches", fn.launches)
 
     def launch(lib_name, symbol, dtype, device, args):
-        assert (lib_name, symbol) == ("kde3d", "chimera_kde3d")
-        fn = getattr(lib, "host_kde3d_" + ("f32" if dtype == F32 else "f64"))
+        assert lib_name == "kde3d" and symbol in ("chimera_kde3d",
+                                                  "chimera_kde3d_adjoint")
+        fn = getattr(lib, symbol.replace("chimera_", "host_") + "_"
+                     + ("f32" if dtype == F32 else "f64"))
         fn.restype = ctypes.c_int
         assert fn(*[ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
                     else ctypes.c_double(a) if isinstance(a, float) else a
@@ -214,6 +219,70 @@ def test_k5_refuses_a_block_length_it_does_not_take(k5_host, monkeypatch):
     got = kde3d.lattice_kde3d(*args)
     assert torch.all(torch.isnan(got[:, 1, :4])) and torch.all(got[:, 1, 4] == 0)
     assert torch.all(torch.isfinite(got[:, 0])) and torch.all(torch.isfinite(got[:, 2]))
+
+
+# ---------------------------------------------------------------------------
+# K5b, the adjoint (host emulation)
+# ---------------------------------------------------------------------------
+
+def _k5b_inputs(k_block: int, dtype):
+    """Two λ x three events of 128 samples, 3 pixels (event 1's last fake,
+    at a finite centre, the others near the sky mean and 0.1 rad off it),
+    64-point grids over [-0.6, 1.6] (~90 bandwidths: the far blocks' refreshes
+    flush), every event at K = ``k_block``; sample 0 without weight and
+    sample 1's weight below the smallest normal times the sum (e below the
+    smallest normal: no cotangent on the recurrence's path, one on the dense
+    sweep's); (λ 1, event 0) with two samples of weight (no whitening: a
+    dead row); and a cotangent d_out drawn from a seed, 0 on event 2's
+    second pixel (a skipped pixel)."""
+    rng = np.random.default_rng(19)
+    data, w, ra_pix, dec_pix, _ = _lattice_data(rng, s=128, p=3, g=64)
+    ra_pix[:, 1] += 0.1
+    grid = np.tile(np.linspace(-0.6, 1.6, 64), (3, 1))
+    z = np.stack([data[:, 0], data[:, 0] + 0.002 * rng.normal(size=data[:, 0].shape)])
+    w2 = np.stack([w, w * rng.uniform(0.5, 1.5, size=w.shape)])
+    w2[..., 0] = 0.0
+    w2[..., 1] = 1e-3 * float(torch.finfo(dtype).tiny)
+    w2[1, 0, 4:] = 0.0
+    mask = np.ones((3, 3), dtype=bool)
+    mask[1, 2] = False
+    d_out = rng.normal(size=(2, 3, 3, 64))
+    d_out[:, 2, 1] = 0.0
+    return ((_t(z, dtype), _t(w2, dtype), _t(data[:, 1], dtype),
+             _t(data[:, 2], dtype), _t(ra_pix, dtype), _t(dec_pix, dtype),
+             torch.as_tensor(mask), _t(grid, dtype), torch.full((3,), k_block)),
+            _t(d_out, dtype))
+
+
+@pytest.mark.parametrize("k_block", [0, 8, 16, 32])
+def test_k5b_host_emulation_matches_plain(k5_host, monkeypatch, k_block):
+    """K5b's arithmetic (kde3d.cuh: the dense terms of the blocks whose
+    refresh the forward keeps, the pixels' and event's sums in rank order)
+    and the chain through the float64 record (``ops/kde.py::
+    lattice_record``), through ``lattice_kde3d_adjoint``'s CUDA branch with
+    the host emulations as its launches (K5 for the record, then K5b),
+    against autograd of the plain version, float64: every gradient (z, w,
+    ra, dec, the pixel centres)
+    within 1e-9 of each row's largest entry, NaN in the same places (the
+    dead (λ, event)'s z and w, and every ra, dec and pixel centre of its
+    event), finite elsewhere; a second call gives the same bits."""
+    args, d_out = _k5b_inputs(k_block, F64)
+    expect = kde3d.lattice_kde3d_adjoint_plain(*args, d_out)
+    _emulate_k5(monkeypatch, k5_host)
+    before = launch_counts()
+    got = kde3d.lattice_kde3d_adjoint(*args, d_out)
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == \
+        {k: int(k in ("K5", "K5b")) for k in after}
+    again = kde3d.lattice_kde3d_adjoint(*args, d_out)
+    assert torch.isnan(got[0][1, 0]).all() and torch.isfinite(got[0][0]).all()
+    for name, g, e, r in zip(kde3d._WRT, got, expect, again):
+        nan = torch.isnan(e)
+        assert torch.equal(torch.isnan(g), nan), name
+        assert torch.isfinite(e[~nan]).all() and _same_bits(g, r), name
+        g, e = g.masked_fill(nan, 0.0), e.masked_fill(nan, 0.0)
+        scale = e.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+        assert ((g - e).abs() / scale).max() <= 1e-9, name
 
 
 # ---------------------------------------------------------------------------
@@ -515,14 +584,15 @@ def test_create_matches_reference_create(dark_cases, name):
     np.testing.assert_allclose(got, cases[name][1], rtol=5e-9, atol=0)
 
 
-def test_gradient_matches_jax_grad(dark_cases):
-    """d log L / d(H0, Om0) on the CPU (autograd through the plain
-    version) against ``jax.grad`` of the JAX object, empty catalog, two λ:
-    within 1e-9 relative of each parameter's largest.  The gradient's
-    compile is most of this file's time whatever the data's size: its
-    cosmology's Chebyshev series are unrolled, so they are of degree 16
-    here (the same in the port, which ``from_state`` carries), and the JAX
-    object is an argument of the jitted gradient, not a constant of it."""
+@pytest.fixture(scope="module")
+def full_gradient(dark_cases):
+    """d log L / d(H0, Om0) by ``jax.grad`` of the JAX object (empty
+    catalog, two λ) and the port's ``from_state`` of it, float64.  The
+    gradient's compile is most of this file's time whatever the data's
+    size: its cosmology's Chebyshev series are unrolled, so they are of
+    degree 16 here (the same in the port, which ``from_state`` carries),
+    and the JAX object is an argument of the jitted gradient, not a
+    constant of it."""
     from chimera_tpu.likelihood import log_hyperlikelihood_batch
 
     port_data, _ = dark_cases
@@ -532,23 +602,56 @@ def test_gradient_matches_jax_grad(dark_cases):
         m, {"H0": h, "Om0": o})), argnums=(1, 2)))(jhl, jnp.asarray(h0),
                                                   jnp.asarray(om0))
     hl = HyperLikelihood.from_state(convert.state_from_reference(jhl), "cpu", F64)
-    h, o = _t(h0).requires_grad_(), _t(om0).requires_grad_()
-    got = torch.autograd.grad(hl.log_like_batch({"H0": h, "Om0": o}).sum(), (h, o))
+    return hl, (h0, om0), [np.asarray(e) for e in expect]
+
+
+def _port_gradient(hl, points):
+    h, o = (_t(x).requires_grad_() for x in points)
+    return torch.autograd.grad(hl.log_like_batch({"H0": h, "Om0": o}).sum(), (h, o))
+
+
+def _hold_gradient(got, expect):
     for g, e in zip(got, expect):
-        e = np.asarray(e)
         assert np.all(np.isfinite(e))
         np.testing.assert_allclose(g.numpy(), e, rtol=0, atol=1e-9 * np.abs(e).max())
+
+
+def test_gradient_matches_jax_grad(full_gradient):
+    """d log L / d(H0, Om0) on the CPU (autograd through the plain
+    version) against ``jax.grad`` of the JAX object, empty catalog, two λ:
+    within 1e-9 relative of each parameter's largest."""
+    hl, points, expect = full_gradient
+    _hold_gradient(_port_gradient(hl, points), expect)
+
+
+def test_emulated_card_gradient_matches_jax_grad(k5_host, full_gradient,
+                                                 monkeypatch):
+    """The same gradient through ``lattice_kde3d``'s CUDA branch on CPU
+    tensors, K5 and K5b the host emulations (one launch each) and the
+    chain through the float64 record: within 1e-9 of ``jax.grad``, relative
+    to each parameter's largest."""
+    hl, points, expect = full_gradient
+    _emulate_k5(monkeypatch, k5_host)
+    before = launch_counts()
+    got = _port_gradient(hl, points)
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == \
+        {k: int(k in ("K5", "K5b")) for k in after}
+    _hold_gradient(got, expect)
 
 
 def test_emulated_card_full_batch(k5_host, dark_cases, monkeypatch):
     """The pixelated case through ``lattice_kde3d``'s CUDA branch on CPU
     tensors with K5's host emulation as the launch: one K5 launch a batch,
     log L within 1e-10 of the plain version's; with tensors that require
-    grad the card's branch raises (K5 has no adjoint kernel)."""
+    grad one K5 and one K5b launch, d log L / dH0 within 1e-9 of autograd
+    through the plain version."""
     port_data, _ = dark_cases
     hl = _port_create(port_data, False)
     h0 = torch.as_tensor(H0S)
     expect = hl.log_like_batch({"H0": h0})
+    x = h0.clone().requires_grad_()
+    g_plain = torch.autograd.grad(hl.log_like_batch({"H0": x}).sum(), x)[0]
     _emulate_k5(monkeypatch, k5_host)
     before = launch_counts()
     got = hl.log_like_batch({"H0": h0})
@@ -556,8 +659,14 @@ def test_emulated_card_full_batch(k5_host, dark_cases, monkeypatch):
     assert {k: after[k] - before[k] for k in after} == \
         {k: int(k == "K5") for k in after}
     np.testing.assert_allclose(got.numpy(), expect.numpy(), rtol=1e-10, atol=0)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        hl.log_like_batch({"H0": h0.clone().requires_grad_()})
+    before = launch_counts()
+    g_card = torch.autograd.grad(hl.log_like_batch({"H0": x}).sum(), x)[0]
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == \
+        {k: int(k in ("K5", "K5b")) for k in after}
+    assert torch.all(torch.isfinite(g_plain))
+    np.testing.assert_allclose(g_card.numpy(), g_plain.numpy(), rtol=0,
+                               atol=1e-9 * g_plain.abs().max().item())
 
 
 from chimera_tpu.ops import kde as jkde  # noqa: E402

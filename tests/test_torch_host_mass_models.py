@@ -11,8 +11,8 @@ builds each kernel once a model:
 * K3 in every mode and K2b against the plain adjoints;
 * the prologue's record against the wrappers' sizes;
 * the card's gradient of the spectral (K1a + K3) and dark-siren (K1c + K2 +
-  K3c + K2b) paths with the emulations as the launches, and
-  ``PowerLawSpline``'s forward there with its gradient refused.
+  K3c + K2b) paths with the emulations as the launches, PowerLawSpline's
+  in its coefficients too.
 
 PowerLawPeak's own cases are in the other ``test_torch_host_*.py`` files."""
 
@@ -30,8 +30,8 @@ from chimera_tpu_torch import HyperLikelihood, SelectionFunction
 from chimera_tpu_torch.models import Population
 from chimera_tpu_torch.ops.cuda import fused, launch_counts, rows
 
-from host_harness import (CSRC, F32, F64, HERE, MODEL_LAMBDA, _adjoint_case,
-                          _build_host, _check_fused_mode, _dark_hl,
+from host_harness import (CSRC, F32, F64, HERE, MODEL_KW, MODEL_LAMBDA,
+                          _adjoint_case, _build_host, _check_fused_mode, _dark_hl,
                           _emulate_the_card, _host_adjoint, _host_rows_adjoint,
                           _host_rows_contract, _k2_args, _population, _row_rel,
                           _rows_case, dark_data, data)
@@ -39,15 +39,14 @@ from host_harness import (CSRC, F32, F64, HERE, MODEL_LAMBDA, _adjoint_case,
 
 MODELS = ("TruncatedPowerLaw", "BrokenPowerLaw", "PowerLawTwoPeaks",
           "PowerLawSpline")
-WITH_GRAD = MODELS[:3]  # PowerLawSpline's gradient raises on the card
+WITH_GRAD = MODELS
 _LIBS: dict = {}
 
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     """model -> {source name: the emulation built for it}, every model's
-    built at first use, one g++ each, all at once (PowerLawSpline's
-    adjoint_host is not built: it has no adjoint)."""
+    built at first use, one g++ each, all at once."""
     def get(model):
         if not _LIBS:
             builds = [(m, n) for m in MODELS for n in (
@@ -109,16 +108,40 @@ def _model_points(model, mass, rng):
     for _ in range(6):
         m1 = rng.uniform(m_low + dm, m_high)
         add(m1, 0.7 * m1, rng.uniform(0.0, 1.0), beta=-1.0)
+    if model == "PowerLawSpline":
+        # every knot interval, m1 at each knot (its exp of the log-uniform
+        # knot), and the row's num_knots and coefficients padded to the
+        # kernels' width
+        k = mass.num_knots
+        for x in np.linspace(np.log(m_low), np.log(m_high), k + 2):
+            add(np.exp(x), 0.6 * np.exp(x), 0.0)
+            add(np.exp(x + 0.3 / (k + 1)), 0.5 * np.exp(x), 0.0)
+        tail = np.zeros(1 + fused._MAX_KNOTS)
+        tail[0] = k
+        tail[1:1 + k] = mass.spline_coeffs[0].numpy()
+        pts = [(np.concatenate([s, tail]), *rest) for s, *rest in pts]
     s, m1, m2, z = zip(*pts)
     return (np.array(s), np.array(m1), np.array(m2), np.array(z))
+
+
+def _grad_columns(model, mass) -> list:
+    """The packed row's columns with a cotangent: the model's scalars and,
+    for PowerLawSpline, its num_knots coefficients (not num_knots, nor the
+    padding)."""
+    p = len(fused.MODEL_SCALARS[model])
+    if model != "PowerLawSpline":
+        return list(range(p))
+    return list(range(p)) + list(range(p + 1, p + 1 + mass.num_knots))
 
 
 @pytest.mark.parametrize("model", WITH_GRAD)
 def test_mass_vjp_matches_dual(libs, model):
     """The model's reverse sweep (the cotangents of its scalars through
     the prologue's Jacobian of the derived fields, of z and of the window
-    series' value) against its dual numbers, float64, within 1e-12 of each
-    point's largest entry; every scalar's slope and z's exercised."""
+    series' value; PowerLawSpline's coefficients through its knots' point)
+    against its dual numbers, float64, within 1e-12 of each point's
+    largest entry; every scalar's slope and z's exercised, and no slope
+    where the row has no such field."""
     lib = libs(model)["adjoint_host"]
     mass = _population(F64, model).mass
     scalars, m1, m2, z = _model_points(model, mass, np.random.default_rng(17))
@@ -138,8 +161,9 @@ def test_mass_vjp_matches_dual(libs, model):
     scale = np.maximum(np.abs(dual).max(axis=1, keepdims=True), 1e-300)
     assert (np.abs(rev - dual) / scale).max() <= 1e-12
     slopes = np.abs(dual[:, :p]).max(axis=0)
-    assert np.all(slopes > 0), [k for k, v in zip(fused.MODEL_SCALARS[model], slopes)
-                                if v == 0]
+    live = _grad_columns(model, mass)
+    assert np.all(slopes[live] > 0), [k for k in live if slopes[k] == 0]
+    assert np.all(np.delete(np.abs(rev[:, :p]), live, axis=1) == 0)
     assert (np.abs(dual[:, p]) > 0).sum() > 30
     if fused.window_degree(mass):
         assert (np.abs(dual[:, p + 1]) > 0).sum() > 10
@@ -196,7 +220,7 @@ def test_emulated_adjoint_modes_match_plain(libs, data, model, mode, kernel,
         args, kw = _adjoint_case(data, dtype, mode, kernel, model=model)
     expect = fused.fused_weights_kde_adjoint_plain(*args, **kw)
     got = _host_adjoint(libs(model)["adjoint_host"], *args, **kw)
-    assert got[1].shape[1] == len(fused.MODEL_SCALARS[model])
+    assert got[1].shape[1] == fused.packed_width(_population(F64, model).mass)
     for g, e in zip(got, expect):
         if g is None:
             continue
@@ -227,7 +251,7 @@ def test_scratch_layout_matches_the_kernels(libs, model):
     fn = libs(model)["adjoint_host"].host_adjoint_scratch
     fn.restype = ctypes.c_longlong
     mass = _population(F32, model).mass
-    p = len(fused.MODEL_SCALARS[model])
+    p = fused.packed_width(mass)
     for dtype, sum_size in ((F32, 4), (F32, 8), (F64, 8)):
         for n, rows_, cd, wd in [(3, 37, 13, 48), (16, 5, 32, 0)]:
             series = torch.zeros(n, cd + 2 + wd, dtype=F64)
@@ -247,11 +271,11 @@ def test_scratch_layout_matches_the_kernels(libs, model):
 @pytest.mark.parametrize("model", MODELS)
 def test_emulated_card_gradient(libs, data, dark_data, monkeypatch, model,
                                 kind, launched):
-    """log L and d log L / d(H0, Om0, the model's own parameter) through the
-    wrappers' CUDA branches with the model's emulations as the launches,
-    float64: log L within 1e-12 and the gradient within 1e-11 of autograd
-    through the plain versions, each kernel launched once; PowerLawSpline's
-    forward likewise, its gradient refused by name."""
+    """log L and d log L / d(H0, Om0, the model's own parameter; and
+    PowerLawSpline's coefficients) through the wrappers' CUDA branches with
+    the model's emulations as the launches, float64: log L within 1e-12 and
+    the gradient within 1e-11 of autograd through the plain versions, each
+    kernel launched once."""
     if kind == "1d":
         cat, z_grids, inj, n_gen = data
         args = (cat, z_grids, _population(F64, model),
@@ -263,6 +287,10 @@ def test_emulated_card_gradient(libs, data, dark_data, monkeypatch, model,
                                                 gal_cat=pop.gal_cat), sel)
     hl = HyperLikelihood.create(*args, kind=kind, binning=False, cut_grid=None)
     lam = {k: torch.tensor(v, dtype=F64) for k, v in MODEL_LAMBDA[model].items()}
+    if model == "PowerLawSpline":
+        coeffs = torch.tensor(MODEL_KW[model]["spline_coeffs"], dtype=F64)
+        lam["spline_coeffs"] = coeffs * torch.tensor([[1.0], [0.5], [-0.8]],
+                                                     dtype=F64)
 
     def grad():
         x = {k: v.clone().requires_grad_() for k, v in lam.items()}
@@ -273,10 +301,9 @@ def test_emulated_card_gradient(libs, data, dark_data, monkeypatch, model,
     built = libs(model)
     kind_no = fused.MASS_KINDS[model]
     lib_map = {("fused_kde", kind_no): built["fused_host"],
-               ("rows_contract", kind_no): built["rows_adjoint_host"]}
-    if model in WITH_GRAD:
-        lib_map[("fused_kde_adjoint", kind_no)] = built["adjoint_host"]
-        lib_map[("rows_contract_adjoint", kind_no)] = built["rows_adjoint_host"]
+               ("rows_contract", kind_no): built["rows_adjoint_host"],
+               ("fused_kde_adjoint", kind_no): built["adjoint_host"],
+               ("rows_contract_adjoint", kind_no): built["rows_adjoint_host"]}
     _emulate_the_card(monkeypatch, lib_map)
     before = launch_counts()
     ll_card = hl.log_like_batch(lam)
@@ -286,17 +313,13 @@ def test_emulated_card_gradient(libs, data, dark_data, monkeypatch, model,
         {k: forward.get(k, 0) for k in after}
     assert torch.all(torch.isfinite(ll))
     assert torch.allclose(ll_card, ll, rtol=1e-12, atol=0)
-    if model not in WITH_GRAD:
-        with pytest.raises(NotImplementedError, match="item 17"):
-            grad()
-        return
     before = launch_counts()
     ll_card, got = grad()
     after = launch_counts()
     assert {k: after[k] - before[k] for k in after} == \
         {k: launched.get(k, 0) for k in after}
     for g, e in zip(got, expect):
-        assert torch.all(torch.isfinite(e))
+        assert torch.all(torch.isfinite(e)) and e.abs().max() > 0
         assert ((g - e).abs() / e.abs().max()).max() <= 1e-11
 
 
