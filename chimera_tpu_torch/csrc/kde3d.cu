@@ -295,33 +295,46 @@ int launch(const T* z, const T* w, const T* ra, const T* dec,
 //
 // What bounds it on an H100: the exps of its terms (one a (pixel, sample,
 // grid point) of the dense sweep's events, every sample; one a grid point
-// of each block whose refresh the forward keeps, else), at the MUFU rate,
-// and ~9 FP32 operations a term.  d_out is read once and the outputs
-// (~0.5 GB of sample cotangents in double at the dark width) written
-// once.  This first kernel also tests every weighted sample's refresh of
-// every block (an exp each); a walk that found the kept ones as K5's skip
-// radii do would test only those.
+// of each block whose refresh the forward keeps, else, and one a kept
+// block's refresh test), at the MUFU rate, and ~9 FP32 operations a term.
+// d_out is read once and the outputs (~0.5 GB of sample cotangents in
+// double at the dark width) written once.
 //
-// What the design does about it (a simple, correct first kernel): it reads
-// the record that K5's prologue wrote in the forward (the same bits, so its
-// refresh tests are the forward's); a block per (lambda, event), a thread
-// per sample, walks the event's real pixels in order: the pixel's d_out
-// row and the grid (whitened, and about the mean) in shared memory, each
-// sample's three sums in registers over the kept blocks, its cotangents
-// summed over the pixels in its own row of d_samp (only its thread reads
-// or writes it), the pixel's and the event's sums in rank order: no
-// atomics.  The sample sums run over every grid point of a kept block (no
-// radius or band prunes a kept one), so its cost is the forward's unpruned
-// walk's terms.
+// What the design does about it: it reads the record that K5's prologue
+// wrote in the forward (the same bits, so its refresh tests are the
+// forward's).  A block per (lambda, event) stages the grid (whitened, about
+// the mean, and each K-point block's start) and the cotangent rows of as
+// many real pixels as kAdjointSmem allows (a chunk; all of them at the
+// dark width), skipping the rows that are all 0.  A thread takes the
+// samples s = rank, rank + 128, ..., forms each one's double factors once
+// and walks the chunk's pixels in order, its sample's four cotangents in
+// registers (written to d_samp once; read back only between chunks).  At a
+// pixel the kept blocks lie in one range of j found from the sample's skip
+// radius (kept_range: no exp outside it), and a warp walks the union of
+// its lanes' ranges in step, its lanes reading the same grid point of
+// shared memory at once, a whole block of 8, 16 or 32 points in 16-byte
+// loads.  The likelihood hands the samples sorted by distance
+// (HyperLikelihood.create; the JAX package's order, which from_state
+// keeps, is the same), so a warp's 32 samples are neighbours in z, and
+// their t = c0 - a and ranges nearly the same at every pixel (sorting them
+// by a in the block gave no more lanes active and cost time; PERF.md).
+// Each pixel's sums over a warp's samples go through the warp's shuffle
+// tree into the warp's own column of part, summed over the warps in order;
+// d L00's and d log_norm's stay in each thread's registers until the end:
+// no atomics, equal bits every run.  The per-sample sums take the terms in
+// the order of K5b's first kernel (a sample's pixels in order, a pixel's
+// kept blocks and grid points in order) with its roundings, so d_samp
+// keeps its bits; the pixel and event sums are summed in another order.
+// Blocks an SM: 5 in float32 (the registers ptxas may give a thread, 102),
+// timed faster than 4; float64 takes 2.
 
-// shared memory of the adjoint kernel: the pixel and event part rows
-// (double), the grid twice and a cotangent row
-size_t adjoint_smem(int G, size_t t_size) {
-  return (size_t)(kPixelGrads + 2) * kThreads * 8 + 3 * (size_t)G * t_size;
+template <typename T>
+__host__ __device__ constexpr int adjoint_blocks() {
+  return sizeof(T) > 4 ? 2 : 5;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, adjoint_blocks<T>())
 kde3d_adjoint_kernel(const T* __restrict__ z, const T* __restrict__ w,
                      const T* __restrict__ ra, const T* __restrict__ dec,
                      const T* __restrict__ ra_pix,
@@ -332,15 +345,22 @@ kde3d_adjoint_kernel(const T* __restrict__ z, const T* __restrict__ w,
                      const double* __restrict__ records,
                      const T* __restrict__ d_out, double* __restrict__ d_samp,
                      double* __restrict__ d_pix, double* __restrict__ d_event,
-                     int E, int S, int P, int G) {
+                     int E, int S, int P, int G, int pc) {
   extern __shared__ __align__(16) unsigned char smem[];
-  double* part = reinterpret_cast<double*>(smem);
-  double* l00_part = part + kPixelGrads * kThreads;
-  T* zl = reinterpret_cast<T*>(l00_part + 2 * kThreads);
-  T* zeta = zl + G;
-  T* dg = zeta + G;
+  const AdjointLayout lay = adjoint_layout(G, pc, sizeof(T));
+  double* epart = reinterpret_cast<double*>(smem + lay.epart);
+  double* centres = reinterpret_cast<double*>(smem + lay.centres);
+  double* part = reinterpret_cast<double*>(smem + lay.part);
+  T* rows = reinterpret_cast<T*>(smem + lay.rows);
+  T* zl = reinterpret_cast<T*>(smem + lay.zl);
+  T* zeta = reinterpret_cast<T*>(smem + lay.zeta);
+  T* starts = reinterpret_cast<T*>(smem + lay.starts);
+  int* live = reinterpret_cast<int*>(smem + lay.live);
+  int* flags = reinterpret_cast<int*>(smem + lay.flags);
+  int* count = reinterpret_cast<int*>(smem + lay.count);
   const size_t le = blockIdx.x;
   const int e = int(le % E), rank = threadIdx.x;
+  const int lane = rank % kWarpSize, warp = rank / kWarpSize;
   const double* rec = records + le * kRecord;
   double* ds = d_samp + le * S * kSampleGrads;
   double* dp = d_pix + le * P * kPixelGrads;
@@ -350,33 +370,97 @@ kde3d_adjoint_kernel(const T* __restrict__ z, const T* __restrict__ w,
     adjoint_dead(ds, dp, dv, S, P, rank, kThreads);
     return;
   }
-  const int K = k_req < G ? k_req : G;
+  const int K = k_req < G ? k_req : G, J = K > 0 ? (G + K - 1) / K : 0;
   const T* grid = grids + size_t(e) * G;
-  adjoint_start(rec, grid, G, zl, zeta, ds, l00_part, S, rank, kThreads);
-  for (int p = 0; p < P; ++p) {
-    double* dpp = dp + p * kPixelGrads;
-    if (!mask[size_t(e) * P + p]) {  // a fake pixel: no cotangent
-      if (rank < kPixelGrads) dpp[rank] = 0.0;
-      continue;
+  const T* zs = z + le * S;
+  const T* ws = w + le * S;
+  const T* ras = ra + size_t(e) * S;
+  const T* decs = dec + size_t(e) * S;
+  adjoint_grid(rec, grid, G, K, zl, zeta, starts, rank, kThreads);
+  const Whitening wh = whitening(rec);
+  const double zl_start = grid_start(rec, double(grid[0]));
+  const double step_h = rec[kStepH];
+  const double inv_w = K > 0 ? 1.0 / (double(K) * step_h) : 0.0;
+  double pl = 0.0, pn = 0.0;
+  bool started = false;  // some chunk has written the samples' rows
+  for (int p0 = 0; p0 < P; p0 += pc) {
+    const int np = P - p0 < pc ? P - p0 : pc;
+    for (int i = rank; i < np; i += kThreads) flags[i] = 0;
+    __syncthreads();  // the grid written, the last chunk's rows read
+    stage_rows(d_out + (le * P + p0) * G, mask + size_t(e) * P + p0, np, G,
+               rows, flags, rank, kThreads);
+    __syncthreads();
+    live_pixels(flags, np, live, count, rank);
+    for (int i = rank; i < np * kPixelGrads; i += kThreads)
+      if (!flags[i / kPixelGrads]) dp[p0 * kPixelGrads + i] = 0.0;
+    __syncthreads();
+    const int n = *count;
+    for (int i = rank; i < n; i += kThreads)
+      pixel_centre(rec, ra_pix[size_t(e) * P + p0 + live[i]],
+                   dec_pix[size_t(e) * P + p0 + live[i]],
+                   centres + kPixelGrads * i);
+    for (int i = rank; i < n * kPixelGrads * kAdjointWarps; i += kThreads)
+      part[i] = 0.0;
+    __syncthreads();
+    if (n == 0) continue;
+    for (int base = 0; base < S; base += kThreads) {
+      const int pos = base + rank;
+      const int s = pos < S ? pos : -1;
+      SampleFactors f = {0.0, 0.0, 0.0, 0.0};
+      double acc[kSampleGrads] = {0.0, 0.0, 0.0, 0.0};
+      if (s >= 0) {
+        f = sample_of(rec, zs, ws, ras, decs, s, S);
+        if (started)
+          for (int k = 0; k < kSampleGrads; ++k) acc[k] = ds[s * kSampleGrads + k];
+      }
+      for (int i = 0; i < n; ++i) {
+        const double* c = centres + kPixelGrads * i;
+        double q1 = 0.0, q2 = 0.0, sky = 0.0;
+        T ef = T(0), t = T(0);
+        int lo = J, hi = -1;
+        if (s >= 0) {
+          sample_pixel(wh, f, c, q1, q2, sky, ef, t);
+          if (K > 0) kept_range(ef, t, starts, zl_start, step_h, inv_w, J, lo, hi);
+        }
+        int wlo = lo, whi = hi;
+        if (K > 0) warp_range(lo, hi, wlo, whi);
+        double dt = 0.0, dq1 = 0.0, dq2 = 0.0;
+        if (s >= 0) {
+          T sg, su, sz;
+          pixel_sums(ef, t, zl, zeta, starts,
+                     rows + size_t(live[i]) * row_stride(G), G, K, lo, hi, wlo,
+                     whi, sg, su, sz);
+          pixel_tail(wh.norm, f.wn, q1, q2, sky, sg, su, sz, acc, pl, pn, dt,
+                     dq1, dq2);
+        }
+        dt = warp_sum(dt);
+        dq1 = warp_sum(dq1);
+        dq2 = warp_sum(dq2);
+        if (lane == 0) {
+          double* pp = part + kPixelGrads * kAdjointWarps * i + warp;
+          pp[kGradC0 * kAdjointWarps] += dt;
+          pp[kGradC1 * kAdjointWarps] += dq1;
+          pp[kGradC2 * kAdjointWarps] += dq2;
+        }
+      }
+      if (s >= 0)
+        for (int k = 0; k < kSampleGrads; ++k) ds[s * kSampleGrads + k] = acc[k];
     }
-    __syncthreads();  // the last pixel's dg and part are read
-    stage_cotangent(d_out + (le * P + p) * G, G, dg, part, rank, kThreads);
+    started = true;
     __syncthreads();
-    const bool live = any_part(part, kThreads);
-    __syncthreads();
-    if (!live) {
-      if (rank < kPixelGrads) dpp[rank] = 0.0;
-      continue;
+    for (int m = rank; m < n * kPixelGrads; m += kThreads) {
+      const double* pp = part + kAdjointWarps * m;
+      double sum = 0.0;
+      for (int v = 0; v < kAdjointWarps; ++v) sum += pp[v];
+      dp[(p0 + live[m / kPixelGrads]) * kPixelGrads + m % kPixelGrads] = sum;
     }
-    adjoint_pixel(rec, z + le * S, w + le * S, ra + size_t(e) * S,
-                  dec + size_t(e) * S, S, ra_pix[size_t(e) * P + p],
-                  dec_pix[size_t(e) * P + p], zl, zeta, dg, double(grid[0]),
-                  G, K, ds, part, l00_part, rank, kThreads);
-    __syncthreads();
-    if (rank < kPixelGrads) dpp[rank] = ordered_sum(part + rank * kThreads, kThreads);
   }
+  if (!started)  // no pixel with a cotangent: every sample's is 0
+    for (int i = rank; i < S * kSampleGrads; i += kThreads) ds[i] = 0.0;
+  epart[rank] = pl;
+  epart[kThreads + rank] = pn;
   __syncthreads();
-  adjoint_event(l00_part, dp, dv, P, rank, kThreads);
+  adjoint_event(epart, dp, dv, P, rank, kThreads);
 }
 
 template <typename T>
@@ -389,14 +473,15 @@ int launch_adjoint(const T* z, const T* w, const T* ra, const T* dec,
   if (L <= 0 || E <= 0 || S <= 0 || P <= 0 || G <= 0)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  const size_t smem = adjoint_smem(G, sizeof(T));
+  const int pc = adjoint_chunk(P, G, sizeof(T));
+  const size_t smem = adjoint_layout(G, pc, sizeof(T)).total;
   cudaError_t err = cudaFuncSetAttribute(
       kde3d_adjoint_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   kde3d_adjoint_kernel<T><<<(unsigned)(L * E), kThreads, smem, s>>>(
       z, w, ra, dec, ra_pix, dec_pix, mask, grids, z_block, records, d_out,
-      d_samp, d_pix, d_event, E, S, P, G);
+      d_samp, d_pix, d_event, E, S, P, G, pc);
   return (int)cudaGetLastError();
 }
 

@@ -678,11 +678,13 @@ __device__ void recurrence_fold(const double* rec, const T* part, int G,
 // refresh the forward keeps (v = e exp(-u0^2 / 2) >= the smallest normal,
 // the forward's own test and rounding): a flushed block adds +0 to K5's
 // output whatever its inputs, so its terms carry no cotangent, and a sample
-// whose e is below the smallest normal carries none on that path.  No
-// radius or band prunes a kept block.  Every per-sample value is a
-// thread's own (no sum across threads), summed over the pixels in order in
-// its own row of the output; the pixel and event sums go through
-// part rows and ordered_sum: equal bits every run.
+// whose e is below the smallest normal carries none on that path.  The
+// kept blocks of a (sample, pixel) lie in one range of j, found from the
+// sample's skip radius (kept_range): outside it every refresh is flushed.
+// A sample's sums run over its pixels in order, each pixel's over the kept
+// blocks in order: whichever thread takes the sample, its cotangents are
+// the same bits.  The pixel and event sums go through each warp's shuffle
+// tree and fixed-order sums over warps and ranks: equal bits every run.
 enum SampleGrad { kGradW, kGradA, kGradB, kGradC, kSampleGrads };
 enum PixelGrad { kGradC0, kGradC1, kGradC2, kPixelGrads };
 enum EventGrad { kGradShift, kGradL00, kGradLogNorm, kEventGrads };
@@ -695,121 +697,302 @@ __device__ __forceinline__ bool kept(T e, T t, T zl0) {
   return mul_rn(e, exp_t(mul_rn(mul_rn(T(-0.5), u0), u0))) >= smallest_normal<T>();
 }
 
-// A (lambda, event)'s z grid in whitened units and about the mean (zl and
-// zeta), this rank's samples' cotangents (d_samp rows s = rank, rank +
-// size, ...: no other rank touches them) and its sums of d L00 and d
-// log_norm zeroed.
+// One grid point's term into (sg, su, sz), each rounding spelled out (one
+// fma, into sz), so that the sums' bits do not depend on how nvcc
+// contracts the code around them.
 template <typename T>
-__device__ void adjoint_start(const double* rec, const T* grid, int G, T* zl,
-                              T* zeta, double* d_samp, double* l00_part, int S,
-                              int rank, int size) {
+__device__ __forceinline__ void adjoint_term(T t, T zl, T zeta, T dg, T& sg,
+                                             T& su, T& sz) {
+  const T u = add_rn(zl, t);
+  const T d = mul_rn(dg, exp_t(mul_rn(mul_rn(T(-0.5), u), u)));
+  const T du = mul_rn(d, u);
+  sg = add_rn(sg, d);
+  su = add_rn(su, du);
+  sz = fma_t(du, zeta, sz);
+}
+
+// the terms of grid points [g0, g1) into (sg, su, sz), in order
+template <typename T>
+__device__ __forceinline__ void adjoint_terms(T t, const T* zl, const T* zeta,
+                                              const T* dg, int g0, int g1,
+                                              T& sg, T& su, T& sz) {
+  for (int g = g0; g < g1; ++g) adjoint_term(t, zl[g], zeta[g], dg[g], sg, su, sz);
+}
+
+// The N (a multiple of 4) terms of a whole block from g0, in order, its
+// grid points four at a time in 16-byte loads (g0 a multiple of 4; zl,
+// zeta and dg 16-byte aligned).
+template <typename T, int N>
+__device__ __forceinline__ void block_terms(T t, const T* zl, const T* zeta,
+                                            const T* dg, int g0, T& sg, T& su,
+                                            T& sz) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const Quad<T> a = *reinterpret_cast<const Quad<T>*>(zl + g0 + i);
+    const Quad<T> b = *reinterpret_cast<const Quad<T>*>(zeta + g0 + i);
+    const Quad<T> c = *reinterpret_cast<const Quad<T>*>(dg + g0 + i);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) adjoint_term(t, a.v[k], b.v[k], c.v[k], sg, su, sz);
+  }
+}
+
+// The start of block j in whitened units, zl_start = L00 (z_0 - mean_z)
+// (grid_start) plus j K steps in one fma: block_start's bits.
+__device__ __forceinline__ double grid_start(const double* rec, double zg0) {
+  return __dmul_rn(rec[kL00], zg0 - rec[kMeanZ]);
+}
+
+template <typename T>
+__device__ __forceinline__ T start_of(double zl_start, double step_h, int j,
+                                      int K) {
+  return T(fma(double(j * K), step_h, zl_start));
+}
+
+// K5b's warps a block (kThreads threads), and the shared memory its chunks
+// of pixels' cotangent rows may fill (at least one pixel a chunk).
+constexpr int kWarpSize = 32;
+constexpr int kAdjointWarps = kThreads / kWarpSize;
+constexpr int kAdjointSmem = 96 * 1024;
+
+// a row's stride in shared memory: G padded to whole 16-byte quads of
+// float32
+__host__ __device__ constexpr int row_stride(int G) { return (G + 3) & ~3; }
+
+// Byte offsets of K5b's shared memory for chunks of pc pixels: the ranks'
+// event sums, the chunk's pixel centres (c0, c1, c2) and the warps' pixel
+// sums (double); the chunk's cotangent rows, the grid whitened and about
+// the mean and the blocks' starts (T, each padded by row_stride, from a
+// 16-byte boundary); the chunk's live pixels, their flags and count (int).
+struct AdjointLayout {
+  size_t epart, centres, part, rows, zl, zeta, starts, live, flags, count, total;
+};
+
+__host__ __device__ inline AdjointLayout adjoint_layout(int G, int pc,
+                                                        size_t t_size) {
+  AdjointLayout a;
+  const size_t row = size_t(row_stride(G)) * t_size;
+  a.epart = 0;
+  a.centres = a.epart + 2 * kThreads * sizeof(double);
+  a.part = a.centres + size_t(pc) * kPixelGrads * sizeof(double);
+  // the rows, the grid and the starts are read in 16-byte loads
+  a.rows = (a.part + size_t(pc) * kPixelGrads * kAdjointWarps * sizeof(double) +
+            15) / 16 * 16;
+  a.zl = a.rows + size_t(pc) * row;
+  a.zeta = a.zl + row;
+  a.starts = a.zeta + row;
+  a.live = a.starts + row;
+  a.flags = a.live + size_t(pc) * sizeof(int);
+  a.count = a.flags + size_t(pc) * sizeof(int);
+  a.total = a.count + sizeof(int);
+  return a;
+}
+
+// the pixels a chunk: as many of the P as fit in kAdjointSmem, at least one
+__host__ __device__ inline int adjoint_chunk(int P, int G, size_t t_size) {
+  int pc = P;
+  while (pc > 1 && adjoint_layout(G, pc, t_size).total > size_t(kAdjointSmem)) --pc;
+  return pc;
+}
+
+// The z grid in whitened units and about the mean (zl and zeta), and for
+// K > 0 the starts of the J K-point blocks (start_of: block_start's bits).
+template <typename T>
+__device__ void adjoint_grid(const double* rec, const T* grid, int G, int K,
+                             T* zl, T* zeta, T* starts, int rank, int size) {
   for (int g = rank; g < G; g += size) {
     const double dz = double(grid[g]) - rec[kMeanZ];
     zl[g] = T(rec[kL00] * dz);
     zeta[g] = T(dz);
   }
-  for (int s = rank; s < S; s += size)
-    for (int k = 0; k < kSampleGrads; ++k) d_samp[s * kSampleGrads + k] = 0.0;
-  l00_part[rank] = 0.0;
-  l00_part[size + rank] = 0.0;
-}
-
-// A pixel's cotangent row into dg; part[rank]: whether this rank's points
-// hold a nonzero one (a pixel whose row is all 0 is skipped).
-template <typename T>
-__device__ void stage_cotangent(const T* d_out, int G, T* dg, double* part,
-                                int rank, int size) {
-  bool live = false;
-  for (int g = rank; g < G; g += size) {
-    dg[g] = d_out[g];
-    live = live || d_out[g] != T(0);
-  }
-  part[rank] = live ? 1.0 : 0.0;
-}
-
-__device__ __forceinline__ bool any_part(const double* part, int size) {
-  for (int i = 0; i < size; ++i)
-    if (part[i] != 0.0) return true;
-  return false;
-}
-
-// the terms of grid points [g0, g1) into (sg, su, sz)
-template <typename T>
-__device__ __forceinline__ void adjoint_terms(T t, const T* zl, const T* zeta,
-                                              const T* dg, int g0, int g1,
-                                              T& sg, T& su, T& sz) {
-  for (int g = g0; g < g1; ++g) {
-    const T u = zl[g] + t;
-    const T d = dg[g] * exp_t(T(-0.5) * u * u);
-    const T du = d * u;
-    sg += d;
-    su += du;
-    sz += du * zeta[g];
+  if (K > 0) {
+    const double zl_start = grid_start(rec, double(grid[0]));
+    for (int j = rank; j < (G + K - 1) / K; j += size)
+      starts[j] = start_of<T>(zl_start, rec[kStepH], j, K);
   }
 }
 
-// One real pixel of a (lambda, event): each sample of this rank (s = rank,
-// rank + size, ...) adds its cotangents to its own row of d_samp (d_samp[s
-// kSampleGrads + k], k: SampleGrad) and the pixel's to part[k size + rank]
-// (k: PixelGrad), d L00's and d log_norm's
-// to l00_part[rank] and l00_part[size + rank].  e and t are formed as
-// sample_factors forms them; K = 0 takes the dense sweep's grid.
+// A sample's double factors, formed once for all of its pixels: its
+// coordinates about the weighted mean and its unit weight.
+struct SampleFactors {
+  double dz, dr, dd, wn;
+};
+
 template <typename T>
-__device__ void adjoint_pixel(const double* rec, const T* z, const T* w,
-                              const T* ra, const T* dec, int S, T ra_pix,
-                              T dec_pix, const T* zl, const T* zeta,
-                              const T* dg, double zg0, int G, int K,
-                              double* d_samp, double* part, double* l00_part,
-                              int rank, int size) {
-  const double l00 = rec[kL00], l10 = rec[kL10], l20 = rec[kL20];
-  const double l11 = rec[kL11], l21 = rec[kL21], l22 = rec[kL22];
-  const double norm = rec[kNorm];
+__device__ __forceinline__ SampleFactors sample_of(const double* rec,
+                                                   const T* z, const T* w,
+                                                   const T* ra, const T* dec,
+                                                   int s, int S) {
+  SampleFactors f;
+  f.dz = double(z[s]) - rec[kMeanZ];
+  f.dr = double(ra[s]) - rec[kMeanRa];
+  f.dd = double(dec[s]) - rec[kMeanDec];
+  f.wn = unit_weight(w[s], rec[kSumW], S);
+  return f;
+}
+
+// ---- a chunk of pixels -----------------------------------------------------
+// The chunk's np cotangent rows into rows (row i at i row_stride(G); a
+// fake pixel's row 0) and a flag for each row that holds a value other
+// than 0 (flags zeroed before).
+template <typename T>
+__device__ void stage_rows(const T* d_out, const unsigned char* mask, int np,
+                           int G, T* rows, int* flags, int rank, int size) {
+  for (int m = rank; m < np * G; m += size) {
+    const int i = m / G;
+    const T v = mask[i] ? d_out[m] : T(0);
+    rows[i * row_stride(G) + m % G] = v;
+    if (v != T(0)) flags[i] = 1;
+  }
+}
+
+// rank 0: the flagged pixels of the chunk in order, and their count
+__device__ __forceinline__ void live_pixels(const int* flags, int np,
+                                            int* live, int* count, int rank) {
+  if (rank != 0) return;
+  int n = 0;
+  for (int i = 0; i < np; ++i)
+    if (flags[i]) live[n++] = i;
+  *count = n;
+}
+
+// a pixel's whitened centre (c0, c1, c2) about the mean
+template <typename T>
+__device__ __forceinline__ void pixel_centre(const double* rec, T ra_pix,
+                                             T dec_pix, double* c) {
   const double rp = double(ra_pix) - rec[kMeanRa];
   const double dp = double(dec_pix) - rec[kMeanDec];
-  const double c0 = l10 * rp + l20 * dp;
-  const double c1 = l11 * rp + l21 * dp;
-  const double c2 = l22 * dp;
-  const int J = K > 0 ? (G + K - 1) / K : 0;
-  double p0 = 0.0, p1 = 0.0, p2 = 0.0, pl = 0.0, pn = 0.0;
-  for (int s = rank; s < S; s += size) {
-    const double dz = double(z[s]) - rec[kMeanZ];
-    const double dr = double(ra[s]) - rec[kMeanRa];
-    const double dd = double(dec[s]) - rec[kMeanDec];
-    const double q1 = c1 - (l11 * dr + l21 * dd);
-    const double q2 = c2 - l22 * dd;
-    const double wn = unit_weight(w[s], rec[kSumW], S);
-    const double sky = exp(-0.5 * (q1 * q1 + q2 * q2));
-    const T e = T(wn * sky);
-    const T t = T(c0 - (l00 * dz + l10 * dr + l20 * dd));
-    T sg = T(0), su = T(0), sz = T(0);
-    if (K == 0) {
-      adjoint_terms(t, zl, zeta, dg, 0, G, sg, su, sz);
-    } else if (e >= smallest_normal<T>()) {
-      for (int j = 0; j < J; ++j) {
-        if (!kept(e, t, block_start<T>(rec, zg0, j, K))) continue;
-        const int g1 = (j + 1) * K < G ? (j + 1) * K : G;
-        adjoint_terms(t, zl, zeta, dg, j * K, g1, sg, su, sz);
-      }
-    }
-    const double gs = norm * double(sg), big_e = wn * sky;
-    const double dq1 = -q1 * big_e * gs, dq2 = -q2 * big_e * gs;
-    const double dt = -big_e * norm * double(su);
-    double* ds = d_samp + s * kSampleGrads;
-    ds[kGradW] += gs * sky;
-    ds[kGradA] -= dt;
-    ds[kGradB] -= dq1;
-    ds[kGradC] -= dq2;
-    p0 += dt;
-    p1 += dq1;
-    p2 += dq2;
-    pl -= big_e * norm * double(sz);
-    pn += big_e * gs;
+  c[kGradC0] = fma(rec[kL10], rp, __dmul_rn(rec[kL20], dp));
+  c[kGradC1] = fma(rec[kL11], rp, __dmul_rn(rec[kL21], dp));
+  c[kGradC2] = __dmul_rn(rec[kL22], dp);
+}
+
+// ---- one (sample, pixel) ----------------------------------------------------
+struct Whitening {
+  double l00, l10, l20, l11, l21, l22, norm;
+};
+
+__device__ __forceinline__ Whitening whitening(const double* rec) {
+  return {rec[kL00], rec[kL10], rec[kL20], rec[kL11], rec[kL21], rec[kL22],
+          rec[kNorm]};
+}
+
+// the sample's sky offsets q1, q2, its sky factor, e and t at the pixel of
+// centre c, formed as sample_factors forms them; this and pixel_centre's
+// and pixel_tail's roundings are spelled out, the fmas included, so that
+// d_samp's bits do not depend on how nvcc contracts the code around them
+template <typename T>
+__device__ __forceinline__ void sample_pixel(const Whitening& L,
+                                             const SampleFactors& f,
+                                             const double* c, double& q1,
+                                             double& q2, double& sky, T& e,
+                                             T& t) {
+  q1 = __dadd_rn(c[kGradC1], -fma(L.l11, f.dr, __dmul_rn(L.l21, f.dd)));
+  q2 = fma(-L.l22, f.dd, c[kGradC2]);
+  sky = exp(__dmul_rn(fma(q2, q2, __dmul_rn(q1, q1)), -0.5));
+  e = T(__dmul_rn(f.wn, sky));
+  const double a = fma(L.l20, f.dd, fma(L.l00, f.dz, __dmul_rn(L.l10, f.dr)));
+  t = T(__dadd_rn(c[kGradC0], -a));
+}
+
+// The blocks [lo, hi] whose refresh K5 may keep for a sample of sky factor
+// e and offset t (J blocks of K points starting at starts[j] = start_of(j);
+// empty: lo > hi).  With step_h > 0 the refresh's u0_j = fl(starts[j] + t)
+// is non-decreasing in j (each rounding is monotone), so the blocks with
+// |u0_j| <= R, R = skip_radius(e), are one range: an estimate from the
+// blocks' spacing (inv_w = 1 / (K step_h), in float), then moved block by
+// block until u0 of its ends says it is exact.  Outside it |u0_j| > R, and
+// skip_radius proves every such refresh flushed.  e below the smallest
+// normal keeps none; R = +inf, step_h not a positive number, or t not
+// finite: every block (kept() decides).
+template <typename T>
+__device__ __forceinline__ void kept_range(T e, T t, const T* starts,
+                                           double zl_start, double step_h,
+                                           double inv_w, int J, int& lo,
+                                           int& hi) {
+  lo = J;
+  hi = -1;
+  if (!(e >= smallest_normal<T>())) return;
+  const T r = skip_radius(e);
+  if (!(r >= T(0))) return;
+  if (!(r < T(INFINITY)) || !(step_h > 0.0) || !(fabs(t) < T(INFINITY))) {
+    lo = 0;
+    hi = J - 1;
+    return;
   }
-  part[kGradC0 * size + rank] = p0;
-  part[kGradC1 * size + rank] = p1;
-  part[kGradC2 * size + rank] = p2;
-  l00_part[rank] += pl;
-  l00_part[size + rank] += pn;
+  const float c = float(t) + float(zl_start), w = float(inv_w);
+  lo = int(floorf(fminf(fmaxf((-float(r) - c) * w, 0.0f), float(J))));
+  hi = int(ceilf(fminf(fmaxf((float(r) - c) * w, -1.0f), float(J - 1))));
+  while (lo > 0 && add_rn(starts[lo - 1], t) >= -r) --lo;
+  while (lo < J && add_rn(starts[lo], t) < -r) ++lo;
+  while (hi < J - 1 && add_rn(starts[hi + 1], t) <= r) ++hi;
+  while (hi >= 0 && add_rn(starts[hi], t) > r) --hi;
+}
+
+// The sample's sums over one pixel's terms (sg, su, sz): on the dense
+// sweep's events every grid point; else, for j in [wlo, whi] (the range a
+// warp walks in step: the union of its lanes'), the blocks of its own
+// range [lo, hi] whose refresh K5 keeps, in order, a block of 8, 16 or 32
+// points from a multiple of 4 through block_terms.
+template <typename T>
+__device__ __forceinline__ void pixel_sums(T e, T t, const T* zl,
+                                           const T* zeta, const T* starts,
+                                           const T* dg, int G, int K, int lo,
+                                           int hi, int wlo, int whi, T& sg,
+                                           T& su, T& sz) {
+  sg = su = sz = T(0);
+  if (K == 0) {
+    adjoint_terms(t, zl, zeta, dg, 0, G, sg, su, sz);
+    return;
+  }
+  for (int j = wlo; j <= whi; ++j) {
+    if (j < lo || j > hi || !kept(e, t, starts[j])) continue;
+    const int g0 = j * K, g1 = g0 + K < G ? g0 + K : G;
+    if ((g0 & 3) != 0)
+      adjoint_terms(t, zl, zeta, dg, g0, g1, sg, su, sz);
+    else if (g1 - g0 == 16)
+      block_terms<T, 16>(t, zl, zeta, dg, g0, sg, su, sz);
+    else if (g1 - g0 == 8)
+      block_terms<T, 8>(t, zl, zeta, dg, g0, sg, su, sz);
+    else if (g1 - g0 == 32)
+      block_terms<T, 32>(t, zl, zeta, dg, g0, sg, su, sz);
+    else
+      adjoint_terms(t, zl, zeta, dg, g0, g1, sg, su, sz);
+  }
+}
+
+// The (sample, pixel)'s cotangents from its sums: the sample's into acc
+// (SampleGrad, pixels in order), d L00's and d log_norm's into pl and pn,
+// and the pixel's (dt, dq1, dq2) returned.
+template <typename T>
+__device__ __forceinline__ void pixel_tail(double norm, double wn, double q1,
+                                           double q2, double sky, T sg, T su,
+                                           T sz, double (&acc)[kSampleGrads],
+                                           double& pl, double& pn, double& dt,
+                                           double& dq1, double& dq2) {
+  const double gs = __dmul_rn(norm, double(sg)), big_e = __dmul_rn(wn, sky);
+  const double nb = __dmul_rn(norm, big_e), q1b = __dmul_rn(q1, big_e),
+               q2b = __dmul_rn(q2, big_e);
+  acc[kGradW] = fma(gs, sky, acc[kGradW]);
+  acc[kGradA] = fma(double(su), nb, acc[kGradA]);
+  acc[kGradB] = fma(gs, q1b, acc[kGradB]);
+  acc[kGradC] = fma(gs, q2b, acc[kGradC]);
+  pl = fma(-nb, double(sz), pl);
+  pn = fma(big_e, gs, pn);
+  dt = -__dmul_rn(nb, double(su));
+  dq1 = -__dmul_rn(q1b, gs);
+  dq2 = -__dmul_rn(q2b, gs);
+}
+
+// A warp's range: the union of its lanes' (all 32 lanes call it).
+__device__ __forceinline__ void warp_range(int lo, int hi, int& wlo, int& whi) {
+  wlo = __reduce_min_sync(0xffffffffu, lo);
+  whi = __reduce_max_sync(0xffffffffu, hi);
+}
+
+// A warp's sum of v in lane 0, by the shuffle tree (offsets 16, 8, ..., 1).
+__device__ __forceinline__ double warp_sum(double v) {
+  for (int o = kWarpSize / 2; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
 }
 
 // A dead (lambda, event) (no whitening, or a block length K5 does not
@@ -824,8 +1007,10 @@ __device__ __forceinline__ void adjoint_dead(double* d_samp, double* d_pix,
   for (int i = rank; i < kEventGrads; i += size) d_event[i] = q;
 }
 
-// Rank 0's event sums (its own d_pix stores of kGradC0, pixels in order).
-__device__ __forceinline__ void adjoint_event(const double* l00_part,
+// Rank 0's event sums: the shift's over d_pix's kGradC0 (pixels in order),
+// d L00's and d log_norm's over the ranks' (epart[rank], epart[size +
+// rank]) in rank order.
+__device__ __forceinline__ void adjoint_event(const double* epart,
                                               const double* d_pix,
                                               double* d_event, int P, int rank,
                                               int size) {
@@ -833,8 +1018,8 @@ __device__ __forceinline__ void adjoint_event(const double* l00_part,
   double a = 0.0;
   for (int p = 0; p < P; ++p) a += d_pix[p * kPixelGrads + kGradC0];
   d_event[kGradShift] = a;
-  d_event[kGradL00] = ordered_sum(l00_part, size);
-  d_event[kGradLogNorm] = ordered_sum(l00_part + size, size);
+  d_event[kGradL00] = ordered_sum(epart, size);
+  d_event[kGradLogNorm] = ordered_sum(epart + size, size);
 }
 
 }  // namespace kde3d

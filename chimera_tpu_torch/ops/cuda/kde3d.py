@@ -41,6 +41,30 @@ _THREADS, _MAX_BLOCK, _RECORD, _MASK_WORDS = 128, 32, 16, 2048
 _SAMPLE_GRADS, _PIXEL_GRADS, _EVENT_GRADS = 4, 3, 3
 # the inputs K5b's chain differentiates, in the wrappers' order
 _WRT = ("z", "w", "ra", "dec", "ra_pix", "dec_pix")
+# csrc/kde3d.cuh: K5b's warps a block and the shared memory its chunks of
+# pixels may fill
+_ADJOINT_WARPS, _ADJOINT_SMEM = _THREADS // 32, 96 * 1024
+
+
+def adjoint_smem(g: int, pc: int, size: int) -> int:
+    """K5b's shared memory a block (``csrc/kde3d.cuh::adjoint_layout``)
+    for G grid points, chunks of pc pixels and a working dtype of ``size``
+    bytes: the ranks' event sums, the chunk's pixel centres and the warps'
+    pixel sums (double), its cotangent rows, the grid twice and the blocks'
+    starts (from a 16-byte boundary, each padded to a multiple of 4
+    points), and the chunk's pixel lists (int)."""
+    doubles = 8 * (2 * _THREADS + pc * _PIXEL_GRADS * (1 + _ADJOINT_WARPS))
+    row = -(-g // 4) * 4 * size
+    return -(-doubles // 16) * 16 + (pc + 3) * row + 4 * (2 * pc + 1)
+
+
+def adjoint_chunk(p: int, g: int, size: int) -> int:
+    """K5b's pixels a chunk (``csrc/kde3d.cuh::adjoint_chunk``): as many
+    of the P as fit in 96 KiB of shared memory, at least one."""
+    pc = p
+    while pc > 1 and adjoint_smem(g, pc, size) > _ADJOINT_SMEM:
+        pc -= 1
+    return pc
 
 
 def lattice_kde3d_plain(z, w, ra, dec, ra_pix, dec_pix, pixel_mask, grids,
@@ -245,8 +269,7 @@ def launch_k5b(z, w, ra, dec, ra_pix, dec_pix, pixel_mask, grids, z_block,
     if tuple(records.shape) != (n, e, _RECORD) or records.dtype != f64 \
             or records.device != dev:
         raise ValueError(f"records must be {(n, e, _RECORD)} {f64} on {dev}")
-    # csrc/kde3d.cu::adjoint_smem: the part rows, the grid twice, a d_out row
-    smem = 8 * (_PIXEL_GRADS + 2) * _THREADS + 3 * g * z.element_size()
+    smem = adjoint_smem(g, 1, z.element_size())
     if smem > _SMEM_LIMIT:
         raise ValueError(f"G = {g} grid points need {smem} bytes of shared "
                          f"memory per block, over the {_SMEM_LIMIT}-byte limit")

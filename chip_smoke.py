@@ -2954,27 +2954,18 @@ def k5_terms(args, live: bool = False) -> dict:
 K5_MASK_WORDS = 2048
 
 
-def k5_live(args, chunk: int = 8) -> dict:
-    """About the refreshes of K5's recurrence (per λ, event, real pixel,
-    K-point block, sample) that the kernel's flush keeps, v = e exp(-u0^2 /
-    2) >= the working dtype's smallest normal: a PyTorch recount of that
-    test on the card in the working dtype, ``chunk`` events at a time, with
-    e, t and the block starts formed in double from coordinates centred on
-    the weighted mean and then rounded, as ``kde3d.cuh`` forms them, but on
-    the plain version's whitening (``ops/kde.py::lattice_record``) and
-    without the kernel's own order of roundings (``block_start``), so that
-    it may count a refresh at the flush's edge that the kernel flushes, or
-    the reverse; and the recurrence terms (grid points) of those refreshes: K a
-    block, fewer in the padded last.  A (λ, event) without a whitening has
-    none.  The bound's count, not the kernel's."""
+def _k5_keep(args, chunk: int = 8):
+    """The refreshes of K5's recurrence that the kernel's flush keeps, ``chunk``
+    events at a time (``k5_live``): per block length K of the plan, yields
+    keep (L, c, P, J, S) bool (real pixels only), the blocks' widths (J,)
+    and the samples' whitened z ``a`` (L, c, S) in double."""
     from chimera_tpu_torch.ops.kde import lattice_record
 
     z, w, ra, dec, ra_pix, dec_pix, mask, grids, z_block = args[:9]
-    dt, n = z.dtype, z.shape[0]
+    dt = z.dtype
     tiny = torch.finfo(dt).tiny
     g = grids.shape[1]
     kk = torch.clamp(z_block.long(), max=g)
-    refresh = terms = 0
     for k in sorted(set(kk.tolist()) - {0}):
         j_n = -(-g // k)
         starts = torch.arange(j_n, device=z.device, dtype=F64) * k
@@ -3000,10 +2991,58 @@ def k5_live(args, chunk: int = 8) -> dict:
             v = e[:, :, :, None, :] * torch.exp(torch.tensor(-0.5, dtype=dt) * u0 * u0)
             keep = (v >= tiny) & mask[sel][None, :, :, None, None]
             del u0, v
-            per_block = keep.sum(dim=(0, 1, 2, 4)).double()           # (J,)
-            refresh += int(per_block.sum())
-            terms += int((per_block * width).sum())
+            yield keep, width, rec["a"]
+
+
+def k5_live(args, chunk: int = 8) -> dict:
+    """About the refreshes of K5's recurrence (per λ, event, real pixel,
+    K-point block, sample) that the kernel's flush keeps, v = e exp(-u0^2 /
+    2) >= the working dtype's smallest normal: a PyTorch recount of that
+    test on the card in the working dtype, ``chunk`` events at a time, with
+    e, t and the block starts formed in double from coordinates centred on
+    the weighted mean and then rounded, as ``kde3d.cuh`` forms them, but on
+    the plain version's whitening (``ops/kde.py::lattice_record``) and
+    without the kernel's own order of roundings (``block_start``), so that
+    it may count a refresh at the flush's edge that the kernel flushes, or
+    the reverse; and the recurrence terms (grid points) of those refreshes: K a
+    block, fewer in the padded last.  A (λ, event) without a whitening has
+    none.  The bound's count, not the kernel's."""
+    refresh = terms = 0
+    for keep, width, _ in _k5_keep(args, chunk):
+        per_block = keep.sum(dim=(0, 1, 2, 4)).double()           # (J,)
+        refresh += int(per_block.sum())
+        terms += int((per_block * width).sum())
     return {"refresh_live": float(refresh), "recurrence_live": float(terms)}
+
+
+def k5b_lanes(args, chunk: int = 8) -> dict:
+    """How K5b's warps share the kept blocks of the recurrence (``_k5_keep``'s
+    recount): a warp's 32 lanes take 32 samples at once, and at each (λ,
+    real pixel) the warp runs the terms of every block that one of its
+    lanes keeps (the union), each lane active in those its own sample
+    keeps.  Per order of the samples (``input``: samples 32 k .. 32 k + 31 a
+    warp, as K5b takes them, in the likelihood's order by distance;
+    ``sorted``: by their whitened z a, rounded to float32, ties by index,
+    as a sort in the block would take them): the blocks the warps run
+    (their unions, summed), the blocks the lanes keep, and the share of
+    active lanes, kept / (32 x union)."""
+    kept = 0
+    union = {"input": 0, "sorted": 0}
+    for keep, _, a in _k5_keep(args, chunk):
+        kept += int(keep.sum())
+        n, c, p, j, s = keep.shape
+        pad = -s % 32
+        rank = torch.argsort(a.float(), dim=-1, stable=True)           # (L, c, S)
+        for name, k in (("input", keep),
+                        ("sorted", torch.gather(keep, -1, rank[:, :, None, None, :]
+                                                .expand_as(keep)))):
+            k = torch.cat([k, k.new_zeros((n, c, p, j, pad))], dim=-1)
+            union[name] += int(k.view(n, c, p, j, -1, 32).any(dim=-1).sum())
+    out = {"kept": float(kept)}
+    for name, u in union.items():
+        out[f"union_{name}"] = float(u)
+        out[f"active_{name}"] = kept / (32.0 * u) if u else 1.0
+    return out
 
 
 def k5_bound(args, terms: dict, live: bool = True) -> tuple[float, str]:
@@ -3073,9 +3112,8 @@ def k5b_terms(args, terms: dict) -> dict:
     sample without weight still has its weight's cotangent there), the
     kept refreshes' terms on the recurrence's, and a refresh test per kept
     refresh there, as K5's bound counts them: the kept set is found with a
-    log per (pixel, sample), as K5's skip radii find it, not with an exp
-    per block, although this first K5b tests every weighted sample's
-    block (``k5_terms``' ``refresh``)."""
+    log per (pixel, sample), the sample's skip radius (K5b's
+    ``kept_range``), not with an exp per block."""
     mask, grids, z_block = args[6:9]
     n, _, s = args[0].shape
     dense = (torch.clamp(z_block.long(), max=grids.shape[1]) == 0)
@@ -3108,8 +3146,10 @@ def k5b_compare(args, kw, d_out) -> dict:
     gradient row relative to its largest entry, NaN in the same places, the
     same bits on a second launch; a float32 call against the float64 plain
     version, held to max(1e-3, 2 x the float32 plain version's own error),
-    a float64 one to 1e-9.  Returns the errors, the bar, the NaN count and
-    (float32) the float32 plain version's time, ms."""
+    a float64 one to 1e-10.  Returns the errors, the bar, the NaN count,
+    (float32) the float32 plain version's time, ms, and per input (z, w,
+    ra, dec, ra_pix, dec_pix) the kernel's error and the float32 plain
+    version's (None for float64)."""
     from chimera_tpu_torch.ops.cuda.kde3d import (lattice_kde3d_adjoint,
                                                   lattice_kde3d_adjoint_plain)
 
@@ -3131,20 +3171,38 @@ def k5b_compare(args, kw, d_out) -> dict:
         scale = x.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
         return ((g - x).abs() / scale).max().item(), (g - x).abs().max().item()
 
-    out = {"rel": 0.0, "abs": 0.0, "own": 0.0, "nan": 0, "plain_ms": plain_ms}
+    out = {"rel": 0.0, "abs": 0.0, "own": 0.0, "nan": 0, "plain_ms": plain_ms,
+           "by_input": {}}
     for i, (g, x, r) in enumerate(zip(got, exact, again)):
         if not same_bits(g, r):
             raise AssertionError(f"K5b: a second launch gave other bits ({i})")
         e_rel, e_abs = rel(g, x)
         out["rel"], out["abs"] = max(out["rel"], e_rel), max(out["abs"], e_abs)
         out["nan"] += int(torch.isnan(x).sum())
+        o_rel = rel(own[i], x)[0] if own else None
         if own:
-            out["own"] = max(out["own"], rel(own[i], x)[0])
-    out["bar"] = 1e-9 if d_out.dtype == F64 else max(1e-3, 2.0 * out["own"])
+            out["own"] = max(out["own"], o_rel)
+        out["by_input"][("z", "w", "ra", "dec", "ra_pix", "dec_pix")[i]] = (e_rel, o_rel)
+    out["bar"] = 1e-10 if d_out.dtype == F64 else max(1e-3, 2.0 * out["own"])
     if not out["rel"] <= out["bar"]:
         raise AssertionError(f"K5b vs plain {d_out.dtype}: {out['rel']:.3e} of "
                              f"the row max > {out['bar']:.3e}")
     return out
+
+
+def ptxas_of(name: str, key: str) -> str:
+    """ptxas' registers, shared memory and spills of the entry function
+    matching ``key`` in this process's build of ``csrc/<name>.cu`` ('not
+    built here' if another process built it)."""
+    from chimera_tpu_torch.ops.cuda import build
+
+    log = build.build_info.get(name, {}).get("log", "").splitlines()
+    for i, ln in enumerate(log):
+        if "entry function" in ln and key in ln:
+            return "ptxas " + " | ".join(
+                m.split("ptxas info    :")[-1].strip() for m in log[i + 1:i + 4]
+                if "spill" in m or "registers" in m)
+    return f"ptxas of {key}: not built here"
 
 
 def k5b_cotangent(args, seed: int) -> torch.Tensor:
@@ -3421,6 +3479,10 @@ def full_gradient(smi: str, dark_data, hl, terms: dict) -> dict:
     plain = b["plain_ms"]
     bt = k5b_terms(b_args, terms)
     b_ms, b_by = k5b_bound(b_args, d_out, bt)
+    lanes = k5b_lanes(b_args)
+    p_n, g_n, size = (b_args[4].shape[1], b_args[7].shape[1],
+                      b_args[0].element_size())
+    chunk = kde3d.adjoint_chunk(p_n, g_n, size)
     t_med, t_mad = med_mad([t / n for t in total])
     f_med, b_med, c_med = (statistics.median(t) / n for t in (k5, k5b, chain))
     k5b_call = statistics.median(k5b)
@@ -3433,7 +3495,9 @@ def full_gradient(smi: str, dark_data, hl, terms: dict) -> dict:
           f"{b['rel']:.3e} of each gradient row's max against float64 plain "
           f"(bar {b['bar']:.3e}; the float32 plain version {b['own']:.3e}), "
           f"max abs {b['abs']:.3e}, NaN in the same {b['nan']} places, "
-          f"equal bits on a second launch [{smi}]")
+          f"equal bits on a second launch; by input (kernel, float32 plain): "
+          + ", ".join(f"{k} {v[0]:.3e}, {v[1]:.3e}" for k, v in b["by_input"].items())
+          + f" [{smi}]")
     phase(27, "gradient timing", f"[{smi}] per λ over {reps} calls of {n}: "
           f"value and gradient {t_med:.4f} ± {t_mad:.4f} ms (median ± MAD); "
           f"K5 {f_med:.4f} ms, K5b {b_med:.4f} ms (its launch), the chain "
@@ -3444,8 +3508,16 @@ def full_gradient(smi: str, dark_data, hl, terms: dict) -> dict:
           f"({b_by}, {100 * b_ms / k5b_call:.1f} % of it): "
           f"{bt['dense_all']:.4e} dense terms (every sample), "
           f"{bt['recurrence_live']:.4e} kept recurrence terms, "
-          f"{bt['tests']:.4e} kept refresh tests (the kernel runs "
-          f"{terms['refresh']:.4e})")
+          f"{bt['tests']:.4e} kept refresh tests")
+    phase(27, "K5b layout", f"[{smi}] {kde3d._THREADS} threads a block, a "
+          f"block a (λ, event), {chunk} of {p_n} pixels a chunk, "
+          f"{kde3d.adjoint_smem(g_n, chunk, size)} bytes of shared memory "
+          f"a block; {ptxas_of('kde3d', 'kde3d_adjoint_kernelIf')}; lanes: the "
+          f"warps run {lanes['union_input']:.4e} kept blocks' terms (their "
+          f"lanes' union; {lanes['union_sorted']:.4e} with the samples sorted "
+          f"by their whitened z) for {lanes['kept']:.4e} that their lanes "
+          f"keep, {100 * lanes['active_input']:.2f} % of the lanes active "
+          f"({100 * lanes['active_sorted']:.2f} % sorted)")
     return {"name": "lattice_kde3d_adjoint (K5b)", "route": "cuda",
             "source": "chimera_tpu_torch/csrc/kde3d.cu",
             "replaces": "no TPU kernel; jax.grad of chimera_tpu/ops/kde.py:307 (XLA)",

@@ -6,9 +6,12 @@
 // mode and KDE kernel of K3 (fused_kde_adjoint.cu, K3c's logical rows a
 // warp a row), K4 and K4b (kde1d.cu), K1e and K1d (fused_kde.cu, K1d's
 // logical rows a warp a row, logical_kde_kernel, and K1c's), float32 and
-// float64; and K5's recurrence (kde3d.cuh: the skip radii, masks, chain
+// float64; K5's recurrence (kde3d.cuh: the skip radii, masks, chain
 // keys and order, the samples' extent and band, the pruned and unpruned
-// walks of every tier, and the fold) as kde3d.cu instantiates it.
+// walks of every tier, and the fold) as kde3d.cu instantiates it; and
+// K5b's phases (the grid and blocks' starts, the rows, a (sample, pixel)
+// with its warp's union of ranges and shuffle tree) as
+// kde3d_adjoint_kernel calls them.
 #include "adjoint.cuh"
 #include "kde3d.cuh"
 
@@ -110,3 +113,46 @@ void k5_tiers(kde3d::ET<T>* et, T* p, unsigned* m, int* k) {
 
 template void k5_tiers<float>(float2*, float*, unsigned*, int*);
 template void k5_tiers<double>(double2*, double*, unsigned*, int*);
+
+namespace {
+
+template <typename T>
+void k5b_phases(const double* rec, const T* v, const unsigned char* mask,
+                double* d, int* ints, T* o) {
+  using namespace kde3d;
+  const int rank = threadIdx.x;
+  const int pc = adjoint_chunk(1, 1, sizeof(T));
+  const AdjointLayout lay = adjoint_layout(1, pc, sizeof(T));
+  adjoint_grid(rec, v, 1, 8, o, o, o, rank, kThreads);
+  stage_rows(v, mask, 1, 1, o, ints, rank, kThreads);
+  live_pixels(ints, 1, ints, ints, rank);
+  pixel_centre(rec, v[0], v[0], d);
+  const Whitening wh = whitening(rec);
+  const SampleFactors f = sample_of(rec, v, v, v, v, 0, 1);
+  double q1, q2, sky, acc[kSampleGrads] = {}, pl = 0.0, pn = 0.0, dt, dq1, dq2;
+  T e, t, sg, su, sz;
+  sample_pixel(wh, f, d, q1, q2, sky, e, t);
+  int lo, hi, wlo, whi;
+  kept_range(e, t, o, grid_start(rec, 0.0), 1.0, 1.0, 1, lo, hi);
+  warp_range(lo, hi, wlo, whi);
+  pixel_sums(e, t, o, o, o, o, 1, 8, lo, hi, wlo, whi, sg, su, sz);
+  pixel_tail(wh.norm, f.wn, q1, q2, sky, sg, su, sz, acc, pl, pn, dt, dq1, dq2);
+  d[int(lay.total % 2)] = warp_sum(dt + dq1 + dq2);
+  adjoint_event(d, d, d, 1, rank, kThreads);
+  adjoint_dead(d, d, d, 1, 1, rank, kThreads);
+}
+
+}  // namespace
+
+template <typename T>
+void k5b_kernel_phases(const double* rec, const T* v, const unsigned char* m,
+                       double* d, int* i, T* o) {
+  k5b_phases<T>(rec, v, m, d, i, o);
+}
+
+template void k5b_kernel_phases<float>(const double*, const float*,
+                                       const unsigned char*, double*, int*,
+                                       float*);
+template void k5b_kernel_phases<double>(const double*, const double*,
+                                        const unsigned char*, double*, int*,
+                                        double*);

@@ -37,6 +37,7 @@ from chimera_tpu_torch.ops.cuda.fused import (fused_row_stats,
                                               fused_weights_kde_adjoint_plain,
                                               fused_weights_kde_plain,
                                               pack_params)
+from k5b_cases import CASES, k5b_case
 from chimera_tpu_torch.ops.cuda.rows import (fused_rows_contract,
                                              fused_rows_contract_adjoint,
                                              fused_rows_contract_adjoint_plain,
@@ -1039,6 +1040,40 @@ def test_full_gradient_matches_cpu(cuda, full_cpu_hl):
     assert torch.all(torch.isfinite(expect))
     assert ((got - expect).abs() / expect.abs().amax(dim=0)).max() <= 1e-9
     assert torch.equal(_bits(got), _bits(_grad(card, cuda)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", list(CASES))
+def test_k5b_cases_match_plain(cuda, case, dtype):
+    """K5b on the cases of its CPU tests (``tests/k5b_cases.py``: each tier
+    of K and the dense sweep, chunks of pixels, more samples than a block
+    sorts, a dead (λ, event), fake and skipped pixels) against autograd of
+    the plain version: float64 within 1e-10 of each gradient row's largest
+    entry, float32 (against the float64 plain version) within max(1e-3, 2 x
+    the float32 plain version's own error); NaN in the same places, one K5
+    and one K5b launch, the same bits on a second launch."""
+    from chimera_tpu_torch.ops.cuda.kde3d import (lattice_kde3d_adjoint,
+                                                  lattice_kde3d_adjoint_plain)
+
+    args, d_out = k5b_case(case, dtype, cuda)
+    got = _launched(lambda: lattice_kde3d_adjoint(*args, d_out),
+                    {"K5": 1, "K5b": 1})
+    again = lattice_kde3d_adjoint(*args, d_out)
+    wide = [a.double() if a.is_floating_point() else a for a in (*args, d_out)]
+    expect = lattice_kde3d_adjoint_plain(*wide)
+    own = lattice_kde3d_adjoint_plain(*args, d_out) if dtype == torch.float32 else None
+
+    def rel(g, x):
+        nan = torch.isnan(x)
+        assert torch.equal(torch.isnan(g), nan)
+        g, x = g.double().masked_fill(nan, 0.0), x.masked_fill(nan, 0.0)
+        scale = x.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+        return ((g - x).abs() / scale).max().item()
+
+    for i, (g, x, r) in enumerate(zip(got, expect, again)):
+        assert torch.equal(_bits(g), _bits(r))
+        bar = 1e-10 if own is None else max(1e-3, 2.0 * rel(own[i], x))
+        assert rel(g, x) <= bar
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),

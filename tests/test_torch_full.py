@@ -35,6 +35,7 @@ import pytest
 import torch
 
 import chip_smoke
+import k5b_cases
 from chimera_tpu_torch import HyperLikelihood, SelectionFunction, convert
 from chimera_tpu_torch.catalog import EmptyCatalog
 from chimera_tpu_torch.likelihood import z_recurrence_plan
@@ -283,6 +284,194 @@ def test_k5b_host_emulation_matches_plain(k5_host, monkeypatch, k_block):
         g, e = g.masked_fill(nan, 0.0), e.masked_fill(nan, 0.0)
         scale = e.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
         assert ((g - e).abs() / scale).max() <= 1e-9, name
+
+
+def _host_k5b(lib, args, d_out, entry="", records=None):
+    """K5b's host emulation called directly on ``records`` (by default the
+    records of K5's host emulation on the same inputs): ``entry`` "" the
+    kernel's walk, "unpruned_" every block tested (the walk of K5b's first
+    kernel, the reference); returns (d_samp, d_pix, d_event, records)."""
+    z, w, ra, dec, ra_pix, dec_pix, mask, grids, z_block = args
+    n, e, s = z.shape
+    p, g = ra_pix.shape[1], grids.shape[1]
+    sfx = "f32" if z.dtype == F32 else "f64"
+    inputs = [t.contiguous() for t in (z, w, ra, dec, ra_pix, dec_pix, mask,
+                                        grids)] + [z_block.to(torch.int32)]
+    out = [torch.empty((n, e, s, 4), dtype=F64), torch.empty((n, e, p, 3), dtype=F64),
+           torch.empty((n, e, 3), dtype=F64)]
+    calls = [(getattr(lib, f"host_kde3d_adjoint_{entry}{sfx}"),
+              [*inputs, records, d_out.contiguous(), *out], [])]
+    if records is None:
+        records = torch.empty((n, e, 16), dtype=F64)
+        calls = [(getattr(lib, "host_kde3d_" + sfx),
+                  [*inputs, records, torch.empty((n, e, p, g), dtype=z.dtype)],
+                  [0, ctypes.c_double(0.0)]),
+                 (calls[0][0], [*inputs, records, d_out.contiguous(), *out], [])]
+    for fn, tensors, tail in calls:
+        fn.restype = ctypes.c_int
+        assert fn(*[ctypes.c_void_p(t.data_ptr()) for t in tensors], n, e, s, p,
+                  g, *tail) == 0
+    return (*out, records)
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("case", list(k5b_cases.CASES))
+def test_k5b_range_walk_keeps_the_bits(k5_host, case, dtype):
+    """K5b's walk of each (sample, pixel)'s ``kept_range`` (the blocks
+    within the sample's skip radius, an estimate moved to the range's exact
+    ends) gives the bits of the walk that tests every block, the previous
+    kernel's, in every output: each tier of K and the dense sweep, chunks
+    of pixels, 2 000 samples, a dead (λ, event), fake and skipped pixels,
+    samples without weight or below the flush."""
+    args, d_out = k5b_cases.k5b_case(case, dtype)
+    got = _host_k5b(k5_host, args, d_out)
+    expect = _host_k5b(k5_host, args, d_out, "unpruned_")
+    for name, a, b in zip(("d_samp", "d_pix", "d_event"), got[:3], expect[:3]):
+        assert _same_bits(a, b), name
+    assert torch.isfinite(got[0][0]).all()
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("case", list(k5b_cases.CASES))
+def test_k5b_sample_order_keeps_d_samp(k5_host, case, dtype):
+    """Each event's samples sorted by their whitened z (the first λ's, from
+    ``ops/kde.py::lattice_record``) against their input order, on the same
+    records: d_samp the same bits, sample for sample (a sample's sums take
+    its pixels and blocks in order, whichever thread and warp take it); the
+    pixel and event sums, taken over other warps, within 1e-12 of each
+    row's largest entry, NaN in the same places."""
+    args, d_out = k5b_cases.k5b_case(case, dtype)
+    *expect, records = _host_k5b(k5_host, args, d_out)
+    z, w, ra, dec = args[:4]
+    a = tkde.lattice_record(z.double(), w.double(), ra.double(), dec.double(),
+                            args[4].double(), args[5].double())["a"][0]
+    order = torch.argsort(a.nan_to_num(float("inf")), dim=-1, stable=True)  # (E, S)
+    assert not torch.equal(order, torch.arange(z.shape[2]).expand_as(order))
+    take = lambda x: torch.take_along_dim(x, order.expand_as(x), dim=-1)  # noqa: E731
+    permuted = (take(z), take(w), take(ra), take(dec), *args[4:])
+    got = _host_k5b(k5_host, permuted, d_out, records=records)
+    d_samp = torch.empty_like(got[0])
+    d_samp.scatter_(2, order[None, :, :, None].expand_as(got[0]), got[0])
+    assert _same_bits(d_samp, expect[0])
+    for a, b in zip(got[1:3], expect[1:]):
+        nan = torch.isnan(b)
+        assert torch.equal(torch.isnan(a), nan)
+        a, b = a.masked_fill(nan, 0.0), b.masked_fill(nan, 0.0)
+        scale = b.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+        assert ((a - b).abs() / scale).max() <= 1e-12
+
+
+@pytest.mark.parametrize("case", list(k5b_cases.CASES))
+def test_k5b_cases_match_plain(k5_host, monkeypatch, case):
+    """K5b's host emulation as the launch of ``lattice_kde3d_adjoint``'s
+    CUDA branch (K5's for the record) against autograd of the plain
+    version, float64: every gradient within 1e-10 of each row's largest
+    entry, NaN in the same places (the dead (λ, event) of "k16")."""
+    args, d_out = k5b_cases.k5b_case(case, F64)
+    expect = kde3d.lattice_kde3d_adjoint_plain(*args, d_out)
+    _emulate_k5(monkeypatch, k5_host)
+    got = kde3d.lattice_kde3d_adjoint(*args, d_out)
+    for name, g, e in zip(kde3d._WRT, got, expect):
+        nan = torch.isnan(e)
+        assert torch.equal(torch.isnan(g), nan), name
+        assert torch.isfinite(e[~nan]).all() and torch.isfinite(g[~nan]).all(), name
+        g, e = g.masked_fill(nan, 0.0), e.masked_fill(nan, 0.0)
+        scale = e.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+        assert ((g - e).abs() / scale).max() <= 1e-10, name
+    if case == "k16":
+        assert torch.isnan(got[0][1, 0]).all()
+
+
+# one (sample, pixel) of K5b: (e, t, K) on 500 grid points of whitened step
+# 0.25 from -60 (32 blocks at K = 16); "radius" and "minus_radius" put u0
+# of a block exactly on +R and -R
+_EDGES = {"e_2_20": (2.0 ** 20, 3.0, 16), "e_inf": (float("inf"), 3.0, 16),
+          "e_nan": (float("nan"), 3.0, 16),
+          "e_below_flush": (None, 3.0, 16), "e_zero": (0.0, 3.0, 16),
+          "e_negative": (-1e-3, 3.0, 16), "t_nan": (1e-3, float("nan"), 16),
+          "t_inf": (1e-3, float("inf"), 16), "radius": (1e-3, None, 16),
+          "minus_radius": (1e-3, None, 16), "k8": (1e-3, 0.7, 8),
+          "k16": (1e-3, 0.7, 16), "k32": (1e-3, -7.3, 32),
+          "dense": (1e-3, 0.7, 0)}
+
+
+def _pixel_walk(lib, dtype, e, t, k, zl, zeta, dg, walk):
+    np_t = np.float32 if dtype == F32 else np.float64
+    c_t = ctypes.c_float if dtype == F32 else ctypes.c_double
+    fn = getattr(lib, "host_kde3d_pixel_walk_" + ("f32" if dtype == F32 else "f64"))
+    fn.restype = None
+    out, rng = np.zeros(3, dtype=np_t), np.zeros(2, dtype=np.int32)
+    fn(c_t(e), c_t(t), *[x.ctypes.data_as(ctypes.c_void_p) for x in (zl, zeta, dg)],
+       ctypes.c_double(-60.0), ctypes.c_double(0.25), len(zl), k, walk,
+       out.ctypes.data_as(ctypes.c_void_p), rng.ctypes.data_as(ctypes.c_void_p))
+    return out, rng
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("edge", list(_EDGES))
+def test_k5b_kept_range_edges(k5_host, edge, dtype):
+    """One (sample, pixel)'s sums over ``kept_range``'s blocks against those
+    over every block tested, the same bits, at the range's edges: e at 2^20
+    (a finite radius) and +inf (every block), NaN, below the smallest
+    normal times e^-1.5, 0 and negative (no block), t NaN and +inf (every
+    block, none kept), u0 of a block exactly +R or -R (the block inside
+    the range), K = 8, 16, 32 (a range short of the grid) and the dense
+    sweep."""
+    np_t = np.float32 if dtype == F32 else np.float64
+    e, t, k = _EDGES[edge]
+    tiny = float(torch.finfo(dtype).tiny)
+    if e is None:
+        e = 0.9 * tiny * np.exp(-1.5)
+    zl = (-60.0 + 0.25 * np.arange(500)).astype(np_t)
+    zeta = (0.004 * np.arange(500) - 1.0).astype(np_t)
+    dg = np.random.default_rng(5).normal(size=500).astype(np_t)
+    if t is None:
+        radius = getattr(k5_host, "host_kde3d_skip_radius_"
+                         + ("f32" if dtype == F32 else "f64"))
+        radius.restype = ctypes.c_float if dtype == F32 else ctypes.c_double
+        r = np_t(radius((ctypes.c_float if dtype == F32 else ctypes.c_double)(e)))
+        target = r if edge == "radius" else -r
+        j0 = int(round((float(target) + 60.0) / (0.25 * k)))
+        zl0 = np_t(-60.0 + j0 * k * 0.25)
+        t = np_t(target - zl0)
+        for _ in range(64):
+            if np_t(zl0 + t) == target:
+                break
+            t = np.nextafter(t, np_t(np.inf) if np_t(zl0 + t) < target else np_t(-np.inf))
+        assert np_t(zl0 + t) == target
+    got, rng = _pixel_walk(k5_host, dtype, e, t, k, zl, zeta, dg, 1)
+    expect, full = _pixel_walk(k5_host, dtype, e, t, k, zl, zeta, dg, 0)
+    assert got.tobytes() == expect.tobytes()
+    j_n = -(-500 // k) if k else 0
+    assert list(full) == [0, j_n - 1]
+    if edge in ("radius", "minus_radius"):
+        assert rng[0] <= j0 <= rng[1]
+    if edge in ("e_2_20", "radius", "minus_radius", "k8", "k16", "k32"):
+        assert 0 < rng[1] - rng[0] + 1 < j_n and np.any(got != 0)
+    if edge in ("e_inf", "t_nan", "t_inf"):
+        assert list(rng) == [0, j_n - 1]
+    if edge in ("e_nan", "e_below_flush", "e_zero", "e_negative"):
+        assert rng[0] > rng[1] and np.all(got == 0)
+
+
+def test_k5b_layout_matches_the_wrapper(k5_host):
+    """The wrapper's copies of K5b's shared memory and pixels a chunk
+    (``kde3d.adjoint_smem``, ``adjoint_chunk``) against the kernel's
+    (kde3d.cuh: ``adjoint_layout``, ``adjoint_chunk``), at every chunk
+    size; the arrays that the kernel reads in 16-byte loads (the rows, the
+    grid twice, the blocks' starts) start on 16-byte boundaries (the host
+    emulation keeps them in arrays of their own, so only this shows it)."""
+    smem, chunk = k5_host.host_kde3d_adjoint_smem, k5_host.host_kde3d_adjoint_chunk
+    smem.restype, chunk.restype = ctypes.c_longlong, ctypes.c_int
+    offsets = (ctypes.c_longlong * 4)()
+    for g in (1, 5, 64, 500, 3000, 8000):
+        for size in (4, 8):
+            for p in (1, 13, 15, 64):
+                pc = kde3d.adjoint_chunk(p, g, size)
+                assert pc == chunk(p, g, size)
+                for c in range(1, pc + 1):
+                    assert kde3d.adjoint_smem(g, c, size) == smem(g, c, size, offsets)
+                    assert all(o % 16 == 0 for o in offsets), (g, size, c, list(offsets))
 
 
 # ---------------------------------------------------------------------------

@@ -124,8 +124,9 @@ def test_device_functions_build_for_the_card_blocks():
     kde_row_adjoint, K4's kde_row, K1e's and K1d's fused_row and K1d's
     warp-a-row logical_row_stats and external_kde, instantiated with the
     card's blocks (DeviceBlock of 8 and 4 warps, K3c's and K1d's WarpBlock:
-    tests/host_emulation/card_blocks.cpp), and K5's recurrence (pruned and
-    unpruned walks of every tier) as kde3d.cu instantiates it,
+    tests/host_emulation/card_blocks.cpp), K5's recurrence (pruned and
+    unpruned walks of every tier) as kde3d.cu instantiates it, and K5b's
+    phases with its warp's union of ranges and shuffle tree,
     pass g++'s syntax check: the host emulations instantiate them with a
     block of one thread only, whose members the card's blocks may lack."""
     gxx = shutil.which("g++")

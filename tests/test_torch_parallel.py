@@ -166,11 +166,14 @@ def test_batch_sum_takes_rows_at_their_place(start):
     ("raises", "rank 1 fails on purpose"), ("outlasts", "still ran after 6 s")])
 def test_a_failed_rank_fails_the_run(how, match):
     """run_ranks raises when a rank raises (with that rank's traceback) or
-    outlasts the run's timeout, and leaves no rank running."""
+    outlasts the run's timeout, and leaves no rank running.  A raising rank
+    ends the run at once, so its run's timeout is one that the ranks' start
+    (their imports, under a loaded machine) cannot reach."""
     import multiprocessing
 
+    timeout = 120.0 if how == "raises" else 6.0
     with pytest.raises(RuntimeError, match=match):
-        run_ranks("torch_parallel_ranks:fails", 3, {"how": how}, timeout=6.0)
+        run_ranks("torch_parallel_ranks:fails", 3, {"how": how}, timeout=timeout)
     assert not multiprocessing.active_children()
 
 

@@ -1,5 +1,5 @@
 """Attribution of the kernels' time on the card (K3, K2b, K2, K4b, K3b, K3d,
-K1b, K4, K1e and K1d):
+K1b, K4, K1e, K1d, K5 and K5b):
 variant trees with one change each, timed against each other by
 ``chip_smoke.py --k3-ab``, and the instruction mix of K3's pair loop
 (phase B) in SASS.
@@ -239,6 +239,33 @@ VARIANTS.update({
                                                "{ keys[0] = 0; keys[1] = J - 1; }")],
     "k5_tier32_pixel": [(K3DU, _K5_LOOP, "constexpr bool kPixelLoop = false;"),
                         (K3DU, _K5_GRID, "const size_t blocks = (size_t)L * E * P;")],
+})
+# K5b (kde3d.cuh, kde3d.cu), each of its design's parts taken back in turn,
+# the same bits but the last two (timed by tools/k5b_ab.py in the variant
+# tree): every block tested (no kept_range), the scalar term loop (no
+# 16-byte loads), 4 and 6 blocks an SM in float32 (128 and 85 registers);
+# and, the outputs wrong, a term of three adds (the loads and the walk
+# without the terms' arithmetic), no term (the per-sample and per-pixel
+# work without the walk), and no shuffle tree (the pixel sums' cost).
+_K5B_RANGE = ("  if (!(r < T(INFINITY)) || !(step_h > 0.0) || "
+              "!(fabs(t) < T(INFINITY))) {")
+_K5B_TERM = ("  const T u = add_rn(zl, t);\n"
+             "  const T d = mul_rn(dg, exp_t(mul_rn(mul_rn(T(-0.5), u), u)));\n"
+             "  const T du = mul_rn(d, u);\n"
+             "  sg = add_rn(sg, d);\n"
+             "  su = add_rn(su, du);\n"
+             "  sz = fma_t(du, zeta, sz);\n")
+_K5B_BLOCKS = "return sizeof(T) > 4 ? 2 : 5;"
+VARIANTS.update({
+    "k5b_full_walk": [(K3D, _K5B_RANGE, "  if (true) {")],
+    "k5b_scalar_terms": [(K3D, "if ((g0 & 3) != 0)", "if (true)")],
+    "k5b_blocks4": [(K3DU, _K5B_BLOCKS, _K5B_BLOCKS.replace("5;", "4;"))],
+    "k5b_blocks6": [(K3DU, _K5B_BLOCKS, _K5B_BLOCKS.replace("5;", "6;"))],
+    "k5b_cheap_term": [(K3D, _K5B_TERM, "  sg = add_rn(sg, dg);\n  su = add_rn(su, zl);\n"
+                                        "  sz = add_rn(sz, zeta);\n")],
+    "k5b_no_term": [(K3D, _K5B_TERM, "")],
+    "k5b_no_shuffle": [(K3D, "for (int o = kWarpSize / 2; o > 0; o >>= 1) v +=",
+                        "for (int o = 0; o > 0; o >>= 1) v +=")],
 })
 for _name in ("k2_noB", "k2_constA", "k4b_noS", "k4b_noG", "k3b_noB",
               "k3d_noB", "k1b_noB", "k4_noloop", "k1e_noB", "k1d_noB", "k5_noB"):

@@ -4,7 +4,7 @@ working directory, so that this script can time a tree that does not
 hold it (a parent unpacked with ``git archive``).
 
     cd TREE && python3 /path/to/tools/k5b_ab.py run OUT.pt
-    python3 tools/k5b_ab.py compare REF.pt OTHER.pt ...
+    python3 tools/k5b_ab.py compare REF.pt OTHER.pt ... [--bits=d_samp,...]
 
 ``run`` builds phase 27's 'full' likelihood at the dark width with that
 tree's ``chip_smoke.py`` (1000 events x 1024 samples x 15 pixel slots x
@@ -12,7 +12,9 @@ tree's ``chip_smoke.py`` (1000 events x 1024 samples x 15 pixel slots x
 cotangent that the gradient call hands K5b, and prints the median of 17
 K5b launches (CUDA events, after a warm-up) and of 17 value-and-gradient
 calls per λ; OUT.pt keeps K5b's cotangents and the gradient.  ``compare``
-says whether each OTHER holds the same bits as REF.  Run the trees in the
+prints, for each OTHER and each of d_samp, d_pix, d_event and the
+gradient, equal bits or the gap from REF, and fails unless the tensors
+named in ``--bits`` (all four by default) hold REF's bits.  Run the trees in the
 order A, B, B, A in one call: a card set below 700 W runs slower under
 load, and two calls may get two cards."""
 
@@ -56,17 +58,35 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
 
 
-def compare(ref: str, others: list[str]) -> bool:
+NAMES = ("d_samp", "d_pix", "d_event", "grad")
+
+
+def _gap(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The largest difference of a from b, absolute and relative to each
+    row's largest |b| (NaN where both are NaN left out)."""
+    a, b = a.double(), b.double()
+    both = torch.isnan(a) & torch.isnan(b)
+    if not torch.equal(torch.isnan(a), torch.isnan(b)):
+        return "NaN in other places"
+    a, b = a.masked_fill(both, 0.0), b.masked_fill(both, 0.0)
+    scale = b.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+    return (f"max abs {(a - b).abs().max().item():.3e}, "
+            f"{((a - b).abs() / scale).max().item():.3e} of a row's max")
+
+
+def compare(ref: str, others: list[str], bits=NAMES) -> bool:
+    """Whether each of ``others`` holds REF's bits in the tensors ``bits``;
+    prints, for every tensor, equal bits or the gap."""
     want = torch.load(ref)
     ok = True
     for path in others:
         got = torch.load(path)
-        same = [a.shape == b.shape and torch.equal(_bits(a), _bits(b))
-                for a, b in zip([*got["cot"], got["grad"]],
-                                [*want["cot"], want["grad"]])]
-        print(f"{path} vs {ref}: cotangents (sample, pixel, event) and "
-              f"gradient the same bits: {same}")
-        ok = ok and all(same)
+        for name, a, b in zip(NAMES, [*got["cot"], got["grad"]],
+                              [*want["cot"], want["grad"]]):
+            same = a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+            print(f"{path} vs {ref}: {name} "
+                  + ("the same bits" if same else f"differs: {_gap(a, b)}"))
+            ok = ok and (same or name not in bits)
     return ok
 
 
@@ -74,6 +94,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["run"] and len(sys.argv) == 3:
         run(sys.argv[2])
     elif sys.argv[1:2] == ["compare"] and len(sys.argv) > 3:
-        sys.exit(0 if compare(sys.argv[2], sys.argv[3:]) else 1)
+        paths = [a for a in sys.argv[2:] if not a.startswith("--bits=")]
+        bits = [a.split("=", 1)[1].split(",") for a in sys.argv[2:]
+                if a.startswith("--bits=")]
+        sys.exit(0 if compare(paths[0], paths[1:], *bits) else 1)
     else:
         sys.exit(__doc__)
